@@ -1,0 +1,270 @@
+"""OPT decoder-only LM with a stacked KV cache (counterpart of ``eilev_tpu/models/opt.py``).
+
+Parity target: ``transformers.OPTForCausalLM``. HF numerics kept as in the JAX
+module: learned positions offset by 2 and derived from the mask cumsum; q
+scaled by head_dim**-0.5 before QK^T; fp32 softmax; masking with
+``finfo(float32).min`` in the model dtype.
+
+The cache is the JAX layout: ``k``/``v`` (num_layers, B, max_len, H, hd),
+``index`` (filled positions), ``mask`` (B, max_len) and ``pos`` (B,). Unlike
+the JAX module, which returns new arrays, the port UPDATES THE CACHE IN PLACE
+and returns the same dict: each layer writes its rows of the stacked buffers,
+and ``index``/``mask``/``pos`` are advanced by the forward.
+
+A multi-token forward into a fresh cache (the generation prefill) runs the
+packed causal kernel K2 (``ops/fused_attention.py``); the one-token decode
+step attends over the cache with plain attention, as the JAX default does.
+Not in this port yet, and raising ``NotImplementedError``: int8 weights or
+cache, ``shared_prefix``/``score_with_prefix``, ``remat`` and
+``cache_append``.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..configs import OPTConfig
+from ..ops.attention import plain_attention
+from ..ops.fused_attention import packed_qkv_causal_attention
+
+Cache = dict[str, Any]
+
+
+def opt_position_ids(attention_mask: torch.Tensor) -> torch.Tensor:
+    """HF OPT position ids: cumsum(mask) * mask - 1 (padding gets -1, which maps
+    to embedding row 1 after the +2 offset)."""
+    mask = attention_mask.to(torch.int32)
+    return torch.cumsum(mask, dim=1, dtype=torch.int32) * mask - 1
+
+
+def init_cache(
+    config: OPTConfig,
+    batch: int,
+    max_len: int,
+    dtype: torch.dtype = torch.float32,
+    device: Optional[torch.device] = None,
+) -> Cache:
+    """Preallocate the stacked KV cache. ``index`` is a Python int."""
+    if getattr(config, "int8_kv_cache", False):
+        raise NotImplementedError("the int8 KV cache is not ported yet")
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise NotImplementedError(f"the KV cache takes float32 or bfloat16, got {dtype}")
+    kv_heads = getattr(config, "num_key_value_heads", config.num_attention_heads)
+    shape = (config.num_hidden_layers, batch, max_len, kv_heads, config.head_dim)
+    return {
+        "index": 0,
+        "mask": torch.zeros(batch, max_len, dtype=torch.int32, device=device),
+        "pos": torch.zeros(batch, dtype=torch.int32, device=device),
+        "k": torch.zeros(shape, dtype=dtype, device=device),
+        "v": torch.zeros(shape, dtype=dtype, device=device),
+    }
+
+
+class OPTAttention(nn.Module):
+    def __init__(self, config: OPTConfig, *, device=None, dtype=None):
+        super().__init__()
+        self.config = config
+        d = config.hidden_size
+        kw = {"device": device, "dtype": dtype}
+        # packed [q | k | v] projection: one GEMM instead of three
+        self.qkv_proj = nn.Linear(d, 3 * d, **kw)
+        self.out_proj = nn.Linear(d, d, **kw)
+
+    def forward(
+        self,
+        hidden_states: torch.Tensor,
+        attn: dict,
+        cache_kv: Optional[tuple] = None,
+        cache_index: Optional[int] = None,
+    ) -> torch.Tensor:
+        """``cache_kv`` is (k_buf, v_buf, layer_idx) of the stacked cache; the
+        fresh k/v rows are written into it in place at ``cache_index``."""
+        cfg = self.config
+        b, s, d = hidden_states.shape
+        nh, hd = cfg.num_attention_heads, cfg.head_dim
+        qkv = self.qkv_proj(hidden_states)
+        q = qkv[..., :d].reshape(b, s, nh, hd)
+        k = qkv[..., d : 2 * d].reshape(b, s, nh, hd)
+        v = qkv[..., 2 * d :].reshape(b, s, nh, hd)
+        prefill_fresh = attn.get("prefill_fresh", False)
+
+        if cache_kv is not None:
+            k_buf, v_buf, li = cache_kv
+            k_buf[li, :, cache_index : cache_index + s] = k
+            v_buf[li, :, cache_index : cache_index + s] = v
+            if not prefill_fresh:
+                k, v = k_buf[li], v_buf[li]
+
+        if prefill_fresh:
+            out = packed_qkv_causal_attention(
+                qkv, nh, hd, attn["padding_mask"], scale=hd**-0.5
+            )
+            return self.out_proj(out)
+
+        out = plain_attention(
+            q,
+            k,
+            v,
+            padding_mask=attn["padding_mask"],
+            causal=attn["causal"],
+            scale=hd**-0.5,
+            scale_query_first=True,  # HF OPT scales q before the matmul
+            softmax_in_fp32=True,
+        )
+        return self.out_proj(out.reshape(b, s, d))
+
+    def shared_prefix(self, *args, **kwargs):
+        raise NotImplementedError("shared-prefix class scoring is not ported yet")
+
+
+class OPTDecoderLayer(nn.Module):
+    def __init__(self, config: OPTConfig, *, device=None, dtype=None):
+        super().__init__()
+        self.config = config
+        kw = {"device": device, "dtype": dtype}
+        d, eps = config.hidden_size, config.layer_norm_eps
+        self.self_attn = OPTAttention(config, **kw)
+        self.self_attn_layer_norm = nn.LayerNorm(d, eps=eps, **kw)
+        self.final_layer_norm = nn.LayerNorm(d, eps=eps, **kw)
+        self.fc1 = nn.Linear(d, config.ffn_dim, **kw)
+        self.fc2 = nn.Linear(config.ffn_dim, d, **kw)
+
+    def _act(self, x: torch.Tensor) -> torch.Tensor:
+        if self.config.activation_function == "relu":
+            return F.relu(x)
+        return F.gelu(x, approximate="none")
+
+    def forward(
+        self,
+        hidden_states: torch.Tensor,
+        attn: dict,
+        cache_kv: Optional[tuple] = None,
+        cache_index: Optional[int] = None,
+    ) -> torch.Tensor:
+        pre_ln = self.config.do_layer_norm_before
+        x = self.self_attn_layer_norm(hidden_states) if pre_ln else hidden_states
+        x = hidden_states + self.self_attn(x, attn, cache_kv=cache_kv, cache_index=cache_index)
+        if not pre_ln:
+            x = self.self_attn_layer_norm(x)
+        residual = x
+        if pre_ln:
+            x = self.final_layer_norm(x)
+        x = residual + self.fc2(self._act(self.fc1(x)))
+        if not pre_ln:
+            x = self.final_layer_norm(x)
+        return x
+
+
+class OPTForCausalLM(nn.Module):
+    """OPT with an explicit cache argument and the tied ``lm_head``."""
+
+    def __init__(self, config: OPTConfig, *, device=None, dtype=None):
+        super().__init__()
+        if config.quantize_matmuls or config.int8_kv_cache or config.w8a8_prefill:
+            raise NotImplementedError("int8 serving modes are not ported yet")
+        if config.remat:
+            raise NotImplementedError("remat is a training option; training is not ported yet")
+        self.config = config
+        kw = {"device": device, "dtype": dtype}
+        self.embed_tokens = nn.Embedding(config.vocab_size, config.word_embed_proj_dim, **kw)
+        # +2 offset slots, like torch's OPTLearnedPositionalEmbedding
+        self.embed_positions = nn.Embedding(
+            config.max_position_embeddings + 2, config.hidden_size, **kw
+        )
+        if config.word_embed_proj_dim != config.hidden_size:
+            self.project_in = nn.Linear(
+                config.word_embed_proj_dim, config.hidden_size, bias=False, **kw
+            )
+            self.project_out = nn.Linear(
+                config.hidden_size, config.word_embed_proj_dim, bias=False, **kw
+            )
+        else:
+            self.project_in = None
+            self.project_out = None
+        self.layers = nn.ModuleList(
+            OPTDecoderLayer(config, **kw) for _ in range(config.num_hidden_layers)
+        )
+        self.final_norm = (
+            nn.LayerNorm(config.hidden_size, eps=config.layer_norm_eps, **kw)
+            if config.do_layer_norm_before
+            else None
+        )
+
+    def embed(self, input_ids: torch.Tensor) -> torch.Tensor:
+        return self.embed_tokens(input_ids)
+
+    def lm_head(self, hidden: torch.Tensor) -> torch.Tensor:
+        # tied to embed_tokens, like OPTForCausalLM
+        return F.linear(hidden, self.embed_tokens.weight)
+
+    def _pre_head(self, x: torch.Tensor) -> torch.Tensor:
+        if self.final_norm is not None:
+            x = self.final_norm(x)
+        if self.project_out is not None:
+            x = self.project_out(x)
+        return x
+
+    def forward(
+        self,
+        inputs_embeds: torch.Tensor,
+        attention_mask: Optional[torch.Tensor] = None,
+        cache: Optional[Cache] = None,
+        cache_append: bool = False,
+    ) -> tuple[torch.Tensor, Optional[Cache]]:
+        """inputs_embeds: (B, S, word_embed_proj_dim). Returns (logits, cache).
+
+        Without cache: ``attention_mask`` is the (B, S) padding mask. With
+        cache: the S tokens are written at ``cache['index']`` and the cache is
+        updated in place. S > 1 is only allowed into a fresh cache (the
+        prefill); S == 1 is a decode step over everything filled so far.
+        """
+        if cache_append:
+            raise NotImplementedError("multi-token cache appends are not ported yet")
+        b, s, _ = inputs_embeds.shape
+        device = inputs_embeds.device
+        if attention_mask is None:
+            attention_mask = torch.ones(b, s, dtype=torch.int32, device=device)
+        attention_mask = attention_mask.to(torch.int32)
+
+        if cache is None:
+            position_ids = opt_position_ids(attention_mask)
+            attn = {"causal": True, "padding_mask": attention_mask}
+            cache_index = None
+        else:
+            index = cache["index"]
+            if s > 1 and index != 0:
+                raise NotImplementedError(
+                    "multi-token writes go into a fresh cache only (cache_append is not ported)"
+                )
+            cache["mask"][:, index : index + s] = attention_mask
+            new_counts = torch.cumsum(attention_mask, dim=1, dtype=torch.int32)
+            position_ids = (cache["pos"][:, None] + new_counts) * attention_mask - 1
+            if s > 1:
+                # prefill-at-0: the fresh (B, S) k/v under the short mask is the
+                # same math as the padded cache buffers, and runs kernel K2
+                attn = {"causal": True, "padding_mask": attention_mask, "prefill_fresh": True}
+            else:
+                attn = {"causal": False, "padding_mask": cache["mask"]}
+            cache_index = index
+
+        x = inputs_embeds
+        if self.project_in is not None:
+            x = self.project_in(x)
+        x = x + self.embed_positions(position_ids.long() + 2)
+
+        for i, layer in enumerate(self.layers):
+            ckv = None if cache is None else (cache["k"], cache["v"], i)
+            x = layer(x, attn, cache_kv=ckv, cache_index=cache_index)
+
+        logits = self.lm_head(self._pre_head(x))
+        if cache is not None:
+            cache["pos"] += new_counts[:, -1]
+            cache["index"] = cache_index + s
+        return logits, cache
+
+    def score_with_prefix(self, *args, **kwargs):
+        raise NotImplementedError("shared-prefix class scoring is not ported yet")

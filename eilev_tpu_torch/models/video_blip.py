@@ -1,0 +1,87 @@
+"""VideoBLIP / EILeV top-level model (counterpart of ``eilev_tpu/models/video_blip.py``).
+
+Time-flattened vision tower -> Q-Former over T*S image tokens -> linear
+projection -> video features scattered into the token embeddings at the
+positions flagged by ``video_input_mask`` -> OPT. Only the OPT language model
+is ported; a T5 ``text_config`` raises ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from ..configs import OPTConfig, VideoBlipConfig
+from .opt import Cache, OPTForCausalLM
+from .qformer import QFormerModel
+from .vision import VideoVisionModel
+
+
+def scatter_video_features(
+    inputs_embeds: torch.Tensor, video_input_mask: torch.Tensor, video_features: torch.Tensor
+) -> torch.Tensor:
+    """Place video_features (N, D) at the True positions of video_input_mask (B, S)
+    over inputs_embeds (B, S, D), row-major: torch's ``embeds[mask] = feats``,
+    out of place. N must equal the number of True positions."""
+    b, s, d = inputs_embeds.shape
+    out = inputs_embeds.reshape(b * s, d).clone()
+    out[video_input_mask.reshape(-1).bool()] = video_features.to(out.dtype)
+    return out.reshape(b, s, d)
+
+
+class VideoBlipForConditionalGeneration(nn.Module):
+    def __init__(self, config: VideoBlipConfig, *, device=None, dtype=None):
+        super().__init__()
+        if not isinstance(config.text_config, OPTConfig):
+            raise NotImplementedError(
+                f"only the OPT language model is ported, got {type(config.text_config).__name__}"
+            )
+        self.config = config
+        kw = {"device": device, "dtype": dtype}
+        self.vision_model = VideoVisionModel(config.vision_config, **kw)
+        self.query_tokens = nn.Parameter(
+            torch.zeros(config.num_query_tokens, config.qformer_config.hidden_size, **kw)
+        )
+        self.qformer = QFormerModel(config.qformer_config, **kw)
+        self.language_projection = nn.Linear(
+            config.qformer_config.hidden_size, config.text_hidden_size, **kw
+        )
+        self.language_model = OPTForCausalLM(config.text_config, **kw)
+
+    def encode_videos(self, pixel_values: torch.Tensor) -> torch.Tensor:
+        """(num_videos, C, T, H, W) -> (num_videos * num_query_tokens, text_hidden)."""
+        image_embeds, _ = self.vision_model(pixel_values)  # (V, T*S, vision_hidden)
+        v = image_embeds.shape[0]
+        query = self.query_tokens.expand(v, *self.query_tokens.shape)
+        features = self.language_projection(self.qformer(query, image_embeds))
+        return features.reshape(v * self.config.num_query_tokens, -1)
+
+    def embed_and_scatter(
+        self,
+        input_ids: torch.Tensor,
+        pixel_values: Optional[torch.Tensor],
+        video_input_mask: Optional[torch.Tensor],
+    ) -> torch.Tensor:
+        """Token embeddings with video features scattered at the mask positions."""
+        inputs_embeds = self.language_model.embed(input_ids)
+        if pixel_values is None:
+            return inputs_embeds
+        if video_input_mask is None:
+            raise ValueError("pixel_values needs a video_input_mask")
+        return scatter_video_features(
+            inputs_embeds, video_input_mask, self.encode_videos(pixel_values)
+        )
+
+    def lm_embed(self, input_ids: torch.Tensor) -> torch.Tensor:
+        return self.language_model.embed(input_ids)
+
+    def lm_forward(
+        self,
+        inputs_embeds: torch.Tensor,
+        attention_mask: Optional[torch.Tensor] = None,
+        cache: Optional[Cache] = None,
+    ) -> tuple[torch.Tensor, Optional[Cache]]:
+        return self.language_model(inputs_embeds, attention_mask=attention_mask, cache=cache)
+

@@ -1,0 +1,82 @@
+"""Builds the port's CUDA kernels from ``eilev_tpu_torch/csrc`` at first use.
+
+Each source is compiled with ``nvcc`` for ``sm_90a`` into a shared library with
+a plain C interface and loaded with ``ctypes``; nothing includes PyTorch's
+headers, so a build takes seconds. Libraries go to ``build/eilev_tpu_torch/``
+at the repository root, named by a hash of the source and the flags, so an
+edited source is rebuilt and an unchanged one is reused.
+
+Nothing here runs at import time: the CPU tests import every module of the
+port on hosts with no ``nvcc``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+_PACKAGE = Path(__file__).resolve().parents[1]
+CSRC = _PACKAGE / "csrc"
+BUILD_DIR = _PACKAGE.parent / "build" / "eilev_tpu_torch"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+)
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    candidate = os.path.join(cuda_home, "bin", "nvcc")
+    if os.path.exists(candidate):
+        return candidate
+    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+
+
+def build(source: str) -> Path:
+    """Compile ``csrc/<source>`` into ``build/eilev_tpu_torch/`` and return the
+    library's path; a library already built from the same bytes is reused."""
+    src = CSRC / source
+    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    lib = BUILD_DIR / f"{src.stem}_{digest}.so"
+    if lib.exists():
+        return lib
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+    proc = subprocess.run(
+        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+        capture_output=True, text=True,
+    )
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {src.name}:\n{proc.stdout}\n{proc.stderr}")
+    os.replace(tmp, lib)  # atomic: a concurrent build never sees half a file
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def packed_attention_lib() -> ctypes.CDLL:
+    """The packed-QKV attention library (K1 and K2), built and bound once."""
+    lib = ctypes.CDLL(str(build("packed_attention.cu")))
+    fn = lib.eilev_packed_attention_bf16
+    fn.argtypes = [
+        ctypes.c_void_p,  # qkv
+        ctypes.c_void_p,  # mask or NULL
+        ctypes.c_void_p,  # out
+        ctypes.c_int,  # B
+        ctypes.c_int,  # S
+        ctypes.c_int,  # H
+        ctypes.c_int,  # D
+        ctypes.c_float,  # q_scale
+        ctypes.c_float,  # s_scale
+        ctypes.c_int,  # causal
+        ctypes.c_void_p,  # stream
+    ]
+    fn.restype = ctypes.c_int
+    return lib

@@ -1,0 +1,103 @@
+"""Port vs JAX: the plain twins of kernels K1 and K2 (ops/fused_attention.py).
+
+Each plain twin is held against both JAX forms of its kernel: the Pallas
+kernel in interpret mode and its XLA fallback. Shapes cover tiny widths and
+the real head widths (D=88 at S=257 for the ViT, D=80 at S=130 for OPT) with
+2 heads. Tolerances: fp32 atol 1e-5; bf16 atol = rtol = 2e-2 (one bf16 ulp of
+a rounded score, after scaling, moves a probability by under 1%), with NaN
+rows equal where a fully masked query row is NaN in bf16.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from eilev_tpu.ops import fused_attention as jfa
+from eilev_tpu_torch.ops import fused_attention as tfa
+
+from ._torch_port import to_np
+
+DTYPES = {"fp32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bfloat16)}
+
+
+def _tol(dtype):
+    return dict(atol=1e-5, rtol=1e-5) if dtype == "fp32" else dict(atol=2e-2, rtol=2e-2)
+
+
+def _qkv(b, s, nh, hd, dtype, seed):
+    x = np.random.default_rng(seed).normal(size=(b, s, 3 * nh * hd)).astype(np.float32)
+    jd, td = DTYPES[dtype]
+    return jnp.asarray(x, jd), torch.from_numpy(x).to(td)
+
+
+@pytest.mark.parametrize("form", ["interpret", "xla"])
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("b,s,nh,hd", [(3, 9, 2, 8), (2, 257, 2, 88)])
+def test_k1_plain_matches_jax(b, s, nh, hd, dtype, form):
+    jq, tq = _qkv(b, s, nh, hd, dtype, seed=s)
+    scale = hd**-0.5
+    if form == "interpret":
+        ref = jfa.packed_qkv_attention(jq, nh, hd, scale=scale, interpret=True)
+    else:
+        ref = jfa._xla_packed_fallback(jq, nh, hd, scale)
+    ours = tfa.packed_qkv_attention_reference(tq, nh, hd, scale)
+    assert ours.dtype == tq.dtype and tuple(ours.shape) == (b, s, nh * hd)
+    np.testing.assert_allclose(to_np(ours), to_np(ref), **_tol(dtype))
+
+
+def _mask(b, s, padding):
+    m = np.ones((b, s), np.int32)
+    if padding == "left":
+        m[0, : s // 5] = 0
+    elif padding == "right":
+        m[1, s - s // 4 :] = 0
+    return m
+
+
+@pytest.mark.parametrize("form", ["interpret", "xla"])
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("padding", ["none", "left", "right"])
+@pytest.mark.parametrize("b,s,nh,hd", [(2, 24, 2, 8), (2, 130, 2, 80)])
+def test_k2_plain_matches_jax(b, s, nh, hd, padding, dtype, form):
+    jq, tq = _qkv(b, s, nh, hd, dtype, seed=s + 1)
+    m = _mask(b, s, padding)
+    scale = hd**-0.5
+    if form == "interpret":
+        ref = jfa.packed_qkv_causal_attention(jq, nh, hd, jnp.asarray(m), scale=scale, interpret=True)
+    else:
+        ref = jfa._xla_packed_causal_fallback(jq, nh, hd, jnp.asarray(m), scale)
+    ours = tfa.packed_qkv_causal_attention_reference(tq, nh, hd, torch.from_numpy(m), scale)
+    assert ours.dtype == tq.dtype and tuple(ours.shape) == (b, s, nh * hd)
+    ref_np = to_np(ref)
+    if padding == "left" and dtype == "bf16":
+        # finfo(float32).min is -inf in bf16: the left-padded query rows of
+        # row 0 attend only masked keys and are NaN in the reference too
+        assert np.isnan(ref_np[0, : s // 5]).all()
+    np.testing.assert_allclose(to_np(ours), ref_np, equal_nan=True, **_tol(dtype))
+
+
+def test_wrappers_take_the_plain_twin_on_cpu():
+    _, tq = _qkv(2, 17, 2, 8, "fp32", seed=3)
+    mask = torch.ones(2, 17, dtype=torch.int32)
+    k1, k2 = tfa.packed_qkv_attention.launches, tfa.packed_qkv_causal_attention.launches
+    torch.testing.assert_close(
+        tfa.packed_qkv_attention(tq, 2, 8),
+        tfa.packed_qkv_attention_reference(tq, 2, 8, 8**-0.5),
+        rtol=0, atol=0,
+    )
+    torch.testing.assert_close(
+        tfa.packed_qkv_causal_attention(tq, 2, 8, mask),
+        tfa.packed_qkv_causal_attention_reference(tq, 2, 8, mask, 8**-0.5),
+        rtol=0, atol=0,
+    )
+    # the counters count kernel launches only
+    assert (tfa.packed_qkv_attention.launches, tfa.packed_qkv_causal_attention.launches) == (k1, k2)
+
+
+def test_wrappers_refuse_other_devices():
+    qkv = torch.empty(1, 4, 3 * 2 * 8, device="meta")
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        tfa.packed_qkv_attention(qkv, 2, 8)
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        tfa.packed_qkv_causal_attention(qkv, 2, 8, torch.ones(1, 4, device="meta"))

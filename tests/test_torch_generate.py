@@ -1,0 +1,127 @@
+"""Port vs JAX: the whole greedy-narration slice at tiny_config in fp32.
+
+uint8 frames -> process_videos -> encode_videos -> scatter into the prompt ->
+OPT prefill (kernel K2's plain twin) -> greedy decode on the stacked cache.
+Tokens must be identical to ``eilev_tpu.generation.generate`` for 2
+datapoints x 2 videos, with one row stopping early on eos.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from eilev_tpu import configs
+from eilev_tpu.generation import GenerationConfig as JGenerationConfig
+from eilev_tpu.generation import generate as jgenerate
+from eilev_tpu.models.video_blip import VideoBlipForConditionalGeneration as JVB
+from eilev_tpu.ops.preprocess import process_videos as jprocess
+from eilev_tpu_torch import configs as tconfigs
+from eilev_tpu_torch.generation import GenerationConfig, generate
+from eilev_tpu_torch.models import VideoBlipForConditionalGeneration, params_from_jax
+from eilev_tpu_torch.ops.preprocess import process_videos
+
+from ._torch_port import random_params
+
+MAX_NEW = 8
+
+
+@pytest.fixture(scope="module")
+def slice_setup():
+    cfg = configs.tiny_config()
+    img = cfg.vision_config.image_size
+    rng = np.random.default_rng(11)
+    b, v_per, frames_raw, t, s = 2, 2, 5, 2, 16
+    frames = rng.integers(0, 256, size=(b * v_per, 3, frames_raw, 20, 20), dtype=np.uint8)
+    ids = rng.integers(4, cfg.text_config.vocab_size, size=(b, s)).astype(np.int32)
+    ids[:, 0] = 2  # bos
+    mask = np.ones((b, s), np.int32)
+    ids[1, :2], mask[1, :2] = 1, 0  # left padding, as the eval scripts batch
+    vim = np.zeros((b, s), np.int32)
+    vim[:, 3 : 3 + v_per * cfg.num_query_tokens] = 1
+    jmodel = JVB(cfg)
+    params = random_params(
+        jmodel, 12, input_ids=jnp.asarray(ids),
+        pixel_values=jnp.zeros((b * v_per, 3, t, img, img)), video_input_mask=jnp.asarray(vim),
+    )
+    tcfg = tconfigs.tiny_config()
+    model = VideoBlipForConditionalGeneration(tcfg)
+    model.load_state_dict(params_from_jax(jax.tree.map(np.asarray, params), tcfg), strict=True)
+    return cfg, jmodel, params, model.eval(), frames, ids, mask, vim, t
+
+
+def _jax_tokens(setup, eos):
+    cfg, jmodel, params, _, frames, ids, mask, vim, t = setup
+    img = cfg.vision_config.image_size
+    pixel = jprocess(jnp.asarray(frames), num_frames=t, height=img, width=img)
+    return np.asarray(
+        jgenerate(
+            jmodel, {"params": params},
+            input_ids=jnp.asarray(ids), attention_mask=jnp.asarray(mask),
+            pixel_values=pixel, video_input_mask=jnp.asarray(vim),
+            generation_config=JGenerationConfig(
+                max_new_tokens=MAX_NEW, pad_token_id=1, eos_token_id=eos
+            ),
+        )
+    )
+
+
+def _port_tokens(setup, eos):
+    cfg, _, _, model, frames, ids, mask, vim, t = setup
+    img = cfg.vision_config.image_size
+    pixel = process_videos(torch.from_numpy(frames), num_frames=t, height=img, width=img)
+    return generate(
+        model,
+        input_ids=torch.from_numpy(ids), attention_mask=torch.from_numpy(mask),
+        pixel_values=pixel, video_input_mask=torch.from_numpy(vim),
+        generation_config=GenerationConfig(max_new_tokens=MAX_NEW, pad_token_id=1, eos_token_id=eos),
+    ).numpy()
+
+
+def test_greedy_tokens_identical_with_early_eos(slice_setup):
+    # probe with an eos no row emits, then stop row 0 early on its 3rd token
+    probe = _jax_tokens(slice_setup, (-1,))
+    np.testing.assert_array_equal(_port_tokens(slice_setup, (-1,)), probe)
+    eos = int(probe[0, 2])
+    ref = _jax_tokens(slice_setup, (eos,))
+    ours = _port_tokens(slice_setup, (eos,))
+    assert ours.shape == ref.shape == (2, MAX_NEW)
+    np.testing.assert_array_equal(ours, ref)
+    first = int(np.where(ours[0] == eos)[0][0])
+    assert first <= 2 and (ours[0, first + 1 :] == 1).all()
+
+
+def test_default_eos_is_the_text_configs(slice_setup):
+    ref = _jax_tokens(slice_setup, None)
+    np.testing.assert_array_equal(_port_tokens(slice_setup, None), ref)
+
+
+@pytest.mark.parametrize(
+    "gen_kwargs,call_kwargs",
+    [
+        ({"num_beams": 2}, {}),
+        ({"do_sample": True}, {}),
+        ({"penalty_alpha": 0.6, "top_k": 4}, {}),
+        ({"repetition_penalty": 1.2}, {}),
+        ({}, {"draft": "prompt_lookup"}),
+        ({}, {"draft_layers": 1}),
+        ({}, {"vision_chunks": 2}),
+        ({}, {"video_features": torch.zeros(8, 16)}),
+    ],
+)
+def test_unported_modes_raise(slice_setup, gen_kwargs, call_kwargs):
+    model, ids, vim = slice_setup[3], slice_setup[5], slice_setup[7]
+    with pytest.raises(NotImplementedError, match="not ported"):
+        generate(
+            model, input_ids=torch.from_numpy(ids), video_input_mask=torch.from_numpy(vim),
+            generation_config=GenerationConfig(max_new_tokens=2, **gen_kwargs), **call_kwargs,
+        )
+
+
+def test_greedy_rejects_num_return_sequences(slice_setup):
+    with pytest.raises(ValueError, match="num_return_sequences"):
+        generate(
+            slice_setup[3], input_ids=torch.from_numpy(slice_setup[5]),
+            generation_config=GenerationConfig(num_return_sequences=2),
+        )

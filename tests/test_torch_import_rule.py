@@ -1,0 +1,53 @@
+"""The port never imports jax, flax or the JAX package."""
+
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+
+PORT_MODULES = [
+    "eilev_tpu_torch",
+    "eilev_tpu_torch.configs",
+    "eilev_tpu_torch.ops",
+    "eilev_tpu_torch.ops._build",
+    "eilev_tpu_torch.ops.attention",
+    "eilev_tpu_torch.ops.fused_attention",
+    "eilev_tpu_torch.ops.gelu",
+    "eilev_tpu_torch.ops.preprocess",
+    "eilev_tpu_torch.models",
+    "eilev_tpu_torch.models.convert",
+    "eilev_tpu_torch.models.opt",
+    "eilev_tpu_torch.models.qformer",
+    "eilev_tpu_torch.models.video_blip",
+    "eilev_tpu_torch.models.vision",
+    "eilev_tpu_torch.generation",
+    "eilev_tpu_torch.generation.config",
+    "eilev_tpu_torch.generation.decoding",
+]
+
+_PROBE = """
+import importlib, sys
+for name in sys.argv[1:]:
+    importlib.import_module(name)
+bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "eilev_tpu"))
+print("FORBIDDEN:" + ",".join(bad))
+"""
+
+
+def test_port_imports_no_jax():
+    root = Path(__file__).resolve().parents[1]
+    proc = subprocess.run(
+        [sys.executable, "-c", _PROBE, *PORT_MODULES],
+        cwd=root, capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().splitlines()[-1] == "FORBIDDEN:", proc.stdout
+
+
+def test_chip_smoke_imports_no_jax():
+    """The on-card smoke script is jax-free too (checked from its source: it
+    raises at once without a card)."""
+    src = (Path(__file__).resolve().parents[1] / "chip_smoke.py").read_text()
+    banned = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|eilev_tpu)\b", re.MULTILINE)
+    assert not banned.findall(src)
