@@ -6,6 +6,9 @@ The port's modules carry the flax module names, so the mapping is by rule:
 - ``layers_<i>`` -> ``layers.<i>`` (an ``nn.ModuleList``);
 - Dense ``kernel`` (in, out) -> ``weight`` (out, in);
 - LayerNorm ``scale`` -> ``weight``; Embed ``embedding`` -> ``weight``;
+- an int8 layer's dict (one that holds ``w8``, from ``quantize_lm_params`` and
+  its siblings) -> ``Int8Dense``/``Int8W8A8Dense``: ``w8`` (in, out) is
+  transposed and its ``scale`` keeps its name;
 - every other leaf (biases, ``patch_kernel``, ``query_tokens``, ...) keeps its
   name and layout.
 
@@ -31,6 +34,7 @@ _LEAF = {"kernel": "weight", "scale": "weight", "embedding": "weight"}
 def flax_to_state_dict(tree: Mapping[str, Any], prefix: str = "") -> dict[str, torch.Tensor]:
     """Map any flax sub-tree onto the matching port module's ``state_dict``."""
     out: dict[str, torch.Tensor] = {}
+    int8_layer = "w8" in tree
     for name, value in tree.items():
         if isinstance(value, Mapping):
             m = _LAYER.match(name)
@@ -38,13 +42,15 @@ def flax_to_state_dict(tree: Mapping[str, Any], prefix: str = "") -> dict[str, t
             out.update(flax_to_state_dict(value, f"{prefix}{part}."))
             continue
         arr = np.asarray(value)
-        if name == "kernel":
+        if name in ("kernel", "w8"):
             arr = arr.T
         if arr.dtype.name == "bfloat16":  # ml_dtypes bf16: numpy has no torch bridge for it
             tensor = torch.from_numpy(arr.astype(np.float32)).to(torch.bfloat16)
         else:
             tensor = torch.from_numpy(np.array(arr))  # own, writable copy
-        out[prefix + _LEAF.get(name, name)] = tensor.contiguous()
+        # an int8 layer's per-channel scale is not a LayerNorm scale
+        key = name if int8_layer else _LEAF.get(name, name)
+        out[prefix + key] = tensor.contiguous()
     return out
 
 

@@ -12,11 +12,18 @@ and returns the same dict: each layer writes its rows of the stacked buffers,
 and ``index``/``mask``/``pos`` are advanced by the forward.
 
 A multi-token forward into a fresh cache (the generation prefill) runs the
-packed causal kernel K2 (``ops/fused_attention.py``); the one-token decode
-step attends over the cache with plain attention, as the JAX default does.
-Not in this port yet, and raising ``NotImplementedError``: int8 weights or
-cache, ``shared_prefix``/``score_with_prefix``, ``remat`` and
-``cache_append``.
+packed causal kernel K2 (``ops/fused_attention.py``) on the unquantized k/v;
+the one-token decode step attends over the cache through
+``ops/decode_attention.decode_attention_stacked``, K3 for a model-dtype cache
+and K4 for an int8 one (on the CPU its plain twin, the same math as the JAX
+dequant + plain-attention path).
+
+Serving modes, as in the JAX module: ``quantize_matmuls`` (+ ``w8a8_prefill``)
+makes the projection and FFN matmuls int8 layers (``ops/quantization.py``);
+``int8_kv_cache`` stores k/v as int8 with bf16 per-(position, head) scales
+(``k_scale``/``v_scale``, (num_layers, B, max_len, H)), quantized as they are
+written. Not in this port yet, and raising ``NotImplementedError``:
+``shared_prefix``/``score_with_prefix``, ``remat`` and ``cache_append``.
 """
 
 from __future__ import annotations
@@ -29,7 +36,9 @@ from torch import nn
 
 from ..configs import OPTConfig
 from ..ops.attention import plain_attention
+from ..ops.decode_attention import decode_attention_stacked, quantize_kv
 from ..ops.fused_attention import packed_qkv_causal_attention
+from ..ops.quantization import dense_cls
 
 Cache = dict[str, Any]
 
@@ -48,20 +57,28 @@ def init_cache(
     dtype: torch.dtype = torch.float32,
     device: Optional[torch.device] = None,
 ) -> Cache:
-    """Preallocate the stacked KV cache. ``index`` is a Python int."""
-    if getattr(config, "int8_kv_cache", False):
-        raise NotImplementedError("the int8 KV cache is not ported yet")
-    if dtype not in (torch.float32, torch.bfloat16):
-        raise NotImplementedError(f"the KV cache takes float32 or bfloat16, got {dtype}")
+    """Preallocate the stacked KV cache. ``index`` is a Python int.
+
+    With ``config.int8_kv_cache`` k/v are int8 and ``k_scale``/``v_scale``
+    hold their bf16 per-(position, head) scales; ``dtype`` is then unused.
+    """
     kv_heads = getattr(config, "num_key_value_heads", config.num_attention_heads)
     shape = (config.num_hidden_layers, batch, max_len, kv_heads, config.head_dim)
-    return {
+    cache: Cache = {
         "index": 0,
         "mask": torch.zeros(batch, max_len, dtype=torch.int32, device=device),
         "pos": torch.zeros(batch, dtype=torch.int32, device=device),
-        "k": torch.zeros(shape, dtype=dtype, device=device),
-        "v": torch.zeros(shape, dtype=dtype, device=device),
     }
+    if getattr(config, "int8_kv_cache", False):
+        for key in ("k", "v"):
+            cache[key] = torch.zeros(shape, dtype=torch.int8, device=device)
+            cache[f"{key}_scale"] = torch.zeros(shape[:-1], dtype=torch.bfloat16, device=device)
+        return cache
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise NotImplementedError(f"the KV cache takes float32 or bfloat16, got {dtype}")
+    cache["k"] = torch.zeros(shape, dtype=dtype, device=device)
+    cache["v"] = torch.zeros(shape, dtype=dtype, device=device)
+    return cache
 
 
 class OPTAttention(nn.Module):
@@ -70,9 +87,10 @@ class OPTAttention(nn.Module):
         self.config = config
         d = config.hidden_size
         kw = {"device": device, "dtype": dtype}
+        dense = dense_cls(config)  # nn.Linear, or Int8Dense when opted in
         # packed [q | k | v] projection: one GEMM instead of three
-        self.qkv_proj = nn.Linear(d, 3 * d, **kw)
-        self.out_proj = nn.Linear(d, d, **kw)
+        self.qkv_proj = dense(d, 3 * d, **kw)
+        self.out_proj = dense(d, d, **kw)
 
     def forward(
         self,
@@ -81,8 +99,11 @@ class OPTAttention(nn.Module):
         cache_kv: Optional[tuple] = None,
         cache_index: Optional[int] = None,
     ) -> torch.Tensor:
-        """``cache_kv`` is (k_buf, v_buf, layer_idx) of the stacked cache; the
-        fresh k/v rows are written into it in place at ``cache_index``."""
+        """``cache_kv`` is (k_buf, v_buf, k_scale, v_scale, layer_idx) of the
+        stacked cache (the scales are None for a model-dtype cache); the fresh
+        k/v rows are written into it in place at ``cache_index``, quantized
+        first for an int8 cache. With a cache, S is the whole prompt into a
+        fresh cache (``attn['prefill_fresh']``) or one decode token."""
         cfg = self.config
         b, s, d = hidden_states.shape
         nh, hd = cfg.num_attention_heads, cfg.head_dim
@@ -93,11 +114,30 @@ class OPTAttention(nn.Module):
         prefill_fresh = attn.get("prefill_fresh", False)
 
         if cache_kv is not None:
-            k_buf, v_buf, li = cache_kv
-            k_buf[li, :, cache_index : cache_index + s] = k
-            v_buf[li, :, cache_index : cache_index + s] = v
+            k_buf, v_buf, ks_buf, vs_buf, li = cache_kv
+            rows = slice(cache_index, cache_index + s)
+            if ks_buf is not None:
+                k_buf[li, :, rows], ks_buf[li, :, rows] = quantize_kv(k)
+                v_buf[li, :, rows], vs_buf[li, :, rows] = quantize_kv(v)
+            else:
+                k_buf[li, :, rows] = k
+                v_buf[li, :, rows] = v
             if not prefill_fresh:
-                k, v = k_buf[li], v_buf[li]
+                n_layers, _, s_len = k_buf.shape[:3]
+                out = decode_attention_stacked(
+                    qkv[:, 0, :d].contiguous(),
+                    k_buf.view(n_layers, b, s_len, d),
+                    v_buf.view(n_layers, b, s_len, d),
+                    attn["padding_mask"],
+                    li,
+                    num_heads=nh,
+                    head_dim=hd,
+                    scale=hd**-0.5,
+                    scale_query=True,  # HF OPT scales q before the matmul
+                    k_scale=ks_buf,
+                    v_scale=vs_buf,
+                )
+                return self.out_proj(out[:, None, :])
 
         if prefill_fresh:
             out = packed_qkv_causal_attention(
@@ -130,8 +170,9 @@ class OPTDecoderLayer(nn.Module):
         self.self_attn = OPTAttention(config, **kw)
         self.self_attn_layer_norm = nn.LayerNorm(d, eps=eps, **kw)
         self.final_layer_norm = nn.LayerNorm(d, eps=eps, **kw)
-        self.fc1 = nn.Linear(d, config.ffn_dim, **kw)
-        self.fc2 = nn.Linear(config.ffn_dim, d, **kw)
+        dense = dense_cls(config)
+        self.fc1 = dense(d, config.ffn_dim, **kw)
+        self.fc2 = dense(config.ffn_dim, d, **kw)
 
     def _act(self, x: torch.Tensor) -> torch.Tensor:
         if self.config.activation_function == "relu":
@@ -164,8 +205,6 @@ class OPTForCausalLM(nn.Module):
 
     def __init__(self, config: OPTConfig, *, device=None, dtype=None):
         super().__init__()
-        if config.quantize_matmuls or config.int8_kv_cache or config.w8a8_prefill:
-            raise NotImplementedError("int8 serving modes are not ported yet")
         if config.remat:
             raise NotImplementedError("remat is a training option; training is not ported yet")
         self.config = config
@@ -257,7 +296,9 @@ class OPTForCausalLM(nn.Module):
         x = x + self.embed_positions(position_ids.long() + 2)
 
         for i, layer in enumerate(self.layers):
-            ckv = None if cache is None else (cache["k"], cache["v"], i)
+            ckv = None
+            if cache is not None:
+                ckv = (cache["k"], cache["v"], cache.get("k_scale"), cache.get("v_scale"), i)
             x = layer(x, attn, cache_kv=ckv, cache_index=cache_index)
 
         logits = self.lm_head(self._pre_head(x))

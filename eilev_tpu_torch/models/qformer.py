@@ -5,7 +5,10 @@ the only path EILeV uses. Post-LN BERT blocks: self-attention ->
 cross-attention on layers where ``i % cross_attention_frequency == 0`` ->
 query FFN. Attention is the plain path with score-side scaling: at q=32 queries
 the JAX dispatch never takes its flash kernel here either. Inference only, so
-no dropout.
+no dropout. The FFN's gelu is always exact erf, as in the JAX module (the
+fast-gelu serving switch is the vision tower's). With
+``config.quantize_matmuls`` (serving mode) every matmul is a W8A8 int8 layer
+(``ops/quantization.py``).
 """
 
 from __future__ import annotations
@@ -13,11 +16,12 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..configs import QFormerConfig
 from ..ops.attention import plain_attention
-from ..ops.gelu import gelu
+from ..ops.quantization import vision_dense_cls
 
 
 class QFormerMultiHeadAttention(nn.Module):
@@ -29,9 +33,10 @@ class QFormerMultiHeadAttention(nn.Module):
         d = config.hidden_size
         inner = config.num_attention_heads * config.head_dim
         kv_in = config.encoder_hidden_size if is_cross_attention else d
-        self.query = nn.Linear(d, inner, **kw)
-        self.key = nn.Linear(kv_in, inner, **kw)
-        self.value = nn.Linear(kv_in, inner, **kw)
+        dense = vision_dense_cls(config)
+        self.query = dense(d, inner, **kw)
+        self.key = dense(kv_in, inner, **kw)
+        self.value = dense(kv_in, inner, **kw)
 
     def forward(
         self,
@@ -58,7 +63,7 @@ class QFormerSelfOutput(nn.Module):
         super().__init__()
         kw = {"device": device, "dtype": dtype}
         d = config.hidden_size
-        self.dense = nn.Linear(d, d, **kw)
+        self.dense = vision_dense_cls(config)(d, d, **kw)
         self.layer_norm = nn.LayerNorm(d, eps=config.layer_norm_eps, **kw)
 
     def forward(self, hidden_states: torch.Tensor, input_tensor: torch.Tensor) -> torch.Tensor:
@@ -90,12 +95,13 @@ class QFormerFFN(nn.Module):
         super().__init__()
         kw = {"device": device, "dtype": dtype}
         d = config.hidden_size
-        self.intermediate = nn.Linear(d, config.intermediate_size, **kw)
-        self.output = nn.Linear(config.intermediate_size, d, **kw)
+        dense = vision_dense_cls(config)
+        self.intermediate = dense(d, config.intermediate_size, **kw)
+        self.output = dense(config.intermediate_size, d, **kw)
         self.layer_norm = nn.LayerNorm(d, eps=config.layer_norm_eps, **kw)
 
     def forward(self, hidden_states: torch.Tensor) -> torch.Tensor:
-        x = self.output(gelu(self.intermediate(hidden_states)))
+        x = self.output(F.gelu(self.intermediate(hidden_states), approximate="none"))
         return self.layer_norm(x + hidden_states)
 
 
@@ -138,8 +144,6 @@ class QFormerModel(nn.Module):
 
     def __init__(self, config: QFormerConfig, *, device=None, dtype=None):
         super().__init__()
-        if config.quantize_matmuls:
-            raise NotImplementedError("int8 Q-Former matmuls are not ported yet")
         kw = {"device": device, "dtype": dtype}
         self.layernorm = nn.LayerNorm(config.hidden_size, eps=config.layer_norm_eps, **kw)
         self.layers = nn.ModuleList(

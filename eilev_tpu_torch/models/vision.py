@@ -5,7 +5,10 @@ Parity target: ``transformers.Blip2VisionModel`` as wrapped by EILeV's
 batch of V*T frames, runs the frame ViT, and reshapes back. The patch embed is
 an unfold followed by one matmul with ``patch_kernel`` (3*p*p, D), the same
 math as the stride-p conv. Submodule and parameter names follow the flax
-module, so ``models/convert.py`` maps one tree onto the other by rule.
+module, so ``models/convert.py`` maps one tree onto the other by rule. With
+``config.quantize_matmuls`` (serving mode) qkv/projection/fc1/fc2 are W8A8
+int8 layers (``ops/quantization.py``); the MLP's gelu follows the serving
+switch of ``ops/gelu.py``.
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ from torch import nn
 from ..configs import VisionConfig
 from ..ops.attention import packed_qkv_self_attention
 from ..ops.gelu import gelu
+from ..ops.quantization import vision_dense_cls
 
 
 class VisionEmbeddings(nn.Module):
@@ -51,9 +55,10 @@ class VisionAttention(nn.Module):
         self.config = config
         d = config.hidden_size
         kw = {"device": device, "dtype": dtype}
+        dense = vision_dense_cls(config)
         # packed [q | k | v] projection; its bias is (q_bias, 0, v_bias) in HF
-        self.qkv = nn.Linear(d, 3 * d, bias=config.qkv_bias, **kw)
-        self.projection = nn.Linear(d, d, **kw)
+        self.qkv = dense(d, 3 * d, bias=config.qkv_bias, **kw)
+        self.projection = dense(d, d, **kw)
 
     def forward(self, hidden_states: torch.Tensor) -> torch.Tensor:
         cfg = self.config
@@ -67,8 +72,9 @@ class VisionMLP(nn.Module):
     def __init__(self, config: VisionConfig, *, device=None, dtype=None):
         super().__init__()
         kw = {"device": device, "dtype": dtype}
-        self.fc1 = nn.Linear(config.hidden_size, config.intermediate_size, **kw)
-        self.fc2 = nn.Linear(config.intermediate_size, config.hidden_size, **kw)
+        dense = vision_dense_cls(config)
+        self.fc1 = dense(config.hidden_size, config.intermediate_size, **kw)
+        self.fc2 = dense(config.intermediate_size, config.hidden_size, **kw)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.fc2(gelu(self.fc1(x)))
@@ -94,8 +100,6 @@ class VisionModel(nn.Module):
 
     def __init__(self, config: VisionConfig, *, device=None, dtype=None):
         super().__init__()
-        if config.quantize_matmuls:
-            raise NotImplementedError("int8 vision matmuls are not ported yet")
         kw = {"device": device, "dtype": dtype}
         self.embeddings = VisionEmbeddings(config, **kw)
         self.layers = nn.ModuleList(

@@ -80,3 +80,31 @@ def packed_attention_lib() -> ctypes.CDLL:
     ]
     fn.restype = ctypes.c_int
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def decode_attention_lib() -> ctypes.CDLL:
+    """The stacked-cache decode attention library (K3 and K4), built and bound once."""
+    lib = ctypes.CDLL(str(build("decode_attention.cu")))
+    fn = lib.eilev_decode_attention
+    fn.argtypes = [
+        ctypes.c_void_p,  # q
+        ctypes.c_void_p,  # k_buf
+        ctypes.c_void_p,  # v_buf
+        ctypes.c_void_p,  # k_scale or NULL
+        ctypes.c_void_p,  # v_scale or NULL
+        ctypes.c_void_p,  # mask
+        ctypes.c_void_p,  # out
+        ctypes.c_int,  # B
+        ctypes.c_int,  # S
+        ctypes.c_int,  # H
+        ctypes.c_int,  # KVH
+        ctypes.c_int,  # D
+        ctypes.c_int,  # layer
+        ctypes.c_float,  # scale, rounded to bf16
+        ctypes.c_int,  # scale_query
+        ctypes.c_int,  # int8
+        ctypes.c_void_p,  # stream
+    ]
+    fn.restype = ctypes.c_int
+    return lib

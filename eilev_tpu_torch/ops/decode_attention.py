@@ -1,0 +1,226 @@
+"""Decode-step attention over the stacked KV cache (counterpart of
+``eilev_tpu/ops/decode_attention.py``).
+
+One wrapper, :func:`decode_attention_stacked`, with its plain PyTorch twin
+:func:`decode_attention_stacked_reference` in this module. It attends one new
+query token against layer ``layer`` of the stacked (L, B, S, KVH*hd) cache
+under a (B, S) keep-mask, for both cache types:
+
+- K3: a model-dtype cache;
+- K4: an int8 cache with bf16 per-(position, kv-head) scales, dequantized to
+  the model dtype before each dot.
+
+A CPU tensor runs the twin. A CUDA tensor launches the hand-written kernel of
+``csrc/decode_attention.cu`` on the current stream or raises; nothing falls
+back. The wrapper counts its launches per body in
+``decode_attention_stacked.launches_bf16`` and ``.launches_int8``.
+
+Rounding points, as in the JAX kernel bodies: ``scale_query=True`` (HF OPT)
+rounds ``q * bf16(scale)`` to the model dtype before QK^T; QK^T accumulates in
+fp32 and is rounded to the model dtype; ``scale_query=False`` (HF LLaMA)
+multiplies the rounded scores by ``bf16(scale)``; masked slots take
+``finfo(float32).min`` in the model dtype (``-inf`` in bf16, so a fully masked
+row is NaN there); fp32 softmax; probabilities rounded to the model dtype; PV
+accumulates in fp32. Head ``h`` reads kv head ``h // (num_heads // kv_heads)``.
+
+The int8 write side, :func:`quantize_kv`, gives the same int8 values and bf16
+scales as the JAX function, bit for bit.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from .attention import plain_attention
+from .fused_attention import _bf16, _device_kind
+
+#: dynamic shared memory one block may use on an H100 (232,448 bytes)
+SMEM_LIMIT = 227 * 1024
+#: threads per block of the CUDA kernel (csrc/decode_attention.cu THREADS)
+THREADS = 256
+
+
+def quantize_kv(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(..., H, hd) model-dtype K or V rows -> (int8 values (..., H, hd), bf16
+    per-head scales (..., H)) for the int8 cache buffers."""
+    xf = x.float()
+    scale = (xf.abs().amax(dim=-1) / 127.0).to(torch.bfloat16)
+    sf = scale.float()
+    inv = torch.where(sf > 0, 1.0 / sf, torch.zeros_like(sf))[..., None]
+    vals = torch.clamp(torch.round(xf * inv), -127, 127).to(torch.int8)
+    return vals, scale
+
+
+def dequantize_kv(
+    vals: torch.Tensor, scale: torch.Tensor, dtype: torch.dtype = torch.bfloat16
+) -> torch.Tensor:
+    """(..., H, hd) int8 + (..., H) scales -> (..., H, hd) in ``dtype``."""
+    return (vals.float() * scale.float()[..., None]).to(dtype)
+
+
+def _shapes(q, k_buf, v_buf, mask, layer, num_heads, head_dim, kv_heads, k_scale, v_scale):
+    """Raise on shapes the function does not take; return (B, S)."""
+    b, d = q.shape
+    n_layers, bb, s_len, packed = k_buf.shape
+    if bb != b or packed != kv_heads * head_dim or d != num_heads * head_dim:
+        raise ValueError(
+            f"q {tuple(q.shape)} and cache {tuple(k_buf.shape)} do not fit "
+            f"{num_heads} heads x {head_dim} over {kv_heads} kv heads"
+        )
+    if num_heads % kv_heads:
+        raise ValueError(f"num_heads ({num_heads}) must be a multiple of kv_heads ({kv_heads})")
+    if v_buf.shape != k_buf.shape or v_buf.dtype != k_buf.dtype:
+        raise ValueError("k_buf and v_buf must have the same shape and dtype")
+    if tuple(mask.shape) != (b, s_len):
+        raise ValueError(f"mask must be ({b}, {s_len}), got {tuple(mask.shape)}")
+    if not 0 <= layer < n_layers:
+        raise ValueError(f"layer {layer} out of range for {n_layers} cache layers")
+    is_int8 = k_buf.dtype == torch.int8
+    if (k_scale is not None) != is_int8 or (v_scale is not None) != is_int8:
+        raise ValueError("k_scale/v_scale go with an int8 cache, and only with one")
+    if is_int8:
+        want = (n_layers, b, s_len, kv_heads)
+        if tuple(k_scale.shape) != want or tuple(v_scale.shape) != want:
+            raise ValueError(f"k_scale/v_scale must be {want}")
+    return b, s_len
+
+
+def decode_attention_stacked_reference(
+    q: torch.Tensor,
+    k_buf: torch.Tensor,
+    v_buf: torch.Tensor,
+    mask: torch.Tensor,
+    layer: int,
+    *,
+    num_heads: int,
+    head_dim: int,
+    kv_heads: Optional[int] = None,
+    scale: Optional[float] = None,
+    scale_query: bool = True,
+    k_scale: Optional[torch.Tensor] = None,
+    v_scale: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Plain twin of K3/K4: the JAX dequant + ``_xla_attention`` decode step.
+
+    q: (B, num_heads*head_dim); k_buf/v_buf: (L, B, S, kv_heads*head_dim) in
+    the model dtype, or int8 with ``k_scale``/``v_scale`` (L, B, S, kv_heads);
+    mask: (B, S) 0/1 keep-mask. Returns (B, num_heads*head_dim) in q.dtype.
+    """
+    kv_heads = kv_heads or num_heads
+    if scale is None:
+        scale = head_dim**-0.5
+    b, s_len = _shapes(q, k_buf, v_buf, mask, layer, num_heads, head_dim, kv_heads, k_scale, v_scale)
+    k = k_buf[layer].reshape(b, s_len, kv_heads, head_dim)
+    v = v_buf[layer].reshape(b, s_len, kv_heads, head_dim)
+    if k_scale is not None:
+        k = dequantize_kv(k, k_scale[layer], q.dtype)
+        v = dequantize_kv(v, v_scale[layer], q.dtype)
+    group = num_heads // kv_heads
+    if group > 1:
+        k = k.repeat_interleave(group, dim=2)
+        v = v.repeat_interleave(group, dim=2)
+    out = plain_attention(
+        q.reshape(b, 1, num_heads, head_dim), k, v,
+        padding_mask=mask, scale=scale, scale_query_first=scale_query, softmax_in_fp32=True,
+    )
+    return out.reshape(b, num_heads * head_dim)
+
+
+def smem_bytes(s_len: int, head_dim: int, int8: bool) -> int:
+    """Dynamic shared memory of one block of the CUDA kernel (csrc
+    ``smem_bytes``): fp32 scores, the scaled query, the PV partial sums and
+    the reduction scratch."""
+    per_chunk = 16 if int8 else 8
+    return 4 * (s_len + head_dim + THREADS * per_chunk + 32)
+
+
+def _check_cuda(q, k_buf, v_buf, mask, k_scale, v_scale, head_dim, s_len) -> None:
+    """Raise on anything the CUDA kernel does not take."""
+    is_int8 = k_buf.dtype == torch.int8
+    if q.dtype != torch.bfloat16 or not (is_int8 or k_buf.dtype == torch.bfloat16):
+        raise TypeError(
+            f"the CUDA kernel takes a bf16 query and a bf16 or int8 cache, got "
+            f"{q.dtype} and {k_buf.dtype}"
+        )
+    tensors = [q, k_buf, v_buf, mask] + ([k_scale, v_scale] if is_int8 else [])
+    if any(t.device != q.device for t in tensors):
+        raise ValueError("q, the cache, its scales and the mask must be on one device")
+    if is_int8 and (k_scale.dtype != torch.bfloat16 or v_scale.dtype != torch.bfloat16):
+        raise TypeError("the int8 cache's scales must be bf16")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("the CUDA kernel takes contiguous tensors")
+    step = 16 if is_int8 else 8  # elements in one 16-byte load
+    if head_dim % step or head_dim > 128:
+        raise ValueError(
+            f"the CUDA kernel takes head_dim % {step} == 0 and <= 128 for a "
+            f"{k_buf.dtype} cache, got {head_dim}"
+        )
+    if any(t.data_ptr() % 16 for t in (q, k_buf, v_buf)):
+        raise ValueError("the CUDA kernel takes 16-byte aligned q and cache")
+    need = smem_bytes(s_len, head_dim, is_int8)
+    if need > SMEM_LIMIT:
+        raise ValueError(
+            f"S={s_len} needs {need} bytes of shared memory per block, above the "
+            f"{SMEM_LIMIT} an H100 block can use"
+        )
+
+
+def decode_attention_stacked(
+    q: torch.Tensor,
+    k_buf: torch.Tensor,
+    v_buf: torch.Tensor,
+    mask: torch.Tensor,
+    layer: int,
+    *,
+    num_heads: int,
+    head_dim: int,
+    kv_heads: Optional[int] = None,
+    scale: Optional[float] = None,
+    scale_query: bool = True,
+    k_scale: Optional[torch.Tensor] = None,
+    v_scale: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """K3 (model-dtype cache) / K4 (int8 cache): one-token attention against
+    layer ``layer`` of the stacked cache. Arguments as for the twin.
+
+    ``layer`` is a run-time int: on the card it is a pointer offset into the
+    stacked buffers, so no per-layer slice is materialized.
+    """
+    kv_heads = kv_heads or num_heads
+    if scale is None:
+        scale = head_dim**-0.5
+    if _device_kind(q) == "cpu":
+        return decode_attention_stacked_reference(
+            q, k_buf, v_buf, mask, layer, num_heads=num_heads, head_dim=head_dim,
+            kv_heads=kv_heads, scale=scale, scale_query=scale_query,
+            k_scale=k_scale, v_scale=v_scale,
+        )
+    from ._build import decode_attention_lib
+
+    b, s_len = _shapes(q, k_buf, v_buf, mask, layer, num_heads, head_dim, kv_heads, k_scale, v_scale)
+    mask = mask.to(torch.int32).contiguous()
+    _check_cuda(q, k_buf, v_buf, mask, k_scale, v_scale, head_dim, s_len)
+    is_int8 = k_buf.dtype == torch.int8
+    out = torch.empty_like(q)
+    rc = decode_attention_lib().eilev_decode_attention(
+        q.data_ptr(), k_buf.data_ptr(), v_buf.data_ptr(),
+        k_scale.data_ptr() if is_int8 else None,
+        v_scale.data_ptr() if is_int8 else None,
+        mask.data_ptr(), out.data_ptr(),
+        b, s_len, num_heads, kv_heads, head_dim, layer,
+        _bf16(scale), int(scale_query), int(is_int8),
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"decode attention kernel launch failed: cudaError_t {rc}")
+    if is_int8:
+        decode_attention_stacked.launches_int8 += 1
+    else:
+        decode_attention_stacked.launches_bf16 += 1
+    return out
+
+
+decode_attention_stacked.launches_bf16 = 0
+decode_attention_stacked.launches_int8 = 0

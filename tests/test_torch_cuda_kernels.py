@@ -1,14 +1,17 @@
-"""The hand-written CUDA kernels K1 and K2 against their plain twins, on the card.
+"""The hand-written CUDA kernels K1-K4 against their plain twins, on the card.
 
 Marked ``cuda``; skips on a host without a CUDA device (the CPU suite runs the
-plain twins against JAX in tests/test_torch_fused_attention.py). Run on a GPU
-host with ``python -m pytest tests/test_torch_cuda_kernels.py -m cuda``.
-Tolerance: bf16 atol = rtol = 2e-2, as in chip_smoke.py.
+plain twins against JAX in tests/test_torch_fused_attention.py and
+tests/test_torch_decode_attention.py). Run on a GPU host with
+``python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py``.
+Tolerance: bf16 atol = rtol = 2e-2 for K1-K3 and 3e-2 for K4 (the int8
+cache), as in chip_smoke.py.
 """
 
 import pytest
 import torch
 
+from eilev_tpu_torch.ops import decode_attention as tda
 from eilev_tpu_torch.ops import fused_attention as tfa
 
 pytestmark = pytest.mark.cuda
@@ -63,3 +66,100 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
         tfa.packed_qkv_attention(_qkv(1, 8, 2, 12, cuda), 2, 12)
     with pytest.raises(ValueError, match="contiguous"):
         tfa.packed_qkv_attention(_qkv(2, 8, 2, 8, cuda).transpose(0, 1), 2, 8)
+
+
+def _cache(n_layers, b, s, kvh, hd, device, seed):
+    g = torch.Generator(device=device).manual_seed(seed)
+    k = torch.randn(n_layers, b, s, kvh, hd, device=device, generator=g).to(torch.bfloat16)
+    v = torch.randn(n_layers, b, s, kvh, hd, device=device, generator=g).to(torch.bfloat16)
+    return k, v, g
+
+
+def _decode_mask(b, s, device, kind):
+    mask = torch.ones(b, s, dtype=torch.int32, device=device)
+    if kind == "mid-decode":  # the unfilled tail of the cache
+        mask[:, s - s // 8 :] = 0
+    elif kind == "left-padded":
+        mask[0, : s // 5] = 0
+    elif kind == "fully-masked-row":
+        mask[-1] = 0
+    return mask
+
+
+# (L, B, S, heads, kv_heads, hd, scale_query): OPT shapes (groups of 1, q-side
+# scale) and GQA shapes (score-side scale); S is a multiple of no tile size
+DECODE_SHAPES = [
+    (3, 2, 37, 4, 4, 64, True),
+    (4, 4, 798, 32, 32, 80, True),
+    (2, 1, 131, 2, 2, 128, True),
+    (2, 2, 2048, 32, 8, 128, False),
+    (2, 3, 333, 8, 2, 80, False),
+]
+
+
+@pytest.mark.parametrize("kind", ["full", "mid-decode", "left-padded", "fully-masked-row"])
+@pytest.mark.parametrize("n_layers,b,s,nh,kvh,hd,scale_query", DECODE_SHAPES)
+def test_k3_kernel_matches_plain(cuda, n_layers, b, s, nh, kvh, hd, scale_query, kind):
+    k, v, g = _cache(n_layers, b, s, kvh, hd, cuda, seed=s)
+    q = torch.randn(b, nh * hd, device=cuda, generator=g).to(torch.bfloat16)
+    mask = _decode_mask(b, s, cuda, kind)
+    kw = dict(num_heads=nh, head_dim=hd, kv_heads=kvh, scale_query=scale_query)
+    kb, vb = k.view(n_layers, b, s, -1), v.view(n_layers, b, s, -1)
+    for layer in (0, n_layers - 1):
+        before = tda.decode_attention_stacked.launches_bf16
+        out = tda.decode_attention_stacked(q, kb, vb, mask, layer, **kw)
+        torch.cuda.synchronize()
+        assert tda.decode_attention_stacked.launches_bf16 == before + 1
+        ref = tda.decode_attention_stacked_reference(q, kb, vb, mask, layer, **kw)
+        if kind == "fully-masked-row":  # NaN in bf16, in both
+            assert torch.isnan(out[-1]).all() and torch.isnan(ref[-1]).all()
+        torch.testing.assert_close(out, ref, atol=2e-2, rtol=2e-2, equal_nan=True)
+
+
+@pytest.mark.parametrize("kind", ["full", "mid-decode"])
+@pytest.mark.parametrize("n_layers,b,s,nh,kvh,hd,scale_query", DECODE_SHAPES)
+def test_k4_kernel_matches_plain(cuda, n_layers, b, s, nh, kvh, hd, scale_query, kind):
+    k, v, g = _cache(n_layers, b, s, kvh, hd, cuda, seed=s + 1)
+    q = torch.randn(b, nh * hd, device=cuda, generator=g).to(torch.bfloat16)
+    k8, ks = tda.quantize_kv(k)
+    v8, vs = tda.quantize_kv(v)
+    k8, v8 = k8.view(n_layers, b, s, -1), v8.view(n_layers, b, s, -1)
+    mask = _decode_mask(b, s, cuda, kind)
+    kw = dict(num_heads=nh, head_dim=hd, kv_heads=kvh, scale_query=scale_query)
+    layer = n_layers // 2
+    before = tda.decode_attention_stacked.launches_int8
+    out = tda.decode_attention_stacked(q, k8, v8, mask, layer, k_scale=ks, v_scale=vs, **kw)
+    torch.cuda.synchronize()
+    assert tda.decode_attention_stacked.launches_int8 == before + 1
+    ref = tda.decode_attention_stacked_reference(q, k8, v8, mask, layer, k_scale=ks, v_scale=vs, **kw)
+    torch.testing.assert_close(out, ref, atol=3e-2, rtol=3e-2)
+    # and against dequantize_kv + the bf16 twin, as chip_smoke holds it
+    kd = tda.dequantize_kv(k8.view(k.shape), ks).view(n_layers, b, s, -1)
+    vd = tda.dequantize_kv(v8.view(v.shape), vs).view(n_layers, b, s, -1)
+    ref_bf16 = tda.decode_attention_stacked_reference(q, kd, vd, mask, layer, **kw)
+    torch.testing.assert_close(out, ref_bf16, atol=3e-2, rtol=3e-2)
+
+
+def test_decode_kernel_refuses_what_it_does_not_take(cuda):
+    k, v, g = _cache(2, 1, 40, 2, 16, cuda, seed=0)
+    q = torch.randn(1, 32, device=cuda, generator=g).to(torch.bfloat16)
+    mask = torch.ones(1, 40, dtype=torch.int32, device=cuda)
+    kw = dict(num_heads=2, head_dim=16)
+    kb = k.view(2, 1, 40, -1)
+    with pytest.raises(TypeError, match="bf16"):  # an fp32 cache
+        tda.decode_attention_stacked(q.float(), kb.float(), kb.float(), mask, 0, **kw)
+    k8, ks = tda.quantize_kv(k[..., :8].contiguous())
+    with pytest.raises(ValueError, match="head_dim"):  # int8 rows of 8 bytes: not 16-byte aligned
+        tda.decode_attention_stacked(
+            q[:, :16].contiguous(), k8.view(2, 1, 40, -1), k8.view(2, 1, 40, -1), mask, 0,
+            num_heads=2, head_dim=8, k_scale=ks, v_scale=ks,
+        )
+    s_big = 60_000  # scores above 227 KB of shared memory
+    big = torch.zeros(1, 1, s_big, 32, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        tda.decode_attention_stacked(
+            q, big, big, torch.ones(1, s_big, dtype=torch.int32, device=cuda), 0, **kw
+        )
+    strided_q = torch.randn(1, 64, device=cuda, generator=g).to(torch.bfloat16)[:, ::2]
+    with pytest.raises(ValueError, match="contiguous"):
+        tda.decode_attention_stacked(strided_q, kb, kb, mask, 0, **kw)

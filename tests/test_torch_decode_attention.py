@@ -1,0 +1,177 @@
+"""Port vs JAX: the plain twin of kernels K3/K4 (ops/decode_attention.py) and
+the int8 cache's write side.
+
+The twin is held against the JAX Pallas kernel ``decode_attention_stacked``
+in interpret mode, as tests/models/test_decode_attention.py runs it, at
+L = 3, B = 2, S = 37, head_dim 16, with a ragged keep-mask (holes, and a
+mid-decode row whose tail is unfilled), for both cache types:
+
+- OPT: ``scale_query=True``, kv_heads = heads = 4;
+- GQA: ``scale_query=False``, heads 8 over kv_heads 2.
+
+Tolerances: fp32 atol 1e-5; bf16 atol = rtol = 2e-2 (one bf16 ulp of a rounded
+score moves a probability by under 1%), NaN rows equal; the int8 body's JAX
+bar is 3e-2, and the twin holds a tighter 1e-2 here because it dequantizes
+with the same rounding points and only the fp32 sums' order can differ.
+``quantize_kv``/``dequantize_kv`` are bit-equal to JAX.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from eilev_tpu.ops import decode_attention as jda
+from eilev_tpu_torch.ops import decode_attention as tda
+
+from ._torch_port import to_np
+
+L, B, S, HD = 3, 2, 37, 16
+DTYPES = {"fp32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bfloat16)}
+LAYOUTS = {"opt": (4, 4, True), "gqa": (8, 2, False)}  # heads, kv_heads, scale_query
+
+
+def _tol(dtype):
+    return dict(atol=1e-5, rtol=1e-5) if dtype == "fp32" else dict(atol=2e-2, rtol=2e-2)
+
+
+def _ragged_mask(seed, fully_masked_row=False):
+    rng = np.random.default_rng(seed)
+    m = (rng.random((B, S)) > 0.3).astype(np.int32)
+    m[:, 0] = 1
+    m[1, 25:] = 0  # mid-decode: slots past the filled prefix
+    if fully_masked_row:
+        m[1] = 0
+    return m
+
+
+def _inputs(nh, kvh, seed):
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(B, nh * HD)).astype(np.float32)
+    k = rng.normal(size=(L, B, S, kvh, HD)).astype(np.float32)
+    v = rng.normal(size=(L, B, S, kvh, HD)).astype(np.float32)
+    return q, k, v
+
+
+@pytest.mark.parametrize("fully_masked_row", [False, True])
+@pytest.mark.parametrize("layout", ["opt", "gqa"])
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+def test_twin_matches_jax_kernel(dtype, layout, fully_masked_row):
+    nh, kvh, scale_query = LAYOUTS[layout]
+    jd, td = DTYPES[dtype]
+    q, k, v = _inputs(nh, kvh, seed=1)
+    k, v = k.reshape(L, B, S, kvh * HD), v.reshape(L, B, S, kvh * HD)
+    m = _ragged_mask(2, fully_masked_row)
+    kw = dict(num_heads=nh, head_dim=HD, kv_heads=kvh, scale_query=scale_query)
+    for layer in range(L):
+        ref = jda.decode_attention_stacked(
+            jnp.asarray(q, jd), jnp.asarray(k, jd), jnp.asarray(v, jd), jnp.asarray(m),
+            layer, interpret=True, **kw,
+        )
+        ours = tda.decode_attention_stacked_reference(
+            torch.from_numpy(q).to(td), torch.from_numpy(k).to(td), torch.from_numpy(v).to(td),
+            torch.from_numpy(m), layer, **kw,
+        )
+        assert ours.dtype == td and tuple(ours.shape) == (B, nh * HD)
+        ref_np = to_np(ref)
+        if fully_masked_row and dtype == "bf16":
+            # finfo(float32).min is -inf in bf16: the reference row is NaN too
+            assert np.isnan(ref_np[1]).all()
+        np.testing.assert_allclose(to_np(ours), ref_np, equal_nan=True, **_tol(dtype))
+
+
+def _torch(x):
+    """A JAX int8 or bf16 array as a torch tensor of the same dtype."""
+    if x.dtype == jnp.bfloat16:
+        return torch.from_numpy(np.array(x, np.float32)).to(torch.bfloat16)
+    return torch.from_numpy(np.array(x))
+
+
+@pytest.mark.parametrize("layout", ["opt", "gqa"])
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+def test_int8_twin_matches_jax_kernel(dtype, layout):
+    nh, kvh, scale_query = LAYOUTS[layout]
+    jd, td = DTYPES[dtype]
+    q, k, v = _inputs(nh, kvh, seed=3)
+    k8, ks = jda.quantize_kv(jnp.asarray(k, jd))
+    v8, vs = jda.quantize_kv(jnp.asarray(v, jd))
+    m = _ragged_mask(4)
+    kw = dict(num_heads=nh, head_dim=HD, kv_heads=kvh, scale_query=scale_query)
+    for layer in range(L):
+        ref = jda.decode_attention_stacked(
+            jnp.asarray(q, jd), k8.reshape(L, B, S, -1), v8.reshape(L, B, S, -1), jnp.asarray(m),
+            layer, k_scale=ks, v_scale=vs, interpret=True, **kw,
+        )
+        ours = tda.decode_attention_stacked_reference(
+            torch.from_numpy(q).to(td), _torch(k8).reshape(L, B, S, -1),
+            _torch(v8).reshape(L, B, S, -1), torch.from_numpy(m), layer,
+            k_scale=_torch(ks), v_scale=_torch(vs), **kw,
+        )
+        tol = dict(atol=1e-5, rtol=1e-5) if dtype == "fp32" else dict(atol=1e-2, rtol=1e-2)
+        np.testing.assert_allclose(to_np(ours), to_np(ref), **tol)
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+def test_quantize_kv_bit_equal_to_jax(dtype):
+    jd, td = DTYPES[dtype]
+    x = (np.random.default_rng(5).normal(size=(3, 7, 4, HD)) * 3.0).astype(np.float32)
+    x[0, 0, 1] = 0.0  # an all-zero head: scale 0, values 0
+    j8, js = jda.quantize_kv(jnp.asarray(x, jd))
+    t8, ts = tda.quantize_kv(torch.from_numpy(x).to(td))
+    assert t8.dtype == torch.int8 and ts.dtype == torch.bfloat16
+    np.testing.assert_array_equal(t8.numpy(), np.asarray(j8))
+    np.testing.assert_array_equal(ts.float().numpy(), np.asarray(js, np.float32))
+    assert (t8[0, 0, 1] == 0).all() and ts[0, 0, 1] == 0
+    for out_dtype, jout in ((torch.bfloat16, jnp.bfloat16), (torch.float32, jnp.float32)):
+        back = tda.dequantize_kv(t8, ts, dtype=out_dtype)
+        assert back.dtype == out_dtype
+        np.testing.assert_array_equal(to_np(back), to_np(jda.dequantize_kv(j8, js, dtype=jout)))
+
+
+def test_wrapper_takes_the_twin_on_cpu():
+    q, k, v = _inputs(4, 4, seed=6)
+    q, k, v = (torch.from_numpy(x) for x in (q, k.reshape(L, B, S, -1), v.reshape(L, B, S, -1)))
+    k8, ks = tda.quantize_kv(k.reshape(L, B, S, 4, HD))
+    v8, vs = tda.quantize_kv(v.reshape(L, B, S, 4, HD))
+    m = torch.from_numpy(_ragged_mask(7))
+    fn = tda.decode_attention_stacked
+    before = (fn.launches_bf16, fn.launches_int8)
+    kw = dict(num_heads=4, head_dim=HD)
+    torch.testing.assert_close(
+        fn(q, k, v, m, 2, **kw), tda.decode_attention_stacked_reference(q, k, v, m, 2, **kw),
+        rtol=0, atol=0,
+    )
+    k8, v8 = k8.reshape(L, B, S, -1), v8.reshape(L, B, S, -1)
+    torch.testing.assert_close(
+        fn(q, k8, v8, m, 0, k_scale=ks, v_scale=vs, **kw),
+        tda.decode_attention_stacked_reference(q, k8, v8, m, 0, k_scale=ks, v_scale=vs, **kw),
+        rtol=0, atol=0,
+    )
+    # the counters count kernel launches only
+    assert (fn.launches_bf16, fn.launches_int8) == before
+
+
+def test_wrapper_refuses_bad_arguments():
+    q = torch.zeros(B, 4 * HD)
+    k = torch.zeros(L, B, S, 4 * HD)
+    m = torch.ones(B, S, dtype=torch.int32)
+    kw = dict(num_heads=4, head_dim=HD)
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        tda.decode_attention_stacked(q.to("meta"), k.to("meta"), k.to("meta"), m.to("meta"), 0, **kw)
+    with pytest.raises(ValueError, match="out of range"):
+        tda.decode_attention_stacked(q, k, k, m, L, **kw)
+    with pytest.raises(ValueError, match="mask"):
+        tda.decode_attention_stacked(q, k, k, m[:, :-1], 0, **kw)
+    with pytest.raises(ValueError, match="do not fit"):
+        tda.decode_attention_stacked(q, k, k, m, 0, num_heads=2, head_dim=HD)
+    with pytest.raises(ValueError, match="k_scale"):  # an int8 cache needs its scales
+        tda.decode_attention_stacked(q, k.to(torch.int8), k.to(torch.int8), m, 0, **kw)
+
+
+def test_smem_bound_matches_the_kernel_layout():
+    # scores + query + PV partials + reduction scratch, in fp32
+    assert tda.smem_bytes(798, 80, int8=False) == 4 * (798 + 80 + 256 * 8 + 32)
+    assert tda.smem_bytes(798, 80, int8=True) == 4 * (798 + 80 + 256 * 16 + 32)
+    # the flagship shape fits; an S of 60k slots does not
+    assert tda.smem_bytes(798, 80, int8=True) <= tda.SMEM_LIMIT
+    assert tda.smem_bytes(60_000, 128, int8=False) > tda.SMEM_LIMIT
