@@ -1,11 +1,16 @@
 """Greedy decoding for decoder-only VideoBLIP (counterpart of
 ``eilev_tpu/generation/decoding.py``).
 
-The port's first slice: the OPT greedy branch of :func:`generate`. Prefill
-writes the prompt into the stacked KV cache (kernel K2 runs there), then a
-Python loop decodes one token per step with early exit once every row has
-emitted eos; positions after eos hold pad. Every other mode of the JAX
-``generate`` raises ``NotImplementedError`` naming the mode.
+The OPT greedy branch of :func:`generate`. Prefill writes the prompt into
+the stacked KV cache (kernel K2 runs there for OPT, K5 for a long LLaMA
+prompt), then a Python loop decodes one token per step with early exit once
+every row has emitted eos; positions after eos hold pad. Every other mode of
+the JAX ``generate`` raises ``NotImplementedError`` naming the mode.
+
+:func:`_prefill` and :func:`_greedy_sample_decoder_only` work by duck typing
+on any model with the VideoBLIP LM surface (``config.text_config``,
+``lm_embed``, ``lm_forward``): VideoBLIP, and ``generation/text_lm``'s
+text-only module over OPT or LLaMA.
 """
 
 from __future__ import annotations
@@ -14,6 +19,7 @@ import dataclasses
 from typing import Optional
 
 import torch
+from torch import nn
 
 from ..configs import OPTConfig, VideoBlipConfig
 from ..models.opt import init_cache
@@ -71,7 +77,7 @@ def _validate_num_return_sequences(gen_cfg: GenerationConfig) -> None:
         )
 
 
-def _prefill(model: VB, inputs_embeds, attention_mask, max_new_tokens: int):
+def _prefill(model: nn.Module, inputs_embeds, attention_mask, max_new_tokens: int):
     b, s, _ = inputs_embeds.shape
     cache = init_cache(
         model.config.text_config, b, s + max_new_tokens,
@@ -82,7 +88,7 @@ def _prefill(model: VB, inputs_embeds, attention_mask, max_new_tokens: int):
 
 
 def _greedy_sample_decoder_only(
-    model: VB,
+    model: nn.Module,
     inputs_embeds: torch.Tensor,
     attention_mask: torch.Tensor,
     gen_cfg: GenerationConfig,

@@ -35,7 +35,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..configs import OPTConfig
-from ..ops.attention import plain_attention
+from ..ops.attention import dot_product_attention
 from ..ops.decode_attention import decode_attention_stacked, quantize_kv
 from ..ops.fused_attention import packed_qkv_causal_attention
 from ..ops.quantization import dense_cls
@@ -145,7 +145,7 @@ class OPTAttention(nn.Module):
             )
             return self.out_proj(out)
 
-        out = plain_attention(
+        out = dot_product_attention(
             q,
             k,
             v,

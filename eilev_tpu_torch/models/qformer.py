@@ -3,8 +3,8 @@
 Parity target: ``transformers.Blip2QFormerModel`` on the query-token-only path,
 the only path EILeV uses. Post-LN BERT blocks: self-attention ->
 cross-attention on layers where ``i % cross_attention_frequency == 0`` ->
-query FFN. Attention is the plain path with score-side scaling: at q=32 queries
-the JAX dispatch never takes its flash kernel here either. Inference only, so
+query FFN. Attention goes through ``ops/attention.dot_product_attention`` with
+score-side scaling, as in JAX: at q=32 queries ``auto`` takes the plain path. Inference only, so
 no dropout. The FFN's gelu is always exact erf, as in the JAX module (the
 fast-gelu serving switch is the vision tower's). With
 ``config.quantize_matmuls`` (serving mode) every matmul is a W8A8 int8 layer
@@ -20,7 +20,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..configs import QFormerConfig
-from ..ops.attention import plain_attention
+from ..ops.attention import dot_product_attention
 from ..ops.quantization import vision_dense_cls
 
 
@@ -52,7 +52,7 @@ class QFormerMultiHeadAttention(nn.Module):
         q = self.query(hidden_states).reshape(b, s, nh, hd)
         k = self.key(kv).reshape(b, l, nh, hd)
         v = self.value(kv).reshape(b, l, nh, hd)
-        out = plain_attention(q, k, v, padding_mask=padding_mask, scale=hd**-0.5)
+        out = dot_product_attention(q, k, v, padding_mask=padding_mask, scale=hd**-0.5)
         return out.reshape(b, s, nh * hd)
 
 

@@ -83,6 +83,40 @@ def packed_attention_lib() -> ctypes.CDLL:
 
 
 @functools.lru_cache(maxsize=None)
+def flash_attention_lib() -> ctypes.CDLL:
+    """The flash attention library (K5), built and bound once."""
+    lib = ctypes.CDLL(str(build("flash_attention.cu")))
+    fn = lib.eilev_flash_attention_bf16
+    fn.argtypes = [
+        ctypes.c_void_p,  # q
+        ctypes.c_void_p,  # k
+        ctypes.c_void_p,  # v
+        ctypes.c_void_p,  # padding mask or NULL
+        ctypes.c_void_p,  # bias or NULL
+        ctypes.c_void_p,  # out
+        ctypes.c_int,  # B
+        ctypes.c_int,  # S
+        ctypes.c_int,  # L
+        ctypes.c_int,  # H
+        ctypes.c_int,  # KVH
+        ctypes.c_int,  # D
+        ctypes.c_longlong,  # q batch stride
+        ctypes.c_longlong,  # q row stride
+        ctypes.c_longlong,  # k batch stride
+        ctypes.c_longlong,  # k row stride
+        ctypes.c_longlong,  # v batch stride
+        ctypes.c_longlong,  # v row stride
+        ctypes.c_float,  # q_scale, rounded to bf16
+        ctypes.c_float,  # s_scale
+        ctypes.c_int,  # causal
+        ctypes.c_int,  # q_offset
+        ctypes.c_void_p,  # stream
+    ]
+    fn.restype = ctypes.c_int
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
 def decode_attention_lib() -> ctypes.CDLL:
     """The stacked-cache decode attention library (K3 and K4), built and bound once."""
     lib = ctypes.CDLL(str(build("decode_attention.cu")))

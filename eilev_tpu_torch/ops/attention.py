@@ -1,19 +1,22 @@
 """Attention primitives (counterpart of ``eilev_tpu/ops/attention.py``).
 
+:func:`dot_product_attention` is the JAX package's dispatcher with its
+signature and modes: ``auto`` takes the flash kernel K5
+(``ops/flash_attention.py``) for q >= 1024 and kv >= 2048 with no bias or an
+(H, S, L) one, the same thresholds as the JAX package (chosen on a TPU v5e
+and kept as they are), and the plain path otherwise; ``flash`` always takes
+K5; ``xla`` and ``fused`` take the plain path, as in JAX. K5 runs its
+hand-written CUDA kernel for a CUDA tensor and its plain twin for a CPU one.
+
 :func:`plain_attention` is the port of the JAX package's ``_xla_attention``:
-the plain PyTorch attention that the Q-Former, the OPT decode step and the
-reference version of the packed causal kernel all use. It keeps the numerical
+the plain PyTorch attention behind ``xla``, the OPT decode step's twin and
+the reference version of the packed causal kernel. It keeps the numerical
 knobs of the JAX function (query-side vs score-side scaling, fp32 softmax, one
 ``finfo(float32).min`` fill for causal + padding masking) so each caller keeps
 its HF numerics.
 
-Dispatch is by the tensor's device, not by backend: the packed ViT attention
-goes to the hand-written CUDA kernel for a CUDA tensor and to its plain twin
-for a CPU tensor (``ops/fused_attention.py``). The JAX ``dot_product_attention``
-dispatcher has no counterpart yet: its FA2-style flash kernel is not ported,
-and at the shapes of the greedy-narration path (Q-Former q=32, one-token
-decode) its ``auto`` mode takes the plain path, so callers use
-:func:`plain_attention` directly.
+The packed ViT attention goes to the hand-written CUDA kernel K1 for a CUDA
+tensor and to its plain twin for a CPU tensor (``ops/fused_attention.py``).
 """
 
 from __future__ import annotations
@@ -21,6 +24,24 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+
+_DEFAULT_IMPL = "auto"
+# the JAX package's thresholds (eilev_tpu/ops/attention.py:33-34), measured on
+# a TPU v5e; whether they suit the H100 is recorded in PERF.md
+_FLASH_MIN_Q = 1024
+_FLASH_MIN_KV = 2048
+
+
+def set_default_attention_impl(impl: str) -> None:
+    """Set the global attention implementation: 'auto' | 'xla' | 'flash' | 'fused'."""
+    global _DEFAULT_IMPL
+    if impl not in ("auto", "xla", "flash", "fused"):
+        raise ValueError(f"unknown attention implementation {impl!r}")
+    _DEFAULT_IMPL = impl
+
+
+def get_default_attention_impl() -> str:
+    return _DEFAULT_IMPL
 
 
 def _scalar(value: float, like: torch.Tensor) -> torch.Tensor:
@@ -46,6 +67,58 @@ def packed_qkv_self_attention(
     if scale is None:
         scale = head_dim**-0.5
     return packed_qkv_attention(qkv, num_heads, head_dim, scale=scale)
+
+
+def uses_flash(
+    q_len: int, kv_len: int, bias: Optional[torch.Tensor] = None, implementation: Optional[str] = None
+) -> bool:
+    """Whether :func:`dot_product_attention` takes K5 for these lengths."""
+    impl = implementation or _DEFAULT_IMPL
+    if impl == "auto":
+        return q_len >= _FLASH_MIN_Q and kv_len >= _FLASH_MIN_KV and (bias is None or bias.ndim == 3)
+    return impl == "flash"
+
+
+def dot_product_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    bias: Optional[torch.Tensor] = None,
+    padding_mask: Optional[torch.Tensor] = None,
+    causal: bool = False,
+    q_offset: int = 0,
+    scale: Optional[float] = None,
+    scale_query_first: bool = False,
+    softmax_in_fp32: bool = False,
+    implementation: Optional[str] = None,
+) -> torch.Tensor:
+    """Multi-head scaled dot-product attention, dispatched as in JAX.
+
+    q: (B, S, H, D); k, v: (B, L, KVH, D), where KVH divides H (grouped-query
+    attention: head h reads kv head h // (H // KVH); the plain path repeats
+    the kv heads, as the JAX callers do before the call). Other arguments as
+    for :func:`plain_attention`; ``implementation`` overrides the default
+    'auto' | 'xla' | 'flash' | 'fused'. Returns (B, S, H, D) in q.dtype.
+    """
+    if uses_flash(q.shape[1], k.shape[1], bias, implementation):
+        from .flash_attention import flash_attention
+
+        if bias is not None and bias.ndim != 3:
+            raise ValueError("the flash path takes an (H, S, L) bias")
+        return flash_attention(
+            q, k, v, padding_mask=padding_mask, bias=bias, causal=causal,
+            q_offset=q_offset, scale=scale, scale_query_first=scale_query_first,
+        )
+    group = q.shape[2] // k.shape[2]
+    if group > 1:
+        k = k.repeat_interleave(group, dim=2)
+        v = v.repeat_interleave(group, dim=2)
+    return plain_attention(
+        q, k, v, bias=bias, padding_mask=padding_mask, causal=causal,
+        q_offset=q_offset, scale=scale, scale_query_first=scale_query_first,
+        softmax_in_fp32=softmax_in_fp32,
+    )
 
 
 def plain_attention(

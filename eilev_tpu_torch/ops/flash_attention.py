@@ -1,0 +1,199 @@
+"""Flash attention forward (counterpart of ``eilev_tpu/ops/flash_attention.py``).
+
+K5: :func:`flash_attention` replaces the Pallas kernel ``flash_attention``
+(``eilev_tpu/ops/flash_attention.py:157``, body ``_flash_kernel`` :52). Its
+plain PyTorch twin, :func:`flash_attention_reference`, is in this module.
+``ops/attention.py:dot_product_attention`` reaches it under ``impl='flash'``
+and, in ``auto`` mode, for q >= 1024 and kv >= 2048 (the LLaMA prefill into a
+long cache).
+
+A CPU tensor runs the twin. A CUDA tensor launches the hand-written kernel of
+``csrc/flash_attention.cu`` on the current stream or raises; nothing falls
+back. The wrapper counts its launches in ``flash_attention.launches``.
+
+What it computes is the Pallas body, not its blocking. The rounding points:
+
+- q-side scale (``scale_query_first``): ``q * scale`` rounded to q's dtype
+  before QK^T;
+- QK^T accumulates in fp32 and is never rounded to the model dtype; a
+  score-side scale multiplies the fp32 score by the fp32 scale; the (H, S, L)
+  bias is added in fp32;
+- masked keys (index >= kv_len, padding 0, causal ``k > q + q_offset``) take
+  ``finfo(float32).min``;
+- online softmax over key blocks of 128 from key 0: ``p = exp(s - m)`` zeroed
+  where masked, cast to v's dtype un-normalised before PV; the fp32
+  accumulator is rescaled by ``alpha`` as the running max moves;
+- the output is ``acc / l`` with ``l == 0`` replaced by 1, so a fully masked
+  row is exactly 0, never NaN (the plain path gives NaN there in bf16).
+
+Because bf16 rounding of p depends on the running max, the twin runs the same
+recurrence over the same 128-key blocks as the kernel.
+
+What bounds it on the H100: at the LLaMA prefill (q 1,984 over a 2,048-slot
+cache, 32 heads x 128, causal) one layer needs ~32 GFLOP of tensor-core work
+against ~65 MB of traffic: compute-bound (33 us at 989 TFLOP/s, 19 us of
+bytes). The first kernel runs ``mma.sync`` bf16 tensor-core tiles with
+fp32 accumulators in registers and no copy pipelining; ``wgmma`` with TMA is
+the later step.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from .attention import _scalar
+from .fused_attention import _bf16, _device_kind
+
+#: keys per block of the online softmax (the Pallas DEFAULT_BLOCK_KV)
+BLOCK_KV = 128
+NEG_INF = torch.finfo(torch.float32).min
+
+
+def _check_shapes(q, k, v, padding_mask, bias) -> None:
+    if q.ndim != 4 or k.ndim != 4 or k.shape != v.shape:
+        raise ValueError(f"q must be (B, S, H, D) and k, v (B, L, KVH, D), got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    b, s, h, d = q.shape
+    l, kvh = k.shape[1], k.shape[2]
+    if k.shape[0] != b or k.shape[3] != d or h % kvh:
+        raise ValueError(f"k/v {tuple(k.shape)} do not fit q {tuple(q.shape)} "
+                         "(kv heads must divide the query heads)")
+    if padding_mask is not None and tuple(padding_mask.shape) != (b, l):
+        raise ValueError(f"padding_mask must be ({b}, {l}), got {tuple(padding_mask.shape)}")
+    if bias is not None and tuple(bias.shape) != (h, s, l):
+        raise ValueError(f"bias must be (H, S, L) = ({h}, {s}, {l}), got {tuple(bias.shape)}")
+
+
+def flash_attention_reference(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    padding_mask: Optional[torch.Tensor] = None,
+    bias: Optional[torch.Tensor] = None,
+    causal: bool = False,
+    q_offset: int = 0,
+    scale: Optional[float] = None,
+    scale_query_first: bool = False,
+) -> torch.Tensor:
+    """Plain twin of K5: the Pallas body's recurrence over 128-key blocks.
+
+    q: (B, S, H, D); k, v: (B, L, KVH, D) with KVH dividing H (head h reads kv
+    head h // (H // KVH)); padding_mask: (B, L) 0/1 keep-mask; bias: (H, S, L)
+    additive, fp32. Returns (B, S, H, D) in q.dtype.
+    """
+    _check_shapes(q, k, v, padding_mask, bias)
+    b, s, h, d = q.shape
+    l, kvh = k.shape[1], k.shape[2]
+    if scale is not None and scale_query_first:
+        q = q * _scalar(scale, q)
+    group = h // kvh
+    qh = q.permute(0, 2, 1, 3).float()  # (B, H, S, D)
+    kh = k.permute(0, 2, 1, 3).float().repeat_interleave(group, dim=1)
+    vh = v.permute(0, 2, 1, 3).repeat_interleave(group, dim=1)
+    q_pos = torch.arange(s, device=q.device)[:, None] + q_offset
+    m = torch.full((b, h, s, 1), NEG_INF, dtype=torch.float32, device=q.device)
+    l_sum = torch.zeros((b, h, s, 1), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((b, h, s, d), dtype=torch.float32, device=q.device)
+    for k0 in range(0, l, BLOCK_KV):
+        if causal and k0 > q_offset + s - 1:
+            break  # every later block is wholly masked: a no-op in the recurrence
+        k1 = min(k0 + BLOCK_KV, l)
+        sc = qh @ kh[:, :, k0:k1].transpose(-1, -2)  # (B, H, S, bk) fp32
+        if scale is not None and not scale_query_first:
+            sc = sc * scale
+        if bias is not None:
+            sc = sc + bias[None, :, :, k0:k1].float()
+        masked = torch.zeros(1, 1, s, k1 - k0, dtype=torch.bool, device=q.device)
+        if padding_mask is not None:
+            masked = masked | (padding_mask[:, None, None, k0:k1] == 0)
+        if causal:
+            k_pos = torch.arange(k0, k1, device=q.device)[None, :]
+            masked = masked | (k_pos > q_pos)[None, None]
+        sc = torch.where(masked, NEG_INF, sc)
+        m_new = torch.maximum(m, sc.amax(dim=-1, keepdim=True))
+        ref = torch.where(m_new == NEG_INF, 0.0, m_new)
+        p = torch.where(masked, 0.0, torch.exp(sc - ref))
+        alpha = torch.where(m == NEG_INF, 0.0, torch.exp(m - ref))
+        l_sum = alpha * l_sum + p.sum(dim=-1, keepdim=True)
+        acc = acc * alpha + p.to(v.dtype).float() @ vh[:, :, k0:k1].float()
+        m = m_new
+    out = acc / torch.where(l_sum == 0.0, 1.0, l_sum)
+    return out.to(q.dtype).permute(0, 2, 1, 3)
+
+
+def _check_cuda(q, k, v, padding_mask, bias) -> None:
+    """Raise on anything the CUDA kernel does not take."""
+    if not all(t.dtype == torch.bfloat16 for t in (q, k, v)):
+        raise TypeError(f"the CUDA kernel takes bf16 q, k, v, got {q.dtype}, {k.dtype}, {v.dtype}")
+    d = q.shape[3]
+    if d % 8 or d > 128:
+        raise ValueError(f"the CUDA kernel takes head_dim % 8 == 0 and <= 128, got {d}")
+    others = [t for t in (k, v, padding_mask, bias) if t is not None]
+    if any(t.device != q.device for t in others):
+        raise ValueError("q, k, v, the padding mask and the bias must be on one device")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        # rows are read with 16-byte loads: (B, rows, heads, D) with the heads
+        # and D packed, the row and batch strides multiples of 8 elements
+        if t.stride(3) != 1 or t.stride(2) != d or t.stride(1) % 8 or t.stride(0) % 8:
+            raise ValueError(f"the CUDA kernel takes {name} with packed (heads, D) rows "
+                             f"and strides that are multiples of 8, got {t.stride()}")
+        if t.data_ptr() % 16:
+            raise ValueError(f"the CUDA kernel takes a 16-byte aligned {name}")
+
+
+def flash_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    padding_mask: Optional[torch.Tensor] = None,
+    bias: Optional[torch.Tensor] = None,
+    causal: bool = False,
+    q_offset: int = 0,
+    scale: Optional[float] = None,
+    scale_query_first: bool = False,
+) -> torch.Tensor:
+    """K5: flash attention forward. Arguments as for the twin.
+
+    On the card q, k, v are bf16 and read in place through their strides (a
+    layer slice of the stacked cache needs no copy).
+    """
+    if _device_kind(q) == "cpu":
+        return flash_attention_reference(
+            q, k, v, padding_mask=padding_mask, bias=bias, causal=causal,
+            q_offset=q_offset, scale=scale, scale_query_first=scale_query_first,
+        )
+    from ._build import flash_attention_lib
+
+    _check_shapes(q, k, v, padding_mask, bias)
+    _check_cuda(q, k, v, padding_mask, bias)
+    b, s, h, d = q.shape
+    l, kvh = k.shape[1], k.shape[2]
+    mask = None if padding_mask is None else padding_mask.to(torch.int32).contiguous()
+    bias32 = None if bias is None else bias.to(torch.float32).contiguous()
+    q_scale, s_scale = 1.0, 1.0
+    if scale is not None and scale_query_first:
+        q_scale = _bf16(scale)  # jnp.asarray(scale, q.dtype)
+    elif scale is not None:
+        s_scale = float(scale)  # an fp32 multiply of the fp32 score
+    out = torch.empty(b, s, h, d, dtype=q.dtype, device=q.device)
+    rc = flash_attention_lib().eilev_flash_attention_bf16(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        None if mask is None else mask.data_ptr(),
+        None if bias32 is None else bias32.data_ptr(),
+        out.data_ptr(),
+        b, s, l, h, kvh, d,
+        q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0), v.stride(1),
+        q_scale, s_scale, int(causal), int(q_offset),
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"flash attention kernel launch failed: cudaError_t {rc}")
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0

@@ -238,8 +238,11 @@ def quantize_model_(
     int8_qformer: bool = False,
     w8a8_prefill: bool = False,
 ) -> nn.Module:
-    """Put a port ``VideoBlipForConditionalGeneration`` into the serving modes
-    of ``eilev_tpu.models.auto.load_model``, in place, from its own weights.
+    """Put a port ``VideoBlipForConditionalGeneration`` (or the text-only
+    ``generation/text_lm._TextOnlyModule``, OPT or LLaMA) into the serving
+    modes of ``eilev_tpu.models.auto.load_model``, in place, from its own
+    weights. The LM's matmuls are those ``quantize_lm_params`` quantizes by
+    default (both decoder families' names).
 
     The chosen matmuls become int8 layers (their float weights are freed), and
     every submodule's config is replaced by the flagged one, so that
@@ -250,18 +253,18 @@ def quantize_model_(
     old = model.config
     text, vision, qformer = old.text_config, old.vision_config, old.qformer_config
     if int8_lm or int8_kv:
-        text = dataclasses.replace(
-            text, quantize_matmuls=text.quantize_matmuls or int8_lm,
-            int8_kv_cache=text.int8_kv_cache or int8_kv,
-            w8a8_prefill=text.w8a8_prefill or w8a8_prefill,
-        )
+        flags = {"quantize_matmuls": text.quantize_matmuls or int8_lm,
+                 "int8_kv_cache": text.int8_kv_cache or int8_kv}
+        if w8a8_prefill:  # an OPT-only mode: LlamaConfig has no such field
+            flags["w8a8_prefill"] = True
+        text = dataclasses.replace(text, **flags)
     if int8_vision:
         vision = dataclasses.replace(vision, quantize_matmuls=True)
     if int8_qformer:
         qformer = dataclasses.replace(qformer, quantize_matmuls=True)
     new = dataclasses.replace(old, text_config=text, vision_config=vision, qformer_config=qformer)
     if int8_lm:
-        quantize_linears_(model.language_model, OPT_QUANT_NAMES, Int8Dense)
+        quantize_linears_(model.language_model, QUANT_NAMES, Int8Dense)
     if w8a8_prefill:
         for mod in model.language_model.modules():
             if isinstance(mod, Int8Dense):

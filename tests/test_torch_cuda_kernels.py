@@ -1,17 +1,19 @@
-"""The hand-written CUDA kernels K1-K4 against their plain twins, on the card.
+"""The hand-written CUDA kernels K1-K5 against their plain twins, on the card.
 
 Marked ``cuda``; skips on a host without a CUDA device (the CPU suite runs the
 plain twins against JAX in tests/test_torch_fused_attention.py and
-tests/test_torch_decode_attention.py). Run on a GPU host with
+tests/test_torch_decode_attention.py and tests/test_torch_flash_attention.py).
+Run on a GPU host with
 ``python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py``.
-Tolerance: bf16 atol = rtol = 2e-2 for K1-K3 and 3e-2 for K4 (the int8
-cache), as in chip_smoke.py.
+Tolerance: bf16 atol = rtol = 2e-2 for K1-K3 and K5 and 3e-2 for K4 (the
+int8 cache), as in chip_smoke.py.
 """
 
 import pytest
 import torch
 
 from eilev_tpu_torch.ops import decode_attention as tda
+from eilev_tpu_torch.ops import flash_attention as tfl
 from eilev_tpu_torch.ops import fused_attention as tfa
 
 pytestmark = pytest.mark.cuda
@@ -163,3 +165,75 @@ def test_decode_kernel_refuses_what_it_does_not_take(cuda):
     strided_q = torch.randn(1, 64, device=cuda, generator=g).to(torch.bfloat16)[:, ::2]
     with pytest.raises(ValueError, match="contiguous"):
         tda.decode_attention_stacked(strided_q, kb, kb, mask, 0, **kw)
+
+
+# (B, S, L, heads, kv_heads, hd, causal, q_offset, scale_query_first, mask,
+# bias): the LLaMA prefill into a padded cache (score-side scale, GQA, left
+# padding), the T5 form (bias + padding, no scale), Q-Former cross attention,
+# the ViT shape with hd 88, a q-side scale with q_offset > 0, and lengths that
+# are multiples of no tile size
+FLASH_CASES = [
+    (2, 200, 256, 4, 4, 128, True, 0, False, "cache", False),
+    (3, 130, 300, 8, 2, 128, True, 0, False, "left-padded-cache", False),
+    (2, 90, 90, 4, 4, 64, False, 0, None, "right", True),
+    (2, 32, 2056, 12, 12, 64, False, 0, False, "right", False),
+    (2, 257, 257, 4, 4, 88, False, 0, False, None, False),
+    (2, 70, 200, 4, 4, 80, True, 130, True, None, False),
+    (1, 1984, 2048, 8, 8, 128, True, 0, False, "cache", False),
+]
+
+
+@pytest.mark.parametrize("b,s,l,nh,kvh,hd,causal,q_offset,sqf,mask,bias", FLASH_CASES)
+def test_k5_kernel_matches_plain(cuda, b, s, l, nh, kvh, hd, causal, q_offset, sqf, mask, bias):
+    g = torch.Generator(device=cuda).manual_seed(s + l)
+    q = torch.randn(b, s, nh, hd, device=cuda, generator=g).to(torch.bfloat16)
+    k = torch.randn(b, l, kvh, hd, device=cuda, generator=g).to(torch.bfloat16)
+    v = torch.randn(b, l, kvh, hd, device=cuda, generator=g).to(torch.bfloat16)
+    pm = None
+    if mask is not None:
+        pm = torch.ones(b, l, dtype=torch.int32, device=cuda)
+        if mask in ("cache", "left-padded-cache"):
+            pm[:, s:] = 0  # the unfilled cache tail
+        if mask == "left-padded-cache":
+            pm[0, : s // 3] = 0
+        if mask == "right":
+            pm[-1, l - l // 5 :] = 0
+    bias_t = (torch.randn(nh, s, l, device=cuda, generator=g) * 2.0) if bias else None
+    scale = None if sqf is None else hd**-0.5
+    kw = dict(padding_mask=pm, bias=bias_t, causal=causal, q_offset=q_offset,
+              scale=scale, scale_query_first=bool(sqf))
+    before = tfl.flash_attention.launches
+    out = tfl.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert tfl.flash_attention.launches == before + 1
+    ref = tfl.flash_attention_reference(q, k, v, **kw)
+    if mask == "left-padded-cache":  # fully masked rows are exactly 0, in both
+        assert (out[0, : s // 3] == 0).all() and (ref[0, : s // 3] == 0).all()
+    assert torch.isfinite(out).all()
+    torch.testing.assert_close(out, ref, atol=2e-2, rtol=2e-2)
+
+
+def test_k5_reads_a_cache_layer_in_place(cuda):
+    """k, v as a layer slice of the stacked cache: strided rows, no copy."""
+    g = torch.Generator(device=cuda).manual_seed(7)
+    kb = torch.randn(3, 2, 160, 4, 64, device=cuda, generator=g).to(torch.bfloat16)
+    vb = torch.randn(3, 2, 160, 4, 64, device=cuda, generator=g).to(torch.bfloat16)
+    q = torch.randn(2, 100, 8, 64, device=cuda, generator=g).to(torch.bfloat16)
+    pm = torch.zeros(2, 160, dtype=torch.int32, device=cuda)
+    pm[:, :100] = 1
+    kw = dict(padding_mask=pm, causal=True, scale=0.125)
+    out = tfl.flash_attention(q, kb[1], vb[1], **kw)
+    ref = tfl.flash_attention_reference(q, kb[1].contiguous(), vb[1].contiguous(), **kw)
+    torch.testing.assert_close(out, ref, atol=2e-2, rtol=2e-2)
+
+
+def test_flash_kernel_refuses_what_it_does_not_take(cuda):
+    q = torch.zeros(1, 8, 2, 16, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(TypeError, match="bf16"):
+        tfl.flash_attention(q.float(), q.float(), q.float())
+    odd = torch.zeros(1, 8, 2, 12, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        tfl.flash_attention(odd, odd, odd)
+    with pytest.raises(ValueError, match="strides"):
+        t = q.transpose(1, 2)
+        tfl.flash_attention(t, t, t)

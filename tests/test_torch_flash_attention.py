@@ -1,0 +1,184 @@
+"""Port vs JAX: the K5 twin (ops/flash_attention.py) against the Pallas
+flash_attention in interpret mode at block 128, and the dispatcher
+ops/attention.dot_product_attention against the JAX one.
+
+Shapes are those of tests/models/test_flash_attention.py. Tolerances: fp32
+atol 1e-5 (the same recurrence, summed in another order); bf16 atol = rtol
+2e-2 (one bf16 ulp of p or of the output). Fully masked rows are exactly 0 in
+both.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from eilev_tpu.ops import attention as jattn
+from eilev_tpu.ops import flash_attention as jflash
+from eilev_tpu_torch.ops import attention as tattn
+from eilev_tpu_torch.ops import flash_attention as tflash
+
+from ._torch_port import to_np
+
+
+def _inputs(seed, b, s, l, h, d, kvh=None):
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(b, s, h, d)).astype(np.float32)
+    k = rng.normal(size=(b, l, kvh or h, d)).astype(np.float32)
+    v = rng.normal(size=(b, l, kvh or h, d)).astype(np.float32)
+    return q, k, v
+
+
+def _jax_flash(q, k, v, dtype, **kw):
+    group = q.shape[2] // k.shape[2]
+    k, v = np.repeat(k, group, axis=2), np.repeat(v, group, axis=2)  # as the JAX callers do
+    to = lambda x: None if x is None else jnp.asarray(x)  # noqa: E731
+    out = jflash.flash_attention(
+        jnp.asarray(q, dtype), jnp.asarray(k, dtype), jnp.asarray(v, dtype),
+        padding_mask=to(kw.get("padding_mask")), bias=to(kw.get("bias")),
+        causal=kw.get("causal", False), q_offset=kw.get("q_offset", 0),
+        scale=kw.get("scale"), scale_query_first=kw.get("scale_query_first", False),
+        block_q=128, block_kv=128, interpret=True,
+    )
+    return np.asarray(out.astype(jnp.float32))
+
+
+def _port_flash(q, k, v, dtype, **kw):
+    to = lambda x: None if x is None else torch.from_numpy(np.asarray(x))  # noqa: E731
+    kw = dict(kw, padding_mask=to(kw.get("padding_mask")), bias=to(kw.get("bias")))
+    out = tflash.flash_attention(
+        torch.from_numpy(q).to(dtype), torch.from_numpy(k).to(dtype), torch.from_numpy(v).to(dtype), **kw
+    )
+    assert out.dtype == dtype
+    return to_np(out)
+
+
+def _case(name):
+    """(inputs, kwargs) of each shape of tests/models/test_flash_attention.py."""
+    if name == "vit":  # 257 tokens, hd 88: non-multiples of the tiling
+        return _inputs(0, 3, 257, 257, 4, 88), {"scale": 88**-0.5}
+    if name == "opt_causal_left_padded":
+        pm = np.ones((2, 100), np.int32)
+        pm[0, :17] = 0
+        return _inputs(1, 2, 100, 100, 2, 80), {
+            "padding_mask": pm, "causal": True, "scale": 80**-0.5, "scale_query_first": True}
+    if name == "prefill_padded_cache":  # 70 queries into 200 slots, score-side scale
+        pm = np.zeros((2, 200), np.int32)
+        pm[:, :70] = 1
+        return _inputs(2, 2, 70, 200, 2, 80), {"padding_mask": pm, "causal": True, "scale": 80**-0.5}
+    if name == "cross_padded_keys":
+        pm = np.ones((2, 300), np.int32)
+        pm[1, 250:] = 0
+        return _inputs(3, 2, 64, 300, 2, 64), {"padding_mask": pm, "scale": 64**-0.5}
+    if name == "t5_bias":
+        q, k, v = _inputs(4, 2, 90, 90, 2, 64)
+        bias = np.random.default_rng(40).normal(size=(2, 90, 90)).astype(np.float32) * 2.0
+        pm = np.ones((2, 90), np.int32)
+        pm[0, 80:] = 0
+        return (q, k, v), {"bias": bias, "padding_mask": pm}
+    if name == "gqa_q_offset":  # 4 heads over 2 kv heads, causal with q_offset
+        return _inputs(6, 2, 60, 190, 4, 64, kvh=2), {"causal": True, "q_offset": 130, "scale": 0.125}
+    raise KeyError(name)
+
+
+CASES = ["vit", "opt_causal_left_padded", "prefill_padded_cache", "cross_padded_keys", "t5_bias",
+         "gqa_q_offset"]
+
+
+@pytest.mark.parametrize("name", CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_twin_matches_jax_flash(name, dtype):
+    (q, k, v), kw = _case(name)
+    tdtype, jdtype = getattr(torch, dtype), getattr(jnp, dtype)
+    ref = _jax_flash(q, k, v, jdtype, **kw)
+    ours = _port_flash(q, k, v, tdtype, **kw)
+    tol = 1e-5 if dtype == "float32" else 2e-2
+    np.testing.assert_allclose(ours, ref, atol=tol, rtol=0 if dtype == "float32" else tol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fully_masked_rows_are_exactly_zero(dtype):
+    q, k, v = _inputs(5, 1, 64, 64, 1, 64)
+    pm = np.zeros((1, 64), np.int32)
+    pm[:, 32:] = 1  # causal rows 0..31 see only masked keys
+    kw = {"padding_mask": pm, "causal": True, "scale": 0.125}
+    ours = _port_flash(q, k, v, getattr(torch, dtype), **kw)
+    ref = _jax_flash(q, k, v, getattr(jnp, dtype), **kw)
+    assert np.isfinite(ours).all()
+    assert (ours[0, :32] == 0).all() and (ref[0, :32] == 0).all()
+    tol = 1e-5 if dtype == "float32" else 2e-2
+    np.testing.assert_allclose(ours, ref, atol=tol, rtol=0)
+
+
+def test_cpu_wrapper_runs_the_twin_without_counting():
+    (q, k, v), kw = _case("prefill_padded_cache")
+    kw = dict(kw, padding_mask=torch.from_numpy(kw["padding_mask"]))
+    args = [torch.from_numpy(x) for x in (q, k, v)]
+    before = tflash.flash_attention.launches
+    out = tflash.flash_attention(*args, **kw)
+    assert tflash.flash_attention.launches == before
+    torch.testing.assert_close(out, tflash.flash_attention_reference(*args, **kw), atol=0, rtol=0)
+
+
+# (q_len, kv_len, bias ndim or None, implementation): both sides of each
+# threshold, a 4-d bias, and the explicit modes
+DISPATCH = [
+    (1024, 2048, None, "auto"), (1023, 2048, None, "auto"), (1024, 2047, None, "auto"),
+    (1984, 2048, 3, "auto"), (1984, 2048, 4, "auto"), (4096, 4096, None, "auto"),
+    (32, 2056, None, "auto"), (1, 2048, None, "auto"),
+    (7, 9, None, "flash"), (2000, 4000, None, "xla"), (2000, 4000, None, "fused"),
+]
+
+
+@pytest.mark.parametrize("s,l,bias_ndim,impl", DISPATCH)
+def test_dispatch_takes_flash_where_jax_does(monkeypatch, s, l, bias_ndim, impl):
+    """The port's dispatcher picks K5 on exactly the shapes where the JAX one
+    picks its Pallas kernel. Both kernels are replaced by recorders: no
+    attention is computed."""
+    seen = []
+    monkeypatch.setattr(jflash, "flash_attention", lambda *a, **k: seen.append(("jax", "flash")))
+    monkeypatch.setattr(jattn, "_xla_attention", lambda *a, **k: seen.append(("jax", "xla")))
+    monkeypatch.setattr(tflash, "flash_attention", lambda *a, **k: seen.append(("port", "flash")))
+    monkeypatch.setattr(tattn, "plain_attention", lambda *a, **k: seen.append(("port", "xla")))
+    bias_shape = {None: None, 3: (1, s, l), 4: (1, 1, s, l)}[bias_ndim]
+    jbias = None if bias_shape is None else jnp.zeros(bias_shape)
+    tbias = None if bias_shape is None else torch.zeros(bias_shape)
+    jattn.dot_product_attention(jnp.zeros((1, s, 1, 8)), jnp.zeros((1, l, 1, 8)),
+                                jnp.zeros((1, l, 1, 8)), bias=jbias, implementation=impl)
+    tattn.dot_product_attention(torch.zeros(1, s, 1, 8), torch.zeros(1, l, 1, 8),
+                                torch.zeros(1, l, 1, 8), bias=tbias, implementation=impl)
+    assert len(seen) == 2 and seen[0][1] == seen[1][1], seen
+    assert tattn.uses_flash(s, l, tbias, impl) == (seen[1][1] == "flash")
+
+
+def test_default_impl_switch_matches_jax():
+    assert tattn.get_default_attention_impl() == jattn.get_default_attention_impl() == "auto"
+    try:
+        tattn.set_default_attention_impl("flash")
+        assert tattn.uses_flash(7, 9)
+        tattn.set_default_attention_impl("xla")
+        assert not tattn.uses_flash(4096, 4096)
+        with pytest.raises(ValueError):
+            tattn.set_default_attention_impl("pallas")
+    finally:
+        tattn.set_default_attention_impl("auto")
+    assert (tattn._FLASH_MIN_Q, tattn._FLASH_MIN_KV) == (jattn._FLASH_MIN_Q, jattn._FLASH_MIN_KV)
+
+
+@pytest.mark.parametrize("impl", ["xla", "flash"])
+def test_dot_product_attention_gqa_matches_jax(impl):
+    """A GQA call (4 heads over 2 kv heads): the port reads the kv heads in
+    place, JAX repeats them; the same numbers under either implementation."""
+    q, k, v = _inputs(8, 2, 40, 40, 4, 32, kvh=2)
+    pm = np.ones((2, 40), np.int32)
+    pm[1, :5] = 0
+    kw = dict(causal=True, scale=32**-0.5, softmax_in_fp32=True, implementation=impl)
+    ref = jattn.dot_product_attention(
+        jnp.asarray(q), jnp.asarray(np.repeat(k, 2, axis=2)), jnp.asarray(np.repeat(v, 2, axis=2)),
+        padding_mask=jnp.asarray(pm), **kw)
+    ours = tattn.dot_product_attention(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        padding_mask=torch.from_numpy(pm), **kw)
+    real = pm.astype(bool)  # left-padded rows: uniform (xla) or 0 (flash), alike in both
+    np.testing.assert_allclose(to_np(ours)[real], np.asarray(ref)[real], atol=1e-5, rtol=0)
+    np.testing.assert_allclose(to_np(ours), np.asarray(ref), atol=1e-5, rtol=0)

@@ -12,11 +12,15 @@ PORT_MODULES = [
     "eilev_tpu_torch.ops",
     "eilev_tpu_torch.ops._build",
     "eilev_tpu_torch.ops.attention",
+    "eilev_tpu_torch.ops.decode_attention",
+    "eilev_tpu_torch.ops.flash_attention",
     "eilev_tpu_torch.ops.fused_attention",
     "eilev_tpu_torch.ops.gelu",
     "eilev_tpu_torch.ops.preprocess",
+    "eilev_tpu_torch.ops.quantization",
     "eilev_tpu_torch.models",
     "eilev_tpu_torch.models.convert",
+    "eilev_tpu_torch.models.llama",
     "eilev_tpu_torch.models.opt",
     "eilev_tpu_torch.models.qformer",
     "eilev_tpu_torch.models.video_blip",
@@ -24,6 +28,7 @@ PORT_MODULES = [
     "eilev_tpu_torch.generation",
     "eilev_tpu_torch.generation.config",
     "eilev_tpu_torch.generation.decoding",
+    "eilev_tpu_torch.generation.text_lm",
 ]
 
 _PROBE = """
