@@ -6,8 +6,8 @@ Phases, each of which must pass (any failure exits non-zero, without the
 final result line):
 
 1. Print the card's name and power limit (nvidia-smi) and build the CUDA
-   kernels from eilev_tpu_torch/csrc with nvcc, one process per source, all
-   started together.
+   kernels from eilev_tpu_torch/csrc with nvcc, one process per source (four),
+   all started together.
 2. Check each kernel against its plain PyTorch twin in bf16 at the shapes of
    its path: K1 (packed ViT attention) at (136, 257, 3*1408), 16 heads x 88;
    K2 (packed causal OPT prefill attention) at (4, 766, 3*2560), 32 heads x
@@ -22,15 +22,16 @@ final result line):
    real tokens, whose padded rows must be exactly 0), (b) the T5 form (hd 64,
    (H, S, L) bias, padding mask, no scale), (c) the Q-Former cross shape (32
    queries over 2,056 keys, 12 x 64, padded keys), (d) hd 88 at S=L=257 with
-   no mask, (e) a q-side scale, hd 80, q_offset > 0. Tolerance atol = rtol =
-   2e-2 for K1-K3 and K5 (one bf16 ulp of a rounded score or probability
-   moves an output by under 1%) and 3e-2 for K4 (the JAX int8 kernel test's
-   bar).
+   no mask, (e) a q-side scale, hd 80, q_offset > 0; K6 (LayerNorm -> MLP)
+   at the ViT MLP shape (136, 257, 1408 -> 6144), activations of unit scale.
+   Tolerance atol = rtol = 2e-2 for K1-K3, K5 and K6 (one bf16 ulp of a
+   rounded score, probability or activation moves an output by under 1%) and
+   3e-2 for K4 (the JAX int8 kernel test's bar).
 3. Time each kernel against its twin with CUDA events, in turns (plain,
    kernel, kernel, plain; warm-up, median of 20), each call queued behind a
    device sleep so that the events measure device time, then one PyTorch
    call of the same function where there is one (scaled_dot_product_attention
-   with the kernel's mask and scale; none for K4), and compute each kernel's
+   with the kernel's mask and scale; none for K4 and K6), and compute each kernel's
    bound from its shapes and this run's masks. K3/K4 are timed as one decode
    step's 32 launches, one per layer of the 1 GB cache, so no call finds its
    layer in the 50 MB L2 cache; the time given is per launch. K5 is timed at
@@ -41,9 +42,15 @@ final result line):
    uint8 frames -> process_videos -> generate (greedy, 32 new tokens), at
    batch 1 and batch 4. Per run the launch counters must rise by 39 (K1, one
    per ViT layer), 32 (K2, one per OPT layer) and 32 per one-token LM
-   forward (K3), K4 and K5 not at all; every logit must be finite; the
-   prefill logits through K2 must agree with the plain causal path on the
-   same embeddings.
+   forward (K3), K4 and K5 not at all; every logit must be finite; a
+   torch.profiler pass over one request at each batch size; the prefill
+   logits through K2 must agree with the plain causal path on the same
+   embeddings.
+4b. K6 over the same model's 39 ViT layers at batch 1: each layer's input
+   to its MLP branch, captured during one encode, through K6 with that
+   layer's weights (K6 = 39 launches, every other counter 0), against the
+   twin (2e-2) and the port's own layer_norm2 + mlp modules (min cosine >
+   0.999; the modules round the fc1 output to bf16 before gelu).
 5. The int8 serving mode (load_model(int8_lm=True, int8_kv=True)): the same
    model quantized on the card, in place, from its own bf16 weights; batch 1
    and batch 4. K1 = 39, K2 = 32, K4 = 32 per one-token forward, K3 = 0;
@@ -167,10 +174,11 @@ def median_ms(fn, reps: int = 20, warmup: int = 3) -> float:
 
 
 def counters() -> dict:
-    """The five kernels' launch counters, by kernel name."""
+    """The six kernels' launch counters, by kernel name."""
     from eilev_tpu_torch.ops import decode_attention as da
     from eilev_tpu_torch.ops import flash_attention as fl
     from eilev_tpu_torch.ops import fused_attention as fa
+    from eilev_tpu_torch.ops import fused_mlp as fm
 
     return {
         "packed_qkv_attention": fa.packed_qkv_attention.launches,
@@ -178,6 +186,7 @@ def counters() -> dict:
         "decode_attention_stacked_bf16": da.decode_attention_stacked.launches_bf16,
         "decode_attention_stacked_int8": da.decode_attention_stacked.launches_int8,
         "flash_attention": fl.flash_attention.launches,
+        "ln_mlp": fm.ln_mlp.launches,
     }
 
 
@@ -185,12 +194,14 @@ def reset_counters() -> None:
     from eilev_tpu_torch.ops import decode_attention as da
     from eilev_tpu_torch.ops import flash_attention as fl
     from eilev_tpu_torch.ops import fused_attention as fa
+    from eilev_tpu_torch.ops import fused_mlp as fm
 
     fa.packed_qkv_attention.launches = 0
     fa.packed_qkv_causal_attention.launches = 0
     da.decode_attention_stacked.launches_bf16 = 0
     da.decode_attention_stacked.launches_int8 = 0
     fl.flash_attention.launches = 0
+    fm.ln_mlp.launches = 0
 
 
 def build_kernels(tag: str) -> None:
@@ -203,7 +214,8 @@ def build_kernels(tag: str) -> None:
 
     libs = {"packed_attention.cu": _build.packed_attention_lib,
             "decode_attention.cu": _build.decode_attention_lib,
-            "flash_attention.cu": _build.flash_attention_lib}
+            "flash_attention.cu": _build.flash_attention_lib,
+            "fused_mlp.cu": _build.fused_mlp_lib}
     with ThreadPoolExecutor(max_workers=len(libs)) as pool:  # nvcc runs outside the GIL
         futures = {src: pool.submit(timed, fn) for src, fn in libs.items()}
         for src, fut in futures.items():
@@ -256,10 +268,17 @@ def _k5_causal_work(real, s, nh, hd, l):
     return flops, nbytes
 
 
+def _k6_work(m: int, d: int, f: int) -> tuple[float, float]:
+    """Operations and bytes of one LN -> MLP call: two products of 2 M D F
+    each; x, out and both weights in bf16, the four vectors in fp32."""
+    return 4 * m * d * f, 2 * m * d * 2 + 2 * d * f * 2 + (3 * d + f) * 4
+
+
 def check_kernels(tag: str, dev: torch.device) -> list[dict]:
     from eilev_tpu_torch.ops import decode_attention as da
     from eilev_tpu_torch.ops import flash_attention as fl
     from eilev_tpu_torch.ops import fused_attention as fa
+    from eilev_tpu_torch.ops import fused_mlp as fm
 
     g = torch.Generator(device=dev).manual_seed(0)
     results = []
@@ -425,6 +444,24 @@ def check_kernels(tag: str, dev: torch.device) -> list[dict]:
                     "max_abs_err": max(errs), **timed[1]})
     results_b4 = {"name": "flash_attention at batch 4", "max_abs_err": max(errs), **timed[4]}
 
+    # K6 at the ViT MLP shape: the frames of one narration request x 257
+    # tokens, 1408 -> 6144 -> 1408, with activations of unit scale (x N(0, 1),
+    # LayerNorm scale 1 + N(0, 0.1), weights N(0, 1 / fan_in)), so atol = rtol
+    # = 2e-2, the JAX kernel test's bar, bites on every output
+    b, s, d, f = 136, 257, 1408, 6144
+    k6_args = [(torch.randn(*shape, device=dev, generator=g) * std + mean).to(torch.bfloat16)
+               for shape, std, mean in (((b, s, d), 1.0, 0.0), ((d,), 0.1, 1.0), ((d,), 0.1, 0.0),
+                                        ((d, f), d**-0.5, 0.0), ((f,), 0.1, 0.0), ((f, d), f**-0.5, 0.0),
+                                        ((d,), 0.1, 0.0))]
+    k6 = lambda: fm.ln_mlp(*k6_args)  # noqa: E731
+    k6_plain = lambda: fm.ln_mlp_reference(*k6_args)  # noqa: E731
+    err = check_close(tag, "K6 ln_mlp (136,257,1408 -> 6144) unit-scale activations", k6(), k6_plain(), 2e-2)
+    results.append({"name": "ln_mlp", "source": "eilev_tpu_torch/csrc/fused_mlp.cu",
+                    "replaces": "eilev_tpu/ops/fused_mlp.py:101",
+                    "max_abs_err": err, "run": k6, "plain": k6_plain, "per_call": 1,
+                    "library": None,  # no single PyTorch call computes LayerNorm -> MLP
+                    "bound": bound(*_k6_work(b * s, d, f))})
+
     # the v5e-chosen auto thresholds (q >= 1024, kv >= 2048) on this card: K5
     # against the plain path a LLaMA prefill takes below them, batch 1, 32 x 128
     from eilev_tpu_torch.ops.attention import plain_attention
@@ -576,6 +613,9 @@ def run_main_path(tag: str, dev: torch.device, launches: dict):
             launches.update({k: counts[k] for k in
                              ("packed_qkv_attention", "packed_qkv_causal_attention", "decode_attention_stacked_bf16")})
 
+    for batch in (1, 4):
+        profile_request(tag, "narration bf16", runs[batch])
+
     # prefill logits through K2 against the plain causal path (no cache) on
     # the same embeddings
     run = runs[1]
@@ -590,6 +630,73 @@ def run_main_path(tag: str, dev: torch.device, launches: dict):
     print(f"[{tag}] prefill logits K2 vs plain: min_cosine={cos} max_rel_err={rel} same_argmax={same}")
     assert cos > 0.999 and rel < 5e-2, (cos, rel)
     return model, lm_calls, runs
+
+
+def run_k6_on_vit_layers(tag: str, model, run, launches: dict) -> None:
+    """K6 over the main-path model's 39 ViT layers at batch 1: each layer's
+    input to its MLP branch (captured by a pre-hook on layer_norm2 during one
+    encode of the request's frames) through K6 with that layer's weights, the
+    counters at 0 just before and read just after. Held against the twin
+    (atol = rtol = 2e-2) and against the port's own modules,
+    layer.mlp(layer.layer_norm2(x)): those round the fc1 output to bf16
+    before gelu, which K6 and the reference do not, so the bar there is the
+    min cosine over rows, > 0.999 (a wrong weight, transpose or layer gives
+    ~0), and the same cosine against the twin."""
+    from eilev_tpu_torch.ops import fused_mlp as fm
+    from eilev_tpu_torch.ops.preprocess import process_videos
+
+    layers = model.vision_model.vision.layers
+    inputs: list = []
+    hooks = [layer.layer_norm2.register_forward_pre_hook(lambda mod, args: inputs.append(args[0].clone()))
+             for layer in layers]
+    try:
+        with torch.inference_mode():
+            model.vision_model(process_videos(run.frames, dtype=torch.bfloat16))
+    finally:
+        for hook in hooks:
+            hook.remove()
+    assert len(inputs) == len(layers), len(inputs)
+    eps = layers[0].layer_norm2.eps
+    with torch.inference_mode():
+        # the JAX (in, out) layout: nn.Linear keeps (out, in)
+        weights = [(layer.layer_norm2.weight, layer.layer_norm2.bias, layer.mlp.fc1.weight.T.contiguous(),
+                    layer.mlp.fc1.bias, layer.mlp.fc2.weight.T.contiguous(), layer.mlp.fc2.bias)
+                   for layer in layers]
+        torch.cuda.synchronize()
+        reset_counters()
+        outs = [fm.ln_mlp(x, *w, eps=eps) for x, w in zip(inputs, weights)]
+        torch.cuda.synchronize()
+        counts = counters()
+        want = dict.fromkeys(counts, 0)
+        want["ln_mlp"] = len(layers)
+        print(f"[{tag}] K6 over the ViT layers batch=1 x={tuple(inputs[0].shape)} launches {counts}")
+        assert counts == want, f"launch counts {counts}, expected {want}"
+        errs, cos_ref, cos_mod = [], [], []
+        for layer, x, w, out in zip(layers, inputs, weights, outs):
+            ref = fm.ln_mlp_reference(x, *w, eps=eps)
+            mod = layer.mlp(layer.layer_norm2(x))
+            torch.testing.assert_close(out, ref, atol=2e-2, rtol=2e-2)
+            assert bool(torch.isfinite(out).all())
+            errs.append(((out.float() - ref.float()).abs().max() / ref.float().abs().max()).item())
+            cos = torch.nn.functional.cosine_similarity
+            cos_ref.append(cos(out.float().flatten(0, 1), ref.float().flatten(0, 1), dim=-1).min().item())
+            cos_mod.append(cos(out.float().flatten(0, 1), mod.float().flatten(0, 1), dim=-1).min().item())
+    print(f"[{tag}] K6 over {len(layers)} ViT layers: max_rel_err_vs_twin={max(errs)} "
+          f"min_cosine_vs_twin={min(cos_ref)} min_cosine_vs_modules={min(cos_mod)}")
+    assert min(cos_ref) > 0.999 and min(cos_mod) > 0.999, (min(cos_ref), min(cos_mod))
+    launches["ln_mlp"] = counts["ln_mlp"]
+
+    # what the ViT runs today in K6's place (layer_norm2, then fc1, gelu, fc2
+    # as bf16 modules), in turns with K6, on layer 0's input: the question
+    # whether to route the ViT through K6
+    x, w, layer = inputs[0], weights[0], layers[0]
+    with torch.inference_mode():
+        modules = [median_ms(f) for f in (lambda: layer.mlp(layer.layer_norm2(x)),
+                                          lambda: fm.ln_mlp(x, *w, eps=eps),
+                                          lambda: fm.ln_mlp(x, *w, eps=eps),
+                                          lambda: layer.mlp(layer.layer_norm2(x)))]
+    print(f"[{tag}] ViT MLP branch at (136, 257, 1408): modules_ms={modules[0]},{modules[3]} "
+          f"K6_ms={modules[1]},{modules[2]} (not counted: timing only)")
 
 
 def run_int8_serving(tag: str, model, lm_calls: list, runs: dict, launches: dict) -> None:
@@ -783,6 +890,9 @@ def main() -> int:
         kernels = check_kernels(tag, dev)
         launches: dict = {}
         model, lm_calls, runs = run_main_path(tag, dev, launches)
+        run_k6_on_vit_layers(tag, model, runs[1], launches)
+        gc.collect()
+        torch.cuda.empty_cache()
         run_int8_serving(tag, model, lm_calls, runs, launches)
         del model, lm_calls, runs  # free the VideoBLIP model before the 13.5 GB LLaMA
         gc.collect()

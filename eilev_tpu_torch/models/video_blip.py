@@ -32,7 +32,10 @@ def scatter_video_features(
 
 
 class VideoBlipForConditionalGeneration(nn.Module):
-    def __init__(self, config: VideoBlipConfig, *, device=None, dtype=None):
+    """The narration entry point. It builds on the card unless the caller
+    passes ``device="cpu"``; its submodules keep PyTorch's ``device=None``."""
+
+    def __init__(self, config: VideoBlipConfig, *, device="cuda", dtype=None):
         super().__init__()
         if not isinstance(config.text_config, OPTConfig):
             raise NotImplementedError(

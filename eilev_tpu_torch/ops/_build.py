@@ -3,8 +3,9 @@
 Each source is compiled with ``nvcc`` for ``sm_90a`` into a shared library with
 a plain C interface and loaded with ``ctypes``; nothing includes PyTorch's
 headers, so a build takes seconds. Libraries go to ``build/eilev_tpu_torch/``
-at the repository root, named by a hash of the source and the flags, so an
-edited source is rebuilt and an unchanged one is reused.
+at the repository root, named by a hash of the source, of every shared header
+(``csrc/*.cuh``) and of the flags, so an edited source or header is rebuilt
+and an unchanged one is reused.
 
 Nothing here runs at import time: the CPU tests import every module of the
 port on hosts with no ``nvcc``.
@@ -40,12 +41,22 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
+def library_path(source: str, csrc: Path = CSRC) -> Path:
+    """Where the library built from ``csrc/<source>`` goes: named by a hash of
+    the source, of every header ``csrc/*.cuh`` (any of them may be included)
+    and of the flags."""
+    digest = hashlib.sha256((csrc / source).read_bytes())
+    for header in sorted(csrc.glob("*.cuh")):
+        digest.update(header.name.encode() + b"\0" + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{Path(source).stem}_{digest.hexdigest()[:16]}.so"
+
+
 def build(source: str) -> Path:
     """Compile ``csrc/<source>`` into ``build/eilev_tpu_torch/`` and return the
     library's path; a library already built from the same bytes is reused."""
     src = CSRC / source
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib = BUILD_DIR / f"{src.stem}_{digest}.so"
+    lib = library_path(source)
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -138,6 +149,32 @@ def decode_attention_lib() -> ctypes.CDLL:
         ctypes.c_float,  # scale, rounded to bf16
         ctypes.c_int,  # scale_query
         ctypes.c_int,  # int8
+        ctypes.c_void_p,  # stream
+    ]
+    fn.restype = ctypes.c_int
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def fused_mlp_lib() -> ctypes.CDLL:
+    """The LayerNorm -> MLP library (K6), built and bound once."""
+    lib = ctypes.CDLL(str(build("fused_mlp.cu")))
+    fn = lib.eilev_ln_mlp_bf16
+    fn.argtypes = [
+        ctypes.c_void_p,  # x
+        ctypes.c_void_p,  # ln_scale, fp32
+        ctypes.c_void_p,  # ln_bias, fp32
+        ctypes.c_void_p,  # w1 (D, F)
+        ctypes.c_void_p,  # b1, fp32
+        ctypes.c_void_p,  # w2 (F, D)
+        ctypes.c_void_p,  # b2, fp32
+        ctypes.c_void_p,  # scratch h (M, D)
+        ctypes.c_void_p,  # scratch act (M, F)
+        ctypes.c_void_p,  # out
+        ctypes.c_int,  # M
+        ctypes.c_int,  # D
+        ctypes.c_int,  # F
+        ctypes.c_float,  # eps
         ctypes.c_void_p,  # stream
     ]
     fn.restype = ctypes.c_int

@@ -12,6 +12,13 @@ the hand-written kernel of ``csrc/packed_attention.cu`` on the current stream
 or raises; nothing falls back. Each wrapper counts its kernel launches in its
 ``launches`` attribute, a plain integer.
 
+K1 keeps a head's K and V and a warp's whole score rows on chip, so it takes
+S <= ``K1_MAX_SEQ`` (384: at D = 128, K and V take 208,896 of the 232,448
+bytes of shared memory a block may use); every ViT geometry has S = 257. K2
+keeps a query tile's bf16 scores in shared memory and takes S <=
+``K2_MAX_SEQ`` (2,048, OPT's positions). Above either the wrapper raises
+``ValueError``.
+
 The twins carry the rounding points of the JAX kernels, which follow HF's bf16
 numerics:
 
@@ -30,6 +37,12 @@ from typing import Optional
 import torch
 
 from .attention import _scalar, plain_attention
+
+# the kernels' sequence limits (csrc/packed_attention.cu K1_MAX_S, K2_MAX_S)
+K1_MAX_SEQ = 384
+K2_MAX_SEQ = 2048
+# grid dimensions y (heads) and z (batch rows)
+_MAX_GRID = 65535
 
 
 def packed_qkv_attention_reference(
@@ -63,12 +76,16 @@ def packed_qkv_causal_attention_reference(
     ).reshape(b, s, num_heads * head_dim)
 
 
-def _check(qkv: torch.Tensor, num_heads: int, head_dim: int) -> None:
+def _check(qkv: torch.Tensor, num_heads: int, head_dim: int, max_seq: int) -> None:
     """Raise on anything the CUDA kernel does not take."""
     if qkv.ndim != 3 or qkv.shape[2] != 3 * num_heads * head_dim:
         raise ValueError(
             f"qkv must be (B, S, 3*{num_heads}*{head_dim}), got {tuple(qkv.shape)}"
         )
+    if qkv.shape[1] > max_seq:
+        raise ValueError(f"the CUDA kernel takes sequences of at most {max_seq}, got {qkv.shape[1]}")
+    if qkv.shape[0] > _MAX_GRID or num_heads > _MAX_GRID:
+        raise ValueError(f"the CUDA kernel takes at most {_MAX_GRID} batch rows and heads")
     if qkv.dtype != torch.bfloat16:
         raise TypeError(f"the CUDA kernel takes bf16 qkv, got {qkv.dtype}")
     if not qkv.is_contiguous():
@@ -132,7 +149,7 @@ def packed_qkv_attention(
         scale = head_dim**-0.5
     if _device_kind(qkv) == "cpu":
         return packed_qkv_attention_reference(qkv, num_heads, head_dim, scale)
-    _check(qkv, num_heads, head_dim)
+    _check(qkv, num_heads, head_dim, K1_MAX_SEQ)
     out = _launch(qkv, None, num_heads, head_dim, 1.0, _bf16(scale), causal=False)
     packed_qkv_attention.launches += 1
     return out
@@ -159,7 +176,7 @@ def packed_qkv_causal_attention(
         return packed_qkv_causal_attention_reference(
             qkv, num_heads, head_dim, padding_mask, scale
         )
-    _check(qkv, num_heads, head_dim)
+    _check(qkv, num_heads, head_dim, K2_MAX_SEQ)
     b, s, _ = qkv.shape
     if padding_mask.shape != (b, s) or padding_mask.device != qkv.device:
         raise ValueError(

@@ -1,11 +1,11 @@
-"""The hand-written CUDA kernels K1-K5 against their plain twins, on the card.
+"""The hand-written CUDA kernels K1-K6 against their plain twins, on the card.
 
 Marked ``cuda``; skips on a host without a CUDA device (the CPU suite runs the
-plain twins against JAX in tests/test_torch_fused_attention.py and
-tests/test_torch_decode_attention.py and tests/test_torch_flash_attention.py).
-Run on a GPU host with
+plain twins against JAX in tests/test_torch_fused_attention.py,
+tests/test_torch_decode_attention.py, tests/test_torch_flash_attention.py and
+tests/test_torch_fused_mlp.py). Run on a GPU host with
 ``python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py``.
-Tolerance: bf16 atol = rtol = 2e-2 for K1-K3 and K5 and 3e-2 for K4 (the
+Tolerance: bf16 atol = rtol = 2e-2 for K1-K3, K5 and K6 and 3e-2 for K4 (the
 int8 cache), as in chip_smoke.py.
 """
 
@@ -15,6 +15,7 @@ import torch
 from eilev_tpu_torch.ops import decode_attention as tda
 from eilev_tpu_torch.ops import flash_attention as tfl
 from eilev_tpu_torch.ops import fused_attention as tfa
+from eilev_tpu_torch.ops import fused_mlp as tfm
 
 pytestmark = pytest.mark.cuda
 
@@ -42,22 +43,46 @@ def test_k1_kernel_matches_plain(cuda, b, s, nh, hd):
     torch.testing.assert_close(out, ref, atol=2e-2, rtol=2e-2)
 
 
+@pytest.mark.parametrize("s", [1, 17, 257, tfa.K1_MAX_SEQ])
+@pytest.mark.parametrize("hd", [88, 128])
+def test_k1_takes_whole_rows_up_to_its_limit(cuda, s, hd):
+    """Odd batch; S = 1, 17, the ViT's 257 and the largest S the resident
+    design takes (K and V of a head in shared memory)."""
+    qkv = _qkv(3, s, 2, hd, cuda, seed=s)
+    out = tfa.packed_qkv_attention(qkv, 2, hd)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    torch.testing.assert_close(out, tfa.packed_qkv_attention_reference(qkv, 2, hd, hd**-0.5),
+                               atol=2e-2, rtol=2e-2)
+
+
+def test_packed_kernels_refuse_sequences_past_their_limit(cuda):
+    with pytest.raises(ValueError, match="sequences"):
+        tfa.packed_qkv_attention(_qkv(1, tfa.K1_MAX_SEQ + 1, 1, 8, cuda), 1, 8)
+    s = tfa.K2_MAX_SEQ + 1
+    with pytest.raises(ValueError, match="sequences"):
+        tfa.packed_qkv_causal_attention(
+            _qkv(1, s, 1, 8, cuda), 1, 8, torch.ones(1, s, dtype=torch.int32, device=cuda))
+
+
 @pytest.mark.parametrize("padding", ["none", "left", "right"])
-@pytest.mark.parametrize("b,s,nh,hd", [(2, 24, 2, 8), (2, 130, 2, 80), (2, 766, 32, 80)])
+@pytest.mark.parametrize("b,s,nh,hd", [(2, 24, 2, 8), (2, 130, 2, 80), (2, 766, 32, 80),
+                                       (2, 2048, 4, 80), (1, 2048, 2, 128)])
 def test_k2_kernel_matches_plain(cuda, b, s, nh, hd, padding):
     qkv = _qkv(b, s, nh, hd, cuda, seed=1)
     mask = torch.ones(b, s, dtype=torch.int32, device=cuda)
     if padding == "left":
         mask[0, : s // 5] = 0
     elif padding == "right":
-        mask[1, s - s // 4 :] = 0
+        mask[-1, s - s // 4 :] = 0
     before = tfa.packed_qkv_causal_attention.launches
     out = tfa.packed_qkv_causal_attention(qkv, nh, hd, mask)
     torch.cuda.synchronize()
     assert tfa.packed_qkv_causal_attention.launches == before + 1
     ref = tfa.packed_qkv_causal_attention_reference(qkv, nh, hd, mask, hd**-0.5)
     if padding == "left":  # fully masked query rows are NaN in bf16, in both
-        assert torch.isnan(out[0, : s // 5]).all()
+        assert torch.isnan(out[0, : s // 5]).all() and torch.isnan(ref[0, : s // 5]).all()
+        assert torch.isfinite(out[0, s // 5 :]).all()
     torch.testing.assert_close(out, ref, atol=2e-2, rtol=2e-2, equal_nan=True)
 
 
@@ -237,3 +262,47 @@ def test_flash_kernel_refuses_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match="strides"):
         t = q.transpose(1, 2)
         tfl.flash_attention(t, t, t)
+
+
+def _mlp_inputs(b, s, d, f, device, seed=0):
+    """bf16 inputs at the scale a trained layer keeps: x N(0, 1), LayerNorm
+    scale 1 + N(0, 0.1), weights N(0, 1 / fan_in), so every activation is of
+    unit scale and atol = rtol = 2e-2 bites at any width. (With the JAX
+    test's 0.1 weights at F = 6144 the outputs are ~24 wide, and one-ulp
+    flips of the rounded activation, which kernel and twin may round
+    differently after summing in another order, move near-zero outputs by
+    ~0.04.)"""
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def rand(*shape, std=1.0, mean=0.0):
+        return (torch.randn(*shape, device=device, generator=g) * std + mean).to(torch.bfloat16)
+
+    return (rand(b, s, d), rand(d, std=0.1, mean=1.0), rand(d, std=0.1), rand(d, f, std=d**-0.5),
+            rand(f, std=0.1), rand(f, d, std=f**-0.5), rand(d, std=0.1))
+
+
+@pytest.mark.parametrize("b,s,d,f", [(2, 257, 1408, 6144), (3, 17, 32, 64), (5, 100, 88, 200)])
+def test_k6_kernel_matches_plain(cuda, b, s, d, f):
+    args = _mlp_inputs(b, s, d, f, cuda)
+    before = tfm.ln_mlp.launches
+    out = tfm.ln_mlp(*args)
+    torch.cuda.synchronize()
+    assert tfm.ln_mlp.launches == before + 1
+    assert out.shape == (b, s, d) and out.dtype == torch.bfloat16
+    torch.testing.assert_close(out, tfm.ln_mlp_reference(*args), atol=2e-2, rtol=2e-2)
+
+
+def test_k6_refuses_what_it_does_not_take(cuda):
+    args = _mlp_inputs(2, 8, 32, 64, cuda)
+    with pytest.raises(TypeError, match="bf16"):
+        tfm.ln_mlp(*(a.float() for a in args))
+    with pytest.raises(ValueError, match="contiguous"):
+        tfm.ln_mlp(args[0].transpose(0, 1), *args[1:])
+    odd = _mlp_inputs(2, 8, 36, 64, cuda)  # D = 36: rows of 72 bytes
+    with pytest.raises(ValueError, match="% 8"):
+        tfm.ln_mlp(*odd)
+    odd_f = _mlp_inputs(2, 8, 32, 60, cuda)
+    with pytest.raises(ValueError, match="% 8"):
+        tfm.ln_mlp(*odd_f)
+    with pytest.raises(ValueError, match="w2"):
+        tfm.ln_mlp(*args[:5], args[5][:32], args[6])

@@ -46,7 +46,7 @@ def slice_setup():
         pixel_values=jnp.zeros((b * v_per, 3, t, img, img)), video_input_mask=jnp.asarray(vim),
     )
     tcfg = tconfigs.tiny_config()
-    model = VideoBlipForConditionalGeneration(tcfg)
+    model = VideoBlipForConditionalGeneration(tcfg, device="cpu")
     model.load_state_dict(params_from_jax(jax.tree.map(np.asarray, params), tcfg), strict=True)
     return cfg, jmodel, params, model.eval(), frames, ids, mask, vim, t
 

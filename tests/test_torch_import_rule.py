@@ -15,6 +15,7 @@ PORT_MODULES = [
     "eilev_tpu_torch.ops.decode_attention",
     "eilev_tpu_torch.ops.flash_attention",
     "eilev_tpu_torch.ops.fused_attention",
+    "eilev_tpu_torch.ops.fused_mlp",
     "eilev_tpu_torch.ops.gelu",
     "eilev_tpu_torch.ops.preprocess",
     "eilev_tpu_torch.ops.quantization",

@@ -108,7 +108,7 @@ def _pair(float_setup, modes):
         params["qformer"] = jq.quantize_qformer_params(params["qformer"])
     params = jax.tree.map(np.asarray, params)
     tcfg = _configs(tconfigs, modes)
-    ours = VideoBlipForConditionalGeneration(tcfg)
+    ours = VideoBlipForConditionalGeneration(tcfg, device="cpu")
     ours.load_state_dict(params_from_jax(params, tcfg), strict=True)
     return JVB(_configs(configs, modes)), params, ours.eval()
 

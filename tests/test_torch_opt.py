@@ -156,7 +156,7 @@ def test_params_from_jax_full_model_forward():
     ref_feats = jmodel.apply({"params": params}, jnp.asarray(pixel), method=JVB.encode_videos)
 
     tcfg = tconfigs.tiny_config()
-    ours = VideoBlipForConditionalGeneration(tcfg)
+    ours = VideoBlipForConditionalGeneration(tcfg, device="cpu")
     sd = params_from_jax(jax.tree.map(np.asarray, params), tcfg)
     assert set(sd) == set(ours.state_dict())
     ours.load_state_dict(sd, strict=True)
@@ -172,6 +172,17 @@ def test_params_from_jax_full_model_forward():
 
 def test_t5_text_config_is_not_ported():
     with pytest.raises(NotImplementedError):
-        VideoBlipForConditionalGeneration(tconfigs.tiny_config(text_model="t5"))
+        VideoBlipForConditionalGeneration(tconfigs.tiny_config(text_model="t5"), device="cpu")
     with pytest.raises(NotImplementedError):
         params_from_jax({}, tconfigs.tiny_config(text_model="t5"))
+
+
+def test_narration_model_defaults_to_the_card():
+    """The entry point builds on ``cuda`` unless asked for the CPU, as ``TextLM``
+    does; read from the signature, so no GPU is needed."""
+    import inspect
+
+    from eilev_tpu_torch.generation.text_lm import TextLM
+
+    for entry in (VideoBlipForConditionalGeneration.__init__, TextLM.__init__):
+        assert inspect.signature(entry).parameters["device"].default == "cuda"

@@ -148,7 +148,7 @@ def _int8_config():
 
 def test_quantized_jax_trees_load_strict(float_tree):
     cfg = _int8_config()
-    model = VideoBlipForConditionalGeneration(cfg)
+    model = VideoBlipForConditionalGeneration(cfg, device="cpu")
     sd = params_from_jax(_jax_quantized(float_tree), cfg)
     assert set(sd) == set(model.state_dict())
     model.load_state_dict(sd, strict=True)
@@ -181,7 +181,7 @@ def test_port_tree_functions_match_jax(float_tree, subtree, fn):
 
 def test_quantize_model_in_place_matches_quantized_tree(float_tree):
     cfg = tconfigs.tiny_config()
-    model = VideoBlipForConditionalGeneration(cfg)
+    model = VideoBlipForConditionalGeneration(cfg, device="cpu")
     model.load_state_dict(params_from_jax(float_tree, cfg), strict=True)
     tq.quantize_model_(model, int8_lm=True, int8_kv=True, int8_vision=True, int8_qformer=True)
     want = params_from_jax(_jax_quantized(float_tree), _int8_config())
@@ -197,7 +197,7 @@ def test_quantize_model_in_place_matches_quantized_tree(float_tree):
 
 
 def test_quantize_model_w8a8_prefill_needs_int8_lm():
-    model = VideoBlipForConditionalGeneration(tconfigs.tiny_config())
+    model = VideoBlipForConditionalGeneration(tconfigs.tiny_config(), device="cpu")
     with pytest.raises(ValueError, match="int8_lm"):
         tq.quantize_model_(model, w8a8_prefill=True)
     tq.quantize_model_(model, int8_lm=True, w8a8_prefill=True)
