@@ -1,6 +1,7 @@
 """On-card smoke test of the PyTorch port (eilev_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --kernel-times DIR   # A/B timing only, of the tree at DIR
 
 Phases, each of which must pass (any failure exits non-zero, without the
 final result line):
@@ -16,17 +17,27 @@ final result line):
    mid-decode mask (slots >= 780 unfilled), and at a GQA shape (32 heads over
    8 kv heads x 128, S=2048, score-side scale); K4 (decode attention, int8
    cache + bf16 scales) at the flagship shape against dequantize_kv + the
-   twin; K5 (flash attention) at (a) the LLaMA prefill, B=1 and 4, 1,984
-   queries into a 2,048-slot cache, 32 x 128, causal, score-side scale, the
-   cache mask (empty tail; at B=4 rows left-padded to 1,984/1,900/1,800/1,700
-   real tokens, whose padded rows must be exactly 0), (b) the T5 form (hd 64,
-   (H, S, L) bias, padding mask, no scale), (c) the Q-Former cross shape (32
-   queries over 2,056 keys, 12 x 64, padded keys), (d) hd 88 at S=L=257 with
-   no mask, (e) a q-side scale, hd 80, q_offset > 0; K6 (LayerNorm -> MLP)
+   twin, with a fully masked row (NaN in kernel and twin), at B=1 with S=1
+   and S=5 (fewer slots than a cluster's chunks); K3 and K4 also at the
+   narration's batch 1 (K4: a cluster of 8) and at the text LM's decode
+   shape (32 layers, B=1, 2,048 slots with 2,016 filled, 32 x 128,
+   score-side scale); K5 (flash attention) at (a) the LLaMA prefill,
+   B=1 and 4, 1,984 queries into a 2,048-slot cache, 32 x 128, causal,
+   score-side scale, the cache mask (empty tail; at B=4 rows left-padded to
+   1,984/1,900/1,800/1,700 real tokens, whose padded rows must be exactly
+   0), (b) the T5 form (hd 64, (H, S, L) bias, padding mask, no scale), (c)
+   the Q-Former cross shape (32 queries over 2,056 keys, 12 x 64, padded
+   keys), (d) hd 88 at S=L=257 with no mask, (e) a q-side scale, hd 80,
+   q_offset > 0, (f) B=2, 300 queries into 320 slots, 32 x 128, causal, row
+   0 left-padded by 150 (a wholly masked key tile; its padded rows exactly
+   0); (a) and (f) must take K5's Hopper body (launches_sm90 + 1 each),
+   (b)-(e) its mma.sync body; K6 (LayerNorm -> MLP)
    at the ViT MLP shape (136, 257, 1408 -> 6144), activations of unit scale.
    Tolerance atol = rtol = 2e-2 for K1-K3, K5 and K6 (one bf16 ulp of a
-   rounded score, probability or activation moves an output by under 1%) and
-   3e-2 for K4 (the JAX int8 kernel test's bar).
+   rounded score, probability or activation moves an output by under 1%);
+   3e-2 for K4 at the narration's batch 4 (the JAX int8 kernel test's bar)
+   and 2e-3 for its other checks (K4_TIGHT_TOL: set from their measured
+   maxima).
 3. Time each kernel against its twin with CUDA events, in turns (plain,
    kernel, kernel, plain; warm-up, median of 20), each call queued behind a
    device sleep so that the events measure device time, then one PyTorch
@@ -34,8 +45,9 @@ final result line):
    with the kernel's mask and scale; none for K4 and K6), and compute each kernel's
    bound from its shapes and this run's masks. K3/K4 are timed as one decode
    step's 32 launches, one per layer of the 1 GB cache, so no call finds its
-   layer in the 50 MB L2 cache; the time given is per launch. K5 is timed at
-   (a), and against the plain path at and below the auto thresholds.
+   layer in the 50 MB L2 cache; the time given is per launch; both decode
+   shapes are printed, the narration one goes in the kernels line. K5 is
+   timed at (a), and against the plain path at and below the auto thresholds.
 4. Drive the main path at the full eilev-blip2-opt-2.7b geometry with random
    bf16 weights N(0, 0.02) from a seeded generator on the card: the 16-shot
    prompt layout of bench.py (17 videos x 8 frames x 224^2, 766 tokens),
@@ -64,7 +76,8 @@ final result line):
    from a seed, greedy with 64 new tokens and eos 2 through the call
    TextLM.generate makes: batch 1 with a 1,984-token prompt, batch 4
    left-padded as in (a), and a 40-token prompt. K5 = 32 per long-prompt
-   request (one per prefill layer) and 0 for the short one, K3 = 32 per
+   request (one per prefill layer, all through its Hopper body:
+   launches_sm90 = 32) and 0 for the short one, K3 = 32 per
    one-token forward, K1, K2, K4 = 0; every logit finite; the prefill logits
    through K5 against the plain path (attention impl "xla") on the same ids:
    min cosine > 0.999, max relative error < 5e-2. A torch.profiler pass over
@@ -76,18 +89,27 @@ final result line):
 Prints every number tagged with the card's name and power limit, then one
 JSON line of per-kernel results, then the result line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
+
+With ``--kernel-times DIR`` it imports eilev_tpu_torch from DIR instead (an
+unpacked parent commit, or this tree), builds K3-K5's sources there, and only
+times K3/K4 at the decode shapes and K5 at (a), batch 1 and 4, twice each,
+then prints one JSON line of times: the A/B of a kernel change within one
+call (parent, change, change, parent). It checks nothing and prints no
+result line.
 """
 
 from __future__ import annotations
 
 import gc
 import json
+import os
 import statistics
 import subprocess
 import sys
 import time
 import traceback
 from concurrent.futures import ThreadPoolExecutor
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -116,6 +138,24 @@ LLAMA_EOS = 2
 # tensor cores and HBM3
 H100_BF16_FLOPS = 989e12
 H100_BYTES_PER_S = 3.35e12
+# the decode-attention shapes K3/K4 are checked at: (layers, B, slots,
+# filled slots, heads, head_dim, q-side scale). The narration's (766 prompt +
+# 32 new slots) at batch 4, the text LM's (2,048 slots, 32 tokens in), and
+# the narration's at batch 1 (K4 takes a cluster of 3 at batch 4 and of 8
+# here); all but batch 1 are also timed in the kernels line
+DECODE_SHAPES = {
+    "narration": (32, 4, 798, 780, 32, 80, True),
+    "text-LM": (32, 1, LLAMA_CACHE, LLAMA_CACHE - 32, 32, 128, False),
+    "narration batch 1": (32, 1, 798, 780, 32, 80, True),
+}
+# K4 against dequantize_kv + the twin: 3e-2 (the JAX int8 kernel test's bar)
+# at the narration's batch 4, where it has always been held; every other K4
+# check at 2e-3, from its measured maxima on an H100 (4.9e-4 at the text
+# LM's shape, 6.1e-5 at the narration's, 0 at S = 1 and 5 and in the fully
+# masked row): an output is ~0.03, so rounding p before normalising it, or
+# a flash-decoding rescale, moves it past 2e-3
+K4_TOL = 3e-2
+K4_TIGHT_TOL = 2e-3
 # device sleep before each timed call: ~20 ms at the H100's 1.98 GHz, longer
 # than the host takes to enqueue a 32-layer decode step of the plain twin
 SLEEP_CYCLES = 40_000_000
@@ -186,6 +226,7 @@ def counters() -> dict:
         "decode_attention_stacked_bf16": da.decode_attention_stacked.launches_bf16,
         "decode_attention_stacked_int8": da.decode_attention_stacked.launches_int8,
         "flash_attention": fl.flash_attention.launches,
+        "flash_attention_sm90": fl.flash_attention.launches_sm90,
         "ln_mlp": fm.ln_mlp.launches,
     }
 
@@ -201,10 +242,12 @@ def reset_counters() -> None:
     da.decode_attention_stacked.launches_bf16 = 0
     da.decode_attention_stacked.launches_int8 = 0
     fl.flash_attention.launches = 0
+    fl.flash_attention.launches_sm90 = 0
     fm.ln_mlp.launches = 0
 
 
-def build_kernels(tag: str) -> None:
+def build_kernels(tag: str, sources: tuple = ("packed_attention", "decode_attention", "flash_attention",
+                                               "fused_mlp")) -> None:
     from eilev_tpu_torch.ops import _build
 
     def timed(fn):
@@ -212,10 +255,7 @@ def build_kernels(tag: str) -> None:
         fn()
         return time.perf_counter() - t0
 
-    libs = {"packed_attention.cu": _build.packed_attention_lib,
-            "decode_attention.cu": _build.decode_attention_lib,
-            "flash_attention.cu": _build.flash_attention_lib,
-            "fused_mlp.cu": _build.fused_mlp_lib}
+    libs = {f"{src}.cu": getattr(_build, f"{src}_lib") for src in sources}
     with ThreadPoolExecutor(max_workers=len(libs)) as pool:  # nvcc runs outside the GIL
         futures = {src: pool.submit(timed, fn) for src, fn in libs.items()}
         for src, fut in futures.items():
@@ -268,6 +308,46 @@ def _k5_causal_work(real, s, nh, hd, l):
     return flops, nbytes
 
 
+def _decode_case(dev, g, da, shape: str) -> SimpleNamespace:
+    """A 32-layer bf16 cache of DECODE_SHAPES[shape], its int8 copy
+    (quantize_kv), a query and the mid-decode keep-mask (slots past the
+    filled ones empty)."""
+    n_layers, b, s, filled, nh, hd, scale_query = DECODE_SHAPES[shape]
+    q = torch.randn(b, nh * hd, device=dev, generator=g).to(torch.bfloat16)
+    k5 = torch.randn(n_layers, b, s, nh, hd, device=dev, generator=g).to(torch.bfloat16)
+    v5 = torch.randn(n_layers, b, s, nh, hd, device=dev, generator=g).to(torch.bfloat16)
+    mask = torch.ones(b, s, dtype=torch.int32, device=dev)
+    mask[:, filled:] = 0
+    k8, ks = da.quantize_kv(k5)
+    v8, vs = da.quantize_kv(v5)
+    kw = dict(num_heads=nh, head_dim=hd, scale_query=scale_query)
+    flat = lambda x: x.view(n_layers, b, s, nh * hd)  # noqa: E731
+    return SimpleNamespace(q=q, k5=k5, v5=v5, kb=flat(k5), vb=flat(v5), k8=flat(k8), v8=flat(v8), ks=ks, vs=vs,
+                           mask=mask, kw=kw, i8=dict(k_scale=ks, v_scale=vs, **kw),
+                           dims=(n_layers, b, s, filled, nh, hd))
+
+
+def _k3_step(da, c, plain: bool = False):
+    """One decode step of K3 (or its twin): a launch per layer of the cache."""
+    fn = da.decode_attention_stacked_reference if plain else da.decode_attention_stacked
+    return lambda: [fn(c.q, c.kb, c.vb, c.mask, i, **c.kw) for i in range(c.dims[0])]
+
+
+def _k4_step(da, c, plain: bool = False):
+    fn = da.decode_attention_stacked_reference if plain else da.decode_attention_stacked
+    return lambda: [fn(c.q, c.k8, c.v8, c.mask, i, **c.i8) for i in range(c.dims[0])]
+
+
+def _decode_bound(c, int8: bool) -> tuple[float, str]:
+    """Bound of one decode-attention launch: 4 flops per filled slot and head
+    dim; K and V rows of the filled slots (bf16, or int8 + a bf16 scale each),
+    q, out and the mask, each moved once."""
+    _, b, s, filled, nh, hd = c.dims
+    io = 2 * b * nh * hd * 2 + b * s * 4
+    row = hd + 2 if int8 else 2 * hd
+    return bound(4 * b * nh * filled * hd, 2 * b * filled * nh * row + io)
+
+
 def _k6_work(m: int, d: int, f: int) -> tuple[float, float]:
     """Operations and bytes of one LN -> MLP call: two products of 2 M D F
     each; x, out and both weights in bf16, the four vectors in fp32."""
@@ -318,107 +398,140 @@ def check_kernels(tag: str, dev: torch.device) -> list[dict]:
                     "library": lambda hd=hd: _sdpa(k2_q, k2_k, k2_v, is_causal=True, scale=hd**-0.5),
                     "bound": bound(4 * b * nh * hd * s * (s + 1) // 2, 4 * b * s * nh * hd * 2 + b * s * 4)})
 
-    # K3 / K4 at the flagship decode shape: 32 layers, batch 4, 766 + 32 slots
-    n_layers, b, s, nh, hd = 32, 4, 798, 32, 80
-    filled = 780
-    q = torch.randn(b, nh * hd, device=dev, generator=g).to(torch.bfloat16)
-    k5 = torch.randn(n_layers, b, s, nh, hd, device=dev, generator=g).to(torch.bfloat16)
-    v5 = torch.randn(n_layers, b, s, nh, hd, device=dev, generator=g).to(torch.bfloat16)
-    kb, vb = k5.view(n_layers, b, s, nh * hd), v5.view(n_layers, b, s, nh * hd)
-    full = torch.ones(b, s, dtype=torch.int32, device=dev)
-    mid = full.clone()
-    mid[:, filled:] = 0
-    kw = dict(num_heads=nh, head_dim=hd)
-    errs = [check_close(
-        tag, f"K3 decode_attention_stacked bf16 (32,4,798,32x80) layer 17 {name} mask",
-        da.decode_attention_stacked(q, kb, vb, mask, 17, **kw),
-        da.decode_attention_stacked_reference(q, kb, vb, mask, 17, **kw), 2e-2)
-        for name, mask in (("full", full), ("mid-decode", mid))]
-    gq = torch.randn(4, 32 * 128, device=dev, generator=g).to(torch.bfloat16)
-    gk = torch.randn(2, 4, 2048, 8 * 128, device=dev, generator=g).to(torch.bfloat16)
-    gv = torch.randn(2, 4, 2048, 8 * 128, device=dev, generator=g).to(torch.bfloat16)
-    gkw = dict(num_heads=32, head_dim=128, kv_heads=8, scale_query=False)
-    errs.append(check_close(
-        tag, "K3 decode_attention_stacked bf16 GQA (2,4,2048,32 over 8 x128) score-side scale",
-        da.decode_attention_stacked(gq, gk, gv, full.new_ones(4, 2048), 1, **gkw),
-        da.decode_attention_stacked_reference(gq, gk, gv, full.new_ones(4, 2048), 1, **gkw), 2e-2))
-    del gq, gk, gv
-    k3 = lambda q=q: [da.decode_attention_stacked(q, kb, vb, mid, i, **kw) for i in range(n_layers)]  # noqa: E731
-    k3_plain = lambda q=q: [da.decode_attention_stacked_reference(q, kb, vb, mid, i, **kw)  # noqa: E731
-                        for i in range(n_layers)]
-    # torch's fused attention on (B, H, S, D) views of each layer of the cache
-    sd_q = q.view(b, nh, 1, hd)
-    sd_mask = mid.bool()[:, None, None, :]
-    k3_lib = lambda k5=k5, v5=v5, hd=hd: [_sdpa(sd_q, k5[i].transpose(1, 2), v5[i].transpose(1, 2),  # noqa: E731
-                                                attn_mask=sd_mask, scale=hd**-0.5) for i in range(n_layers)]
-    io = 2 * b * nh * hd * 2 + b * s * 4  # q, out, mask
-    results.append({"name": "decode_attention_stacked_bf16", "source": "eilev_tpu_torch/csrc/decode_attention.cu",
-                    "replaces": "eilev_tpu/ops/decode_attention.py:117",
-                    "max_abs_err": max(errs), "run": k3, "plain": k3_plain, "per_call": n_layers,
-                    "library": k3_lib,
-                    "bound": bound(4 * b * nh * filled * hd, 2 * b * filled * nh * hd * 2 + io)})
+    # K3 / K4 at the decode shapes, each a 32-layer cache: layer 17 against
+    # the twin with the full and the mid-decode mask (K4 against
+    # dequantize_kv + the twin), then, but for the narration's batch 1, timed
+    # as one decode step's 32 launches
+    decode_extra = []
+    for shape in DECODE_SHAPES:
+        c = _decode_case(dev, g, da, shape)
+        n_layers, b, s, filled, nh, hd = c.dims
+        full = torch.ones_like(c.mask)
+        label = f"({n_layers},{b},{s} with {filled} filled,{nh}x{hd}) layer 17"
+        errs = [check_close(
+            tag, f"K3 decode_attention_stacked bf16 {shape} {label} {name} mask",
+            da.decode_attention_stacked(c.q, c.kb, c.vb, mask, 17, **c.kw),
+            da.decode_attention_stacked_reference(c.q, c.kb, c.vb, mask, 17, **c.kw), 2e-2)
+            for name, mask in (("full", full), ("mid-decode", c.mask))]
+        if shape == "narration":
+            gq = torch.randn(4, 32 * 128, device=dev, generator=g).to(torch.bfloat16)
+            gk = torch.randn(2, 4, 2048, 8 * 128, device=dev, generator=g).to(torch.bfloat16)
+            gv = torch.randn(2, 4, 2048, 8 * 128, device=dev, generator=g).to(torch.bfloat16)
+            gkw = dict(num_heads=32, head_dim=128, kv_heads=8, scale_query=False)
+            gm = full.new_ones(4, 2048)
+            errs.append(check_close(
+                tag, "K3 decode_attention_stacked bf16 GQA (2,4,2048,32 over 8 x128) score-side scale",
+                da.decode_attention_stacked(gq, gk, gv, gm, 1, **gkw),
+                da.decode_attention_stacked_reference(gq, gk, gv, gm, 1, **gkw), 2e-2))
+            del gq, gk, gv
+        # torch's fused attention on (B, H, S, D) views of each layer of the cache
+        sd_q = c.q.view(b, nh, 1, hd)
+        sd_mask = c.mask.bool()[:, None, None, :]
+        k3_lib = lambda c=c, sd_q=sd_q, sd_mask=sd_mask, hd=hd: [  # noqa: E731
+            _sdpa(sd_q, c.k5[i].transpose(1, 2), c.v5[i].transpose(1, 2), attn_mask=sd_mask, scale=hd**-0.5)
+            for i in range(c.dims[0])]
+        k3_row = {"name": "decode_attention_stacked_bf16", "source": "eilev_tpu_torch/csrc/decode_attention.cu",
+                  "replaces": "eilev_tpu/ops/decode_attention.py:117",
+                  "max_abs_err": max(errs), "run": _k3_step(da, c), "plain": _k3_step(da, c, plain=True),
+                  "per_call": n_layers, "library": k3_lib, "bound": _decode_bound(c, int8=False)}
 
-    k8, ks = da.quantize_kv(k5)
-    v8, vs = da.quantize_kv(v5)
-    k8f, v8f = k8.view(n_layers, b, s, nh * hd), v8.view(n_layers, b, s, nh * hd)
-    i8 = dict(k_scale=ks, v_scale=vs, **kw)
-    layer = 17
-    ref = da.decode_attention_stacked_reference(
-        q, da.dequantize_kv(k8[layer:layer + 1], ks[layer:layer + 1]).view(1, b, s, nh * hd),
-        da.dequantize_kv(v8[layer:layer + 1], vs[layer:layer + 1]).view(1, b, s, nh * hd), mid, 0, **kw)
-    err = check_close(tag, "K4 decode_attention_stacked int8 (32,4,798,32x80) layer 17 mid-decode mask"
-                      " vs dequantize_kv + twin", da.decode_attention_stacked(q, k8f, v8f, mid, layer, **i8),
-                      ref, 3e-2)
-    k4 = lambda q=q: [da.decode_attention_stacked(q, k8f, v8f, mid, i, **i8) for i in range(n_layers)]  # noqa: E731
-    k4_plain = lambda q=q: [da.decode_attention_stacked_reference(q, k8f, v8f, mid, i, **i8)  # noqa: E731
-                        for i in range(n_layers)]
-    results.append({"name": "decode_attention_stacked_int8", "source": "eilev_tpu_torch/csrc/decode_attention.cu",
-                    "replaces": "eilev_tpu/ops/decode_attention.py:75",
-                    "max_abs_err": err, "run": k4, "plain": k4_plain, "per_call": n_layers,
-                    "library": None,  # no single PyTorch call dequantizes and attends
-                    "bound": bound(4 * b * nh * filled * hd, 2 * b * filled * nh * (hd + 2) + io)})
-    del k5, v5
+        ref = da.decode_attention_stacked_reference(
+            c.q, da.dequantize_kv(c.k8[17:18].view(1, b, s, nh, hd), c.ks[17:18]).view(1, b, s, nh * hd),
+            da.dequantize_kv(c.v8[17:18].view(1, b, s, nh, hd), c.vs[17:18]).view(1, b, s, nh * hd),
+            c.mask, 0, **c.kw)
+        errs = [check_close(tag, f"K4 decode_attention_stacked int8 {shape} {label} mid-decode mask"
+                            f" (a cluster of {da.cluster_size(b, nh, s)}) vs dequantize_kv + twin",
+                            da.decode_attention_stacked(c.q, c.k8, c.v8, c.mask, 17, **c.i8), ref,
+                            K4_TOL if shape == "narration" else K4_TIGHT_TOL)]
+        k4_row = {"name": "decode_attention_stacked_int8", "source": "eilev_tpu_torch/csrc/decode_attention.cu",
+                  "replaces": "eilev_tpu/ops/decode_attention.py:75",
+                  "max_abs_err": max(errs), "run": _k4_step(da, c), "plain": _k4_step(da, c, plain=True),
+                  "per_call": n_layers,
+                  "library": None,  # no single PyTorch call dequantizes and attends
+                  "bound": _decode_bound(c, int8=True)}
+        if shape == "narration":
+            # a fully masked row: -inf max, so NaN, in kernel and twin alike
+            dead = c.mask.clone()
+            dead[-1] = 0
+            out = da.decode_attention_stacked(c.q, c.k8, c.v8, dead, 17, **c.i8)
+            ref = da.decode_attention_stacked_reference(c.q, c.k8, c.v8, dead, 17, **c.i8)
+            torch.cuda.synchronize()
+            assert bool(torch.isnan(out[-1]).all()) and bool(torch.isnan(ref[-1]).all()), "K4 masked row not NaN"
+            torch.testing.assert_close(out, ref, atol=K4_TIGHT_TOL, rtol=K4_TIGHT_TOL, equal_nan=True)
+            print(f"[{tag}] K4 int8 {shape} fully masked row: NaN in kernel and twin")
+            results += [k3_row, k4_row]
+        elif shape == "text-LM":
+            decode_extra += [dict(k3_row, name=f"{k3_row['name']} at the text-LM shape"),
+                             dict(k4_row, name=f"{k4_row['name']} at the text-LM shape")]
+        del c, k3_row, k4_row, k3_lib
+    # K4 with fewer slots than a cluster's 32-slot chunks: S = 1 and 5, B = 1,
+    # the text LM's heads (32 x 128, score-side scale)
+    for s_small in (1, 5):
+        q = torch.randn(1, 32 * 128, device=dev, generator=g).to(torch.bfloat16)
+        k8, ks = da.quantize_kv(torch.randn(2, 1, s_small, 32, 128, device=dev, generator=g).to(torch.bfloat16))
+        v8, vs = da.quantize_kv(torch.randn(2, 1, s_small, 32, 128, device=dev, generator=g).to(torch.bfloat16))
+        keep1 = torch.ones(1, s_small, dtype=torch.int32, device=dev)
+        kw = dict(num_heads=32, head_dim=128, scale_query=False)
+        ref = da.decode_attention_stacked_reference(
+            q, da.dequantize_kv(k8, ks).view(2, 1, s_small, -1), da.dequantize_kv(v8, vs).view(2, 1, s_small, -1),
+            keep1, 1, **kw)
+        check_close(tag, f"K4 decode_attention_stacked int8 (2,1,{s_small},32x128) S < 32 vs dequantize_kv + twin",
+                    da.decode_attention_stacked(q, k8.view(2, 1, s_small, -1), v8.view(2, 1, s_small, -1), keep1, 1,
+                                                k_scale=ks, v_scale=vs, **kw), ref, K4_TIGHT_TOL)
+    del ref
 
     # K5. Tolerance 2e-2 as for K1-K3: kernel and twin run the same recurrence
     # over the same 128-key blocks, so they differ only in fp32 summation order
     # and exp's last bits, which can move one bf16 rounding of an un-normalised
     # p (a relative 2^-8) and no more.
     errs = []
+
+    def k5_case(label, q, k, v, kw5, sm90, padded=()):
+        """One K5 call against the twin (2e-2); which body ran must match
+        ``sm90``; the first ``padded[i]`` query rows of batch row i are
+        wholly left-padded and must be exactly 0."""
+        before = fl.flash_attention.launches_sm90
+        out = fl.flash_attention(q, k, v, **kw5)
+        torch.cuda.synchronize()
+        took = fl.flash_attention.launches_sm90 - before
+        assert took == int(sm90), f"K5 {label}: Hopper body launches {took}, expected {int(sm90)}"
+        for i, n in enumerate(padded):
+            assert bool((out[i, :n] == 0).all()), f"K5 {label}: a left-padded row is not exactly 0"
+        errs.append(check_close(tag, f"K5 {label} ({'Hopper' if sm90 else 'mma.sync'} body)",
+                                out, fl.flash_attention_reference(q, k, v, **kw5), 2e-2))
+
     for b_a, real in ((1, (LLAMA_PROMPT,)), (4, LLAMA_REAL)):
         # (a) the LLaMA prefill: S = 1984 into a 2048-slot cache, 32 x 128,
         # causal, score-side scale, the cache mask (empty tail, left padding)
         q, k, v, mask = _k5_inputs(dev, g, b_a, LLAMA_PROMPT, LLAMA_CACHE, 32, 128, real, tail_empty=True)
-        kw5 = dict(padding_mask=mask, causal=True, scale=128**-0.5)
-        out = fl.flash_attention(q, k, v, **kw5)
-        for i, n in enumerate(real):
-            assert bool((out[i, : LLAMA_PROMPT - n] == 0).all()), "a left-padded row is not exactly 0"
-        errs.append(check_close(tag, f"K5 (a) LLaMA prefill B={b_a} S=1984 L=2048 32x128 causal real={real}",
-                                out, fl.flash_attention_reference(q, k, v, **kw5), 2e-2))
-    del q, k, v, out
+        k5_case(f"(a) LLaMA prefill B={b_a} S=1984 L=2048 32x128 causal real={real}", q, k, v,
+                dict(padding_mask=mask, causal=True, scale=128**-0.5), True,
+                padded=[LLAMA_PROMPT - n for n in real])
+    del q, k, v
     # (b) the T5 form: hd 64, an (H, S, L) bias, a padding mask, no scale
     q, k, v, mask = _k5_inputs(dev, g, 2, 1024, 1024, 32, 64)
     mask[1, 900:] = 0
     bias = torch.randn(32, 1024, 1024, device=dev, generator=g) * 2.0
-    kw5 = dict(padding_mask=mask, bias=bias)
-    errs.append(check_close(tag, "K5 (b) T5 form B=2 S=L=1024 32x64 bias + padding, no scale",
-                            fl.flash_attention(q, k, v, **kw5), fl.flash_attention_reference(q, k, v, **kw5), 2e-2))
+    k5_case("(b) T5 form B=2 S=L=1024 32x64 bias + padding, no scale", q, k, v,
+            dict(padding_mask=mask, bias=bias), False)
     del bias
     # (c) the Q-Former cross attention: 32 queries over 8 x 257 keys, 12 x 64
     q, k, v, mask = _k5_inputs(dev, g, 17, 32, 2056, 12, 64)
     mask[::3, 1800:] = 0
-    kw5 = dict(padding_mask=mask, scale=64**-0.5)
-    errs.append(check_close(tag, "K5 (c) Q-Former cross B=17 q=32 kv=2056 12x64 padded keys",
-                            fl.flash_attention(q, k, v, **kw5), fl.flash_attention_reference(q, k, v, **kw5), 2e-2))
+    k5_case("(c) Q-Former cross B=17 q=32 kv=2056 12x64 padded keys", q, k, v,
+            dict(padding_mask=mask, scale=64**-0.5), False)
     # (d) hd 88 at S = L = 257, no mask (the ViT shape)
     q, k, v, _ = _k5_inputs(dev, g, 136, 257, 257, 16, 88)
-    kw5 = dict(scale=88**-0.5)
-    errs.append(check_close(tag, "K5 (d) ViT B=136 S=L=257 16x88 no mask",
-                            fl.flash_attention(q, k, v, **kw5), fl.flash_attention_reference(q, k, v, **kw5), 2e-2))
+    k5_case("(d) ViT B=136 S=L=257 16x88 no mask", q, k, v, dict(scale=88**-0.5), False)
     # (e) q-side scale, hd 80, causal with q_offset > 0
     q, k, v, _ = _k5_inputs(dev, g, 4, 256, 1022, 32, 80)
-    kw5 = dict(causal=True, q_offset=766, scale=80**-0.5, scale_query_first=True)
-    errs.append(check_close(tag, "K5 (e) q-side scale B=4 S=256 L=1022 q_offset=766 32x80 causal",
-                            fl.flash_attention(q, k, v, **kw5), fl.flash_attention_reference(q, k, v, **kw5), 2e-2))
+    k5_case("(e) q-side scale B=4 S=256 L=1022 q_offset=766 32x80 causal", q, k, v,
+            dict(causal=True, q_offset=766, scale=80**-0.5, scale_query_first=True), False)
+    # (f) 300 queries into 320 slots, row 0 left-padded by 150: its key tile
+    # 0 is wholly masked, which the Hopper body skips
+    q, k, v, mask = _k5_inputs(dev, g, 2, 300, 320, 32, 128, (150, 300), tail_empty=True)
+    k5_case("(f) B=2 S=300 L=320 32x128 causal, row 0 left-padded by 150", q, k, v,
+            dict(padding_mask=mask, causal=True, scale=128**-0.5), True, padded=(150,))
 
     # timed at (a), batch 1; batch 4 is printed beside it
     timed = {}
@@ -476,7 +589,7 @@ def check_kernels(tag: str, dev: torch.device) -> list[dict]:
               f"K5_ms={times[1]},{times[2]}")
     del q, k, v, mask
 
-    for r in results + [results_b4]:
+    for r in results + [results_b4] + decode_extra:
         # in turns, plain first: plain, kernel, kernel, plain, then the
         # library call twice. The closures are dropped after, so the test
         # caches are freed before the main path's peak memory is read.
@@ -491,6 +604,31 @@ def check_kernels(tag: str, dev: torch.device) -> list[dict]:
         print(f"[{tag}] {r['name']} kernel_ms={k_a},{k_b} plain_ms={p1},{p2} library_ms={r['library_ms']} "
               f"bound_ms={r['bound_ms']} ({r['bound_by']}) (per launch)")
     return results
+
+
+def kernel_times(tag: str, dev: torch.device, tree: str) -> None:
+    """The A/B timing of ``--kernel-times``: K3 and K4 at the decode shapes
+    and K5 at (a), batch 1 and 4, on the eilev_tpu_torch that was imported
+    (the one under ``tree``), kernel only, median of 20 twice each, per
+    launch. No check: the full run holds every kernel against its twin."""
+    from eilev_tpu_torch.ops import decode_attention as da
+    from eilev_tpu_torch.ops import flash_attention as fl
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    runs = {}
+    for shape in DECODE_SHAPES:
+        c = _decode_case(dev, g, da, shape)
+        runs[f"K3 {shape}"] = (_k3_step(da, c), c.dims[0])
+        runs[f"K4 {shape}"] = (_k4_step(da, c), c.dims[0])
+    for b_a, real in ((1, (LLAMA_PROMPT,)), (4, LLAMA_REAL)):
+        q, k, v, mask = _k5_inputs(dev, g, b_a, LLAMA_PROMPT, LLAMA_CACHE, 32, 128, real, tail_empty=True)
+        kw5 = dict(padding_mask=mask, causal=True, scale=128**-0.5)
+        runs[f"K5 B={b_a}"] = ((lambda q=q, k=k, v=v, kw5=kw5: fl.flash_attention(q, k, v, **kw5)), 1)
+    times = {}
+    for name, (fn, n) in runs.items():
+        times[name] = [median_ms(fn) / n, median_ms(fn) / n]
+        print(f"[{tag}] {tree} {name} kernel_ms={times[name][0]},{times[name][1]} (per launch)")
+    print(json.dumps({"tree": tree, "card": tag, "times_ms": times}))
 
 
 class Narration:
@@ -832,14 +970,15 @@ def run_llama(tag: str, dev: torch.device, launches: dict) -> None:
             4: TextRun(module, LLAMA_REAL, LLAMA_PROMPT, dev, seed=4)}
     n_layers = cfg.text_config.num_hidden_layers
     bf16 = dict.fromkeys(counters(), 0)
-    bf16.update({"flash_attention": n_layers, "decode_attention_stacked_bf16": "lm"})
+    bf16.update({"flash_attention": n_layers, "flash_attention_sm90": n_layers, "decode_attention_stacked_bf16": "lm"})
     for batch, reps in ((1, 5), (4, 3)):
         counts = drive(tag, "llama bf16", runs[batch], lm_calls, bf16, reps)
         if batch == 1:
             launches["flash_attention"] = counts["flash_attention"]
     # a short prompt: auto takes the plain path, as the JAX package does
     short = TextRun(module, (LLAMA_SHORT,), LLAMA_SHORT, dev, seed=5)
-    drive(tag, f"llama bf16 {LLAMA_SHORT}-token prompt", short, lm_calls, dict(bf16, flash_attention=0), reps=1)
+    drive(tag, f"llama bf16 {LLAMA_SHORT}-token prompt", short, lm_calls,
+          dict(bf16, flash_attention=0, flash_attention_sm90=0), reps=1)
     profile_request(tag, "llama bf16", runs[1])
 
     # prefill logits through K5 against the plain path on the same ids
@@ -865,7 +1004,7 @@ def run_llama(tag: str, dev: torch.device, launches: dict) -> None:
     print(f"[{tag}] llama quantized in place (int8_lm, int8_kv) in {time.perf_counter() - t0} s; "
           f"memory_allocated_bytes={torch.cuda.memory_allocated()}")
     int8 = dict.fromkeys(counters(), 0)
-    int8.update({"flash_attention": n_layers, "decode_attention_stacked_int8": "lm"})
+    int8.update({"flash_attention": n_layers, "flash_attention_sm90": n_layers, "decode_attention_stacked_int8": "lm"})
     drive(tag, "llama int8 serving", runs[1], lm_calls, int8, reps=3)
     profile_request(tag, "llama int8 serving", runs[1])
     a = runs[1].prefill_logits()[0].float()
@@ -878,13 +1017,25 @@ def run_llama(tag: str, dev: torch.device, launches: dict) -> None:
     assert cos.min().item() > INT8_MIN_COSINE, cos.min().item()
 
 
-def main() -> int:
+def main(argv: list) -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke: no CUDA device; this script runs only on a GPU")
     dev = torch.device("cuda", 0)
     tag = card_tag()
     print(tag)  # nvidia-smi --query-gpu=name,power.limit, as it prints it
     print(f"[{tag}] torch {torch.__version__} cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
+    if argv:
+        if len(argv) != 2 or argv[0] != "--kernel-times":
+            raise SystemExit("usage: chip_smoke.py [--kernel-times DIR]")
+        tree = os.path.abspath(argv[1])
+        sys.path.insert(0, tree)  # its eilev_tpu_torch, built into its own build/
+        try:
+            build_kernels(tag, ("decode_attention", "flash_attention"))
+            kernel_times(tag, dev, tree)
+        except Exception:
+            traceback.print_exc()
+            return 1
+        return 0
     try:
         build_kernels(tag)
         kernels = check_kernels(tag, dev)
@@ -916,4 +1067,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

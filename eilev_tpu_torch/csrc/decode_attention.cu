@@ -12,49 +12,83 @@
 //
 // What bounds it on the H100: bytes. A decode step reads every cache row once
 // and does 2 flops per element read, far below the ~295 flops per byte where
-// the tensor cores would matter. At the flagship shape (B=4, S=798, 32 heads
-// x 80) one call reads 32.7 MB of bf16 K+V (16.3 MB int8 + 0.2 MB scales):
-// ~10 us at 3.35 TB/s. So no tensor cores, and every byte is read once.
+// the tensor cores would matter. At the narration shape (B=4, S=798, 32
+// heads x 80) one call reads 32.7 MB of bf16 K+V (16.3 MB int8 + 0.2 MB
+// scales): ~10 us (~5 us int8) at 3.35 TB/s; at the text LM's (B=1, 2,016
+// of 2,048 slots filled, 32 x 128) 16.5 MB of int8 K+V, ~5 us. So no tensor
+// cores, and every byte
+// is read once; `layer` is a run-time pointer offset into the stacked
+// buffers, so no per-layer slice is materialized.
 //
-// Design (first version, right before fast):
-//   * One block of 256 threads per (head, batch row). Each head of a GQA
-//     group re-reads its kv head's rows; for OPT the groups are 1.
-//   * `layer` is a run-time pointer offset into the stacked buffers, so no
-//     per-layer slice is materialized (the Pallas kernel's static block index).
-//   * Pass 1: one key row per thread, read with 16-byte loads (8 bf16 or 16
-//     int8 values each; every head's offset is a multiple of 16 bytes when
-//     D % 8 == 0, or D % 16 == 0 for int8, which the Python wrapper checks),
-//     dotted in fp32 with the query kept in shared memory. The S fp32 scores
-//     stay in shared memory (3.2 KB at S=798; the wrapper refuses an S whose
-//     scores do not fit in 227 KB). Masked slots are not read.
-//   * Block-wide max and sum, then the probabilities rounded to bf16 in place.
-//     The reference rounds the NORMALISED probabilities before PV, which an
-//     online-softmax rescale of the output cannot reproduce: hence two passes.
-//   * Pass 2 (PV): thread t owns 16-byte chunk t % NC of every G-th row
-//     (G = 256 / NC), so a warp reads whole rows; 8 rows (and their int8
-//     scales) are loaded before any is used, to keep loads in flight. Partial sums go through shared
-//     memory and are added in a fixed order.
-//   * Rounding points follow the reference exactly: q * bf16(scale) rounded
-//     to bf16 (q side) or the bf16 scores times bf16(scale) rounded (score
-//     side); QK^T in fp32 rounded to bf16; masked scores -inf (what
-//     finfo(float32).min becomes in bf16); fp32 softmax; p rounded to bf16;
-//     PV in fp32. int8: k = bf16(f32(k8) * f32(scale)), the same for v.
-//   * A fully masked row has max -inf, so exp gives NaN and the output row is
-//     NaN, as in the reference. Slots with p == 0 are skipped in PV; a NaN p
-//     is not, so the NaN reaches the output.
-//   * At B=1 this launches only H=32 blocks on 132 SMs. Splitting S over
-//     several blocks per head (flash-decoding) is the next step for speed.
+// Rounding points follow the reference exactly: q * bf16(scale) rounded to
+// bf16 (q side) or the bf16 scores times bf16(scale) rounded (score side);
+// QK^T in fp32 rounded to bf16; masked scores -inf (what finfo(float32).min
+// becomes in bf16); fp32 softmax; p rounded to bf16 after normalising; PV in
+// fp32. int8: k = bf16(f32(k8) * f32(scale)), the same for v. A fully masked
+// row has max -inf, so exp gives NaN and the output row is NaN, as in the
+// reference; slots with p == 0 are skipped in PV, a NaN p is not.
+//
+// K3 (bf16 cache): one block of 256 threads per (head, batch row), two
+// passes. Pass 1 gives each thread whole key rows (16-byte loads), the S fp32
+// scores stay in shared memory; block-wide max and sum; pass 2 (PV) gives
+// thread t 16-byte chunk t % NC of every G-th row (G = 256 / NC), 8 rows in
+// flight, partial sums added through shared memory in a fixed order. At B=1
+// that is 32 blocks on 132 SMs; K4's cluster split below is its next step.
+//
+// K4 (int8 cache): a split over S in one launch, with a thread-block cluster.
+//   * What held the one-block version back: at the text LM's B = 1 it ran 32
+//     blocks on 132 SMs; its pass 1 gave each thread a whole row (8 16-byte
+//     loads at a 4 KB stride) and dequantized one value at a time.
+//   * Why not the usual flash-decoding split with a second launch: the
+//     reference rounds the NORMALISED probabilities to bf16 before PV, so
+//     every block needs the row's global max and sum before its PV, and the
+//     text LM is host-bound (2,016 more launches a request would cost more
+//     than they save).
+//   * So C blocks (a cluster, C <= 8, portable) share one (head, row), each
+//     over a contiguous chunk of ceil(S / C) slots. The written rule for C
+//     (cluster_size, the same in ops/decode_attention.py): the smallest C with
+//     B * H * C >= 2 x 132 SMs, capped at 8 and at the number of 32-slot
+//     chunks; it depends on (B, H, S) only, so a shape always sums in the
+//     same order.
+//   * Occupancy decides its time: at most 64 registers a thread, so 4 blocks
+//     share an SM and the 256 (text LM) or 384 (narration) blocks run in one
+//     wave. Versions that kept 8 rows a lane in flight (~99 registers) or
+//     staged K and V in shared memory (up to 77 KB a block) ran 25-33 us:
+//     a second wave.
+//   * The block first packs its slots' keep-mask into shared-memory bits (one
+//     round of loads). Pass 1: NC = D / 16 lanes cover one row's contiguous
+//     16-byte chunks (32 / NC rows a warp; 30 of 32 lanes busy at D = 80),
+//     four rows a lane in flight; int8 -> fp32 by a byte permute into a
+//     float's mantissa, then bf16 pairs times the scale in one packed
+//     multiply (exact: see Int8Cache::dequant); the row's first lane sums
+//     the NC partial dots in chunk order. Masked slots are not read.
+//   * Cluster exchange through distributed shared memory, each a store into
+//     every block's (or rank 0's) shared memory, then a cluster barrier: the
+//     blocks' maxima; their fp32 sums of exp(s - M), added in rank order.
+//     Each block then rounds p = bf16(exp(s - M) / sum) and runs PV over its
+//     own chunk with the same lanes (p == 0 slots not read); the row groups
+//     of a warp add by a fixed shuffle tree, then the warps in order; rank 0
+//     adds the C partial outputs in rank order and writes the row. A barrier
+//     arrival at the start, waited before the first store, makes sure every
+//     block of the cluster runs before any writes into it.
+//   * The kernel is a template over the cache type (C::E values a 16-byte
+//     chunk, C::dot, C::axpy), so a bf16 cache can take the same split.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
 constexpr int PV_ROWS = 8;  // rows of V each thread loads before using them
+constexpr int SMS = 132;    // H100 SXM
+constexpr int MAX_CLUSTER = 8;
 
 __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16(x));
@@ -71,13 +105,54 @@ struct Bf16Cache {
   }
 };
 
+// An int8 chunk: 16 values, dequantized as bf16(f32(k8) * f32(scale)).
 struct Int8Cache {
   using T = int8_t;
   static constexpr int E = 16;
-  __device__ __forceinline__ static void unpack(const uint4& raw, float scale, float* out) {
-    const int8_t* e = reinterpret_cast<const int8_t*>(&raw);
+  // byte i of w (an int8) as an exact fp32: (x + 128) placed in the low
+  // mantissa of 2^23, minus 2^23 + 128
+  template <int I>
+  __device__ __forceinline__ static float byte_f32(uint32_t w_biased) {
+    return __uint_as_float(__byte_perm(w_biased, 0x4B000000u, 0x7540u | I)) - 8388736.0f;
+  }
+  // The 16 dequantized values as 8 packed bf16 pairs. An int8 is exact in
+  // bf16 and f32(k8) * f32(scale) is exact in fp32 (8 x 8 significant bits),
+  // so one packed bf16 multiply rounds exactly as bf16(f32(k8) * f32(scale)).
+  __device__ __forceinline__ static void dequant(const uint4& raw, float scale, uint32_t* pairs) {
+    const uint32_t w[4] = {raw.x ^ 0x80808080u, raw.y ^ 0x80808080u, raw.z ^ 0x80808080u,
+                           raw.w ^ 0x80808080u};
+    const __nv_bfloat162 s2 = __float2bfloat162_rn(scale);  // a bf16 value: exact
 #pragma unroll
-    for (int j = 0; j < E; ++j) out[j] = round_bf16(static_cast<float>(e[j]) * scale);
+    for (int i = 0; i < 4; ++i) {
+      const __nv_bfloat162 lo = __hmul2(__floats2bfloat162_rn(byte_f32<0>(w[i]), byte_f32<1>(w[i])), s2);
+      const __nv_bfloat162 hi = __hmul2(__floats2bfloat162_rn(byte_f32<2>(w[i]), byte_f32<3>(w[i])), s2);
+      pairs[2 * i] = *reinterpret_cast<const uint32_t*>(&lo);
+      pairs[2 * i + 1] = *reinterpret_cast<const uint32_t*>(&hi);
+    }
+  }
+  __device__ __forceinline__ static float lo(uint32_t v) { return __uint_as_float(v << 16); }
+  __device__ __forceinline__ static float hi(uint32_t v) { return __uint_as_float(v & 0xffff0000u); }
+  // sum_j q[j] * k[j] in fp32, in index order
+  __device__ __forceinline__ static float dot(const uint4& raw, float scale, const float* q) {
+    uint32_t k[8];
+    dequant(raw, scale, k);
+    float acc = 0.f;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      acc = fmaf(q[2 * i], lo(k[i]), acc);
+      acc = fmaf(q[2 * i + 1], hi(k[i]), acc);
+    }
+    return acc;
+  }
+  // acc[j] += p * v[j]
+  __device__ __forceinline__ static void axpy(const uint4& raw, float scale, float p, float* acc) {
+    uint32_t v[8];
+    dequant(raw, scale, v);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      acc[2 * i] = fmaf(p, lo(v[i]), acc[2 * i]);
+      acc[2 * i + 1] = fmaf(p, hi(v[i]), acc[2 * i + 1]);
+    }
   }
 };
 
@@ -103,6 +178,38 @@ __device__ __forceinline__ float block_reduce(float v, float* red) {
 size_t smem_bytes(int S, int D, int E) {
   // scores, scaled query, PV partial sums (at most THREADS * E), reduction
   return sizeof(float) * ((size_t)S + D + (size_t)THREADS * E + 32);
+}
+
+// The cluster split's written rule: the smallest C with B * H * C >= 2 x the
+// SMs, capped at MAX_CLUSTER and at the number of 32-slot chunks.
+int cluster_size(int B, int H, int S) {
+  const int bh = B * H;
+  int c = (2 * SMS + bh - 1) / bh;
+  c = c < MAX_CLUSTER ? c : MAX_CLUSTER;
+  const int chunks = (S + 31) / 32;
+  c = c < chunks ? c : chunks;
+  return c > 1 ? c : 1;
+}
+
+// The shared memory of one block of the split, the same in
+// ops/decode_attention.py (split_smem_bytes): its n = ceil(S / C) fp32
+// scores and keep bits, each warp's PV partial sums, the partial outputs
+// rank 0 gathers, reduction scratch, and the max and sum every rank receives.
+size_t split_smem_bytes(int S, int D, int C) {
+  const size_t n = ((size_t)S + C - 1) / C;
+  return sizeof(float) * (n + (n + 31) / 32 + (size_t)WARPS * D + (size_t)MAX_CLUSTER * D + WARPS +
+                          2 * MAX_CLUSTER);
+}
+
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_sync() {
+  cluster_arrive();
+  cluster_wait();
 }
 
 template <class C, int NC>  // NC 16-byte chunks per row: D = NC * C::E
@@ -217,6 +324,192 @@ decode_attention_kernel(const __nv_bfloat16* __restrict__ q, const typename C::T
   }
 }
 
+// K4: the cluster split. Grid (C, H, B), cluster (C, 1, 1); block rank r
+// takes slots [r * n, min(S, (r + 1) * n)), n = ceil(S / C). At most 64
+// registers a thread, so 4 blocks share an SM and the shapes the models run
+// (256 and 384 blocks) fit one wave.
+template <class C, int NC>  // NC 16-byte chunks per row: D = NC * C::E
+__global__ void __launch_bounds__(THREADS, 4)
+decode_attention_split_kernel(const __nv_bfloat16* __restrict__ q,
+                              const typename C::T* __restrict__ k_buf,
+                              const typename C::T* __restrict__ v_buf,
+                              const __nv_bfloat16* __restrict__ k_scale,
+                              const __nv_bfloat16* __restrict__ v_scale,
+                              const int32_t* __restrict__ mask, __nv_bfloat16* __restrict__ out,
+                              int B, int S, int H, int KVH, int layer, float scale,
+                              int scale_query) {
+  constexpr int E = C::E;
+  constexpr int D = NC * E;
+  constexpr int RPW = 32 / NC;     // rows a warp takes at once: NC lanes each
+  constexpr int WR = WARPS * RPW;  // rows the block's warps take at once
+  constexpr int U = 4;             // rows a lane has in flight
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int n_ranks = (int)cluster.num_blocks();
+  const int n = (S + n_ranks - 1) / n_ranks;
+  const int s_begin = rank * n;
+  const int cnt = max(0, min(S, s_begin + n) - s_begin);
+  cluster_arrive();  // every block runs before any DSMEM store: waited below
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* sc = reinterpret_cast<float*>(smem);                     // n scores, then probabilities
+  uint32_t* keep = reinterpret_cast<uint32_t*>(sc + n);           // n keep bits
+  float* wpart = reinterpret_cast<float*>(keep + (n + 31) / 32);  // WARPS x D
+  float* part_in = wpart + WARPS * D;                             // MAX_CLUSTER x D (rank 0's)
+  float* red = part_in + MAX_CLUSTER * D;                         // WARPS
+  float* mx_in = red + WARPS;                                     // MAX_CLUSTER
+  float* sum_in = mx_in + MAX_CLUSTER;                            // MAX_CLUSTER
+
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int kvh = h / (H / KVH);
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int c = lane % NC;   // this lane's 16-byte chunk of a row
+  const int rw = lane / NC;  // this lane's row of the warp's RPW (RPW: an idle lane)
+  const bool has_chunk = rw < RPW;
+  const size_t row = (size_t)KVH * D;
+  const size_t slab = ((size_t)layer * B + b) * S + s_begin;  // this block's first slot
+  const typename C::T* kb = k_buf + slab * row + (size_t)kvh * D + (size_t)c * E;
+  const typename C::T* vb = v_buf + slab * row + (size_t)kvh * D + (size_t)c * E;
+  const __nv_bfloat16* ksb = k_scale + slab * KVH + kvh;
+  const __nv_bfloat16* vsb = v_scale + slab * KVH + kvh;
+  const int32_t* mb = mask + (size_t)b * S + s_begin;
+
+  // the block's keep-mask as bits, in one round of loads
+  for (int w = warp; w < (cnt + 31) / 32; w += WARPS) {
+    const int i = w * 32 + lane;
+    const uint32_t bits = __ballot_sync(0xffffffffu, i < cnt && mb[i] != 0);
+    if (lane == 0) keep[w] = bits;
+  }
+  // this lane's chunk of the query, in registers
+  float qv[E];
+#pragma unroll
+  for (int j = 0; j < E; ++j) {
+    const float x = has_chunk ? __bfloat162float(q[((size_t)b * H + h) * D + c * E + j]) : 0.f;
+    qv[j] = scale_query ? round_bf16(x * scale) : x;
+  }
+  __syncthreads();
+
+  // pass 1: scores of this block's slots. NC lanes a row, U rows a lane in
+  // flight; the row's first lane sums the chunks in order. Masked slots are
+  // not read.
+  float mx = -INFINITY;
+  for (int i0 = warp * RPW + rw; i0 - rw < cnt; i0 += U * WR) {
+    bool kept[U];
+    uint4 raw[U];
+    float ksc[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int i = i0 + u * WR;
+      kept[u] = has_chunk && i < cnt && ((keep[i / 32] >> (i % 32)) & 1u);
+      raw[u] = make_uint4(0u, 0u, 0u, 0u);
+      ksc[u] = 0.f;
+      if (kept[u]) {
+        raw[u] = *reinterpret_cast<const uint4*>(kb + (size_t)i * row);
+        ksc[u] = __bfloat162float(ksb[(size_t)i * KVH]);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int i = i0 + u * WR;
+      const float part = kept[u] ? C::dot(raw[u], ksc[u], qv) : 0.f;
+      float acc = part;
+#pragma unroll
+      for (int k = 1; k < NC; ++k) acc += __shfl_down_sync(0xffffffffu, part, k);
+      if (has_chunk && c == 0 && i < cnt) {
+        float score = -INFINITY;
+        if (kept[u]) {
+          score = round_bf16(acc);
+          if (!scale_query) score = round_bf16(score * scale);
+        }
+        sc[i] = score;
+        mx = fmaxf(mx, score);
+      }
+    }
+  }
+
+  // the cluster's max: every block stores its own into every block
+  mx = block_reduce<true>(mx, red);
+  cluster_wait();
+  if (threadIdx.x < n_ranks) cluster.map_shared_rank(mx_in, (int)threadIdx.x)[rank] = mx;
+  cluster_sync();
+  float m_all = -INFINITY;
+  for (int r = 0; r < n_ranks; ++r) m_all = fmaxf(m_all, mx_in[r]);
+
+  // fp32 exp; the cluster's sum, added in rank order
+  float sum = 0.f;
+  for (int i = threadIdx.x; i < cnt; i += THREADS) {
+    const float e = expf(sc[i] - m_all);
+    sc[i] = e;
+    sum += e;
+  }
+  sum = block_reduce<false>(sum, red);
+  if (threadIdx.x < n_ranks) cluster.map_shared_rank(sum_in, (int)threadIdx.x)[rank] = sum;
+  cluster_sync();
+  float sum_all = 0.f;
+  for (int r = 0; r < n_ranks; ++r) sum_all += sum_in[r];
+  for (int i = threadIdx.x; i < cnt; i += THREADS) sc[i] = round_bf16(sc[i] / sum_all);
+  __syncthreads();
+
+  // pass 2: PV over this block's slots, the same lanes and rows; a slot with
+  // p == 0 is not read, a NaN p is
+  float acc[E];
+#pragma unroll
+  for (int j = 0; j < E; ++j) acc[j] = 0.f;
+  for (int i0 = warp * RPW + rw; i0 - rw < cnt; i0 += U * WR) {
+    float p[U], vsc[U];
+    uint4 raw[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int i = i0 + u * WR;
+      p[u] = has_chunk && i < cnt ? sc[i] : 0.f;
+      raw[u] = make_uint4(0u, 0u, 0u, 0u);
+      vsc[u] = 0.f;
+      if (p[u] != 0.f) {
+        raw[u] = *reinterpret_cast<const uint4*>(vb + (size_t)i * row);
+        vsc[u] = __bfloat162float(vsb[(size_t)i * KVH]);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+      if (p[u] != 0.f) C::axpy(raw[u], vsc[u], p[u], acc);
+  }
+  // the warp's row groups by a fixed tree (row group rw takes rw + st), then
+  // the warps in order; each block's partial output goes to rank 0, which
+  // adds them in rank order
+#pragma unroll
+  for (int st = 1; st < RPW; st <<= 1) {
+    const int src = lane + st * NC < 32 ? lane + st * NC : lane;
+    const bool take = rw % (2 * st) == 0 && rw + st < RPW;
+#pragma unroll
+    for (int j = 0; j < E; ++j) {
+      const float o = __shfl_sync(0xffffffffu, acc[j], src);
+      if (take) acc[j] += o;
+    }
+  }
+  if (rw == 0) {
+#pragma unroll
+    for (int j = 0; j < E; ++j) wpart[warp * D + c * E + j] = acc[j];
+  }
+  __syncthreads();
+  float* part0 = cluster.map_shared_rank(part_in, 0) + rank * D;
+  for (int i = threadIdx.x; i < D; i += THREADS) {
+    float o = 0.f;
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) o += wpart[w * D + i];
+    part0[i] = o;
+  }
+  cluster_sync();
+  if (rank == 0) {
+    for (int i = threadIdx.x; i < D; i += THREADS) {
+      float o = 0.f;
+      for (int r = 0; r < n_ranks; ++r) o += part_in[r * D + i];
+      out[((size_t)b * H + h) * D + i] = __float2bfloat16(o);
+    }
+  }
+}
+
 template <class C, int NC>
 int launch(const void* q, const void* k_buf, const void* v_buf, const void* k_scale,
            const void* v_scale, const void* mask, void* out, int B, int S, int H, int KVH,
@@ -234,10 +527,47 @@ int launch(const void* q, const void* k_buf, const void* v_buf, const void* k_sc
   return (int)cudaGetLastError();
 }
 
+template <class C, int NC>
+int launch_split(const void* q, const void* k_buf, const void* v_buf, const void* k_scale,
+                 const void* v_scale, const void* mask, void* out, int B, int S, int H, int KVH,
+                 int layer, float scale, int scale_query, cudaStream_t stream) {
+  const int cl = cluster_size(B, H, S);
+  const size_t smem = split_smem_bytes(S, NC * C::E, cl);
+  cudaError_t err = cudaFuncSetAttribute(decode_attention_split_kernel<C, NC>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cl, H, B);
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cl;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, decode_attention_split_kernel<C, NC>,
+                           static_cast<const __nv_bfloat16*>(q),
+                           static_cast<const typename C::T*>(k_buf),
+                           static_cast<const typename C::T*>(v_buf),
+                           static_cast<const __nv_bfloat16*>(k_scale),
+                           static_cast<const __nv_bfloat16*>(v_scale),
+                           static_cast<const int32_t*>(mask), static_cast<__nv_bfloat16*>(out), B,
+                           S, H, KVH, layer, scale, scale_query);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
 #define EILEV_CASE(C, NC)                                                                    \
   case NC:                                                                                   \
     return launch<C, NC>(q, k_buf, v_buf, k_scale, v_scale, mask, out, B, S, H, KVH, layer, \
                          scale, scale_query, st);
+#define EILEV_SPLIT_CASE(C, NC)                                                                    \
+  case NC:                                                                                         \
+    return launch_split<C, NC>(q, k_buf, v_buf, k_scale, v_scale, mask, out, B, S, H, KVH, layer, \
+                               scale, scale_query, st);
 
 }  // namespace
 
@@ -253,22 +583,25 @@ extern "C" int eilev_decode_attention(const void* q, const void* k_buf, const vo
                                       float scale, int scale_query, int int8, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int E = int8 ? Int8Cache::E : Bf16Cache::E;
-  if (KVH <= 0 || H % KVH != 0 || D % E != 0 || D > 128 || S <= 0 ||
-      smem_bytes(S, D, E) > 232448 || (int8 && (k_scale == nullptr || v_scale == nullptr)))
+  if (KVH <= 0 || H % KVH != 0 || D % E != 0 || D > 128 || S <= 0 || B <= 0)
     return (int)cudaErrorInvalidValue;
   if (int8) {
+    if (split_smem_bytes(S, D, cluster_size(B, H, S)) > 232448 || k_scale == nullptr ||
+        v_scale == nullptr)
+      return (int)cudaErrorInvalidValue;
     switch (D / E) {
-      EILEV_CASE(Int8Cache, 1)
-      EILEV_CASE(Int8Cache, 2)
-      EILEV_CASE(Int8Cache, 3)
-      EILEV_CASE(Int8Cache, 4)
-      EILEV_CASE(Int8Cache, 5)
-      EILEV_CASE(Int8Cache, 6)
-      EILEV_CASE(Int8Cache, 7)
-      EILEV_CASE(Int8Cache, 8)
+      EILEV_SPLIT_CASE(Int8Cache, 1)
+      EILEV_SPLIT_CASE(Int8Cache, 2)
+      EILEV_SPLIT_CASE(Int8Cache, 3)
+      EILEV_SPLIT_CASE(Int8Cache, 4)
+      EILEV_SPLIT_CASE(Int8Cache, 5)
+      EILEV_SPLIT_CASE(Int8Cache, 6)
+      EILEV_SPLIT_CASE(Int8Cache, 7)
+      EILEV_SPLIT_CASE(Int8Cache, 8)
       default: return (int)cudaErrorInvalidValue;
     }
   }
+  if (smem_bytes(S, D, E) > 232448) return (int)cudaErrorInvalidValue;
   k_scale = v_scale = nullptr;
   switch (D / E) {
     EILEV_CASE(Bf16Cache, 1)

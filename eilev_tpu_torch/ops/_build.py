@@ -95,7 +95,8 @@ def packed_attention_lib() -> ctypes.CDLL:
 
 @functools.lru_cache(maxsize=None)
 def flash_attention_lib() -> ctypes.CDLL:
-    """The flash attention library (K5), built and bound once."""
+    """The flash attention library (K5: the mma.sync body and the Hopper
+    body), built and bound once."""
     lib = ctypes.CDLL(str(build("flash_attention.cu")))
     fn = lib.eilev_flash_attention_bf16
     fn.argtypes = [
@@ -122,6 +123,7 @@ def flash_attention_lib() -> ctypes.CDLL:
         ctypes.c_int,  # causal
         ctypes.c_int,  # q_offset
         ctypes.c_void_p,  # stream
+        ctypes.POINTER(ctypes.c_int),  # out: 1 if the Hopper body ran, else 0
     ]
     fn.restype = ctypes.c_int
     return lib

@@ -15,6 +15,11 @@ A CPU tensor runs the twin. A CUDA tensor launches the hand-written kernel of
 back. The wrapper counts its launches per body in
 ``decode_attention_stacked.launches_bf16`` and ``.launches_int8``.
 
+On the card K3 runs one 256-thread block per (head, batch row). K4 splits
+the S slots over a thread-block cluster of :func:`cluster_size` blocks per
+(head, row), which exchange the row's max and sum through distributed shared
+memory, all in one launch (see the source's notes).
+
 Rounding points, as in the JAX kernel bodies: ``scale_query=True`` (HF OPT)
 rounds ``q * bf16(scale)`` to the model dtype before QK^T; QK^T accumulates in
 fp32 and is rounded to the model dtype; ``scale_query=False`` (HF LLaMA)
@@ -38,8 +43,12 @@ from .fused_attention import _bf16, _device_kind
 
 #: dynamic shared memory one block may use on an H100 (232,448 bytes)
 SMEM_LIMIT = 227 * 1024
-#: threads per block of the CUDA kernel (csrc/decode_attention.cu THREADS)
+#: threads per block of the CUDA kernels (csrc/decode_attention.cu THREADS)
 THREADS = 256
+WARPS = THREADS // 32
+#: streaming multiprocessors of an H100 SXM, and the largest portable cluster
+SMS = 132
+MAX_CLUSTER = 8
 
 
 def quantize_kv(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -128,12 +137,31 @@ def decode_attention_stacked_reference(
     return out.reshape(b, num_heads * head_dim)
 
 
-def smem_bytes(s_len: int, head_dim: int, int8: bool) -> int:
-    """Dynamic shared memory of one block of the CUDA kernel (csrc
-    ``smem_bytes``): fp32 scores, the scaled query, the PV partial sums and
-    the reduction scratch."""
-    per_chunk = 16 if int8 else 8
-    return 4 * (s_len + head_dim + THREADS * per_chunk + 32)
+def cluster_size(batch: int, heads: int, s_len: int) -> int:
+    """Blocks K4 gives one (head, batch row), the written rule of
+    ``csrc/decode_attention.cu:cluster_size``: the smallest C with
+    batch * heads * C >= 2 x 132 SMs, capped at 8 (the portable cluster
+    size) and at the number of 32-slot chunks. It depends on the shape only,
+    so a shape always sums in the same order."""
+    c = -(-2 * SMS // (batch * heads))
+    return max(1, min(c, MAX_CLUSTER, -(-s_len // 32)))
+
+
+def split_smem_bytes(s_len: int, head_dim: int, cluster: int) -> int:
+    """Shared memory of one K4 block of a cluster of ``cluster`` (csrc
+    ``split_smem_bytes``): its n = ceil(S / cluster) fp32 scores and keep
+    bits, each warp's PV partial sums, the partial outputs rank 0 gathers (one
+    row of head_dim per rank), reduction scratch, and the max and sum every
+    rank receives."""
+    n = -(-s_len // cluster)
+    return 4 * (n + -(-n // 32) + WARPS * head_dim + MAX_CLUSTER * head_dim + WARPS + 2 * MAX_CLUSTER)
+
+
+def smem_bytes(s_len: int, head_dim: int) -> int:
+    """Dynamic shared memory of one K3 block (csrc ``smem_bytes``): fp32
+    scores of all S slots, the scaled query, the PV partial sums and the
+    reduction scratch."""
+    return 4 * (s_len + head_dim + THREADS * 8 + 32)
 
 
 def _check_cuda(q, k_buf, v_buf, mask, k_scale, v_scale, head_dim, s_len) -> None:
@@ -159,10 +187,14 @@ def _check_cuda(q, k_buf, v_buf, mask, k_scale, v_scale, head_dim, s_len) -> Non
         )
     if any(t.data_ptr() % 16 for t in (q, k_buf, v_buf)):
         raise ValueError("the CUDA kernel takes 16-byte aligned q and cache")
-    need = smem_bytes(s_len, head_dim, is_int8)
+    if is_int8:
+        cluster = cluster_size(q.shape[0], q.shape[1] // head_dim, s_len)
+        need, per = split_smem_bytes(s_len, head_dim, cluster), f" (a cluster of {cluster})"
+    else:
+        need, per = smem_bytes(s_len, head_dim), ""
     if need > SMEM_LIMIT:
         raise ValueError(
-            f"S={s_len} needs {need} bytes of shared memory per block, above the "
+            f"S={s_len} needs {need} bytes of shared memory per block{per}, above the "
             f"{SMEM_LIMIT} an H100 block can use"
         )
 

@@ -9,7 +9,12 @@ long cache).
 
 A CPU tensor runs the twin. A CUDA tensor launches the hand-written kernel of
 ``csrc/flash_attention.cu`` on the current stream or raises; nothing falls
-back. The wrapper counts its launches in ``flash_attention.launches``.
+back. The kernel has two bodies, and its entry point chooses between them by
+the rule :func:`uses_sm90_body` states: a Hopper body (wgmma + TMA) for D =
+128 with no bias, the form the LLaMA prefill calls, and an mma.sync body for
+the rest. The entry point says which body it launched; the wrapper counts
+every launch in ``flash_attention.launches`` and the Hopper body's also in
+``flash_attention.launches_sm90``.
 
 What it computes is the Pallas body, not its blocking. The rounding points:
 
@@ -31,14 +36,13 @@ recurrence over the same 128-key blocks as the kernel.
 
 What bounds it on the H100: at the LLaMA prefill (q 1,984 over a 2,048-slot
 cache, 32 heads x 128, causal) one layer needs ~32 GFLOP of tensor-core work
-against ~65 MB of traffic: compute-bound (33 us at 989 TFLOP/s, 19 us of
-bytes). The first kernel runs ``mma.sync`` bf16 tensor-core tiles with
-fp32 accumulators in registers and no copy pipelining; ``wgmma`` with TMA is
-the later step.
+against ~33 MB of traffic: compute-bound (33 us at 989 TFLOP/s, 10 us of
+bytes).
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import Optional
 
 import torch
@@ -49,6 +53,9 @@ from .fused_attention import _bf16, _device_kind
 #: keys per block of the online softmax (the Pallas DEFAULT_BLOCK_KV)
 BLOCK_KV = 128
 NEG_INF = torch.finfo(torch.float32).min
+#: the head dim of the Hopper body, and the shared memory one H100 block may use
+SM90_HEAD_DIM = 128
+SMEM_LIMIT = 227 * 1024
 
 
 def _check_shapes(q, k, v, padding_mask, bias) -> None:
@@ -144,6 +151,35 @@ def _check_cuda(q, k, v, padding_mask, bias) -> None:
             raise ValueError(f"the CUDA kernel takes a 16-byte aligned {name}")
 
 
+def sm90_smem_bytes(kv_len: int) -> int:
+    """Dynamic shared memory of one block of the Hopper body (csrc
+    ``hopper::smem_bytes``): Q, two K and two V tiles of 128 x 128 bf16, the
+    mbarriers, 4 keep-bit words and one list entry per 128-key tile, and 1 KB
+    to align the base."""
+    tiles = -(-kv_len // BLOCK_KV)
+    return 5 * 128 * SM90_HEAD_DIM * 2 + 128 + tiles * 4 * 4 + tiles * 4 + 1024
+
+
+def uses_sm90_body(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   bias: Optional[torch.Tensor] = None) -> bool:
+    """Which body of ``csrc/flash_attention.cu`` a CUDA call takes: the rule
+    of the source's ``hopper::takes``, which decides, stated here for the
+    tests. The Hopper body (wgmma + TMA) takes head_dim 128 with
+    no bias, where each of q, k, v has rows and batches that do not overlap
+    (row stride >= heads * head_dim, batch stride >= rows * row stride) and
+    the block's shared memory fits at the key length. Everything else (head
+    dims other than 128, an (H, S, L) bias, other strides) takes the
+    mma.sync body. Reads shapes and strides only."""
+    d = q.shape[3]
+    if d != SM90_HEAD_DIM or bias is not None:
+        return False
+    for t in (q, k, v):
+        batch, rows, heads = t.shape[:3]
+        if t.stride(1) < heads * d or (batch > 1 and t.stride(0) < rows * t.stride(1)):
+            return False
+    return sm90_smem_bytes(k.shape[1]) <= SMEM_LIMIT
+
+
 def flash_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -180,20 +216,21 @@ def flash_attention(
     elif scale is not None:
         s_scale = float(scale)  # an fp32 multiply of the fp32 score
     out = torch.empty(b, s, h, d, dtype=q.dtype, device=q.device)
+    strides = (q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0), v.stride(1))
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    sm90 = ctypes.c_int(0)  # which body the kernel launched
     rc = flash_attention_lib().eilev_flash_attention_bf16(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        None if mask is None else mask.data_ptr(),
-        None if bias32 is None else bias32.data_ptr(),
-        out.data_ptr(),
-        b, s, l, h, kvh, d,
-        q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0), v.stride(1),
-        q_scale, s_scale, int(causal), int(q_offset),
-        torch.cuda.current_stream(q.device).cuda_stream,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), None if mask is None else mask.data_ptr(),
+        None if bias32 is None else bias32.data_ptr(), out.data_ptr(),
+        b, s, l, h, kvh, d, *strides, q_scale, s_scale, int(causal), int(q_offset), stream,
+        ctypes.byref(sm90),
     )
     if rc != 0:
         raise RuntimeError(f"flash attention kernel launch failed: cudaError_t {rc}")
     flash_attention.launches += 1
+    flash_attention.launches_sm90 += sm90.value
     return out
 
 
 flash_attention.launches = 0
+flash_attention.launches_sm90 = 0

@@ -6,7 +6,9 @@ tests/test_torch_decode_attention.py, tests/test_torch_flash_attention.py and
 tests/test_torch_fused_mlp.py). Run on a GPU host with
 ``python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py``.
 Tolerance: bf16 atol = rtol = 2e-2 for K1-K3, K5 and K6 and 3e-2 for K4 (the
-int8 cache), as in chip_smoke.py.
+int8 cache; the JAX int8 kernel test's bar). K5's cases check which of its
+two bodies the kernel reports it ran (``launches_sm90``) against the rule
+``uses_sm90_body`` states.
 """
 
 import pytest
@@ -143,8 +145,21 @@ def test_k3_kernel_matches_plain(cuda, n_layers, b, s, nh, kvh, hd, scale_query,
         torch.testing.assert_close(out, ref, atol=2e-2, rtol=2e-2, equal_nan=True)
 
 
-@pytest.mark.parametrize("kind", ["full", "mid-decode"])
-@pytest.mark.parametrize("n_layers,b,s,nh,kvh,hd,scale_query", DECODE_SHAPES)
+# K4's shapes: K3's, the narration's decode at batch 1 (a cluster of 8 at
+# D = 80), the text LM's decode (B = 1, 2,048 slots, 32 x 128, a cluster of
+# 8), S = 1 and 5 (fewer slots than a cluster's chunks), and 4,000 slots (500
+# a block: two steps of each lane's rows)
+INT8_SHAPES = DECODE_SHAPES + [
+    (1, 1, 798, 32, 32, 80, True),
+    (1, 1, 2048, 32, 32, 128, False),
+    (2, 1, 1, 32, 32, 128, False),
+    (2, 1, 5, 32, 32, 128, False),
+    (2, 1, 4000, 32, 32, 128, False),
+]
+
+
+@pytest.mark.parametrize("kind", ["full", "mid-decode", "fully-masked-row"])
+@pytest.mark.parametrize("n_layers,b,s,nh,kvh,hd,scale_query", INT8_SHAPES)
 def test_k4_kernel_matches_plain(cuda, n_layers, b, s, nh, kvh, hd, scale_query, kind):
     k, v, g = _cache(n_layers, b, s, kvh, hd, cuda, seed=s + 1)
     q = torch.randn(b, nh * hd, device=cuda, generator=g).to(torch.bfloat16)
@@ -159,12 +174,14 @@ def test_k4_kernel_matches_plain(cuda, n_layers, b, s, nh, kvh, hd, scale_query,
     torch.cuda.synchronize()
     assert tda.decode_attention_stacked.launches_int8 == before + 1
     ref = tda.decode_attention_stacked_reference(q, k8, v8, mask, layer, k_scale=ks, v_scale=vs, **kw)
-    torch.testing.assert_close(out, ref, atol=3e-2, rtol=3e-2)
+    if kind == "fully-masked-row":  # NaN in bf16, in both
+        assert torch.isnan(out[-1]).all() and torch.isnan(ref[-1]).all()
+    torch.testing.assert_close(out, ref, atol=3e-2, rtol=3e-2, equal_nan=True)
     # and against dequantize_kv + the bf16 twin, as chip_smoke holds it
     kd = tda.dequantize_kv(k8.view(k.shape), ks).view(n_layers, b, s, -1)
     vd = tda.dequantize_kv(v8.view(v.shape), vs).view(n_layers, b, s, -1)
     ref_bf16 = tda.decode_attention_stacked_reference(q, kd, vd, mask, layer, **kw)
-    torch.testing.assert_close(out, ref_bf16, atol=3e-2, rtol=3e-2)
+    torch.testing.assert_close(out, ref_bf16, atol=3e-2, rtol=3e-2, equal_nan=True)
 
 
 def test_decode_kernel_refuses_what_it_does_not_take(cuda):
@@ -187,6 +204,20 @@ def test_decode_kernel_refuses_what_it_does_not_take(cuda):
         tda.decode_attention_stacked(
             q, big, big, torch.ones(1, s_big, dtype=torch.int32, device=cuda), 0, **kw
         )
+    # int8: a cluster of 8 blocks (B * H = 2) splits the scores, so the limit
+    # is 8 blocks' worth: 60k slots run, 480k do not
+    for s_int8, fits in ((60_000, True), (480_000, False)):
+        big8 = torch.zeros(1, 1, s_int8, 32, dtype=torch.int8, device=cuda)
+        sc = torch.ones(1, 1, s_int8, 2, dtype=torch.bfloat16, device=cuda)
+        args = (q, big8, big8, torch.ones(1, s_int8, dtype=torch.int32, device=cuda), 0)
+        assert (tda.split_smem_bytes(s_int8, 16, tda.cluster_size(1, 2, s_int8)) <= tda.SMEM_LIMIT) is fits
+        if fits:
+            out = tda.decode_attention_stacked(*args, k_scale=sc, v_scale=sc, **kw)
+            torch.cuda.synchronize()
+            assert torch.isfinite(out).all()
+        else:
+            with pytest.raises(ValueError, match="shared memory"):
+                tda.decode_attention_stacked(*args, k_scale=sc, v_scale=sc, **kw)
     strided_q = torch.randn(1, 64, device=cuda, generator=g).to(torch.bfloat16)[:, ::2]
     with pytest.raises(ValueError, match="contiguous"):
         tda.decode_attention_stacked(strided_q, kb, kb, mask, 0, **kw)
@@ -205,6 +236,16 @@ FLASH_CASES = [
     (2, 257, 257, 4, 4, 88, False, 0, False, None, False),
     (2, 70, 200, 4, 4, 80, True, 130, True, None, False),
     (1, 1984, 2048, 8, 8, 128, True, 0, False, "cache", False),
+    # the Hopper body (hd 128, no bias): S and L multiples of no tile, a
+    # left padding longer than a 128-key tile, q_offset > 0 with a q-side
+    # scale, GQA 4 over 1, no mask, and not causal
+    (2, 300, 333, 8, 2, 128, True, 0, False, "left-padded-150", False),
+    (2, 70, 333, 4, 4, 128, True, 200, True, None, False),
+    (2, 150, 270, 4, 1, 128, True, 0, False, "cache", False),
+    (3, 257, 257, 4, 4, 128, False, 0, False, None, False),
+    (2, 200, 389, 4, 2, 128, False, 0, False, "right", False),
+    # hd 128 with a bias: the mma.sync body
+    (2, 90, 90, 4, 4, 128, False, 0, None, "right", True),
 ]
 
 
@@ -215,39 +256,47 @@ def test_k5_kernel_matches_plain(cuda, b, s, l, nh, kvh, hd, causal, q_offset, s
     k = torch.randn(b, l, kvh, hd, device=cuda, generator=g).to(torch.bfloat16)
     v = torch.randn(b, l, kvh, hd, device=cuda, generator=g).to(torch.bfloat16)
     pm = None
+    padded = {"left-padded-cache": s // 3, "left-padded-150": 150}.get(mask, 0)
     if mask is not None:
         pm = torch.ones(b, l, dtype=torch.int32, device=cuda)
-        if mask in ("cache", "left-padded-cache"):
+        if mask in ("cache", "left-padded-cache", "left-padded-150"):
             pm[:, s:] = 0  # the unfilled cache tail
-        if mask == "left-padded-cache":
-            pm[0, : s // 3] = 0
+        pm[0, :padded] = 0
         if mask == "right":
             pm[-1, l - l // 5 :] = 0
     bias_t = (torch.randn(nh, s, l, device=cuda, generator=g) * 2.0) if bias else None
     scale = None if sqf is None else hd**-0.5
     kw = dict(padding_mask=pm, bias=bias_t, causal=causal, q_offset=q_offset,
               scale=scale, scale_query_first=bool(sqf))
-    before = tfl.flash_attention.launches
+    sm90 = tfl.uses_sm90_body(q, k, v, bias_t)
+    assert sm90 == (hd == 128 and not bias)
+    before = (tfl.flash_attention.launches, tfl.flash_attention.launches_sm90)
     out = tfl.flash_attention(q, k, v, **kw)
     torch.cuda.synchronize()
-    assert tfl.flash_attention.launches == before + 1
+    assert (tfl.flash_attention.launches, tfl.flash_attention.launches_sm90) == (
+        before[0] + 1, before[1] + int(sm90))
     ref = tfl.flash_attention_reference(q, k, v, **kw)
-    if mask == "left-padded-cache":  # fully masked rows are exactly 0, in both
-        assert (out[0, : s // 3] == 0).all() and (ref[0, : s // 3] == 0).all()
+    if padded:  # fully masked rows are exactly 0, in both
+        assert (out[0, :padded] == 0).all() and (ref[0, :padded] == 0).all()
     assert torch.isfinite(out).all()
     torch.testing.assert_close(out, ref, atol=2e-2, rtol=2e-2)
 
 
-def test_k5_reads_a_cache_layer_in_place(cuda):
-    """k, v as a layer slice of the stacked cache: strided rows, no copy."""
+@pytest.mark.parametrize("hd", [64, 128])
+def test_k5_reads_a_cache_layer_in_place(cuda, hd):
+    """k, v as a layer slice of the stacked cache: strided rows, no copy (hd
+    128 through the Hopper body's tensor maps, 64 through the mma.sync body)."""
     g = torch.Generator(device=cuda).manual_seed(7)
-    kb = torch.randn(3, 2, 160, 4, 64, device=cuda, generator=g).to(torch.bfloat16)
-    vb = torch.randn(3, 2, 160, 4, 64, device=cuda, generator=g).to(torch.bfloat16)
-    q = torch.randn(2, 100, 8, 64, device=cuda, generator=g).to(torch.bfloat16)
+    kb = torch.randn(3, 2, 160, 4, hd, device=cuda, generator=g).to(torch.bfloat16)
+    vb = torch.randn(3, 2, 160, 4, hd, device=cuda, generator=g).to(torch.bfloat16)
+    q = torch.randn(2, 100, 8, hd, device=cuda, generator=g).to(torch.bfloat16)
     pm = torch.zeros(2, 160, dtype=torch.int32, device=cuda)
     pm[:, :100] = 1
-    kw = dict(padding_mask=pm, causal=True, scale=0.125)
+    kw = dict(padding_mask=pm, causal=True, scale=hd**-0.5)
+    before = tfl.flash_attention.launches_sm90
     out = tfl.flash_attention(q, kb[1], vb[1], **kw)
+    torch.cuda.synchronize()
+    assert tfl.flash_attention.launches_sm90 == before + (hd == 128)
     ref = tfl.flash_attention_reference(q, kb[1].contiguous(), vb[1].contiguous(), **kw)
     torch.testing.assert_close(out, ref, atol=2e-2, rtol=2e-2)
 

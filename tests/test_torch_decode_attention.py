@@ -45,11 +45,11 @@ def _ragged_mask(seed, fully_masked_row=False):
     return m
 
 
-def _inputs(nh, kvh, seed):
+def _inputs(nh, kvh, seed, hd=HD):
     rng = np.random.default_rng(seed)
-    q = rng.normal(size=(B, nh * HD)).astype(np.float32)
-    k = rng.normal(size=(L, B, S, kvh, HD)).astype(np.float32)
-    v = rng.normal(size=(L, B, S, kvh, HD)).astype(np.float32)
+    q = rng.normal(size=(B, nh * hd)).astype(np.float32)
+    k = rng.normal(size=(L, B, S, kvh, hd)).astype(np.float32)
+    v = rng.normal(size=(L, B, S, kvh, hd)).astype(np.float32)
     return q, k, v
 
 
@@ -87,16 +87,21 @@ def _torch(x):
     return torch.from_numpy(np.array(x))
 
 
-@pytest.mark.parametrize("layout", ["opt", "gqa"])
+# the int8 layouts: LAYOUTS at head_dim 16, and the LLaMA decode form (4 heads
+# x 128, groups of 1, score-side scale) that the card's cluster split takes
+INT8_LAYOUTS = {**{name: (*lay, HD) for name, lay in LAYOUTS.items()}, "llama": (4, 4, False, 128)}
+
+
+@pytest.mark.parametrize("layout", list(INT8_LAYOUTS))
 @pytest.mark.parametrize("dtype", ["fp32", "bf16"])
 def test_int8_twin_matches_jax_kernel(dtype, layout):
-    nh, kvh, scale_query = LAYOUTS[layout]
+    nh, kvh, scale_query, hd = INT8_LAYOUTS[layout]
     jd, td = DTYPES[dtype]
-    q, k, v = _inputs(nh, kvh, seed=3)
+    q, k, v = _inputs(nh, kvh, seed=3, hd=hd)
     k8, ks = jda.quantize_kv(jnp.asarray(k, jd))
     v8, vs = jda.quantize_kv(jnp.asarray(v, jd))
     m = _ragged_mask(4)
-    kw = dict(num_heads=nh, head_dim=HD, kv_heads=kvh, scale_query=scale_query)
+    kw = dict(num_heads=nh, head_dim=hd, kv_heads=kvh, scale_query=scale_query)
     for layer in range(L):
         ref = jda.decode_attention_stacked(
             jnp.asarray(q, jd), k8.reshape(L, B, S, -1), v8.reshape(L, B, S, -1), jnp.asarray(m),
@@ -170,8 +175,37 @@ def test_wrapper_refuses_bad_arguments():
 
 def test_smem_bound_matches_the_kernel_layout():
     # scores + query + PV partials + reduction scratch, in fp32
-    assert tda.smem_bytes(798, 80, int8=False) == 4 * (798 + 80 + 256 * 8 + 32)
-    assert tda.smem_bytes(798, 80, int8=True) == 4 * (798 + 80 + 256 * 16 + 32)
+    assert tda.smem_bytes(798, 80) == 4 * (798 + 80 + 256 * 8 + 32)
+    # int8, one block of a cluster of 3: its 266 scores and keep bits (9
+    # words), 8 warps' PV partials, 8 ranks' partial outputs, reduction
+    # scratch, 8 maxima and sums
+    assert tda.split_smem_bytes(798, 80, 3) == 4 * (266 + 9 + 8 * 80 + 8 * 80 + 8 + 16)
+    # the text LM's decode (cluster of 8): 256 scores, 8 words of bits
+    assert tda.split_smem_bytes(2048, 128, 8) == 4 * (256 + 8 + 8 * 128 + 8 * 128 + 8 + 16)
     # the flagship shape fits; an S of 60k slots does not
-    assert tda.smem_bytes(798, 80, int8=True) <= tda.SMEM_LIMIT
-    assert tda.smem_bytes(60_000, 128, int8=False) > tda.SMEM_LIMIT
+    assert tda.split_smem_bytes(798, 80, tda.cluster_size(4, 32, 798)) <= tda.SMEM_LIMIT
+    assert tda.smem_bytes(60_000, 128) > tda.SMEM_LIMIT
+    # int8: the limit moves with the cluster: 60k slots fit a cluster of 8
+    # (B * H < 33) and not a single block (B * H >= 264)
+    assert tda.split_smem_bytes(60_000, 128, tda.cluster_size(1, 32, 60_000)) <= tda.SMEM_LIMIT
+    assert tda.split_smem_bytes(60_000, 128, tda.cluster_size(2, 132, 60_000)) > tda.SMEM_LIMIT
+    assert tda.split_smem_bytes(500_000, 128, 8) > tda.SMEM_LIMIT
+
+
+# (B, H, S) -> the cluster size of K4: the smallest C with B * H * C >= 264
+# (2 x 132 SMs), capped at 8 and at the number of 32-slot chunks
+CLUSTER_RULE = [
+    ((1, 32, 2048), 8),   # the text LM's decode: 9 wanted, capped at 8
+    ((4, 32, 798), 3),    # the narration's decode
+    ((1, 32, 1), 1), ((1, 32, 5), 1), ((1, 32, 32), 1), ((1, 32, 33), 2),  # S < a cluster's chunks
+    ((1, 8, 100), 4),     # capped at ceil(100 / 32) chunks
+    ((1, 1, 40), 2),
+    ((2, 64, 1000), 3),
+    ((1, 263, 4096), 2),
+    ((1, 264, 4096), 1), ((2, 132, 4096), 1), ((3, 100, 4096), 1),  # B * H >= 264: one block
+]
+
+
+@pytest.mark.parametrize("shape,want", CLUSTER_RULE)
+def test_cluster_size_rule(shape, want):
+    assert tda.cluster_size(*shape) == want

@@ -78,11 +78,20 @@ def _case(name):
         return (q, k, v), {"bias": bias, "padding_mask": pm}
     if name == "gqa_q_offset":  # 4 heads over 2 kv heads, causal with q_offset
         return _inputs(6, 2, 60, 190, 4, 64, kvh=2), {"causal": True, "q_offset": 130, "scale": 0.125}
+    if name == "llama_left_padded_tile":
+        # the LLaMA prefill form at hd 128 (GQA 4 over 2, score-side scale,
+        # empty cache tail); row 0 is left-padded by 150, so its key tile 0
+        # is wholly masked: the tiles the card's Hopper body skips
+        pm = np.zeros((2, 320), np.int32)
+        pm[:, :300] = 1
+        pm[0, :150] = 0
+        return _inputs(7, 2, 300, 320, 4, 128, kvh=2), {
+            "padding_mask": pm, "causal": True, "scale": 128**-0.5}
     raise KeyError(name)
 
 
 CASES = ["vit", "opt_causal_left_padded", "prefill_padded_cache", "cross_padded_keys", "t5_bias",
-         "gqa_q_offset"]
+         "gqa_q_offset", "llama_left_padded_tile"]
 
 
 @pytest.mark.parametrize("name", CASES)
@@ -110,14 +119,88 @@ def test_fully_masked_rows_are_exactly_zero(dtype):
     np.testing.assert_allclose(ours, ref, atol=tol, rtol=0)
 
 
+def test_left_padded_tile_rows_are_exactly_zero():
+    """In llama_left_padded_tile, batch row 0's first 150 query rows see only
+    padded keys (0 on the card and in the twin, which the Pallas kernel
+    matches above), and its key tile 0 holds no kept key at all."""
+    (q, k, v), kw = _case("llama_left_padded_tile")
+    assert not kw["padding_mask"][0, : tflash.BLOCK_KV].any()
+    out = _port_flash(q, k, v, torch.float32, **kw)
+    assert (out[0, :150] == 0).all() and (out[0, 150:] != 0).any(axis=-1).all()
+    assert np.isfinite(out).all()
+
+
 def test_cpu_wrapper_runs_the_twin_without_counting():
     (q, k, v), kw = _case("prefill_padded_cache")
     kw = dict(kw, padding_mask=torch.from_numpy(kw["padding_mask"]))
     args = [torch.from_numpy(x) for x in (q, k, v)]
-    before = tflash.flash_attention.launches
+    before = (tflash.flash_attention.launches, tflash.flash_attention.launches_sm90)
     out = tflash.flash_attention(*args, **kw)
-    assert tflash.flash_attention.launches == before
+    assert (tflash.flash_attention.launches, tflash.flash_attention.launches_sm90) == before
     torch.testing.assert_close(out, tflash.flash_attention_reference(*args, **kw), atol=0, rtol=0)
+
+
+def _meta(shape, strides=None):
+    """A tensor with shape and strides only (the rule reads nothing else)."""
+    if strides is None:
+        return torch.empty(shape, dtype=torch.bfloat16, device="meta")
+    return torch.empty_strided(shape, strides, dtype=torch.bfloat16, device="meta")
+
+
+def _sm90_rule_case(name):
+    """(q, k, v, bias) of each row of the body-choice table."""
+    llama_cache = _meta((32, 4, 2048, 8, 128))  # a stacked (layers, B, slots, kv heads, hd) cache
+    if name == "llama_prefill":  # contiguous q, k/v a layer slice read in place
+        return _meta((4, 1984, 32, 128)), llama_cache[5], llama_cache[5], None
+    if name == "llama_prefill_b1":
+        return _meta((1, 1984, 32, 128)), _meta((1, 2048, 32, 128)), _meta((1, 2048, 32, 128)), None
+    if name == "gqa_4_over_1_q_offset":
+        return _meta((2, 70, 4, 128)), _meta((2, 333, 1, 128)), _meta((2, 333, 1, 128)), None
+    if name.startswith("hd_"):
+        d = int(name[3:])
+        return _meta((2, 257, 16, d)), _meta((2, 257, 16, d)), _meta((2, 257, 16, d)), None
+    if name == "bias":
+        x = _meta((2, 90, 4, 128))
+        return x, x, x, _meta((4, 90, 90))
+    if name == "rows_overlap":  # a row stride below heads * hd
+        x = _meta((2, 90, 4, 128), (90 * 256, 256, 128, 1))
+        return x, x, x, None
+    if name == "batches_overlap":
+        x = _meta((2, 90, 4, 128), (512, 512, 128, 1))
+        return x, x, x, None
+    if name == "batch_1_any_batch_stride":  # a single batch row's stride is never used
+        x = _meta((1, 90, 4, 128), (8, 512, 128, 1))
+        return x, x, x, None
+    if name == "keys_past_shared_memory":
+        q = _meta((1, 8, 1, 128))
+        k = _meta((1, 500_000, 1, 128))
+        return q, k, k, None
+    raise KeyError(name)
+
+
+SM90_RULE = {
+    "llama_prefill": True, "llama_prefill_b1": True, "gqa_4_over_1_q_offset": True,
+    "batch_1_any_batch_stride": True, "hd_88": False, "hd_64": False, "hd_80": False,
+    "hd_120": False, "bias": False, "rows_overlap": False, "batches_overlap": False,
+    "keys_past_shared_memory": False,
+}
+
+
+@pytest.mark.parametrize("name", list(SM90_RULE))
+def test_sm90_body_rule(name):
+    """The written rule of which K5 body a CUDA call takes: the Hopper body
+    (wgmma + TMA) for head_dim 128 with no bias and non-overlapping rows and
+    batches whose shared memory fits; the mma.sync body for the rest."""
+    q, k, v, bias = _sm90_rule_case(name)
+    assert tflash.uses_sm90_body(q, k, v, bias) is SM90_RULE[name]
+
+
+def test_sm90_shared_memory_layout():
+    # Q + 2 K + 2 V tiles of 128 x 128 bf16, the barrier block, 4 keep-bit
+    # words and a list entry per 128-key tile, 1 KB of alignment slack
+    assert tflash.sm90_smem_bytes(2048) == 5 * 32768 + 128 + 16 * 20 + 1024
+    assert tflash.sm90_smem_bytes(300) == 5 * 32768 + 128 + 3 * 20 + 1024
+    assert tflash.sm90_smem_bytes(2048) <= tflash.SMEM_LIMIT < tflash.sm90_smem_bytes(500_000)
 
 
 # (q_len, kv_len, bias ndim or None, implementation): both sides of each
