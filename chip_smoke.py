@@ -7,10 +7,12 @@ Phases, each of which must pass (any failure exits non-zero, without the
 final result line):
 
 1. Print the card's name and power limit (nvidia-smi) and build the CUDA
-   kernels from eilev_tpu_torch/csrc with nvcc, one process per source (four),
+   kernels from eilev_tpu_torch/csrc with nvcc, one process per source (five),
    all started together.
 2. Check each kernel against its plain PyTorch twin in bf16 at the shapes of
    its path: K1 (packed ViT attention) at (136, 257, 3*1408), 16 heads x 88;
+   K1 also past its whole-row limit, at S = 385, 577 (a 336^2 ViT) and 1,025
+   (K2's body with no causal frontier);
    K2 (packed causal OPT prefill attention) at (4, 766, 3*2560), 32 heads x
    80, with all-ones and right-padded masks; K3 (decode attention, bf16
    stacked cache) at (L=32, B=4, S=798, 32x80), layer 17, with a full and a
@@ -21,7 +23,9 @@ final result line):
    and S=5 (fewer slots than a cluster's chunks); K3 and K4 also at the
    narration's batch 1 (K4: a cluster of 8) and at the text LM's decode
    shape (32 layers, B=1, 2,048 slots with 2,016 filled, 32 x 128,
-   score-side scale); K5 (flash attention) at (a) the LLaMA prefill,
+   score-side scale); K3 on the body its written rule (k3_split) picks at
+   each of the three shapes, printed, with a fully masked row (NaN in both);
+   K5 (flash attention) at (a) the LLaMA prefill,
    B=1 and 4, 1,984 queries into a 2,048-slot cache, 32 x 128, causal,
    score-side scale, the cache mask (empty tail; at B=4 rows left-padded to
    1,984/1,900/1,800/1,700 real tokens, whose padded rows must be exactly
@@ -38,6 +42,13 @@ final result line):
    3e-2 for K4 at the narration's batch 4 (the JAX int8 kernel test's bar)
    and 2e-3 for its other checks (K4_TIGHT_TOL: set from their measured
    maxima).
+2b. The fp32 bodies (an fp32 model) against their twins, TF32 off, atol =
+   rtol = 1e-4 (F32_TOL): K1 at (2, 257, 16x88); K2 at (2, 766, 32x80) with
+   all-ones and left- and right-padded masks (fully masked rows: the uniform
+   average of every V row); K3 and K4 (an fp32 query over the int8 cache) at
+   every decode shape (the narration's at batch 4 and 1, the text LM's),
+   with a fully masked row (uniform); K5 at (a), B = 1, and at (f) (left-padded rows exactly 0); K6
+   at (8, 257, 1408 -> 6144).
 3. Time each kernel against its twin with CUDA events, in turns (plain,
    kernel, kernel, plain; warm-up, median of 20), each call queued behind a
    device sleep so that the events measure device time, then one PyTorch
@@ -46,8 +57,13 @@ final result line):
    bound from its shapes and this run's masks. K3/K4 are timed as one decode
    step's 32 launches, one per layer of the 1 GB cache, so no call finds its
    layer in the 50 MB L2 cache; the time given is per launch; both decode
-   shapes are printed, the narration one goes in the kernels line. K5 is
-   timed at (a), and against the plain path at and below the auto thresholds.
+   shapes are printed, the narration one goes in the kernels line (K3's
+   batch-1 time is printed too). K5 is timed at (a), and against the plain
+   path at and below the auto thresholds. The fp32 bodies are timed in the
+   same way at their check shapes, beside one fp32 SDPA call for K1, K2, K3
+   and K5, with bounds at the fp32 CUDA-core peak (67 TFLOP/s); the fp32
+   K3/K4 rows of the kernels line are those at the narration's batch 1, the
+   shape phase 8 runs them at.
 4. Drive the main path at the full eilev-blip2-opt-2.7b geometry with random
    bf16 weights N(0, 0.02) from a seeded generator on the card: the 16-shot
    prompt layout of bench.py (17 videos x 8 frames x 224^2, 766 tokens),
@@ -85,21 +101,36 @@ final result line):
    cache), batch 1: K4 = 32 per one-token forward, K3 = 0, K5 = 32 (over the
    dequantized cache slice); prefill logits' min cosine against bf16 above
    INT8_MIN_COSINE.
+8. The fp32 model paths, each counted and held to the same model's plain
+   path on the card (every wrapper swapped for its twin, no launch): greedy
+   tokens identical, prefill logits within 1e-4 relative. The narration
+   model by its default construction VideoBlipForConditionalGeneration(cfg)
+   (the card, fp32) at the eilev-blip2-opt-2.7b widths with 2 ViT, 2
+   Q-Former and 2 OPT layers, batch 1, 8 new tokens: K1, K2 = 2 and K3 = 2
+   per one-token forward, all through their fp32 bodies; K6's fp32 body over
+   its 2 ViT layers; then its int8 KV cache (K4 with an fp32 query = 2 per
+   one-token forward). The text-only module of TextLM in fp32 at the
+   Llama-2-7b widths with 2 layers and the 1,984-token prompt: K5 = 2 and
+   K3 = 2 per one-token forward through their fp32 bodies.
 
 Prints every number tagged with the card's name and power limit, then one
-JSON line of per-kernel results, then the result line
+JSON line of per-kernel results (every body: the bf16 ones and the fp32
+ones, whose launches come from phase 8), then the result line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 With ``--kernel-times DIR`` it imports eilev_tpu_torch from DIR instead (an
 unpacked parent commit, or this tree), builds K3-K5's sources there, and only
-times K3/K4 at the decode shapes and K5 at (a), batch 1 and 4, twice each,
-then prints one JSON line of times: the A/B of a kernel change within one
-call (parent, change, change, parent). It checks nothing and prints no
-result line.
+times K3/K4 at the three decode shapes and K5 at (a), batch 1 and 4, twice
+each (printing which K3 body the tree's rule picks, where it has one), then
+prints one JSON line of times: the A/B of a kernel change within one call
+(parent, change, change, parent). It checks nothing and prints no result
+line.
 """
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import gc
 import json
 import os
@@ -135,14 +166,25 @@ LLAMA_REAL = (1984, 1900, 1800, 1700)
 LLAMA_SHORT = 40
 LLAMA_EOS = 2
 # the H100 SXM's published peaks (NVIDIA data sheet, dense, 700 W): bf16
-# tensor cores and HBM3
+# tensor cores, fp32 on the CUDA cores, and HBM3
 H100_BF16_FLOPS = 989e12
+H100_F32_FLOPS = 67e12
 H100_BYTES_PER_S = 3.35e12
+# the fp32 bodies against their twins (TF32 off on both sides): the twins
+# follow the same fp32 arithmetic and differ only in the order of fp32 sums
+# (a relative 1e-6 or so at these widths)
+F32_TOL = 1e-4
+# the fp32 model runs: the eilev-blip2-opt-2.7b and Llama-2-7b widths at 2
+# layers of each stack, batch 1, 8 new narration tokens
+F32_LAYERS = 2
+F32_NEW_TOKENS = 8
 # the decode-attention shapes K3/K4 are checked at: (layers, B, slots,
 # filled slots, heads, head_dim, q-side scale). The narration's (766 prompt +
 # 32 new slots) at batch 4, the text LM's (2,048 slots, 32 tokens in), and
 # the narration's at batch 1 (K4 takes a cluster of 3 at batch 4 and of 8
-# here); all but batch 1 are also timed in the kernels line
+# here). The bf16 rows of the kernels line are timed at batch 4 (the text
+# LM's and K3's batch-1 times are printed), the fp32 rows at batch 1, where
+# phase 8 runs them (the other two shapes' times are printed)
 DECODE_SHAPES = {
     "narration": (32, 4, 798, 780, 32, 80, True),
     "text-LM": (32, 1, LLAMA_CACHE, LLAMA_CACHE - 32, 32, 128, False),
@@ -213,41 +255,76 @@ def median_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def counters() -> dict:
-    """The six kernels' launch counters, by kernel name."""
+def _counter_refs() -> dict:
+    """Each launch counter by name: (wrapper, attribute). K1, K2, K5 and K6
+    count every launch in ``launches`` and their fp32 body's also in
+    ``launches_f32``; K3 counts by cache (bf16, fp32), K4 every int8-cache
+    launch and those with an fp32 query also in ``launches_int8_f32``."""
     from eilev_tpu_torch.ops import decode_attention as da
     from eilev_tpu_torch.ops import flash_attention as fl
     from eilev_tpu_torch.ops import fused_attention as fa
     from eilev_tpu_torch.ops import fused_mlp as fm
 
     return {
-        "packed_qkv_attention": fa.packed_qkv_attention.launches,
-        "packed_qkv_causal_attention": fa.packed_qkv_causal_attention.launches,
-        "decode_attention_stacked_bf16": da.decode_attention_stacked.launches_bf16,
-        "decode_attention_stacked_int8": da.decode_attention_stacked.launches_int8,
-        "flash_attention": fl.flash_attention.launches,
-        "flash_attention_sm90": fl.flash_attention.launches_sm90,
-        "ln_mlp": fm.ln_mlp.launches,
+        "packed_qkv_attention": (fa.packed_qkv_attention, "launches"),
+        "packed_qkv_attention_f32": (fa.packed_qkv_attention, "launches_f32"),
+        "packed_qkv_causal_attention": (fa.packed_qkv_causal_attention, "launches"),
+        "packed_qkv_causal_attention_f32": (fa.packed_qkv_causal_attention, "launches_f32"),
+        "decode_attention_stacked_bf16": (da.decode_attention_stacked, "launches_bf16"),
+        "decode_attention_stacked_f32": (da.decode_attention_stacked, "launches_f32"),
+        "decode_attention_stacked_int8": (da.decode_attention_stacked, "launches_int8"),
+        "decode_attention_stacked_int8_f32": (da.decode_attention_stacked, "launches_int8_f32"),
+        "flash_attention": (fl.flash_attention, "launches"),
+        "flash_attention_sm90": (fl.flash_attention, "launches_sm90"),
+        "flash_attention_f32": (fl.flash_attention, "launches_f32"),
+        "ln_mlp": (fm.ln_mlp, "launches"),
+        "ln_mlp_f32": (fm.ln_mlp, "launches_f32"),
     }
 
 
+def counters() -> dict:
+    """Every kernel body's launch counter, by name."""
+    return {name: getattr(fn, attr) for name, (fn, attr) in _counter_refs().items()}
+
+
 def reset_counters() -> None:
+    for fn, attr in _counter_refs().values():
+        setattr(fn, attr, 0)
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """Every kernel wrapper replaced by its plain twin where the models look it
+    up, so that a model on the card runs the plain path: the yardstick the
+    fp32 paths' tokens are held to."""
+    from eilev_tpu_torch.models import llama, opt
     from eilev_tpu_torch.ops import decode_attention as da
     from eilev_tpu_torch.ops import flash_attention as fl
     from eilev_tpu_torch.ops import fused_attention as fa
-    from eilev_tpu_torch.ops import fused_mlp as fm
 
-    fa.packed_qkv_attention.launches = 0
-    fa.packed_qkv_causal_attention.launches = 0
-    da.decode_attention_stacked.launches_bf16 = 0
-    da.decode_attention_stacked.launches_int8 = 0
-    fl.flash_attention.launches = 0
-    fl.flash_attention.launches_sm90 = 0
-    fm.ln_mlp.launches = 0
+    def k1(qkv, nh, hd, *, scale=None):
+        return fa.packed_qkv_attention_reference(qkv, nh, hd, hd**-0.5 if scale is None else scale)
+
+    def k2(qkv, nh, hd, padding_mask, *, scale=None):
+        return fa.packed_qkv_causal_attention_reference(qkv, nh, hd, padding_mask,
+                                                        hd**-0.5 if scale is None else scale)
+
+    swaps = [(fa, "packed_qkv_attention", k1), (opt, "packed_qkv_causal_attention", k2),
+             (opt, "decode_attention_stacked", da.decode_attention_stacked_reference),
+             (llama, "decode_attention_stacked", da.decode_attention_stacked_reference),
+             (fl, "flash_attention", fl.flash_attention_reference)]
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
+    try:
+        for mod, name, fn in swaps:
+            setattr(mod, name, fn)
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
 
 
 def build_kernels(tag: str, sources: tuple = ("packed_attention", "decode_attention", "flash_attention",
-                                               "fused_mlp")) -> None:
+                                               "fused_mlp", "attention_f32")) -> None:
     from eilev_tpu_torch.ops import _build
 
     def timed(fn):
@@ -262,10 +339,11 @@ def build_kernels(tag: str, sources: tuple = ("packed_attention", "decode_attent
             print(f"[{tag}] built eilev_tpu_torch/csrc/{src} in {fut.result()} s")
 
 
-def bound(flops: float, nbytes: float) -> tuple[float, str]:
+def bound(flops: float, nbytes: float, peak: float = H100_BF16_FLOPS) -> tuple[float, str]:
     """The least time (ms) the card could take: the larger of the operations
-    over the bf16 tensor-core peak and the bytes over the memory rate."""
-    t_ops = flops / H100_BF16_FLOPS * 1e3
+    over the peak for their type (bf16 tensor cores, or fp32 on the CUDA
+    cores) and the bytes over the memory rate."""
+    t_ops = flops / peak * 1e3
     t_bytes = nbytes / H100_BYTES_PER_S * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
@@ -299,23 +377,24 @@ def _k5_inputs(dev, g, b, s, l, nh, hd, real=None, tail_empty=False):
     return q, k, v, mask
 
 
-def _k5_causal_work(real, s, nh, hd, l):
+def _k5_causal_work(real, s, nh, hd, l, elem=2):
     """Operations and bytes a causal prefill of left-padded rows needs: row i
     of a prompt of n real tokens attends its n_i <= n real keys at or before
-    it; every q/out element is read/written once, every real k/v row once."""
+    it; every q/out element (``elem`` bytes) is read/written once, every real
+    k/v row once, the int32 mask once."""
     flops = sum(4 * nh * hd * n * (n + 1) // 2 for n in real)
-    nbytes = 2 * len(real) * s * nh * hd * 2 + 2 * sum(real) * nh * hd * 2 + len(real) * l * 4
+    nbytes = 2 * len(real) * s * nh * hd * elem + 2 * sum(real) * nh * hd * elem + len(real) * l * 4
     return flops, nbytes
 
 
-def _decode_case(dev, g, da, shape: str) -> SimpleNamespace:
-    """A 32-layer bf16 cache of DECODE_SHAPES[shape], its int8 copy
+def _decode_case(dev, g, da, shape: str, dtype=torch.bfloat16) -> SimpleNamespace:
+    """A 32-layer model-dtype cache of DECODE_SHAPES[shape], its int8 copy
     (quantize_kv), a query and the mid-decode keep-mask (slots past the
     filled ones empty)."""
     n_layers, b, s, filled, nh, hd, scale_query = DECODE_SHAPES[shape]
-    q = torch.randn(b, nh * hd, device=dev, generator=g).to(torch.bfloat16)
-    k5 = torch.randn(n_layers, b, s, nh, hd, device=dev, generator=g).to(torch.bfloat16)
-    v5 = torch.randn(n_layers, b, s, nh, hd, device=dev, generator=g).to(torch.bfloat16)
+    q = torch.randn(b, nh * hd, device=dev, generator=g).to(dtype)
+    k5 = torch.randn(n_layers, b, s, nh, hd, device=dev, generator=g).to(dtype)
+    v5 = torch.randn(n_layers, b, s, nh, hd, device=dev, generator=g).to(dtype)
     mask = torch.ones(b, s, dtype=torch.int32, device=dev)
     mask[:, filled:] = 0
     k8, ks = da.quantize_kv(k5)
@@ -340,18 +419,22 @@ def _k4_step(da, c, plain: bool = False):
 
 def _decode_bound(c, int8: bool) -> tuple[float, str]:
     """Bound of one decode-attention launch: 4 flops per filled slot and head
-    dim; K and V rows of the filled slots (bf16, or int8 + a bf16 scale each),
-    q, out and the mask, each moved once."""
+    dim (at the peak of the model dtype); K and V rows of the filled slots
+    (the model dtype, or int8 + a bf16 scale each), q, out and the mask, each
+    moved once."""
     _, b, s, filled, nh, hd = c.dims
-    io = 2 * b * nh * hd * 2 + b * s * 4
-    row = hd + 2 if int8 else 2 * hd
-    return bound(4 * b * nh * filled * hd, 2 * b * filled * nh * row + io)
+    elem = c.q.element_size()
+    io = 2 * b * nh * hd * elem + b * s * 4
+    row = hd + 2 if int8 else elem * hd
+    peak = H100_F32_FLOPS if elem == 4 else H100_BF16_FLOPS
+    return bound(4 * b * nh * filled * hd, 2 * b * filled * nh * row + io, peak)
 
 
-def _k6_work(m: int, d: int, f: int) -> tuple[float, float]:
+def _k6_work(m: int, d: int, f: int, elem: int = 2) -> tuple[float, float]:
     """Operations and bytes of one LN -> MLP call: two products of 2 M D F
-    each; x, out and both weights in bf16, the four vectors in fp32."""
-    return 4 * m * d * f, 2 * m * d * 2 + 2 * d * f * 2 + (3 * d + f) * 4
+    each; x, out and both weights in the model dtype (``elem`` bytes), the
+    four vectors in fp32."""
+    return 4 * m * d * f, 2 * m * d * elem + 2 * d * f * elem + (3 * d + f) * 4
 
 
 def check_kernels(tag: str, dev: torch.device) -> list[dict]:
@@ -375,6 +458,15 @@ def check_kernels(tag: str, dev: torch.device) -> list[dict]:
                     "max_abs_err": err, "run": k1, "plain": k1_plain, "per_call": 1,
                     "library": lambda hd=hd: _sdpa(k1_q, k1_k, k1_v, scale=hd**-0.5),
                     "bound": bound(4 * b * nh * s * s * hd, 4 * b * s * nh * hd * 2)})
+    # K1 past its whole-row limit (K1_MAX_SEQ = 384): K2's body with no causal
+    # frontier, up to 2,048; 577 is a 336^2 ViT (24^2 patches + CLS)
+    for s_long in (385, 577, 1025):
+        qkv = torch.randn(2, s_long, 3 * nh * hd, device=dev, generator=g).to(torch.bfloat16)
+        assert fa.packed_body(qkv, causal=False) == "streamed"
+        check_close(tag, f"K1 packed_qkv_attention (2,{s_long},{nh}x{hd}) past K1_MAX_SEQ, K2's body",
+                    fa.packed_qkv_attention(qkv, nh, hd), fa.packed_qkv_attention_reference(qkv, nh, hd, hd**-0.5),
+                    2e-2)
+    del qkv
 
     b, s, nh, hd = 4, 766, 32, 80
     k2_qkv = torch.randn(b, s, 3 * nh * hd, device=dev, generator=g).to(torch.bfloat16)
@@ -408,11 +500,23 @@ def check_kernels(tag: str, dev: torch.device) -> list[dict]:
         n_layers, b, s, filled, nh, hd = c.dims
         full = torch.ones_like(c.mask)
         label = f"({n_layers},{b},{s} with {filled} filled,{nh}x{hd}) layer 17"
+        body = (f"the split, a cluster of {da.cluster_size(b, nh, s)}" if da.k3_split(b, nh, s)
+                else "one block a (head, row)")
+        print(f"[{tag}] K3 bf16 {shape}: the body rule k3_split(B={b}, H={nh}, S={s}) picks {body}")
+        dead = c.mask.clone()
+        dead[-1] = 0
         errs = [check_close(
             tag, f"K3 decode_attention_stacked bf16 {shape} {label} {name} mask",
             da.decode_attention_stacked(c.q, c.kb, c.vb, mask, 17, **c.kw),
             da.decode_attention_stacked_reference(c.q, c.kb, c.vb, mask, 17, **c.kw), 2e-2)
             for name, mask in (("full", full), ("mid-decode", c.mask))]
+        # a fully masked row: -inf max, so NaN, in kernel and twin alike
+        out = da.decode_attention_stacked(c.q, c.kb, c.vb, dead, 17, **c.kw)
+        ref = da.decode_attention_stacked_reference(c.q, c.kb, c.vb, dead, 17, **c.kw)
+        torch.cuda.synchronize()
+        assert bool(torch.isnan(out[-1]).all()) and bool(torch.isnan(ref[-1]).all()), "K3 masked row not NaN"
+        torch.testing.assert_close(out, ref, atol=2e-2, rtol=2e-2, equal_nan=True)
+        print(f"[{tag}] K3 bf16 {shape} fully masked row: NaN in kernel and twin")
         if shape == "narration":
             gq = torch.randn(4, 32 * 128, device=dev, generator=g).to(torch.bfloat16)
             gk = torch.randn(2, 4, 2048, 8 * 128, device=dev, generator=g).to(torch.bfloat16)
@@ -451,8 +555,6 @@ def check_kernels(tag: str, dev: torch.device) -> list[dict]:
                   "bound": _decode_bound(c, int8=True)}
         if shape == "narration":
             # a fully masked row: -inf max, so NaN, in kernel and twin alike
-            dead = c.mask.clone()
-            dead[-1] = 0
             out = da.decode_attention_stacked(c.q, c.k8, c.v8, dead, 17, **c.i8)
             ref = da.decode_attention_stacked_reference(c.q, c.k8, c.v8, dead, 17, **c.i8)
             torch.cuda.synchronize()
@@ -463,7 +565,9 @@ def check_kernels(tag: str, dev: torch.device) -> list[dict]:
         elif shape == "text-LM":
             decode_extra += [dict(k3_row, name=f"{k3_row['name']} at the text-LM shape"),
                              dict(k4_row, name=f"{k4_row['name']} at the text-LM shape")]
-        del c, k3_row, k4_row, k3_lib
+        else:  # the narration's batch 1: K3's time printed, K4's by --kernel-times
+            decode_extra.append(dict(k3_row, name=f"{k3_row['name']} at the narration's batch 1"))
+        del c, k3_row, k4_row, k3_lib, dead, out, ref
     # K4 with fewer slots than a cluster's 32-slot chunks: S = 1 and 5, B = 1,
     # the text LM's heads (32 x 128, score-side scale)
     for s_small in (1, 5):
@@ -589,7 +693,9 @@ def check_kernels(tag: str, dev: torch.device) -> list[dict]:
               f"K5_ms={times[1]},{times[2]}")
     del q, k, v, mask
 
-    for r in results + [results_b4] + decode_extra:
+    f32_rows, f32_extra = check_f32_kernels(tag, dev, g)
+    results += f32_rows
+    for r in results + [results_b4] + decode_extra + f32_extra:
         # in turns, plain first: plain, kernel, kernel, plain, then the
         # library call twice. The closures are dropped after, so the test
         # caches are freed before the main path's peak memory is read.
@@ -606,6 +712,135 @@ def check_kernels(tag: str, dev: torch.device) -> list[dict]:
     return results
 
 
+def check_f32_kernels(tag: str, dev: torch.device, g) -> tuple[list, list]:
+    """The fp32 bodies (an fp32 model) against their twins on the card, TF32
+    off, atol = rtol = F32_TOL; fully masked rows: the uniform average of
+    every V row for K2/K3/K4 (finfo(float32).min is finite), exactly 0 for
+    K5. Returns the rows of the kernels line (timed at K1's, K2's, the
+    narration decode at batch 1, which phase 8 runs, K5 (a) and K6's shapes)
+    and extra timed rows (the other decode shapes)."""
+    from eilev_tpu_torch.ops import decode_attention as da
+    from eilev_tpu_torch.ops import flash_attention as fl
+    from eilev_tpu_torch.ops import fused_attention as fa
+    from eilev_tpu_torch.ops import fused_mlp as fm
+
+    rows, extra = [], []
+    f32 = torch.float32
+
+    def row(name, source, replaces, err, run, plain, library, roofline, per_call=1):
+        return {"name": name, "source": f"eilev_tpu_torch/csrc/{source}", "replaces": replaces,
+                "max_abs_err": err, "run": run, "plain": plain, "per_call": per_call, "library": library,
+                "bound": roofline}
+
+    b, s, nh, hd = 2, 257, 16, 88
+    qkv = torch.randn(b, s, 3 * nh * hd, device=dev, generator=g)
+    q_, k_, v_ = qkv.view(b, s, 3, nh, hd).permute(2, 0, 3, 1, 4)
+    k1 = lambda nh=nh, hd=hd, qkv=qkv: fa.packed_qkv_attention(qkv, nh, hd)  # noqa: E731
+    k1_plain = lambda nh=nh, hd=hd, qkv=qkv: fa.packed_qkv_attention_reference(qkv, nh, hd, hd**-0.5)  # noqa: E731
+    err = check_close(tag, f"K1 fp32 ({b},{s},{nh}x{hd})", k1(), k1_plain(), F32_TOL)
+    rows.append(row("packed_qkv_attention_f32", "attention_f32.cu", "eilev_tpu/ops/fused_attention.py:81", err,
+                    k1, k1_plain, lambda hd=hd, q_=q_, k_=k_, v_=v_: _sdpa(q_, k_, v_, scale=hd**-0.5),
+                    bound(4 * b * nh * s * s * hd, 4 * b * s * nh * hd * 4, H100_F32_FLOPS)))
+
+    b, s, nh, hd = 2, 766, 32, 80
+    qkv = torch.randn(b, s, 3 * nh * hd, device=dev, generator=g)
+    ones = torch.ones(b, s, dtype=torch.int32, device=dev)
+    padded = ones.clone()
+    padded[0, :150] = 0  # left: query rows 0-149 of row 0 see no kept key
+    padded[1, 600:] = 0  # right
+    errs = [check_close(tag, f"K2 fp32 ({b},{s},{nh}x{hd}) {name} mask",
+                        fa.packed_qkv_causal_attention(qkv, nh, hd, m),
+                        fa.packed_qkv_causal_attention_reference(qkv, nh, hd, m, hd**-0.5), F32_TOL)
+            for name, m in (("all-ones", ones), ("left- and right-padded", padded))]
+    out = fa.packed_qkv_causal_attention(qkv, nh, hd, padded)
+    v_mean = qkv.view(b, s, 3, nh * hd)[0, :, 2].mean(0)
+    torch.testing.assert_close(out[0, :150], v_mean.expand(150, -1), atol=F32_TOL, rtol=F32_TOL)
+    print(f"[{tag}] K2 fp32 fully masked rows: the uniform average of every V row")
+    q_, k_, v_ = qkv.view(b, s, 3, nh, hd).permute(2, 0, 3, 1, 4)
+    k2 = lambda nh=nh, hd=hd, qkv=qkv, m=ones: fa.packed_qkv_causal_attention(qkv, nh, hd, m)  # noqa: E731
+    k2_plain = lambda nh=nh, hd=hd, qkv=qkv, m=ones: fa.packed_qkv_causal_attention_reference(  # noqa: E731
+        qkv, nh, hd, m, hd**-0.5)
+    rows.append(row("packed_qkv_causal_attention_f32", "attention_f32.cu", "eilev_tpu/ops/fused_attention.py:187",
+                    max(errs), k2, k2_plain,
+                    lambda hd=hd, q_=q_, k_=k_, v_=v_: _sdpa(q_, k_, v_, is_causal=True, scale=hd**-0.5),
+                    bound(4 * b * nh * hd * s * (s + 1) // 2, 4 * b * s * nh * hd * 4 + b * s * 4, H100_F32_FLOPS)))
+    del qkv, out
+
+    # K3 / K4 with an fp32 model at every decode shape
+    for shape in DECODE_SHAPES:
+        c = _decode_case(dev, g, da, shape, dtype=f32)
+        n_layers, b, s, filled, nh, hd = c.dims
+        dead = c.mask.clone()
+        dead[-1] = 0
+        label = f"({n_layers},{b},{s} with {filled} filled,{nh}x{hd}) layer 17"
+        errs = [check_close(tag, f"K3 fp32 {shape} {label} {name} mask",
+                            da.decode_attention_stacked(c.q, c.kb, c.vb, m, 17, **c.kw),
+                            da.decode_attention_stacked_reference(c.q, c.kb, c.vb, m, 17, **c.kw), F32_TOL)
+                for name, m in (("mid-decode", c.mask), ("fully masked row", dead))]
+        out = da.decode_attention_stacked(c.q, c.kb, c.vb, dead, 17, **c.kw)
+        torch.testing.assert_close(out[-1], c.vb[17, -1].mean(0), atol=F32_TOL, rtol=F32_TOL)
+        errs8 = [check_close(tag, f"K4 fp32 query {shape} {label} {name} mask",
+                             da.decode_attention_stacked(c.q, c.k8, c.v8, m, 17, **c.i8),
+                             da.decode_attention_stacked_reference(c.q, c.k8, c.v8, m, 17, **c.i8), F32_TOL)
+                 for name, m in (("mid-decode", c.mask), ("fully masked row", dead))]
+        print(f"[{tag}] K3/K4 fp32 {shape} fully masked row: the uniform average of every V row")
+        sd_q = c.q.view(b, nh, 1, hd)
+        sd_mask = c.mask.bool()[:, None, None, :]
+        lib = lambda c=c, sd_q=sd_q, sd_mask=sd_mask, hd=hd: [  # noqa: E731
+            _sdpa(sd_q, c.k5[i].transpose(1, 2), c.v5[i].transpose(1, 2), attn_mask=sd_mask, scale=hd**-0.5)
+            for i in range(c.dims[0])]
+        k3 = row("decode_attention_stacked_f32", "decode_attention.cu", "eilev_tpu/ops/decode_attention.py:117",
+                 max(errs), _k3_step(da, c), _k3_step(da, c, plain=True), lib, _decode_bound(c, int8=False),
+                 per_call=n_layers)
+        k4 = row("decode_attention_stacked_int8_f32", "decode_attention.cu", "eilev_tpu/ops/decode_attention.py:75",
+                 max(errs8), _k4_step(da, c), _k4_step(da, c, plain=True), None, _decode_bound(c, int8=True),
+                 per_call=n_layers)
+        if shape == "narration batch 1":  # the shape of phase 8's fp32 narration decode
+            rows += [k3, k4]
+        else:
+            extra += [dict(k3, name=f"{k3['name']} at the {shape} shape"),
+                      dict(k4, name=f"{k4['name']} at the {shape} shape")]
+        del c, out, lib, k3, k4
+
+    # K5 with an fp32 model: (a) the LLaMA prefill at B = 1; (f) 300 queries
+    # into 320 slots with row 0 left-padded by 150, whose rows are exactly 0
+    errs = []
+    q, k, v, mask = _k5_inputs(dev, g, 2, 300, 320, 32, 128, (150, 300), tail_empty=True)
+    q, k, v = q.float(), k.float(), v.float()
+    kw5 = dict(padding_mask=mask, causal=True, scale=128**-0.5)
+    out = fl.flash_attention(q, k, v, **kw5)
+    torch.cuda.synchronize()
+    assert bool((out[0, :150] == 0).all()), "K5 fp32: a left-padded row is not exactly 0"
+    errs.append(check_close(tag, "K5 fp32 (f) B=2 S=300 L=320 32x128 causal, row 0 left-padded by 150",
+                            out, fl.flash_attention_reference(q, k, v, **kw5), F32_TOL))
+    q, k, v, mask = _k5_inputs(dev, g, 1, LLAMA_PROMPT, LLAMA_CACHE, 32, 128, tail_empty=True)
+    q, k, v = q.float(), k.float(), v.float()
+    kw5 = dict(padding_mask=mask, causal=True, scale=128**-0.5)
+    errs.append(check_close(tag, "K5 fp32 (a) LLaMA prefill B=1 S=1984 L=2048 32x128 causal",
+                            fl.flash_attention(q, k, v, **kw5), fl.flash_attention_reference(q, k, v, **kw5), F32_TOL))
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    rows.append(row("flash_attention_f32", "attention_f32.cu", "eilev_tpu/ops/flash_attention.py:157", max(errs),
+                    lambda q=q, k=k, v=v, kw5=kw5: fl.flash_attention(q, k, v, **kw5),
+                    lambda q=q, k=k, v=v, kw5=kw5: fl.flash_attention_reference(q, k, v, **kw5),
+                    lambda qt=qt, kt=kt, vt=vt: _sdpa(qt, kt, vt, is_causal=True, scale=128**-0.5),
+                    bound(*_k5_causal_work((LLAMA_PROMPT,), LLAMA_PROMPT, 32, 128, LLAMA_CACHE, elem=4),
+                          H100_F32_FLOPS)))
+    del out
+
+    # K6 with an fp32 model: 8 frames of the ViT MLP shape, unit-scale inputs
+    b, s, d, f = 8, 257, 1408, 6144
+    args = [torch.randn(*shape, device=dev, generator=g) * std + mean
+            for shape, std, mean in (((b, s, d), 1.0, 0.0), ((d,), 0.1, 1.0), ((d,), 0.1, 0.0),
+                                     ((d, f), d**-0.5, 0.0), ((f,), 0.1, 0.0), ((f, d), f**-0.5, 0.0),
+                                     ((d,), 0.1, 0.0))]
+    k6 = lambda args=args: fm.ln_mlp(*args)  # noqa: E731
+    k6_plain = lambda args=args: fm.ln_mlp_reference(*args)  # noqa: E731
+    err = check_close(tag, f"K6 ln_mlp fp32 ({b},{s},{d} -> {f})", k6(), k6_plain(), F32_TOL)
+    rows.append(row("ln_mlp_f32", "fused_mlp.cu", "eilev_tpu/ops/fused_mlp.py:101", err, k6, k6_plain, None,
+                    bound(*_k6_work(b * s, d, f, elem=4), H100_F32_FLOPS)))
+    return rows, extra
+
+
 def kernel_times(tag: str, dev: torch.device, tree: str) -> None:
     """The A/B timing of ``--kernel-times``: K3 and K4 at the decode shapes
     and K5 at (a), batch 1 and 4, on the eilev_tpu_torch that was imported
@@ -618,6 +853,9 @@ def kernel_times(tag: str, dev: torch.device, tree: str) -> None:
     runs = {}
     for shape in DECODE_SHAPES:
         c = _decode_case(dev, g, da, shape)
+        _, b, s, _, nh, _ = c.dims
+        if hasattr(da, "k3_split"):
+            print(f"[{tag}] {tree} K3 {shape}: k3_split(B={b}, H={nh}, S={s}) = {da.k3_split(b, nh, s)}")
         runs[f"K3 {shape}"] = (_k3_step(da, c), c.dims[0])
         runs[f"K4 {shape}"] = (_k4_step(da, c), c.dims[0])
     for b_a, real in ((1, (LLAMA_PROMPT,)), (4, LLAMA_REAL)):
@@ -634,9 +872,10 @@ def kernel_times(tag: str, dev: torch.device, tree: str) -> None:
 class Narration:
     """The main path's inputs at one batch size, and the calls that drive it."""
 
-    def __init__(self, model, cfg, batch: int, dev: torch.device):
+    def __init__(self, model, cfg, batch: int, dev: torch.device, dtype=torch.bfloat16,
+                 new_tokens: int = MAX_NEW_TOKENS):
         ids, mask, vim = build_prompt(cfg.num_query_tokens, batch)
-        self.model, self.batch = model, batch
+        self.model, self.batch, self.dtype, self.new_tokens = model, batch, dtype, new_tokens
         self.n_videos = batch * (SHOTS + 1)
         self.frames = torch.from_numpy(
             np.random.default_rng(1).integers(0, 256, size=(self.n_videos, 3, FRAMES, 224, 224), dtype=np.uint8)
@@ -652,24 +891,24 @@ class Narration:
         from eilev_tpu_torch.generation import GenerationConfig, generate
         from eilev_tpu_torch.ops.preprocess import process_videos
 
-        pixel = process_videos(self.frames, dtype=torch.bfloat16)
+        pixel = process_videos(self.frames, dtype=self.dtype)
         return generate(self.model, input_ids=self.ids, attention_mask=self.mask, pixel_values=pixel,
                         video_input_mask=self.vim,
                         generation_config=GenerationConfig(
-                            max_new_tokens=MAX_NEW_TOKENS, pad_token_id=1, eos_token_id=(NEWLINE,)))
+                            max_new_tokens=self.new_tokens, pad_token_id=1, eos_token_id=(NEWLINE,)))
 
     @torch.inference_mode()
     def embeds(self):
         from eilev_tpu_torch.ops.preprocess import process_videos
 
-        return self.model.embed_and_scatter(self.ids, process_videos(self.frames, dtype=torch.bfloat16), self.vim)
+        return self.model.embed_and_scatter(self.ids, process_videos(self.frames, dtype=self.dtype), self.vim)
 
     @torch.inference_mode()
     def prefill_logits(self, embeds):
         """(B, S, vocab) logits of the prefill into a fresh cache (K2 path)."""
         from eilev_tpu_torch.models import init_cache
 
-        cache = init_cache(self.model.config.text_config, self.batch, embeds.shape[1] + MAX_NEW_TOKENS,
+        cache = init_cache(self.model.config.text_config, self.batch, embeds.shape[1] + self.new_tokens,
                            dtype=embeds.dtype, device=embeds.device)
         logits, _ = self.model.lm_forward(embeds, attention_mask=self.mask, cache=cache)
         return logits
@@ -770,7 +1009,7 @@ def run_main_path(tag: str, dev: torch.device, launches: dict):
     return model, lm_calls, runs
 
 
-def run_k6_on_vit_layers(tag: str, model, run, launches: dict) -> None:
+def run_k6_on_vit_layers(tag: str, model, run, launches: dict, tol: float = 2e-2) -> None:
     """K6 over the main-path model's 39 ViT layers at batch 1: each layer's
     input to its MLP branch (captured by a pre-hook on layer_norm2 during one
     encode of the request's frames) through K6 with that layer's weights, the
@@ -779,7 +1018,9 @@ def run_k6_on_vit_layers(tag: str, model, run, launches: dict) -> None:
     layer.mlp(layer.layer_norm2(x)): those round the fc1 output to bf16
     before gelu, which K6 and the reference do not, so the bar there is the
     min cosine over rows, > 0.999 (a wrong weight, transpose or layer gives
-    ~0), and the same cosine against the twin."""
+    ~0), and the same cosine against the twin. With an fp32 model (``run.dtype``)
+    the fp32 body runs, held to the twin at ``tol``, and the branch is not
+    timed."""
     from eilev_tpu_torch.ops import fused_mlp as fm
     from eilev_tpu_torch.ops.preprocess import process_videos
 
@@ -789,7 +1030,7 @@ def run_k6_on_vit_layers(tag: str, model, run, launches: dict) -> None:
              for layer in layers]
     try:
         with torch.inference_mode():
-            model.vision_model(process_videos(run.frames, dtype=torch.bfloat16))
+            model.vision_model(process_videos(run.frames, dtype=run.dtype))
     finally:
         for hook in hooks:
             hook.remove()
@@ -807,13 +1048,16 @@ def run_k6_on_vit_layers(tag: str, model, run, launches: dict) -> None:
         counts = counters()
         want = dict.fromkeys(counts, 0)
         want["ln_mlp"] = len(layers)
-        print(f"[{tag}] K6 over the ViT layers batch=1 x={tuple(inputs[0].shape)} launches {counts}")
+        f32 = run.dtype == torch.float32
+        if f32:
+            want["ln_mlp_f32"] = len(layers)
+        print(f"[{tag}] K6 over the ViT layers batch=1 x={tuple(inputs[0].shape)} {run.dtype} launches {counts}")
         assert counts == want, f"launch counts {counts}, expected {want}"
         errs, cos_ref, cos_mod = [], [], []
         for layer, x, w, out in zip(layers, inputs, weights, outs):
             ref = fm.ln_mlp_reference(x, *w, eps=eps)
             mod = layer.mlp(layer.layer_norm2(x))
-            torch.testing.assert_close(out, ref, atol=2e-2, rtol=2e-2)
+            torch.testing.assert_close(out, ref, atol=tol, rtol=tol)
             assert bool(torch.isfinite(out).all())
             errs.append(((out.float() - ref.float()).abs().max() / ref.float().abs().max()).item())
             cos = torch.nn.functional.cosine_similarity
@@ -822,6 +1066,9 @@ def run_k6_on_vit_layers(tag: str, model, run, launches: dict) -> None:
     print(f"[{tag}] K6 over {len(layers)} ViT layers: max_rel_err_vs_twin={max(errs)} "
           f"min_cosine_vs_twin={min(cos_ref)} min_cosine_vs_modules={min(cos_mod)}")
     assert min(cos_ref) > 0.999 and min(cos_mod) > 0.999, (min(cos_ref), min(cos_mod))
+    if f32:
+        launches["ln_mlp_f32"] = counts["ln_mlp_f32"]
+        return
     launches["ln_mlp"] = counts["ln_mlp"]
 
     # what the ViT runs today in K6's place (layer_norm2, then fc1, gelu, fc2
@@ -1017,10 +1264,102 @@ def run_llama(tag: str, dev: torch.device, launches: dict) -> None:
     assert cos.min().item() > INT8_MIN_COSINE, cos.min().item()
 
 
+def _same_tokens_as_plain(tag: str, label: str, run) -> None:
+    """The run's greedy tokens through the kernels equal those of the same
+    model on the plain path (every wrapper swapped for its twin, which
+    launches nothing), and its prefill logits agree to 1e-4 relative."""
+    tokens = run.generate()
+    logits = run.prefill_logits() if isinstance(run, TextRun) else run.prefill_logits(run.embeds())
+    torch.cuda.synchronize()
+    reset_counters()
+    with plain_kernels():
+        plain_tokens = run.generate()
+        plain_logits = run.prefill_logits() if isinstance(run, TextRun) else run.prefill_logits(run.embeds())
+    torch.cuda.synchronize()
+    assert not any(counters().values()), f"the plain path launched a kernel: {counters()}"
+    a, b = logits.float(), plain_logits.float()
+    rel = ((a - b).abs().max() / b.abs().max()).item()
+    same = bool(torch.equal(tokens, plain_tokens))
+    print(f"[{tag}] {label}: tokens {tokens[0].tolist()} vs plain path {plain_tokens[0].tolist()}: "
+          f"identical={same}; prefill logits max_rel_err={rel}")
+    assert same, "greedy tokens differ from the plain path"
+    assert bool(torch.isfinite(a).all()) and rel < 1e-4, rel
+
+
+def run_f32_paths(tag: str, dev: torch.device, launches: dict) -> None:
+    """Phase 8: the fp32 bodies on the main paths. The narration model by its
+    default construction, VideoBlipForConditionalGeneration(cfg) with no
+    device or dtype (the card, fp32), at the eilev-blip2-opt-2.7b widths with
+    F32_LAYERS ViT, Q-Former and OPT layers, batch 1, F32_NEW_TOKENS new
+    tokens: K1, K2 and K3 through their fp32 bodies, tokens identical to the
+    plain path's; K6's fp32 body over its ViT layers; then its int8 KV cache
+    (K4 with an fp32 query). Then the text-only module of TextLM in fp32 at
+    the Llama-2-7b widths with F32_LAYERS layers and the 1,984-token prompt,
+    so that auto takes K5: K5 and K3 through their fp32 bodies, tokens
+    identical to the plain path's."""
+    from eilev_tpu_torch import configs
+    from eilev_tpu_torch.generation.text_lm import _TextOnlyModule
+    from eilev_tpu_torch.models import VideoBlipForConditionalGeneration
+    from eilev_tpu_torch.ops.quantization import quantize_model_
+
+    base = configs.blip2_opt_2_7b()
+    cfg = dataclasses.replace(
+        base,
+        vision_config=dataclasses.replace(base.vision_config, num_hidden_layers=F32_LAYERS),
+        qformer_config=dataclasses.replace(base.qformer_config, num_hidden_layers=F32_LAYERS),
+        text_config=dataclasses.replace(base.text_config, num_hidden_layers=F32_LAYERS))
+    model = VideoBlipForConditionalGeneration(cfg).eval()
+    param = next(model.parameters())
+    assert param.dtype == torch.float32 and param.is_cuda, (param.dtype, param.device)
+    random_init_(model, torch.Generator(device=dev).manual_seed(44), std=0.02)
+    lm_calls: list = []
+    model.language_model.register_forward_hook(
+        lambda mod, args, out: lm_calls.append((args[0].shape[1], torch.isfinite(out[0]).all()))
+    )
+    run = Narration(model, cfg, 1, dev, dtype=torch.float32, new_tokens=F32_NEW_TOKENS)
+    want = dict.fromkeys(counters(), 0)
+    want.update({"packed_qkv_attention": F32_LAYERS, "packed_qkv_attention_f32": F32_LAYERS,
+                 "packed_qkv_causal_attention": F32_LAYERS, "packed_qkv_causal_attention_f32": F32_LAYERS,
+                 "decode_attention_stacked_f32": "lm"})
+    counts = drive(tag, "fp32 narration (default construction, 2+2+2 layers)", run, lm_calls, want, reps=1)
+    launches.update({k: counts[k] for k in
+                     ("packed_qkv_attention_f32", "packed_qkv_causal_attention_f32", "decode_attention_stacked_f32")})
+    _same_tokens_as_plain(tag, "fp32 narration", run)
+    run_k6_on_vit_layers(tag, model, run, launches, tol=F32_TOL)
+
+    quantize_model_(model, int8_kv=True)
+    want.update({"decode_attention_stacked_f32": 0, "decode_attention_stacked_int8": "lm",
+                 "decode_attention_stacked_int8_f32": "lm"})
+    counts = drive(tag, "fp32 narration, int8 KV cache", run, lm_calls, want, reps=1)
+    launches["decode_attention_stacked_int8_f32"] = counts["decode_attention_stacked_int8_f32"]
+    _same_tokens_as_plain(tag, "fp32 narration, int8 KV cache", run)
+    del model, run, lm_calls
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cfg = configs.VideoBlipConfig(text_config=configs.LlamaConfig(num_hidden_layers=F32_LAYERS))
+    module = _TextOnlyModule(cfg, device=dev, dtype=torch.float32).eval()
+    random_init_(module, torch.Generator(device=dev).manual_seed(45), std=0.02)
+    lm_calls = []
+    module.language_model.register_forward_hook(
+        lambda mod, args, out: lm_calls.append((args[0].shape[1], torch.isfinite(out[0]).all()))
+    )
+    run = TextRun(module, (LLAMA_PROMPT,), LLAMA_PROMPT, dev, seed=3)
+    want = dict.fromkeys(counters(), 0)
+    want.update({"flash_attention": F32_LAYERS, "flash_attention_f32": F32_LAYERS,
+                 "decode_attention_stacked_f32": "lm"})
+    counts = drive(tag, "fp32 text LM (Llama-2-7b widths, 2 layers)", run, lm_calls, want, reps=1)
+    launches["flash_attention_f32"] = counts["flash_attention_f32"]
+    _same_tokens_as_plain(tag, "fp32 text LM", run)
+
+
 def main(argv: list) -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke: no CUDA device; this script runs only on a GPU")
     dev = torch.device("cuda", 0)
+    # the fp32 bodies are held to fp32 twins: no TF32 in the twins' products
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     tag = card_tag()
     print(tag)  # nvidia-smi --query-gpu=name,power.limit, as it prints it
     print(f"[{tag}] torch {torch.__version__} cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
@@ -1049,6 +1388,9 @@ def main(argv: list) -> int:
         gc.collect()
         torch.cuda.empty_cache()
         run_llama(tag, dev, launches)
+        gc.collect()
+        torch.cuda.empty_cache()
+        run_f32_paths(tag, dev, launches)
     except Exception:
         traceback.print_exc()
         return 1

@@ -38,6 +38,15 @@
 //     Abramowitz-Stegun polynomial stood in for an erf Mosaic lacks, and both
 //     are far below bf16 resolution.
 // wgmma, TMA and a persistent schedule are later steps.
+//
+// The fp32 body (eilev_ln_mlp_f32), for an fp32 model, where the reference's
+// roundings to the model dtype are the identity: the same three launches in
+// fp32 on the CUDA cores (the tensor cores take no fp32, and TF32 keeps too
+// few bits for the 1e-4 the fp32 reference is held to). LayerNorm one warp a
+// row; both products one plain tiled fp32 kernel: 128 x 128 output tiles,
+// 256 threads of 8 x 8 outputs, 8-deep k tiles through shared memory, the
+// sum over k in order, + bias (+ erf gelu) in the epilogue. Correct first:
+// it runs at a small share of the 67 TFLOP/s fp32 peak.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -246,7 +255,121 @@ int launch_gemm(const __nv_bfloat16* A, const __nv_bfloat16* W, const float* bia
   return (int)cudaGetLastError();
 }
 
+// ---- the fp32 body
+
+__global__ void __launch_bounds__(LN_WARPS * 32)
+layer_norm_f32_kernel(const float* __restrict__ x, const float* __restrict__ scale,
+                      const float* __restrict__ bias, float* __restrict__ h, int M, int D, float eps) {
+  const int row = blockIdx.x * LN_WARPS + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (row >= M) return;
+  const float* xr = x + (size_t)row * D;
+  float* hr = h + (size_t)row * D;
+  float sum = 0.f;
+  for (int i = lane; i < D; i += 32) sum += xr[i];
+  const float mu = warp_sum(sum) / D;
+  float sq = 0.f;
+  for (int i = lane; i < D; i += 32) {
+    const float d = xr[i] - mu;
+    sq += d * d;
+  }
+  const float rstd = rsqrtf(warp_sum(sq) / D + eps);
+  for (int i = lane; i < D; i += 32) hr[i] = (xr[i] - mu) * rstd * scale[i] + bias[i];
+}
+
+constexpr int FBM = 128, FBN = 128, FBK = 8;
+constexpr int F_THREADS = 256;  // 16 x 16 threads of 8 x 8 outputs
+
+// C (M, N) = epilogue(A (M, K) @ W (K, N) + bias), fp32, all row-major.
+// Thread (ty, tx) owns rows 4ty + i and 64 + 4ty + i, columns 4tx + j and 64
+// + 4tx + j, so its shared-memory reads are 16-byte loads a half-warp shares.
+template <bool GELU>
+__global__ void __launch_bounds__(F_THREADS)
+sgemm_bias_kernel(const float* __restrict__ A, const float* __restrict__ W,
+                  const float* __restrict__ bias, float* __restrict__ C, int M, int N, int K) {
+  __shared__ __align__(16) float As[FBK][FBM + 4];  // k-major
+  __shared__ __align__(16) float Bs[FBK][FBN + 4];
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const int m0 = blockIdx.y * FBM, n0 = blockIdx.x * FBN;
+  float acc[8][8] = {};
+  for (int k0 = 0; k0 < K; k0 += FBK) {
+    {  // A: row t / 2, k (t % 2) * 4 .. + 3
+      const int r = threadIdx.x / 2, kk = (threadIdx.x % 2) * 4, m = m0 + r;
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int k = k0 + kk + u;
+        As[kk + u][r] = m < M && k < K ? A[(size_t)m * K + k] : 0.f;
+      }
+    }
+    {  // W: k t / 32, columns (t % 32) * 4 .. + 3
+      const int kk = threadIdx.x / 32, c = (threadIdx.x % 32) * 4, k = k0 + kk;
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int n = n0 + c + u;
+        Bs[kk][c + u] = k < K && n < N ? W[(size_t)k * N + n] : 0.f;
+      }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < FBK; ++kk) {
+      const float4 a0 = *reinterpret_cast<const float4*>(&As[kk][4 * ty]);
+      const float4 a1 = *reinterpret_cast<const float4*>(&As[kk][64 + 4 * ty]);
+      const float4 b0 = *reinterpret_cast<const float4*>(&Bs[kk][4 * tx]);
+      const float4 b1 = *reinterpret_cast<const float4*>(&Bs[kk][64 + 4 * tx]);
+      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int m = m0 + (i < 4 ? 4 * ty + i : 64 + 4 * ty + i - 4);
+    if (m >= M) continue;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int n = n0 + (j < 4 ? 4 * tx + j : 64 + 4 * tx + j - 4);
+      if (n >= N) continue;
+      const float v = acc[i][j] + bias[n];
+      C[(size_t)m * N + n] = GELU ? gelu_erf(v) : v;
+    }
+  }
+}
+
+template <bool GELU>
+int launch_sgemm(const float* A, const float* W, const float* bias, float* C, int M, int N, int K,
+                 cudaStream_t stream) {
+  dim3 grid((N + FBN - 1) / FBN, (M + FBM - 1) / FBM);
+  sgemm_bias_kernel<GELU><<<grid, F_THREADS, 0, stream>>>(A, W, bias, C, M, N, K);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
+
+// The fp32 body: every tensor fp32 (x, h, act, out as in eilev_ln_mlp_bf16),
+// contiguous; any D and F. Launches three kernels on `stream`, no
+// synchronise; returns the first failing launch's cudaError_t (0 on success).
+extern "C" int eilev_ln_mlp_f32(const void* x, const void* ln_scale, const void* ln_bias,
+                                const void* w1, const void* b1, const void* w2, const void* b2,
+                                void* h, void* act, void* out, int M, int D, int F, float eps,
+                                void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (M <= 0 || D <= 0 || F <= 0 || (M + FBM - 1) / FBM > 65535) return (int)cudaErrorInvalidValue;
+  const float* s = static_cast<const float*>(ln_scale);
+  layer_norm_f32_kernel<<<(M + LN_WARPS - 1) / LN_WARPS, LN_WARPS * 32, 0, st>>>(
+      static_cast<const float*>(x), s, static_cast<const float*>(ln_bias), static_cast<float*>(h), M,
+      D, eps);
+  int err = (int)cudaGetLastError();
+  if (err != 0) return err;
+  err = launch_sgemm<true>(static_cast<const float*>(h), static_cast<const float*>(w1),
+                           static_cast<const float*>(b1), static_cast<float*>(act), M, F, D, st);
+  if (err != 0) return err;
+  return launch_sgemm<false>(static_cast<const float*>(act), static_cast<const float*>(w2),
+                             static_cast<const float*>(b2), static_cast<float*>(out), M, D, F, st);
+}
 
 // x: (M, D) bf16; ln_scale, ln_bias: (D) fp32; w1: (D, F) bf16; b1: (F) fp32;
 // w2: (F, D) bf16; b2: (D) fp32; scratch h: (M, D) bf16 and act: (M, F) bf16;

@@ -34,7 +34,10 @@
 // One QK^T per pair, K and V read once per block. K and V of a head, padded
 // to 272 keys x 104 (D = 88), take 113,152 B, so two blocks share an SM; at
 // S = 384, D = 128 they take 208,896 B of the 232,448 a block may use, and
-// the scores 96 registers a lane: above that the wrapper raises.
+// the scores 96 registers a lane. Past K1_MAX_S, up to K2_MAX_S, K1 runs
+// K2's body (below) with no causal frontier and no mask: its rounded scores
+// wait in shared memory, not registers, and it applies both scales (q_scale
+// 1, s_scale the score-side scale), so the rounding points are K1's.
 //
 // K2, causal (S <= K2_MAX_S = 2048): one block per (head, batch row, query
 // tile), the latest query tiles of every head launched first (they have
@@ -353,7 +356,9 @@ static_assert(k2_bytes(K2_MAX_S, 128, 32) <= MAX_SMEM, "K2 must take S = K2_MAX_
 
 // WARPS warps in each of two groups; warp w of either group holds query rows
 // 16w .. 16w + 15 of the tile, and group grp takes key tiles grp, grp + 2, ...
-template <int DP, int WARPS>
+// CAUSAL = false is K1 past K1_MAX_S: every key of the sequence, no causal
+// frontier (with no mask, every key below S is kept).
+template <int DP, int WARPS, bool CAUSAL>
 __global__ void __launch_bounds__(2 * WARPS * 32)
 causal_attention_kernel(const __nv_bfloat16* __restrict__ qkv, const int32_t* __restrict__ mask,
                         __nv_bfloat16* __restrict__ out, int S, int H, int D, float q_scale,
@@ -389,10 +394,11 @@ causal_attention_kernel(const __nv_bfloat16* __restrict__ qkv, const int32_t* __
   const int32_t* mask_b = mask ? mask + (size_t)b * S : nullptr;
   __nv_bfloat16* ring = rings + grp * RING;
 
-  // key tiles up to the causal diagonal of the block's last query; the
+  // key tiles up to the causal diagonal of the block's last query (all of
+  // them without CAUSAL); the
   // group's stream index u < n_mine is its K tile grp + 2u, n_mine + u its
   // V tile grp + 2u, in slot u % K2_SLOTS of its ring
-  const int n_tiles = (min(q0 + BQ, S) - 1) / K2_BK + 1;
+  const int n_tiles = ((CAUSAL ? min(q0 + BQ, S) : S) - 1) / K2_BK + 1;
   const int n_mine = (n_tiles - grp + 1) / 2;
   const int n_stream = 2 * n_mine;
   // starts the copy of stream tile u (if there is one) by the group's
@@ -451,7 +457,7 @@ causal_attention_kernel(const __nv_bfloat16* __restrict__ qkv, const int32_t* __
   const int qw = q0 + gw * 16;
   const int row_a = qw + g, row_b = qw + g + 8;
   const bool live = qw < S;
-  const int warp_last = min(qw + 15, S - 1);  // no row of the warp sees a later key
+  const int warp_last = CAUSAL ? min(qw + 15, S - 1) : S - 1;  // no row of the warp sees a later key
   __nv_bfloat16* Sc_a = Sc + (gw * 16 + g) * SC_LD + 2 * t;
   __nv_bfloat16* Sc_b = Sc_a + 8 * SC_LD;
   // fp32 running max and sum over this lane's own scores of rows g and
@@ -486,10 +492,10 @@ causal_attention_kernel(const __nv_bfloat16* __restrict__ qkv, const int32_t* __
       const int col = j * 8 + 2 * t;
       const int key = k0 + col;
       const bool keep0 = (kw >> col) & 1u, keep1 = (kw >> (col + 1)) & 1u;
-      const uint32_t pa = mask_pair(score_pair(c[j][0], c[j][1], s_scale), keep0 && key <= row_a,
-                                    keep1 && key < row_a);
-      const uint32_t pb = mask_pair(score_pair(c[j][2], c[j][3], s_scale), keep0 && key <= row_b,
-                                    keep1 && key < row_b);
+      const uint32_t pa = mask_pair(score_pair(c[j][0], c[j][1], s_scale),
+                                    keep0 && (!CAUSAL || key <= row_a), keep1 && (!CAUSAL || key < row_a));
+      const uint32_t pb = mask_pair(score_pair(c[j][2], c[j][3], s_scale),
+                                    keep0 && (!CAUSAL || key <= row_b), keep1 && (!CAUSAL || key < row_b));
       *reinterpret_cast<uint32_t*>(Sc_a + k0 + j * 8) = pa;
       *reinterpret_cast<uint32_t*>(Sc_b + k0 + j * 8) = pb;
       c[j][0] = bf16_lo(pa);
@@ -609,10 +615,10 @@ causal_attention_kernel(const __nv_bfloat16* __restrict__ qkv, const int32_t* __
   }
 }
 
-template <int DP, int WARPS>
+template <int DP, int WARPS, bool CAUSAL>
 int launch_k2(const void* qkv, const void* mask, void* out, int B, int S, int H, int D,
               float q_scale, float s_scale, cudaStream_t stream) {
-  auto kernel = causal_attention_kernel<DP, WARPS>;
+  auto kernel = causal_attention_kernel<DP, WARPS, CAUSAL>;
   const int smem = k2_bytes(S, DP, WARPS * 16);
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err == cudaSuccess)
@@ -630,22 +636,23 @@ int launch_k2(const void* qkv, const void* mask, void* out, int B, int S, int H,
 // The widest query tile whose scores fit and that the sequence fills: 128
 // rows at the OPT prefill (S = 766, D = 80: 232,448 B, one block of 16 warps
 // an SM), down to 32.
-template <int DP>
+template <int DP, bool CAUSAL>
 int dispatch_k2(const void* qkv, const void* mask, void* out, int B, int S, int H, int D,
                 float q_scale, float s_scale, cudaStream_t st) {
   if (S > K2_MAX_S) return (int)cudaErrorInvalidValue;
   if (S > 64 && k2_bytes(S, DP, 128) <= MAX_SMEM)
-    return launch_k2<DP, 8>(qkv, mask, out, B, S, H, D, q_scale, s_scale, st);
+    return launch_k2<DP, 8, CAUSAL>(qkv, mask, out, B, S, H, D, q_scale, s_scale, st);
   if (S > 32 && k2_bytes(S, DP, 64) <= MAX_SMEM)
-    return launch_k2<DP, 4>(qkv, mask, out, B, S, H, D, q_scale, s_scale, st);
-  return launch_k2<DP, 2>(qkv, mask, out, B, S, H, D, q_scale, s_scale, st);
+    return launch_k2<DP, 4, CAUSAL>(qkv, mask, out, B, S, H, D, q_scale, s_scale, st);
+  return launch_k2<DP, 2, CAUSAL>(qkv, mask, out, B, S, H, D, q_scale, s_scale, st);
 }
 
 }  // namespace
 
 // qkv: (B, S, 3*H*D) bf16, contiguous, 16-byte aligned; mask: (B, S) int32 or
 // NULL; out: (B, S, H*D) bf16. Requires D % 8 == 0, D <= 128, B and H under
-// 65,536, and S <= 384 (K1, causal = 0) or S <= 2048 (K2, causal = 1).
+// 65,536, and S <= 2048. causal = 0 (K1, no mask): the whole-row body up to
+// K1_MAX_S, K2's body with no causal frontier above; causal = 1: K2's body.
 // Returns the launch's cudaError_t (0 on success); launches on `stream`, no
 // synchronise.
 extern "C" int eilev_packed_attention_bf16(const void* qkv, const void* mask, void* out, int B,
@@ -657,8 +664,9 @@ extern "C" int eilev_packed_attention_bf16(const void* qkv, const void* mask, vo
   const int dp = (D + 15) / 16 * 16;
 #define EILEV_PACKED_CASE(DP)                                                        \
   case DP:                                                                           \
-    return causal ? dispatch_k2<DP>(qkv, mask, out, B, S, H, D, q_scale, s_scale, st) \
-                  : dispatch_k1<DP>(qkv, out, B, S, H, D, q_scale, s_scale, st);
+    return causal       ? dispatch_k2<DP, true>(qkv, mask, out, B, S, H, D, q_scale, s_scale, st)  \
+           : S > K1_MAX_S ? dispatch_k2<DP, false>(qkv, mask, out, B, S, H, D, q_scale, s_scale, st) \
+                          : dispatch_k1<DP>(qkv, out, B, S, H, D, q_scale, s_scale, st);
   switch (dp) {
     EILEV_PACKED_CASE(16)
     EILEV_PACKED_CASE(32)

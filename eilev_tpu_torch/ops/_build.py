@@ -94,6 +94,44 @@ def packed_attention_lib() -> ctypes.CDLL:
 
 
 @functools.lru_cache(maxsize=None)
+def attention_f32_lib() -> ctypes.CDLL:
+    """The fp32 attention library (the fp32 body of K1, K2 and K5), built and
+    bound once."""
+    lib = ctypes.CDLL(str(build("attention_f32.cu")))
+    fn = lib.eilev_attention_f32
+    fn.argtypes = [
+        ctypes.c_void_p,  # q
+        ctypes.c_void_p,  # k
+        ctypes.c_void_p,  # v
+        ctypes.c_void_p,  # padding mask or NULL
+        ctypes.c_void_p,  # bias or NULL
+        ctypes.c_void_p,  # out
+        ctypes.c_int,  # B
+        ctypes.c_int,  # S
+        ctypes.c_int,  # L
+        ctypes.c_int,  # H
+        ctypes.c_int,  # KVH
+        ctypes.c_int,  # D
+        ctypes.c_longlong,  # q batch stride
+        ctypes.c_longlong,  # q row stride
+        ctypes.c_longlong,  # k batch stride
+        ctypes.c_longlong,  # k row stride
+        ctypes.c_longlong,  # v batch stride
+        ctypes.c_longlong,  # v row stride
+        ctypes.c_longlong,  # out batch stride
+        ctypes.c_longlong,  # out row stride
+        ctypes.c_float,  # q_scale
+        ctypes.c_float,  # s_scale
+        ctypes.c_int,  # causal
+        ctypes.c_int,  # q_offset
+        ctypes.c_int,  # uniform: 1 for K1/K2's fully masked rows, 0 for K5's
+        ctypes.c_void_p,  # stream
+    ]
+    fn.restype = ctypes.c_int
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
 def flash_attention_lib() -> ctypes.CDLL:
     """The flash attention library (K5: the mma.sync body and the Hopper
     body), built and bound once."""
@@ -148,9 +186,10 @@ def decode_attention_lib() -> ctypes.CDLL:
         ctypes.c_int,  # KVH
         ctypes.c_int,  # D
         ctypes.c_int,  # layer
-        ctypes.c_float,  # scale, rounded to bf16
+        ctypes.c_float,  # scale, in the model dtype
         ctypes.c_int,  # scale_query
         ctypes.c_int,  # int8
+        ctypes.c_int,  # f32: an fp32 query (and output)
         ctypes.c_void_p,  # stream
     ]
     fn.restype = ctypes.c_int
@@ -159,10 +198,10 @@ def decode_attention_lib() -> ctypes.CDLL:
 
 @functools.lru_cache(maxsize=None)
 def fused_mlp_lib() -> ctypes.CDLL:
-    """The LayerNorm -> MLP library (K6), built and bound once."""
+    """The LayerNorm -> MLP library (K6: the bf16 and the fp32 body, whose
+    entry points take the same arguments), built and bound once."""
     lib = ctypes.CDLL(str(build("fused_mlp.cu")))
-    fn = lib.eilev_ln_mlp_bf16
-    fn.argtypes = [
+    argtypes = [
         ctypes.c_void_p,  # x
         ctypes.c_void_p,  # ln_scale, fp32
         ctypes.c_void_p,  # ln_bias, fp32
@@ -179,5 +218,7 @@ def fused_mlp_lib() -> ctypes.CDLL:
         ctypes.c_float,  # eps
         ctypes.c_void_p,  # stream
     ]
-    fn.restype = ctypes.c_int
+    for fn in (lib.eilev_ln_mlp_bf16, lib.eilev_ln_mlp_f32):
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
     return lib

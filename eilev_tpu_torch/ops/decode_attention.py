@@ -12,21 +12,30 @@ under a (B, S) keep-mask, for both cache types:
 
 A CPU tensor runs the twin. A CUDA tensor launches the hand-written kernel of
 ``csrc/decode_attention.cu`` on the current stream or raises; nothing falls
-back. The wrapper counts its launches per body in
-``decode_attention_stacked.launches_bf16`` and ``.launches_int8``.
+back. The model dtype is bf16 or fp32: a bf16 query over a bf16 or int8
+cache, or an fp32 query over an fp32 or int8 cache; anything else raises
+``TypeError``. The wrapper counts its launches by cache in
+``decode_attention_stacked.launches_bf16`` (K3, bf16 cache),
+``.launches_f32`` (K3, fp32 cache) and ``.launches_int8`` (K4), and the K4
+launches with an fp32 query also in ``.launches_int8_f32``.
 
-On the card K3 runs one 256-thread block per (head, batch row). K4 splits
-the S slots over a thread-block cluster of :func:`cluster_size` blocks per
-(head, row), which exchange the row's max and sum through distributed shared
-memory, all in one launch (see the source's notes).
+On the card the split body runs K4, K3 with an fp32 model, and K3 in bf16
+where the written rule :func:`k3_split` says so: the S slots are split over
+a thread-block cluster of :func:`cluster_size` blocks per (head, row), which
+exchange the row's max and sum through distributed shared memory, all in
+one launch (see the source's notes). The other bf16 K3 calls run one
+256-thread block per (head, batch row).
 
 Rounding points, as in the JAX kernel bodies: ``scale_query=True`` (HF OPT)
 rounds ``q * bf16(scale)`` to the model dtype before QK^T; QK^T accumulates in
 fp32 and is rounded to the model dtype; ``scale_query=False`` (HF LLaMA)
 multiplies the rounded scores by ``bf16(scale)``; masked slots take
 ``finfo(float32).min`` in the model dtype (``-inf`` in bf16, so a fully masked
-row is NaN there); fp32 softmax; probabilities rounded to the model dtype; PV
-accumulates in fp32. Head ``h`` reads kv head ``h // (num_heads // kv_heads)``.
+row is NaN there; finite in fp32, so there a fully masked row is the uniform
+average of every slot's V row); fp32 softmax; probabilities rounded to the
+model dtype; PV accumulates in fp32. Head ``h`` reads kv head
+``h // (num_heads // kv_heads)``. In fp32 every rounding to the model dtype
+is the identity and the scale is the fp32 one.
 
 The int8 write side, :func:`quantize_kv`, gives the same int8 values and bf16
 scales as the JAX function, bit for bit.
@@ -39,7 +48,7 @@ from typing import Optional
 import torch
 
 from .attention import plain_attention
-from .fused_attention import _bf16, _device_kind
+from .fused_attention import _device_kind, _model_scale
 
 #: dynamic shared memory one block may use on an H100 (232,448 bytes)
 SMEM_LIMIT = 227 * 1024
@@ -137,8 +146,19 @@ def decode_attention_stacked_reference(
     return out.reshape(b, num_heads * head_dim)
 
 
+def k3_split(batch: int, heads: int, s_len: int) -> bool:
+    """Whether a bf16 K3 call runs the split body, the written rule of
+    ``csrc/decode_attention.cu:k3_split``: when one block per (head, row)
+    would leave at least half of the SMs idle, 2 * batch * heads <= 132 (the
+    text LM's and the narration's batch-1 decode split; the narration's
+    batch 4, 128 blocks, does not: there the split was slower on an H100,
+    see the source). It depends on the shape only. (K4 and fp32 K3 always
+    run the split.)"""
+    return 2 * batch * heads <= SMS
+
+
 def cluster_size(batch: int, heads: int, s_len: int) -> int:
-    """Blocks K4 gives one (head, batch row), the written rule of
+    """Blocks the split gives one (head, batch row), the written rule of
     ``csrc/decode_attention.cu:cluster_size``: the smallest C with
     batch * heads * C >= 2 x 132 SMs, capped at 8 (the portable cluster
     size) and at the number of 32-slot chunks. It depends on the shape only,
@@ -148,7 +168,7 @@ def cluster_size(batch: int, heads: int, s_len: int) -> int:
 
 
 def split_smem_bytes(s_len: int, head_dim: int, cluster: int) -> int:
-    """Shared memory of one K4 block of a cluster of ``cluster`` (csrc
+    """Shared memory of one block of the split in a cluster of ``cluster`` (csrc
     ``split_smem_bytes``): its n = ceil(S / cluster) fp32 scores and keep
     bits, each warp's PV partial sums, the partial outputs rank 0 gathers (one
     row of head_dim per rank), reduction scratch, and the max and sum every
@@ -158,19 +178,27 @@ def split_smem_bytes(s_len: int, head_dim: int, cluster: int) -> int:
 
 
 def smem_bytes(s_len: int, head_dim: int) -> int:
-    """Dynamic shared memory of one K3 block (csrc ``smem_bytes``): fp32
-    scores of all S slots, the scaled query, the PV partial sums and the
-    reduction scratch."""
+    """Dynamic shared memory of one block of the one-block bf16 K3 body (csrc
+    ``smem_bytes``): fp32 scores of all S slots, the scaled query, the PV
+    partial sums and the reduction scratch."""
     return 4 * (s_len + head_dim + THREADS * 8 + 32)
+
+
+def uses_split(q: torch.Tensor, k_buf: torch.Tensor, head_dim: int) -> bool:
+    """Which body a CUDA call takes: the split for an int8 or fp32 cache, and
+    for a bf16 cache where :func:`k3_split` says so. Reads dtypes and shapes
+    only."""
+    b, s_len = q.shape[0], k_buf.shape[2]
+    return k_buf.dtype != torch.bfloat16 or k3_split(b, q.shape[1] // head_dim, s_len)
 
 
 def _check_cuda(q, k_buf, v_buf, mask, k_scale, v_scale, head_dim, s_len) -> None:
     """Raise on anything the CUDA kernel does not take."""
     is_int8 = k_buf.dtype == torch.int8
-    if q.dtype != torch.bfloat16 or not (is_int8 or k_buf.dtype == torch.bfloat16):
+    if q.dtype not in (torch.bfloat16, torch.float32) or not (is_int8 or k_buf.dtype == q.dtype):
         raise TypeError(
-            f"the CUDA kernel takes a bf16 query and a bf16 or int8 cache, got "
-            f"{q.dtype} and {k_buf.dtype}"
+            f"the CUDA kernel takes a bf16 or fp32 query over a cache of the same dtype "
+            f"or int8, got {q.dtype} and {k_buf.dtype}"
         )
     tensors = [q, k_buf, v_buf, mask] + ([k_scale, v_scale] if is_int8 else [])
     if any(t.device != q.device for t in tensors):
@@ -179,7 +207,7 @@ def _check_cuda(q, k_buf, v_buf, mask, k_scale, v_scale, head_dim, s_len) -> Non
         raise TypeError("the int8 cache's scales must be bf16")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("the CUDA kernel takes contiguous tensors")
-    step = 16 if is_int8 else 8  # elements in one 16-byte load
+    step = 16 if is_int8 else 8  # elements in one 16-byte load (fp32: in two)
     if head_dim % step or head_dim > 128:
         raise ValueError(
             f"the CUDA kernel takes head_dim % {step} == 0 and <= 128 for a "
@@ -187,7 +215,7 @@ def _check_cuda(q, k_buf, v_buf, mask, k_scale, v_scale, head_dim, s_len) -> Non
         )
     if any(t.data_ptr() % 16 for t in (q, k_buf, v_buf)):
         raise ValueError("the CUDA kernel takes 16-byte aligned q and cache")
-    if is_int8:
+    if uses_split(q, k_buf, head_dim):
         cluster = cluster_size(q.shape[0], q.shape[1] // head_dim, s_len)
         need, per = split_smem_bytes(s_len, head_dim, cluster), f" (a cluster of {cluster})"
     else:
@@ -235,6 +263,7 @@ def decode_attention_stacked(
     mask = mask.to(torch.int32).contiguous()
     _check_cuda(q, k_buf, v_buf, mask, k_scale, v_scale, head_dim, s_len)
     is_int8 = k_buf.dtype == torch.int8
+    f32 = q.dtype == torch.float32
     out = torch.empty_like(q)
     rc = decode_attention_lib().eilev_decode_attention(
         q.data_ptr(), k_buf.data_ptr(), v_buf.data_ptr(),
@@ -242,17 +271,22 @@ def decode_attention_stacked(
         v_scale.data_ptr() if is_int8 else None,
         mask.data_ptr(), out.data_ptr(),
         b, s_len, num_heads, kv_heads, head_dim, layer,
-        _bf16(scale), int(scale_query), int(is_int8),
+        _model_scale(scale, q.dtype), int(scale_query), int(is_int8), int(f32),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     if rc != 0:
         raise RuntimeError(f"decode attention kernel launch failed: cudaError_t {rc}")
     if is_int8:
         decode_attention_stacked.launches_int8 += 1
+        decode_attention_stacked.launches_int8_f32 += f32
+    elif f32:
+        decode_attention_stacked.launches_f32 += 1
     else:
         decode_attention_stacked.launches_bf16 += 1
     return out
 
 
 decode_attention_stacked.launches_bf16 = 0
+decode_attention_stacked.launches_f32 = 0
 decode_attention_stacked.launches_int8 = 0
+decode_attention_stacked.launches_int8_f32 = 0

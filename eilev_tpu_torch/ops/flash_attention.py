@@ -7,14 +7,17 @@ plain PyTorch twin, :func:`flash_attention_reference`, is in this module.
 and, in ``auto`` mode, for q >= 1024 and kv >= 2048 (the LLaMA prefill into a
 long cache).
 
-A CPU tensor runs the twin. A CUDA tensor launches the hand-written kernel of
-``csrc/flash_attention.cu`` on the current stream or raises; nothing falls
-back. The kernel has two bodies, and its entry point chooses between them by
+A CPU tensor runs the twin. A CUDA tensor launches a hand-written kernel on
+the current stream or raises; nothing falls back. bf16 q, k, v go to
+``csrc/flash_attention.cu``, whose entry point chooses between two bodies by
 the rule :func:`uses_sm90_body` states: a Hopper body (wgmma + TMA) for D =
 128 with no bias, the form the LLaMA prefill calls, and an mma.sync body for
-the rest. The entry point says which body it launched; the wrapper counts
-every launch in ``flash_attention.launches`` and the Hopper body's also in
-``flash_attention.launches_sm90``.
+the rest; the entry point says which body it launched. fp32 q, k, v (an fp32
+model) go to the fp32 body of ``csrc/attention_f32.cu``; other or mixed
+dtypes raise ``TypeError``. The wrapper counts every launch in
+``flash_attention.launches``, the Hopper body's also in
+``flash_attention.launches_sm90`` and the fp32 body's in
+``flash_attention.launches_f32``.
 
 What it computes is the Pallas body, not its blocking. The rounding points:
 
@@ -30,6 +33,9 @@ What it computes is the Pallas body, not its blocking. The rounding points:
   accumulator is rescaled by ``alpha`` as the running max moves;
 - the output is ``acc / l`` with ``l == 0`` replaced by 1, so a fully masked
   row is exactly 0, never NaN (the plain path gives NaN there in bf16).
+
+In fp32 the cast of p is the identity and a q-side scale is the fp32 one, so
+the recurrence equals a softmax over the kept keys to fp32 rounding.
 
 Because bf16 rounding of p depends on the running max, the twin runs the same
 recurrence over the same 128-key blocks as the kernel.
@@ -48,7 +54,7 @@ from typing import Optional
 import torch
 
 from .attention import _scalar
-from .fused_attention import _bf16, _device_kind
+from .fused_attention import _device_kind, _model_scale
 
 #: keys per block of the online softmax (the Pallas DEFAULT_BLOCK_KV)
 BLOCK_KV = 128
@@ -132,23 +138,26 @@ def flash_attention_reference(
 
 
 def _check_cuda(q, k, v, padding_mask, bias) -> None:
-    """Raise on anything the CUDA kernel does not take."""
-    if not all(t.dtype == torch.bfloat16 for t in (q, k, v)):
-        raise TypeError(f"the CUDA kernel takes bf16 q, k, v, got {q.dtype}, {k.dtype}, {v.dtype}")
+    """Raise on anything the CUDA kernels do not take."""
+    if q.dtype not in (torch.bfloat16, torch.float32) or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"the CUDA kernels take q, k, v all bf16 or all fp32, got "
+                        f"{q.dtype}, {k.dtype}, {v.dtype}")
     d = q.shape[3]
     if d % 8 or d > 128:
         raise ValueError(f"the CUDA kernel takes head_dim % 8 == 0 and <= 128, got {d}")
     others = [t for t in (k, v, padding_mask, bias) if t is not None]
     if any(t.device != q.device for t in others):
         raise ValueError("q, k, v, the padding mask and the bias must be on one device")
+    step = 8 if q.dtype == torch.bfloat16 else 1
     for name, t in (("q", q), ("k", k), ("v", v)):
-        # rows are read with 16-byte loads: (B, rows, heads, D) with the heads
-        # and D packed, the row and batch strides multiples of 8 elements
-        if t.stride(3) != 1 or t.stride(2) != d or t.stride(1) % 8 or t.stride(0) % 8:
+        # bf16 rows are read with 16-byte loads: (B, rows, heads, D) with the
+        # heads and D packed, the row and batch strides multiples of 8 elements
+        # (the fp32 body reads elements: any row and batch strides)
+        if t.stride(3) != 1 or t.stride(2) != d or t.stride(1) % step or t.stride(0) % step:
             raise ValueError(f"the CUDA kernel takes {name} with packed (heads, D) rows "
                              f"and strides that are multiples of 8, got {t.stride()}")
-        if t.data_ptr() % 16:
-            raise ValueError(f"the CUDA kernel takes a 16-byte aligned {name}")
+        if t.data_ptr() % (16 if step == 8 else 4):
+            raise ValueError(f"the CUDA kernel takes an aligned {name}")
 
 
 def sm90_smem_bytes(kv_len: int) -> int:
@@ -162,16 +171,17 @@ def sm90_smem_bytes(kv_len: int) -> int:
 
 def uses_sm90_body(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    bias: Optional[torch.Tensor] = None) -> bool:
-    """Which body of ``csrc/flash_attention.cu`` a CUDA call takes: the rule
-    of the source's ``hopper::takes``, which decides, stated here for the
-    tests. The Hopper body (wgmma + TMA) takes head_dim 128 with
+    """Which body of ``csrc/flash_attention.cu`` a bf16 CUDA call takes: the
+    rule of the source's ``hopper::takes``, which decides, stated here for
+    the tests. The Hopper body (wgmma + TMA) takes head_dim 128 with
     no bias, where each of q, k, v has rows and batches that do not overlap
     (row stride >= heads * head_dim, batch stride >= rows * row stride) and
     the block's shared memory fits at the key length. Everything else (head
     dims other than 128, an (H, S, L) bias, other strides) takes the
-    mma.sync body. Reads shapes and strides only."""
+    mma.sync body, and fp32 takes neither (``csrc/attention_f32.cu``). Reads
+    the dtype, shapes and strides only."""
     d = q.shape[3]
-    if d != SM90_HEAD_DIM or bias is not None:
+    if q.dtype != torch.bfloat16 or d != SM90_HEAD_DIM or bias is not None:
         return False
     for t in (q, k, v):
         batch, rows, heads = t.shape[:3]
@@ -194,15 +204,15 @@ def flash_attention(
 ) -> torch.Tensor:
     """K5: flash attention forward. Arguments as for the twin.
 
-    On the card q, k, v are bf16 and read in place through their strides (a
-    layer slice of the stacked cache needs no copy).
+    On the card q, k, v are all bf16 or all fp32 and read in place through
+    their strides (a layer slice of the stacked cache needs no copy).
     """
     if _device_kind(q) == "cpu":
         return flash_attention_reference(
             q, k, v, padding_mask=padding_mask, bias=bias, causal=causal,
             q_offset=q_offset, scale=scale, scale_query_first=scale_query_first,
         )
-    from ._build import flash_attention_lib
+    from ._build import attention_f32_lib, flash_attention_lib
 
     _check_shapes(q, k, v, padding_mask, bias)
     _check_cuda(q, k, v, padding_mask, bias)
@@ -212,12 +222,24 @@ def flash_attention(
     bias32 = None if bias is None else bias.to(torch.float32).contiguous()
     q_scale, s_scale = 1.0, 1.0
     if scale is not None and scale_query_first:
-        q_scale = _bf16(scale)  # jnp.asarray(scale, q.dtype)
+        q_scale = _model_scale(scale, q.dtype)  # jnp.asarray(scale, q.dtype)
     elif scale is not None:
         s_scale = float(scale)  # an fp32 multiply of the fp32 score
     out = torch.empty(b, s, h, d, dtype=q.dtype, device=q.device)
     strides = (q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0), v.stride(1))
     stream = torch.cuda.current_stream(q.device).cuda_stream
+    if q.dtype == torch.float32:
+        rc = attention_f32_lib().eilev_attention_f32(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), None if mask is None else mask.data_ptr(),
+            None if bias32 is None else bias32.data_ptr(), out.data_ptr(),
+            b, s, l, h, kvh, d, *strides, s * h * d, h * d, q_scale, s_scale, int(causal),
+            int(q_offset), 0, stream,
+        )
+        if rc != 0:
+            raise RuntimeError(f"flash attention kernel launch failed: cudaError_t {rc}")
+        flash_attention.launches += 1
+        flash_attention.launches_f32 += 1
+        return out
     sm90 = ctypes.c_int(0)  # which body the kernel launched
     rc = flash_attention_lib().eilev_flash_attention_bf16(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), None if mask is None else mask.data_ptr(),
@@ -234,3 +256,4 @@ def flash_attention(
 
 flash_attention.launches = 0
 flash_attention.launches_sm90 = 0
+flash_attention.launches_f32 = 0

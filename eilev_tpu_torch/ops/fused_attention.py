@@ -8,16 +8,20 @@ Two wrappers, each with a plain PyTorch twin in this module:
   attention off the packed QKV with queries at offset 0 — the OPT prefill.
 
 A wrapper runs its plain twin for a CPU tensor. For a CUDA tensor it launches
-the hand-written kernel of ``csrc/packed_attention.cu`` on the current stream
-or raises; nothing falls back. Each wrapper counts its kernel launches in its
-``launches`` attribute, a plain integer.
+a hand-written kernel on the current stream or raises; nothing falls back:
+bf16 qkv goes to ``csrc/packed_attention.cu``, fp32 qkv (an fp32 model) to
+the fp32 body of ``csrc/attention_f32.cu``; any other dtype raises
+``TypeError``. Each wrapper counts its kernel launches in its ``launches``
+attribute, a plain integer, and the fp32 body's also in ``launches_f32``.
 
-K1 keeps a head's K and V and a warp's whole score rows on chip, so it takes
-S <= ``K1_MAX_SEQ`` (384: at D = 128, K and V take 208,896 of the 232,448
-bytes of shared memory a block may use); every ViT geometry has S = 257. K2
-keeps a query tile's bf16 scores in shared memory and takes S <=
-``K2_MAX_SEQ`` (2,048, OPT's positions). Above either the wrapper raises
-``ValueError``.
+Which body a CUDA call takes is the written rule :func:`packed_body`. In
+bf16, K1 keeps a head's K and V and a warp's whole score rows on chip up to
+S = ``K1_MAX_SEQ`` (384: at D = 128, K and V take 208,896 of the 232,448
+bytes of shared memory a block may use; every ViT geometry has S = 257);
+past it K1 runs K2's body, which keeps a query tile's bf16 scores in shared
+memory, with no causal frontier. Both take S <= ``K2_MAX_SEQ`` (2,048, OPT's
+positions); above it the wrapper raises ``ValueError``. The fp32 body streams
+the keys and takes any S.
 
 The twins carry the rounding points of the JAX kernels, which follow HF's bf16
 numerics:
@@ -26,8 +30,12 @@ numerics:
   fp32 softmax; probabilities rounded to the model dtype; PV in fp32.
 - K2: q scaled and rounded to the model dtype before QK^T; scores rounded to
   the model dtype; masked with ``finfo(float32).min`` cast to the model dtype
-  (``-inf`` in bf16, so a fully masked row is NaN there); fp32 softmax;
-  probabilities in the model dtype; PV in fp32.
+  (``-inf`` in bf16, so a fully masked row is NaN there; finite in fp32, so
+  there a fully masked row is the uniform average of every V row); fp32
+  softmax; probabilities in the model dtype; PV in fp32.
+
+In fp32 every rounding to the model dtype is the identity and the scale is
+the fp32 one.
 """
 
 from __future__ import annotations
@@ -38,7 +46,7 @@ import torch
 
 from .attention import _scalar, plain_attention
 
-# the kernels' sequence limits (csrc/packed_attention.cu K1_MAX_S, K2_MAX_S)
+# the bf16 bodies' sequence limits (csrc/packed_attention.cu K1_MAX_S, K2_MAX_S)
 K1_MAX_SEQ = 384
 K2_MAX_SEQ = 2048
 # grid dimensions y (heads) and z (batch rows)
@@ -76,18 +84,31 @@ def packed_qkv_causal_attention_reference(
     ).reshape(b, s, num_heads * head_dim)
 
 
-def _check(qkv: torch.Tensor, num_heads: int, head_dim: int, max_seq: int) -> None:
-    """Raise on anything the CUDA kernel does not take."""
+def packed_body(qkv: torch.Tensor, causal: bool) -> str:
+    """Which body a CUDA call of K1 (``causal=False``) or K2 takes, the rule
+    of ``csrc/packed_attention.cu``'s entry point and of the wrappers: "f32"
+    (``csrc/attention_f32.cu``) for fp32 qkv; in bf16, K2 always and K1 past
+    ``K1_MAX_SEQ`` "streamed" (K2's body: scores in shared memory), K1 up to
+    it "whole_rows" (scores in registers). Reads the dtype and S only."""
+    if qkv.dtype == torch.float32:
+        return "f32"
+    return "streamed" if causal or qkv.shape[1] > K1_MAX_SEQ else "whole_rows"
+
+
+def _check(qkv: torch.Tensor, num_heads: int, head_dim: int) -> None:
+    """Raise on anything the CUDA kernels do not take."""
     if qkv.ndim != 3 or qkv.shape[2] != 3 * num_heads * head_dim:
         raise ValueError(
             f"qkv must be (B, S, 3*{num_heads}*{head_dim}), got {tuple(qkv.shape)}"
         )
-    if qkv.shape[1] > max_seq:
-        raise ValueError(f"the CUDA kernel takes sequences of at most {max_seq}, got {qkv.shape[1]}")
+    if qkv.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"the CUDA kernels take bf16 or fp32 qkv, got {qkv.dtype}")
+    if qkv.dtype == torch.bfloat16 and qkv.shape[1] > K2_MAX_SEQ:
+        raise ValueError(
+            f"the bf16 CUDA kernel takes sequences of at most {K2_MAX_SEQ}, got {qkv.shape[1]}"
+        )
     if qkv.shape[0] > _MAX_GRID or num_heads > _MAX_GRID:
         raise ValueError(f"the CUDA kernel takes at most {_MAX_GRID} batch rows and heads")
-    if qkv.dtype != torch.bfloat16:
-        raise TypeError(f"the CUDA kernel takes bf16 qkv, got {qkv.dtype}")
     if not qkv.is_contiguous():
         raise ValueError("the CUDA kernel takes a contiguous qkv")
     if head_dim % 8 or head_dim > 128:
@@ -105,18 +126,29 @@ def _launch(
     s_scale: float,
     causal: bool,
 ) -> torch.Tensor:
-    from ._build import packed_attention_lib
+    """Launch the body :func:`packed_body` names; ``q_scale`` and ``s_scale``
+    are already in the model dtype."""
+    from ._build import attention_f32_lib, packed_attention_lib
 
     b, s, _ = qkv.shape
-    out = torch.empty(b, s, num_heads * head_dim, dtype=qkv.dtype, device=qkv.device)
-    rc = packed_attention_lib().eilev_packed_attention_bf16(
-        qkv.data_ptr(),
-        None if mask is None else mask.data_ptr(),
-        out.data_ptr(),
-        b, s, num_heads, head_dim,
-        q_scale, s_scale, int(causal),
-        torch.cuda.current_stream(qkv.device).cuda_stream,
-    )
+    hd = num_heads * head_dim
+    out = torch.empty(b, s, hd, dtype=qkv.dtype, device=qkv.device)
+    stream = torch.cuda.current_stream(qkv.device).cuda_stream
+    mask_ptr = None if mask is None else mask.data_ptr()
+    if packed_body(qkv, causal) == "f32":
+        # q, k, v as three (B, S, H, D) views of the packed rows, 4-byte elements
+        base, row = qkv.data_ptr(), 3 * hd
+        rc = attention_f32_lib().eilev_attention_f32(
+            base, base + 4 * hd, base + 8 * hd, mask_ptr, None, out.data_ptr(),
+            b, s, s, num_heads, num_heads, head_dim,
+            s * row, row, s * row, row, s * row, row, s * hd, hd,
+            q_scale, s_scale, int(causal), 0, 1, stream,
+        )
+    else:
+        rc = packed_attention_lib().eilev_packed_attention_bf16(
+            qkv.data_ptr(), mask_ptr, out.data_ptr(), b, s, num_heads, head_dim,
+            q_scale, s_scale, int(causal), stream,
+        )
     if rc != 0:
         raise RuntimeError(f"packed attention kernel launch failed: cudaError_t {rc}")
     return out
@@ -125,6 +157,13 @@ def _launch(
 def _bf16(value: float) -> float:
     """``value`` rounded to bf16, as the JAX kernels round a scale before use."""
     return float(torch.tensor(value, dtype=torch.bfloat16))
+
+
+def _model_scale(value: float, dtype: torch.dtype) -> float:
+    """A scale as the JAX kernels apply it in the model dtype
+    (``jnp.asarray(scale, dtype)``): rounded to bf16 for a bf16 model, the
+    fp32 value (ctypes rounds it to fp32) for an fp32 one."""
+    return _bf16(value) if dtype == torch.bfloat16 else float(value)
 
 
 def _device_kind(t: torch.Tensor) -> str:
@@ -149,13 +188,15 @@ def packed_qkv_attention(
         scale = head_dim**-0.5
     if _device_kind(qkv) == "cpu":
         return packed_qkv_attention_reference(qkv, num_heads, head_dim, scale)
-    _check(qkv, num_heads, head_dim, K1_MAX_SEQ)
-    out = _launch(qkv, None, num_heads, head_dim, 1.0, _bf16(scale), causal=False)
+    _check(qkv, num_heads, head_dim)
+    out = _launch(qkv, None, num_heads, head_dim, 1.0, _model_scale(scale, qkv.dtype), causal=False)
     packed_qkv_attention.launches += 1
+    packed_qkv_attention.launches_f32 += qkv.dtype == torch.float32
     return out
 
 
 packed_qkv_attention.launches = 0
+packed_qkv_attention.launches_f32 = 0
 
 
 def packed_qkv_causal_attention(
@@ -176,7 +217,7 @@ def packed_qkv_causal_attention(
         return packed_qkv_causal_attention_reference(
             qkv, num_heads, head_dim, padding_mask, scale
         )
-    _check(qkv, num_heads, head_dim, K2_MAX_SEQ)
+    _check(qkv, num_heads, head_dim)
     b, s, _ = qkv.shape
     if padding_mask.shape != (b, s) or padding_mask.device != qkv.device:
         raise ValueError(
@@ -184,9 +225,11 @@ def packed_qkv_causal_attention(
             f"{tuple(padding_mask.shape)} on {padding_mask.device}"
         )
     mask = padding_mask.to(torch.int32).contiguous()
-    out = _launch(qkv, mask, num_heads, head_dim, _bf16(scale), 1.0, causal=True)
+    out = _launch(qkv, mask, num_heads, head_dim, _model_scale(scale, qkv.dtype), 1.0, causal=True)
     packed_qkv_causal_attention.launches += 1
+    packed_qkv_causal_attention.launches_f32 += qkv.dtype == torch.float32
     return out
 
 
 packed_qkv_causal_attention.launches = 0
+packed_qkv_causal_attention.launches_f32 = 0

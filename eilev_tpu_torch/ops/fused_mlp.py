@@ -6,7 +6,9 @@ calls it: the ViT runs LayerNorm and its MLP as separate modules
 (``models/vision.py``), and K6 stands beside them as an op held against its
 twin. The wrapper runs the twin for a CPU tensor; for a CUDA tensor it
 launches the hand-written kernels of ``csrc/fused_mlp.cu`` on the current
-stream or raises, and counts the call in ``ln_mlp.launches``.
+stream or raises, and counts the call in ``ln_mlp.launches``: the bf16 body
+for bf16 x and weights, the fp32 body for fp32 ones (an fp32 model; counted
+also in ``ln_mlp.launches_f32``), ``TypeError`` for anything else.
 
 The JAX function's ``_pick_fb`` and its fallback to XLA are a TPU VMEM budget
 (one frame's fp32 fc1 activation under ~26 MB). They have no counterpart
@@ -15,7 +17,8 @@ here: on the card the kernel takes every shape the wrapper accepts.
 Rounding points, as ``_xla_fallback`` and the Pallas body have them: LayerNorm
 statistics and the affine in fp32, h rounded to the model dtype; fc1
 accumulated in fp32, + b1, exact-erf gelu in fp32, rounded to the model dtype;
-fc2 accumulated in fp32, + b2, rounded to the model dtype.
+fc2 accumulated in fp32, + b2, rounded to the model dtype. In fp32 each
+rounding is the identity.
 """
 
 from __future__ import annotations
@@ -76,14 +79,16 @@ def _check(x, ln_scale, ln_bias, w1, b1, w2, b2) -> None:
                     ("w2", w2), ("b2", b2)):
         if t.device != x.device:
             raise ValueError(f"{name} is on {t.device}, x on {x.device}")
+    if x.dtype not in (torch.bfloat16, torch.float32) or w1.dtype != x.dtype or w2.dtype != x.dtype:
+        raise TypeError(f"the CUDA kernels take x, w1, w2 all bf16 or all fp32, got "
+                        f"{x.dtype}, {w1.dtype}, {w2.dtype}")
+    bf16 = x.dtype == torch.bfloat16
     for name, t in (("x", x), ("w1", w1), ("w2", w2)):
-        if t.dtype != torch.bfloat16:
-            raise TypeError(f"the CUDA kernel takes bf16 {name}, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"the CUDA kernel takes a contiguous {name}")
-        if t.data_ptr() % 16:
+        if bf16 and t.data_ptr() % 16:
             raise ValueError(f"the CUDA kernel takes a 16-byte aligned {name}")
-    if d % 8 or f % 8:
+    if bf16 and (d % 8 or f % 8):
         raise ValueError(f"the CUDA kernel takes D % 8 == 0 and F % 8 == 0 (16-byte rows), got D={d}, F={f}")
     if x.shape[0] * x.shape[1] > _MAX_ROWS:
         raise ValueError(f"the CUDA kernel takes at most {_MAX_ROWS} rows (B*S), got {x.shape[0] * x.shape[1]}")
@@ -123,7 +128,9 @@ def ln_mlp(
     h = torch.empty(m, d, dtype=x.dtype, device=x.device)
     act = torch.empty(m, f, dtype=x.dtype, device=x.device)
     out = torch.empty(b, s, d, dtype=x.dtype, device=x.device)
-    rc = fused_mlp_lib().eilev_ln_mlp_bf16(
+    f32 = x.dtype == torch.float32
+    lib = fused_mlp_lib()
+    rc = (lib.eilev_ln_mlp_f32 if f32 else lib.eilev_ln_mlp_bf16)(
         x.data_ptr(), vecs[0].data_ptr(), vecs[1].data_ptr(), w1.data_ptr(), vecs[2].data_ptr(),
         w2.data_ptr(), vecs[3].data_ptr(), h.data_ptr(), act.data_ptr(), out.data_ptr(),
         m, d, f, eps, torch.cuda.current_stream(x.device).cuda_stream,
@@ -131,7 +138,9 @@ def ln_mlp(
     if rc != 0:
         raise RuntimeError(f"ln_mlp kernel launch failed: cudaError_t {rc}")
     ln_mlp.launches += 1
+    ln_mlp.launches_f32 += f32
     return out
 
 
 ln_mlp.launches = 0
+ln_mlp.launches_f32 = 0

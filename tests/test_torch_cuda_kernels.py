@@ -8,7 +8,13 @@ tests/test_torch_fused_mlp.py). Run on a GPU host with
 Tolerance: bf16 atol = rtol = 2e-2 for K1-K3, K5 and K6 and 3e-2 for K4 (the
 int8 cache; the JAX int8 kernel test's bar). K5's cases check which of its
 two bodies the kernel reports it ran (``launches_sm90``) against the rule
-``uses_sm90_body`` states.
+``uses_sm90_body`` states. Every kernel test runs in bf16 and in fp32 (an
+fp32 model: its ``dtype`` parameter); the fp32 bodies are held to their twins
+at atol = rtol = 1e-4 with TF32 off (the twins' products in full fp32; both
+sides differ only in the order of fp32 sums) and counted in ``launches_f32``
+(``launches_int8_f32`` for K4). The default ``tiny_config`` model, built on
+the card with no dtype (fp32), and TextLM's text-only module in fp32 must
+give the tokens of the same weights on the CPU.
 """
 
 import pytest
@@ -21,11 +27,17 @@ from eilev_tpu_torch.ops import fused_mlp as tfm
 
 pytestmark = pytest.mark.cuda
 
+# every bf16 and fp32 case at its dtype's tolerance
+DTYPES = [torch.bfloat16, torch.float32]
+TOL = {torch.bfloat16: dict(atol=2e-2, rtol=2e-2), torch.float32: dict(atol=1e-4, rtol=1e-4)}
+
 
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
         pytest.skip("no CUDA device: the CUDA kernels run only on a GPU")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda")
 
 
@@ -34,25 +46,35 @@ def _qkv(b, s, nh, hd, device, seed=0):
     return torch.randn(b, s, 3 * nh * hd, device=device, generator=g).to(torch.bfloat16)
 
 
-@pytest.mark.parametrize("b,s,nh,hd", [(3, 9, 2, 8), (2, 257, 2, 88), (8, 257, 16, 88), (2, 100, 3, 128)])
-def test_k1_kernel_matches_plain(cuda, b, s, nh, hd):
-    qkv = _qkv(b, s, nh, hd, cuda)
-    before = tfa.packed_qkv_attention.launches
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b,s,nh,hd", [(3, 9, 2, 8), (2, 257, 2, 88), (8, 257, 16, 88), (2, 100, 3, 128),
+                                       (2, 600, 4, 64)])
+def test_k1_kernel_matches_plain(cuda, b, s, nh, hd, dtype):
+    qkv = _qkv(b, s, nh, hd, cuda, seed=s).to(dtype)
+    f32 = dtype == torch.float32
+    before = (tfa.packed_qkv_attention.launches, tfa.packed_qkv_attention.launches_f32)
     out = tfa.packed_qkv_attention(qkv, nh, hd)
     torch.cuda.synchronize()
-    assert tfa.packed_qkv_attention.launches == before + 1
+    assert (tfa.packed_qkv_attention.launches, tfa.packed_qkv_attention.launches_f32) == (
+        before[0] + 1, before[1] + f32)
+    assert out.dtype == dtype
     ref = tfa.packed_qkv_attention_reference(qkv, nh, hd, hd**-0.5)
-    torch.testing.assert_close(out, ref, atol=2e-2, rtol=2e-2)
+    torch.testing.assert_close(out, ref, **TOL[dtype])
 
 
-@pytest.mark.parametrize("s", [1, 17, 257, tfa.K1_MAX_SEQ])
+@pytest.mark.parametrize("s", [1, 17, 257, tfa.K1_MAX_SEQ, 385, 577, 1025, tfa.K2_MAX_SEQ])
 @pytest.mark.parametrize("hd", [88, 128])
 def test_k1_takes_whole_rows_up_to_its_limit(cuda, s, hd):
-    """Odd batch; S = 1, 17, the ViT's 257 and the largest S the resident
-    design takes (K and V of a head in shared memory)."""
+    """bf16, odd batch. Whole score rows on chip up to K1_MAX_SEQ (S = 1, 17,
+    the ViT's 257 and the largest S the resident design takes: K and V of a
+    head in shared memory); past it, up to K2_MAX_SEQ, K2's body with no
+    causal frontier (577: a 336^2 ViT), with K1's rounding points."""
     qkv = _qkv(3, s, 2, hd, cuda, seed=s)
+    assert tfa.packed_body(qkv, causal=False) == ("whole_rows" if s <= tfa.K1_MAX_SEQ else "streamed")
+    before = tfa.packed_qkv_attention.launches
     out = tfa.packed_qkv_attention(qkv, 2, hd)
     torch.cuda.synchronize()
+    assert tfa.packed_qkv_attention.launches == before + 1
     assert torch.isfinite(out).all()
     torch.testing.assert_close(out, tfa.packed_qkv_attention_reference(qkv, 2, hd, hd**-0.5),
                                atol=2e-2, rtol=2e-2)
@@ -60,37 +82,47 @@ def test_k1_takes_whole_rows_up_to_its_limit(cuda, s, hd):
 
 def test_packed_kernels_refuse_sequences_past_their_limit(cuda):
     with pytest.raises(ValueError, match="sequences"):
-        tfa.packed_qkv_attention(_qkv(1, tfa.K1_MAX_SEQ + 1, 1, 8, cuda), 1, 8)
+        tfa.packed_qkv_attention(_qkv(1, tfa.K2_MAX_SEQ + 1, 1, 8, cuda), 1, 8)
     s = tfa.K2_MAX_SEQ + 1
     with pytest.raises(ValueError, match="sequences"):
         tfa.packed_qkv_causal_attention(
             _qkv(1, s, 1, 8, cuda), 1, 8, torch.ones(1, s, dtype=torch.int32, device=cuda))
 
 
+# (dtype, B, S, heads, hd): every shape in bf16 and fp32, and S = 2,100 in
+# fp32 only (the bf16 body takes at most K2_MAX_SEQ)
+K2_SHAPES = [(2, 24, 2, 8), (2, 130, 2, 80), (2, 766, 32, 80), (2, 2048, 4, 80), (1, 2048, 2, 128)]
+K2_CASES = [(dt, *shape) for dt in DTYPES for shape in K2_SHAPES] + [(torch.float32, 1, 2100, 2, 128)]
+
+
 @pytest.mark.parametrize("padding", ["none", "left", "right"])
-@pytest.mark.parametrize("b,s,nh,hd", [(2, 24, 2, 8), (2, 130, 2, 80), (2, 766, 32, 80),
-                                       (2, 2048, 4, 80), (1, 2048, 2, 128)])
-def test_k2_kernel_matches_plain(cuda, b, s, nh, hd, padding):
-    qkv = _qkv(b, s, nh, hd, cuda, seed=1)
+@pytest.mark.parametrize("dtype,b,s,nh,hd", K2_CASES)
+def test_k2_kernel_matches_plain(cuda, dtype, b, s, nh, hd, padding):
+    qkv = _qkv(b, s, nh, hd, cuda, seed=1).to(dtype)
+    f32 = dtype == torch.float32
     mask = torch.ones(b, s, dtype=torch.int32, device=cuda)
     if padding == "left":
         mask[0, : s // 5] = 0
     elif padding == "right":
         mask[-1, s - s // 4 :] = 0
-    before = tfa.packed_qkv_causal_attention.launches
+    before = (tfa.packed_qkv_causal_attention.launches, tfa.packed_qkv_causal_attention.launches_f32)
     out = tfa.packed_qkv_causal_attention(qkv, nh, hd, mask)
     torch.cuda.synchronize()
-    assert tfa.packed_qkv_causal_attention.launches == before + 1
+    assert (tfa.packed_qkv_causal_attention.launches, tfa.packed_qkv_causal_attention.launches_f32) == (
+        before[0] + 1, before[1] + f32)
     ref = tfa.packed_qkv_causal_attention_reference(qkv, nh, hd, mask, hd**-0.5)
-    if padding == "left":  # fully masked query rows are NaN in bf16, in both
+    if padding == "left" and f32:  # finfo(float32).min is finite: the uniform average of every V row
+        v_mean = qkv.view(b, s, 3, nh * hd)[0, :, 2].mean(0)
+        torch.testing.assert_close(out[0, : s // 5], v_mean.expand(s // 5, -1), **TOL[dtype])
+    elif padding == "left":  # fully masked query rows are NaN in bf16, in both
         assert torch.isnan(out[0, : s // 5]).all() and torch.isnan(ref[0, : s // 5]).all()
         assert torch.isfinite(out[0, s // 5 :]).all()
-    torch.testing.assert_close(out, ref, atol=2e-2, rtol=2e-2, equal_nan=True)
+    torch.testing.assert_close(out, ref, equal_nan=True, **TOL[dtype])
 
 
 def test_kernels_refuse_what_they_do_not_take(cuda):
-    with pytest.raises(TypeError, match="bf16"):
-        tfa.packed_qkv_attention(_qkv(1, 8, 2, 8, cuda).float(), 2, 8)
+    with pytest.raises(TypeError, match="bf16 or fp32"):
+        tfa.packed_qkv_attention(_qkv(1, 8, 2, 8, cuda).half(), 2, 8)
     with pytest.raises(ValueError, match="head_dim"):
         tfa.packed_qkv_attention(_qkv(1, 8, 2, 12, cuda), 2, 12)
     with pytest.raises(ValueError, match="contiguous"):
@@ -126,23 +158,43 @@ DECODE_SHAPES = [
 ]
 
 
+# K3's shapes: DECODE_SHAPES and those chip_smoke checks, where the written
+# rule (ops/decode_attention.k3_split) gives the bf16 cache the split: the
+# narration's decode at batch 1 (a cluster of 8), the text LM's (B = 1,
+# 2,048 slots, 32 x 128, a cluster of 8), S = 1 and 5; (4, 4, 798, ...) in
+# DECODE_SHAPES is the narration's batch 4, which keeps one block a (head, row)
+K3_SHAPES = DECODE_SHAPES + [
+    (2, 1, 798, 32, 32, 80, True),
+    (2, 1, 2048, 32, 32, 128, False),
+    (2, 1, 1, 32, 32, 128, False),
+    (2, 1, 5, 32, 32, 128, False),
+]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("kind", ["full", "mid-decode", "left-padded", "fully-masked-row"])
-@pytest.mark.parametrize("n_layers,b,s,nh,kvh,hd,scale_query", DECODE_SHAPES)
-def test_k3_kernel_matches_plain(cuda, n_layers, b, s, nh, kvh, hd, scale_query, kind):
+@pytest.mark.parametrize("n_layers,b,s,nh,kvh,hd,scale_query", K3_SHAPES)
+def test_k3_kernel_matches_plain(cuda, n_layers, b, s, nh, kvh, hd, scale_query, kind, dtype):
     k, v, g = _cache(n_layers, b, s, kvh, hd, cuda, seed=s)
-    q = torch.randn(b, nh * hd, device=cuda, generator=g).to(torch.bfloat16)
+    k, v = k.to(dtype), v.to(dtype)
+    q = torch.randn(b, nh * hd, device=cuda, generator=g).to(dtype)
     mask = _decode_mask(b, s, cuda, kind)
     kw = dict(num_heads=nh, head_dim=hd, kv_heads=kvh, scale_query=scale_query)
     kb, vb = k.view(n_layers, b, s, -1), v.view(n_layers, b, s, -1)
+    counter = "launches_f32" if dtype == torch.float32 else "launches_bf16"
     for layer in (0, n_layers - 1):
-        before = tda.decode_attention_stacked.launches_bf16
+        before = getattr(tda.decode_attention_stacked, counter)
         out = tda.decode_attention_stacked(q, kb, vb, mask, layer, **kw)
         torch.cuda.synchronize()
-        assert tda.decode_attention_stacked.launches_bf16 == before + 1
+        assert getattr(tda.decode_attention_stacked, counter) == before + 1
         ref = tda.decode_attention_stacked_reference(q, kb, vb, mask, layer, **kw)
-        if kind == "fully-masked-row":  # NaN in bf16, in both
+        if kind == "fully-masked-row" and dtype == torch.float32:
+            # finite in fp32: the uniform average of every slot's V row
+            want = v[layer, -1].mean(0).repeat_interleave(nh // kvh, dim=0).reshape(-1)
+            torch.testing.assert_close(out[-1], want, **TOL[dtype])
+        elif kind == "fully-masked-row":  # NaN in bf16, in both
             assert torch.isnan(out[-1]).all() and torch.isnan(ref[-1]).all()
-        torch.testing.assert_close(out, ref, atol=2e-2, rtol=2e-2, equal_nan=True)
+        torch.testing.assert_close(out, ref, equal_nan=True, **TOL[dtype])
 
 
 # K4's shapes: K3's, the narration's decode at batch 1 (a cluster of 8 at
@@ -158,25 +210,37 @@ INT8_SHAPES = DECODE_SHAPES + [
 ]
 
 
-@pytest.mark.parametrize("kind", ["full", "mid-decode", "fully-masked-row"])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("kind", ["full", "mid-decode", "left-padded", "fully-masked-row"])
 @pytest.mark.parametrize("n_layers,b,s,nh,kvh,hd,scale_query", INT8_SHAPES)
-def test_k4_kernel_matches_plain(cuda, n_layers, b, s, nh, kvh, hd, scale_query, kind):
+def test_k4_kernel_matches_plain(cuda, n_layers, b, s, nh, kvh, hd, scale_query, kind, dtype):
+    """An int8 cache with bf16 scales under a bf16 or an fp32 model (query,
+    output and dequantized values in the model dtype)."""
     k, v, g = _cache(n_layers, b, s, kvh, hd, cuda, seed=s + 1)
-    q = torch.randn(b, nh * hd, device=cuda, generator=g).to(torch.bfloat16)
+    k, v = k.to(dtype), v.to(dtype)
+    q = torch.randn(b, nh * hd, device=cuda, generator=g).to(dtype)
+    f32 = dtype == torch.float32
     k8, ks = tda.quantize_kv(k)
     v8, vs = tda.quantize_kv(v)
     k8, v8 = k8.view(n_layers, b, s, -1), v8.view(n_layers, b, s, -1)
     mask = _decode_mask(b, s, cuda, kind)
     kw = dict(num_heads=nh, head_dim=hd, kv_heads=kvh, scale_query=scale_query)
     layer = n_layers // 2
-    before = tda.decode_attention_stacked.launches_int8
+    before = (tda.decode_attention_stacked.launches_int8, tda.decode_attention_stacked.launches_int8_f32)
     out = tda.decode_attention_stacked(q, k8, v8, mask, layer, k_scale=ks, v_scale=vs, **kw)
     torch.cuda.synchronize()
-    assert tda.decode_attention_stacked.launches_int8 == before + 1
+    assert (tda.decode_attention_stacked.launches_int8, tda.decode_attention_stacked.launches_int8_f32) == (
+        before[0] + 1, before[1] + f32)
+    assert out.dtype == dtype
     ref = tda.decode_attention_stacked_reference(q, k8, v8, mask, layer, k_scale=ks, v_scale=vs, **kw)
-    if kind == "fully-masked-row":  # NaN in bf16, in both
+    if kind == "fully-masked-row" and f32:  # finite in fp32: the uniform average
+        assert torch.isfinite(out[-1]).all()
+    elif kind == "fully-masked-row":  # NaN in bf16, in both
         assert torch.isnan(out[-1]).all() and torch.isnan(ref[-1]).all()
-    torch.testing.assert_close(out, ref, atol=3e-2, rtol=3e-2, equal_nan=True)
+    tol = TOL[dtype] if f32 else dict(atol=3e-2, rtol=3e-2)
+    torch.testing.assert_close(out, ref, equal_nan=True, **tol)
+    if f32:
+        return
     # and against dequantize_kv + the bf16 twin, as chip_smoke holds it
     kd = tda.dequantize_kv(k8.view(k.shape), ks).view(n_layers, b, s, -1)
     vd = tda.dequantize_kv(v8.view(v.shape), vs).view(n_layers, b, s, -1)
@@ -190,20 +254,31 @@ def test_decode_kernel_refuses_what_it_does_not_take(cuda):
     mask = torch.ones(1, 40, dtype=torch.int32, device=cuda)
     kw = dict(num_heads=2, head_dim=16)
     kb = k.view(2, 1, 40, -1)
-    with pytest.raises(TypeError, match="bf16"):  # an fp32 cache
-        tda.decode_attention_stacked(q.float(), kb.float(), kb.float(), mask, 0, **kw)
+    with pytest.raises(TypeError, match="bf16 or fp32"):  # an fp16 cache
+        tda.decode_attention_stacked(q.half(), kb.half(), kb.half(), mask, 0, **kw)
+    with pytest.raises(TypeError, match="bf16 or fp32"):  # an fp32 query over a bf16 cache
+        tda.decode_attention_stacked(q.float(), kb, kb, mask, 0, **kw)
     k8, ks = tda.quantize_kv(k[..., :8].contiguous())
     with pytest.raises(ValueError, match="head_dim"):  # int8 rows of 8 bytes: not 16-byte aligned
         tda.decode_attention_stacked(
             q[:, :16].contiguous(), k8.view(2, 1, 40, -1), k8.view(2, 1, 40, -1), mask, 0,
             num_heads=2, head_dim=8, k_scale=ks, v_scale=ks,
         )
-    s_big = 60_000  # scores above 227 KB of shared memory
-    big = torch.zeros(1, 1, s_big, 32, dtype=torch.bfloat16, device=cuda)
+    # the one-block bf16 body (2 * B * H > 132: 4 rows x 34 heads) keeps all
+    # 60k scores in one block, above 227 KB of shared memory; the split (B * H
+    # = 2) spreads them over a cluster of 8
+    s_big = 60_000
+    big = torch.zeros(1, 4, s_big, 34 * 16, dtype=torch.bfloat16, device=cuda)
     with pytest.raises(ValueError, match="shared memory"):
         tda.decode_attention_stacked(
-            q, big, big, torch.ones(1, s_big, dtype=torch.int32, device=cuda), 0, **kw
+            torch.zeros(4, 34 * 16, dtype=torch.bfloat16, device=cuda), big, big,
+            torch.ones(4, s_big, dtype=torch.int32, device=cuda), 0, num_heads=34, head_dim=16,
         )
+    del big
+    big = torch.zeros(1, 1, s_big, 32, dtype=torch.bfloat16, device=cuda)
+    out = tda.decode_attention_stacked(q, big, big, torch.ones(1, s_big, dtype=torch.int32, device=cuda), 0, **kw)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
     # int8: a cluster of 8 blocks (B * H = 2) splits the scores, so the limit
     # is 8 blocks' worth: 60k slots run, 480k do not
     for s_int8, fits in ((60_000, True), (480_000, False)):
@@ -249,12 +324,14 @@ FLASH_CASES = [
 ]
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("b,s,l,nh,kvh,hd,causal,q_offset,sqf,mask,bias", FLASH_CASES)
-def test_k5_kernel_matches_plain(cuda, b, s, l, nh, kvh, hd, causal, q_offset, sqf, mask, bias):
+def test_k5_kernel_matches_plain(cuda, b, s, l, nh, kvh, hd, causal, q_offset, sqf, mask, bias, dtype):
     g = torch.Generator(device=cuda).manual_seed(s + l)
-    q = torch.randn(b, s, nh, hd, device=cuda, generator=g).to(torch.bfloat16)
-    k = torch.randn(b, l, kvh, hd, device=cuda, generator=g).to(torch.bfloat16)
-    v = torch.randn(b, l, kvh, hd, device=cuda, generator=g).to(torch.bfloat16)
+    q = torch.randn(b, s, nh, hd, device=cuda, generator=g).to(dtype)
+    k = torch.randn(b, l, kvh, hd, device=cuda, generator=g).to(dtype)
+    v = torch.randn(b, l, kvh, hd, device=cuda, generator=g).to(dtype)
+    f32 = dtype == torch.float32
     pm = None
     padded = {"left-padded-cache": s // 3, "left-padded-150": 150}.get(mask, 0)
     if mask is not None:
@@ -269,17 +346,18 @@ def test_k5_kernel_matches_plain(cuda, b, s, l, nh, kvh, hd, causal, q_offset, s
     kw = dict(padding_mask=pm, bias=bias_t, causal=causal, q_offset=q_offset,
               scale=scale, scale_query_first=bool(sqf))
     sm90 = tfl.uses_sm90_body(q, k, v, bias_t)
-    assert sm90 == (hd == 128 and not bias)
-    before = (tfl.flash_attention.launches, tfl.flash_attention.launches_sm90)
+    assert sm90 == (not f32 and hd == 128 and not bias)
+    counters = ("launches", "launches_sm90", "launches_f32")
+    before = [getattr(tfl.flash_attention, c) for c in counters]
     out = tfl.flash_attention(q, k, v, **kw)
     torch.cuda.synchronize()
-    assert (tfl.flash_attention.launches, tfl.flash_attention.launches_sm90) == (
-        before[0] + 1, before[1] + int(sm90))
+    assert [getattr(tfl.flash_attention, c) for c in counters] == [
+        before[0] + 1, before[1] + int(sm90), before[2] + int(f32)]
     ref = tfl.flash_attention_reference(q, k, v, **kw)
     if padded:  # fully masked rows are exactly 0, in both
         assert (out[0, :padded] == 0).all() and (ref[0, :padded] == 0).all()
     assert torch.isfinite(out).all()
-    torch.testing.assert_close(out, ref, atol=2e-2, rtol=2e-2)
+    torch.testing.assert_close(out, ref, **TOL[dtype])
 
 
 @pytest.mark.parametrize("hd", [64, 128])
@@ -303,8 +381,10 @@ def test_k5_reads_a_cache_layer_in_place(cuda, hd):
 
 def test_flash_kernel_refuses_what_it_does_not_take(cuda):
     q = torch.zeros(1, 8, 2, 16, dtype=torch.bfloat16, device=cuda)
-    with pytest.raises(TypeError, match="bf16"):
-        tfl.flash_attention(q.float(), q.float(), q.float())
+    with pytest.raises(TypeError, match="all bf16 or all fp32"):
+        tfl.flash_attention(q.half(), q.half(), q.half())
+    with pytest.raises(TypeError, match="all bf16 or all fp32"):
+        tfl.flash_attention(q.float(), q, q)
     odd = torch.zeros(1, 8, 2, 12, dtype=torch.bfloat16, device=cuda)
     with pytest.raises(ValueError, match="head_dim"):
         tfl.flash_attention(odd, odd, odd)
@@ -330,21 +410,27 @@ def _mlp_inputs(b, s, d, f, device, seed=0):
             rand(f, std=0.1), rand(f, d, std=f**-0.5), rand(d, std=0.1))
 
 
-@pytest.mark.parametrize("b,s,d,f", [(2, 257, 1408, 6144), (3, 17, 32, 64), (5, 100, 88, 200)])
-def test_k6_kernel_matches_plain(cuda, b, s, d, f):
-    args = _mlp_inputs(b, s, d, f, cuda)
-    before = tfm.ln_mlp.launches
+# (dtype, B, S, D, F): every shape in bf16 and fp32, and widths the bf16
+# body refuses (rows of 72 and 120 bytes) in fp32 only
+K6_SHAPES = [(2, 257, 1408, 6144), (3, 17, 32, 64), (5, 100, 88, 200)]
+K6_CASES = [(dt, *shape) for dt in DTYPES for shape in K6_SHAPES] + [(torch.float32, 5, 100, 36, 60)]
+
+
+@pytest.mark.parametrize("dtype,b,s,d,f", K6_CASES)
+def test_k6_kernel_matches_plain(cuda, dtype, b, s, d, f):
+    args = [a.to(dtype) for a in _mlp_inputs(b, s, d, f, cuda)]
+    before = (tfm.ln_mlp.launches, tfm.ln_mlp.launches_f32)
     out = tfm.ln_mlp(*args)
     torch.cuda.synchronize()
-    assert tfm.ln_mlp.launches == before + 1
-    assert out.shape == (b, s, d) and out.dtype == torch.bfloat16
-    torch.testing.assert_close(out, tfm.ln_mlp_reference(*args), atol=2e-2, rtol=2e-2)
+    assert (tfm.ln_mlp.launches, tfm.ln_mlp.launches_f32) == (before[0] + 1, before[1] + (dtype == torch.float32))
+    assert out.shape == (b, s, d) and out.dtype == dtype
+    torch.testing.assert_close(out, tfm.ln_mlp_reference(*args), **TOL[dtype])
 
 
 def test_k6_refuses_what_it_does_not_take(cuda):
     args = _mlp_inputs(2, 8, 32, 64, cuda)
-    with pytest.raises(TypeError, match="bf16"):
-        tfm.ln_mlp(*(a.float() for a in args))
+    with pytest.raises(TypeError, match="all bf16 or all fp32"):
+        tfm.ln_mlp(*(a.half() for a in args))
     with pytest.raises(ValueError, match="contiguous"):
         tfm.ln_mlp(args[0].transpose(0, 1), *args[1:])
     odd = _mlp_inputs(2, 8, 36, 64, cuda)  # D = 36: rows of 72 bytes
@@ -355,3 +441,98 @@ def test_k6_refuses_what_it_does_not_take(cuda):
         tfm.ln_mlp(*odd_f)
     with pytest.raises(ValueError, match="w2"):
         tfm.ln_mlp(*args[:5], args[5][:32], args[6])
+
+
+def test_default_tiny_model_runs_fp32_on_the_card(cuda):
+    """VideoBlipForConditionalGeneration(tiny_config()) with no device or
+    dtype builds fp32 on the card; greedy generate runs K1, K2 and K3 through
+    their fp32 bodies and gives the tokens of the same weights on the CPU."""
+    from eilev_tpu_torch import configs
+    from eilev_tpu_torch.generation import GenerationConfig, generate
+    from eilev_tpu_torch.models import VideoBlipForConditionalGeneration
+    from eilev_tpu_torch.ops.preprocess import process_videos
+
+    cfg = configs.tiny_config()
+    model = VideoBlipForConditionalGeneration(cfg).eval()
+    param = next(model.parameters())
+    assert param.is_cuda and param.dtype == torch.float32
+    g = torch.Generator().manual_seed(5)
+    cpu_model = VideoBlipForConditionalGeneration(cfg, device="cpu").eval()
+    with torch.no_grad():
+        for p in cpu_model.parameters():
+            p.copy_(torch.randn(p.shape, generator=g) * 0.5)
+    model.load_state_dict(cpu_model.state_dict())
+    b, v_per, t, s = 2, 2, 2, 16
+    img = cfg.vision_config.image_size
+    frames = torch.randint(0, 256, (b * v_per, 3, 5, 20, 20), generator=g, dtype=torch.uint8)
+    ids = torch.randint(4, cfg.text_config.vocab_size, (b, s), generator=g)
+    ids[:, 0] = 2
+    mask = torch.ones(b, s, dtype=torch.int64)
+    ids[1, :2], mask[1, :2] = 1, 0  # left padding
+    vim = torch.zeros(b, s, dtype=torch.int64)
+    vim[:, 3 : 3 + v_per * cfg.num_query_tokens] = 1
+    gen = GenerationConfig(max_new_tokens=8, pad_token_id=1, eos_token_id=(-1,))
+
+    def tokens(m, dev):
+        pixel = process_videos(frames.to(dev), num_frames=t, height=img, width=img)
+        return generate(m, input_ids=ids.to(dev), attention_mask=mask.to(dev), pixel_values=pixel,
+                        video_input_mask=vim.to(dev), generation_config=gen).cpu()
+
+    counts = (tfa.packed_qkv_attention.launches_f32, tfa.packed_qkv_causal_attention.launches_f32,
+              tda.decode_attention_stacked.launches_f32)
+    on_card = tokens(model, cuda)
+    torch.cuda.synchronize()
+    after = (tfa.packed_qkv_attention.launches_f32, tfa.packed_qkv_causal_attention.launches_f32,
+             tda.decode_attention_stacked.launches_f32)
+    n = cfg.text_config.num_hidden_layers
+    assert after[0] - counts[0] == cfg.vision_config.num_hidden_layers
+    assert after[1] - counts[1] == n
+    steps = after[2] - counts[2]
+    assert steps > 0 and steps % n == 0  # n launches on every one-token step
+    torch.testing.assert_close(on_card, tokens(cpu_model, "cpu"), atol=0, rtol=0)
+
+
+def test_text_lm_runs_fp32_on_the_card(cuda):
+    """The text-only module TextLM builds, in fp32 on the card, decoded
+    greedily through the call TextLM.generate makes: a 2,040-token prompt
+    into 2,048 cache slots, so that the auto dispatcher takes K5 for the
+    prefill; K5 and K3 run through their fp32 bodies (GQA 2 over 1, row 1
+    left-padded) and give the tokens of the same weights on the CPU."""
+    from eilev_tpu_torch import configs
+    from eilev_tpu_torch.generation import GenerationConfig
+    from eilev_tpu_torch.generation.decoding import _greedy_sample_decoder_only
+    from eilev_tpu_torch.generation.text_lm import _TextOnlyModule
+    from eilev_tpu_torch.ops.attention import uses_flash
+
+    text = configs.LlamaConfig(vocab_size=96, hidden_size=256, num_hidden_layers=2, num_attention_heads=2,
+                               num_key_value_heads=1, intermediate_size=512, max_position_embeddings=2048)
+    cfg = configs.VideoBlipConfig(text_config=text)
+    s, new = 2040, 8
+    assert uses_flash(s, s + new)
+    g = torch.Generator().manual_seed(6)
+    cpu_module = _TextOnlyModule(cfg, device="cpu", dtype=torch.float32).eval()
+    with torch.no_grad():
+        for p in cpu_module.parameters():
+            p.copy_(torch.randn(p.shape, generator=g) * 0.1)
+    module = _TextOnlyModule(cfg, device=cuda, dtype=torch.float32).eval()
+    module.load_state_dict(cpu_module.state_dict())
+    ids = torch.randint(3, text.vocab_size, (2, s), generator=g)
+    mask = torch.ones(2, s, dtype=torch.int64)
+    ids[:, 0] = text.bos_token_id
+    ids[1, :100], mask[1, :100] = text.pad_token_id, 0  # left padding
+    ids[1, 100] = text.bos_token_id
+    gen = GenerationConfig(max_new_tokens=new, pad_token_id=text.pad_token_id, eos_token_id=(-1,))
+
+    @torch.inference_mode()
+    def tokens(m, dev):
+        embeds = m.embed_and_scatter(ids.to(dev))
+        return _greedy_sample_decoder_only(m, embeds, mask.to(dev), gen).cpu()
+
+    counts = (tfl.flash_attention.launches_f32, tda.decode_attention_stacked.launches_f32)
+    on_card = tokens(module, cuda)
+    torch.cuda.synchronize()
+    after = (tfl.flash_attention.launches_f32, tda.decode_attention_stacked.launches_f32)
+    n = text.num_hidden_layers
+    assert after[0] - counts[0] == n  # the prefill, one K5 launch a layer
+    assert after[1] - counts[1] == n * (new - 1)  # every one-token step, one K3 launch a layer
+    torch.testing.assert_close(on_card, tokens(cpu_module, "cpu"), atol=0, rtol=0)

@@ -209,3 +209,114 @@ CLUSTER_RULE = [
 @pytest.mark.parametrize("shape,want", CLUSTER_RULE)
 def test_cluster_size_rule(shape, want):
     assert tda.cluster_size(*shape) == want
+
+
+@pytest.mark.parametrize("cache", ["fp32", "int8"])
+@pytest.mark.parametrize("layout", ["opt", "gqa"])
+def test_fp32_fully_masked_row_is_uniform(layout, cache):
+    """An fp32 model: finfo(float32).min is finite, so a row with every slot
+    masked is the uniform average of its S value rows (dequantized to fp32
+    for the int8 cache), in the JAX kernel and in the twin."""
+    nh, kvh, scale_query = LAYOUTS[layout]
+    q, k, v = _inputs(nh, kvh, seed=8)
+    m = _ragged_mask(9, fully_masked_row=True)
+    kw = dict(num_heads=nh, head_dim=HD, kv_heads=kvh, scale_query=scale_query)
+    if cache == "int8":
+        k8, ks = jda.quantize_kv(jnp.asarray(k))
+        v8, vs = jda.quantize_kv(jnp.asarray(v))
+        jargs = (k8.reshape(L, B, S, -1), v8.reshape(L, B, S, -1))
+        jkw = dict(k_scale=ks, v_scale=vs)
+        targs = (_torch(k8).reshape(L, B, S, -1), _torch(v8).reshape(L, B, S, -1))
+        tkw = dict(k_scale=_torch(ks), v_scale=_torch(vs))
+        v_rows = to_np(tda.dequantize_kv(_torch(v8), _torch(vs), torch.float32))
+    else:
+        jargs = (jnp.asarray(k.reshape(L, B, S, -1)), jnp.asarray(v.reshape(L, B, S, -1)))
+        targs = (torch.from_numpy(k.reshape(L, B, S, -1)), torch.from_numpy(v.reshape(L, B, S, -1)))
+        jkw, tkw, v_rows = {}, {}, v
+    group = nh // kvh
+    for layer in range(L):
+        ref = to_np(jda.decode_attention_stacked(jnp.asarray(q), *jargs, jnp.asarray(m), layer,
+                                                 interpret=True, **jkw, **kw))
+        ours = to_np(tda.decode_attention_stacked_reference(torch.from_numpy(q), *targs, torch.from_numpy(m),
+                                                             layer, **tkw, **kw))
+        # head h reads kv head h // group: the mean over S of that head's V rows
+        want = np.repeat(v_rows[layer, 1].mean(0), group, axis=0).reshape(-1)
+        np.testing.assert_allclose(ours[1], want, atol=1e-5, rtol=1e-5)
+        np.testing.assert_allclose(ref[1], want, atol=1e-5, rtol=1e-5)
+        np.testing.assert_allclose(ours, ref, atol=1e-5, rtol=1e-5)
+
+
+# (B, H, S) -> the bf16 K3 body: the split while one block per (head, row)
+# would leave at least half of the 132 SMs idle (2 * B * H <= 132), one block
+# per (head, row) from there
+K3_BODY_RULE = [
+    ((1, 32, 2048), True),   # the text LM's decode
+    ((1, 32, 798), True),    # the narration's decode at batch 1
+    ((4, 32, 798), False),   # the narration's decode at batch 4 (128 blocks)
+    ((2, 32, 798), True), ((1, 66, 100), True), ((2, 33, 5), True), ((1, 1, 1), True),
+    ((1, 67, 100), False), ((2, 34, 100), False), ((8, 32, 798), False),
+]
+
+
+@pytest.mark.parametrize("shape,split", K3_BODY_RULE)
+def test_k3_body_rule(shape, split):
+    assert tda.k3_split(*shape) is split
+
+
+def _meta_call(b, nh, hd, s, q_dtype, cache_dtype):
+    q = torch.empty(b, nh * hd, dtype=q_dtype, device="meta")
+    k = torch.empty(2, b, s, nh * hd, dtype=cache_dtype, device="meta")
+    return q, k
+
+
+# (B, H, hd, S, query dtype, cache dtype) -> (body, cluster, shared memory a
+# block needs): int8 and fp32 always take the split; bf16 where k3_split says
+BODY_TABLE = [
+    ((1, 32, 128, 2048, torch.bfloat16, torch.bfloat16), ("split", 8, 4 * (256 + 8 + 8 * 128 + 8 * 128 + 8 + 16))),
+    ((4, 32, 80, 798, torch.bfloat16, torch.bfloat16), ("one_block", 1, 4 * (798 + 80 + 256 * 8 + 32))),
+    ((4, 32, 80, 798, torch.float32, torch.float32), ("split", 3, 4 * (266 + 9 + 8 * 80 + 8 * 80 + 8 + 16))),
+    ((1, 32, 80, 798, torch.bfloat16, torch.bfloat16), ("split", 8, 4 * (100 + 4 + 8 * 80 + 8 * 80 + 8 + 16))),
+    ((8, 32, 80, 798, torch.bfloat16, torch.bfloat16), ("one_block", 1, 4 * (798 + 80 + 256 * 8 + 32))),
+    ((8, 32, 80, 798, torch.float32, torch.float32), ("split", 2, 4 * (399 + 13 + 8 * 80 + 8 * 80 + 8 + 16))),
+    ((1, 32, 128, 2048, torch.float32, torch.float32), ("split", 8, 4 * (256 + 8 + 8 * 128 + 8 * 128 + 8 + 16))),
+    ((1, 32, 128, 2048, torch.float32, torch.int8), ("split", 8, 4 * (256 + 8 + 8 * 128 + 8 * 128 + 8 + 16))),
+    ((8, 32, 80, 798, torch.bfloat16, torch.int8), ("split", 2, 4 * (399 + 13 + 8 * 80 + 8 * 80 + 8 + 16))),
+]
+
+
+@pytest.mark.parametrize("case,want", BODY_TABLE)
+def test_decode_body_cluster_and_shared_memory(case, want):
+    """Which body a CUDA call takes, its cluster and the shared memory one
+    block needs (what _check_cuda holds to the 227 KB limit), on meta
+    tensors."""
+    b, nh, hd, s, q_dtype, cache_dtype = case
+    q, k = _meta_call(b, nh, hd, s, q_dtype, cache_dtype)
+    split = tda.uses_split(q, k, hd)
+    cluster = tda.cluster_size(b, nh, s) if split else 1
+    need = tda.split_smem_bytes(s, hd, cluster) if split else tda.smem_bytes(s, hd)
+    assert ("split" if split else "one_block", cluster, need) == want
+
+
+def test_cuda_check_takes_bf16_and_fp32_models():
+    """The CUDA kernel's checks, read on CPU tensors (no launch): a bf16 or
+    fp32 query over a cache of its dtype or int8; fp16 and mixed dtypes
+    raise; the shared-memory need follows the body the rule picks."""
+    m = torch.ones(1, 40, dtype=torch.int32)
+    sc = torch.ones(2, 1, 40, 2, dtype=torch.bfloat16)
+    for q_dtype in (torch.bfloat16, torch.float32):
+        q = torch.zeros(1, 32, dtype=q_dtype)
+        k = torch.zeros(2, 1, 40, 32, dtype=q_dtype)
+        tda._check_cuda(q, k, k, m, None, None, 16, 40)
+        k8 = torch.zeros(2, 1, 40, 32, dtype=torch.int8)
+        tda._check_cuda(q, k8, k8, m, sc, sc, 16, 40)
+    with pytest.raises(TypeError, match="bf16 or fp32"):
+        k16 = torch.zeros(2, 1, 40, 32, dtype=torch.float16)
+        tda._check_cuda(torch.zeros(1, 32, dtype=torch.float16), k16, k16, m, None, None, 16, 40)
+    with pytest.raises(TypeError, match="bf16 or fp32"):  # an fp32 query over a bf16 cache
+        kb = torch.zeros(2, 1, 40, 32, dtype=torch.bfloat16)
+        tda._check_cuda(torch.zeros(1, 32), kb, kb, m, None, None, 16, 40)
+    # the one-block body (2 * B * H > 132) keeps every score in one block: 60k
+    # slots do not fit; the split (here B * H = 2) spreads them over 8 blocks
+    s_big = 60_000
+    assert tda.smem_bytes(s_big, 16) > tda.SMEM_LIMIT
+    assert tda.split_smem_bytes(s_big, 16, tda.cluster_size(1, 2, s_big)) <= tda.SMEM_LIMIT

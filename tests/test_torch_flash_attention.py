@@ -171,6 +171,10 @@ def _sm90_rule_case(name):
     if name == "batch_1_any_batch_stride":  # a single batch row's stride is never used
         x = _meta((1, 90, 4, 128), (8, 512, 128, 1))
         return x, x, x, None
+    if name == "fp32_llama_prefill":  # an fp32 model: the fp32 body of attention_f32.cu
+        q = torch.empty((1, 1984, 32, 128), dtype=torch.float32, device="meta")
+        k = torch.empty((1, 2048, 32, 128), dtype=torch.float32, device="meta")
+        return q, k, k, None
     if name == "keys_past_shared_memory":
         q = _meta((1, 8, 1, 128))
         k = _meta((1, 500_000, 1, 128))
@@ -182,7 +186,7 @@ SM90_RULE = {
     "llama_prefill": True, "llama_prefill_b1": True, "gqa_4_over_1_q_offset": True,
     "batch_1_any_batch_stride": True, "hd_88": False, "hd_64": False, "hd_80": False,
     "hd_120": False, "bias": False, "rows_overlap": False, "batches_overlap": False,
-    "keys_past_shared_memory": False,
+    "keys_past_shared_memory": False, "fp32_llama_prefill": False,
 }
 
 
@@ -265,3 +269,21 @@ def test_dot_product_attention_gqa_matches_jax(impl):
     real = pm.astype(bool)  # left-padded rows: uniform (xla) or 0 (flash), alike in both
     np.testing.assert_allclose(to_np(ours)[real], np.asarray(ref)[real], atol=1e-5, rtol=0)
     np.testing.assert_allclose(to_np(ours), np.asarray(ref), atol=1e-5, rtol=0)
+
+
+def test_cuda_check_takes_bf16_or_fp32():
+    """What the CUDA wrapper accepts, read on CPU tensors (no launch): q, k, v
+    all bf16 (rows of 16-byte loads) or all fp32 (any row stride); fp16 or
+    mixed dtypes raise."""
+    for dtype in (torch.bfloat16, torch.float32):
+        x = torch.zeros(2, 8, 2, 16, dtype=dtype)
+        tflash._check_cuda(x, x, x, None, None)
+    odd = torch.zeros(2, 9, 2, 16)[:, 1:]  # a row stride of 32, a batch stride of 288 fp32 values
+    tflash._check_cuda(odd, odd, odd, None, None)
+    with pytest.raises(TypeError, match="all bf16 or all fp32"):
+        h = torch.zeros(2, 8, 2, 16, dtype=torch.float16)
+        tflash._check_cuda(h, h, h, None, None)
+    with pytest.raises(TypeError, match="all bf16 or all fp32"):
+        q = torch.zeros(2, 8, 2, 16)
+        kv = torch.zeros(2, 8, 2, 16, dtype=torch.bfloat16)
+        tflash._check_cuda(q, kv, kv, None, None)

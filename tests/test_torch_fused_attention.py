@@ -3,7 +3,8 @@
 Each plain twin is held against both JAX forms of its kernel: the Pallas
 kernel in interpret mode and its XLA fallback. Shapes cover tiny widths and
 the real head widths (D=88 at S=257 for the ViT, D=80 at S=130 for OPT) with
-2 heads. Tolerances: fp32 atol 1e-5; bf16 atol = rtol = 2e-2 (one bf16 ulp of
+2 heads, and K1 past its whole-row limit (S=400, which the card runs on K2's
+body). Tolerances: fp32 atol 1e-5; bf16 atol = rtol = 2e-2 (one bf16 ulp of
 a rounded score, after scaling, moves a probability by under 1%), with NaN
 rows equal where a fully masked query row is NaN in bf16.
 """
@@ -33,7 +34,7 @@ def _qkv(b, s, nh, hd, dtype, seed):
 
 @pytest.mark.parametrize("form", ["interpret", "xla"])
 @pytest.mark.parametrize("dtype", ["fp32", "bf16"])
-@pytest.mark.parametrize("b,s,nh,hd", [(3, 9, 2, 8), (2, 257, 2, 88)])
+@pytest.mark.parametrize("b,s,nh,hd", [(3, 9, 2, 8), (2, 257, 2, 88), (1, 400, 2, 16)])
 def test_k1_plain_matches_jax(b, s, nh, hd, dtype, form):
     jq, tq = _qkv(b, s, nh, hd, dtype, seed=s)
     scale = hd**-0.5
@@ -101,3 +102,54 @@ def test_wrappers_refuse_other_devices():
         tfa.packed_qkv_attention(qkv, 2, 8)
     with pytest.raises(ValueError, match="cpu or cuda"):
         tfa.packed_qkv_causal_attention(qkv, 2, 8, torch.ones(1, 4, device="meta"))
+
+
+@pytest.mark.parametrize("form", ["interpret", "xla"])
+def test_k2_fp32_fully_masked_rows_are_uniform(form):
+    """In fp32 finfo(float32).min is finite: a query row with no kept key is
+    the uniform average of every V row (of all S keys, the causally masked
+    ones too), in the JAX kernel and in the twin."""
+    b, s, nh, hd = 2, 24, 2, 8
+    jq, tq = _qkv(b, s, nh, hd, "fp32", seed=7)
+    m = _mask(b, s, "left")  # row 0: keys 0 .. s // 5 - 1 padded
+    if form == "interpret":
+        ref = jfa.packed_qkv_causal_attention(jq, nh, hd, jnp.asarray(m), scale=hd**-0.5, interpret=True)
+    else:
+        ref = jfa._xla_packed_causal_fallback(jq, nh, hd, jnp.asarray(m), hd**-0.5)
+    ours = tfa.packed_qkv_causal_attention_reference(tq, nh, hd, torch.from_numpy(m), hd**-0.5)
+    v_mean = tq.reshape(b, s, 3, nh * hd)[0, :, 2].mean(0).numpy()
+    dead = s // 5
+    np.testing.assert_allclose(to_np(ours)[0, :dead], np.broadcast_to(v_mean, (dead, nh * hd)), atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(to_np(ref)[0, :dead], np.broadcast_to(v_mean, (dead, nh * hd)), atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(to_np(ours), to_np(ref), atol=1e-5, rtol=1e-5)
+
+
+# (dtype, S, causal) -> the body a CUDA call takes: fp32 the fp32 body at any
+# S; bf16 K2 always K2's streamed body; bf16 K1 whole rows up to K1_MAX_SEQ
+# (384), K2's body past it
+PACKED_ROUTE = [
+    ((torch.float32, 257, False), "f32"), ((torch.float32, 5000, False), "f32"),
+    ((torch.float32, 766, True), "f32"),
+    ((torch.bfloat16, 1, False), "whole_rows"), ((torch.bfloat16, 257, False), "whole_rows"),
+    ((torch.bfloat16, 384, False), "whole_rows"), ((torch.bfloat16, 385, False), "streamed"),
+    ((torch.bfloat16, 577, False), "streamed"), ((torch.bfloat16, 2048, False), "streamed"),
+    ((torch.bfloat16, 17, True), "streamed"), ((torch.bfloat16, 766, True), "streamed"),
+]
+
+
+@pytest.mark.parametrize("case,want", PACKED_ROUTE)
+def test_packed_body_route(case, want):
+    dtype, s, causal = case
+    qkv = torch.empty(2, s, 3 * 16 * 88, dtype=dtype, device="meta")
+    assert tfa.packed_body(qkv, causal) == want
+
+
+def test_cuda_checks_take_bf16_and_fp32_only():
+    """What the CUDA wrappers accept, read on CPU tensors (no launch): bf16 up
+    to K2_MAX_SEQ, fp32 at any S; fp16 raises."""
+    tfa._check(torch.zeros(1, tfa.K2_MAX_SEQ, 3 * 2 * 8, dtype=torch.bfloat16), 2, 8)
+    tfa._check(torch.zeros(1, tfa.K2_MAX_SEQ + 1, 3 * 2 * 8), 2, 8)
+    with pytest.raises(ValueError, match="sequences"):
+        tfa._check(torch.zeros(1, tfa.K2_MAX_SEQ + 1, 3 * 2 * 8, dtype=torch.bfloat16), 2, 8)
+    with pytest.raises(TypeError, match="bf16 or fp32"):
+        tfa._check(torch.zeros(1, 8, 3 * 2 * 8, dtype=torch.float16), 2, 8)

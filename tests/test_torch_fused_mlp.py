@@ -108,3 +108,22 @@ def test_k6_wrapper_runs_the_twin_on_cpu():
     out = tfm.ln_mlp(*targs)
     assert tfm.ln_mlp.launches == before
     assert torch.equal(out, tfm.ln_mlp_reference(*targs))
+
+
+def test_k6_cuda_check_takes_bf16_or_fp32():
+    """What the CUDA wrapper accepts, read on CPU tensors (no launch): x and
+    both weights all bf16 (16-byte rows: D, F multiples of 8) or all fp32
+    (any D, F); fp16 or mixed dtypes raise."""
+    def args(d, f, dtype):
+        return (torch.zeros(2, 3, d, dtype=dtype), torch.ones(d), torch.zeros(d), torch.zeros(d, f, dtype=dtype),
+                torch.zeros(f), torch.zeros(f, d, dtype=dtype), torch.zeros(d))
+    tfm._check(*args(32, 64, torch.bfloat16))
+    tfm._check(*args(36, 60, torch.float32))
+    with pytest.raises(ValueError, match="% 8"):
+        tfm._check(*args(36, 64, torch.bfloat16))
+    with pytest.raises(TypeError, match="all bf16 or all fp32"):
+        tfm._check(*args(32, 64, torch.float16))
+    mixed = list(args(32, 64, torch.float32))
+    mixed[3] = mixed[3].bfloat16()
+    with pytest.raises(TypeError, match="all bf16 or all fp32"):
+        tfm._check(*mixed)
