@@ -41,7 +41,12 @@ final result line):
    rounded score, probability or activation moves an output by under 1%);
    3e-2 for K4 at the narration's batch 4 (the JAX int8 kernel test's bar)
    and 2e-3 for its other checks (K4_TIGHT_TOL: set from their measured
-   maxima).
+   maxima). The bf16 two-pass body of K1 and K2 (S past 2,048): K2 at (1,
+   4,096, 32x80), causal, row 0 left-padded by 100 keys, and K1 at (1, 3,072,
+   16x88), against their twins at 2e-2 with the fully masked rows NaN in
+   both, timed beside SDPA with the same mask and the bound, printed on a
+   JSON line of their own with their launches_two_pass, which come from this
+   check only (no path reaches S > 2,048).
 2b. The fp32 bodies (an fp32 model) against their twins, TF32 off, atol =
    rtol = 1e-4 (F32_TOL): K1 at (2, 257, 16x88); K2 at (2, 766, 32x80) with
    all-ones and left- and right-padded masks (fully masked rows: the uniform
@@ -79,6 +84,26 @@ final result line):
    layer's weights (K6 = 39 launches, every other counter 0), against the
    twin (2e-2) and the port's own layer_norm2 + mlp modules (min cosine >
    0.999; the modules round the fc1 output to bf16 before gelu).
+4c. ICL classify on the same bf16 model, batch 4, 16 shots + 1 query video
+   a row (8 frames x 224^2), the vendored class sets (187 verb prompts, 788
+   noun prompts) tokenized by a word-level tokenizer with OPT's ids: (a)
+   both stages through generation.classify with kernels (K1 = 39, K2 = 32 a
+   stage) against the plain path on the card, prompts unpadded: (4, C)
+   scores finite, cosine > 0.999, max abs error < 5e-2, argmax equal where
+   the top-2 margin exceeds twice the max error; (b) class_batch_size = 64
+   against unchunked, the same bar; (c) serving.VideoFeatureCache: the noun
+   stage all hits (K1 = 0), scores within the bar of the pixel path, and
+   greedy generate(video_features=...) and generate(vision_chunks=4) of the
+   phase-4 batch-4 request token-identical to generate(pixel_values=...);
+   (d) IclEvaluator end to end in fp32 at the phase-8 depth cut (8 eval
+   datapoints, 4 shots drawn with replacement, batch 4, with and without
+   the feature cache; left-padded prompts, the fp32 K1/K2 bodies):
+   predictions and F1s identical to the plain path; (e) bf16 with row 0
+   left-padded: every score of row 0 NaN on both paths, rows 1-3 finite
+   (the reference behaviour, kept on purpose). Then each stage's p50 over 5
+   warm requests split into encode, prefill and class scoring (CUDA events),
+   without and with a cold feature cache, with the request's peak memory
+   and K1/K2 launches.
 5. The int8 serving mode (load_model(int8_lm=True, int8_kv=True)): the same
    model quantized on the card, in place, from its own bf16 weights; batch 1
    and batch 4. K1 = 39, K2 = 32, K4 = 32 per one-token forward, K3 = 0;
@@ -134,6 +159,8 @@ import dataclasses
 import gc
 import json
 import os
+import random
+import re
 import statistics
 import subprocess
 import sys
@@ -198,6 +225,17 @@ DECODE_SHAPES = {
 # a flash-decoding rescale, moves it past 2e-3
 K4_TOL = 3e-2
 K4_TIGHT_TOL = 2e-3
+# the two-pass body's check (K1 and K2 past S = 2,048): K2's row 0 has this
+# many left-padded keys, so its first rows are fully masked (NaN)
+TWO_PASS_PAD = 100
+# the ICL classify phase: batch 4 (the eval script's), warm repetitions of
+# a timed request, and the bar the full-width bf16 scores (mean
+# log-likelihoods near -11 at random weights) are held to against the plain
+# path, and chunked and cached scores against unchunked pixel ones
+ICL_BATCH = 4
+ICL_REPS = 5
+ICL_SCORE_TOL = 5e-2
+ICL_MIN_COSINE = 0.999
 # device sleep before each timed call: ~20 ms at the H100's 1.98 GHz, longer
 # than the host takes to enqueue a 32-layer decode step of the plain twin
 SLEEP_CYCLES = 40_000_000
@@ -258,7 +296,8 @@ def median_ms(fn, reps: int = 20, warmup: int = 3) -> float:
 def _counter_refs() -> dict:
     """Each launch counter by name: (wrapper, attribute). K1, K2, K5 and K6
     count every launch in ``launches`` and their fp32 body's also in
-    ``launches_f32``; K3 counts by cache (bf16, fp32), K4 every int8-cache
+    ``launches_f32`` (K1 and K2 their bf16 two-pass body's, past S = 2,048,
+    in ``launches_two_pass``); K3 counts by cache (bf16, fp32), K4 every int8-cache
     launch and those with an fp32 query also in ``launches_int8_f32``."""
     from eilev_tpu_torch.ops import decode_attention as da
     from eilev_tpu_torch.ops import flash_attention as fl
@@ -270,6 +309,8 @@ def _counter_refs() -> dict:
         "packed_qkv_attention_f32": (fa.packed_qkv_attention, "launches_f32"),
         "packed_qkv_causal_attention": (fa.packed_qkv_causal_attention, "launches"),
         "packed_qkv_causal_attention_f32": (fa.packed_qkv_causal_attention, "launches_f32"),
+        "packed_qkv_attention_two_pass": (fa.packed_qkv_attention, "launches_two_pass"),
+        "packed_qkv_causal_attention_two_pass": (fa.packed_qkv_causal_attention, "launches_two_pass"),
         "decode_attention_stacked_bf16": (da.decode_attention_stacked, "launches_bf16"),
         "decode_attention_stacked_f32": (da.decode_attention_stacked, "launches_f32"),
         "decode_attention_stacked_int8": (da.decode_attention_stacked, "launches_int8"),
@@ -467,6 +508,7 @@ def check_kernels(tag: str, dev: torch.device) -> list[dict]:
                     fa.packed_qkv_attention(qkv, nh, hd), fa.packed_qkv_attention_reference(qkv, nh, hd, hd**-0.5),
                     2e-2)
     del qkv
+    check_two_pass(tag, dev, g)
 
     b, s, nh, hd = 4, 766, 32, 80
     k2_qkv = torch.randn(b, s, 3 * nh * hd, device=dev, generator=g).to(torch.bfloat16)
@@ -710,6 +752,67 @@ def check_kernels(tag: str, dev: torch.device) -> list[dict]:
         print(f"[{tag}] {r['name']} kernel_ms={k_a},{k_b} plain_ms={p1},{p2} library_ms={r['library_ms']} "
               f"bound_ms={r['bound_ms']} ({r['bound_by']}) (per launch)")
     return results
+
+
+def check_two_pass(tag: str, dev: torch.device, g) -> None:
+    """The bf16 two-pass body of K1 and K2 (S past K2_MAX_SEQ = 2,048, where a
+    query tile's scores no longer fit shared memory): K2 at (1, 4,096, 32x80),
+    causal, row 0 left-padded by TWO_PASS_PAD keys, and K1 at (1, 3,072,
+    16x88), each against its twin at atol = rtol = 2e-2 with the fully masked
+    rows NaN in both; then timed like the other kernels (in turns plain,
+    kernel, kernel, plain; one SDPA call with the same mask and scale) beside
+    its bound. Its launches come from this check only: no path of the port
+    reaches S > 2,048 (OPT's positions end there, every ViT is 257). Prints
+    one JSON line."""
+    from eilev_tpu_torch.ops import fused_attention as fa
+
+    rows = []
+    for name, causal, (b, s, nh, hd) in (("packed_qkv_causal_attention", True, (1, 4096, 32, 80)),
+                                         ("packed_qkv_attention", False, (1, 3072, 16, 88))):
+        qkv = torch.randn(b, s, 3 * nh * hd, device=dev, generator=g).to(torch.bfloat16)
+        assert fa.packed_body(qkv, causal) == "two_pass"
+        q, k, v = qkv.view(b, s, 3, nh, hd).permute(2, 0, 3, 1, 4)
+        if causal:
+            mask = torch.ones(b, s, dtype=torch.int32, device=dev)
+            mask[0, :TWO_PASS_PAD] = 0
+            keep = mask.bool()[:, None, None, :] & torch.ones(s, s, dtype=torch.bool, device=dev).tril()
+            run = lambda qkv=qkv, mask=mask, nh=nh, hd=hd: fa.packed_qkv_causal_attention(qkv, nh, hd, mask)  # noqa: E731
+            plain = lambda qkv=qkv, mask=mask, nh=nh, hd=hd: fa.packed_qkv_causal_attention_reference(  # noqa: E731
+                qkv, nh, hd, mask, hd**-0.5)
+            lib = lambda q=q, k=k, v=v, keep=keep, hd=hd: _sdpa(q, k, v, attn_mask=keep, scale=hd**-0.5)  # noqa: E731
+            work = _k5_causal_work((s - TWO_PASS_PAD,), s, nh, hd, s)
+            label = f"K2 two-pass ({b},{s},{nh}x{hd}) causal, row 0 left-padded by {TWO_PASS_PAD}"
+        else:
+            run = lambda qkv=qkv, nh=nh, hd=hd: fa.packed_qkv_attention(qkv, nh, hd)  # noqa: E731
+            plain = lambda qkv=qkv, nh=nh, hd=hd: fa.packed_qkv_attention_reference(qkv, nh, hd, hd**-0.5)  # noqa: E731
+            lib = lambda q=q, k=k, v=v, hd=hd: _sdpa(q, k, v, scale=hd**-0.5)  # noqa: E731
+            work = (4 * b * nh * s * s * hd, 4 * b * s * nh * hd * 2)
+            label = f"K1 two-pass ({b},{s},{nh}x{hd})"
+        fn = getattr(fa, name)
+        before = fn.launches_two_pass
+        out, ref = run(), plain()
+        torch.cuda.synchronize()
+        nan_out, nan_ref = torch.isnan(out).any(-1), torch.isnan(ref).any(-1)
+        print(f"[{tag}] {label}: NaN rows kernel={int(nan_out.sum())} twin={int(nan_ref.sum())}")
+        assert torch.equal(nan_out, nan_ref) and int(nan_ref.sum()) == (TWO_PASS_PAD if causal else 0)
+        err = (out.float() - ref.float())[~nan_ref].abs().max().item()
+        print(f"[{tag}] {label} max_abs_err={err} (rows that are not NaN)")
+        torch.testing.assert_close(out, ref, atol=2e-2, rtol=2e-2, equal_nan=True)
+        launches = fn.launches_two_pass - before
+        del out, ref
+        p1, k_a, k_b, p2 = (median_ms(f) for f in (plain, run, run, plain))
+        library = min(median_ms(lib), median_ms(lib))
+        bound_ms, bound_by = bound(*work)
+        rows.append({"name": f"{name} two-pass body", "shape": [b, s, nh, hd], "causal": causal,
+                     "max_abs_err": err, "ms": min(k_a, k_b), "plain_ms": min(p1, p2), "library_ms": library,
+                     "bound_ms": bound_ms, "bound_by": bound_by, "launches_two_pass": launches})
+        print(f"[{tag}] {label} kernel_ms={k_a},{k_b} plain_ms={p1},{p2} library_ms={library} "
+              f"bound_ms={bound_ms} ({bound_by}) launches_two_pass={launches} (this check only: no path "
+              f"reaches S > 2,048)")
+        del qkv, q, k, v, run, plain, lib
+    print(json.dumps({"two_pass": rows, "card": tag,
+                      "launches_note": "from this check only: no path of the port reaches S > 2,048"}))
+    torch.cuda.empty_cache()
 
 
 def check_f32_kernels(tag: str, dev: torch.device, g) -> tuple[list, list]:
@@ -1084,6 +1187,298 @@ def run_k6_on_vit_layers(tag: str, model, run, launches: dict, tol: float = 2e-2
           f"K6_ms={modules[1]},{modules[2]} (not counted: timing only)")
 
 
+class WordTokenizer:
+    """A word-level tokenizer with OPT's special ids (bos = eos = 2, pad = 1,
+    newline NEWLINE): words are numbered from 1,000 in the order first seen,
+    so every id is an OPT id (below 50,272). No OPT tokenizer is in the
+    repository; the ICL phase needs token ids of the right count and shape,
+    not their text."""
+
+    bos_token_id = 2
+    pad_token_id = 1
+    eos_token_id = 2
+
+    def __init__(self):
+        self.vocab = {"\n": NEWLINE}
+
+    def __call__(self, text: str, add_special_tokens: bool = True, **kwargs):
+        ids = [self.vocab.setdefault(w, 999 + len(self.vocab)) for w in re.findall(r"\n|\S+", text)]
+        assert max(ids, default=0) < 50272, "word ids past OPT's vocabulary"
+        return {"input_ids": ([self.bos_token_id] if add_special_tokens else []) + ids}
+
+
+def icl_class_sets() -> tuple[dict, dict]:
+    """The vendored class sets: 187 verb prompts and 788 noun prompts."""
+    from eilev_tpu_torch.eval import load_prompt_map
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts", "ego4d", "eval-data")
+    verbs = load_prompt_map(os.path.join(root, "structured_verb_prompt.csv"), "structured_verb")
+    nouns = load_prompt_map(os.path.join(root, "structured_noun_prompt.csv"), "structured_noun")
+    assert (len(verbs), len(nouns)) == (187, 788), (len(verbs), len(nouns))
+    return verbs, nouns
+
+
+class IclBatch:
+    """One ICL classify request: ICL_BATCH rows of SHOTS shot videos + 1 query
+    video (FRAMES x 224^2 uint8 frames from a seed), each shot followed by its
+    narration, then the stage's question. ``narrations[r]`` are row r's shot
+    narrations; rows of equal length are unpadded, a shorter row is
+    left-padded, as the evaluator pads."""
+
+    def __init__(self, model, tok, narrations: list, dev: torch.device, dtype=torch.bfloat16):
+        self.model, self.tok, self.narrations, self.dev, self.dtype = model, tok, narrations, dev, dtype
+        self.batch = len(narrations)
+        self.n_videos = self.batch * (SHOTS + 1)
+        self.keys = [f"row{r}|video{v}" for r in range(self.batch) for v in range(SHOTS + 1)]
+        self.frames = torch.from_numpy(
+            np.random.default_rng(2).integers(0, 256, size=(self.n_videos, 3, FRAMES, 224, 224), dtype=np.uint8)
+        ).to(dev)
+        self._classes: dict = {}
+
+    def pixel(self):
+        from eilev_tpu_torch.ops.preprocess import process_videos
+
+        img = self.model.config.vision_config.image_size
+        return process_videos(self.frames, height=img, width=img, dtype=self.dtype)
+
+    def prompt(self, suffix: str):
+        """(ids, mask, video_input_mask) of the stage's prompt "... Answer:" +
+        ``suffix``, left-padded to the longest row."""
+        from eilev_tpu_torch.data import clean_narration_text, generate_input_ids_and_labels_from_interleaved
+        from eilev_tpu_torch.eval.icl import FEW_SHOT_PROMPT
+
+        builts = [generate_input_ids_and_labels_from_interleaved(
+            self.tok, [(" ".join([FEW_SHOT_PROMPT, clean_narration_text(n)]), 1) for n in narrs]
+            + [(FEW_SHOT_PROMPT + suffix, 1)], None, self.model.config.num_query_tokens, True)
+            for narrs in self.narrations]
+        n = max(len(b["input_ids"]) for b in builts)
+        ids = np.full((self.batch, n), self.tok.pad_token_id, np.int64)
+        mask, vim = np.zeros_like(ids), np.zeros_like(ids)
+        for r, b in enumerate(builts):
+            k = len(b["input_ids"])
+            ids[r, n - k:], mask[r, n - k:], vim[r, n - k:] = b["input_ids"], 1, b["video_input_mask"]
+        return tuple(torch.from_numpy(x).to(self.dev) for x in (ids, mask, vim))
+
+    def classes(self, prompts: list):
+        """(ids, mask) of the class continuations " " + prompt, right-padded."""
+        key = tuple(prompts)
+        if key not in self._classes:
+            enc = [self.tok(" " + c, add_special_tokens=False)["input_ids"] for c in prompts]
+            ids = np.full((len(enc), max(map(len, enc))), self.tok.pad_token_id, np.int64)
+            mask = np.zeros_like(ids)
+            for i, e in enumerate(enc):
+                ids[i, : len(e)], mask[i, : len(e)] = e, 1
+            self._classes[key] = tuple(torch.from_numpy(x).to(self.dev) for x in (ids, mask))
+        return self._classes[key]
+
+    def classify(self, suffix: str, prompts: list, **kw):
+        """The stage through the public entry point, ``generation.classify``
+        (the pixels unless ``video_features`` is given)."""
+        from eilev_tpu_torch.generation import classify
+
+        ids, mask, vim = self.prompt(suffix)
+        class_ids, class_mask = self.classes(prompts)
+        if "video_features" not in kw:
+            kw["pixel_values"] = self.pixel()
+        return classify(self.model, prompt_input_ids=ids, class_input_ids=class_ids, prompt_attention_mask=mask,
+                        prompt_video_input_mask=vim, class_attention_mask=class_mask, **kw)
+
+    @torch.inference_mode()
+    def staged(self, suffix: str, prompts: list, encode):
+        """classify's three parts with CUDA events between them: encode
+        (``encode()``: uint8 frames -> video features), the prompt prefill
+        into a fresh cache (embed, scatter, the OPT layers through K2) and the
+        class scoring. Returns the scores and the parts' ms."""
+        from eilev_tpu_torch.generation.classify import _prefill_prompt, _score_classes
+
+        ids, mask, vim = self.prompt(suffix)
+        class_ids, class_mask = self.classes(prompts)
+        events = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        events[0].record()
+        feats = encode()
+        events[1].record()
+        last, cache = _prefill_prompt(self.model, ids, mask, None, vim, feats)
+        events[2].record()
+        scores = _score_classes(self.model, class_ids, class_mask, last, cache)
+        events[3].record()
+        events[3].synchronize()
+        return scores, [events[i].elapsed_time(events[i + 1]) for i in range(3)]
+
+
+def score_bar(tag: str, label: str, ours, ref, tol: float = ICL_SCORE_TOL) -> float:
+    """(B, C) mean log-likelihoods held to a reference: all finite, cosine of
+    the flattened matrices > ICL_MIN_COSINE, max abs error < ``tol``, and the
+    argmax equal wherever the reference's top-2 margin exceeds twice the
+    measured max error."""
+    a, b = ours.float(), ref.float()
+    assert bool(torch.isfinite(a).all()) and bool(torch.isfinite(b).all()), f"{label}: non-finite scores"
+    err = (a - b).abs().max().item()
+    cos = torch.nn.functional.cosine_similarity(a.flatten(), b.flatten(), dim=0).item()
+    top2 = b.topk(2, dim=-1).values
+    decided = (top2[:, 0] - top2[:, 1]) > 2 * err
+    same = bool((a.argmax(-1) == b.argmax(-1))[decided].all())
+    print(f"[{tag}] {label}: scores {tuple(a.shape)} max_abs_err={err} cosine={cos} "
+          f"argmax_equal_where_decided={same} (decided rows {int(decided.sum())}/{a.shape[0]}; "
+          f"argmax kernel {a.argmax(-1).tolist()} reference {b.argmax(-1).tolist()})")
+    assert cos > ICL_MIN_COSINE and err < tol and same, (label, cos, err, same)
+    return err
+
+
+def icl_narrations(verbs: dict, nouns: dict, rng, short: bool = False) -> list:
+    """SHOTS shot narrations "#C C <verb prompt> <noun prompt>" from the class
+    sets (``short``: the verb prompt only, so the row is shorter)."""
+    vs, ns = list(verbs), list(nouns)
+    return [f"#C C {vs[rng.integers(len(vs))]}" + ("" if short else f" {ns[rng.integers(len(ns))]}")
+            for _ in range(SHOTS)]
+
+
+def run_icl(tag: str, dev: torch.device, model, narration_run) -> None:
+    """The ICL classify phase on the main path's bf16 eilev-blip2-opt-2.7b
+    model (full width and depth, random weights): (a) both stages through
+    classify with kernels against the plain path on the card; (b) class
+    batches of 64 against unchunked; (c) the VideoFeatureCache: the noun
+    stage all hits (K1 = 0), scores against the pixel path, and greedy
+    generate(video_features=...) and generate(vision_chunks=4) against the
+    pixel path; (d) IclEvaluator end to end in fp32 at the phase-8 depth, on
+    the kernels and on the plain path; (e) the bf16 left-padded row's NaN
+    scores (the reference behaviour). Then each stage's p50 split into
+    encode, prefill and class scoring, with and without the feature cache."""
+    from eilev_tpu_torch.generation import GenerationConfig, generate
+    from eilev_tpu_torch.serving import VideoFeatureCache
+
+    verbs, nouns = icl_class_sets()
+    verb_prompts, noun_prompts = list(verbs), list(nouns)
+    tok = WordTokenizer()
+    narrs = icl_narrations(verbs, nouns, np.random.default_rng(5))
+    req = IclBatch(model, tok, [narrs] * ICL_BATCH, dev)
+    verb_q = " The camera wearer"
+    n_vit = model.config.vision_config.num_hidden_layers
+    n_lm = model.config.text_config.num_hidden_layers
+
+    # (a) both stages, kernels against the plain path; counted through classify
+    reset_counters()
+    verb_k = req.classify(verb_q, verb_prompts)
+    torch.cuda.synchronize()
+    counts = counters()
+    ids, mask, _ = req.prompt(verb_q)
+    print(f"[{tag}] ICL verb stage batch={req.batch} prompt_tokens={ids.shape[1]} unpadded={bool(mask.all())} "
+          f"classes={len(verb_prompts)} launches {counts}")
+    want = dict.fromkeys(counts, 0)
+    want.update({"packed_qkv_attention": n_vit, "packed_qkv_causal_attention": n_lm})
+    assert counts == want, f"launch counts {counts}, expected {want}"
+    # the noun stage's question on row 0's predicted verb for every row, so the
+    # rows stay unpadded
+    noun_q = f"{verb_q} {verb_prompts[int(verb_k[0].argmax())]}"
+    noun_k = req.classify(noun_q, noun_prompts)
+    reset_counters()
+    with plain_kernels():
+        verb_p = req.classify(verb_q, verb_prompts)
+        noun_p = req.classify(noun_q, noun_prompts)
+    torch.cuda.synchronize()
+    assert not any(counters().values()), f"the plain path launched a kernel: {counters()}"
+    score_bar(tag, "ICL (a) verb stage bf16, kernels vs plain path", verb_k, verb_p)
+    score_bar(tag, "ICL (a) noun stage bf16, kernels vs plain path", noun_k, noun_p)
+    del verb_p, noun_p
+
+    # (b) class batches of 64 against unchunked
+    score_bar(tag, "ICL (b) verb stage class_batch_size=64 vs unchunked",
+              req.classify(verb_q, verb_prompts, class_batch_size=64), verb_k)
+    score_bar(tag, "ICL (b) noun stage class_batch_size=64 vs unchunked",
+              req.classify(noun_q, noun_prompts, class_batch_size=64), noun_k)
+
+    # (c) the feature cache: the verb stage encodes (misses), the noun stage
+    # finds every video (no pixels given: a miss would raise)
+    cache = VideoFeatureCache(model)
+    with torch.inference_mode():
+        feats = cache.features(req.keys, req.pixel())
+    verb_c = req.classify(verb_q, verb_prompts, video_features=feats)
+    reset_counters()
+    noun_c = req.classify(noun_q, noun_prompts, video_features=cache.features(req.keys))
+    torch.cuda.synchronize()
+    counts = counters()
+    print(f"[{tag}] ICL (c) noun stage with the feature cache: hits={cache.hits} misses={cache.misses} "
+          f"hit_rate={cache.hit_rate} launches {counts}")
+    assert counts["packed_qkv_attention"] == 0 and counts["packed_qkv_causal_attention"] == n_lm, counts
+    assert cache.misses == req.n_videos and cache.hits == req.n_videos and len(cache) == req.n_videos
+    score_bar(tag, "ICL (c) verb stage feature cache vs pixels", verb_c, verb_k)
+    score_bar(tag, "ICL (c) noun stage feature cache vs pixels", noun_c, noun_k)
+    del feats, cache, verb_c, noun_c
+    run = narration_run
+    gen_cfg = GenerationConfig(max_new_tokens=run.new_tokens, pad_token_id=1, eos_token_id=(NEWLINE,))
+    with torch.inference_mode():
+        from eilev_tpu_torch.ops.preprocess import process_videos
+
+        run_pixel = process_videos(run.frames, dtype=run.dtype)
+        tokens = run.generate()
+        feats = VideoFeatureCache(model).features([f"n{i}" for i in range(run.n_videos)], run_pixel)
+        by_features = generate(model, input_ids=run.ids, attention_mask=run.mask, video_input_mask=run.vim,
+                               video_features=feats, generation_config=gen_cfg)
+        by_chunks = generate(model, input_ids=run.ids, attention_mask=run.mask, video_input_mask=run.vim,
+                             pixel_values=run_pixel, vision_chunks=4, generation_config=gen_cfg)
+    same_f, same_c = bool(torch.equal(by_features, tokens)), bool(torch.equal(by_chunks, tokens))
+    print(f"[{tag}] ICL (c) narration batch={run.batch} {run.new_tokens} greedy tokens: "
+          f"video_features identical={same_f}, vision_chunks=4 identical={same_c}; row 0 {tokens[0].tolist()}")
+    assert same_f and same_c, "generate(video_features / vision_chunks) tokens differ from the pixel path"
+    del run_pixel, feats, tokens, by_features, by_chunks
+    torch.cuda.empty_cache()
+
+    # (e) bf16, row 0 left-padded: every score of row 0 NaN on both paths (the
+    # reference behaviour: the prompt cache holds NaN k/v at the padded slots
+    # from layer 2, and the additive prefix bias carries them into every
+    # class score), rows 1-3 finite
+    short = icl_narrations(verbs, nouns, np.random.default_rng(6), short=True)
+    padded = IclBatch(model, tok, [short] + [narrs] * (ICL_BATCH - 1), dev)
+    pad = int((padded.prompt(verb_q)[1][0] == 0).sum())
+    scores_k = padded.classify(verb_q, verb_prompts)
+    with plain_kernels():
+        scores_p = padded.classify(verb_q, verb_prompts)
+    for name, sc in (("kernels", scores_k), ("plain path", scores_p)):
+        nan_rows = torch.isnan(sc).all(-1).tolist()
+        print(f"[{tag}] ICL (e) bf16 row 0 left-padded by {pad}, {name}: all-NaN rows {nan_rows}, rows 1-3 "
+              f"finite={bool(torch.isfinite(sc[1:]).all())} (the reference behaviour, kept on purpose)")
+        assert pad > 0 and nan_rows == [True] + [False] * (ICL_BATCH - 1) and bool(torch.isfinite(sc[1:]).all())
+    del padded, scores_k, scores_p
+
+    # timings: each stage's parts, p50 over ICL_REPS warm requests, without
+    # the feature cache (both stages encode) and with a cold one (the verb
+    # stage encodes its misses in buckets of 8, the noun stage hits)
+    for mode in ("no cache", "feature cache"):
+        parts: dict = {"verb": [], "noun": []}
+        for rep in range(ICL_REPS + 1):
+            cache = VideoFeatureCache(model)
+            encode_verb = ((lambda: cache.features(req.keys, req.pixel())) if mode == "feature cache"
+                           else (lambda: model.encode_videos(req.pixel())))
+            encode_noun = ((lambda: cache.features(req.keys)) if mode == "feature cache"
+                           else (lambda: model.encode_videos(req.pixel())))
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counters()
+            t0 = time.perf_counter()
+            _, verb_ms = req.staged(verb_q, verb_prompts, encode_verb)
+            _, noun_ms = req.staged(noun_q, noun_prompts, encode_noun)
+            wall = time.perf_counter() - t0
+            if rep == 0:  # warm-up; its launches and peak memory are the request's
+                counts, peak = counters(), torch.cuda.max_memory_allocated()
+                continue
+            parts["verb"].append(verb_ms + [wall])
+            parts["noun"].append(noun_ms)
+        p50 = {stage: [statistics.median(x[i] for x in rows) for i in range(len(rows[0]))]
+               for stage, rows in parts.items()}
+        print(f"[{tag}] ICL request batch={req.batch} ({mode}), p50 over {ICL_REPS} warm requests: "
+              f"verb stage ({len(verb_prompts)} classes) encode_ms={p50['verb'][0]} prefill_ms={p50['verb'][1]} "
+              f"class_scoring_ms={p50['verb'][2]}; noun stage ({len(noun_prompts)} classes) "
+              f"encode_ms={p50['noun'][0]} prefill_ms={p50['noun'][1]} class_scoring_ms={p50['noun'][2]}; "
+              f"request_wall_s={p50['verb'][3]}; max_memory_allocated_bytes={peak}; launches a request: "
+              f"K1={counts['packed_qkv_attention']} K2={counts['packed_qkv_causal_attention']}")
+        # K1 once per ViT layer and encode: both stages' encodes, or the
+        # cache's buckets of the verb stage's misses
+        encodes = -(-req.n_videos // cache.bucket) if mode == "feature cache" else 2
+        assert counts["packed_qkv_attention"] == encodes * n_vit, counts
+        assert counts["packed_qkv_causal_attention"] == 2 * n_lm, counts
+        del cache
+    torch.cuda.empty_cache()
+
+
 def run_int8_serving(tag: str, model, lm_calls: list, runs: dict, launches: dict) -> None:
     """Phases 5 and 6: the int8 serving modes, quantized in place on the card."""
     from eilev_tpu_torch.ops.gelu import set_gelu_impl
@@ -1286,6 +1681,83 @@ def _same_tokens_as_plain(tag: str, label: str, run) -> None:
     assert bool(torch.isfinite(a).all()) and rel < 1e-4, rel
 
 
+def f32_cut_config():
+    """The eilev-blip2-opt-2.7b widths with F32_LAYERS ViT, Q-Former and OPT
+    layers: the fp32 runs' model."""
+    from eilev_tpu_torch import configs
+
+    base = configs.blip2_opt_2_7b()
+    return dataclasses.replace(
+        base,
+        vision_config=dataclasses.replace(base.vision_config, num_hidden_layers=F32_LAYERS),
+        qformer_config=dataclasses.replace(base.qformer_config, num_hidden_layers=F32_LAYERS),
+        text_config=dataclasses.replace(base.text_config, num_hidden_layers=F32_LAYERS))
+
+
+def run_icl_evaluator_f32(tag: str, dev: torch.device) -> None:
+    """ICL (d): IclEvaluator end to end in fp32 (its default dtype) on the
+    fp32 model of the eilev-blip2-opt-2.7b widths at F32_LAYERS layers a
+    stack (built on the card by default): 8 eval datapoints of synthesized
+    uint8 videos (FRAMES x 224^2) with labels from the class sets, 4 shots a
+    row drawn with replacement from 8 train datapoints, batch 4, the 187 verb
+    and 788 noun prompts, with and without the feature cache. The prompts are
+    left-padded to 64-multiples, so the fp32 K1/K2 bodies run on padded rows.
+    Predictions and both F1s must equal the same evaluator's on the plain
+    path on the card."""
+    from eilev_tpu_torch.eval import IclEvaluator
+    from eilev_tpu_torch.models import VideoBlipForConditionalGeneration
+
+    cfg = f32_cut_config()
+    model = VideoBlipForConditionalGeneration(cfg).eval()
+    assert next(model.parameters()).dtype == torch.float32
+    random_init_(model, torch.Generator(device=dev).manual_seed(46), std=0.02)
+    verbs, nouns = icl_class_sets()
+    rng = np.random.default_rng(7)
+    verb_keys, noun_keys = list(verbs), list(nouns)
+
+    def datapoint(i):
+        v, n = verb_keys[rng.integers(len(verb_keys))], noun_keys[rng.integers(len(noun_keys))]
+        return {"frame_path": f"clip{i}|0", "narration_text": f"#C C {v} {n}", "structured_verb": verbs[v],
+                "structured_noun": nouns[n],
+                "video": rng.integers(0, 256, (3, FRAMES, 224, 224), dtype=np.uint8)}
+
+    eval_ds = [datapoint(i) for i in range(8)]
+    train = [datapoint(100 + i) for i in range(8)]
+    kw = dict(verb_prompts=verbs, noun_prompts=nouns, verbs=sorted(set(verbs.values())),
+              nouns=sorted(set(nouns.values())), num_shot=4, device=dev)
+    n = F32_LAYERS
+    for vision_cache in (None, 64):
+        results = {}
+        for path in ("kernels", "plain path"):
+            reset_counters()
+            with plain_kernels() if path == "plain path" else contextlib.nullcontext():
+                ev = IclEvaluator(model, WordTokenizer(), rng=random.Random(42), vision_cache=vision_cache, **kw)
+                results[path] = ev.evaluate(eval_ds, train, batch_size=ICL_BATCH)
+            torch.cuda.synchronize()
+            counts = counters()
+            print(f"[{tag}] ICL (d) fp32 IclEvaluator (2+2+2 layers, vision_cache={vision_cache}), {path}: "
+                  f"verb_f1={results[path].verb_f1} noun_f1={results[path].noun_f1} launches {counts}")
+            if path == "plain path":
+                assert not any(counts.values()), counts
+                continue
+            # two batches of 4, two stages each: K2 once per OPT layer and
+            # stage; K1 once per ViT layer and encode (each stage's, or the
+            # cache's buckets of misses); all through the fp32 bodies
+            assert counts["packed_qkv_causal_attention"] == counts["packed_qkv_causal_attention_f32"] == 4 * n
+            assert counts["packed_qkv_attention"] == counts["packed_qkv_attention_f32"] > 0
+            if vision_cache is None:
+                assert counts["packed_qkv_attention"] == 4 * n, counts
+        ours, ref = results["kernels"], results["plain path"]
+        same = (ours.verb_predictions == ref.verb_predictions and ours.noun_predictions == ref.noun_predictions
+                and (ours.verb_f1, ours.noun_f1) == (ref.verb_f1, ref.noun_f1))
+        print(f"[{tag}] ICL (d) vision_cache={vision_cache}: predictions and F1s identical to the plain path="
+              f"{same}; verb predictions {[p['prediction'] for p in ours.verb_predictions]}")
+        assert same, "the fp32 evaluator's predictions differ from the plain path's"
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def run_f32_paths(tag: str, dev: torch.device, launches: dict) -> None:
     """Phase 8: the fp32 bodies on the main paths. The narration model by its
     default construction, VideoBlipForConditionalGeneration(cfg) with no
@@ -1302,12 +1774,7 @@ def run_f32_paths(tag: str, dev: torch.device, launches: dict) -> None:
     from eilev_tpu_torch.models import VideoBlipForConditionalGeneration
     from eilev_tpu_torch.ops.quantization import quantize_model_
 
-    base = configs.blip2_opt_2_7b()
-    cfg = dataclasses.replace(
-        base,
-        vision_config=dataclasses.replace(base.vision_config, num_hidden_layers=F32_LAYERS),
-        qformer_config=dataclasses.replace(base.qformer_config, num_hidden_layers=F32_LAYERS),
-        text_config=dataclasses.replace(base.text_config, num_hidden_layers=F32_LAYERS))
+    cfg = f32_cut_config()
     model = VideoBlipForConditionalGeneration(cfg).eval()
     param = next(model.parameters())
     assert param.dtype == torch.float32 and param.is_cuda, (param.dtype, param.device)
@@ -1381,6 +1848,10 @@ def main(argv: list) -> int:
         launches: dict = {}
         model, lm_calls, runs = run_main_path(tag, dev, launches)
         run_k6_on_vit_layers(tag, model, runs[1], launches)
+        t0 = time.perf_counter()
+        run_icl(tag, dev, model, runs[4])
+        run_icl_evaluator_f32(tag, dev)
+        print(f"[{tag}] ICL classify phase took {time.perf_counter() - t0} s")
         gc.collect()
         torch.cuda.empty_cache()
         run_int8_serving(tag, model, lm_calls, runs, launches)

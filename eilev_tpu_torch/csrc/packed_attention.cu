@@ -59,7 +59,13 @@
 // the first K tiles at once; the key-padding mask becomes one bit per key
 // in registers (a coalesced load and a ballot per 32 keys).
 //
-// Shared by both:
+// Past K2_MAX_S (K2, and K1 with no causal frontier): the two-pass body. A
+// query tile's scores no longer fit shared memory, so none is kept: pass 1
+// streams the K tiles for each row's max and sum, pass 2 recomputes the same
+// rounded scores and accumulates PV. It computes QK^T twice and is written to
+// be right first (see two_pass_attention_kernel); no config reaches it today.
+//
+// Shared by all:
 //   * Rounding points follow the JAX reference exactly: the query is scaled
 //     and rounded to bf16 (q_scale, 1 for K1); QK^T is rounded to bf16, then
 //     scaled and rounded again (s_scale, 1 for K2); masked scores are
@@ -633,13 +639,250 @@ int launch_k2(const void* qkv, const void* mask, void* out, int B, int S, int H,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------- two-pass body
+
+constexpr int TP_WARPS = 4;
+constexpr int TP_THREADS = TP_WARPS * 32;
+constexpr int TP_BQ = TP_WARPS * 16;  // queries per block
+constexpr int TP_BK = 32;             // keys per tile: one 32-bit word of keep flags
+
+// Shared memory of one two-pass block: the Q tile, then two ring slots, each
+// a K tile and a V tile.
+template <int DP>
+struct TwoPassShape {
+  static constexpr int LD = DP + 8;
+  static constexpr int SLOT = 2 * TP_BK * LD;  // K tile, then V tile
+  static constexpr int BYTES = 2 * (TP_BQ * LD + 2 * SLOT);
+};
+
+// bf16 K2 (CAUSAL) and K1 (no causal frontier, no mask) past K2_MAX_S, where
+// a query tile's scores no longer fit shared memory: no score is kept at
+// all. One block of 4 warps per (head, batch row, 64-query tile), the latest
+// query tiles launched first. Pass 1 streams the K tiles (a two-slot cp.async
+// ring), forms each warp's rounded, masked scores exactly as K2's body does
+// and keeps each row's running fp32 max and sum of exp; the quad's and the
+// row's statistics are combined as in K2's body. Pass 2 streams K and V
+// again, recomputes the same rounded scores, forms p = exp(s - max) / sum,
+// rounds p to bf16 after normalising it (the reference's rounding point) and
+// accumulates PV in fp32. So every QK^T is computed twice, and K is read
+// twice a block: the price of no score buffer. The keep flags come from the
+// (B, S) mask in device memory, one coalesced load and a ballot per 32-key
+// tile and warp. A fully masked row keeps max -inf and is NaN, as in the
+// reference.
+template <int DP, bool CAUSAL>
+__global__ void __launch_bounds__(TP_THREADS)
+two_pass_attention_kernel(const __nv_bfloat16* __restrict__ qkv, const int32_t* __restrict__ mask,
+                          __nv_bfloat16* __restrict__ out, int S, int H, int D, float q_scale,
+                          float s_scale) {
+  using Shape = TwoPassShape<DP>;
+  constexpr int LD = Shape::LD;
+  constexpr int NT = TP_BK / 8;  // 8-key score tiles per key tile
+  constexpr int DT = DP / 8;
+  extern __shared__ __align__(128) unsigned char smem[];
+  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* ring = Qs + TP_BQ * LD;  // 2 x SLOT
+
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * TP_BQ;
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int lr = lane & 7, lm = lane >> 3;
+  const int HD = H * D;
+  const int row_stride = 3 * HD;
+  const __nv_bfloat16* qkv_b = qkv + (size_t)b * S * row_stride;
+  const int32_t* mask_b = mask ? mask + (size_t)b * S : nullptr;
+
+  const int n_tiles = ((CAUSAL ? min(q0 + TP_BQ, S) : S) - 1) / TP_BK + 1;
+  const int qw = q0 + warp * 16;
+  const int row_a = qw + g, row_b = qw + g + 8;
+  const bool live = qw < S;
+  const int warp_last = CAUSAL ? min(qw + 15, S - 1) : S - 1;
+
+  // starts the copy of key tile u (K only in pass 1, K and V in pass 2) into
+  // slot u % 2, as one commit group (an empty one past the last tile, so
+  // cp.async.wait_group's count stays uniform)
+  auto issue = [&](int u, bool with_v) {
+    if (u < n_tiles) {
+      __nv_bfloat16* slot = ring + (u % 2) * Shape::SLOT;
+      load_rows_async<DP, LD, TP_THREADS>(slot, qkv_b, u * TP_BK, TP_BK, S, D, row_stride,
+                                          HD + h * D, threadIdx.x);
+      if (with_v)
+        load_rows_async<DP, LD, TP_THREADS>(slot + TP_BK * LD, qkv_b, u * TP_BK, TP_BK, S, D,
+                                            row_stride, 2 * HD + h * D, threadIdx.x);
+    }
+    cp_async_commit();
+  };
+  // this warp's rounded, masked scores of key tile u against its 16 rows:
+  // c[j] holds keys 8j + 2t, 8j + 2t + 1 of rows g (c[j][0..1]) and g + 8
+  // (c[j][2..3]) as exact bf16 values in fp32; fragments past warp_last are
+  // left at -inf (both passes skip them)
+  uint32_t qf[DP / 16][4];
+  auto scores = [&](float (&c)[NT][4], const __nv_bfloat16* ktile, int k0) {
+    const uint32_t kw =
+        __ballot_sync(0xffffffffu, k0 + lane < S && (mask_b == nullptr || mask_b[k0 + lane] != 0));
+#pragma unroll
+    for (int j = 0; j < NT; ++j) c[j][0] = c[j][1] = c[j][2] = c[j][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk) {
+#pragma unroll
+      for (int j = 0; j < NT; j += 2) {
+        if (k0 + j * 8 > warp_last) continue;
+        uint32_t bb[4];
+        ldmatrix_x4(bb, ktile + (j * 8 + (lm >> 1) * 8 + lr) * LD + kk * 16 + (lm & 1) * 8);
+        mma_bf16_16816(c[j], qf[kk], bb);
+        mma_bf16_16816(c[j + 1], qf[kk], bb + 2);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      if (k0 + (j & ~1) * 8 > warp_last) {
+        c[j][0] = c[j][1] = c[j][2] = c[j][3] = -INFINITY;
+        continue;
+      }
+      const int col = j * 8 + 2 * t;
+      const int key = k0 + col;
+      const bool keep0 = (kw >> col) & 1u, keep1 = (kw >> (col + 1)) & 1u;
+      const uint32_t pa = mask_pair(score_pair(c[j][0], c[j][1], s_scale),
+                                    keep0 && (!CAUSAL || key <= row_a), keep1 && (!CAUSAL || key < row_a));
+      const uint32_t pb = mask_pair(score_pair(c[j][2], c[j][3], s_scale),
+                                    keep0 && (!CAUSAL || key <= row_b), keep1 && (!CAUSAL || key < row_b));
+      c[j][0] = bf16_lo(pa);
+      c[j][1] = bf16_hi(pa);
+      c[j][2] = bf16_lo(pb);
+      c[j][3] = bf16_hi(pb);
+    }
+  };
+
+  load_rows_async<DP, LD, TP_THREADS>(Qs, qkv_b, q0, TP_BQ, S, D, row_stride, h * D, threadIdx.x);
+  cp_async_commit();
+  issue(0, false);
+  cp_async_wait<1>();  // the Q rows have landed
+  __syncthreads();
+  load_q<DP, LD>(qf, Qs, warp, lane, q_scale);
+
+  // pass 1: each lane's running max and sum of exp over its own scores of
+  // rows g and g + 8
+  float m_a = -INFINITY, m_b = -INFINITY, l_a = 0.f, l_b = 0.f;
+  for (int u = 0; u < n_tiles; ++u) {
+    issue(u + 1, false);
+    cp_async_wait<1>();
+    __syncthreads();  // tile u has landed for every thread
+    const int k0 = u * TP_BK;
+    if (live && k0 <= warp_last) {
+      float c[NT][4];
+      scores(c, ring + (u % 2) * Shape::SLOT, k0);
+      float mx_a = -INFINITY, mx_b = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        mx_a = fmaxf(mx_a, fmaxf(c[j][0], c[j][1]));
+        mx_b = fmaxf(mx_b, fmaxf(c[j][2], c[j][3]));
+      }
+      const float mn_a = fmaxf(m_a, mx_a), mn_b = fmaxf(m_b, mx_b);
+      // a lane with no kept score yet keeps l = 0 (exp(-inf - -inf) is NaN)
+      if (mn_a != -INFINITY) {
+        float e = 0.f;
+#pragma unroll
+        for (int j = 0; j < NT; ++j) e += exp_shifted(c[j][0], mn_a) + exp_shifted(c[j][1], mn_a);
+        l_a = l_a * exp_shifted(m_a, mn_a) + e;
+      }
+      if (mn_b != -INFINITY) {
+        float e = 0.f;
+#pragma unroll
+        for (int j = 0; j < NT; ++j) e += exp_shifted(c[j][2], mn_b) + exp_shifted(c[j][3], mn_b);
+        l_b = l_b * exp_shifted(m_b, mn_b) + e;
+      }
+      m_a = mn_a;
+      m_b = mn_b;
+    }
+    __syncthreads();  // every warp is done with slot u % 2 before it is refilled
+  }
+
+  // the rows' statistics over the quad's four lanes; a lane with no kept
+  // score adds nothing, a row with none keeps max -inf and is NaN in pass 2
+  const auto part_sum = [](float m, float l, float row_m) {
+    return m == -INFINITY ? 0.f : l * exp_shifted(m, row_m);
+  };
+  float row_m_a = m_a, row_m_b = m_b;
+#pragma unroll
+  for (int off = 1; off <= 2; off <<= 1) {
+    row_m_a = fmaxf(row_m_a, __shfl_xor_sync(0xffffffffu, row_m_a, off));
+    row_m_b = fmaxf(row_m_b, __shfl_xor_sync(0xffffffffu, row_m_b, off));
+  }
+  l_a = part_sum(m_a, l_a, row_m_a);
+  l_b = part_sum(m_b, l_b, row_m_b);
+#pragma unroll
+  for (int off = 1; off <= 2; off <<= 1) {
+    l_a += __shfl_xor_sync(0xffffffffu, l_a, off);
+    l_b += __shfl_xor_sync(0xffffffffu, l_b, off);
+  }
+  const float inv_a = 1.f / l_a, inv_b = 1.f / l_b;
+
+  // pass 2: p from the recomputed scores, rounded after normalising, times V
+  float o[DT][4];
+#pragma unroll
+  for (int j = 0; j < DT; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+  cp_async_wait<0>();  // only the empty group past the last tile is left
+  issue(0, true);
+  for (int u = 0; u < n_tiles; ++u) {
+    issue(u + 1, true);
+    cp_async_wait<1>();
+    __syncthreads();
+    const int k0 = u * TP_BK;
+    if (live && k0 <= warp_last) {
+      const __nv_bfloat16* slot = ring + (u % 2) * Shape::SLOT;
+      float c[NT][4];
+      scores(c, slot, k0);
+      const __nv_bfloat16* vtile = slot + TP_BK * LD;
+#pragma unroll
+      for (int kk = 0; kk < TP_BK / 16; ++kk) {
+        if (k0 + kk * 16 > warp_last) continue;
+        const float* c0 = c[2 * kk];
+        const float* c1 = c[2 * kk + 1];
+        const uint32_t a[4] = {
+            pack_bf16(exp_shifted(c0[0], row_m_a) * inv_a, exp_shifted(c0[1], row_m_a) * inv_a),
+            pack_bf16(exp_shifted(c0[2], row_m_b) * inv_b, exp_shifted(c0[3], row_m_b) * inv_b),
+            pack_bf16(exp_shifted(c1[0], row_m_a) * inv_a, exp_shifted(c1[1], row_m_a) * inv_a),
+            pack_bf16(exp_shifted(c1[2], row_m_b) * inv_b, exp_shifted(c1[3], row_m_b) * inv_b)};
+#pragma unroll
+        for (int j = 0; j < DT; j += 2) {
+          uint32_t bb[4];
+          ldmatrix_x4_trans(bb, vtile + (kk * 16 + (lm & 1) * 8 + lr) * LD + j * 8 + (lm >> 1) * 8);
+          mma_bf16_16816(o[j], a, bb);
+          mma_bf16_16816(o[j + 1], a, bb + 2);
+        }
+      }
+    }
+    __syncthreads();
+  }
+  cp_async_wait<0>();
+  if (live) store_out<DT>(o, out, b, row_a, S, HD, h, D, t);
+}
+
+template <int DP, bool CAUSAL>
+int launch_two_pass(const void* qkv, const void* mask, void* out, int B, int S, int H, int D,
+                    float q_scale, float s_scale, cudaStream_t stream) {
+  auto kernel = two_pass_attention_kernel<DP, CAUSAL>;
+  constexpr int smem = TwoPassShape<DP>::BYTES;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid(H, B, (S + TP_BQ - 1) / TP_BQ);
+  if (grid.z > 65535) return (int)cudaErrorInvalidValue;
+  kernel<<<grid, TP_THREADS, smem, stream>>>(static_cast<const __nv_bfloat16*>(qkv),
+                                             static_cast<const int32_t*>(mask),
+                                             static_cast<__nv_bfloat16*>(out), S, H, D, q_scale,
+                                             s_scale);
+  return (int)cudaGetLastError();
+}
+
 // The widest query tile whose scores fit and that the sequence fills: 128
 // rows at the OPT prefill (S = 766, D = 80: 232,448 B, one block of 16 warps
 // an SM), down to 32.
 template <int DP, bool CAUSAL>
 int dispatch_k2(const void* qkv, const void* mask, void* out, int B, int S, int H, int D,
                 float q_scale, float s_scale, cudaStream_t st) {
-  if (S > K2_MAX_S) return (int)cudaErrorInvalidValue;
+  if (S > K2_MAX_S) return launch_two_pass<DP, CAUSAL>(qkv, mask, out, B, S, H, D, q_scale, s_scale, st);
   if (S > 64 && k2_bytes(S, DP, 128) <= MAX_SMEM)
     return launch_k2<DP, 8, CAUSAL>(qkv, mask, out, B, S, H, D, q_scale, s_scale, st);
   if (S > 32 && k2_bytes(S, DP, 64) <= MAX_SMEM)
@@ -651,8 +894,10 @@ int dispatch_k2(const void* qkv, const void* mask, void* out, int B, int S, int 
 
 // qkv: (B, S, 3*H*D) bf16, contiguous, 16-byte aligned; mask: (B, S) int32 or
 // NULL; out: (B, S, H*D) bf16. Requires D % 8 == 0, D <= 128, B and H under
-// 65,536, and S <= 2048. causal = 0 (K1, no mask): the whole-row body up to
-// K1_MAX_S, K2's body with no causal frontier above; causal = 1: K2's body.
+// 65,536, and ceil(S / 64) under 65,536. causal = 0 (K1, no mask): the
+// whole-row body up to K1_MAX_S, K2's body with no causal frontier up to
+// K2_MAX_S, the two-pass body above; causal = 1: K2's body up to K2_MAX_S,
+// the two-pass body above.
 // Returns the launch's cudaError_t (0 on success); launches on `stream`, no
 // synchronise.
 extern "C" int eilev_packed_attention_bf16(const void* qkv, const void* mask, void* out, int B,

@@ -4,8 +4,10 @@
 The OPT greedy branch of :func:`generate`. Prefill writes the prompt into
 the stacked KV cache (kernel K2 runs there for OPT, K5 for a long LLaMA
 prompt), then a Python loop decodes one token per step with early exit once
-every row has emitted eos; positions after eos hold pad. Every other mode of
-the JAX ``generate`` raises ``NotImplementedError`` naming the mode.
+every row has emitted eos; positions after eos hold pad. Precomputed
+``video_features`` (``serving.VideoFeatureCache``) and ``vision_chunks > 1``
+are taken as in JAX. Every other mode of the JAX ``generate`` raises
+``NotImplementedError`` naming the mode.
 
 :func:`_prefill` and :func:`_greedy_sample_decoder_only` work by duck typing
 on any model with the VideoBLIP LM surface (``config.text_config``,
@@ -24,6 +26,7 @@ from torch import nn
 from ..configs import OPTConfig, VideoBlipConfig
 from ..models.opt import init_cache
 from ..models.video_blip import VideoBlipForConditionalGeneration as VB
+from ..models.video_blip import embed_and_scatter_chunked
 from .config import GenerationConfig
 
 
@@ -137,9 +140,12 @@ def generate(
     them into the prompt embeddings, decode.
 
     Returns (B, max_new_tokens) generated token ids (new tokens only; pad after
-    eos). Sampling, beam search, contrastive search, logits processors,
-    speculative drafting (``draft``/``draft_layers``), ``vision_chunks > 1``
-    and precomputed ``video_features`` are not ported yet and raise
+    eos). ``video_features`` (precomputed ``encode_videos`` output,
+    (num_videos * num_query_tokens, text_hidden)) skips the vision tower and
+    takes precedence over ``pixel_values``; ``vision_chunks > 1`` runs the
+    vision tower over that many sequential pieces of the videos. Sampling,
+    beam search, contrastive search, logits processors and speculative
+    drafting (``draft``/``draft_layers``) are not ported yet and raise
     ``NotImplementedError``.
     """
     cfg: VideoBlipConfig = model.config
@@ -163,13 +169,20 @@ def generate(
         "logits processors": gen_cfg.has_logits_processors,
         "speculative decoding (draft)": draft is not None,
         "speculative decoding (draft_layers)": bool(draft_layers),
-        "chunked vision (vision_chunks > 1)": vision_chunks > 1,
-        "precomputed video_features": video_features is not None,
     }
     for mode, requested in unported.items():
         if requested:
             raise NotImplementedError(f"{mode} is not ported yet; greedy decoding is")
     if attention_mask is None:
         attention_mask = torch.ones_like(input_ids)
-    inputs_embeds = model.embed_and_scatter(input_ids, pixel_values, video_input_mask)
+    if video_features is not None:
+        inputs_embeds = model.embed_and_scatter(
+            input_ids, None, video_input_mask, video_features=video_features
+        )
+    elif vision_chunks > 1 and pixel_values is not None:
+        inputs_embeds = embed_and_scatter_chunked(
+            model, input_ids, pixel_values, video_input_mask, vision_chunks=vision_chunks
+        )
+    else:
+        inputs_embeds = model.embed_and_scatter(input_ids, pixel_values, video_input_mask)
     return _greedy_sample_decoder_only(model, inputs_embeds, attention_mask, gen_cfg)

@@ -23,7 +23,13 @@ makes the projection and FFN matmuls int8 layers (``ops/quantization.py``);
 ``int8_kv_cache`` stores k/v as int8 with bf16 per-(position, head) scales
 (``k_scale``/``v_scale``, (num_layers, B, max_len, H)), quantized as they are
 written. Not in this port yet, and raising ``NotImplementedError``:
-``shared_prefix``/``score_with_prefix``, ``remat`` and ``cache_append``.
+``remat`` and ``cache_append``.
+
+Class scoring (``score_with_prefix``, the ICL classify path) attends (B, C,
+L) class continuations to the shared (B, P) prompt cache with a class axis,
+as the JAX module does: the prompt cache is read, never written or
+duplicated per class. Its attention is plain einsums with additive biases,
+as in JAX (no Pallas kernel there, so none here).
 """
 
 from __future__ import annotations
@@ -35,8 +41,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..configs import OPTConfig
-from ..ops.attention import dot_product_attention
-from ..ops.decode_attention import decode_attention_stacked, quantize_kv
+from ..ops.attention import _scalar, dot_product_attention, make_causal_bias, mask_to_bias
+from ..ops.decode_attention import decode_attention_stacked, dequantize_kv, quantize_kv
 from ..ops.fused_attention import packed_qkv_causal_attention
 from ..ops.quantization import dense_cls
 
@@ -157,8 +163,37 @@ class OPTAttention(nn.Module):
         )
         return self.out_proj(out.reshape(b, s, d))
 
-    def shared_prefix(self, *args, **kwargs):
-        raise NotImplementedError("shared-prefix class scoring is not ported yet")
+    def shared_prefix(
+        self,
+        hidden_states: torch.Tensor,
+        prefix_k: torch.Tensor,
+        prefix_v: torch.Tensor,
+        prefix_bias: torch.Tensor,
+        self_bias: torch.Tensor,
+    ) -> torch.Tensor:
+        """Attention for (B, C, L, D) class tokens over a shared (B, P) prompt
+        cache (``prefix_k``/``prefix_v``: (B, P, H, hd)) and, causally, their
+        own continuation. ``prefix_bias`` broadcasts to (B, C, H, L, P),
+        ``self_bias`` to (B, C, H, L, L); both are fp32 and ADDED to the
+        model-dtype scores, as in JAX (so the scores are fp32 from there on,
+        and a NaN k/v row of the prompt cache reaches every class score)."""
+        cfg = self.config
+        b, c, l, d = hidden_states.shape
+        nh, hd = cfg.num_attention_heads, cfg.head_dim
+        qkv = self.qkv_proj(hidden_states)
+        # the scale rounded to the model dtype first, as JAX's weak-typed product does
+        q = (qkv[..., :d] * _scalar(hd**-0.5, qkv)).reshape(b, c, l, nh, hd)
+        k = qkv[..., d : 2 * d].reshape(b, c, l, nh, hd)
+        v = qkv[..., 2 * d :].reshape(b, c, l, nh, hd)
+        scores_p = torch.einsum("bclhd,bphd->bchlp", q, prefix_k) + prefix_bias
+        scores_s = torch.einsum("bclhd,bcmhd->bchlm", q, k) + self_bias
+        scores = torch.cat([scores_p, scores_s], dim=-1).float()
+        probs = torch.softmax(scores, dim=-1).to(hidden_states.dtype)
+        p_len = prefix_k.shape[1]
+        ctx = torch.einsum("bchlp,bphd->bclhd", probs[..., :p_len], prefix_v) + torch.einsum(
+            "bchlm,bcmhd->bclhd", probs[..., p_len:], v
+        )
+        return self.out_proj(ctx.reshape(b, c, l, d))
 
 
 class OPTDecoderLayer(nn.Module):
@@ -179,6 +214,16 @@ class OPTDecoderLayer(nn.Module):
             return F.relu(x)
         return F.gelu(x, approximate="none")
 
+    def _mlp(self, x: torch.Tensor) -> torch.Tensor:
+        pre_ln = self.config.do_layer_norm_before
+        residual = x
+        if pre_ln:
+            x = self.final_layer_norm(x)
+        x = residual + self.fc2(self._act(self.fc1(x)))
+        if not pre_ln:
+            x = self.final_layer_norm(x)
+        return x
+
     def forward(
         self,
         hidden_states: torch.Tensor,
@@ -191,13 +236,22 @@ class OPTDecoderLayer(nn.Module):
         x = hidden_states + self.self_attn(x, attn, cache_kv=cache_kv, cache_index=cache_index)
         if not pre_ln:
             x = self.self_attn_layer_norm(x)
-        residual = x
-        if pre_ln:
-            x = self.final_layer_norm(x)
-        x = residual + self.fc2(self._act(self.fc1(x)))
+        return self._mlp(x)
+
+    def shared_prefix(
+        self,
+        hidden_states: torch.Tensor,
+        prefix_k: torch.Tensor,
+        prefix_v: torch.Tensor,
+        prefix_bias: torch.Tensor,
+        self_bias: torch.Tensor,
+    ) -> torch.Tensor:
+        pre_ln = self.config.do_layer_norm_before
+        x = self.self_attn_layer_norm(hidden_states) if pre_ln else hidden_states
+        x = hidden_states + self.self_attn.shared_prefix(x, prefix_k, prefix_v, prefix_bias, self_bias)
         if not pre_ln:
-            x = self.final_layer_norm(x)
-        return x
+            x = self.self_attn_layer_norm(x)
+        return self._mlp(x)
 
 
 class OPTForCausalLM(nn.Module):
@@ -307,5 +361,50 @@ class OPTForCausalLM(nn.Module):
             cache["index"] = cache_index + s
         return logits, cache
 
-    def score_with_prefix(self, *args, **kwargs):
-        raise NotImplementedError("shared-prefix class scoring is not ported yet")
+    def score_with_prefix(
+        self,
+        class_embeds: torch.Tensor,
+        class_attention_mask: torch.Tensor,
+        cache: Cache,
+        return_hidden: bool = False,
+    ):
+        """Run (B, C, L) class continuations against the shared prompt cache.
+
+        ``class_embeds``: (B, C, L, word_embed_proj_dim). Returns the (B, C, L,
+        vocab) logits (and the (B, C, L, D) final hidden states with
+        ``return_hidden``). The cache is read only: positions continue from
+        ``cache['pos']``, the prompt's padding and unfilled slots are masked
+        by ``cache['mask']``, and an int8 cache is dequantized layer by layer
+        (materialized, as in JAX)."""
+        b, c, l, _ = class_embeds.shape
+        device = class_embeds.device
+        cls_mask = class_attention_mask.to(torch.int32)  # (B, C, L)
+        position_ids = (
+            cache["pos"][:, None, None] + torch.cumsum(cls_mask, dim=-1, dtype=torch.int32)
+        ) * cls_mask - 1
+        x = class_embeds
+        if self.project_in is not None:
+            x = self.project_in(x)
+        x = x + self.embed_positions(position_ids.long() + 2)
+
+        # (B, 1, 1, 1, P) prompt padding / unfilled-slot bias
+        prefix_bias = mask_to_bias(cache["mask"].bool())[:, None, None, None, :]
+        # (1, 1, 1, L, L) causal + (B, C, 1, 1, L) class padding, in fp32
+        # (two finfo.min terms sum to -inf, as in JAX)
+        self_bias = (
+            make_causal_bias(l, l, device=device)[None]
+            + mask_to_bias(cls_mask.bool())[:, :, None, None, :]
+        )
+        int8_cache = "k_scale" in cache
+        for i, layer in enumerate(self.layers):
+            if int8_cache:
+                pk = dequantize_kv(cache["k"][i], cache["k_scale"][i], dtype=x.dtype)
+                pv = dequantize_kv(cache["v"][i], cache["v_scale"][i], dtype=x.dtype)
+            else:
+                pk, pv = cache["k"][i], cache["v"][i]
+            x = layer.shared_prefix(x, pk, pv, prefix_bias, self_bias)
+        hidden = self._pre_head(x)
+        logits = self.lm_head(hidden)
+        if return_hidden:
+            return logits, hidden
+        return logits

@@ -66,16 +66,22 @@ class VideoBlipForConditionalGeneration(nn.Module):
         input_ids: torch.Tensor,
         pixel_values: Optional[torch.Tensor],
         video_input_mask: Optional[torch.Tensor],
+        video_features: Optional[torch.Tensor] = None,
     ) -> torch.Tensor:
-        """Token embeddings with video features scattered at the mask positions."""
+        """Token embeddings with video features scattered at the mask positions.
+
+        ``video_features`` (precomputed :meth:`encode_videos` output, (num_videos
+        * num_query_tokens, text_hidden), e.g. from ``serving.VideoFeatureCache``)
+        takes the place of the vision tower and takes precedence over
+        ``pixel_values``."""
         inputs_embeds = self.language_model.embed(input_ids)
-        if pixel_values is None:
+        if video_features is None and pixel_values is None:
             return inputs_embeds
         if video_input_mask is None:
-            raise ValueError("pixel_values needs a video_input_mask")
-        return scatter_video_features(
-            inputs_embeds, video_input_mask, self.encode_videos(pixel_values)
-        )
+            raise ValueError("video features need a video_input_mask")
+        if video_features is None:
+            video_features = self.encode_videos(pixel_values)
+        return scatter_video_features(inputs_embeds, video_input_mask, video_features)
 
     def lm_embed(self, input_ids: torch.Tensor) -> torch.Tensor:
         return self.language_model.embed(input_ids)
@@ -87,4 +93,34 @@ class VideoBlipForConditionalGeneration(nn.Module):
         cache: Optional[Cache] = None,
     ) -> tuple[torch.Tensor, Optional[Cache]]:
         return self.language_model(inputs_embeds, attention_mask=attention_mask, cache=cache)
+
+    def lm_score_with_prefix(
+        self, class_embeds: torch.Tensor, class_attention_mask: torch.Tensor, cache: Cache
+    ) -> torch.Tensor:
+        return self.language_model.score_with_prefix(class_embeds, class_attention_mask, cache)
+
+
+def embed_and_scatter_chunked(
+    model: VideoBlipForConditionalGeneration,
+    input_ids: torch.Tensor,
+    pixel_values: torch.Tensor,
+    video_input_mask: torch.Tensor,
+    *,
+    vision_chunks: int = 1,
+) -> torch.Tensor:
+    """``embed_and_scatter`` with the vision tower and Q-Former run over
+    ``vision_chunks`` sequential pieces of the videos, so the activation peak
+    is that of one piece. Each video's features are independent of its
+    batch-mates, so the result is the monolithic one up to the products'
+    batch-size-dependent summation order."""
+    if vision_chunks <= 1:
+        return model.embed_and_scatter(input_ids, pixel_values, video_input_mask)
+    v = pixel_values.shape[0]
+    if v % vision_chunks != 0:
+        raise ValueError(
+            f"vision_chunks={vision_chunks} must divide the number of videos "
+            f"in the batch ({v}); pick a divisor of the video count"
+        )
+    feats = torch.cat([model.encode_videos(px) for px in pixel_values.chunk(vision_chunks)])
+    return scatter_video_features(model.lm_embed(input_ids), video_input_mask, feats)
 

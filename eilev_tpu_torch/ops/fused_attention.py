@@ -12,16 +12,19 @@ a hand-written kernel on the current stream or raises; nothing falls back:
 bf16 qkv goes to ``csrc/packed_attention.cu``, fp32 qkv (an fp32 model) to
 the fp32 body of ``csrc/attention_f32.cu``; any other dtype raises
 ``TypeError``. Each wrapper counts its kernel launches in its ``launches``
-attribute, a plain integer, and the fp32 body's also in ``launches_f32``.
+attribute, a plain integer, the fp32 body's also in ``launches_f32`` and
+the bf16 two-pass body's also in ``launches_two_pass``.
 
 Which body a CUDA call takes is the written rule :func:`packed_body`. In
 bf16, K1 keeps a head's K and V and a warp's whole score rows on chip up to
 S = ``K1_MAX_SEQ`` (384: at D = 128, K and V take 208,896 of the 232,448
 bytes of shared memory a block may use; every ViT geometry has S = 257);
 past it K1 runs K2's body, which keeps a query tile's bf16 scores in shared
-memory, with no causal frontier. Both take S <= ``K2_MAX_SEQ`` (2,048, OPT's
-positions); above it the wrapper raises ``ValueError``. The fp32 body streams
-the keys and takes any S.
+memory, with no causal frontier. Past ``K2_MAX_SEQ`` (2,048, OPT's
+positions), where a tile's scores no longer fit, both take the two-pass body,
+which keeps no score: pass 1 streams the keys for each row's max and sum,
+pass 2 recomputes the rounded scores and accumulates PV. The fp32 body
+streams the keys and takes any S.
 
 The twins carry the rounding points of the JAX kernels, which follow HF's bf16
 numerics:
@@ -49,8 +52,10 @@ from .attention import _scalar, plain_attention
 # the bf16 bodies' sequence limits (csrc/packed_attention.cu K1_MAX_S, K2_MAX_S)
 K1_MAX_SEQ = 384
 K2_MAX_SEQ = 2048
-# grid dimensions y (heads) and z (batch rows)
+# grid dimensions y (heads) and z (batch rows); the two-pass body's query
+# tiles, the z dimension of its grid
 _MAX_GRID = 65535
+TWO_PASS_BQ = 64
 
 
 def packed_qkv_attention_reference(
@@ -89,9 +94,12 @@ def packed_body(qkv: torch.Tensor, causal: bool) -> str:
     of ``csrc/packed_attention.cu``'s entry point and of the wrappers: "f32"
     (``csrc/attention_f32.cu``) for fp32 qkv; in bf16, K2 always and K1 past
     ``K1_MAX_SEQ`` "streamed" (K2's body: scores in shared memory), K1 up to
-    it "whole_rows" (scores in registers). Reads the dtype and S only."""
+    it "whole_rows" (scores in registers); both past ``K2_MAX_SEQ``
+    "two_pass" (no score kept). Reads the dtype and S only."""
     if qkv.dtype == torch.float32:
         return "f32"
+    if qkv.shape[1] > K2_MAX_SEQ:
+        return "two_pass"
     return "streamed" if causal or qkv.shape[1] > K1_MAX_SEQ else "whole_rows"
 
 
@@ -103,12 +111,10 @@ def _check(qkv: torch.Tensor, num_heads: int, head_dim: int) -> None:
         )
     if qkv.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"the CUDA kernels take bf16 or fp32 qkv, got {qkv.dtype}")
-    if qkv.dtype == torch.bfloat16 and qkv.shape[1] > K2_MAX_SEQ:
-        raise ValueError(
-            f"the bf16 CUDA kernel takes sequences of at most {K2_MAX_SEQ}, got {qkv.shape[1]}"
-        )
     if qkv.shape[0] > _MAX_GRID or num_heads > _MAX_GRID:
         raise ValueError(f"the CUDA kernel takes at most {_MAX_GRID} batch rows and heads")
+    if -(-qkv.shape[1] // TWO_PASS_BQ) > _MAX_GRID:
+        raise ValueError(f"the CUDA kernel takes at most {_MAX_GRID * TWO_PASS_BQ} positions")
     if not qkv.is_contiguous():
         raise ValueError("the CUDA kernel takes a contiguous qkv")
     if head_dim % 8 or head_dim > 128:
@@ -190,13 +196,16 @@ def packed_qkv_attention(
         return packed_qkv_attention_reference(qkv, num_heads, head_dim, scale)
     _check(qkv, num_heads, head_dim)
     out = _launch(qkv, None, num_heads, head_dim, 1.0, _model_scale(scale, qkv.dtype), causal=False)
+    body = packed_body(qkv, causal=False)
     packed_qkv_attention.launches += 1
-    packed_qkv_attention.launches_f32 += qkv.dtype == torch.float32
+    packed_qkv_attention.launches_f32 += body == "f32"
+    packed_qkv_attention.launches_two_pass += body == "two_pass"
     return out
 
 
 packed_qkv_attention.launches = 0
 packed_qkv_attention.launches_f32 = 0
+packed_qkv_attention.launches_two_pass = 0
 
 
 def packed_qkv_causal_attention(
@@ -226,10 +235,13 @@ def packed_qkv_causal_attention(
         )
     mask = padding_mask.to(torch.int32).contiguous()
     out = _launch(qkv, mask, num_heads, head_dim, _model_scale(scale, qkv.dtype), 1.0, causal=True)
+    body = packed_body(qkv, causal=True)
     packed_qkv_causal_attention.launches += 1
-    packed_qkv_causal_attention.launches_f32 += qkv.dtype == torch.float32
+    packed_qkv_causal_attention.launches_f32 += body == "f32"
+    packed_qkv_causal_attention.launches_two_pass += body == "two_pass"
     return out
 
 
 packed_qkv_causal_attention.launches = 0
 packed_qkv_causal_attention.launches_f32 = 0
+packed_qkv_causal_attention.launches_two_pass = 0

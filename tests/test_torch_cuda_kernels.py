@@ -81,18 +81,52 @@ def test_k1_takes_whole_rows_up_to_its_limit(cuda, s, hd):
 
 
 def test_packed_kernels_refuse_sequences_past_their_limit(cuda):
-    with pytest.raises(ValueError, match="sequences"):
-        tfa.packed_qkv_attention(_qkv(1, tfa.K2_MAX_SEQ + 1, 1, 8, cuda), 1, 8)
-    s = tfa.K2_MAX_SEQ + 1
-    with pytest.raises(ValueError, match="sequences"):
+    """The limit is the grid's: 65,535 query tiles of 64 (bf16 S past
+    K2_MAX_SEQ runs the two-pass body)."""
+    s = 65535 * 64 + 1
+    with pytest.raises(ValueError, match="positions"):
+        tfa.packed_qkv_attention(torch.zeros(1, s, 3 * 8, dtype=torch.bfloat16, device=cuda), 1, 8)
+    with pytest.raises(ValueError, match="positions"):
         tfa.packed_qkv_causal_attention(
-            _qkv(1, s, 1, 8, cuda), 1, 8, torch.ones(1, s, dtype=torch.int32, device=cuda))
+            torch.zeros(1, s, 3 * 8, dtype=torch.bfloat16, device=cuda), 1, 8,
+            torch.ones(1, s, dtype=torch.int32, device=cuda))
 
 
-# (dtype, B, S, heads, hd): every shape in bf16 and fp32, and S = 2,100 in
-# fp32 only (the bf16 body takes at most K2_MAX_SEQ)
+# (causal, B, S, heads, hd, left padding of row 0): bf16 past K2_MAX_SEQ, the
+# two-pass body; the chip_smoke shapes (K2 at 4,096 x 32 x 80 with 100
+# padded keys, K1 at 3,072 x 16 x 88) and small ones with ragged tiles
+TWO_PASS_CASES = [(True, 1, 2100, 2, 8, 420), (True, 2, 2049, 3, 128, 0), (True, 1, 4096, 32, 80, 100),
+                  (True, 2, 2200, 4, 80, 517), (False, 1, 3072, 16, 88, 0), (False, 2, 2081, 2, 64, 0)]
+
+
+@pytest.mark.parametrize("causal,b,s,nh,hd,pad", TWO_PASS_CASES)
+def test_two_pass_body_matches_plain(cuda, causal, b, s, nh, hd, pad):
+    """bf16 past K2_MAX_SEQ: within 2e-2 of the twin, and the left-padded
+    query rows (no kept key) NaN in both, as in JAX."""
+    qkv = _qkv(b, s, nh, hd, cuda, seed=s)
+    assert tfa.packed_body(qkv, causal) == "two_pass"
+    fn = tfa.packed_qkv_causal_attention if causal else tfa.packed_qkv_attention
+    before = fn.launches_two_pass
+    if causal:
+        mask = torch.ones(b, s, dtype=torch.int32, device=cuda)
+        mask[0, :pad] = 0
+        out = fn(qkv, nh, hd, mask)
+        ref = tfa.packed_qkv_causal_attention_reference(qkv, nh, hd, mask, hd**-0.5)
+    else:
+        out = fn(qkv, nh, hd)
+        ref = tfa.packed_qkv_attention_reference(qkv, nh, hd, hd**-0.5)
+    torch.cuda.synchronize()
+    assert fn.launches_two_pass == before + 1
+    nan_rows = torch.isnan(ref).any(-1)
+    assert torch.equal(torch.isnan(out).any(-1), nan_rows) and int(nan_rows.sum()) == pad
+    torch.testing.assert_close(out, ref, equal_nan=True, atol=2e-2, rtol=2e-2)
+
+
+# (dtype, B, S, heads, hd): every shape in bf16 and fp32, and S = 2,100 (bf16:
+# the two-pass body)
 K2_SHAPES = [(2, 24, 2, 8), (2, 130, 2, 80), (2, 766, 32, 80), (2, 2048, 4, 80), (1, 2048, 2, 128)]
-K2_CASES = [(dt, *shape) for dt in DTYPES for shape in K2_SHAPES] + [(torch.float32, 1, 2100, 2, 128)]
+K2_CASES = [(dt, *shape) for dt in DTYPES for shape in K2_SHAPES] + [
+    (torch.float32, 1, 2100, 2, 128), (torch.bfloat16, 1, 2100, 2, 128)]
 
 
 @pytest.mark.parametrize("padding", ["none", "left", "right"])

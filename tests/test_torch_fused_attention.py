@@ -3,8 +3,8 @@
 Each plain twin is held against both JAX forms of its kernel: the Pallas
 kernel in interpret mode and its XLA fallback. Shapes cover tiny widths and
 the real head widths (D=88 at S=257 for the ViT, D=80 at S=130 for OPT) with
-2 heads, and K1 past its whole-row limit (S=400, which the card runs on K2's
-body). Tolerances: fp32 atol 1e-5; bf16 atol = rtol = 2e-2 (one bf16 ulp of
+2 heads, K1 past its whole-row limit (S=400, which the card runs on K2's
+body) and K2 past K2_MAX_SEQ (S=2,100, the card's two-pass body). Tolerances: fp32 atol 1e-5; bf16 atol = rtol = 2e-2 (one bf16 ulp of
 a rounded score, after scaling, moves a probability by under 1%), with NaN
 rows equal where a fully masked query row is NaN in bf16.
 """
@@ -124,9 +124,29 @@ def test_k2_fp32_fully_masked_rows_are_uniform(form):
     np.testing.assert_allclose(to_np(ours), to_np(ref), atol=1e-5, rtol=1e-5)
 
 
+@pytest.mark.parametrize("form", ["interpret", "xla"])
+def test_k2_plain_matches_jax_past_k2_max_seq(form):
+    """bf16 at S = 2,100, past K2_MAX_SEQ, where the card runs the two-pass
+    body: the twin against JAX's packed causal attention at 2 small heads,
+    row 0 left-padded by 420 (its padded query rows NaN in both)."""
+    b, s, nh, hd = 2, 2100, 2, 8
+    jq, tq = _qkv(b, s, nh, hd, "bf16", seed=11)
+    m = _mask(b, s, "left")
+    if form == "interpret":
+        ref = jfa.packed_qkv_causal_attention(jq, nh, hd, jnp.asarray(m), scale=hd**-0.5, interpret=True)
+    else:
+        ref = jfa._xla_packed_causal_fallback(jq, nh, hd, jnp.asarray(m), hd**-0.5)
+    ours = tfa.packed_qkv_causal_attention_reference(tq, nh, hd, torch.from_numpy(m), hd**-0.5)
+    ref_np = to_np(ref)
+    assert np.isnan(ref_np[0, : s // 5]).all() and np.isfinite(ref_np[0, s // 5 :]).all()
+    np.testing.assert_array_equal(np.isnan(to_np(ours)), np.isnan(ref_np))
+    np.testing.assert_allclose(to_np(ours), ref_np, equal_nan=True, **_tol("bf16"))
+
+
 # (dtype, S, causal) -> the body a CUDA call takes: fp32 the fp32 body at any
-# S; bf16 K2 always K2's streamed body; bf16 K1 whole rows up to K1_MAX_SEQ
-# (384), K2's body past it
+# S; bf16 K2 K2's streamed body up to K2_MAX_SEQ (2,048); bf16 K1 whole rows
+# up to K1_MAX_SEQ (384), K2's body past it; both the two-pass body past
+# K2_MAX_SEQ
 PACKED_ROUTE = [
     ((torch.float32, 257, False), "f32"), ((torch.float32, 5000, False), "f32"),
     ((torch.float32, 766, True), "f32"),
@@ -134,6 +154,9 @@ PACKED_ROUTE = [
     ((torch.bfloat16, 384, False), "whole_rows"), ((torch.bfloat16, 385, False), "streamed"),
     ((torch.bfloat16, 577, False), "streamed"), ((torch.bfloat16, 2048, False), "streamed"),
     ((torch.bfloat16, 17, True), "streamed"), ((torch.bfloat16, 766, True), "streamed"),
+    ((torch.bfloat16, 2048, True), "streamed"), ((torch.bfloat16, 2049, True), "two_pass"),
+    ((torch.bfloat16, 4096, True), "two_pass"), ((torch.bfloat16, 2049, False), "two_pass"),
+    ((torch.bfloat16, 3072, False), "two_pass"), ((torch.float32, 4096, True), "f32"),
 ]
 
 
@@ -145,11 +168,14 @@ def test_packed_body_route(case, want):
 
 
 def test_cuda_checks_take_bf16_and_fp32_only():
-    """What the CUDA wrappers accept, read on CPU tensors (no launch): bf16 up
-    to K2_MAX_SEQ, fp32 at any S; fp16 raises."""
+    """What the CUDA wrappers accept, read on CPU tensors (no launch): bf16 and
+    fp32 at any S up to the grid's 65,535 query tiles of 64 (bf16 past
+    K2_MAX_SEQ through the two-pass body); fp16 raises."""
     tfa._check(torch.zeros(1, tfa.K2_MAX_SEQ, 3 * 2 * 8, dtype=torch.bfloat16), 2, 8)
     tfa._check(torch.zeros(1, tfa.K2_MAX_SEQ + 1, 3 * 2 * 8), 2, 8)
-    with pytest.raises(ValueError, match="sequences"):
-        tfa._check(torch.zeros(1, tfa.K2_MAX_SEQ + 1, 3 * 2 * 8, dtype=torch.bfloat16), 2, 8)
+    tfa._check(torch.zeros(1, tfa.K2_MAX_SEQ + 1, 3 * 2 * 8, dtype=torch.bfloat16), 2, 8)
+    too_long = torch.empty(1, 65535 * 64 + 1, 3 * 2 * 8, dtype=torch.bfloat16, device="meta")
+    with pytest.raises(ValueError, match="positions"):
+        tfa._check(too_long, 2, 8)
     with pytest.raises(TypeError, match="bf16 or fp32"):
         tfa._check(torch.zeros(1, 8, 3 * 2 * 8, dtype=torch.float16), 2, 8)

@@ -51,10 +51,12 @@ def slice_setup():
     return cfg, jmodel, params, model.eval(), frames, ids, mask, vim, t
 
 
-def _jax_tokens(setup, eos):
+def _jax_tokens(setup, eos, features=False, **kw):
     cfg, jmodel, params, _, frames, ids, mask, vim, t = setup
     img = cfg.vision_config.image_size
     pixel = jprocess(jnp.asarray(frames), num_frames=t, height=img, width=img)
+    if features:
+        kw["video_features"] = jmodel.apply({"params": params}, pixel, method=JVB.encode_videos)
     return np.asarray(
         jgenerate(
             jmodel, {"params": params},
@@ -63,19 +65,24 @@ def _jax_tokens(setup, eos):
             generation_config=JGenerationConfig(
                 max_new_tokens=MAX_NEW, pad_token_id=1, eos_token_id=eos
             ),
+            **kw,
         )
     )
 
 
-def _port_tokens(setup, eos):
+def _port_tokens(setup, eos, features=False, **kw):
     cfg, _, _, model, frames, ids, mask, vim, t = setup
     img = cfg.vision_config.image_size
     pixel = process_videos(torch.from_numpy(frames), num_frames=t, height=img, width=img)
+    if features:
+        with torch.inference_mode():
+            kw["video_features"] = model.encode_videos(pixel)
     return generate(
         model,
         input_ids=torch.from_numpy(ids), attention_mask=torch.from_numpy(mask),
         pixel_values=pixel, video_input_mask=torch.from_numpy(vim),
         generation_config=GenerationConfig(max_new_tokens=MAX_NEW, pad_token_id=1, eos_token_id=eos),
+        **kw,
     ).numpy()
 
 
@@ -92,6 +99,25 @@ def test_greedy_tokens_identical_with_early_eos(slice_setup):
     assert first <= 2 and (ours[0, first + 1 :] == 1).all()
 
 
+@pytest.mark.parametrize("mode", ["video_features", "vision_chunks"])
+def test_precomputed_features_and_chunked_vision_match_jax(slice_setup, mode):
+    """``generate(video_features=...)`` (each package's own ``encode_videos``
+    output, which takes precedence over the pixels) and
+    ``generate(vision_chunks=2)`` over the 4 videos: tokens identical to JAX's
+    ``generate`` with the same arguments, and to the pixel path."""
+    kw = {"features": True} if mode == "video_features" else {"vision_chunks": 2}
+    ref = _jax_tokens(slice_setup, (-1,), **kw)
+    ours = _port_tokens(slice_setup, (-1,), **kw)
+    assert ours.shape == (2, MAX_NEW)
+    np.testing.assert_array_equal(ours, ref)
+    np.testing.assert_array_equal(ours, _port_tokens(slice_setup, (-1,)))
+
+
+def test_vision_chunks_must_divide_the_videos(slice_setup):
+    with pytest.raises(ValueError, match="must divide the number of videos"):
+        _port_tokens(slice_setup, (-1,), vision_chunks=3)
+
+
 def test_default_eos_is_the_text_configs(slice_setup):
     ref = _jax_tokens(slice_setup, None)
     np.testing.assert_array_equal(_port_tokens(slice_setup, None), ref)
@@ -106,8 +132,8 @@ def test_default_eos_is_the_text_configs(slice_setup):
         ({"repetition_penalty": 1.2}, {}),
         ({}, {"draft": "prompt_lookup"}),
         ({}, {"draft_layers": 1}),
-        ({}, {"vision_chunks": 2}),
-        ({}, {"video_features": torch.zeros(8, 16)}),
+        ({"no_repeat_ngram_size": 2}, {}),
+        ({"min_new_tokens": 1}, {}),
     ],
 )
 def test_unported_modes_raise(slice_setup, gen_kwargs, call_kwargs):

@@ -30,6 +30,17 @@ PORT_MODULES = [
     "eilev_tpu_torch.generation.config",
     "eilev_tpu_torch.generation.decoding",
     "eilev_tpu_torch.generation.text_lm",
+    "eilev_tpu_torch.generation.classify",
+    "eilev_tpu_torch.serving",
+    "eilev_tpu_torch.serving.feature_cache",
+    "eilev_tpu_torch.data",
+    "eilev_tpu_torch.data.collate",
+    "eilev_tpu_torch.data.frame",
+    "eilev_tpu_torch.data.prompts",
+    "eilev_tpu_torch.data.text",
+    "eilev_tpu_torch.eval",
+    "eilev_tpu_torch.eval.icl",
+    "eilev_tpu_torch.eval.metrics",
 ]
 
 _PROBE = """

@@ -114,8 +114,12 @@ def test_opt_unported_modes_raise():
         model(x, cache=cache)
         with pytest.raises(NotImplementedError):  # multi-token write into a filled cache
             model(x, cache=cache)
-    with pytest.raises(NotImplementedError):
-        model.score_with_prefix()
+    # shared-prefix class scoring is ported (tests/test_torch_classify.py): it
+    # reads the filled cache and returns (B, C, L, vocab) logits
+    with torch.no_grad():
+        logits = model.score_with_prefix(
+            torch.zeros(1, 2, 2, tcfg.word_embed_proj_dim), torch.ones(1, 2, 2), cache)
+    assert tuple(logits.shape) == (1, 2, 2, tcfg.vocab_size)
 
 
 def test_scatter_video_features_matches_jax():
