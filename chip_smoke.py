@@ -54,6 +54,14 @@ final result line):
    every decode shape (the narration's at batch 4 and 1, the text LM's),
    with a fully masked row (uniform); K5 at (a), B = 1, and at (f) (left-padded rows exactly 0); K6
    at (8, 257, 1408 -> 6144).
+2c. K3 and K4 at the beam decode shapes (BEAM_DECODE_SHAPES: the flagship
+   sample's 5 beams over the narration's cache at batch 1 and 4, so 5 and
+   20 rows of 798 slots, 780 filled, 32 x 80, and the text LM's beam-4, 4
+   rows of 2,048 slots, 2,040 filled, 32 x 128; K3 one block a (head, row)
+   at all three): K3 against the twin at 2e-2 (full and mid-decode mask, NaN in
+   a fully masked row), K4 against dequantize_kv + the twin at 2e-3 (3e-2
+   at 20 rows), each timed as in 3 beside SDPA (K3) and its bound; printed
+   on a JSON line of their own with their launches in the beam runs.
 3. Time each kernel against its twin with CUDA events, in turns (plain,
    kernel, kernel, plain; warm-up, median of 20), each call queued behind a
    device sleep so that the events measure device time, then one PyTorch
@@ -104,11 +112,21 @@ final result line):
    warm requests split into encode, prefill and class scoring (CUDA events),
    without and with a cold feature cache, with the request's peak memory
    and K1/K2 launches.
+4d. Generation on the same bf16 model: the flagship sample's beam search
+   (5 beams, length_penalty -1, eos 50118, 32 new tokens) at batch 1 and
+   4 (K1 = 39, K2 = 32, K3 = 32 per one-token forward over the 5 or 20
+   beam rows; p50 of 3 warm requests, peak memory, a torch.profiler pass at
+   batch 4); the VideoBLIP sample's sampling (temperature 0.7, top_p 0.9)
+   at batch 4 with 2 sequences a row (and a profiler pass), and beam_sample
+   at batch 1, each with a generator seeded anew for every request: the
+   same seed gives the same tokens twice.
 5. The int8 serving mode (load_model(int8_lm=True, int8_kv=True)): the same
    model quantized on the card, in place, from its own bf16 weights; batch 1
    and batch 4. K1 = 39, K2 = 32, K4 = 32 per one-token forward, K3 = 0;
    every logit finite; the prefill logits' min cosine against the bf16
-   model's on the same embeddings above INT8_MIN_COSINE.
+   model's on the same embeddings above INT8_MIN_COSINE. Then beam-5 at
+   batch 1 over the int8 cache (K4 at 5 rows, its scales reordered with
+   k and v).
 6. One batch-4 run with every serving mode on: also W8A8 prefill, W8A8
    vision tower and Q-Former, fast gelu. Counts and finiteness as in 5.
 7. The LLaMA text-LM path, after the VideoBLIP model is freed: the text-only
@@ -122,10 +140,12 @@ final result line):
    one-token forward, K1, K2, K4 = 0; every logit finite; the prefill logits
    through K5 against the plain path (attention impl "xla") on the same ids:
    min cosine > 0.999, max relative error < 5e-2. A torch.profiler pass over
-   one batch-1 request. Then the LM quantized in place (int8 LM + int8 KV
-   cache), batch 1: K4 = 32 per one-token forward, K3 = 0, K5 = 32 (over the
-   dequantized cache slice); prefill logits' min cosine against bf16 above
-   INT8_MIN_COSINE.
+   one batch-1 request. A beam-4 request at batch 1 over a 2,032-token
+   prompt with 16 new tokens (2,048 slots, so auto takes K5 = 32; K3 = 32
+   per one-token forward over the 4 beam rows). Then the LM quantized in
+   place (int8 LM + int8 KV cache), batch 1: K4 = 32 per one-token forward,
+   K3 = 0, K5 = 32 (over the dequantized cache slice); prefill logits' min
+   cosine against bf16 above INT8_MIN_COSINE.
 8. The fp32 model paths, each counted and held to the same model's plain
    path on the card (every wrapper swapped for its twin, no launch): greedy
    tokens identical, prefill logits within 1e-4 relative. The narration
@@ -136,10 +156,15 @@ final result line):
    its 2 ViT layers; then its int8 KV cache (K4 with an fp32 query = 2 per
    one-token forward). The text-only module of TextLM in fp32 at the
    Llama-2-7b widths with 2 layers and the 1,984-token prompt: K5 = 2 and
-   K3 = 2 per one-token forward through their fp32 bodies.
+   K3 = 2 per one-token forward through their fp32 bodies. Beam-5,
+   beam_sample and sampling (2 sequences a row) of the fp32 narration
+   model, and beam-4 of the fp32 text LM, must give the plain path's tokens
+   too (a sampling run's generator is seeded anew for each path, so both
+   draw the same noise).
 
-Prints every number tagged with the card's name and power limit, then one
-JSON line of per-kernel results (every body: the bf16 ones and the fp32
+Prints every number tagged with the card's name and power limit, then the
+JSON line of the beam shapes' K3/K4 rows, then one JSON line of per-kernel
+results (every body: the bf16 ones and the fp32
 ones, whose launches come from phase 8), then the result line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
@@ -155,6 +180,7 @@ line.
 from __future__ import annotations
 
 import contextlib
+import copy
 import dataclasses
 import gc
 import json
@@ -216,6 +242,26 @@ DECODE_SHAPES = {
     "narration": (32, 4, 798, 780, 32, 80, True),
     "text-LM": (32, 1, LLAMA_CACHE, LLAMA_CACHE - 32, 32, 128, False),
     "narration batch 1": (32, 1, 798, 780, 32, 80, True),
+}
+# the generation phase (4d): the flagship sample's beam search
+# (samples/eilev_generate_action_narration.py) and the VideoBLIP sample's
+# sampling (samples/video_blip_generate_action_narration.py), the seed of the
+# sampling generator, and the text LM's beam-4 run: a 2,032-token prompt and
+# 16 new tokens fill 2,048 slots, so auto takes K5 in its prefill
+BEAM_KNOBS = dict(num_beams=5, length_penalty=-1.0)
+SAMPLE_KNOBS = dict(do_sample=True, temperature=0.7, top_p=0.9)
+GEN_SEED = 11
+LLAMA_BEAM_NEW = 16
+LLAMA_BEAM_PROMPT = LLAMA_CACHE - LLAMA_BEAM_NEW
+# the beam decode shapes K3/K4 are also held and timed at (phase 2c): the
+# flagship sample's 5 beams over the narration's cache at batch 1 and 4, so
+# 5 and 20 cache rows of 32 x 80, and the text LM's beam-4 (4 rows of 2,048
+# slots, 32 x 128, half its new tokens in); K3 takes one block a (head, row)
+# at all three
+BEAM_DECODE_SHAPES = {
+    "beam-5 batch 1": (32, 5, 798, 780, 32, 80, True),
+    "beam-5 batch 4": (32, 20, 798, 780, 32, 80, True),
+    "text-LM beam-4": (32, 4, LLAMA_CACHE, LLAMA_BEAM_PROMPT + LLAMA_BEAM_NEW // 2, 32, 128, False),
 }
 # K4 against dequantize_kv + the twin: 3e-2 (the JAX int8 kernel test's bar)
 # at the narration's batch 4, where it has always been held; every other K4
@@ -429,10 +475,11 @@ def _k5_causal_work(real, s, nh, hd, l, elem=2):
 
 
 def _decode_case(dev, g, da, shape: str, dtype=torch.bfloat16) -> SimpleNamespace:
-    """A 32-layer model-dtype cache of DECODE_SHAPES[shape], its int8 copy
+    """A 32-layer model-dtype cache of DECODE_SHAPES[shape] (or
+    BEAM_DECODE_SHAPES[shape]), its int8 copy
     (quantize_kv), a query and the mid-decode keep-mask (slots past the
     filled ones empty)."""
-    n_layers, b, s, filled, nh, hd, scale_query = DECODE_SHAPES[shape]
+    n_layers, b, s, filled, nh, hd, scale_query = {**DECODE_SHAPES, **BEAM_DECODE_SHAPES}[shape]
     q = torch.randn(b, nh * hd, device=dev, generator=g).to(dtype)
     k5 = torch.randn(n_layers, b, s, nh, hd, device=dev, generator=g).to(dtype)
     v5 = torch.randn(n_layers, b, s, nh, hd, device=dev, generator=g).to(dtype)
@@ -738,20 +785,86 @@ def check_kernels(tag: str, dev: torch.device) -> list[dict]:
     f32_rows, f32_extra = check_f32_kernels(tag, dev, g)
     results += f32_rows
     for r in results + [results_b4] + decode_extra + f32_extra:
-        # in turns, plain first: plain, kernel, kernel, plain, then the
-        # library call twice. The closures are dropped after, so the test
-        # caches are freed before the main path's peak memory is read.
-        n, run, plain, lib = r.pop("per_call"), r.pop("run"), r.pop("plain"), r.pop("library")
-        p1 = median_ms(plain) / n
-        k_a = median_ms(run) / n
-        k_b = median_ms(run) / n
-        p2 = median_ms(plain) / n
-        r["ms"], r["plain_ms"] = min(k_a, k_b), min(p1, p2)
-        r["library_ms"] = None if lib is None else min(median_ms(lib), median_ms(lib)) / n
-        r["bound_ms"], r["bound_by"] = r.pop("bound")
-        print(f"[{tag}] {r['name']} kernel_ms={k_a},{k_b} plain_ms={p1},{p2} library_ms={r['library_ms']} "
-              f"bound_ms={r['bound_ms']} ({r['bound_by']}) (per launch)")
+        time_row(tag, r)
     return results
+
+
+def time_row(tag: str, r: dict) -> None:
+    """Time one kernel row in turns, plain first: plain, kernel, kernel,
+    plain, then the library call twice, and fill in its times and bound. The
+    closures are dropped after, so the test caches are freed before the main
+    path's peak memory is read."""
+    n, run, plain, lib = r.pop("per_call"), r.pop("run"), r.pop("plain"), r.pop("library")
+    p1 = median_ms(plain) / n
+    k_a = median_ms(run) / n
+    k_b = median_ms(run) / n
+    p2 = median_ms(plain) / n
+    r["ms"], r["plain_ms"] = min(k_a, k_b), min(p1, p2)
+    r["library_ms"] = None if lib is None else min(median_ms(lib), median_ms(lib)) / n
+    r["bound_ms"], r["bound_by"] = r.pop("bound")
+    print(f"[{tag}] {r['name']} kernel_ms={k_a},{k_b} plain_ms={p1},{p2} library_ms={r['library_ms']} "
+          f"bound_ms={r['bound_ms']} ({r['bound_by']}) (per launch)")
+
+
+def check_beam_decode(tag: str, dev: torch.device) -> list[dict]:
+    """Phase 2c: K3 and K4 at the beam decode shapes (BEAM_DECODE_SHAPES: 5
+    and 20 cache rows of 798 slots, 780 filled, 32 x 80; 4 rows of 2,048
+    slots, 2,040 filled, 32 x 128), layer 17 of a 32-layer cache: K3 against
+    the twin at 2e-2 with the full and the mid-decode mask and NaN in a fully
+    masked row, K4 against dequantize_kv + the twin at 2e-3 (3e-2 at 20 rows,
+    the JAX int8 kernel test's bar), each timed as one decode step's 32
+    launches against the twin, SDPA (K3) and the bound. Returns the rows."""
+    from eilev_tpu_torch.ops import decode_attention as da
+
+    g = torch.Generator(device=dev).manual_seed(1)
+    rows = []
+    for shape in BEAM_DECODE_SHAPES:
+        c = _decode_case(dev, g, da, shape)
+        n_layers, b, s, filled, nh, hd = c.dims
+        label = f"({n_layers},{b},{s} with {filled} filled,{nh}x{hd}) layer 17"
+        body = (f"the split, a cluster of {da.cluster_size(b, nh, s)}" if da.k3_split(b, nh, s)
+                else "one block a (head, row)")
+        print(f"[{tag}] K3 bf16 {shape}: the body rule k3_split(B={b}, H={nh}, S={s}) picks {body}")
+        full = torch.ones_like(c.mask)
+        errs = [check_close(
+            tag, f"K3 decode_attention_stacked bf16 {shape} {label} {name} mask",
+            da.decode_attention_stacked(c.q, c.kb, c.vb, mask, 17, **c.kw),
+            da.decode_attention_stacked_reference(c.q, c.kb, c.vb, mask, 17, **c.kw), 2e-2)
+            for name, mask in (("full", full), ("mid-decode", c.mask))]
+        dead = c.mask.clone()
+        dead[-1] = 0
+        out = da.decode_attention_stacked(c.q, c.kb, c.vb, dead, 17, **c.kw)
+        ref = da.decode_attention_stacked_reference(c.q, c.kb, c.vb, dead, 17, **c.kw)
+        torch.cuda.synchronize()
+        assert bool(torch.isnan(out[-1]).all()) and bool(torch.isnan(ref[-1]).all()), "K3 masked row not NaN"
+        torch.testing.assert_close(out, ref, atol=2e-2, rtol=2e-2, equal_nan=True)
+        ref = da.decode_attention_stacked_reference(
+            c.q, da.dequantize_kv(c.k8[17:18].view(1, b, s, nh, hd), c.ks[17:18]).view(1, b, s, nh * hd),
+            da.dequantize_kv(c.v8[17:18].view(1, b, s, nh, hd), c.vs[17:18]).view(1, b, s, nh * hd),
+            c.mask, 0, **c.kw)
+        err4 = check_close(tag, f"K4 decode_attention_stacked int8 {shape} {label} mid-decode mask"
+                           f" (a cluster of {da.cluster_size(b, nh, s)}) vs dequantize_kv + twin",
+                           da.decode_attention_stacked(c.q, c.k8, c.v8, c.mask, 17, **c.i8), ref,
+                           K4_TOL if b >= 20 else K4_TIGHT_TOL)
+        sd_q = c.q.view(b, nh, 1, hd)
+        sd_mask = c.mask.bool()[:, None, None, :]
+        k3_lib = lambda c=c, sd_q=sd_q, sd_mask=sd_mask, hd=hd: [  # noqa: E731
+            _sdpa(sd_q, c.k5[i].transpose(1, 2), c.v5[i].transpose(1, 2), attn_mask=sd_mask, scale=hd**-0.5)
+            for i in range(c.dims[0])]
+        pair = [{"name": f"decode_attention_stacked_bf16 at {shape}", "source": "eilev_tpu_torch/csrc/decode_attention.cu",
+                 "replaces": "eilev_tpu/ops/decode_attention.py:117", "max_abs_err": max(errs),
+                 "run": _k3_step(da, c), "plain": _k3_step(da, c, plain=True), "per_call": n_layers,
+                 "library": k3_lib, "bound": _decode_bound(c, int8=False)},
+                {"name": f"decode_attention_stacked_int8 at {shape}", "source": "eilev_tpu_torch/csrc/decode_attention.cu",
+                 "replaces": "eilev_tpu/ops/decode_attention.py:75", "max_abs_err": err4,
+                 "run": _k4_step(da, c), "plain": _k4_step(da, c, plain=True), "per_call": n_layers,
+                 "library": None, "bound": _decode_bound(c, int8=True)}]
+        for r in pair:
+            time_row(tag, r)
+        rows += pair
+        del c, pair, k3_lib, dead, out, ref
+        torch.cuda.empty_cache()
+    return rows
 
 
 def check_two_pass(tag: str, dev: torch.device, g) -> None:
@@ -972,7 +1085,29 @@ def kernel_times(tag: str, dev: torch.device, tree: str) -> None:
     print(json.dumps({"tree": tree, "card": tag, "times_ms": times}))
 
 
-class Narration:
+class Variants:
+    """Decoding knobs on top of a run's inputs: ``variant`` gives the same
+    inputs decoded with other GenerationConfig knobs and, for sampling, a
+    generator seeded with ``seed`` anew for every request."""
+
+    knobs: dict = {}
+    seed = None
+
+    def variant(self, seed=None, **knobs):
+        run = copy.copy(self)
+        run.knobs, run.seed = knobs, seed
+        return run
+
+    @property
+    def rows(self) -> int:
+        """Rows a request returns: num_return_sequences a batch row."""
+        return self.batch * self.knobs.get("num_return_sequences", 1)
+
+    def generator(self, dev: torch.device):
+        return None if self.seed is None else torch.Generator(device=dev).manual_seed(self.seed)
+
+
+class Narration(Variants):
     """The main path's inputs at one batch size, and the calls that drive it."""
 
     def __init__(self, model, cfg, batch: int, dev: torch.device, dtype=torch.bfloat16,
@@ -996,9 +1131,10 @@ class Narration:
 
         pixel = process_videos(self.frames, dtype=self.dtype)
         return generate(self.model, input_ids=self.ids, attention_mask=self.mask, pixel_values=pixel,
-                        video_input_mask=self.vim,
+                        video_input_mask=self.vim, generator=self.generator(self.ids.device),
                         generation_config=GenerationConfig(
-                            max_new_tokens=self.new_tokens, pad_token_id=1, eos_token_id=(NEWLINE,)))
+                            max_new_tokens=self.new_tokens, pad_token_id=1, eos_token_id=(NEWLINE,),
+                            **self.knobs))
 
     @torch.inference_mode()
     def embeds(self):
@@ -1021,7 +1157,7 @@ def drive(tag: str, label: str, run, lm_calls: list, expect: dict, reps: int) ->
     """One counted run (counters at 0 just before, read just after), its checks,
     then ``reps`` timed runs. ``expect`` maps every kernel to its launches per
     request, "lm" meaning one per LM layer and one-token forward. ``run`` has
-    ``model``, ``batch``, ``generate()`` and ``rate(p50_s, new_tokens)``."""
+    ``model``, ``batch``, ``rows``, ``generate()`` and ``rate(p50_s, new_tokens)``."""
     n_lm = run.model.config.text_config.num_hidden_layers
     torch.cuda.reset_peak_memory_stats()
     lm_calls.clear()
@@ -1036,7 +1172,7 @@ def drive(tag: str, label: str, run, lm_calls: list, expect: dict, reps: int) ->
     want = {name: n_lm * one_token if per == "lm" else per for name, per in expect.items()}
     assert counts == want, f"launch counts {counts}, expected {want}"
     assert one_token >= 1, "no decode step ran"
-    assert tokens.shape[0] == run.batch, tokens.shape
+    assert tokens.shape[0] == run.rows, tokens.shape
     assert lm_calls and all(bool(ok) for _, ok in lm_calls), "non-finite logits"
     print(f"[{tag}] {label} batch={run.batch} all {len(lm_calls)} LM forwards gave finite logits")
     peak = torch.cuda.max_memory_allocated()
@@ -1110,6 +1246,42 @@ def run_main_path(tag: str, dev: torch.device, launches: dict):
     print(f"[{tag}] prefill logits K2 vs plain: min_cosine={cos} max_rel_err={rel} same_argmax={same}")
     assert cos > 0.999 and rel < 5e-2, (cos, rel)
     return model, lm_calls, runs
+
+
+def run_generation(tag: str, model, lm_calls: list, runs: dict, launches: dict) -> None:
+    """Phase 4d: beam search and sampling on the main path's bf16 model. (a)
+    The flagship sample's beam search (5 beams, length_penalty -1, eos
+    50118, 32 new tokens) at batch 1 and 4: counted (K1 = 39, K2 = 32, K3 =
+    32 per one-token forward over the 5 or 20 beam rows), then p50 of 3 warm
+    requests and peak memory, and a torch.profiler pass at batch 4. (b) The
+    VideoBLIP sample's sampling (temperature 0.7, top_p 0.9) at batch 4 with
+    2 sequences a row (with a profiler pass), and beam_sample (5 beams) at
+    batch 1, each with a generator seeded with GEN_SEED for every request:
+    counted and timed the same way, and the same seed gives the same tokens
+    twice."""
+    want = narration_counts(model.config, "decode_attention_stacked_bf16")
+    vocab = model.config.text_config.vocab_size
+    for batch in (1, 4):
+        counts = drive(tag, "beam-5 (length_penalty -1)", runs[batch].variant(**BEAM_KNOBS), lm_calls, want,
+                       reps=3)
+        launches[f"decode_attention_stacked_bf16 at beam-5 batch {batch}"] = counts["decode_attention_stacked_bf16"]
+        print(f"[{tag}] beam-5 batch={batch}: K3 launches a request={counts['decode_attention_stacked_bf16']}")
+    profile_request(tag, "narration beam-5", runs[4].variant(**BEAM_KNOBS))
+    for label, run, reps in (
+        ("sampling (temperature 0.7, top_p 0.9, 2 sequences a row)",
+         runs[4].variant(seed=GEN_SEED, num_return_sequences=2, **SAMPLE_KNOBS), 3),
+        ("beam_sample (5 beams, temperature 0.7, top_p 0.9)",
+         runs[1].variant(seed=GEN_SEED, **BEAM_KNOBS, **SAMPLE_KNOBS), 1),
+    ):
+        drive(tag, label, run, lm_calls, want, reps)
+        if run.batch == 4:
+            profile_request(tag, f"narration {label}", run)
+        first, second = run.generate(), run.generate()
+        same = bool(torch.equal(first, second))
+        in_vocab = bool(((first >= 0) & (first < vocab)).all())
+        print(f"[{tag}] {label} batch={run.batch}: the same seed gives the same tokens twice={same}; "
+              f"tokens in the vocabulary={in_vocab}; row 0 {first[0].tolist()}")
+        assert same and in_vocab, (same, in_vocab)
 
 
 def run_k6_on_vit_layers(tag: str, model, run, launches: dict, tol: float = 2e-2) -> None:
@@ -1510,6 +1682,11 @@ def run_int8_serving(tag: str, model, lm_calls: list, runs: dict, launches: dict
         assert bool(torch.isfinite(a).all()), "non-finite int8 prefill logits"
         assert cos.min().item() > INT8_MIN_COSINE, cos.min().item()
     del bf16_logits, embeds
+    # the flagship beam search over the int8 cache: K4 at 5 beam rows, its
+    # scales reordered with the int8 k/v
+    counts = drive(tag, "int8 serving beam-5 (length_penalty -1)", runs[1].variant(**BEAM_KNOBS), lm_calls,
+                   int8_counts, reps=2)
+    launches["decode_attention_stacked_int8 at beam-5 batch 1"] = counts["decode_attention_stacked_int8"]
 
     quantize_model_(model, int8_lm=True, int8_kv=True, w8a8_prefill=True, int8_vision=True, int8_qformer=True)
     torch.cuda.empty_cache()
@@ -1521,11 +1698,13 @@ def run_int8_serving(tag: str, model, lm_calls: list, runs: dict, launches: dict
         set_gelu_impl("exact")
 
 
-class TextRun:
+class TextRun(Variants):
     """A text-LM batch of left-padded token ids (bos, then random ids from a
-    seed), decoded greedily through the call ``TextLM.generate`` makes."""
+    seed), decoded (greedily unless a variant says otherwise) through the
+    calls ``TextLM.generate`` makes."""
 
-    def __init__(self, module, lengths: tuple, prompt_len: int, dev: torch.device, seed: int):
+    def __init__(self, module, lengths: tuple, prompt_len: int, dev: torch.device, seed: int,
+                 new_tokens: int = LLAMA_NEW):
         rng = np.random.default_rng(seed)
         ids = np.zeros((len(lengths), prompt_len), np.int64)  # LLaMA pad id 0
         mask = np.zeros_like(ids)
@@ -1533,7 +1712,7 @@ class TextRun:
             ids[i, prompt_len - n] = 1  # bos
             ids[i, prompt_len - n + 1 :] = rng.integers(3, 32000, size=n - 1)
             mask[i, prompt_len - n :] = 1
-        self.model, self.batch = module, len(lengths)
+        self.model, self.batch, self.new_tokens = module, len(lengths), new_tokens
         self.ids = torch.from_numpy(ids).to(dev)
         self.mask = torch.from_numpy(mask).to(dev)
 
@@ -1543,13 +1722,12 @@ class TextRun:
     @torch.inference_mode()
     def generate(self):
         from eilev_tpu_torch.generation import GenerationConfig
-        from eilev_tpu_torch.generation.decoding import _greedy_sample_decoder_only
+        from eilev_tpu_torch.generation.decoding import _decode
 
         embeds = self.model.embed_and_scatter(self.ids)
-        return _greedy_sample_decoder_only(
-            self.model, embeds, self.mask,
-            GenerationConfig(max_new_tokens=LLAMA_NEW, pad_token_id=0, eos_token_id=(LLAMA_EOS,)),
-        )
+        cfg = GenerationConfig(max_new_tokens=self.new_tokens, pad_token_id=0, eos_token_id=(LLAMA_EOS,),
+                               **self.knobs)
+        return _decode(self.model, embeds, self.mask, cfg, self.generator(self.ids.device))
 
     @torch.inference_mode()
     def prefill_logits(self):
@@ -1622,6 +1800,11 @@ def run_llama(tag: str, dev: torch.device, launches: dict) -> None:
     drive(tag, f"llama bf16 {LLAMA_SHORT}-token prompt", short, lm_calls,
           dict(bf16, flash_attention=0, flash_attention_sm90=0), reps=1)
     profile_request(tag, "llama bf16", runs[1])
+    # beam-4 at batch 1: K5 in the prefill, K3 over the 4 beam rows
+    beam = TextRun(module, (LLAMA_BEAM_PROMPT,), LLAMA_BEAM_PROMPT, dev, seed=6, new_tokens=LLAMA_BEAM_NEW)
+    counts = drive(tag, f"llama bf16 beam-4 ({LLAMA_BEAM_PROMPT}-token prompt, {LLAMA_BEAM_NEW} new tokens)",
+                   beam.variant(num_beams=4), lm_calls, bf16, reps=3)
+    launches["decode_attention_stacked_bf16 at text-LM beam-4"] = counts["decode_attention_stacked_bf16"]
 
     # prefill logits through K5 against the plain path on the same ids
     k5_logits = runs[1].prefill_logits()
@@ -1660,12 +1843,15 @@ def run_llama(tag: str, dev: torch.device, launches: dict) -> None:
 
 
 def _same_tokens_as_plain(tag: str, label: str, run) -> None:
-    """The run's greedy tokens through the kernels equal those of the same
-    model on the plain path (every wrapper swapped for its twin, which
-    launches nothing), and its prefill logits agree to 1e-4 relative."""
+    """The run's tokens through the kernels equal those of the same model on
+    the plain path (every wrapper swapped for its twin, which launches
+    nothing; a sampling run's generator is seeded anew for each, so both
+    draw the same noise), and its prefill logits agree to 1e-4 relative."""
+    reset_counters()
     tokens = run.generate()
     logits = run.prefill_logits() if isinstance(run, TextRun) else run.prefill_logits(run.embeds())
     torch.cuda.synchronize()
+    assert any(counters().values()), "the kernel path launched no kernel"
     reset_counters()
     with plain_kernels():
         plain_tokens = run.generate()
@@ -1677,7 +1863,7 @@ def _same_tokens_as_plain(tag: str, label: str, run) -> None:
     same = bool(torch.equal(tokens, plain_tokens))
     print(f"[{tag}] {label}: tokens {tokens[0].tolist()} vs plain path {plain_tokens[0].tolist()}: "
           f"identical={same}; prefill logits max_rel_err={rel}")
-    assert same, "greedy tokens differ from the plain path"
+    assert same, "tokens differ from the plain path"
     assert bool(torch.isfinite(a).all()) and rel < 1e-4, rel
 
 
@@ -1792,6 +1978,12 @@ def run_f32_paths(tag: str, dev: torch.device, launches: dict) -> None:
     launches.update({k: counts[k] for k in
                      ("packed_qkv_attention_f32", "packed_qkv_causal_attention_f32", "decode_attention_stacked_f32")})
     _same_tokens_as_plain(tag, "fp32 narration", run)
+    for label, variant in (
+        ("beam-5", run.variant(**BEAM_KNOBS)),
+        ("beam_sample", run.variant(seed=GEN_SEED, **BEAM_KNOBS, **SAMPLE_KNOBS)),
+        ("sampling, 2 sequences a row", run.variant(seed=GEN_SEED, num_return_sequences=2, **SAMPLE_KNOBS)),
+    ):
+        _same_tokens_as_plain(tag, f"fp32 narration {label}", variant)
     run_k6_on_vit_layers(tag, model, run, launches, tol=F32_TOL)
 
     quantize_model_(model, int8_kv=True)
@@ -1818,6 +2010,7 @@ def run_f32_paths(tag: str, dev: torch.device, launches: dict) -> None:
     counts = drive(tag, "fp32 text LM (Llama-2-7b widths, 2 layers)", run, lm_calls, want, reps=1)
     launches["flash_attention_f32"] = counts["flash_attention_f32"]
     _same_tokens_as_plain(tag, "fp32 text LM", run)
+    _same_tokens_as_plain(tag, "fp32 text LM beam-4", run.variant(num_beams=4))
 
 
 def main(argv: list) -> int:
@@ -1845,6 +2038,7 @@ def main(argv: list) -> int:
     try:
         build_kernels(tag)
         kernels = check_kernels(tag, dev)
+        beam_rows = check_beam_decode(tag, dev)
         launches: dict = {}
         model, lm_calls, runs = run_main_path(tag, dev, launches)
         run_k6_on_vit_layers(tag, model, runs[1], launches)
@@ -1852,6 +2046,9 @@ def main(argv: list) -> int:
         run_icl(tag, dev, model, runs[4])
         run_icl_evaluator_f32(tag, dev)
         print(f"[{tag}] ICL classify phase took {time.perf_counter() - t0} s")
+        t0 = time.perf_counter()
+        run_generation(tag, model, lm_calls, runs, launches)
+        print(f"[{tag}] generation phase took {time.perf_counter() - t0} s")
         gc.collect()
         torch.cuda.empty_cache()
         run_int8_serving(tag, model, lm_calls, runs, launches)
@@ -1873,6 +2070,10 @@ def main(argv: list) -> int:
         for k in kernels
     ]}
     assert all(k["launches"] > 0 for k in line["kernels"]), line
+    # the beam shapes' rows, with their launches in the beam runs (K4 at 20
+    # rows: check only, no phase runs int8 beam-5 at batch 4)
+    print(json.dumps({"beam_decode_shapes": [
+        dict(r, route="cuda", launches=launches.get(r["name"], 0)) for r in beam_rows]}))
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                               "count": torch.cuda.device_count()}}))

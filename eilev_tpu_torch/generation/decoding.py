@@ -1,25 +1,40 @@
-"""Greedy decoding for decoder-only VideoBLIP (counterpart of
+"""Decoder-only generation for VideoBLIP-OPT (counterpart of
 ``eilev_tpu/generation/decoding.py``).
 
-The OPT greedy branch of :func:`generate`. Prefill writes the prompt into
-the stacked KV cache (kernel K2 runs there for OPT, K5 for a long LLaMA
-prompt), then a Python loop decodes one token per step with early exit once
-every row has emitted eos; positions after eos hold pad. Precomputed
+The OPT branch of :func:`generate`: greedy, sampling (with
+``num_return_sequences``), the HF logits processors and warpers
+(``generation/logits.py``), and the beam engine (beam, beam_sample and group
+beam search). Prefill writes the prompt into the stacked KV cache (kernel K2
+runs there for OPT, K5 for a long LLaMA prompt), then a Python loop decodes
+one token per step (K3 over a model-dtype cache, K4 over an int8 one), with
+early exit once every row (or every beam group) is done. Precomputed
 ``video_features`` (``serving.VideoFeatureCache``) and ``vision_chunks > 1``
-are taken as in JAX. Every other mode of the JAX ``generate`` raises
+are taken as in JAX. Contrastive search and speculative drafting raise
 ``NotImplementedError`` naming the mode.
 
-:func:`_prefill` and :func:`_greedy_sample_decoder_only` work by duck typing
-on any model with the VideoBLIP LM surface (``config.text_config``,
-``lm_embed``, ``lm_forward``): VideoBLIP, and ``generation/text_lm``'s
-text-only module over OPT or LLaMA.
+The JAX loops are one compiled ``while_loop`` each; here the host drives
+them, with one ``bool(....all())`` read a step for the early exit and no
+other device read inside a step. Beam search keeps JAX's host-visible
+semantics: the cache is reordered (gathered along the beam axis) before each
+model step, and the step is skipped once every group is done.
+
+Sampling draws Gumbel noise from a ``torch.Generator`` (the public entry
+points take ``generator`` where JAX takes ``rng``, and seed one on the
+model's device with 0 when none is given, as JAX defaults to
+``PRNGKey(0)``): the output law is JAX's, the stream is not.
+
+:func:`_prefill`, :func:`_greedy_sample_decoder_only` and
+:func:`_beam_search_decoder_only` work by duck typing on any model with the
+VideoBLIP LM surface (``config.text_config``, ``lm_embed``, ``lm_forward``):
+VideoBLIP, and ``generation/text_lm``'s text-only module over OPT or LLaMA.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Callable, Optional
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -28,13 +43,39 @@ from ..models.opt import init_cache
 from ..models.video_blip import VideoBlipForConditionalGeneration as VB
 from ..models.video_blip import embed_and_scatter_chunked
 from .config import GenerationConfig
+from .logits import Noise, _process_scores, _select_token, _token_in_set, _top_k, _warp_logits, gumbel_noise
 
 
 def _is_eos(tokens: torch.Tensor, cfg: GenerationConfig) -> torch.Tensor:
-    hit = torch.zeros_like(tokens, dtype=torch.bool)
-    for e in cfg.eos_token_id or ():
-        hit |= tokens == e
-    return hit
+    return _token_in_set(tokens, tuple(cfg.eos_token_id or ()))
+
+
+#: cache entries laid out (layers, batch, ...): tiled and gathered along
+#: dim 1; ``mask`` and ``pos`` are (batch, ...), along dim 0; ``index`` is a
+#: Python int
+_CACHE_LAYERS_FIRST = ("k", "v", "k_scale", "v_scale")
+
+
+def _tile_cache(cache: dict, n: int) -> dict:
+    """Repeat every cache row ``n`` times along the batch axis (output row
+    ``r*n + i`` is copy ``i`` of input row ``r``): a once-prefilled cache
+    expanded across beams or ``num_return_sequences`` sampling copies."""
+    if n == 1:
+        return cache
+    return {
+        key: val if key == "index" else val.repeat_interleave(n, dim=1 if key in _CACHE_LAYERS_FIRST else 0)
+        for key, val in cache.items()
+    }
+
+
+def _reorder_cache(cache: dict, idx: torch.Tensor) -> dict:
+    """JAX's beam ``reorder_fn``: row ``i`` of the new cache is row
+    ``idx[i]`` of the old, gathered into new buffers (``index_select``), as
+    JAX's ``jnp.take`` does."""
+    return {
+        key: val if key == "index" else val.index_select(1 if key in _CACHE_LAYERS_FIRST else 0, idx)
+        for key, val in cache.items()
+    }
 
 
 def _resolve_lengths(gen_cfg: GenerationConfig, start_len: int) -> GenerationConfig:
@@ -80,6 +121,48 @@ def _validate_num_return_sequences(gen_cfg: GenerationConfig) -> None:
         )
 
 
+def _validate_beam_groups(gen_cfg: GenerationConfig) -> None:
+    """HF's group-beam contract: groups divide num_beams; diverse beam search
+    cannot be sampled; diversity_penalty needs groups."""
+    groups = gen_cfg.num_beam_groups
+    if groups < 1:
+        raise ValueError(f"num_beam_groups must be >= 1, got {groups}")
+    if groups == 1:
+        if gen_cfg.diversity_penalty != 0.0:
+            raise ValueError(
+                "diversity_penalty requires num_beam_groups > 1 (HF: the "
+                "Hamming diversity processor is only built for group beam search)"
+            )
+        return
+    if gen_cfg.num_beams < groups or gen_cfg.num_beams % groups != 0:
+        raise ValueError(
+            "`num_beam_groups` has to be an integer smaller or equal than "
+            "`num_beams` and `num_beams` has to be divisible by "
+            f"`num_beam_groups`, but is {groups} with `num_beams` being {gen_cfg.num_beams}."
+        )
+    if gen_cfg.do_sample:
+        raise ValueError(
+            "Diverse beam search cannot be used in sampling mode. Make sure "
+            "that `do_sample` is set to `False`."
+        )
+
+
+def _seeded_noise(generator: Optional[torch.Generator], device: torch.device) -> Noise:
+    """Gumbel noise from ``generator``, or from a generator on ``device``
+    seeded with 0 (JAX defaults to ``PRNGKey(0)``). A generator on another
+    device than ``device`` raises ``ValueError``: each step would draw the
+    noise there and copy it over."""
+    if generator is None:
+        return gumbel_noise(torch.Generator(device=device).manual_seed(0))
+    gen_dev, device = generator.device, torch.device(device)
+    if gen_dev.type != device.type or (None not in (gen_dev.index, device.index) and gen_dev.index != device.index):
+        raise ValueError(
+            f"the generator is on {gen_dev} and the model on {device}: "
+            "pass a torch.Generator(device=...) on the model's device"
+        )
+    return gumbel_noise(generator)
+
+
 def _prefill(model: nn.Module, inputs_embeds, attention_mask, max_new_tokens: int):
     b, s, _ = inputs_embeds.shape
     cache = init_cache(
@@ -95,22 +178,39 @@ def _greedy_sample_decoder_only(
     inputs_embeds: torch.Tensor,
     attention_mask: torch.Tensor,
     gen_cfg: GenerationConfig,
+    noise: Optional[Noise] = None,
 ) -> torch.Tensor:
-    """Prefill, then greedy decode with early exit once every row has emitted
-    eos. Returns (B, max_new_tokens) int64 tokens; positions after eos hold pad.
+    """Prefill, then greedy or sampled decode with early exit once every row
+    has emitted eos. Returns (B * nrs, max_new_tokens) int64 tokens; positions
+    after eos hold pad.
 
-    Same tokens as the JAX while-loop; the loop here also skips the model step
-    whose logits would go unused (after the last token, or once all finished).
+    The logits processors see the generated tokens (the out buffer, with
+    ``n_valid = n_generated = step``). With ``do_sample`` each step draws
+    ``noise(warped)`` once (``noise`` is required then; :func:`_decode`
+    makes it from a generator); ``num_return_sequences > 1`` prefills once, tiles
+    the cache and returns rows interleaved (``row*nrs + i``), as JAX. Same
+    tokens as the JAX while-loop given the same noise; the loop here also
+    skips the model step whose logits would go unused (after the last token,
+    or once all finished).
     """
     b = inputs_embeds.shape[0]
     max_new = gen_cfg.max_new_tokens
     device = inputs_embeds.device
     logits, cache = _prefill(model, inputs_embeds, attention_mask, max_new)
+    nrs = gen_cfg.num_return_sequences if gen_cfg.do_sample else 1
+    if nrs > 1:
+        cache = _tile_cache(cache, nrs)
+        logits = logits.repeat_interleave(nrs, dim=0)
+        b *= nrs
     out = torch.full((b, max_new), gen_cfg.pad_token_id, dtype=torch.int64, device=device)
     finished = torch.zeros(b, dtype=torch.bool, device=device)
     step_mask = torch.ones(b, 1, dtype=torch.int32, device=device)
     for step in range(max_new):
-        tok = torch.argmax(logits, dim=-1)
+        if gen_cfg.has_logits_processors:
+            # HF sees input_ids == the generated tokens (the inputs_embeds
+            # path starts generate with an empty input_ids)
+            logits = _process_scores(logits, gen_cfg, out, step, step)
+        tok = _select_token(logits, gen_cfg, noise)
         tok = torch.where(finished, gen_cfg.pad_token_id, tok)
         finished = finished | _is_eos(tok, gen_cfg)
         out[:, step] = tok
@@ -122,6 +222,239 @@ def _greedy_sample_decoder_only(
     return out
 
 
+def _pow32(x: int, p: float) -> float:
+    """``x ** p`` in fp32, as JAX's ``jnp.power`` of an fp32 length."""
+    return float(np.power(np.float32(x), np.float32(p)))
+
+
+def _beam_engine(
+    logprobs0: torch.Tensor,
+    cache0: dict,
+    step_fn: Callable,
+    gen_cfg: GenerationConfig,
+    b: int,
+    noise: Optional[Noise] = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The beam loop (HF BeamSearchScorer.process/finalize semantics, in JAX's
+    fixed-shape form: per batch row and group a heap of finished hypotheses,
+    kept by a top-k over the union of the heap and this step's eos
+    candidates).
+
+    ``step_fn(tokens_flat, cache) -> (logprobs (b*nb, V), cache)`` runs one
+    model step, after :func:`_reorder_cache` has gathered the cache along the
+    beam axis. With ``gen_cfg.do_sample`` (HF ``beam_sample``) the warpers
+    (``min_keep`` 2) run on the beam-score-augmented log-probs, and 2*nb
+    candidates are drawn without replacement from the flattened (b, nb*V)
+    softmax by Gumbel top-k (one ``noise`` draw a step), then sorted by score.
+    Group beam search (``num_beam_groups``, ``diversity_penalty``) runs the
+    groups in turn within a step; group g's log-probs are penalised by the
+    frequency of each token the groups before it chose this step, pads of
+    done groups included (an HF quirk). Every top-k is :func:`_top_k`: ties
+    go to the lowest index, which puts existing hypotheses before new ones.
+
+    Returns (hyp_scores (b, nb), hyp_tokens (b, nb, max_new)): finished
+    hypotheses sorted best-first, pad-filled after each one's end.
+    """
+    nb = gen_cfg.num_beams
+    groups = max(int(gen_cfg.num_beam_groups), 1)
+    ng = nb // groups
+    div = float(gen_cfg.diversity_penalty)
+    max_new = gen_cfg.max_new_tokens
+    lp = float(gen_cfg.length_penalty)
+    eos = tuple(gen_cfg.eos_token_id or ())
+    pad = gen_cfg.pad_token_id
+    device = logprobs0.device
+    f32 = dict(dtype=torch.float32, device=device)
+    i64 = dict(dtype=torch.int64, device=device)
+
+    # the first beam of each group starts live (HF: beam_scores[:, ::ng] = 0)
+    beam_scores = torch.full((b, nb), -1e9, **f32)
+    beam_scores[:, ::ng] = 0.0
+    generated = torch.full((b, nb, max_new), pad, **i64)
+    hyp_scores = torch.full((b, groups, ng), -torch.inf, **f32)
+    hyp_tokens = torch.full((b, groups, ng, max_new), pad, **i64)
+    done = torch.zeros(b, groups, dtype=torch.bool, device=device)
+    rank_ok = torch.arange(2 * ng, device=device)[None, :] < ng  # eos admitted from the first ng ranks
+    logprobs, cache = logprobs0, cache0
+
+    step = 0
+    all_done = False
+    while step < max_new and not all_done:
+        vocab = logprobs.shape[-1]
+        len_pen = _pow32(step + 1, lp)
+        counts = torch.zeros(b, vocab, **f32)
+        nx_scores, nx_tokens, nx_indices = [], [], []
+        new_hyp_scores, new_hyp_tokens, new_done = [], [], []
+        for g in range(groups):
+            gs = g * ng
+            lp_g = logprobs.reshape(b, nb, vocab)[:, gs : gs + ng]  # (b, ng, V)
+            done_g = done[:, g]
+            if groups > 1 and g > 0 and div != 0.0:
+                # HammingDiversityLogitsProcessor runs first in HF's chain
+                lp_g = lp_g - div * counts[:, None, :]
+            if gen_cfg.has_logits_processors:
+                # HF applies processors to the log-softmaxed scores, per beam,
+                # before adding the cumulative beam scores
+                hist = generated[:, gs : gs + ng].reshape(b * ng, max_new)
+                lp_g = _process_scores(lp_g.reshape(b * ng, vocab), gen_cfg, hist, step, step)
+                lp_g = lp_g.reshape(b, ng, vocab)
+
+            if gen_cfg.do_sample:
+                # HF beam_sample (one group): warp the augmented scores per
+                # row, Gumbel top-k 2*ng from the flattened softmax, then sort
+                # the drawn candidates by their warped score
+                scored = lp_g.reshape(b * ng, vocab) + beam_scores.reshape(b * nb)[:, None]
+                flat = _warp_logits(scored, gen_cfg, min_keep=2).reshape(b, ng * vocab)
+                _, top_idx = _top_k(flat + noise(flat), 2 * ng)
+                top_scores, order = _top_k(flat.gather(1, top_idx), 2 * ng)
+                top_idx = top_idx.gather(1, order)
+            else:
+                flat = (lp_g + beam_scores[:, gs : gs + ng, None]).reshape(b, ng * vocab)
+                top_scores, top_idx = _top_k(flat, 2 * ng)
+            top_tokens = top_idx % vocab
+            top_beams = top_idx // vocab  # local to the group
+            is_eos = _token_in_set(top_tokens, eos)  # (b, 2ng)
+
+            # live beams: the first ng non-eos candidates in rank order; the
+            # rest go to a dropped column ng
+            valid = ~is_eos
+            slot = torch.cumsum(valid.to(torch.int64), dim=1) - 1
+            scatter_idx = torch.where(valid & (slot < ng), slot, ng)
+
+            def scat(src):
+                return torch.zeros(b, ng + 1, dtype=src.dtype, device=device).scatter_(
+                    1, scatter_idx, src)[:, :ng]
+
+            # done groups emit pads with zero scores (HF), and those pads do
+            # enter later groups' diversity counts (HF quirk)
+            next_scores = scat(top_scores).masked_fill(done_g[:, None], 0.0)
+            next_tokens = scat(top_tokens).masked_fill(done_g[:, None], pad)
+            next_indices = scat(top_beams).masked_fill(done_g[:, None], 0)
+            if groups > 1:
+                counts.scatter_add_(1, next_tokens, torch.ones(b, ng, **f32))
+
+            # hypothesis heap: union(existing, this step's eos candidates),
+            # each candidate its source beam's tokens + the eos at `step`
+            gen_g = generated[:, gs : gs + ng]
+            cand_seq = gen_g.gather(1, top_beams[:, :, None].expand(b, 2 * ng, max_new))
+            cand_seq[:, :, step] = top_tokens
+            cand_ok = is_eos & rank_ok & ~done_g[:, None]
+            cand_pen = torch.where(cand_ok, top_scores / len_pen, -torch.inf)
+            all_scores = torch.cat([hyp_scores[:, g], cand_pen], dim=1)  # (b, 3ng)
+            all_seqs = torch.cat([hyp_tokens[:, g], cand_seq], dim=1)  # (b, 3ng, max_new)
+            hyp_scores_g, sel = _top_k(all_scores, ng)  # existing-first tie order
+            hyp_tokens_g = all_seqs.gather(1, sel[:, :, None].expand(b, ng, max_new))
+
+            # HF BeamHypotheses.is_done, per group
+            full = (hyp_scores_g > -torch.inf).sum(dim=1) == ng
+            if gen_cfg.early_stopping:
+                ready = full
+            else:
+                ready = full & (hyp_scores_g[:, ng - 1] >= top_scores[:, 0] / len_pen)
+
+            nx_scores.append(next_scores)
+            nx_tokens.append(next_tokens)
+            nx_indices.append(next_indices + gs)  # group-local -> beam-global
+            new_hyp_scores.append(hyp_scores_g)
+            new_hyp_tokens.append(hyp_tokens_g)
+            new_done.append(done_g | ready)
+
+        beam_scores = torch.cat(nx_scores, dim=1)  # (b, nb)
+        next_tokens = torch.cat(nx_tokens, dim=1)
+        next_indices = torch.cat(nx_indices, dim=1)
+        hyp_scores = torch.stack(new_hyp_scores, dim=1)  # (b, G, ng)
+        hyp_tokens = torch.stack(new_hyp_tokens, dim=1)  # (b, G, ng, max_new)
+        done = torch.stack(new_done, dim=1)  # (b, G)
+
+        # advance the live beams
+        generated = generated.gather(1, next_indices[:, :, None].expand(b, nb, max_new))
+        generated[:, :, step] = next_tokens
+
+        step += 1
+        all_done = bool(done.all())  # the one host read a step
+        if step < max_new and not all_done:  # else the search just finished: no model step
+            flat_idx = (torch.arange(b, device=device)[:, None] * nb + next_indices).reshape(-1)
+            cache = _reorder_cache(cache, flat_idx)
+            logprobs, cache = step_fn(next_tokens.reshape(-1), cache)
+
+    # finalize (HF BeamSearchScorer.finalize): groups that never finished add
+    # their live beams as hypotheses at the exit length; each group keeps its
+    # best ng, then the groups' candidates pool per batch row, best first
+    live_pen = torch.where(
+        done[:, :, None], -torch.inf, beam_scores.reshape(b, groups, ng) / _pow32(max(step, 1), lp)
+    )
+    all_scores = torch.cat([hyp_scores, live_pen], dim=2)  # (b, G, 2ng)
+    all_seqs = torch.cat([hyp_tokens, generated.reshape(b, groups, ng, max_new)], dim=2)
+    grp_scores, sel = _top_k(all_scores, ng)
+    grp_tokens = all_seqs.gather(2, sel[..., None].expand(b, groups, ng, max_new))
+    final_scores, sel = _top_k(grp_scores.reshape(b, nb), nb)
+    final_tokens = grp_tokens.reshape(b, nb, max_new).gather(1, sel[:, :, None].expand(b, nb, max_new))
+    return final_scores, final_tokens
+
+
+def _beam_search_decoder_only_device(
+    model: nn.Module,
+    inputs_embeds: torch.Tensor,
+    attention_mask: torch.Tensor,
+    gen_cfg: GenerationConfig,
+    noise: Optional[Noise] = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Prefill once per batch row, tile the cache across the beams (rows
+    ``row*nb + beam``), then the beam engine over fp32 log-softmaxed logits."""
+    b = inputs_embeds.shape[0]
+    nb = gen_cfg.num_beams
+    last_logits, cache = _prefill(model, inputs_embeds, attention_mask, gen_cfg.max_new_tokens)
+    cache = _tile_cache(cache, nb)
+    logprobs0 = torch.log_softmax(last_logits.repeat_interleave(nb, dim=0).float(), dim=-1)
+    step_mask = torch.ones(b * nb, 1, dtype=torch.int32, device=inputs_embeds.device)
+
+    def step_fn(tokens, cache):
+        embeds = model.lm_embed(tokens[:, None])
+        logits, cache = model.lm_forward(embeds, attention_mask=step_mask, cache=cache)
+        return torch.log_softmax(logits[:, -1].float(), dim=-1), cache
+
+    return _beam_engine(logprobs0, cache, step_fn, gen_cfg, b, noise=noise)
+
+
+def _beam_search_decoder_only(
+    model: nn.Module,
+    inputs_embeds: torch.Tensor,
+    attention_mask: torch.Tensor,
+    gen_cfg: GenerationConfig,
+    noise: Optional[Noise] = None,
+) -> torch.Tensor:
+    """Beam search (or beam_sample, with ``noise``, which it then requires):
+    the best ``num_return_sequences`` hypotheses of each row, interleaved
+    (``row*nrs + rank``) and cut at the longest one's length."""
+    _, tokens = _beam_search_decoder_only_device(model, inputs_embeds, attention_mask, gen_cfg, noise)
+    nrs = gen_cfg.num_return_sequences
+    return _trim_to_longest(tokens[:, :nrs].reshape(-1, tokens.shape[-1]), gen_cfg.pad_token_id)
+
+
+def _trim_to_longest(best: torch.Tensor, pad: int) -> torch.Tensor:
+    """Cut trailing all-pad columns (HF returns sequences at the longest
+    hypothesis length)."""
+    used = (best != pad).any(dim=0).nonzero()
+    if used.numel() == 0:
+        return best[:, :1]
+    return best[:, : int(used.max()) + 1]
+
+
+def _decode(
+    model: nn.Module,
+    inputs_embeds: torch.Tensor,
+    attention_mask: torch.Tensor,
+    gen_cfg: GenerationConfig,
+    generator: Optional[torch.Generator] = None,
+) -> torch.Tensor:
+    """The mode ``gen_cfg`` asks for: beam search when ``num_beams > 1``,
+    else the greedy/sampling loop; with ``do_sample`` the noise comes from
+    ``generator`` (:func:`_seeded_noise`)."""
+    noise = _seeded_noise(generator, inputs_embeds.device) if gen_cfg.do_sample else None
+    loop = _beam_search_decoder_only if gen_cfg.num_beams > 1 else _greedy_sample_decoder_only
+    return loop(model, inputs_embeds, attention_mask, gen_cfg, noise)
+
+
 @torch.inference_mode()
 def generate(
     model: VB,
@@ -131,22 +464,32 @@ def generate(
     pixel_values: Optional[torch.Tensor] = None,
     video_input_mask: Optional[torch.Tensor] = None,
     generation_config: GenerationConfig = GenerationConfig(),
+    generator: Optional[torch.Generator] = None,
     vision_chunks: int = 1,
     draft_layers: Optional[int] = None,
     draft: Optional[str] = None,
     video_features: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Greedy ``generate`` for OPT-backed VideoBLIP: encode the videos, scatter
-    them into the prompt embeddings, decode.
+    """``generate`` for OPT-backed VideoBLIP: encode the videos, scatter them
+    into the prompt embeddings, decode.
 
-    Returns (B, max_new_tokens) generated token ids (new tokens only; pad after
-    eos). ``video_features`` (precomputed ``encode_videos`` output,
+    ``num_beams > 1`` runs beam search (``do_sample``: beam_sample;
+    ``num_beam_groups > 1``: group beam search) and returns the best
+    ``num_return_sequences`` hypotheses a row, cut at the longest one's
+    length. Otherwise the greedy/sampling loop runs, with the logits
+    processors and warpers; ``num_return_sequences > 1`` (sampling) returns
+    that many rows an input row. Rows come back interleaved (``row*n + i``).
+    ``generator`` (where JAX takes ``rng``) feeds the sampling noise and
+    must be on the model's device (another raises ``ValueError``); with none,
+    a generator on the model's device seeded with 0.
+
+    Returns (B*n, <= max_new_tokens) generated token ids (new tokens only;
+    pad after eos). ``video_features`` (precomputed ``encode_videos`` output,
     (num_videos * num_query_tokens, text_hidden)) skips the vision tower and
     takes precedence over ``pixel_values``; ``vision_chunks > 1`` runs the
-    vision tower over that many sequential pieces of the videos. Sampling,
-    beam search, contrastive search, logits processors and speculative
-    drafting (``draft``/``draft_layers``) are not ported yet and raise
-    ``NotImplementedError``.
+    vision tower over that many sequential pieces of the videos. Contrastive
+    search and speculative drafting (``draft``/``draft_layers``) are not
+    ported yet and raise ``NotImplementedError``.
     """
     cfg: VideoBlipConfig = model.config
     if not isinstance(cfg.text_config, OPTConfig):
@@ -157,22 +500,24 @@ def generate(
     if gen_cfg.eos_token_id is None:
         gen_cfg = gen_cfg.with_eos(cfg.text_config.eos_token_id)
     _validate_num_return_sequences(gen_cfg)
-    # HF counts min_length/max_length over prompt + generated; the scattered
-    # embeddings are as long as input_ids
-    gen_cfg = _resolve_lengths(gen_cfg, start_len=input_ids.shape[1])
-    unported = {
-        "beam search (num_beams > 1)": gen_cfg.num_beams > 1,
-        "sampling (do_sample)": gen_cfg.do_sample,
-        "contrastive search (penalty_alpha)": bool(gen_cfg.penalty_alpha)
+    _validate_beam_groups(gen_cfg)
+    # HF mode selection: contrastive search iff num_beams == 1,
+    # do_sample=False, top_k > 1 and penalty_alpha > 0
+    contrastive = (
+        bool(gen_cfg.penalty_alpha)
         and gen_cfg.penalty_alpha > 0
-        and gen_cfg.top_k > 1,
-        "logits processors": gen_cfg.has_logits_processors,
+        and gen_cfg.top_k > 1
+        and gen_cfg.num_beams == 1
+        and not gen_cfg.do_sample
+    )
+    unported = {
+        "contrastive search (penalty_alpha)": contrastive,
         "speculative decoding (draft)": draft is not None,
         "speculative decoding (draft_layers)": bool(draft_layers),
     }
     for mode, requested in unported.items():
         if requested:
-            raise NotImplementedError(f"{mode} is not ported yet; greedy decoding is")
+            raise NotImplementedError(f"{mode} is not ported yet")
     if attention_mask is None:
         attention_mask = torch.ones_like(input_ids)
     if video_features is not None:
@@ -185,4 +530,7 @@ def generate(
         )
     else:
         inputs_embeds = model.embed_and_scatter(input_ids, pixel_values, video_input_mask)
-    return _greedy_sample_decoder_only(model, inputs_embeds, attention_mask, gen_cfg)
+    # HF counts min_length/max_length over prompt + generated; the scattered
+    # embeddings are as long as input_ids
+    gen_cfg = _resolve_lengths(gen_cfg, start_len=inputs_embeds.shape[1])
+    return _decode(model, inputs_embeds, attention_mask, gen_cfg, generator)

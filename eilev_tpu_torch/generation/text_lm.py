@@ -3,8 +3,9 @@
 Drives a bare decoder-only LM through the same decoding loop as VideoBLIP. The
 reference's sentence-ification utilities run Llama-2-chat; :class:`TextLM`
 runs those recipes from local HF checkpoints, LLaMA-family (``models/llama.py``)
-or OPT-family (``models/opt.py``). Greedy decoding is ported; beam search,
-sampling, logits processors and speculative decoding raise
+or OPT-family (``models/opt.py``), with greedy, sampling (and
+``num_return_sequences``), the logits processors and beam search
+(``generation/decoding.py``); speculative decoding raises
 ``NotImplementedError`` naming the mode.
 """
 
@@ -24,7 +25,7 @@ from ..models.convert import convert_llama, convert_opt, llama_config_from_hf, o
 from ..models.llama import LlamaForCausalLM
 from ..models.opt import OPTForCausalLM
 from .config import GenerationConfig
-from .decoding import _greedy_sample_decoder_only, _resolve_lengths, _validate_num_return_sequences
+from .decoding import _decode, _resolve_lengths, _validate_num_return_sequences
 
 
 class _TextOnlyModule(nn.Module):
@@ -67,7 +68,7 @@ def _pad_1d(arr: np.ndarray, target: int, value: int, side: str) -> np.ndarray:
 
 class TextLM:
     """Load a local HF decoder-only causal LM directory (LLaMA- or OPT-family)
-    and generate text greedily."""
+    and generate text."""
 
     def __init__(
         self,
@@ -117,24 +118,32 @@ class TextLM:
         self,
         prompts: list[str],
         generation_config: Optional[GenerationConfig] = None,
+        generator: Optional[torch.Generator] = None,
         draft_layers: int = 0,
         draft: Optional[str] = None,
     ) -> list[str]:
-        """Greedy continuation of each prompt (left-padded into one batch)."""
+        """Continue each prompt (left-padded into one batch): beam search when
+        ``num_beams > 1``, else greedy or sampled decoding, with the logits
+        processors. ``generator`` (where JAX takes ``rng``) feeds the sampling
+        noise and must be on the model's device (another raises
+        ``ValueError``); with none, a generator there seeded with 0.
+        Returns ``num_return_sequences`` texts a prompt, interleaved.
+
+        The processors see the generated tokens only, as in JAX (the loops
+        drive the LM through inputs_embeds, where HF starts from an empty
+        input_ids).
+        """
         gen_cfg = generation_config or GenerationConfig(max_new_tokens=64)
         if gen_cfg.eos_token_id is None:
             gen_cfg = gen_cfg.with_eos(self.config.text_config.eos_token_id)
         _validate_num_return_sequences(gen_cfg)
         unported = {
-            "beam search (num_beams > 1)": gen_cfg.num_beams > 1,
-            "sampling (do_sample)": gen_cfg.do_sample,
-            "logits processors": gen_cfg.has_logits_processors,
             "speculative decoding (draft)": draft is not None,
             "speculative decoding (draft_layers)": bool(draft_layers),
         }
         for mode, requested in unported.items():
             if requested:
-                raise NotImplementedError(f"{mode} is not ported yet; greedy decoding is")
+                raise NotImplementedError(f"{mode} is not ported yet")
         enc = [self.tokenizer(t)["input_ids"] for t in prompts]
         longest = max(len(e) for e in enc)
         ids = np.stack(
@@ -142,10 +151,9 @@ class TextLM:
         )
         mask = np.stack([_pad_1d(np.ones(len(e), np.int64), longest, 0, "left") for e in enc])
         embeds = self.module.embed_and_scatter(torch.from_numpy(ids).to(self.device))
+        mask = torch.from_numpy(mask).to(self.device)
         # HF counts min_length/max_length over prompt + generated on the
         # inputs_embeds path
         gen_cfg = _resolve_lengths(gen_cfg, start_len=embeds.shape[1])
-        tokens = _greedy_sample_decoder_only(
-            self.module, embeds, torch.from_numpy(mask).to(self.device), gen_cfg
-        )
+        tokens = _decode(self.module, embeds, mask, gen_cfg, generator)
         return self.tokenizer.batch_decode(tokens.cpu().numpy(), skip_special_tokens=True)

@@ -196,12 +196,14 @@ DECODE_SHAPES = [
 # rule (ops/decode_attention.k3_split) gives the bf16 cache the split: the
 # narration's decode at batch 1 (a cluster of 8), the text LM's (B = 1,
 # 2,048 slots, 32 x 128, a cluster of 8), S = 1 and 5; (4, 4, 798, ...) in
-# DECODE_SHAPES is the narration's batch 4, which keeps one block a (head, row)
+# DECODE_SHAPES is the narration's batch 4, which keeps one block a (head,
+# row), as does the text LM's beam-4 (4 rows of 2,048 slots, 32 x 128)
 K3_SHAPES = DECODE_SHAPES + [
     (2, 1, 798, 32, 32, 80, True),
     (2, 1, 2048, 32, 32, 128, False),
     (2, 1, 1, 32, 32, 128, False),
     (2, 1, 5, 32, 32, 128, False),
+    (2, 4, 2048, 32, 32, 128, False),
 ]
 
 

@@ -126,14 +126,9 @@ def test_default_eos_is_the_text_configs(slice_setup):
 @pytest.mark.parametrize(
     "gen_kwargs,call_kwargs",
     [
-        ({"num_beams": 2}, {}),
-        ({"do_sample": True}, {}),
         ({"penalty_alpha": 0.6, "top_k": 4}, {}),
-        ({"repetition_penalty": 1.2}, {}),
         ({}, {"draft": "prompt_lookup"}),
         ({}, {"draft_layers": 1}),
-        ({"no_repeat_ngram_size": 2}, {}),
-        ({"min_new_tokens": 1}, {}),
     ],
 )
 def test_unported_modes_raise(slice_setup, gen_kwargs, call_kwargs):

@@ -1,7 +1,7 @@
 """Port vs JAX: TextLM (generation/text_lm.py) on tiny HF checkpoints built in
 the test, LLaMA (GQA) and OPT, in fp32: the same greedy tokens and texts as
 ``eilev_tpu.generation.text_lm.TextLM``, also with ``int8 + int8_kv``; the
-converters map every HF weight; unported modes raise.
+converters map every HF weight; speculative decoding raises.
 """
 
 import jax
@@ -112,10 +112,6 @@ def test_text_lm_loads_every_weight(request, family):
 def test_text_lm_unported_modes_raise(llama_checkpoint):
     tlm = TextLM(llama_checkpoint, dtype=torch.float32, device="cpu")
     base = dict(max_new_tokens=2, pad_token_id=0, eos_token_id=(0,))
-    for kwargs, mode in (({"num_beams": 3}, "beam"), ({"do_sample": True}, "sampling"),
-                         ({"repetition_penalty": 1.3}, "logits processors")):
-        with pytest.raises(NotImplementedError, match=mode):
-            tlm.generate(["cut onion"], GenerationConfig(**base, **kwargs))
     with pytest.raises(NotImplementedError, match="draft"):
         tlm.generate(["cut onion"], GenerationConfig(**base), draft="prompt_lookup")
     with pytest.raises(NotImplementedError, match="draft_layers"):
