@@ -161,10 +161,44 @@ final result line):
    model, and beam-4 of the fp32 text LM, must give the plain path's tokens
    too (a sampling run's generator is seeded anew for each path, so both
    draw the same noise).
+9. Training, after the earlier models are freed. (a) The v2 training step
+   (training.make_train_step: forward with labels, backward into the fp32
+   masters of the query tokens, Q-Former and language projection, AdamW)
+   at the full eilev-blip2-opt-2.7b geometry in bf16, N(0, 0.02) weights
+   from a seeded generator, bench's 16-shot prompt padded to 1,024 tokens
+   (labels -100 on the video slots and the padding), dropout on: the JAX
+   training bench's variants 1, 1r, 2r and 4r (datapoints a micro-batch, r
+   = remat of the LM trunk), each one counted warm step (K1 = 39, one a ViT
+   layer, under no grad; K2-K6 = 0) and 3 timed steps: s/step, videos/s,
+   peak memory; loss and grad_norm finite; a torch.profiler pass over one
+   step of 1; the frozen weights unchanged. The gradient checks run with
+   every LayerNorm at scale 1 and bias 0 (unit_norms_), so that every
+   leaf carries a gradient: 1 against 1r on the same dropout seed, loss
+   and every trainable gradient bit-identical. (b) K1 against its twin at
+   full width, bf16, dropout off (every wrapper swapped by plain_kernels):
+   loss within 2e-2 relative, the whole trainable gradient's cosine and
+   each leaf's > 0.99. Then the Trainer at variant 1: batches from
+   train_batch_iterator over 16-shot datapoints augmented on the card in
+   its prefetch thread, 4 timed steps beside the bare step's time. (c) The
+   fp32 model at the phase-8 cut (bench.py's init), dropout on, the same
+   seed on both paths: loss within 1e-4 relative and each leaf's gradient
+   within 1e-4 of its largest element; then at unit LayerNorm scales, where
+   fp32 itself is not that close to fp64 on either path, each path against
+   the plain path in fp64: the kernel path's worst leaf error at most twice
+   the plain path's. In (b) and (c) the attention key biases (KEY_BIAS:
+   their exact gradient is 0, so rounding noise has no direction to
+   compare) are held below bf16's unit roundoff (b) or 1e-5 (c) of the
+   largest leaf norm on both paths instead. The augmentation's ms per 17-clip
+   datapoint on the card. (d) The Trainer at that cut: batches from
+   train_batch_iterator over in-memory datapoints of uint8 clips (2 shots +
+   a query, augmented on the card, the ICL phase's word tokenizer), 2 a
+   step; the loss falls; a run saved at step 4 and resumed ends with the
+   uninterrupted run's trainable state, bit for bit. (e) K1 called under
+   grad on a tensor that requires grad raises, launching nothing.
 
 Prints every number tagged with the card's name and power limit, then the
-JSON line of the beam shapes' K3/K4 rows, then one JSON line of per-kernel
-results (every body: the bf16 ones and the fp32
+JSON line of the beam shapes' K3/K4 rows, the JSON line of the training
+variants, then one JSON line of per-kernel results (every body: the bf16 ones and the fp32
 ones, whose launches come from phase 8), then the result line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
@@ -282,6 +316,25 @@ ICL_BATCH = 4
 ICL_REPS = 5
 ICL_SCORE_TOL = 5e-2
 ICL_MIN_COSINE = 0.999
+# phase 9, training: the JAX training bench's variants (datapoints a
+# micro-batch, r = remat of the LM trunk), each 1 warm and TRAIN_STEPS timed
+# steps at the train CLI's token bucket (--max_length 1024); the dropout seed
+# of the remat and kernel-vs-plain comparisons; the Trainer run at the fp32
+# cut: datapoints of TRAINER_SHOTS shots + a query, 2 a step, saved at
+# TRAINER_SAVE_AT and resumed
+TRAIN_VARIANTS = ("1", "1r", "2r", "4r")
+TRAIN_SEQ = 1024
+TRAIN_STEPS = 3
+TRAIN_DROPOUT_SEED = 5
+TRAINER_DATAPOINTS = 2
+TRAINER_SHOTS = 2
+TRAINER_MAX_LEN = 256
+TRAINER_STEPS = 10
+TRAINER_SAVE_AT = 4
+TRAINER_SEED = 42
+TRAINER_LR = 5e-3
+TRAINER_FULL_STEPS = 4  # the Trainer's timed steps at the full geometry, after one
+BF16_ROUNDOFF = 2.0**-7  # bf16's unit roundoff: a key bias's norm share "zero" in bf16
 # device sleep before each timed call: ~20 ms at the H100's 1.98 GHz, longer
 # than the host takes to enqueue a 32-layer decode step of the plain twin
 SLEEP_CYCLES = 40_000_000
@@ -2013,6 +2066,406 @@ def run_f32_paths(tag: str, dev: torch.device, launches: dict) -> None:
     _same_tokens_as_plain(tag, "fp32 text LM beam-4", run.variant(num_beams=4))
 
 
+# ---------------------------------------------------------------------------
+# phase 9: training
+# ---------------------------------------------------------------------------
+
+
+def _train_batch(cfg, micro: int, dev, dtype=torch.bfloat16, seq: int = TRAIN_SEQ) -> dict:
+    """The JAX training bench's batch (benchmarks/train_step_bench.py): bench's
+    16-shot prompt for ``micro`` datapoints padded to ``seq`` tokens, labels
+    -100 on the video slots and the padding, uint8 frames from a seed through
+    process_videos; a leading micro-batch axis of 1."""
+    from eilev_tpu_torch.ops.preprocess import process_videos
+
+    ids, mask, vim = build_prompt(cfg.num_query_tokens, micro)
+    pad = ((0, 0), (0, seq - ids.shape[1]))
+    ids, mask, vim = np.pad(ids, pad, constant_values=1), np.pad(mask, pad), np.pad(vim, pad)
+    labels = np.where((vim == 1) | (mask == 0), -100, ids)
+    frames = np.random.default_rng(2).integers(0, 256, size=(micro * (SHOTS + 1), 3, FRAMES, 224, 224),
+                                               dtype=np.uint8)
+    batch = {k: torch.from_numpy(v).to(dev)[None] for k, v in
+             (("input_ids", ids), ("attention_mask", mask), ("video_input_mask", vim), ("labels", labels))}
+    batch["pixel_values"] = process_videos(torch.from_numpy(frames).to(dev), dtype=dtype)[None]
+    return batch
+
+
+def _loss_and_grads(model, batch: dict, seed) -> tuple[torch.Tensor, dict]:
+    """The training forward's loss and trainable gradients on micro-batch 0;
+    dropout on with masks from a generator seeded ``seed``, off for None."""
+    from eilev_tpu_torch.ops.dropout import DropoutRng
+    from eilev_tpu_torch.training import partition_params
+
+    trainable, _ = partition_params(dict(model.named_parameters()))
+    model.train(seed is not None)
+    rng = None if seed is None else DropoutRng.seeded(seed, next(model.parameters()).device)
+    loss = model(**{k: v[0] for k, v in batch.items()}, dropout_rng=rng)["loss"]
+    grads = torch.autograd.grad(loss, list(trainable.values()))
+    return loss.detach().float(), {k: g.float() for k, g in zip(trainable, grads)}
+
+
+def unit_norms_(model: torch.nn.Module) -> None:
+    """Every LayerNorm's scale 1 and bias 0, as the models' own initialisation
+    sets them. The full-width gradient checks run so: at bench.py's
+    N(0, 0.02) scales the gradient fades back through the Q-Former's 12
+    post-LN layers to rounding noise in half of its leaves, which leaves
+    nothing to compare."""
+    with torch.no_grad():
+        for mod in model.modules():
+            if isinstance(mod, torch.nn.LayerNorm):
+                mod.weight.fill_(1.0)
+                mod.bias.zero_()
+
+
+# the attention key biases: a bias on every key shifts a whole score row,
+# which softmax ignores, so the exact gradient is 0 and each path's is
+# rounding noise with no direction to compare
+KEY_BIAS = ".attention.key.bias"
+
+
+def _cosine(a: torch.Tensor, b: torch.Tensor) -> float:
+    """Cosine of two gradients in float64, without F.cosine_similarity's
+    1e-8 floor on the norms' product (a small leaf's norms are below it)."""
+    a, b = a.double().flatten(), b.double().flatten()
+    na, nb = float(a.norm()), float(b.norm())
+    return 1.0 if na == nb == 0.0 else float(a @ b) / (na * nb)
+
+
+def _compare_grads(tag: str, label: str, loss, ref_loss, grads, ref, loss_tol: float, zero_share: float,
+                   min_cos=None, rel_tol=None):
+    """The loss within ``loss_tol`` relative of the reference path's; the
+    whole trainable gradient (every leaf, concatenated) and each leaf but the
+    key biases by cosine (> ``min_cos``) or by error relative to the leaf's
+    largest element (< ``rel_tol``); each key bias's norm below
+    ``zero_share`` of the largest leaf norm on both paths."""
+    loss_rel = abs(float(loss) - float(ref_loss)) / abs(float(ref_loss))
+    top = max(float(g.norm()) for g in ref.values())
+    whole_cos = _cosine(torch.cat([g.flatten() for g in grads.values()]),
+                        torch.cat([ref[k].flatten() for k in grads]))
+    worst_cos, worst_rel, zero, rows = 1.0, 0.0, {}, []
+    for name, g in grads.items():
+        r = ref[name]
+        if name.endswith(KEY_BIAS):
+            zero[name] = max(float(g.norm()), float(r.norm())) / top
+            continue
+        cos, rel = _cosine(g, r), float((g - r).abs().max() / r.abs().max())
+        rows.append((cos, rel, name, float(g.norm()), float(r.norm())))
+        worst_cos, worst_rel = min(worst_cos, cos), max(worst_rel, rel)
+    print(f"[{tag}] {label}: loss={float(loss)} reference_loss={float(ref_loss)} loss_rel_err={loss_rel} "
+          f"leaves={len(grads)} whole_gradient_cosine={whole_cos} compared_leaves={len(rows)} "
+          f"min_leaf_cosine={worst_cos} max_leaf_rel_err={worst_rel} key_bias_leaves={len(zero)} "
+          f"(max norm share {max(zero.values(), default=0.0)}) largest_leaf_norm={top}")
+    for cos, rel, name, gnorm, rnorm in sorted(rows)[:3]:
+        print(f"[{tag}]   leaf {name}: cosine={cos} rel_err={rel} norm={gnorm} reference_norm={rnorm}")
+    assert bool(torch.isfinite(loss)) and loss_rel < loss_tol, loss_rel
+    assert len(rows) + len(zero) == len(ref) and zero, (len(rows), len(zero), len(ref))
+    assert min_cos is None or (worst_cos > min_cos and whole_cos > min_cos), (worst_cos, whole_cos)
+    assert rel_tol is None or worst_rel < rel_tol, worst_rel
+    assert all(share < zero_share for share in zero.values()), zero
+
+
+def _worst_leaf_err(a: tuple, b: tuple) -> tuple[float, str]:
+    """The largest error, over every leaf but the key biases, of ``a``'s
+    gradient against ``b``'s, relative to the leaf's largest element in ``b``."""
+    return max((float((a[1][k] - g).abs().max() / g.abs().max()), k) for k, g in b[1].items()
+               if not k.endswith(KEY_BIAS))
+
+
+def _assert_bit_identical(tag: str, label: str, a: tuple, b: tuple) -> None:
+    """The loss and every trainable gradient of ``a`` equal to ``b``'s, bit for bit."""
+    loss, grads = a
+    ref_loss, ref = b
+    unequal = [k for k, g in grads.items() if not torch.equal(g, ref[k])]
+    print(f"[{tag}] {label}: loss={float(loss)} reference_loss={float(ref_loss)} leaves={len(grads)} "
+          f"bit_identical_leaves={len(grads) - len(unequal)} loss_bit_identical={bool(torch.equal(loss, ref_loss))}")
+    assert torch.equal(loss, ref_loss) and not unequal and grads.keys() == ref.keys(), unequal[:5]
+
+
+class TrainRun:
+    """One train step of a variant, shaped for ``profile_request`` (which
+    calls ``generate`` and reads ``batch``)."""
+
+    def __init__(self, model, batch: dict, micro: int):
+        from eilev_tpu_torch.training import (OptimizerConfig, TrainState, make_optimizer, make_train_step,
+                                              partition_params)
+
+        trainable, _ = partition_params(dict(model.named_parameters()))
+        self.state = TrainState.create(trainable, make_optimizer(OptimizerConfig()))
+        self.step_fn = make_train_step(model, accum_steps=1, dropout=True)
+        self.batch_tensors, self.batch = batch, micro
+        self.metrics = None
+
+    def generate(self):
+        self.state, self.metrics = self.step_fn(self.state, self.batch_tensors)
+
+
+def run_train_variants(tag: str, dev, cfg) -> list:
+    """Phase 9 (a), (b) and (e) on the full eilev-blip2-opt-2.7b geometry.
+    Returns one row of numbers a variant."""
+    from eilev_tpu_torch.models import VideoBlipForConditionalGeneration
+    from eilev_tpu_torch.ops import fused_attention as fa
+    from eilev_tpu_torch.training import freeze_towers
+
+    t0 = time.perf_counter()
+    model = VideoBlipForConditionalGeneration(cfg, device=dev, dtype=torch.bfloat16, trainable_dtype=torch.float32)
+    random_init_(model, torch.Generator(device=dev).manual_seed(47), std=0.02)
+    trainable, frozen = freeze_towers(model)
+    frozen_before = {k: p.detach().to("cpu") for k, p in frozen.items()}  # on the host: out of the peak
+    torch.cuda.synchronize()
+    n_train = sum(p.numel() for p in trainable.values())
+    print(f"[{tag}] training model eilev-blip2-opt-2.7b bf16, fp32 trainable masters: trainable_params={n_train} "
+          f"frozen_params={sum(p.numel() for p in frozen.values())} init_s={time.perf_counter() - t0}")
+    n_vit = cfg.vision_config.num_hidden_layers
+    lm = model.language_model
+    rows = []
+    for variant in TRAIN_VARIANTS:
+        micro, remat = int(variant.rstrip("r")), variant.endswith("r")
+        lm.config = dataclasses.replace(lm.config, remat=remat)
+        run = TrainRun(model, _train_batch(cfg, micro, dev), micro)
+        reset_counters()
+        run.generate()  # the warm step, counted
+        torch.cuda.synchronize()
+        counts = counters()
+        want = dict.fromkeys(counts, 0)
+        want["packed_qkv_attention"] = n_vit  # 39 a micro-batch forward, no grad; K2-K6 never
+        assert counts == want, f"training launches {counts}, expected {want}"
+        torch.cuda.reset_peak_memory_stats()
+        t1 = time.perf_counter()
+        for _ in range(TRAIN_STEPS):
+            run.generate()
+        torch.cuda.synchronize()
+        s_step = (time.perf_counter() - t1) / TRAIN_STEPS
+        loss, gnorm = float(run.metrics["loss"]), float(run.metrics["grad_norm"])
+        print(f"[{tag}] training variant={variant} micro={micro} remat={remat} seq={TRAIN_SEQ} s_per_step={s_step} "
+              f"datapoints_per_s={micro / s_step} videos_per_s={micro * (SHOTS + 1) / s_step} "
+              f"max_memory_allocated_bytes={torch.cuda.max_memory_allocated()} loss={loss} grad_norm={gnorm} "
+              f"launches {counts}")
+        assert np.isfinite(loss) and np.isfinite(gnorm) and gnorm > 0, (loss, gnorm)
+        rows.append({"variant": variant, "micro": micro, "remat": remat, "seq": TRAIN_SEQ, "s_per_step": s_step,
+                     "videos_per_s": micro * (SHOTS + 1) / s_step,
+                     "peak_bytes": torch.cuda.max_memory_allocated(), "k1_launches": counts["packed_qkv_attention"]})
+        if variant == "1":
+            profile_request(tag, "training step, variant 1", run)
+        del run
+        gc.collect()
+        torch.cuda.empty_cache()
+    lm.config = dataclasses.replace(lm.config, remat=False)
+    same = all(torch.equal(p.cpu(), frozen_before[k]) for k, p in frozen.items())
+    print(f"[{tag}] training: frozen weights unchanged after {len(TRAIN_VARIANTS) * (TRAIN_STEPS + 1)} steps={same}")
+    assert same, "a frozen weight moved"
+    del frozen_before
+
+    # the gradient checks, at unit LayerNorm scales: 1 against 1r on the same
+    # dropout seed, bit-identical (so within 1e-3 and cosine > 0.9999 too)
+    unit_norms_(model)
+    batch = _train_batch(cfg, 1, dev)
+    plain = _loss_and_grads(model, batch, TRAIN_DROPOUT_SEED)
+    lm.config = dataclasses.replace(lm.config, remat=True)
+    remat = _loss_and_grads(model, batch, TRAIN_DROPOUT_SEED)
+    lm.config = dataclasses.replace(lm.config, remat=False)
+    _assert_bit_identical(tag, f"training (a) 1r vs 1, dropout seed {TRAIN_DROPOUT_SEED}", remat, plain)
+
+    # (b) K1 against its plain twin at full width, dropout off
+    reset_counters()
+    kernels = _loss_and_grads(model, batch, None)
+    assert counters()["packed_qkv_attention"] == n_vit
+    with plain_kernels():
+        reset_counters()
+        ref = _loss_and_grads(model, batch, None)
+        assert not any(counters().values()), counters()
+    _compare_grads(tag, "training (b) bf16 kernels vs plain path, dropout off", kernels[0], ref[0], kernels[1],
+                   ref[1], loss_tol=2e-2, zero_share=BF16_ROUNDOFF, min_cos=0.99)
+
+    # (e) the guard: K1 under grad on a tensor that requires grad
+    qkv = torch.randn(2, 257, 3 * 16 * 88, device=dev, dtype=torch.bfloat16, requires_grad=True)
+    reset_counters()
+    try:
+        fa.packed_qkv_attention(qkv, 16, 88)
+        raised = False
+    except RuntimeError as e:
+        raised = "packed_qkv_attention_reference" in str(e)
+    print(f"[{tag}] training (e) K1 under grad on a tensor that requires grad raised={raised} "
+          f"launches={counters()['packed_qkv_attention']}")
+    assert raised and counters()["packed_qkv_attention"] == 0
+    del batch, plain, remat, kernels, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    run_trainer_full(tag, dev, cfg, model, rows[0])
+    del model, trainable, frozen
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _train_dataset(n: int, shots: int, seed: int) -> list:
+    """In-memory interleaved datapoints: ``shots`` examples + a query, uint8
+    clips (3, FRAMES, 224, 224) from a seed, narrations from a small word
+    pool (no imageio or PIL needed)."""
+    rng = np.random.default_rng(seed)
+    verbs, nouns = ("picks up", "cuts", "washes", "opens", "stirs"), ("the knife", "an onion", "the pot", "a cup")
+
+    def item():
+        text = f"#C C {verbs[rng.integers(len(verbs))]} {nouns[rng.integers(len(nouns))]}"
+        return {"narration_text": text,
+                "video": rng.integers(0, 256, size=(3, FRAMES, 224, 224), dtype=np.uint8)}
+
+    return [{"items": [item() for _ in range(shots + 1)]} for _ in range(n)]
+
+
+def run_trainer_full(tag: str, dev, cfg, model, bare: dict) -> None:
+    """The Trainer at variant 1 on the full geometry: batches from
+    train_batch_iterator over in-memory 16-shot datapoints, augmented on the
+    card in the prefetch thread while the steps run; its step time beside the
+    bare step's (``bare``, variant 1's row). Updates ``model``'s trainable
+    weights."""
+    import tempfile
+
+    from eilev_tpu_torch.training.data_module import train_batch_iterator
+    from eilev_tpu_torch.training.trainer import Trainer, TrainerConfig
+
+    data = _train_dataset(TRAINER_FULL_STEPS + 1, SHOTS, seed=6)
+
+    def train_batches(seed):
+        return train_batch_iterator(data, WordTokenizer(), num_query_tokens=cfg.num_query_tokens,
+                                    decoder_only_lm=True, accum_steps=1, micro_batch_size=1, max_length=TRAIN_SEQ,
+                                    num_frames=FRAMES, seed=seed, dtype=torch.bfloat16, device=dev)
+
+    logs = []
+    with tempfile.TemporaryDirectory(dir=os.path.dirname(os.path.abspath(__file__))) as root:
+        conf = TrainerConfig(output_dir=root, num_train_steps=TRAINER_FULL_STEPS + 1, gradient_accumulation_steps=1,
+                             eval_steps=0, save_steps=0, log_steps=1, load_best_model_at_end=False)
+        trainer = Trainer(model, conf, train_batches, logger=lambda step, m: logs.append(m))
+        trainer.train()
+        torch.cuda.synchronize()
+    steps = [m["step_time_sec"] for m in logs[1:]]  # the first waits for the prefetch's first batch
+    mean = float(np.mean(steps))
+    print(f"[{tag}] training Trainer variant 1 (train_batch_iterator, {SHOTS + 1} clips a datapoint augmented on "
+          f"the card in the prefetch thread): step_time_sec={steps} mean={mean} "
+          f"videos_per_s={(SHOTS + 1) / mean} bare_step_s={bare['s_per_step']} "
+          f"ratio_to_bare={mean / bare['s_per_step']} losses={[m['loss'] for m in logs]}")
+    assert len(steps) == TRAINER_FULL_STEPS and all(np.isfinite(m["loss"]) for m in logs), logs
+    del trainer
+
+
+def run_train_f32(tag: str, dev) -> None:
+    """Phase 9 (c) and (d) on the fp32 model at the phase-8 depth cut."""
+    import itertools
+    import tempfile
+
+    from eilev_tpu_torch.models import VideoBlipForConditionalGeneration
+    from eilev_tpu_torch.ops.preprocess import apply_train_transform, draw_train_transform
+    from eilev_tpu_torch.training import OptimizerConfig, freeze_towers
+    from eilev_tpu_torch.training.data_module import train_batch_iterator
+    from eilev_tpu_torch.training.trainer import Trainer, TrainerConfig
+
+    cfg = f32_cut_config()
+
+    def model_f32():
+        model = VideoBlipForConditionalGeneration(cfg, device=dev)  # fp32
+        random_init_(model, torch.Generator(device=dev).manual_seed(48), std=0.02)
+        freeze_towers(model)
+        return model
+
+    # (c) kernels against the plain path, dropout on, the same seed on both
+    model = model_f32()
+    batch = _train_batch(cfg, 1, dev, dtype=torch.float32)
+    reset_counters()
+    kernels = _loss_and_grads(model, batch, TRAIN_DROPOUT_SEED)
+    counts = counters()
+    assert counts["packed_qkv_attention"] == counts["packed_qkv_attention_f32"] == F32_LAYERS, counts
+    with plain_kernels():
+        ref = _loss_and_grads(model, batch, TRAIN_DROPOUT_SEED)
+    _compare_grads(tag, "training (c) fp32 2+2+2 kernels vs plain path, dropout on", kernels[0], ref[0],
+                   kernels[1], ref[1], loss_tol=1e-4, zero_share=1e-5, rel_tol=1e-4)
+    # at unit LayerNorm scales neither fp32 path comes within 1e-4 of an fp64
+    # evaluation (worst element against its leaf's largest): there the kernel
+    # path is held to fp64 no farther than twice the plain path is
+    unit_norms_(model)
+    kernels = _loss_and_grads(model, batch, TRAIN_DROPOUT_SEED)
+    with plain_kernels():
+        ref = _loss_and_grads(model, batch, TRAIN_DROPOUT_SEED)
+        model.double()  # the dropout masks are drawn in fp32 whatever the dtype: the same ones
+        exact = _loss_and_grads(model, {k: v.double() if v.is_floating_point() else v for k, v in batch.items()},
+                                TRAIN_DROPOUT_SEED)
+    err_k, err_p = _worst_leaf_err(kernels, exact), _worst_leaf_err(ref, exact)
+    print(f"[{tag}] training (c) fp32 2+2+2 at unit LayerNorm scales, dropout on, against the plain path in fp64: "
+          f"kernels worst_leaf_rel_err={err_k[0]} ({err_k[1]}) plain worst_leaf_rel_err={err_p[0]} ({err_p[1]}) "
+          f"kernels vs plain worst_leaf_rel_err={_worst_leaf_err(kernels, ref)[0]}")
+    assert err_k[0] <= 2 * err_p[0], (err_k, err_p)
+    del model, batch, kernels, ref, exact
+
+    # the augmentation on the card: one bench datapoint, 17 clips
+    clips = torch.from_numpy(np.random.default_rng(3).integers(0, 256, size=(SHOTS + 1, 3, FRAMES, 224, 224),
+                                                               dtype=np.uint8)).to(dev)
+    gen = torch.Generator().manual_seed(0)
+
+    def augment():
+        return [apply_train_transform(c, draw_train_transform(gen)) for c in clips]
+
+    augment()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        out = augment()
+    torch.cuda.synchronize()
+    aug_ms = (time.perf_counter() - t0) / 3 * 1e3
+    assert all(bool(torch.isfinite(o).all()) and o.shape == (3, FRAMES, 224, 224) for o in out)
+    print(f"[{tag}] training augmentation (train_transform, {SHOTS + 1} clips of {FRAMES} x 224^2): "
+          f"ms_per_datapoint={aug_ms}")
+
+    # (d) the Trainer: loss falls; a run saved at TRAINER_SAVE_AT and resumed
+    # ends where the uninterrupted run ends
+    data = _train_dataset(TRAINER_DATAPOINTS, TRAINER_SHOTS, seed=4)
+    tok = WordTokenizer()
+
+    def train_batches(seed):
+        it = train_batch_iterator(data, tok, num_query_tokens=cfg.num_query_tokens, decoder_only_lm=True,
+                                  accum_steps=2, micro_batch_size=1, max_length=TRAINER_MAX_LEN,
+                                  num_frames=FRAMES, seed=11, device=dev)
+        return itertools.islice(it, seed - TRAINER_SEED, None)
+
+    def trainer_run(out_dir, steps, **kw):
+        logs = []
+        conf = dict(output_dir=out_dir, num_train_steps=steps, gradient_accumulation_steps=2,
+                    optimizer=OptimizerConfig(learning_rate=TRAINER_LR, warmup_steps=0, total_steps=TRAINER_STEPS),
+                    eval_steps=0, save_steps=0, log_steps=1, seed=TRAINER_SEED)
+        conf = TrainerConfig(**{**conf, **kw})
+        trainer = Trainer(model_f32(), conf, train_batches, logger=lambda step, m: logs.append(m))
+        t0 = time.perf_counter()
+        trainer.train()
+        torch.cuda.synchronize()
+        return trainer, logs, time.perf_counter() - t0
+
+    with tempfile.TemporaryDirectory(dir=os.path.dirname(os.path.abspath(__file__))) as root:
+        straight, logs, wall = trainer_run(os.path.join(root, "a"), TRAINER_STEPS)
+        losses = [m["loss"] for m in logs]
+        print(f"[{tag}] training (d) Trainer fp32 2+2+2, {TRAINER_STEPS} steps of 2 datapoints "
+              f"({TRAINER_SHOTS + 1} videos each, augmented on the card): losses={losses} wall_s={wall} "
+              f"last step_time_sec={logs[-1]['step_time_sec']} videos_per_sec={logs[-1]['videos_per_sec']}")
+        assert all(np.isfinite(losses)) and np.mean(losses[-2:]) < np.mean(losses[:2]), losses
+        first, _, _ = trainer_run(os.path.join(root, "b"), TRAINER_SAVE_AT, save_steps=TRAINER_SAVE_AT)
+        del first
+        resumed, _, _ = trainer_run(os.path.join(root, "b"), TRAINER_STEPS, resume_from_checkpoint=True)
+        same = all(torch.equal(p, resumed.state.trainable[k]) for k, p in straight.state.trainable.items())
+        print(f"[{tag}] training (d) saved at step {TRAINER_SAVE_AT}, resumed to {resumed.state.step}: "
+              f"final trainable state equal to the uninterrupted run's={same}")
+        assert resumed.state.step == straight.state.step == TRAINER_STEPS and same
+        del straight, resumed
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def run_training(tag: str, dev) -> list:
+    """Phase 9. Returns the variants' rows."""
+    from eilev_tpu_torch import configs
+
+    t0 = time.perf_counter()
+    rows = run_train_variants(tag, dev, configs.blip2_opt_2_7b())
+    run_train_f32(tag, dev)
+    print(f"[{tag}] training phase took {time.perf_counter() - t0} s")
+    return rows
+
+
 def main(argv: list) -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke: no CUDA device; this script runs only on a GPU")
@@ -2059,6 +2512,9 @@ def main(argv: list) -> int:
         gc.collect()
         torch.cuda.empty_cache()
         run_f32_paths(tag, dev, launches)
+        gc.collect()
+        torch.cuda.empty_cache()
+        training = run_training(tag, dev)
     except Exception:
         traceback.print_exc()
         return 1
@@ -2074,6 +2530,7 @@ def main(argv: list) -> int:
     # rows: check only, no phase runs int8 beam-5 at batch 4)
     print(json.dumps({"beam_decode_shapes": [
         dict(r, route="cuda", launches=launches.get(r["name"], 0)) for r in beam_rows]}))
+    print(json.dumps({"training": training}))
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                               "count": torch.cuda.device_count()}}))

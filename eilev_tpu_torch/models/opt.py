@@ -23,7 +23,16 @@ makes the projection and FFN matmuls int8 layers (``ops/quantization.py``);
 ``int8_kv_cache`` stores k/v as int8 with bf16 per-(position, head) scales
 (``k_scale``/``v_scale``, (num_layers, B, max_len, H)), quantized as they are
 written. Not in this port yet, and raising ``NotImplementedError``:
-``remat`` and ``cache_append``.
+``cache_append``.
+
+Training (the no-cache forward): dropout at the JAX module's three sites
+(after the position embeddings, after attention, after fc2), active in
+training mode when the forward is given a mask source ``rng``
+(``ops/dropout.py``). With ``config.remat`` each layer runs under
+``torch.utils.checkpoint``: only the layer boundaries are saved for
+backward and the layer is recomputed there, drawing the same dropout masks
+(the mask source is rewound to the layer's entry), so the step is the one
+without remat, bit for bit.
 
 Class scoring (``score_with_prefix``, the ICL classify path) attends (B, C,
 L) class continuations to the shared (B, P) prompt cache with a class axis,
@@ -39,10 +48,12 @@ from typing import Any, Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..configs import OPTConfig
 from ..ops.attention import _scalar, dot_product_attention, make_causal_bias, mask_to_bias
 from ..ops.decode_attention import decode_attention_stacked, dequantize_kv, quantize_kv
+from ..ops.dropout import Dropout, MaskSource
 from ..ops.fused_attention import packed_qkv_causal_attention
 from ..ops.quantization import dense_cls
 
@@ -208,18 +219,19 @@ class OPTDecoderLayer(nn.Module):
         dense = dense_cls(config)
         self.fc1 = dense(d, config.ffn_dim, **kw)
         self.fc2 = dense(config.ffn_dim, d, **kw)
+        self.dropout_layer = Dropout(config.dropout)
 
     def _act(self, x: torch.Tensor) -> torch.Tensor:
         if self.config.activation_function == "relu":
             return F.relu(x)
         return F.gelu(x, approximate="none")
 
-    def _mlp(self, x: torch.Tensor) -> torch.Tensor:
+    def _mlp(self, x: torch.Tensor, rng: Optional[MaskSource] = None) -> torch.Tensor:
         pre_ln = self.config.do_layer_norm_before
         residual = x
         if pre_ln:
             x = self.final_layer_norm(x)
-        x = residual + self.fc2(self._act(self.fc1(x)))
+        x = residual + self.dropout_layer(self.fc2(self._act(self.fc1(x))), rng)
         if not pre_ln:
             x = self.final_layer_norm(x)
         return x
@@ -230,13 +242,15 @@ class OPTDecoderLayer(nn.Module):
         attn: dict,
         cache_kv: Optional[tuple] = None,
         cache_index: Optional[int] = None,
+        rng: Optional[MaskSource] = None,
     ) -> torch.Tensor:
         pre_ln = self.config.do_layer_norm_before
         x = self.self_attn_layer_norm(hidden_states) if pre_ln else hidden_states
-        x = hidden_states + self.self_attn(x, attn, cache_kv=cache_kv, cache_index=cache_index)
+        x = self.self_attn(x, attn, cache_kv=cache_kv, cache_index=cache_index)
+        x = hidden_states + self.dropout_layer(x, rng)
         if not pre_ln:
             x = self.self_attn_layer_norm(x)
-        return self._mlp(x)
+        return self._mlp(x, rng)
 
     def shared_prefix(
         self,
@@ -254,13 +268,40 @@ class OPTDecoderLayer(nn.Module):
         return self._mlp(x)
 
 
+def _remat_layer(layer: OPTDecoderLayer, x: torch.Tensor, attn: dict,
+                 rng: Optional[MaskSource]) -> torch.Tensor:
+    """One layer under ``torch.utils.checkpoint``: its input is saved, its
+    insides are recomputed in backward. ``checkpoint`` restores only the
+    global generators' states, so the mask source is rewound here: each run
+    of the layer (the forward and the recompute) starts from the source's
+    state at the layer's entry, and a recompute leaves the source where it
+    found it, even one that ``checkpoint`` stops early. After the forward the
+    source stands where the layer left it, as without remat."""
+    if rng is None:
+        return checkpoint(layer, x, attn, use_reentrant=False, preserve_rng_state=False)
+    entry = rng.get_state()
+    exit_state = []
+
+    def run(h: torch.Tensor) -> torch.Tensor:
+        before = rng.get_state()
+        rng.set_state(entry)
+        try:
+            out = layer(h, attn, rng=rng)
+            exit_state.append(rng.get_state())
+            return out
+        finally:  # also when checkpoint stops a recompute early, by raising
+            rng.set_state(before)
+
+    out = checkpoint(run, x, use_reentrant=False, preserve_rng_state=False)
+    rng.set_state(exit_state[0])
+    return out
+
+
 class OPTForCausalLM(nn.Module):
     """OPT with an explicit cache argument and the tied ``lm_head``."""
 
     def __init__(self, config: OPTConfig, *, device=None, dtype=None):
         super().__init__()
-        if config.remat:
-            raise NotImplementedError("remat is a training option; training is not ported yet")
         self.config = config
         kw = {"device": device, "dtype": dtype}
         self.embed_tokens = nn.Embedding(config.vocab_size, config.word_embed_proj_dim, **kw)
@@ -281,6 +322,7 @@ class OPTForCausalLM(nn.Module):
         self.layers = nn.ModuleList(
             OPTDecoderLayer(config, **kw) for _ in range(config.num_hidden_layers)
         )
+        self.embed_dropout = Dropout(config.dropout)
         self.final_norm = (
             nn.LayerNorm(config.hidden_size, eps=config.layer_norm_eps, **kw)
             if config.do_layer_norm_before
@@ -307,6 +349,7 @@ class OPTForCausalLM(nn.Module):
         attention_mask: Optional[torch.Tensor] = None,
         cache: Optional[Cache] = None,
         cache_append: bool = False,
+        rng: Optional[MaskSource] = None,
     ) -> tuple[torch.Tensor, Optional[Cache]]:
         """inputs_embeds: (B, S, word_embed_proj_dim). Returns (logits, cache).
 
@@ -314,6 +357,7 @@ class OPTForCausalLM(nn.Module):
         cache: the S tokens are written at ``cache['index']`` and the cache is
         updated in place. S > 1 is only allowed into a fresh cache (the
         prefill); S == 1 is a decode step over everything filled so far.
+        ``rng`` is the dropout mask source (training mode only).
         """
         if cache_append:
             raise NotImplementedError("multi-token cache appends are not ported yet")
@@ -348,12 +392,17 @@ class OPTForCausalLM(nn.Module):
         if self.project_in is not None:
             x = self.project_in(x)
         x = x + self.embed_positions(position_ids.long() + 2)
+        x = self.embed_dropout(x, rng)
 
+        remat = cache is None and self.config.remat and torch.is_grad_enabled()
         for i, layer in enumerate(self.layers):
+            if remat:
+                x = _remat_layer(layer, x, attn, rng)
+                continue
             ckv = None
             if cache is not None:
                 ckv = (cache["k"], cache["v"], cache.get("k_scale"), cache.get("v_scale"), i)
-            x = layer(x, attn, cache_kv=ckv, cache_index=cache_index)
+            x = layer(x, attn, cache_kv=ckv, cache_index=cache_index, rng=rng)
 
         logits = self.lm_head(self._pre_head(x))
         if cache is not None:

@@ -4,6 +4,21 @@ Time-flattened vision tower -> Q-Former over T*S image tokens -> linear
 projection -> video features scattered into the token embeddings at the
 positions flagged by ``video_input_mask`` -> OPT. Only the OPT language model
 is ported; a T5 ``text_config`` raises ``NotImplementedError``.
+
+The training forward (``forward`` with ``labels``) returns ``{"logits",
+"loss"}``, the loss HF's causal-LM cross entropy (:func:`masked_cross_entropy`
+of the logits shifted by one). Dropout is active in training mode when a mask
+source ``dropout_rng`` is given (``ops/dropout.py``). The vision tower runs
+without a graph when none of its parameters requires grad (the recipe
+freezes it), so its attention kernel K1, which has no backward, never sees a
+tensor that requires grad; the features that do require grad keep their
+graph through the scatter into the embeddings.
+
+Mixed precision as flax has it: ``dtype`` is the compute dtype and that of
+the frozen towers; ``trainable_dtype`` (default: ``dtype``) is that of the
+trainable subtree, the query tokens, Q-Former and language projection, which
+compute in ``dtype`` all the same (fp32 master weights inside a bf16 model,
+as the training recipe keeps them).
 """
 
 from __future__ import annotations
@@ -14,6 +29,8 @@ import torch
 from torch import nn
 
 from ..configs import OPTConfig, VideoBlipConfig
+from ..ops.dropout import MaskSource
+from .mixed_precision import MixedLinear
 from .opt import Cache, OPTForCausalLM
 from .qformer import QFormerModel
 from .vision import VideoVisionModel
@@ -35,7 +52,7 @@ class VideoBlipForConditionalGeneration(nn.Module):
     """The narration entry point. It builds on the card unless the caller
     passes ``device="cpu"``; its submodules keep PyTorch's ``device=None``."""
 
-    def __init__(self, config: VideoBlipConfig, *, device="cuda", dtype=None):
+    def __init__(self, config: VideoBlipConfig, *, device="cuda", dtype=None, trainable_dtype=None):
         super().__init__()
         if not isinstance(config.text_config, OPTConfig):
             raise NotImplementedError(
@@ -43,22 +60,28 @@ class VideoBlipForConditionalGeneration(nn.Module):
             )
         self.config = config
         kw = {"device": device, "dtype": dtype}
+        train_kw = {"device": device, "dtype": trainable_dtype or dtype}
         self.vision_model = VideoVisionModel(config.vision_config, **kw)
         self.query_tokens = nn.Parameter(
-            torch.zeros(config.num_query_tokens, config.qformer_config.hidden_size, **kw)
+            torch.zeros(config.num_query_tokens, config.qformer_config.hidden_size, **train_kw)
         )
-        self.qformer = QFormerModel(config.qformer_config, **kw)
-        self.language_projection = nn.Linear(
-            config.qformer_config.hidden_size, config.text_hidden_size, **kw
+        self.qformer = QFormerModel(config.qformer_config, **train_kw)
+        self.language_projection = MixedLinear(
+            config.qformer_config.hidden_size, config.text_hidden_size, **train_kw
         )
         self.language_model = OPTForCausalLM(config.text_config, **kw)
 
-    def encode_videos(self, pixel_values: torch.Tensor) -> torch.Tensor:
-        """(num_videos, C, T, H, W) -> (num_videos * num_query_tokens, text_hidden)."""
-        image_embeds, _ = self.vision_model(pixel_values)  # (V, T*S, vision_hidden)
+    def encode_videos(
+        self, pixel_values: torch.Tensor, dropout_rng: Optional[MaskSource] = None
+    ) -> torch.Tensor:
+        """(num_videos, C, T, H, W) -> (num_videos * num_query_tokens, text_hidden),
+        in the vision tower's dtype (the compute dtype)."""
+        frozen = not any(p.requires_grad for p in self.vision_model.parameters())
+        with torch.set_grad_enabled(torch.is_grad_enabled() and not frozen):
+            image_embeds, _ = self.vision_model(pixel_values)  # (V, T*S, vision_hidden)
         v = image_embeds.shape[0]
-        query = self.query_tokens.expand(v, *self.query_tokens.shape)
-        features = self.language_projection(self.qformer(query, image_embeds))
+        query = self.query_tokens.to(image_embeds.dtype).expand(v, *self.query_tokens.shape)
+        features = self.language_projection(self.qformer(query, image_embeds, rng=dropout_rng))
         return features.reshape(v * self.config.num_query_tokens, -1)
 
     def embed_and_scatter(
@@ -67,6 +90,7 @@ class VideoBlipForConditionalGeneration(nn.Module):
         pixel_values: Optional[torch.Tensor],
         video_input_mask: Optional[torch.Tensor],
         video_features: Optional[torch.Tensor] = None,
+        dropout_rng: Optional[MaskSource] = None,
     ) -> torch.Tensor:
         """Token embeddings with video features scattered at the mask positions.
 
@@ -80,8 +104,39 @@ class VideoBlipForConditionalGeneration(nn.Module):
         if video_input_mask is None:
             raise ValueError("video features need a video_input_mask")
         if video_features is None:
-            video_features = self.encode_videos(pixel_values)
+            video_features = self.encode_videos(pixel_values, dropout_rng)
         return scatter_video_features(inputs_embeds, video_input_mask, video_features)
+
+    def forward(
+        self,
+        input_ids: torch.Tensor,
+        attention_mask: Optional[torch.Tensor] = None,
+        pixel_values: Optional[torch.Tensor] = None,
+        video_input_mask: Optional[torch.Tensor] = None,
+        labels: Optional[torch.Tensor] = None,
+        dropout_rng: Optional[MaskSource] = None,
+    ) -> dict[str, torch.Tensor]:
+        """The training / scoring forward: ``{"logits"}``, and ``"loss"`` with
+        ``labels`` (HF's: shift by one, the mean over labels != -100). In
+        training mode with dropout rates above 0 it needs ``dropout_rng``, as
+        the JAX module needs a dropout key when ``deterministic=False``."""
+        if self.training and dropout_rng is None and self._has_dropout():
+            raise ValueError(
+                "a training-mode forward draws dropout masks: pass dropout_rng "
+                "(ops.dropout.DropoutRng), or call .eval()"
+            )
+        inputs_embeds = self.embed_and_scatter(
+            input_ids, pixel_values, video_input_mask, dropout_rng=dropout_rng
+        )
+        logits, _ = self.language_model(inputs_embeds, attention_mask=attention_mask, rng=dropout_rng)
+        out = {"logits": logits}
+        if labels is not None:
+            out["loss"] = masked_cross_entropy(logits[:, :-1], labels[:, 1:])
+        return out
+
+    def _has_dropout(self) -> bool:
+        q, t = self.config.qformer_config, self.config.text_config
+        return bool(q.hidden_dropout_prob or q.attention_probs_dropout_prob or t.dropout)
 
     def lm_embed(self, input_ids: torch.Tensor) -> torch.Tensor:
         return self.language_model.embed(input_ids)
@@ -98,6 +153,17 @@ class VideoBlipForConditionalGeneration(nn.Module):
         self, class_embeds: torch.Tensor, class_attention_mask: torch.Tensor, cache: Cache
     ) -> torch.Tensor:
         return self.language_model.score_with_prefix(class_embeds, class_attention_mask, cache)
+
+
+def masked_cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean cross entropy over the positions where labels != -100 (HF's
+    convention), log_softmax in fp32."""
+    valid = labels != -100
+    safe = torch.where(valid, labels, torch.zeros_like(labels)).long()
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    token_ll = torch.gather(logp, -1, safe[..., None])[..., 0]
+    token_loss = -torch.where(valid, token_ll, torch.zeros_like(token_ll))
+    return token_loss.sum() / valid.sum().clamp(min=1)
 
 
 def embed_and_scatter_chunked(

@@ -17,7 +17,9 @@ cache, or an fp32 query over an fp32 or int8 cache; anything else raises
 ``TypeError``. The wrapper counts its launches by cache in
 ``decode_attention_stacked.launches_bf16`` (K3, bf16 cache),
 ``.launches_f32`` (K3, fp32 cache) and ``.launches_int8`` (K4), and the K4
-launches with an fp32 query also in ``.launches_int8_f32``.
+launches with an fp32 query also in ``.launches_int8_f32``. It has no
+backward: with grad mode on, an input that requires grad raises
+``RuntimeError`` on both devices.
 
 On the card the split body runs K4, K3 with an fp32 model, and K3 in bf16
 where the written rule :func:`k3_split` says so: the S slots are split over
@@ -48,7 +50,7 @@ from typing import Optional
 import torch
 
 from .attention import plain_attention
-from .fused_attention import _device_kind, _model_scale
+from .fused_attention import _device_kind, _model_scale, refuse_grad
 
 #: dynamic shared memory one block may use on an H100 (232,448 bytes)
 SMEM_LIMIT = 227 * 1024
@@ -248,6 +250,8 @@ def decode_attention_stacked(
     ``layer`` is a run-time int: on the card it is a pointer offset into the
     stacked buffers, so no per-layer slice is materialized.
     """
+    refuse_grad("decode_attention_stacked", "decode_attention_stacked_reference",
+                q, k_buf, v_buf, k_scale, v_scale)
     kv_heads = kv_heads or num_heads
     if scale is None:
         scale = head_dim**-0.5

@@ -17,7 +17,9 @@ model) go to the fp32 body of ``csrc/attention_f32.cu``; other or mixed
 dtypes raise ``TypeError``. The wrapper counts every launch in
 ``flash_attention.launches``, the Hopper body's also in
 ``flash_attention.launches_sm90`` and the fp32 body's in
-``flash_attention.launches_f32``.
+``flash_attention.launches_f32``. It has no backward, as the Pallas kernel
+has none: with grad mode on, an input that requires grad raises
+``RuntimeError`` on both devices.
 
 What it computes is the Pallas body, not its blocking. The rounding points:
 
@@ -54,7 +56,7 @@ from typing import Optional
 import torch
 
 from .attention import _scalar
-from .fused_attention import _device_kind, _model_scale
+from .fused_attention import _device_kind, _model_scale, refuse_grad
 
 #: keys per block of the online softmax (the Pallas DEFAULT_BLOCK_KV)
 BLOCK_KV = 128
@@ -207,6 +209,7 @@ def flash_attention(
     On the card q, k, v are all bf16 or all fp32 and read in place through
     their strides (a layer slice of the stacked cache needs no copy).
     """
+    refuse_grad("flash_attention", "flash_attention_reference", q, k, v, bias)
     if _device_kind(q) == "cpu":
         return flash_attention_reference(
             q, k, v, padding_mask=padding_mask, bias=bias, causal=causal,

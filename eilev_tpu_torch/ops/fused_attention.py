@@ -11,8 +11,10 @@ A wrapper runs its plain twin for a CPU tensor. For a CUDA tensor it launches
 a hand-written kernel on the current stream or raises; nothing falls back:
 bf16 qkv goes to ``csrc/packed_attention.cu``, fp32 qkv (an fp32 model) to
 the fp32 body of ``csrc/attention_f32.cu``; any other dtype raises
-``TypeError``. Each wrapper counts its kernel launches in its ``launches``
-attribute, a plain integer, the fp32 body's also in ``launches_f32`` and
+``TypeError``. Neither has a backward (nor has either JAX kernel): each raises
+``RuntimeError`` when grad mode is on and its input requires grad
+(:func:`refuse_grad`), on both devices. Each wrapper counts its kernel
+launches in its ``launches`` attribute, a plain integer, the fp32 body's also in ``launches_f32`` and
 the bf16 two-pass body's also in ``launches_two_pass``.
 
 Which body a CUDA call takes is the written rule :func:`packed_body`. In
@@ -172,6 +174,21 @@ def _model_scale(value: float, dtype: torch.dtype) -> float:
     return _bf16(value) if dtype == torch.bfloat16 else float(value)
 
 
+def refuse_grad(wrapper: str, twin: str, *tensors: Optional[torch.Tensor]) -> None:
+    """Raise ``RuntimeError`` when grad mode is on and an input requires grad.
+
+    No kernel of this package has a backward, as no Pallas kernel has one in
+    the JAX package: a kernel's output would leave the autograd graph without
+    a word. Every wrapper calls this before it dispatches, so the same call
+    fails in the same way on the CPU (where the wrapper would run its
+    differentiable twin) and on the card. The twins stay differentiable."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{wrapper} has no backward: an input requires grad. Run it under "
+            f"torch.no_grad(), or differentiate through its plain twin {twin}"
+        )
+
+
 def _device_kind(t: torch.Tensor) -> str:
     if t.device.type not in ("cpu", "cuda"):
         raise ValueError(f"packed attention runs on cpu or cuda tensors, got {t.device}")
@@ -190,6 +207,7 @@ def packed_qkv_attention(
     qkv: (B, S, 3*num_heads*head_dim) laid out [q heads | k heads | v heads].
     Returns (B, S, num_heads*head_dim) in qkv.dtype. No masking.
     """
+    refuse_grad("packed_qkv_attention", "packed_qkv_attention_reference", qkv)
     if scale is None:
         scale = head_dim**-0.5
     if _device_kind(qkv) == "cpu":
@@ -220,6 +238,7 @@ def packed_qkv_causal_attention(
 
     padding_mask: (B, S) 0/1 keep-mask over keys. Queries are at offset 0.
     """
+    refuse_grad("packed_qkv_causal_attention", "packed_qkv_causal_attention_reference", qkv)
     if scale is None:
         scale = head_dim**-0.5
     if _device_kind(qkv) == "cpu":

@@ -8,7 +8,9 @@ twin. The wrapper runs the twin for a CPU tensor; for a CUDA tensor it
 launches the hand-written kernels of ``csrc/fused_mlp.cu`` on the current
 stream or raises, and counts the call in ``ln_mlp.launches``: the bf16 body
 for bf16 x and weights, the fp32 body for fp32 ones (an fp32 model; counted
-also in ``ln_mlp.launches_f32``), ``TypeError`` for anything else.
+also in ``ln_mlp.launches_f32``), ``TypeError`` for anything else. It has
+no backward: with grad mode on, an input that requires grad raises
+``RuntimeError`` on both devices.
 
 The JAX function's ``_pick_fb`` and its fallback to XLA are a TPU VMEM budget
 (one frame's fp32 fc1 activation under ~26 MB). They have no counterpart
@@ -24,6 +26,8 @@ rounding is the identity.
 from __future__ import annotations
 
 import torch
+
+from .fused_attention import refuse_grad
 
 # the product kernel's grid has one row of 128-row tiles per y index (< 65536)
 _MAX_ROWS = 65535 * 128
@@ -114,6 +118,7 @@ def ln_mlp(
 ) -> torch.Tensor:
     """K6: fc2(gelu(fc1(layernorm(x)))). x (B, S, D); w1 (D, F); w2 (F, D),
     the JAX (in, out) layout. Returns (B, S, D) in x.dtype."""
+    refuse_grad("ln_mlp", "ln_mlp_reference", x, ln_scale, ln_bias, w1, b1, w2, b2)
     if x.device.type == "cpu":
         return ln_mlp_reference(x, ln_scale, ln_bias, w1, b1, w2, b2, eps=eps)
     if x.device.type != "cuda":

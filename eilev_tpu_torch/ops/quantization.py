@@ -217,13 +217,14 @@ def quantize_qformer_params(params: Mapping[str, Any]) -> dict:
 
 
 def quantize_linears_(module: nn.Module, names: frozenset, cls=Int8Dense) -> int:
-    """Replace, in place, every ``nn.Linear`` under ``module`` whose attribute
-    name is in ``names`` by ``cls`` quantized from its own weight. Returns the
-    number replaced; layers already int8 stay as they are."""
+    """Replace, in place, every ``nn.Linear`` (or subclass, such as the
+    Q-Former's ``MixedLinear``) under ``module`` whose attribute name is in
+    ``names`` by ``cls`` quantized from its own weight. Returns the number
+    replaced; layers already int8 stay as they are."""
     count = 0
     for parent in list(module.modules()):
         for name, child in list(parent.named_children()):
-            if name in names and type(child) is nn.Linear:
+            if name in names and isinstance(child, nn.Linear):
                 setattr(parent, name, cls.from_linear(child))
                 count += 1
     return count

@@ -29,9 +29,11 @@ def random_params(flax_module, seed, *init_args, std=0.2, **init_kwargs):
 
 
 def load_port(module, params):
-    """Load a numpy flax tree into a port module (strict) and put it in eval mode."""
+    """Load a numpy flax tree into a port module (strict), freeze it and put
+    it in eval mode: with no parameter requiring grad, an inference call
+    reaches the kernel wrappers, which have no backward, without a graph."""
     module.load_state_dict(flax_to_state_dict(params), strict=True)
-    return module.eval()
+    return module.requires_grad_(False).eval()
 
 
 def to_np(x):

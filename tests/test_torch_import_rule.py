@@ -13,6 +13,7 @@ PORT_MODULES = [
     "eilev_tpu_torch.ops._build",
     "eilev_tpu_torch.ops.attention",
     "eilev_tpu_torch.ops.decode_attention",
+    "eilev_tpu_torch.ops.dropout",
     "eilev_tpu_torch.ops.flash_attention",
     "eilev_tpu_torch.ops.fused_attention",
     "eilev_tpu_torch.ops.fused_mlp",
@@ -22,6 +23,7 @@ PORT_MODULES = [
     "eilev_tpu_torch.models",
     "eilev_tpu_torch.models.convert",
     "eilev_tpu_torch.models.llama",
+    "eilev_tpu_torch.models.mixed_precision",
     "eilev_tpu_torch.models.opt",
     "eilev_tpu_torch.models.qformer",
     "eilev_tpu_torch.models.video_blip",
@@ -41,6 +43,11 @@ PORT_MODULES = [
     "eilev_tpu_torch.eval",
     "eilev_tpu_torch.eval.icl",
     "eilev_tpu_torch.eval.metrics",
+    "eilev_tpu_torch.training",
+    "eilev_tpu_torch.training.checkpoint",
+    "eilev_tpu_torch.training.data_module",
+    "eilev_tpu_torch.training.train_state",
+    "eilev_tpu_torch.training.trainer",
 ]
 
 _PROBE = """

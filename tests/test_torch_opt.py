@@ -99,12 +99,11 @@ def test_opt_prefill_and_decode_match_jax_cache(proj_dim):
 
 def test_opt_unported_modes_raise():
     tcfg = tconfigs.tiny_config().text_config
-    # the int8 serving modes are ported and build; remat is a training option
+    # the int8 serving modes are ported and build, and so is remat, the
+    # training option (tests/test_torch_remat.py)
     for flags in ({"quantize_matmuls": True}, {"int8_kv_cache": True},
-                  {"quantize_matmuls": True, "w8a8_prefill": True}):
+                  {"quantize_matmuls": True, "w8a8_prefill": True}, {"remat": True}):
         OPTForCausalLM(tconfigs.replace(tcfg, **flags))
-    with pytest.raises(NotImplementedError):
-        OPTForCausalLM(tconfigs.replace(tcfg, remat=True))
     model = OPTForCausalLM(tcfg)
     x = torch.zeros(1, 3, tcfg.hidden_size)
     with pytest.raises(NotImplementedError):
