@@ -48,12 +48,21 @@ final result line):
    JSON line of their own with their launches_two_pass, which come from this
    check only (no path reaches S > 2,048).
 2b. The fp32 bodies (an fp32 model) against their twins, TF32 off, atol =
-   rtol = 1e-4 (F32_TOL): K1 at (2, 257, 16x88); K2 at (2, 766, 32x80) with
-   all-ones and left- and right-padded masks (fully masked rows: the uniform
-   average of every V row); K3 and K4 (an fp32 query over the int8 cache) at
-   every decode shape (the narration's at batch 4 and 1, the text LM's),
-   with a fully masked row (uniform); K5 at (a), B = 1, and at (f) (left-padded rows exactly 0); K6
-   at (8, 257, 1408 -> 6144).
+   rtol = 1e-4 (F32_TOL): K1 at (2, 257, 16x88) and at the fp32 ViT's
+   (136, 257, 16x88); K2 at (2, 766, 32x80) with all-ones and left- and
+   right-padded masks (fully masked rows: the uniform average of every V
+   row), and at (1, 766) and (4, 766) all-ones; K3 and K4 (an fp32 query
+   over the int8 cache) at every decode shape (the narration's at batch 4
+   and 1, the text LM's), with a fully masked row (uniform); K5 at (a), B =
+   1 and B = 4 left-padded, and at (f) (left-padded rows exactly 0), and at
+   the edges of the fp32 attention body's tiling: D = 100 at S = L = 257;
+   8 heads over 2 kv heads with an (H, S, L) bias, q_offset 130 and 10
+   fully masked rows (exactly 0); q, k, v as views of a packed QKV of 3
+   heads x 33, so k and v are only 4-byte aligned; each fp32 K1, K2 and K5
+   call must raise its wrapper's launches_f32 by exactly one. A
+   torch.profiler trace of one fp32 SDPA call at K1's, K2's and K5 (a)'s
+   check shapes prints the kernels the yardstick runs. K6 at (8, 257, 1408
+   -> 6144).
 2c. K3 and K4 at the beam decode shapes (BEAM_DECODE_SHAPES: the flagship
    sample's 5 beams over the narration's cache at batch 1 and 4, so 5 and
    20 rows of 798 slots, 780 filled, 32 x 80, and the text LM's beam-4, 4
@@ -73,8 +82,11 @@ final result line):
    shapes are printed, the narration one goes in the kernels line (K3's
    batch-1 time is printed too). K5 is timed at (a), and against the plain
    path at and below the auto thresholds. The fp32 bodies are timed in the
-   same way at their check shapes, beside one fp32 SDPA call for K1, K2, K3
-   and K5, with bounds at the fp32 CUDA-core peak (67 TFLOP/s); the fp32
+   same way at their check shapes (and K1, K2, K5 at the full-path shapes of
+   2b), beside one fp32 SDPA call for K1, K2, K3 and K5; bounds at the fp32
+   CUDA-core peak (67 TFLOP/s), but for the fp32 attention body (K1, K2,
+   K5), which runs 3xTF32 on the tensor cores: 495 / 3 TFLOP/s
+   (H100_TF32X3_FLOPS), its CUDA-core bound printed beside it; the fp32
    K3/K4 rows of the kernels line are those at the narration's batch 1, the
    shape phase 8 runs them at.
 4. Drive the main path at the full eilev-blip2-opt-2.7b geometry with random
@@ -203,9 +215,11 @@ ones, whose launches come from phase 8), then the result line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 With ``--kernel-times DIR`` it imports eilev_tpu_torch from DIR instead (an
-unpacked parent commit, or this tree), builds K3-K5's sources there, and only
-times K3/K4 at the three decode shapes and K5 at (a), batch 1 and 4, twice
-each (printing which K3 body the tree's rule picks, where it has one), then
+unpacked parent commit, or this tree), builds K3-K5's sources and the fp32
+attention body there, and only times K3/K4 at the three decode shapes, K5
+at (a), batch 1 and 4, and the fp32 attention body at K1 (2 and 136, 257,
+16x88), K2 (2, 1 and 4, 766, 32x80) and K5 (a) batch 1 and 4, twice each
+(printing which K3 body the tree's rule picks, where it has one), then
 prints one JSON line of times: the A/B of a kernel change within one call
 (parent, change, change, parent). It checks nothing and prints no result
 line.
@@ -256,6 +270,9 @@ LLAMA_EOS = 2
 # tensor cores, fp32 on the CUDA cores, and HBM3
 H100_BF16_FLOPS = 989e12
 H100_F32_FLOPS = 67e12
+# fp32-accurate work as 3xTF32: three TF32 tensor-core products (495 TFLOP/s
+# dense) for each fp32 one, the fp32 attention body's design
+H100_TF32X3_FLOPS = 495e12 / 3
 H100_BYTES_PER_S = 3.35e12
 # the fp32 bodies against their twins (TF32 off on both sides): the twins
 # follow the same fp32 arithmetic and differ only in the order of fp32 sums
@@ -481,8 +498,9 @@ def build_kernels(tag: str, sources: tuple = ("packed_attention", "decode_attent
 
 def bound(flops: float, nbytes: float, peak: float = H100_BF16_FLOPS) -> tuple[float, str]:
     """The least time (ms) the card could take: the larger of the operations
-    over the peak for their type (bf16 tensor cores, or fp32 on the CUDA
-    cores) and the bytes over the memory rate."""
+    over the peak for their type (bf16 tensor cores; fp32 on the CUDA cores,
+    or fp32-accurate as 3xTF32 on the tensor cores) and the bytes over the
+    memory rate."""
     t_ops = flops / peak * 1e3
     t_bytes = nbytes / H100_BYTES_PER_S * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
@@ -856,7 +874,8 @@ def time_row(tag: str, r: dict) -> None:
     r["library_ms"] = None if lib is None else min(median_ms(lib), median_ms(lib)) / n
     r["bound_ms"], r["bound_by"] = r.pop("bound")
     print(f"[{tag}] {r['name']} kernel_ms={k_a},{k_b} plain_ms={p1},{p2} library_ms={r['library_ms']} "
-          f"bound_ms={r['bound_ms']} ({r['bound_by']}) (per launch)")
+          f"bound_ms={r['bound_ms']} ({r['bound_by']}) of_bound={100 * r['bound_ms'] / r['ms']}% "
+          f"max_abs_err={r['max_abs_err']} (per launch)")
 
 
 def check_beam_decode(tag: str, dev: torch.device) -> list[dict]:
@@ -985,9 +1004,15 @@ def check_f32_kernels(tag: str, dev: torch.device, g) -> tuple[list, list]:
     """The fp32 bodies (an fp32 model) against their twins on the card, TF32
     off, atol = rtol = F32_TOL; fully masked rows: the uniform average of
     every V row for K2/K3/K4 (finfo(float32).min is finite), exactly 0 for
-    K5. Returns the rows of the kernels line (timed at K1's, K2's, the
-    narration decode at batch 1, which phase 8 runs, K5 (a) and K6's shapes)
-    and extra timed rows (the other decode shapes)."""
+    K5. The fp32 attention body (K1, K2, K5: csrc/attention_f32.cu) is held
+    at its check shapes, at the full-path shapes (K1 at the fp32 ViT's 136
+    frames, K2 at the narration's batch 1 and 4, K5 (a) at batch 4
+    left-padded) and at the edges of its tiling (D = 100; grouped-query heads
+    with a bias and q_offset > 0; k and v only 4-byte aligned; fully masked
+    rows in both modes), each call counted in its wrapper's launches_f32.
+    Returns the rows of the kernels line (timed at K1's, K2's, the narration
+    decode at batch 1, which phase 8 runs, K5 (a) and K6's shapes) and extra
+    timed rows (the other decode shapes, the full-path shapes)."""
     from eilev_tpu_torch.ops import decode_attention as da
     from eilev_tpu_torch.ops import flash_attention as fl
     from eilev_tpu_torch.ops import fused_attention as fa
@@ -1001,39 +1026,96 @@ def check_f32_kernels(tag: str, dev: torch.device, g) -> tuple[list, list]:
                 "max_abs_err": err, "run": run, "plain": plain, "per_call": per_call, "library": library,
                 "bound": roofline}
 
-    b, s, nh, hd = 2, 257, 16, 88
-    qkv = torch.randn(b, s, 3 * nh * hd, device=dev, generator=g)
-    q_, k_, v_ = qkv.view(b, s, 3, nh, hd).permute(2, 0, 3, 1, 4)
-    k1 = lambda nh=nh, hd=hd, qkv=qkv: fa.packed_qkv_attention(qkv, nh, hd)  # noqa: E731
-    k1_plain = lambda nh=nh, hd=hd, qkv=qkv: fa.packed_qkv_attention_reference(qkv, nh, hd, hd**-0.5)  # noqa: E731
-    err = check_close(tag, f"K1 fp32 ({b},{s},{nh}x{hd})", k1(), k1_plain(), F32_TOL)
-    rows.append(row("packed_qkv_attention_f32", "attention_f32.cu", "eilev_tpu/ops/fused_attention.py:81", err,
-                    k1, k1_plain, lambda hd=hd, q_=q_, k_=k_, v_=v_: _sdpa(q_, k_, v_, scale=hd**-0.5),
-                    bound(4 * b * nh * s * s * hd, 4 * b * s * nh * hd * 4, H100_F32_FLOPS)))
+    def attn_bound(label, flops, nbytes):
+        """The fp32 attention body's bound: its operations as 3xTF32 on the
+        tensor cores (H100_TF32X3_FLOPS), its bytes at HBM's rate; the bound
+        at the CUDA-core fp32 peak is printed beside it, for rows read
+        against that peak."""
+        new, old = bound(flops, nbytes, H100_TF32X3_FLOPS), bound(flops, nbytes, H100_F32_FLOPS)
+        print(f"[{tag}] {label}: bound_ms={new[0]} ({new[1]}; 3xTF32 at 495/3 TFLOP/s); at the fp32 "
+              f"CUDA-core peak (67 TFLOP/s) {old[0]} ({old[1]})")
+        return new
 
-    b, s, nh, hd = 2, 766, 32, 80
-    qkv = torch.randn(b, s, 3 * nh * hd, device=dev, generator=g)
-    ones = torch.ones(b, s, dtype=torch.int32, device=dev)
-    padded = ones.clone()
-    padded[0, :150] = 0  # left: query rows 0-149 of row 0 see no kept key
-    padded[1, 600:] = 0  # right
-    errs = [check_close(tag, f"K2 fp32 ({b},{s},{nh}x{hd}) {name} mask",
-                        fa.packed_qkv_causal_attention(qkv, nh, hd, m),
-                        fa.packed_qkv_causal_attention_reference(qkv, nh, hd, m, hd**-0.5), F32_TOL)
-            for name, m in (("all-ones", ones), ("left- and right-padded", padded))]
-    out = fa.packed_qkv_causal_attention(qkv, nh, hd, padded)
-    v_mean = qkv.view(b, s, 3, nh * hd)[0, :, 2].mean(0)
-    torch.testing.assert_close(out[0, :150], v_mean.expand(150, -1), atol=F32_TOL, rtol=F32_TOL)
-    print(f"[{tag}] K2 fp32 fully masked rows: the uniform average of every V row")
-    q_, k_, v_ = qkv.view(b, s, 3, nh, hd).permute(2, 0, 3, 1, 4)
-    k2 = lambda nh=nh, hd=hd, qkv=qkv, m=ones: fa.packed_qkv_causal_attention(qkv, nh, hd, m)  # noqa: E731
-    k2_plain = lambda nh=nh, hd=hd, qkv=qkv, m=ones: fa.packed_qkv_causal_attention_reference(  # noqa: E731
-        qkv, nh, hd, m, hd**-0.5)
-    rows.append(row("packed_qkv_causal_attention_f32", "attention_f32.cu", "eilev_tpu/ops/fused_attention.py:187",
-                    max(errs), k2, k2_plain,
-                    lambda hd=hd, q_=q_, k_=k_, v_=v_: _sdpa(q_, k_, v_, is_causal=True, scale=hd**-0.5),
-                    bound(4 * b * nh * hd * s * (s + 1) // 2, 4 * b * s * nh * hd * 4 + b * s * 4, H100_F32_FLOPS)))
-    del qkv, out
+    def counted(fn, call):
+        """``call()``, which must launch ``fn``'s fp32 body exactly once."""
+        before = fn.launches_f32
+        out = call()
+        assert fn.launches_f32 == before + 1, f"launches_f32 rose by {fn.launches_f32 - before}, not 1"
+        return out
+
+    def sdpa_route(label, lib):
+        """The kernels one fp32 SDPA call runs (the yardstick's route), by a
+        torch.profiler trace of one call."""
+        from torch.profiler import ProfilerActivity, profile
+
+        lib()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            lib()
+            torch.cuda.synchronize()
+        kernels = [(e.key, getattr(e, "device_time_total", 0)) for e in prof.key_averages()
+                   if getattr(e, "device_time_total", 0) > 0]
+        print(f"[{tag}] fp32 SDPA route at {label}: {kernels or 'no device events in the trace'}")
+
+    # K1 (no mask, score-side scale): the check shape and the fp32 ViT's at
+    # narration batch 1 (136 frames)
+    for b in (2, 136):
+        s, nh, hd = 257, 16, 88
+        qkv = torch.randn(b, s, 3 * nh * hd, device=dev, generator=g)
+        q_, k_, v_ = qkv.view(b, s, 3, nh, hd).permute(2, 0, 3, 1, 4)
+        label = f"K1 fp32 ({b},{s},{nh}x{hd})"
+        k1 = lambda nh=nh, hd=hd, qkv=qkv: fa.packed_qkv_attention(qkv, nh, hd)  # noqa: E731
+        k1_plain = lambda nh=nh, hd=hd, qkv=qkv: fa.packed_qkv_attention_reference(qkv, nh, hd, hd**-0.5)  # noqa: E731
+        k1_lib = lambda hd=hd, q_=q_, k_=k_, v_=v_: _sdpa(q_, k_, v_, scale=hd**-0.5)  # noqa: E731
+        err = check_close(tag, label, counted(fa.packed_qkv_attention, k1), k1_plain(), F32_TOL)
+        r = row("packed_qkv_attention_f32", "attention_f32.cu", "eilev_tpu/ops/fused_attention.py:81", err,
+                k1, k1_plain, k1_lib, attn_bound(label, 4 * b * nh * s * s * hd, 4 * b * s * nh * hd * 4))
+        if b == 2:
+            sdpa_route(label, k1_lib)
+            rows.append(r)
+        else:
+            extra.append(dict(r, name=f"packed_qkv_attention_f32 at {label}"))
+        del qkv, q_, k_, v_, r
+
+    # K2 (causal, (B, S) padding, q-side scale): the check shape with
+    # all-ones and left- and right-padded masks, then the narration's batch 1
+    # and 4, unpadded as the narration's prompts are
+    for b in (2, 1, 4):
+        s, nh, hd = 766, 32, 80
+        qkv = torch.randn(b, s, 3 * nh * hd, device=dev, generator=g)
+        ones = torch.ones(b, s, dtype=torch.int32, device=dev)
+        label = f"K2 fp32 ({b},{s},{nh}x{hd})"
+        masks = [("all-ones", ones)]
+        if b == 2:
+            padded = ones.clone()
+            padded[0, :150] = 0  # left: query rows 0-149 of row 0 see no kept key
+            padded[1, 600:] = 0  # right
+            masks.append(("left- and right-padded", padded))
+        errs = [check_close(tag, f"{label} {name} mask",
+                            counted(fa.packed_qkv_causal_attention,
+                                    lambda m=m: fa.packed_qkv_causal_attention(qkv, nh, hd, m)),
+                            fa.packed_qkv_causal_attention_reference(qkv, nh, hd, m, hd**-0.5), F32_TOL)
+                for name, m in masks]
+        if b == 2:
+            out = fa.packed_qkv_causal_attention(qkv, nh, hd, padded)
+            v_mean = qkv.view(b, s, 3, nh * hd)[0, :, 2].mean(0)
+            torch.testing.assert_close(out[0, :150], v_mean.expand(150, -1), atol=F32_TOL, rtol=F32_TOL)
+            print(f"[{tag}] K2 fp32 fully masked rows (uniform = 1): the uniform average of every V row")
+            del out, padded
+        q_, k_, v_ = qkv.view(b, s, 3, nh, hd).permute(2, 0, 3, 1, 4)
+        k2 = lambda nh=nh, hd=hd, qkv=qkv, m=ones: fa.packed_qkv_causal_attention(qkv, nh, hd, m)  # noqa: E731
+        k2_plain = lambda nh=nh, hd=hd, qkv=qkv, m=ones: fa.packed_qkv_causal_attention_reference(  # noqa: E731
+            qkv, nh, hd, m, hd**-0.5)
+        k2_lib = lambda hd=hd, q_=q_, k_=k_, v_=v_: _sdpa(q_, k_, v_, is_causal=True, scale=hd**-0.5)  # noqa: E731
+        r = row("packed_qkv_causal_attention_f32", "attention_f32.cu", "eilev_tpu/ops/fused_attention.py:187",
+                max(errs), k2, k2_plain, k2_lib,
+                attn_bound(label, 4 * b * nh * hd * s * (s + 1) // 2, 4 * b * s * nh * hd * 4 + b * s * 4))
+        if b == 2:
+            sdpa_route(label, k2_lib)
+            rows.append(r)
+        else:
+            extra.append(dict(r, name=f"packed_qkv_causal_attention_f32 at {label}"))
+        del qkv, q_, k_, v_, r
 
     # K3 / K4 with an fp32 model at every decode shape
     for shape in DECODE_SHAPES:
@@ -1071,30 +1153,85 @@ def check_f32_kernels(tag: str, dev: torch.device, g) -> tuple[list, list]:
                       dict(k4, name=f"{k4['name']} at the {shape} shape")]
         del c, out, lib, k3, k4
 
-    # K5 with an fp32 model: (a) the LLaMA prefill at B = 1; (f) 300 queries
-    # into 320 slots with row 0 left-padded by 150, whose rows are exactly 0
+    # K5 with an fp32 model: (f) 300 queries into 320 slots with row 0
+    # left-padded by 150, whose rows are exactly 0; (a) the LLaMA prefill at
+    # B = 1 (the kernels line's row) and at B = 4 left-padded (timed beside
+    # it)
     errs = []
     q, k, v, mask = _k5_inputs(dev, g, 2, 300, 320, 32, 128, (150, 300), tail_empty=True)
     q, k, v = q.float(), k.float(), v.float()
     kw5 = dict(padding_mask=mask, causal=True, scale=128**-0.5)
-    out = fl.flash_attention(q, k, v, **kw5)
+    out = counted(fl.flash_attention, lambda: fl.flash_attention(q, k, v, **kw5))
     torch.cuda.synchronize()
     assert bool((out[0, :150] == 0).all()), "K5 fp32: a left-padded row is not exactly 0"
     errs.append(check_close(tag, "K5 fp32 (f) B=2 S=300 L=320 32x128 causal, row 0 left-padded by 150",
                             out, fl.flash_attention_reference(q, k, v, **kw5), F32_TOL))
-    q, k, v, mask = _k5_inputs(dev, g, 1, LLAMA_PROMPT, LLAMA_CACHE, 32, 128, tail_empty=True)
+    for b_a, real in ((1, (LLAMA_PROMPT,)), (4, LLAMA_REAL)):
+        q, k, v, mask = _k5_inputs(dev, g, b_a, LLAMA_PROMPT, LLAMA_CACHE, 32, 128, real, tail_empty=True)
+        q, k, v = q.float(), k.float(), v.float()
+        kw5 = dict(padding_mask=mask, causal=True, scale=128**-0.5)
+        label = f"K5 fp32 (a) LLaMA prefill B={b_a} S={LLAMA_PROMPT} L={LLAMA_CACHE} 32x128 causal real={real}"
+        out = counted(fl.flash_attention, lambda q=q, k=k, v=v, kw5=kw5: fl.flash_attention(q, k, v, **kw5))
+        torch.cuda.synchronize()
+        for i, n in enumerate(real):
+            assert bool((out[i, : LLAMA_PROMPT - n] == 0).all()), "K5 fp32: a left-padded row is not exactly 0"
+        err = check_close(tag, label, out, fl.flash_attention_reference(q, k, v, **kw5), F32_TOL)
+        qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        if b_a == 1:
+            # upper-left causal alignment masks the empty tail too: the same function
+            k5_lib = lambda qt=qt, kt=kt, vt=vt: _sdpa(qt, kt, vt, is_causal=True, scale=128**-0.5)  # noqa: E731
+        else:
+            keep = mask.bool()[:, None, None, :] & torch.ones(
+                LLAMA_PROMPT, LLAMA_CACHE, dtype=torch.bool, device=dev).tril()
+            k5_lib = lambda qt=qt, kt=kt, vt=vt, keep=keep: _sdpa(qt, kt, vt, attn_mask=keep,  # noqa: E731
+                                                                   scale=128**-0.5)
+        r = row("flash_attention_f32", "attention_f32.cu", "eilev_tpu/ops/flash_attention.py:157",
+                max(errs + [err]), lambda q=q, k=k, v=v, kw5=kw5: fl.flash_attention(q, k, v, **kw5),
+                lambda q=q, k=k, v=v, kw5=kw5: fl.flash_attention_reference(q, k, v, **kw5), k5_lib,
+                attn_bound(label, *_k5_causal_work(real, LLAMA_PROMPT, 32, 128, LLAMA_CACHE, elem=4)))
+        if b_a == 1:
+            sdpa_route(label, k5_lib)
+            rows.append(r)
+        else:
+            extra.append(dict(r, name="flash_attention_f32 at batch 4"))
+        del out, r
+
+    # the edges of the fp32 attention body's tiling, each through the K5
+    # wrapper (uniform = 0) and counted: (i) D = 100, a multiple of no 8-wide
+    # chunk, S = L = 257 (ragged 16-row and 8-key edges), no mask; (ii) 8
+    # query heads over 2 kv heads, an (H, S, L) bias, q_offset = 130 with a
+    # q-side scale, causal, batch row 0 left-padded so its query rows 0-9
+    # see no kept key (exactly 0); (iii) q, k, v as views of a packed QKV of
+    # 3 heads x 33: rows of 297 floats, k and v only 4-byte aligned, so the
+    # K/V tiles take 4-byte copies; causal with 30 left-padded keys
+    q, k, v, _ = _k5_inputs(dev, g, 2, 257, 257, 4, 100)
     q, k, v = q.float(), k.float(), v.float()
-    kw5 = dict(padding_mask=mask, causal=True, scale=128**-0.5)
-    errs.append(check_close(tag, "K5 fp32 (a) LLaMA prefill B=1 S=1984 L=2048 32x128 causal",
-                            fl.flash_attention(q, k, v, **kw5), fl.flash_attention_reference(q, k, v, **kw5), F32_TOL))
-    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-    rows.append(row("flash_attention_f32", "attention_f32.cu", "eilev_tpu/ops/flash_attention.py:157", max(errs),
-                    lambda q=q, k=k, v=v, kw5=kw5: fl.flash_attention(q, k, v, **kw5),
-                    lambda q=q, k=k, v=v, kw5=kw5: fl.flash_attention_reference(q, k, v, **kw5),
-                    lambda qt=qt, kt=kt, vt=vt: _sdpa(qt, kt, vt, is_causal=True, scale=128**-0.5),
-                    bound(*_k5_causal_work((LLAMA_PROMPT,), LLAMA_PROMPT, 32, 128, LLAMA_CACHE, elem=4),
-                          H100_F32_FLOPS)))
-    del out
+    check_close(tag, "K5 fp32 edge (i) D=100 B=2 S=L=257 4 heads, no mask",
+                counted(fl.flash_attention, lambda: fl.flash_attention(q, k, v, scale=100**-0.5)),
+                fl.flash_attention_reference(q, k, v, scale=100**-0.5), F32_TOL)
+    q = torch.randn(2, 70, 8, 80, device=dev, generator=g)
+    k, v = (torch.randn(2, 200, 2, 80, device=dev, generator=g) for _ in range(2))
+    mask = torch.ones(2, 200, dtype=torch.int32, device=dev)
+    mask[0, :140] = 0
+    kw5 = dict(padding_mask=mask, bias=torch.randn(8, 70, 200, device=dev, generator=g) * 2.0, causal=True,
+               q_offset=130, scale=80**-0.5, scale_query_first=True)
+    out = counted(fl.flash_attention, lambda: fl.flash_attention(q, k, v, **kw5))
+    torch.cuda.synchronize()
+    assert bool((out[0, :10] == 0).all()), "K5 fp32 edge (ii): a fully masked row is not exactly 0"
+    check_close(tag, "K5 fp32 edge (ii) GQA 8 over 2, (H,S,L) bias, q_offset 130, q-side scale, "
+                "10 fully masked rows (exactly 0)", out, fl.flash_attention_reference(q, k, v, **kw5), F32_TOL)
+    qkv = torch.randn(2, 100, 3 * 3 * 33, device=dev, generator=g)
+    q, k, v = qkv.view(2, 100, 3, 3, 33).unbind(2)
+    assert k.data_ptr() % 16 and v.data_ptr() % 16, "edge (iii) wants k and v off 16-byte alignment"
+    mask = torch.ones(2, 100, dtype=torch.int32, device=dev)
+    mask[0, :30] = 0
+    kw5 = dict(padding_mask=mask, causal=True, scale=33**-0.5)
+    out = counted(fl.flash_attention, lambda: fl.flash_attention(q, k, v, **kw5))
+    torch.cuda.synchronize()
+    assert bool((out[0, :30] == 0).all()), "K5 fp32 edge (iii): a fully masked row is not exactly 0"
+    check_close(tag, f"K5 fp32 edge (iii) packed QKV 3x33, k at {k.data_ptr() % 16} bytes past 16, causal, "
+                "30 left-padded keys", out, fl.flash_attention_reference(q, k, v, **kw5), F32_TOL)
+    del q, k, v, qkv, out, mask, kw5
 
     # K6 with an fp32 model: 8 frames of the ViT MLP shape, unit-scale inputs
     b, s, d, f = 8, 257, 1408, 6144
@@ -1111,12 +1248,15 @@ def check_f32_kernels(tag: str, dev: torch.device, g) -> tuple[list, list]:
 
 
 def kernel_times(tag: str, dev: torch.device, tree: str) -> None:
-    """The A/B timing of ``--kernel-times``: K3 and K4 at the decode shapes
-    and K5 at (a), batch 1 and 4, on the eilev_tpu_torch that was imported
-    (the one under ``tree``), kernel only, median of 20 twice each, per
-    launch. No check: the full run holds every kernel against its twin."""
+    """The A/B timing of ``--kernel-times``: K3 and K4 at the decode shapes,
+    K5 at (a), batch 1 and 4, and the fp32 attention body (K1, K2, K5 with
+    fp32 q, k, v) at its check shapes and the full-path ones, on the
+    eilev_tpu_torch that was imported (the one under ``tree``), kernel only,
+    median of 20 twice each, per launch. No check: the full run holds every
+    kernel against its twin."""
     from eilev_tpu_torch.ops import decode_attention as da
     from eilev_tpu_torch.ops import flash_attention as fl
+    from eilev_tpu_torch.ops import fused_attention as fa
 
     g = torch.Generator(device=dev).manual_seed(0)
     runs = {}
@@ -1131,6 +1271,16 @@ def kernel_times(tag: str, dev: torch.device, tree: str) -> None:
         q, k, v, mask = _k5_inputs(dev, g, b_a, LLAMA_PROMPT, LLAMA_CACHE, 32, 128, real, tail_empty=True)
         kw5 = dict(padding_mask=mask, causal=True, scale=128**-0.5)
         runs[f"K5 B={b_a}"] = ((lambda q=q, k=k, v=v, kw5=kw5: fl.flash_attention(q, k, v, **kw5)), 1)
+        q, k, v = q.float(), k.float(), v.float()
+        runs[f"K5 fp32 (a) B={b_a}"] = ((lambda q=q, k=k, v=v, kw5=kw5: fl.flash_attention(q, k, v, **kw5)), 1)
+    for b in (2, 136):
+        qkv = torch.randn(b, 257, 3 * 16 * 88, device=dev, generator=g)
+        runs[f"K1 fp32 ({b},257,16x88)"] = ((lambda qkv=qkv: fa.packed_qkv_attention(qkv, 16, 88)), 1)
+    for b in (2, 1, 4):
+        qkv = torch.randn(b, 766, 3 * 32 * 80, device=dev, generator=g)
+        ones = torch.ones(b, 766, dtype=torch.int32, device=dev)
+        runs[f"K2 fp32 ({b},766,32x80)"] = (
+            (lambda qkv=qkv, ones=ones: fa.packed_qkv_causal_attention(qkv, 32, 80, ones)), 1)
     times = {}
     for name, (fn, n) in runs.items():
         times[name] = [median_ms(fn) / n, median_ms(fn) / n]
@@ -2482,7 +2632,7 @@ def main(argv: list) -> int:
         tree = os.path.abspath(argv[1])
         sys.path.insert(0, tree)  # its eilev_tpu_torch, built into its own build/
         try:
-            build_kernels(tag, ("decode_attention", "flash_attention"))
+            build_kernels(tag, ("decode_attention", "flash_attention", "attention_f32"))
             kernel_times(tag, dev, tree)
         except Exception:
             traceback.print_exc()

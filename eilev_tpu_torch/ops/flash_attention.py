@@ -97,7 +97,9 @@ def flash_attention_reference(
 
     q: (B, S, H, D); k, v: (B, L, KVH, D) with KVH dividing H (head h reads kv
     head h // (H // KVH)); padding_mask: (B, L) 0/1 keep-mask; bias: (H, S, L)
-    additive, fp32. Returns (B, S, H, D) in q.dtype.
+    additive, fp32. Returns (B, S, H, D) in q.dtype. The recurrence runs in
+    fp32, or in fp64 for fp64 inputs (a yardstick for the fp32 body's
+    numerics).
     """
     _check_shapes(q, k, v, padding_mask, bias)
     b, s, h, d = q.shape
@@ -105,22 +107,23 @@ def flash_attention_reference(
     if scale is not None and scale_query_first:
         q = q * _scalar(scale, q)
     group = h // kvh
-    qh = q.permute(0, 2, 1, 3).float()  # (B, H, S, D)
-    kh = k.permute(0, 2, 1, 3).float().repeat_interleave(group, dim=1)
+    work = torch.float64 if q.dtype == torch.float64 else torch.float32
+    qh = q.permute(0, 2, 1, 3).to(work)  # (B, H, S, D)
+    kh = k.permute(0, 2, 1, 3).to(work).repeat_interleave(group, dim=1)
     vh = v.permute(0, 2, 1, 3).repeat_interleave(group, dim=1)
     q_pos = torch.arange(s, device=q.device)[:, None] + q_offset
-    m = torch.full((b, h, s, 1), NEG_INF, dtype=torch.float32, device=q.device)
-    l_sum = torch.zeros((b, h, s, 1), dtype=torch.float32, device=q.device)
-    acc = torch.zeros((b, h, s, d), dtype=torch.float32, device=q.device)
+    m = torch.full((b, h, s, 1), NEG_INF, dtype=work, device=q.device)
+    l_sum = torch.zeros((b, h, s, 1), dtype=work, device=q.device)
+    acc = torch.zeros((b, h, s, d), dtype=work, device=q.device)
     for k0 in range(0, l, BLOCK_KV):
         if causal and k0 > q_offset + s - 1:
             break  # every later block is wholly masked: a no-op in the recurrence
         k1 = min(k0 + BLOCK_KV, l)
-        sc = qh @ kh[:, :, k0:k1].transpose(-1, -2)  # (B, H, S, bk) fp32
+        sc = qh @ kh[:, :, k0:k1].transpose(-1, -2)  # (B, H, S, bk) in `work`
         if scale is not None and not scale_query_first:
             sc = sc * scale
         if bias is not None:
-            sc = sc + bias[None, :, :, k0:k1].float()
+            sc = sc + bias[None, :, :, k0:k1].to(work)
         masked = torch.zeros(1, 1, s, k1 - k0, dtype=torch.bool, device=q.device)
         if padding_mask is not None:
             masked = masked | (padding_mask[:, None, None, k0:k1] == 0)
@@ -133,7 +136,7 @@ def flash_attention_reference(
         p = torch.where(masked, 0.0, torch.exp(sc - ref))
         alpha = torch.where(m == NEG_INF, 0.0, torch.exp(m - ref))
         l_sum = alpha * l_sum + p.sum(dim=-1, keepdim=True)
-        acc = acc * alpha + p.to(v.dtype).float() @ vh[:, :, k0:k1].float()
+        acc = acc * alpha + p.to(v.dtype).to(work) @ vh[:, :, k0:k1].to(work)
         m = m_new
     out = acc / torch.where(l_sum == 0.0, 1.0, l_sum)
     return out.to(q.dtype).permute(0, 2, 1, 3)
@@ -145,8 +148,9 @@ def _check_cuda(q, k, v, padding_mask, bias) -> None:
         raise TypeError(f"the CUDA kernels take q, k, v all bf16 or all fp32, got "
                         f"{q.dtype}, {k.dtype}, {v.dtype}")
     d = q.shape[3]
-    if d % 8 or d > 128:
-        raise ValueError(f"the CUDA kernel takes head_dim % 8 == 0 and <= 128, got {d}")
+    if d > 128 or (q.dtype == torch.bfloat16 and d % 8):
+        # the fp32 body pads the head dim itself: any head_dim up to 128
+        raise ValueError(f"the CUDA kernel takes head_dim <= 128, and % 8 == 0 in bf16, got {d}")
     others = [t for t in (k, v, padding_mask, bias) if t is not None]
     if any(t.device != q.device for t in others):
         raise ValueError("q, k, v, the padding mask and the bias must be on one device")

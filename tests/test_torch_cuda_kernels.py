@@ -429,6 +429,85 @@ def test_flash_kernel_refuses_what_it_does_not_take(cuda):
         tfl.flash_attention(t, t, t)
 
 
+def _f32_edge_case(name, device):
+    """One call of the fp32 attention body (csrc/attention_f32.cu) at an edge
+    of its tiling: (wrapper, call, twin call, rows that see no kept key and
+    what they must be: "uniform" (the average of every V row) or "zero")."""
+    g = torch.Generator(device=device).manual_seed(11)
+
+    def rand(*shape):
+        return torch.randn(*shape, device=device, generator=g)
+
+    if name in ("k1_s257", "k2_s766_left_padded"):
+        b, s, nh, hd = (2, 257, 16, 88) if name == "k1_s257" else (2, 766, 4, 80)
+        qkv = rand(b, s, 3 * nh * hd)
+        if name == "k1_s257":  # 17 16-row groups, the last holding one row; a 1-key tail tile
+            return (tfa.packed_qkv_attention, lambda: tfa.packed_qkv_attention(qkv, nh, hd),
+                    lambda: tfa.packed_qkv_attention_reference(qkv, nh, hd, hd**-0.5), None)
+        mask = torch.ones(b, s, dtype=torch.int32, device=device)
+        mask[0, :150] = 0
+        v_mean = qkv.view(b, s, 3, nh * hd)[0, :, 2].mean(0)
+        return (tfa.packed_qkv_causal_attention, lambda: tfa.packed_qkv_causal_attention(qkv, nh, hd, mask),
+                lambda: tfa.packed_qkv_causal_attention_reference(qkv, nh, hd, mask, hd**-0.5),
+                ((0, slice(0, 150)), v_mean))
+    if name == "k5_1984_into_2048":
+        q, k, v = rand(1, 1984, 4, 128), rand(1, 2048, 4, 128), rand(1, 2048, 4, 128)
+        mask = torch.ones(1, 2048, dtype=torch.int32, device=device)
+        mask[:, 1984:] = 0
+        kw = dict(padding_mask=mask, causal=True, scale=128**-0.5)
+        dead = None
+    elif name == "d100":  # head dim a multiple of no 8-wide chunk
+        q, k, v = rand(2, 257, 4, 100), rand(2, 257, 4, 100), rand(2, 257, 4, 100)
+        kw = dict(scale=100**-0.5)
+        dead = None
+    elif name == "gqa4_bias_q_offset":  # 8 heads over 2, (H, S, L) bias, q_offset > 0, q-side scale
+        q, k, v = rand(2, 70, 8, 80), rand(2, 200, 2, 80), rand(2, 200, 2, 80)
+        mask = torch.ones(2, 200, dtype=torch.int32, device=device)
+        mask[0, :140] = 0  # query rows 0-9 of row 0 see no kept key
+        kw = dict(padding_mask=mask, bias=rand(8, 70, 200) * 2.0, causal=True, q_offset=130, scale=80**-0.5,
+                  scale_query_first=True)
+        dead = ((0, slice(0, 10)), "zero")
+    else:  # "packed_3x33_4byte": views of a packed QKV, rows of 297 floats, k and v 4-byte aligned
+        qkv = rand(2, 100, 3 * 3 * 33)
+        q, k, v = qkv.view(2, 100, 3, 3, 33).unbind(2)
+        assert k.data_ptr() % 16 and v.data_ptr() % 16
+        mask = torch.ones(2, 100, dtype=torch.int32, device=device)
+        mask[0, :30] = 0
+        kw = dict(padding_mask=mask, causal=True, scale=33**-0.5)
+        dead = ((0, slice(0, 30)), "zero")
+    return (tfl.flash_attention, lambda: tfl.flash_attention(q, k, v, **kw),
+            lambda: tfl.flash_attention_reference(q, k, v, **kw), dead)
+
+
+F32_EDGES = ["k1_s257", "k2_s766_left_padded", "k5_1984_into_2048", "d100", "gqa4_bias_q_offset",
+             "packed_3x33_4byte"]
+
+
+@pytest.mark.parametrize("name", F32_EDGES)
+def test_f32_attention_body_at_the_edges_of_its_tiling(cuda, name):
+    """The fp32 body of K1, K2 and K5 (3xTF32 on the tensor cores, K/V by
+    cp.async) against its twin at 1e-4 where its tiling is ragged: S and L
+    multiples of no tile (257, 766, 1,984 queries into 2,048 slots), D = 100,
+    grouped-query heads with a bias and q_offset > 0, k and v only 4-byte
+    aligned (4-byte copies), and fully masked rows in both modes (uniform =
+    1: the average of every V row; 0: exactly 0). Every call launches the
+    fp32 body once."""
+    fn, call, twin, dead = _f32_edge_case(name, cuda)
+    before = fn.launches_f32
+    out = call()
+    torch.cuda.synchronize()
+    assert fn.launches_f32 == before + 1
+    ref = twin()
+    if dead is not None:
+        rows, want = dead
+        if isinstance(want, str):
+            assert (out[rows] == 0).all() and (ref[rows] == 0).all()
+        else:
+            torch.testing.assert_close(out[rows], want.expand_as(out[rows]), **TOL[torch.float32])
+    assert torch.isfinite(out).all()
+    torch.testing.assert_close(out, ref, **TOL[torch.float32])
+
+
 def _mlp_inputs(b, s, d, f, device, seed=0):
     """bf16 inputs at the scale a trained layer keeps: x N(0, 1), LayerNorm
     scale 1 + N(0, 0.1), weights N(0, 1 / fan_in), so every activation is of

@@ -271,6 +271,24 @@ def test_dot_product_attention_gqa_matches_jax(impl):
     np.testing.assert_allclose(to_np(ours), np.asarray(ref), atol=1e-5, rtol=0)
 
 
+def test_cuda_check_head_dims():
+    """Read on CPU tensors (no launch): the fp32 body pads the head dim
+    itself, so fp32 takes any head_dim up to 128 (100; 33 as views of a
+    packed QKV of 3 heads, whose k and v are only 4-byte aligned); bf16 rows
+    are read with 16-byte loads, so bf16 takes multiples of 8; neither takes
+    more than 128."""
+    for d in (100, 33, 8, 128):
+        x = torch.zeros(2, 8, 2, d)
+        tflash._check_cuda(x, x, x, None, None)
+    q, k, v = torch.zeros(2, 8, 3 * 3 * 33).view(2, 8, 3, 3, 33).unbind(2)
+    assert k.data_ptr() % 16
+    tflash._check_cuda(q, k, v, None, None)
+    for dtype, d in ((torch.bfloat16, 12), (torch.bfloat16, 100), (torch.float32, 136), (torch.bfloat16, 136)):
+        x = torch.zeros(2, 8, 2, d, dtype=dtype)
+        with pytest.raises(ValueError, match="head_dim"):
+            tflash._check_cuda(x, x, x, None, None)
+
+
 def test_cuda_check_takes_bf16_or_fp32():
     """What the CUDA wrapper accepts, read on CPU tensors (no launch): q, k, v
     all bf16 (rows of 16-byte loads) or all fp32 (any row stride); fp16 or
