@@ -207,6 +207,33 @@ final result line):
    step; the loss falls; a run saved at step 4 and resumed ends with the
    uninterrupted run's trainable state, bit for bit. (e) K1 called under
    grad on a tensor that requires grad raises, launching nothing.
+10. HF checkpoints and the CLIs, after the training models are freed, at
+   the eilev-blip2-opt-2.7b widths with 4 ViT, 12 Q-Former and 4 OPT
+   layers (CKPT_LAYERS): (a) a bf16 model of N(0, 0.02) weights from a seed
+   exported by training.checkpoint.export_hf_safetensors (fp32) beside a
+   config.json written here, the export's seconds and GB/s; (b)
+   models.auto.load_model(dtype=bf16, param_dtype=bf16) onto the card,
+   timed (seconds and GB/s of the file): every tensor equal to the
+   source's, bit for bit, and greedy over bench.py's 16-shot prompt at
+   batch 1 with 32 new tokens counted (K1 = 4, K2 = 4, K3 = 4 per one-token
+   forward) and token-identical to the source model; (c) the CLIs' default,
+   load_model(dtype=bf16) with fp32 weights: counted the same, prefill
+   logits' min cosine over every position against (b)'s > 0.999; (d)
+   load_model(int8_lm=True, int8_kv=True) (bf16 compute): K4 = 4 per
+   one-token forward, K3 = 0, cosine > INT8_MIN_COSINE; (e) on (c)'s model,
+   cli.generate_narration_texts.run at batch 4 (4 datapoints of 16 shots +
+   a query over phase 4's frames, the ICL phase's word tokenizer, equal-length
+   unpadded prompts): one CSV row a datapoint, K1 = 4, K2 = 4, K3 = 4 per
+   one-token forward, finite logits; and cli.icl_eval.run at batch 4 (4
+   eval datapoints, 1 shot, the vendored class sets): verb-stage prompts
+   that fill their 64-token bucket (unpadded, finite scores), noun-stage
+   rows left-padded by the predicted verb's words and NaN on every class
+   exactly there (the reference behaviour), K1 = 8, K2 = 8, the F1 JSON
+   written; (f) cli.train_v2.run at phase 8's fp32 cut, from a checkpoint of
+   that cut loaded as the CLI loads it, 2 steps of 2 datapoints, an eval
+   and --export_hf (the fp32 K1 body on the frozen ViT): the export
+   reloaded through load_model holds the trainer's trainable tensors
+   exactly. The directories are temporary and deleted at the phase's end.
 
 Prints every number tagged with the card's name and power limit, then the
 JSON line of the beam shapes' K3/K4 rows, the JSON line of the training
@@ -229,6 +256,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import csv
 import dataclasses
 import gc
 import json
@@ -352,6 +380,10 @@ TRAINER_SEED = 42
 TRAINER_LR = 5e-3
 TRAINER_FULL_STEPS = 4  # the Trainer's timed steps at the full geometry, after one
 BF16_ROUNDOFF = 2.0**-7  # bf16's unit roundoff: a key bias's norm share "zero" in bf16
+# phase 10, checkpoints and CLIs: the exported model's ViT, Q-Former and OPT
+# layers (the widths are eilev-blip2-opt-2.7b's) and its weights' seed
+CKPT_LAYERS = (4, 12, 4)
+CKPT_SEED = 10
 # device sleep before each timed call: ~20 ms at the H100's 1.98 GHz, longer
 # than the host takes to enqueue a 32-layer decode step of the plain twin
 SLEEP_CYCLES = 40_000_000
@@ -1581,6 +1613,14 @@ class WordTokenizer:
         assert max(ids, default=0) < 50272, "word ids past OPT's vocabulary"
         return {"input_ids": ([self.bos_token_id] if add_special_tokens else []) + ids}
 
+    def batch_decode(self, rows, skip_special_tokens: bool = True) -> list:
+        """Known ids back to their words, others as ``<id>`` (the narration
+        CLI decodes with it)."""
+        words = {i: w for w, i in self.vocab.items()}
+        special = {self.bos_token_id, self.pad_token_id, self.eos_token_id}
+        return [" ".join(words.get(int(i), f"<{int(i)}>") for i in row
+                         if not (skip_special_tokens and int(i) in special)) for row in rows]
+
 
 def icl_class_sets() -> tuple[dict, dict]:
     """The vendored class sets: 187 verb prompts and 788 noun prompts."""
@@ -2616,6 +2656,333 @@ def run_training(tag: str, dev) -> list:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# phase 10: checkpoints and CLIs
+# ---------------------------------------------------------------------------
+
+
+def hf_config_dict(cfg) -> dict:
+    """The HF Blip2Config dict (config.json) of an OPT-backed VideoBlipConfig."""
+    v, q, t = cfg.vision_config, cfg.qformer_config, cfg.text_config
+    fields = {
+        "vision_config": (v, ("hidden_size", "intermediate_size", "num_hidden_layers", "num_attention_heads",
+                              "image_size", "patch_size", "layer_norm_eps", "qkv_bias", "hidden_act")),
+        "qformer_config": (q, ("hidden_size", "num_hidden_layers", "num_attention_heads", "intermediate_size",
+                               "cross_attention_frequency", "encoder_hidden_size", "layer_norm_eps", "hidden_act")),
+        "text_config": (t, ("vocab_size", "hidden_size", "num_hidden_layers", "num_attention_heads", "ffn_dim",
+                            "max_position_embeddings", "word_embed_proj_dim", "do_layer_norm_before",
+                            "activation_function", "bos_token_id", "eos_token_id", "pad_token_id")),
+    }
+    out = {"model_type": "blip-2", "num_query_tokens": cfg.num_query_tokens}
+    for key, (sub, names) in fields.items():
+        out[key] = {name: getattr(sub, name) for name in names}
+    out["text_config"]["model_type"] = "opt"
+    return out
+
+
+def write_hf_checkpoint(tag: str, model, cfg, path: str) -> float:
+    """``model`` exported with the port's export_hf_safetensors plus a
+    config.json written here; returns the file's bytes."""
+    from eilev_tpu_torch.models.auto import config_from_hf_dict
+    from eilev_tpu_torch.training.checkpoint import export_hf_safetensors
+
+    hf = hf_config_dict(cfg)
+    back = config_from_hf_dict(hf)
+    for sub in ("vision_config", "qformer_config", "text_config"):
+        want = {k: getattr(getattr(cfg, sub), k) for k in hf[sub] if k != "model_type"}
+        assert {k: getattr(getattr(back, sub), k) for k in want} == want, sub
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    f = export_hf_safetensors(model, cfg, path)
+    with open(os.path.join(path, "config.json"), "w") as fh:
+        json.dump(hf, fh)
+    secs = time.perf_counter() - t0
+    size = os.path.getsize(f)
+    print(f"[{tag}] checkpoints (a) export_hf_safetensors: {size} bytes (fp32) in {secs} s = {size / secs / 1e9} GB/s")
+    return size
+
+
+def timed_load(tag: str, label: str, path: str, size: int, dev, **kw):
+    """load_model onto ``dev``, timed to the last tensor's arrival."""
+    from eilev_tpu_torch.models.auto import load_model
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model, cfg = load_model(path, device=dev, **kw)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    print(f"[{tag}] checkpoints {label} load_model({kw}): {secs} s, {size / secs / 1e9} GB/s of the file, "
+          f"memory_allocated_bytes={torch.cuda.memory_allocated()}")
+    return model, cfg
+
+
+def lm_forward_log(model) -> list:
+    """(sequence length, all logits finite) of every LM forward, as phase 4 logs them."""
+    calls: list = []
+    model.language_model.register_forward_hook(
+        lambda mod, args, out: calls.append((args[0].shape[1], torch.isfinite(out[0]).all())))
+    return calls
+
+
+def prefill_cosine(tag: str, label: str, run, ref_logits, bar: float) -> None:
+    """Every prompt position's prefill logits held to ``ref_logits`` by cosine."""
+    a = run.prefill_logits(run.embeds()).float().flatten(0, 1)
+    b = ref_logits.float().flatten(0, 1)
+    cos = torch.nn.functional.cosine_similarity(a, b, dim=-1)
+    same = (a.argmax(-1) == b.argmax(-1)).float().mean().item()
+    print(f"[{tag}] checkpoints {label} prefill logits vs (b) over {a.shape[0]} positions: "
+          f"min_cosine={cos.min().item()} mean_cosine={cos.mean().item()} same_argmax_share={same}")
+    assert bool(torch.isfinite(a).all()) and cos.min().item() > bar, (label, cos.min().item())
+
+
+def run_narration_cli(tag: str, model, frames: np.ndarray, out_dir: str, dev) -> None:
+    """(e) cli.generate_narration_texts.run, bf16 at batch 4: 4 datapoints of
+    SHOTS shots + a query over phase 4's frames, greedy 32 tokens. Every
+    narration has the same word count, so the 4 prompts are of one length
+    and unpadded: a left-padded bf16 row decodes from NaN logits, as the
+    reference does (the NaN k/v of its padded slots)."""
+    from eilev_tpu_torch.cli import generate_narration_texts as cli
+
+    tok = WordTokenizer()
+    rng = np.random.default_rng(3)
+    verbs, nouns = ("takes", "cuts", "washes", "opens"), ("the knife", "an onion", "the pot", "a cup")
+    data = []
+    for d in range(4):
+        items = []
+        for s in range(SHOTS + 1):
+            i = d * (SHOTS + 1) + s
+            items.append({"frame_path": f"clip{i}|0", "video_uid": f"clip{i}", "clip_index": "0",
+                          "narration_text": f"#C C {verbs[rng.integers(4)]} {nouns[rng.integers(4)]}",
+                          "video": frames[i]})
+        data.append({"items": items})
+    out_csv = os.path.join(out_dir, "narration.csv")
+    args = cli.parse_args(["--model", "unused", "--eval_frames_dir", "unused", "--in_context_query_map_file",
+                           "unused", "--in_context_example_frames_dir", "unused", "--batch_size", "4",
+                           "--generation_config", json.dumps({"max_new_tokens": MAX_NEW_TOKENS,
+                                                              "eos_token_id": NEWLINE}),
+                           "--output_csv", out_csv, "--device", str(dev)])
+    lm_calls = lm_forward_log(model)
+    reset_counters()
+    t0 = time.perf_counter()
+    rows = cli.run(args, model, tok, {"dataset": data})
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = counters()
+    one_token = sum(1 for s_len, _ in lm_calls if s_len == 1)
+    want = narration_counts(model.config, "decode_attention_stacked_bf16")
+    want["decode_attention_stacked_bf16"] = model.config.text_config.num_hidden_layers * one_token
+    with open(out_csv, newline="") as f:
+        written = list(csv.DictReader(f))
+    print(f"[{tag}] checkpoints (e) narration CLI run, bf16 batch 4: wall_s={secs} rows={len(written)} "
+          f"launches {counts} one_token_lm_forwards={one_token} first row={written[0]}")
+    assert counts == want, (counts, want)
+    assert one_token >= 1 and all(bool(ok) for _, ok in lm_calls), "non-finite logits"
+    assert len(written) == len(rows) == 4
+    assert [r["frame_path"] for r in written] == [f"clip{d * (SHOTS + 1) + SHOTS}|0" for d in range(4)]
+    assert all(r["in_context_frame_paths"].count("|0") == SHOTS for r in written)
+
+
+def run_icl_cli(tag: str, model, frames: np.ndarray, out_dir: str, dev) -> None:
+    """(e) cli.icl_eval.run, bf16 at batch 4: 4 eval datapoints, one shot
+    each from 4 train datapoints (the videos are phase 4's frames), the
+    vendored class sets and the taxonomy they cover. The shots' narrations
+    are sized so that every verb-stage prompt fills its 64-token bucket
+    exactly (no left padding: finite scores); the noun stage adds the
+    predicted verb's words, so its rows are left-padded and score NaN on
+    every class, the reference behaviour, and are held to exactly that."""
+    import eilev_tpu_torch.eval.icl as icl_mod
+    from eilev_tpu_torch.cli import icl_eval as cli
+    from eilev_tpu_torch.data import clean_narration_text, generate_input_ids_and_labels_from_interleaved
+    from eilev_tpu_torch.eval.icl import FEW_SHOT_PROMPT
+
+    verbs, nouns = icl_class_sets()
+    tok = WordTokenizer()
+    q = model.config.num_query_tokens
+
+    def verb_stage_len(words: int) -> int:
+        narration = "#C C " + " ".join(["w"] * words)
+        built = generate_input_ids_and_labels_from_interleaved(
+            tok, [(" ".join([FEW_SHOT_PROMPT, clean_narration_text(narration)]), 1),
+                  (FEW_SHOT_PROMPT + " The camera wearer", 1)], None, q, True)
+        return len(built["input_ids"])
+
+    words = next(k for k in range(1, 65) if verb_stage_len(k) % 64 == 0)
+    vlist, nlist = sorted(set(verbs.values())), sorted(set(nouns.values()))
+
+    def datapoint(i: int) -> dict:
+        return {"frame_path": f"clip{i}|0", "narration_text": "#C C " + " ".join([f"word{i}"] * words),
+                "structured_verb": vlist[i % len(vlist)], "structured_noun": nlist[i % len(nlist)],
+                "video": frames[i]}
+
+    datasets = {"taxonomy": {"verbs": vlist, "nouns": nlist}, "verb_prompts": verbs, "noun_prompts": nouns,
+                "train": [datapoint(i) for i in range(4)], "eval": [datapoint(4 + i) for i in range(4)]}
+    out_json = os.path.join(out_dir, "icl.json")
+    args = cli.parse_args(["--model", "unused", "--fho_lta_taxonomy", "unused", "--fho_main", "unused",
+                           "--train_narrated_actions_dir", "unused", "--eval_narrated_actions_dir", "unused",
+                           "--num_shot", "1", "--output_json", out_json, "--device", str(dev)])
+    seen = []
+    inner = icl_mod.classify
+
+    def recording(m, **kw):
+        out = inner(m, **kw)
+        seen.append((out.float().cpu(), kw["prompt_attention_mask"].cpu()))
+        return out
+
+    icl_mod.classify = recording
+    try:
+        reset_counters()
+        t0 = time.perf_counter()
+        result = cli.run(args, model, tok, datasets)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = counters()
+    finally:
+        icl_mod.classify = inner
+    with open(out_json) as f:
+        written = json.load(f)
+    n_vit, n_lm = model.config.vision_config.num_hidden_layers, model.config.text_config.num_hidden_layers
+    print(f"[{tag}] checkpoints (e) ICL CLI run, bf16 batch 4 (1 shot, shot narrations of {words} words): "
+          f"wall_s={secs} verb_f1={written['verb_f1']} noun_f1={written['noun_f1']} launches {counts}")
+    assert counts["packed_qkv_attention"] == 2 * n_vit and counts["packed_qkv_causal_attention"] == 2 * n_lm, counts
+    assert written["verb_f1"] == result.verb_f1 and len(written["noun_predictions"]) == 4
+    (verb_scores, verb_mask), (noun_scores, noun_mask) = seen
+    assert bool((verb_mask == 1).all()) and bool(torch.isfinite(verb_scores).all()), "verb stage not clean"
+    padded = noun_mask[:, 0] == 0
+    print(f"[{tag}] checkpoints (e) ICL verb stage: {tuple(verb_scores.shape)} scores finite, unpadded; "
+          f"noun stage: {int(padded.sum())}/4 rows left-padded, NaN exactly there")
+    assert bool(torch.equal(torch.isnan(noun_scores), padded[:, None].expand_as(noun_scores)))
+
+
+def run_train_cli(tag: str, dev, out_dir: str) -> None:
+    """(f) cli.train_v2.run at phase 8's fp32 cut, 2 steps with --export_hf,
+    from a checkpoint of that cut loaded as the CLI loads it; the export
+    reloaded through load_model gives the trainer's trainable tensors."""
+    from eilev_tpu_torch.cli import train_v2 as cli
+    from eilev_tpu_torch.models import VideoBlipForConditionalGeneration
+    from eilev_tpu_torch.models.auto import load_model
+    from eilev_tpu_torch.training import partition_params
+
+    cfg = f32_cut_config()
+    src = VideoBlipForConditionalGeneration(cfg, device=dev)  # fp32
+    random_init_(src, torch.Generator(device=dev).manual_seed(49), std=0.02)
+    ckpt = os.path.join(out_dir, "cut")
+    size = write_hf_checkpoint(tag, src, cfg, ckpt)
+    del src
+    model, _ = timed_load(tag, "(f) fp32 cut", ckpt, size, dev, dtype=torch.float32)
+    train_out = os.path.join(out_dir, "train")
+    args = cli.parse_args(["--model_name_or_path", ckpt, "--train_frames_dir", "unused", "--val_frames_dir", "unused",
+                           "--dtype", "fp32", "--output_dir", train_out, "--num_train_steps", "2",
+                           "--per_device_train_batch_size", "1", "--gradient_accumulation_steps", "2",
+                           "--max_length", str(TRAINER_MAX_LEN), "--num_subsample_frames", str(FRAMES),
+                           "--train_num_in_context_examples_per_sample", str(TRAINER_SHOTS),
+                           "--learning_rate", str(TRAINER_LR), "--warmup_steps", "0", "--eval_steps", "2",
+                           "--save_steps", "2", "--logging_steps", "1", "--export_hf", "--device", str(dev)])
+    datasets = {"train": _train_dataset(4, TRAINER_SHOTS, seed=8), "val": _train_dataset(1, TRAINER_SHOTS, seed=9)}
+    reset_counters()
+    t0 = time.perf_counter()
+    trainer = cli.run(args, model, WordTokenizer(), datasets)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = counters()
+    print(f"[{tag}] checkpoints (f) train CLI run, fp32 2+2+2, 2 steps + eval + export: wall_s={secs} "
+          f"launches {counts}")
+    assert trainer.state.step == 2
+    assert counts["packed_qkv_attention_f32"] > 0 and counts["packed_qkv_attention"] == counts[
+        "packed_qkv_attention_f32"], counts
+    trained, _ = partition_params(dict(trainer.model.named_parameters()))
+    del trainer, model
+    reloaded, _ = timed_load(tag, "(f) the export", os.path.join(train_out, "hf"),
+                             os.path.getsize(os.path.join(train_out, "hf", "model.safetensors")), dev,
+                             dtype=torch.float32)
+    state = reloaded.state_dict()
+    same = all(torch.equal(state[k], p.detach()) for k, p in trained.items())
+    print(f"[{tag}] checkpoints (f) the export reloaded: {len(trained)} trainable tensors equal to the "
+          f"trainer's={same}")
+    assert same
+    del reloaded, state, trained
+
+
+def run_checkpoints(tag: str, dev) -> None:
+    """Phase 10: HF checkpoints and the three CLIs at the eilev-blip2-opt-2.7b
+    widths, depth cut to CKPT_LAYERS."""
+    import tempfile
+
+    from eilev_tpu_torch import configs
+    from eilev_tpu_torch.models import VideoBlipForConditionalGeneration
+
+    t_phase = time.perf_counter()
+    base = configs.blip2_opt_2_7b()
+    n_vit, n_qf, n_lm = CKPT_LAYERS
+    cfg = dataclasses.replace(
+        base,
+        vision_config=dataclasses.replace(base.vision_config, num_hidden_layers=n_vit),
+        qformer_config=dataclasses.replace(base.qformer_config, num_hidden_layers=n_qf),
+        text_config=dataclasses.replace(base.text_config, num_hidden_layers=n_lm))
+    with tempfile.TemporaryDirectory(dir=os.path.dirname(os.path.abspath(__file__))) as root:
+        # (a) the source model, bf16, N(0, 0.02), exported as fp32
+        src = VideoBlipForConditionalGeneration(cfg, device=dev, dtype=torch.bfloat16).eval()
+        random_init_(src, torch.Generator(device=dev).manual_seed(CKPT_SEED), std=0.02)
+        n_params = sum(p.numel() for p in src.parameters())
+        print(f"[{tag}] checkpoints (a) source model: eilev-blip2-opt-2.7b widths, {CKPT_LAYERS} ViT/Q-Former/OPT "
+              f"layers, {n_params} params, bf16")
+        ckpt = os.path.join(root, "ckpt")
+        size = write_hf_checkpoint(tag, src, cfg, ckpt)
+
+        # (b) bf16 weights: every tensor bit for bit, greedy tokens identical
+        loaded, _ = timed_load(tag, "(b) bf16", ckpt, size, dev, dtype=torch.bfloat16, param_dtype=torch.bfloat16)
+        ref_state, state = src.state_dict(), loaded.state_dict()
+        bits = set(ref_state) == set(state) and all(
+            state[k].dtype == v.dtype and torch.equal(state[k], v) for k, v in ref_state.items())
+        print(f"[{tag}] checkpoints (b) {len(state)} tensors equal to the source's, bit for bit={bits}")
+        assert bits
+        del ref_state, state
+        src_tokens = Narration(src, cfg, 1, dev).generate()
+        del src
+        run_b = Narration(loaded, cfg, 1, dev)
+        drive(tag, "checkpoints (b) bf16 load", run_b, lm_forward_log(loaded),
+              narration_counts(cfg, "decode_attention_stacked_bf16"), reps=1)
+        tokens = run_b.generate()
+        same = bool(torch.equal(tokens, src_tokens))
+        print(f"[{tag}] checkpoints (b) greedy batch 1, 32 new tokens, token-identical to the source model={same}: "
+              f"{tokens[0].tolist()}")
+        assert same
+        ref_logits = run_b.prefill_logits(run_b.embeds())
+
+        # (c) the CLIs' default: fp32 weights, bf16 compute
+        cli_model, _ = timed_load(tag, "(c) fp32 weights, bf16 compute", ckpt, size, dev, dtype=torch.bfloat16)
+        assert all(p.dtype == torch.float32 for p in cli_model.parameters())
+        run_c = Narration(cli_model, cfg, 1, dev)
+        drive(tag, "checkpoints (c) fp32 weights, bf16 compute", run_c, lm_forward_log(cli_model),
+              narration_counts(cfg, "decode_attention_stacked_bf16"), reps=1)
+        prefill_cosine(tag, "(c)", run_c, ref_logits, 0.999)
+
+        # (d) int8 LM + int8 KV cache
+        int8_model, _ = timed_load(tag, "(d) int8_lm + int8_kv", ckpt, size, dev, dtype=torch.bfloat16,
+                                   int8_lm=True, int8_kv=True)
+        run_d = Narration(int8_model, cfg, 1, dev)
+        drive(tag, "checkpoints (d) int8_lm + int8_kv", run_d, lm_forward_log(int8_model),
+              narration_counts(cfg, "decode_attention_stacked_int8"), reps=1)
+        prefill_cosine(tag, "(d)", run_d, ref_logits, INT8_MIN_COSINE)
+        del int8_model, run_d, loaded, run_b, ref_logits
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (e) the narration and ICL CLIs on the CLI-default model, phase 4's frames
+        frames = np.random.default_rng(1).integers(0, 256, size=(4 * (SHOTS + 1), 3, FRAMES, 224, 224),
+                                                   dtype=np.uint8)
+        run_narration_cli(tag, cli_model, frames, root, dev)
+        run_icl_cli(tag, cli_model, frames, root, dev)
+        del cli_model, run_c
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (f) the train CLI at the fp32 cut
+        run_train_cli(tag, dev, root)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[{tag}] checkpoints phase took {time.perf_counter() - t_phase} s")
+
+
 def main(argv: list) -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke: no CUDA device; this script runs only on a GPU")
@@ -2665,6 +3032,9 @@ def main(argv: list) -> int:
         gc.collect()
         torch.cuda.empty_cache()
         training = run_training(tag, dev)
+        gc.collect()
+        torch.cuda.empty_cache()
+        run_checkpoints(tag, dev)
     except Exception:
         traceback.print_exc()
         return 1

@@ -83,8 +83,7 @@ class TextLM:
         ``int8=True`` quantizes the LM's projection and FFN matmuls to int8
         weights (``ops/quantization.py``); ``int8_kv=True`` stores the KV cache
         in int8, read by kernel K4 on every decode step."""
-        from safetensors.torch import load_file
-
+        from ..models.safetensors_io import load_file
         from ..ops.quantization import quantize_model_
 
         with open(os.path.join(path, "config.json")) as f:

@@ -1,7 +1,9 @@
 """Weights into the port's ``state_dict`` (counterpart of ``eilev_tpu/models/convert.py``).
 
 Two sources: a flax parameter tree of the JAX package, and an HF checkpoint's
-state dict for the decoder-only LMs that ``generation/text_lm.TextLM`` loads.
+state dict: a whole ``VideoBlipForConditionalGeneration`` (``Blip2``-shaped,
+such as kpyu/eilev-blip2-opt-2.7b), or the decoder-only LMs that
+``generation/text_lm.TextLM`` loads.
 
 The port's modules carry the flax module names, so the flax mapping is by rule:
 
@@ -21,19 +23,29 @@ what ``jax.tree.map(np.asarray, params)`` gives; no jax is needed here.
 or ``OPTForCausalLM`` state dict straight onto the port's LM state dict, with
 q/k/v concatenated into ``qkv_proj`` along the output dim (the JAX
 converters' packing); :func:`llama_config_from_hf` and
-:func:`opt_config_from_hf` read the HF ``config.json`` dict. Loading a whole
-VideoBLIP HF checkpoint is not ported yet.
+:func:`opt_config_from_hf` read the HF ``config.json`` dict.
+
+:func:`convert_videoblip` maps a whole HF VideoBLIP state dict straight onto
+the port's names (no flax tree between): HF and the port both keep Linear
+weights (out, in); the vision patch conv (D, 3, p, p) becomes the unfold
+layout (3*p*p, D); ``query_tokens`` (1, Q, D) becomes (Q, D). Keys the
+query-only path never reads (the Q-Former's text-path FFN, the tied
+``lm_head``) are left. :func:`load_hf_checkpoint` reads a ``save_pretrained``
+directory through ``models/safetensors_io.py``, one tensor at a time onto
+the device. Only the OPT language model is ported: a T5 checkpoint raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import re
-from typing import Any, Mapping
+from typing import Any, Mapping, Optional
 
 import numpy as np
 import torch
 
 from ..configs import LlamaConfig, OPTConfig, VideoBlipConfig
+from .safetensors_io import SafetensorsDirectory
 
 _LAYER = re.compile(r"^layers_(\d+)$")
 _LEAF = {"kernel": "weight", "scale": "weight", "embedding": "weight"}
@@ -161,3 +173,106 @@ def opt_config_from_hf(hf: Mapping[str, Any]) -> OPTConfig:
         eos_token_id=hf.get("eos_token_id", 2),
         pad_token_id=hf.get("pad_token_id", 1),
     )
+
+
+class _Prefixed(Mapping):
+    """``sd`` seen under ``prefix``: ``view[k]`` is ``sd[prefix + k]``."""
+
+    def __init__(self, sd: Mapping[str, torch.Tensor], prefix: str):
+        self.sd, self.prefix = sd, prefix
+
+    def __getitem__(self, key: str) -> torch.Tensor:
+        return self.sd[self.prefix + key]
+
+    def __contains__(self, key: object) -> bool:
+        return isinstance(key, str) and (self.prefix + key) in self.sd
+
+    def __iter__(self):
+        n = len(self.prefix)
+        return (k[n:] for k in self.sd if k.startswith(self.prefix))
+
+    def __len__(self) -> int:
+        return sum(1 for _ in self)
+
+
+def _param(out: dict, sd: Mapping[str, torch.Tensor], src: str, dst: str) -> None:
+    """``src.weight`` (and ``src.bias`` where the checkpoint has one) -> ``dst.*``."""
+    out[f"{dst}.weight"] = sd[f"{src}.weight"]
+    if f"{src}.bias" in sd:
+        out[f"{dst}.bias"] = sd[f"{src}.bias"]
+
+
+def _under(prefix: str, sd: Mapping[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+    return {prefix + k: v for k, v in sd.items()}
+
+
+def convert_vision(sd: Mapping[str, torch.Tensor], num_layers: int) -> dict[str, torch.Tensor]:
+    """``vision_model.*`` of an HF Blip2 checkpoint -> the port's ``VisionModel``."""
+    p = sd["embeddings.patch_embedding.weight"]  # (D, 3, p, p)
+    d = p.shape[0]
+    out = {
+        # (D,3,p,p) -> (3,p,p,D) -> (3*p*p, D): the unfold layout (channel-major
+        # within a patch) of VisionEmbeddings
+        "embeddings.patch_kernel": p.permute(1, 2, 3, 0).reshape(-1, d).contiguous(),
+        "embeddings.patch_bias": sd["embeddings.patch_embedding.bias"],
+        "embeddings.class_embedding": sd["embeddings.class_embedding"].reshape(d),
+        "embeddings.position_embedding": sd["embeddings.position_embedding"].reshape(-1, d),
+    }
+    _param(out, sd, "post_layernorm", "post_layernorm")
+    for i in range(num_layers):
+        hf, ours = f"encoder.layers.{i}.", f"layers.{i}."
+        for name in ("layer_norm1", "layer_norm2", "self_attn.qkv", "self_attn.projection", "mlp.fc1", "mlp.fc2"):
+            _param(out, sd, hf + name, ours + name)
+    return out
+
+
+def convert_qformer(
+    sd: Mapping[str, torch.Tensor], num_layers: int, cross_attention_frequency: int
+) -> dict[str, torch.Tensor]:
+    """``qformer.*`` -> the port's query-only ``QFormerModel``: layer i carries
+    cross-attention where ``i % cross_attention_frequency == 0``."""
+    out: dict[str, torch.Tensor] = {}
+    _param(out, sd, "layernorm", "layernorm")
+    for i in range(num_layers):
+        hf, ours = f"encoder.layer.{i}.", f"layers.{i}."
+        blocks = ["attention"] + (["crossattention"] if i % cross_attention_frequency == 0 else [])
+        for blk in blocks:
+            for name in ("attention.query", "attention.key", "attention.value", "output.dense"):
+                _param(out, sd, f"{hf}{blk}.{name}", f"{ours}{blk}.{name}")
+            _param(out, sd, f"{hf}{blk}.output.LayerNorm", f"{ours}{blk}.output.layer_norm")
+        _param(out, sd, hf + "intermediate_query.dense", ours + "ffn_query.intermediate")
+        _param(out, sd, hf + "output_query.dense", ours + "ffn_query.output")
+        _param(out, sd, hf + "output_query.LayerNorm", ours + "ffn_query.layer_norm")
+    return out
+
+
+def convert_videoblip(state_dict: Mapping[str, torch.Tensor], config: VideoBlipConfig) -> dict[str, torch.Tensor]:
+    """A full HF ``VideoBlipForConditionalGeneration`` state dict -> the
+    port's ``VideoBlipForConditionalGeneration`` state dict. Each HF tensor is
+    looked up once, so a lazy mapping (``safetensors_io.TensorView``) reads
+    the checkpoint one tensor at a time."""
+    if not isinstance(config.text_config, OPTConfig):
+        raise NotImplementedError(
+            f"only the OPT language model is ported, got {type(config.text_config).__name__}"
+        )
+    q, qd = config.num_query_tokens, config.qformer_config.hidden_size
+    out = {"query_tokens": state_dict["query_tokens"].reshape(q, qd)}
+    out.update(_under("vision_model.vision.", convert_vision(
+        _Prefixed(state_dict, "vision_model."), config.vision_config.num_hidden_layers)))
+    out.update(_under("qformer.", convert_qformer(
+        _Prefixed(state_dict, "qformer."), config.qformer_config.num_hidden_layers,
+        config.qformer_config.cross_attention_frequency)))
+    _param(out, state_dict, "language_projection", "language_projection")
+    out.update(_under("language_model.", convert_opt(_Prefixed(state_dict, "language_model."), config.text_config)))
+    return out
+
+
+def load_hf_checkpoint(
+    path: str, config: VideoBlipConfig, *, dtype: Optional[torch.dtype] = None, device="cpu"
+) -> dict[str, torch.Tensor]:
+    """A ``save_pretrained`` directory (its ``*.safetensors``, one file or
+    shards) -> the port's state dict on ``device``, every floating-point
+    tensor cast to ``dtype`` (default: as stored). Raises
+    ``FileNotFoundError`` when the directory holds no ``*.safetensors``."""
+    with SafetensorsDirectory(path) as files:
+        return convert_videoblip(files.view(dtype=dtype, device=device), config)

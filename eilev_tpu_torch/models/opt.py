@@ -56,6 +56,7 @@ from ..ops.decode_attention import decode_attention_stacked, dequantize_kv, quan
 from ..ops.dropout import Dropout, MaskSource
 from ..ops.fused_attention import packed_qkv_causal_attention
 from ..ops.quantization import dense_cls
+from .mixed_precision import MixedLayerNorm, MixedLinear, mixed_dense_cls
 
 Cache = dict[str, Any]
 
@@ -104,7 +105,7 @@ class OPTAttention(nn.Module):
         self.config = config
         d = config.hidden_size
         kw = {"device": device, "dtype": dtype}
-        dense = dense_cls(config)  # nn.Linear, or Int8Dense when opted in
+        dense = mixed_dense_cls(dense_cls(config))  # or Int8Dense when opted in
         # packed [q | k | v] projection: one GEMM instead of three
         self.qkv_proj = dense(d, 3 * d, **kw)
         self.out_proj = dense(d, d, **kw)
@@ -214,9 +215,9 @@ class OPTDecoderLayer(nn.Module):
         kw = {"device": device, "dtype": dtype}
         d, eps = config.hidden_size, config.layer_norm_eps
         self.self_attn = OPTAttention(config, **kw)
-        self.self_attn_layer_norm = nn.LayerNorm(d, eps=eps, **kw)
-        self.final_layer_norm = nn.LayerNorm(d, eps=eps, **kw)
-        dense = dense_cls(config)
+        self.self_attn_layer_norm = MixedLayerNorm(d, eps=eps, **kw)
+        self.final_layer_norm = MixedLayerNorm(d, eps=eps, **kw)
+        dense = mixed_dense_cls(dense_cls(config))
         self.fc1 = dense(d, config.ffn_dim, **kw)
         self.fc2 = dense(config.ffn_dim, d, **kw)
         self.dropout_layer = Dropout(config.dropout)
@@ -298,11 +299,15 @@ def _remat_layer(layer: OPTDecoderLayer, x: torch.Tensor, attn: dict,
 
 
 class OPTForCausalLM(nn.Module):
-    """OPT with an explicit cache argument and the tied ``lm_head``."""
+    """OPT with an explicit cache argument and the tied ``lm_head``. It
+    computes in ``compute_dtype``: the embeddings are cast to it and every
+    layer casts its parameters at use. ``None`` (the default) follows the
+    parameters' dtype, also after a ``.to(dtype)`` of the module."""
 
-    def __init__(self, config: OPTConfig, *, device=None, dtype=None):
+    def __init__(self, config: OPTConfig, *, device=None, dtype=None, compute_dtype=None):
         super().__init__()
         self.config = config
+        self.compute_dtype = compute_dtype
         kw = {"device": device, "dtype": dtype}
         self.embed_tokens = nn.Embedding(config.vocab_size, config.word_embed_proj_dim, **kw)
         # +2 offset slots, like torch's OPTLearnedPositionalEmbedding
@@ -310,10 +315,10 @@ class OPTForCausalLM(nn.Module):
             config.max_position_embeddings + 2, config.hidden_size, **kw
         )
         if config.word_embed_proj_dim != config.hidden_size:
-            self.project_in = nn.Linear(
+            self.project_in = MixedLinear(
                 config.word_embed_proj_dim, config.hidden_size, bias=False, **kw
             )
-            self.project_out = nn.Linear(
+            self.project_out = MixedLinear(
                 config.hidden_size, config.word_embed_proj_dim, bias=False, **kw
             )
         else:
@@ -324,17 +329,18 @@ class OPTForCausalLM(nn.Module):
         )
         self.embed_dropout = Dropout(config.dropout)
         self.final_norm = (
-            nn.LayerNorm(config.hidden_size, eps=config.layer_norm_eps, **kw)
+            MixedLayerNorm(config.hidden_size, eps=config.layer_norm_eps, **kw)
             if config.do_layer_norm_before
             else None
         )
 
     def embed(self, input_ids: torch.Tensor) -> torch.Tensor:
-        return self.embed_tokens(input_ids)
+        embeds = self.embed_tokens(input_ids)
+        return embeds if self.compute_dtype is None else embeds.to(self.compute_dtype)
 
     def lm_head(self, hidden: torch.Tensor) -> torch.Tensor:
         # tied to embed_tokens, like OPTForCausalLM
-        return F.linear(hidden, self.embed_tokens.weight)
+        return F.linear(hidden, self.embed_tokens.weight.to(hidden.dtype))
 
     def _pre_head(self, x: torch.Tensor) -> torch.Tensor:
         if self.final_norm is not None:
@@ -391,7 +397,7 @@ class OPTForCausalLM(nn.Module):
         x = inputs_embeds
         if self.project_in is not None:
             x = self.project_in(x)
-        x = x + self.embed_positions(position_ids.long() + 2)
+        x = x + self.embed_positions(position_ids.long() + 2).to(x.dtype)
         x = self.embed_dropout(x, rng)
 
         remat = cache is None and self.config.remat and torch.is_grad_enabled()
@@ -434,7 +440,7 @@ class OPTForCausalLM(nn.Module):
         x = class_embeds
         if self.project_in is not None:
             x = self.project_in(x)
-        x = x + self.embed_positions(position_ids.long() + 2)
+        x = x + self.embed_positions(position_ids.long() + 2).to(x.dtype)
 
         # (B, 1, 1, 1, P) prompt padding / unfilled-slot bias
         prefix_bias = mask_to_bias(cache["mask"].bool())[:, None, None, None, :]

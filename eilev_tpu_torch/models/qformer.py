@@ -32,14 +32,13 @@ from ..configs import QFormerConfig
 from ..ops.attention import dot_product_attention
 from ..ops.dropout import Dropout, MaskSource
 from ..ops.quantization import vision_dense_cls
-from .mixed_precision import MixedLayerNorm, MixedLinear
+from .mixed_precision import MixedLayerNorm, mixed_dense_cls
 
 
 def _dense_cls(config: QFormerConfig) -> type:
     """The W8A8 layer in serving mode, else a layer that computes in its
     input's dtype."""
-    cls = vision_dense_cls(config)
-    return MixedLinear if cls is nn.Linear else cls
+    return mixed_dense_cls(vision_dense_cls(config))
 
 
 class QFormerMultiHeadAttention(nn.Module):

@@ -14,11 +14,14 @@ freezes it), so its attention kernel K1, which has no backward, never sees a
 tensor that requires grad; the features that do require grad keep their
 graph through the scatter into the embeddings.
 
-Mixed precision as flax has it: ``dtype`` is the compute dtype and that of
-the frozen towers; ``trainable_dtype`` (default: ``dtype``) is that of the
-trainable subtree, the query tokens, Q-Former and language projection, which
-compute in ``dtype`` all the same (fp32 master weights inside a bf16 model,
-as the training recipe keeps them).
+Mixed precision as flax has it: ``dtype`` is the compute dtype;
+``param_dtype`` (default: ``dtype``) is that of the frozen towers' weights,
+and ``trainable_dtype`` (default: ``param_dtype``) that of the trainable
+subtree, the query tokens, Q-Former and language projection. Every layer
+computes in ``dtype`` whatever its weights' dtype: fp32 master weights
+inside a bf16 model, as the training recipe keeps them, or fp32 weights
+everywhere under a bf16 compute, as the CLIs load a checkpoint
+(``models/auto.py:load_model``).
 """
 
 from __future__ import annotations
@@ -52,16 +55,22 @@ class VideoBlipForConditionalGeneration(nn.Module):
     """The narration entry point. It builds on the card unless the caller
     passes ``device="cpu"``; its submodules keep PyTorch's ``device=None``."""
 
-    def __init__(self, config: VideoBlipConfig, *, device="cuda", dtype=None, trainable_dtype=None):
+    def __init__(self, config: VideoBlipConfig, *, device="cuda", dtype=None, param_dtype=None,
+                 trainable_dtype=None):
         super().__init__()
         if not isinstance(config.text_config, OPTConfig):
             raise NotImplementedError(
                 f"only the OPT language model is ported, got {type(config.text_config).__name__}"
             )
         self.config = config
-        kw = {"device": device, "dtype": dtype}
-        train_kw = {"device": device, "dtype": trainable_dtype or dtype}
-        self.vision_model = VideoVisionModel(config.vision_config, **kw)
+        # a compute dtype of its own only where the weights differ from it;
+        # otherwise the towers follow their weights' dtype (so a .double() or
+        # .to(dtype) of the model moves the compute with them)
+        compute = None if param_dtype in (None, dtype) else (dtype or torch.get_default_dtype())
+        param_dtype = param_dtype or dtype
+        kw = {"device": device, "dtype": param_dtype}
+        train_kw = {"device": device, "dtype": trainable_dtype or param_dtype}
+        self.vision_model = VideoVisionModel(config.vision_config, compute_dtype=compute, **kw)
         self.query_tokens = nn.Parameter(
             torch.zeros(config.num_query_tokens, config.qformer_config.hidden_size, **train_kw)
         )
@@ -69,13 +78,19 @@ class VideoBlipForConditionalGeneration(nn.Module):
         self.language_projection = MixedLinear(
             config.qformer_config.hidden_size, config.text_hidden_size, **train_kw
         )
-        self.language_model = OPTForCausalLM(config.text_config, **kw)
+        self.language_model = OPTForCausalLM(config.text_config, compute_dtype=compute, **kw)
+
+    @property
+    def compute_dtype(self) -> torch.dtype:
+        """The dtype every tower computes in."""
+        lm = self.language_model
+        return lm.compute_dtype or lm.embed_tokens.weight.dtype
 
     def encode_videos(
         self, pixel_values: torch.Tensor, dropout_rng: Optional[MaskSource] = None
     ) -> torch.Tensor:
         """(num_videos, C, T, H, W) -> (num_videos * num_query_tokens, text_hidden),
-        in the vision tower's dtype (the compute dtype)."""
+        in the compute dtype."""
         frozen = not any(p.requires_grad for p in self.vision_model.parameters())
         with torch.set_grad_enabled(torch.is_grad_enabled() and not frozen):
             image_embeds, _ = self.vision_model(pixel_values)  # (V, T*S, vision_hidden)

@@ -9,6 +9,12 @@ module, so ``models/convert.py`` maps one tree onto the other by rule. With
 ``config.quantize_matmuls`` (serving mode) qkv/projection/fc1/fc2 are W8A8
 int8 layers (``ops/quantization.py``); the MLP's gelu follows the serving
 switch of ``ops/gelu.py``.
+
+Every layer computes in ``compute_dtype``, as flax's ``dtype``: the patch
+embedding casts the pixels and its parameters to it, and the layers cast
+their parameters at use (``models/mixed_precision.py``), so fp32 weights
+can serve a bf16 tower. ``None`` (the default) follows the parameters'
+dtype, also after a ``.to(dtype)`` of the module.
 """
 
 from __future__ import annotations
@@ -20,12 +26,14 @@ from ..configs import VisionConfig
 from ..ops.attention import packed_qkv_self_attention
 from ..ops.gelu import gelu
 from ..ops.quantization import vision_dense_cls
+from .mixed_precision import MixedLayerNorm, mixed_dense_cls
 
 
 class VisionEmbeddings(nn.Module):
-    def __init__(self, config: VisionConfig, *, device=None, dtype=None):
+    def __init__(self, config: VisionConfig, *, device=None, dtype=None, compute_dtype=None):
         super().__init__()
         self.config = config
+        self.compute_dtype = compute_dtype
         p, d = config.patch_size, config.hidden_size
         kw = {"device": device, "dtype": dtype}
         self.patch_kernel = nn.Parameter(torch.empty(3 * p * p, d, **kw))
@@ -43,10 +51,11 @@ class VisionEmbeddings(nn.Module):
         gh, gw = h // p, w // p
         x = pixel_values.reshape(b, c, gh, p, gw, p)
         x = x.permute(0, 2, 4, 1, 3, 5).reshape(b, gh * gw, c * p * p)
-        patches = x.to(self.patch_kernel.dtype) @ self.patch_kernel + self.patch_bias
-        cls = self.class_embedding.expand(b, 1, d)
+        cd = self.compute_dtype or self.patch_kernel.dtype
+        patches = x.to(cd) @ self.patch_kernel.to(cd) + self.patch_bias.to(cd)
+        cls = self.class_embedding.to(cd).expand(b, 1, d)
         embeddings = torch.cat([cls, patches], dim=1)
-        return embeddings + self.position_embedding[None, : embeddings.shape[1]]
+        return embeddings + self.position_embedding[None, : embeddings.shape[1]].to(cd)
 
 
 class VisionAttention(nn.Module):
@@ -55,7 +64,7 @@ class VisionAttention(nn.Module):
         self.config = config
         d = config.hidden_size
         kw = {"device": device, "dtype": dtype}
-        dense = vision_dense_cls(config)
+        dense = mixed_dense_cls(vision_dense_cls(config))
         # packed [q | k | v] projection; its bias is (q_bias, 0, v_bias) in HF
         self.qkv = dense(d, 3 * d, bias=config.qkv_bias, **kw)
         self.projection = dense(d, d, **kw)
@@ -72,7 +81,7 @@ class VisionMLP(nn.Module):
     def __init__(self, config: VisionConfig, *, device=None, dtype=None):
         super().__init__()
         kw = {"device": device, "dtype": dtype}
-        dense = vision_dense_cls(config)
+        dense = mixed_dense_cls(vision_dense_cls(config))
         self.fc1 = dense(config.hidden_size, config.intermediate_size, **kw)
         self.fc2 = dense(config.intermediate_size, config.hidden_size, **kw)
 
@@ -85,9 +94,9 @@ class VisionEncoderLayer(nn.Module):
         super().__init__()
         kw = {"device": device, "dtype": dtype}
         d, eps = config.hidden_size, config.layer_norm_eps
-        self.layer_norm1 = nn.LayerNorm(d, eps=eps, **kw)
+        self.layer_norm1 = MixedLayerNorm(d, eps=eps, **kw)
         self.self_attn = VisionAttention(config, **kw)
-        self.layer_norm2 = nn.LayerNorm(d, eps=eps, **kw)
+        self.layer_norm2 = MixedLayerNorm(d, eps=eps, **kw)
         self.mlp = VisionMLP(config, **kw)
 
     def forward(self, hidden_states: torch.Tensor) -> torch.Tensor:
@@ -98,14 +107,14 @@ class VisionEncoderLayer(nn.Module):
 class VisionModel(nn.Module):
     """Single-frame ViT. Returns (last_hidden_state, pooler_output)."""
 
-    def __init__(self, config: VisionConfig, *, device=None, dtype=None):
+    def __init__(self, config: VisionConfig, *, device=None, dtype=None, compute_dtype=None):
         super().__init__()
         kw = {"device": device, "dtype": dtype}
-        self.embeddings = VisionEmbeddings(config, **kw)
+        self.embeddings = VisionEmbeddings(config, compute_dtype=compute_dtype, **kw)
         self.layers = nn.ModuleList(
             VisionEncoderLayer(config, **kw) for _ in range(config.num_hidden_layers)
         )
-        self.post_layernorm = nn.LayerNorm(
+        self.post_layernorm = MixedLayerNorm(
             config.hidden_size, eps=config.layer_norm_eps, **kw
         )
 
@@ -122,9 +131,9 @@ class VisionModel(nn.Module):
 class VideoVisionModel(nn.Module):
     """(V, C, T, H, W) -> last_hidden_state (V, T*S, D), pooler_output (V, T, D)."""
 
-    def __init__(self, config: VisionConfig, *, device=None, dtype=None):
+    def __init__(self, config: VisionConfig, *, device=None, dtype=None, compute_dtype=None):
         super().__init__()
-        self.vision = VisionModel(config, device=device, dtype=dtype)
+        self.vision = VisionModel(config, device=device, dtype=dtype, compute_dtype=compute_dtype)
 
     def forward(self, pixel_values: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         v, c, t, h, w = pixel_values.shape

@@ -92,8 +92,9 @@ def _w8a8_f32(x2d: torch.Tensor, w8: torch.Tensor) -> torch.Tensor:
 
 class _Int8Linear(nn.Module):
     """Shared state of the int8 layers: ``w8`` (out, in) int8 and ``scale``
-    (out,) fp32 as buffers, an optional model-dtype ``bias`` parameter.
-    Constructed like ``nn.Linear``; ``dtype`` is the model (output) dtype."""
+    (out,) fp32 as buffers, an optional ``bias`` parameter. Constructed like
+    ``nn.Linear``; ``dtype`` is the bias's. The output is in the input's
+    dtype (the compute dtype), the bias cast to it."""
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True, *,
                  device=None, dtype=None):
@@ -120,9 +121,11 @@ class _Int8Linear(nn.Module):
         return mod
 
     def _finish(self, y32: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-        y = (y32 * self.scale).to(self.out_dtype)
+        # the output in the input's (the compute) dtype, which is the model
+        # dtype unless the float weights were loaded wider than the compute
+        y = (y32 * self.scale).to(x.dtype)
         if self.bias is not None:
-            y = y + self.bias
+            y = y + self.bias.to(y.dtype)
         return y.reshape(*x.shape[:-1], self.out_features)
 
     def extra_repr(self) -> str:

@@ -141,7 +141,7 @@ class VideoFeatureCache:
                 px = torch.cat([px, px.new_zeros(pad, *px.shape[1:])])
             if raw and self.preprocess is not None:
                 px = self.preprocess(px)
-            feats = self.model.encode_videos(px.to(param.dtype)).reshape(self.bucket, q, -1)
+            feats = self.model.encode_videos(px.to(self.model.compute_dtype)).reshape(self.bucket, q, -1)
             for j, i in enumerate(chunk_idx):
                 key = keys[i]
                 # a copy, so that an evicted entry frees its memory on its own

@@ -1,7 +1,7 @@
 """v2 training (counterpart of ``eilev_tpu/training``): the train state and
 optax-exact AdamW, the batch iterator with on-card augmentation, native
-checkpoints and the Trainer. ZeRO, pipeline parallelism and the HF export
-are not ported."""
+checkpoints with the HF safetensors export, and the Trainer. ZeRO and
+pipeline parallelism are not ported."""
 
 from .train_state import (
     OptimizerConfig,

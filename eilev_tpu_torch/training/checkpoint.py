@@ -11,8 +11,11 @@ directory named by a step is always whole, and read with
 ``torch.load(weights_only=True)``: the payload is tensors, dicts and numbers
 only.
 
-The HF safetensors export of the JAX module (``hf_state_dict``,
-``export_hf_safetensors``) is not ported yet.
+Interchange with the HF ecosystem goes through safetensors:
+``models/convert.load_hf_checkpoint`` imports, and :func:`export_hf_safetensors`
+writes the exact inverse mapping (:func:`hf_state_dict`) as fp32, so a
+trained model goes back to the torch reference and to either package's
+``load_model``.
 """
 
 from __future__ import annotations
@@ -20,10 +23,13 @@ from __future__ import annotations
 import os
 import shutil
 from concurrent.futures import Future, ThreadPoolExecutor
-from typing import Any, Optional
+from typing import Any, Mapping, Optional
 
 import torch
+from torch import nn
 
+from ..configs import OPTConfig, VideoBlipConfig
+from ..models.safetensors_io import save_file
 from .train_state import TrainState
 
 CHECKPOINT_FILE = "checkpoint.pt"
@@ -165,3 +171,91 @@ def _prune(ckpt_dir: str, keep: int) -> None:
     steps = sorted(int(d) for d in os.listdir(ckpt_dir) if d.isdigit())
     for s in steps[:-keep]:
         shutil.rmtree(os.path.join(ckpt_dir, str(s)), ignore_errors=True)
+
+
+# ---------------------------------------------------------------------------
+# HF safetensors export (inverse of models/convert.py:convert_videoblip)
+# ---------------------------------------------------------------------------
+
+
+def _put(out: dict, sd: Mapping[str, torch.Tensor], ours: str, hf: str) -> None:
+    """``ours.weight`` (and ``ours.bias`` where there is one) -> ``hf.*``."""
+    out[f"{hf}.weight"] = sd[f"{ours}.weight"]
+    if f"{ours}.bias" in sd:
+        out[f"{hf}.bias"] = sd[f"{ours}.bias"]
+
+
+def hf_state_dict(model: nn.Module, config: VideoBlipConfig) -> dict[str, torch.Tensor]:
+    """A port ``VideoBlipForConditionalGeneration`` -> the HF
+    ``VideoBlipForConditionalGeneration`` tensor names, each tensor as the
+    model holds it (views where the layout allows). The model must hold
+    float weights: a quantized one raises ``ValueError``."""
+    sd = model.state_dict()
+    if not isinstance(config.text_config, OPTConfig):
+        raise NotImplementedError(
+            f"only the OPT language model is ported, got {type(config.text_config).__name__}"
+        )
+    if any(k.endswith(".w8") for k in sd):
+        raise ValueError("hf_state_dict needs float weights: export the model before quantizing it")
+    out: dict[str, torch.Tensor] = {}
+    qd = config.qformer_config.hidden_size
+    out["query_tokens"] = sd["query_tokens"].reshape(1, config.num_query_tokens, qd)
+
+    vis, p = "vision_model.vision.", config.vision_config.patch_size
+    kernel = sd[vis + "embeddings.patch_kernel"]  # (3*p*p, D)
+    d = kernel.shape[1]
+    out["vision_model.embeddings.patch_embedding.weight"] = kernel.reshape(3, p, p, d).permute(3, 0, 1, 2)
+    out["vision_model.embeddings.patch_embedding.bias"] = sd[vis + "embeddings.patch_bias"]
+    out["vision_model.embeddings.class_embedding"] = sd[vis + "embeddings.class_embedding"].reshape(1, 1, d)
+    out["vision_model.embeddings.position_embedding"] = sd[vis + "embeddings.position_embedding"][None]
+    _put(out, sd, vis + "post_layernorm", "vision_model.post_layernorm")
+    for i in range(config.vision_config.num_hidden_layers):
+        for name in ("layer_norm1", "layer_norm2", "self_attn.qkv", "self_attn.projection", "mlp.fc1", "mlp.fc2"):
+            _put(out, sd, f"{vis}layers.{i}.{name}", f"vision_model.encoder.layers.{i}.{name}")
+
+    _put(out, sd, "qformer.layernorm", "qformer.layernorm")
+    freq = config.qformer_config.cross_attention_frequency
+    for i in range(config.qformer_config.num_hidden_layers):
+        ours, hf = f"qformer.layers.{i}.", f"qformer.encoder.layer.{i}."
+        for blk in ["attention"] + (["crossattention"] if i % freq == 0 else []):
+            for name in ("attention.query", "attention.key", "attention.value", "output.dense"):
+                _put(out, sd, f"{ours}{blk}.{name}", f"{hf}{blk}.{name}")
+            _put(out, sd, f"{ours}{blk}.output.layer_norm", f"{hf}{blk}.output.LayerNorm")
+        _put(out, sd, ours + "ffn_query.intermediate", hf + "intermediate_query.dense")
+        _put(out, sd, ours + "ffn_query.output", hf + "output_query.dense")
+        _put(out, sd, ours + "ffn_query.layer_norm", hf + "output_query.LayerNorm")
+
+    _put(out, sd, "language_projection", "language_projection")
+
+    tcfg, lm, base = config.text_config, "language_model.", "language_model.model.decoder."
+    out[base + "embed_tokens.weight"] = sd[lm + "embed_tokens.weight"]
+    out["language_model.lm_head.weight"] = out[base + "embed_tokens.weight"]
+    out[base + "embed_positions.weight"] = sd[lm + "embed_positions.weight"]
+    if tcfg.word_embed_proj_dim != tcfg.hidden_size:
+        _put(out, sd, lm + "project_in", base + "project_in")
+        _put(out, sd, lm + "project_out", base + "project_out")
+    if tcfg.do_layer_norm_before:
+        _put(out, sd, lm + "final_norm", base + "final_layer_norm")
+    d = tcfg.hidden_size
+    for i in range(tcfg.num_hidden_layers):
+        ours, hf = f"{lm}layers.{i}.", f"{base}layers.{i}."
+        # the packed qkv projection splits back into HF's three
+        qkv_w, qkv_b = sd[ours + "self_attn.qkv_proj.weight"], sd[ours + "self_attn.qkv_proj.bias"]
+        for j, proj in enumerate(("q_proj", "k_proj", "v_proj")):
+            out[f"{hf}self_attn.{proj}.weight"] = qkv_w[j * d : (j + 1) * d]
+            out[f"{hf}self_attn.{proj}.bias"] = qkv_b[j * d : (j + 1) * d]
+        for name in ("self_attn.out_proj", "self_attn_layer_norm", "final_layer_norm", "fc1", "fc2"):
+            _put(out, sd, ours + name, hf + name)
+    return out
+
+
+def export_hf_safetensors(model: nn.Module, config: VideoBlipConfig, path: str) -> str:
+    """Write ``<path>/model.safetensors`` (fp32, contiguous; the tied
+    ``lm_head`` written out as HF saves it) loadable by the torch reference
+    and by both packages' ``load_model`` once a ``config.json`` sits beside
+    it. Returns the file's path."""
+    os.makedirs(path, exist_ok=True)
+    sd = {k: v.detach().float().contiguous() for k, v in hf_state_dict(model, config).items()}
+    f = os.path.join(path, "model.safetensors")
+    save_file(sd, f)
+    return f

@@ -21,11 +21,14 @@ PORT_MODULES = [
     "eilev_tpu_torch.ops.preprocess",
     "eilev_tpu_torch.ops.quantization",
     "eilev_tpu_torch.models",
+    "eilev_tpu_torch.models.auto",
     "eilev_tpu_torch.models.convert",
     "eilev_tpu_torch.models.llama",
     "eilev_tpu_torch.models.mixed_precision",
     "eilev_tpu_torch.models.opt",
+    "eilev_tpu_torch.models.processing",
     "eilev_tpu_torch.models.qformer",
+    "eilev_tpu_torch.models.safetensors_io",
     "eilev_tpu_torch.models.video_blip",
     "eilev_tpu_torch.models.vision",
     "eilev_tpu_torch.generation",
@@ -48,6 +51,13 @@ PORT_MODULES = [
     "eilev_tpu_torch.training.data_module",
     "eilev_tpu_torch.training.train_state",
     "eilev_tpu_torch.training.trainer",
+    "eilev_tpu_torch.utils",
+    "eilev_tpu_torch.utils.logging",
+    "eilev_tpu_torch.utils.meters",
+    "eilev_tpu_torch.cli",
+    "eilev_tpu_torch.cli.generate_narration_texts",
+    "eilev_tpu_torch.cli.icl_eval",
+    "eilev_tpu_torch.cli.train_v2",
 ]
 
 _PROBE = """
