@@ -8,7 +8,8 @@ final result line):
 
 1. Print the card's name and power limit (nvidia-smi) and build the CUDA
    kernels from eilev_tpu_torch/csrc with nvcc, one process per source (five),
-   all started together.
+   all started together, beside one more nvcc of fused_mlp.cu whose
+   -Xptxas -v report (each K6 kernel's registers and spills) is printed.
 2. Check each kernel against its plain PyTorch twin in bf16 at the shapes of
    its path: K1 (packed ViT attention) at (136, 257, 3*1408), 16 heads x 88;
    K1 also past its whole-row limit, at S = 385, 577 (a 336^2 ViT) and 1,025
@@ -36,7 +37,8 @@ final result line):
    0 left-padded by 150 (a wholly masked key tile; its padded rows exactly
    0); (a) and (f) must take K5's Hopper body (launches_sm90 + 1 each),
    (b)-(e) its mma.sync body; K6 (LayerNorm -> MLP)
-   at the ViT MLP shape (136, 257, 1408 -> 6144), activations of unit scale.
+   at the ViT MLP shape (136, 257, 1408 -> 6144), activations of unit scale
+   from their own generator (K6_SEED).
    Tolerance atol = rtol = 2e-2 for K1-K3, K5 and K6 (one bf16 ulp of a
    rounded score, probability or activation moves an output by under 1%);
    3e-2 for K4 at the narration's batch 4 (the JAX int8 kernel test's bar)
@@ -62,7 +64,8 @@ final result line):
    call must raise its wrapper's launches_f32 by exactly one. A
    torch.profiler trace of one fp32 SDPA call at K1's, K2's and K5 (a)'s
    check shapes prints the kernels the yardstick runs. K6 at (8, 257, 1408
-   -> 6144).
+   -> 6144) and at the fp32 ViT's (136, 257), each call counted in
+   launches_f32.
 2c. K3 and K4 at the beam decode shapes (BEAM_DECODE_SHAPES: the flagship
    sample's 5 beams over the narration's cache at batch 1 and 4, so 5 and
    20 rows of 798 slots, 780 filled, 32 x 80, and the text LM's beam-4, 4
@@ -76,7 +79,9 @@ final result line):
    device sleep so that the events measure device time, then one PyTorch
    call of the same function where there is one (scaled_dot_product_attention
    with the kernel's mask and scale; none for K4 and K6), and compute each kernel's
-   bound from its shapes and this run's masks. K3/K4 are timed as one decode
+   bound from its shapes and this run's masks. K6, which no one PyTorch call
+   computes, is timed beside composite_ms: the port's own LayerNorm + MLP
+   modules (what the ViT runs in its place) on the same inputs. K3/K4 are timed as one decode
    step's 32 launches, one per layer of the 1 GB cache, so no call finds its
    layer in the 50 MB L2 cache; the time given is per launch; both decode
    shapes are printed, the narration one goes in the kernels line (K3's
@@ -85,8 +90,8 @@ final result line):
    same way at their check shapes (and K1, K2, K5 at the full-path shapes of
    2b), beside one fp32 SDPA call for K1, K2, K3 and K5; bounds at the fp32
    CUDA-core peak (67 TFLOP/s), but for the fp32 attention body (K1, K2,
-   K5), which runs 3xTF32 on the tensor cores: 495 / 3 TFLOP/s
-   (H100_TF32X3_FLOPS), its CUDA-core bound printed beside it; the fp32
+   K5) and K6's fp32 body, which run 3xTF32 on the tensor cores: 495 / 3
+   TFLOP/s (H100_TF32X3_FLOPS), the CUDA-core bound printed beside it; the fp32
    K3/K4 rows of the kernels line are those at the narration's batch 1, the
    shape phase 8 runs them at.
 4. Drive the main path at the full eilev-blip2-opt-2.7b geometry with random
@@ -103,7 +108,9 @@ final result line):
    to its MLP branch, captured during one encode, through K6 with that
    layer's weights (K6 = 39 launches, every other counter 0), against the
    twin (2e-2) and the port's own layer_norm2 + mlp modules (min cosine >
-   0.999; the modules round the fc1 output to bf16 before gelu).
+   0.999; the modules round the fc1 output to bf16 before gelu); then the
+   modules and K6 timed in turns on layer 0's input (also for phase 8's
+   fp32 model, at its 2 layers).
 4c. ICL classify on the same bf16 model, batch 4, 16 shots + 1 query video
    a row (8 frames x 224^2), the vendored class sets (187 verb prompts, 788
    noun prompts) tokenized by a word-level tokenizer with OPT's ids: (a)
@@ -238,14 +245,15 @@ final result line):
 Prints every number tagged with the card's name and power limit, then the
 JSON line of the beam shapes' K3/K4 rows, the JSON line of the training
 variants, then one JSON line of per-kernel results (every body: the bf16 ones and the fp32
-ones, whose launches come from phase 8), then the result line
+ones, whose launches come from phase 8; K6's rows also carry composite_ms), then the result line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 With ``--kernel-times DIR`` it imports eilev_tpu_torch from DIR instead (an
-unpacked parent commit, or this tree), builds K3-K5's sources and the fp32
+unpacked parent commit, or this tree), builds K3-K6's sources and the fp32
 attention body there, and only times K3/K4 at the three decode shapes, K5
-at (a), batch 1 and 4, and the fp32 attention body at K1 (2 and 136, 257,
-16x88), K2 (2, 1 and 4, 766, 32x80) and K5 (a) batch 1 and 4, twice each
+at (a), batch 1 and 4, the fp32 attention body at K1 (2 and 136, 257,
+16x88), K2 (2, 1 and 4, 766, 32x80) and K5 (a) batch 1 and 4, and K6 on
+phase 2's and 2b's inputs (bf16 at 136 frames, fp32 at 8 and 136), twice each
 (printing which K3 body the tree's rule picks, where it has one), then
 prints one JSON line of times: the A/B of a kernel change within one call
 (parent, change, change, parent). It checks nothing and prints no result
@@ -384,6 +392,11 @@ BF16_ROUNDOFF = 2.0**-7  # bf16's unit roundoff: a key bias's norm share "zero" 
 # layers (the widths are eilev-blip2-opt-2.7b's) and its weights' seed
 CKPT_LAYERS = (4, 12, 4)
 CKPT_SEED = 10
+# K6's inputs come from their own generator, so phases 2 and 2b and
+# --kernel-times run the same numbers at each shape
+K6_SEED = 6
+K6_COMPOSITE = ("models/vision.py MixedLayerNorm + VisionMLP (layer_norm2, fc1, gelu, fc2): what the ViT "
+                "runs in K6's place, several library calls, not one")
 # device sleep before each timed call: ~20 ms at the H100's 1.98 GHz, longer
 # than the host takes to enqueue a 32-layer decode step of the plain twin
 SLEEP_CYCLES = 40_000_000
@@ -522,10 +535,18 @@ def build_kernels(tag: str, sources: tuple = ("packed_attention", "decode_attent
         return time.perf_counter() - t0
 
     libs = {f"{src}.cu": getattr(_build, f"{src}_lib") for src in sources}
-    with ThreadPoolExecutor(max_workers=len(libs)) as pool:  # nvcc runs outside the GIL
+    # K6's registers, shared memory and spills, once (a tree from before
+    # ptxas_report has none to give)
+    report = getattr(_build, "ptxas_report", None) if "fused_mlp" in sources else None
+    with ThreadPoolExecutor(max_workers=len(libs) + 1) as pool:  # nvcc runs outside the GIL
         futures = {src: pool.submit(timed, fn) for src, fn in libs.items()}
+        ptxas = pool.submit(report, "fused_mlp.cu") if report else None
         for src, fut in futures.items():
             print(f"[{tag}] built eilev_tpu_torch/csrc/{src} in {fut.result()} s")
+        if ptxas is not None:
+            for line in ptxas.result().splitlines():
+                if "Compiling entry" in line or "registers" in line or "spill" in line:
+                    print(f"[{tag}] fused_mlp.cu nvcc -Xptxas -v: {line.strip()}")
 
 
 def bound(flops: float, nbytes: float, peak: float = H100_BF16_FLOPS) -> tuple[float, str]:
@@ -626,6 +647,43 @@ def _k6_work(m: int, d: int, f: int, elem: int = 2) -> tuple[float, float]:
     each; x, out and both weights in the model dtype (``elem`` bytes), the
     four vectors in fp32."""
     return 4 * m * d * f, 2 * m * d * elem + 2 * d * f * elem + (3 * d + f) * 4
+
+
+def _k6_args(dev, b: int, s: int, d: int, f: int, dtype=torch.bfloat16) -> list:
+    """K6's inputs at the scale a trained layer keeps, from K6_SEED: x N(0,
+    1), LayerNorm scale 1 + N(0, 0.1), weights N(0, 1 / fan_in), biases N(0,
+    0.1), so every activation is of unit scale and atol = rtol = 2e-2 (bf16,
+    the JAX kernel test's bar) or F32_TOL bites on every output."""
+    g = torch.Generator(device=dev).manual_seed(K6_SEED)
+    return [(torch.randn(*shape, device=dev, generator=g) * std + mean).to(dtype)
+            for shape, std, mean in (((b, s, d), 1.0, 0.0), ((d,), 0.1, 1.0), ((d,), 0.1, 0.0),
+                                     ((d, f), d**-0.5, 0.0), ((f,), 0.1, 0.0), ((f, d), f**-0.5, 0.0),
+                                     ((d,), 0.1, 0.0))]
+
+
+def _k6_composite(args: list, eps: float = 1e-6):
+    """What the ViT runs in K6's place, on K6's inputs: the port's own
+    layer_norm2 and mlp modules (MixedLayerNorm, then VisionMLP's fc1, gelu,
+    fc2) holding K6's weights, in the inputs' dtype. No kernel of the port
+    runs; the time is the kernels line's composite_ms, the yardstick for K6
+    where no single PyTorch call computes LayerNorm -> MLP."""
+    from eilev_tpu_torch.configs import VisionConfig
+    from eilev_tpu_torch.models.mixed_precision import MixedLayerNorm
+    from eilev_tpu_torch.models.vision import VisionMLP
+
+    x, ln_s, ln_b, w1, b1, w2, b2 = args
+    d, f = w1.shape
+    ln = MixedLayerNorm(d, eps=eps, device=x.device, dtype=x.dtype)
+    mlp = VisionMLP(VisionConfig(hidden_size=d, intermediate_size=f), device=x.device, dtype=x.dtype)
+    with torch.no_grad():
+        for param, value in ((ln.weight, ln_s), (ln.bias, ln_b), (mlp.fc1.weight, w1.T), (mlp.fc1.bias, b1),
+                             (mlp.fc2.weight, w2.T), (mlp.fc2.bias, b2)):
+            param.copy_(value)
+
+    def run():
+        with torch.inference_mode():
+            return mlp(ln(x))
+    return run
 
 
 def check_kernels(tag: str, dev: torch.device) -> list[dict]:
@@ -854,14 +912,9 @@ def check_kernels(tag: str, dev: torch.device) -> list[dict]:
     results_b4 = {"name": "flash_attention at batch 4", "max_abs_err": max(errs), **timed[4]}
 
     # K6 at the ViT MLP shape: the frames of one narration request x 257
-    # tokens, 1408 -> 6144 -> 1408, with activations of unit scale (x N(0, 1),
-    # LayerNorm scale 1 + N(0, 0.1), weights N(0, 1 / fan_in)), so atol = rtol
-    # = 2e-2, the JAX kernel test's bar, bites on every output
+    # tokens, 1408 -> 6144 -> 1408, with activations of unit scale
     b, s, d, f = 136, 257, 1408, 6144
-    k6_args = [(torch.randn(*shape, device=dev, generator=g) * std + mean).to(torch.bfloat16)
-               for shape, std, mean in (((b, s, d), 1.0, 0.0), ((d,), 0.1, 1.0), ((d,), 0.1, 0.0),
-                                        ((d, f), d**-0.5, 0.0), ((f,), 0.1, 0.0), ((f, d), f**-0.5, 0.0),
-                                        ((d,), 0.1, 0.0))]
+    k6_args = _k6_args(dev, b, s, d, f)
     k6 = lambda: fm.ln_mlp(*k6_args)  # noqa: E731
     k6_plain = lambda: fm.ln_mlp_reference(*k6_args)  # noqa: E731
     err = check_close(tag, "K6 ln_mlp (136,257,1408 -> 6144) unit-scale activations", k6(), k6_plain(), 2e-2)
@@ -869,6 +922,7 @@ def check_kernels(tag: str, dev: torch.device) -> list[dict]:
                     "replaces": "eilev_tpu/ops/fused_mlp.py:101",
                     "max_abs_err": err, "run": k6, "plain": k6_plain, "per_call": 1,
                     "library": None,  # no single PyTorch call computes LayerNorm -> MLP
+                    "composite": _k6_composite(k6_args),
                     "bound": bound(*_k6_work(b * s, d, f))})
 
     # the v5e-chosen auto thresholds (q >= 1024, kv >= 2048) on this card: K5
@@ -904,9 +958,14 @@ def time_row(tag: str, r: dict) -> None:
     p2 = median_ms(plain) / n
     r["ms"], r["plain_ms"] = min(k_a, k_b), min(p1, p2)
     r["library_ms"] = None if lib is None else min(median_ms(lib), median_ms(lib)) / n
+    composite = r.pop("composite", None)
+    if composite is not None:  # K6: the modules it stands in for, not one call
+        r["composite_ms"] = min(median_ms(composite), median_ms(composite))
+        r["composite"] = K6_COMPOSITE
     r["bound_ms"], r["bound_by"] = r.pop("bound")
     print(f"[{tag}] {r['name']} kernel_ms={k_a},{k_b} plain_ms={p1},{p2} library_ms={r['library_ms']} "
-          f"bound_ms={r['bound_ms']} ({r['bound_by']}) of_bound={100 * r['bound_ms'] / r['ms']}% "
+          + (f"composite_ms={r['composite_ms']} " if composite is not None else "")
+          + f"bound_ms={r['bound_ms']} ({r['bound_by']}) of_bound={100 * r['bound_ms'] / r['ms']}% "
           f"max_abs_err={r['max_abs_err']} (per launch)")
 
 
@@ -1059,10 +1118,10 @@ def check_f32_kernels(tag: str, dev: torch.device, g) -> tuple[list, list]:
                 "bound": roofline}
 
     def attn_bound(label, flops, nbytes):
-        """The fp32 attention body's bound: its operations as 3xTF32 on the
-        tensor cores (H100_TF32X3_FLOPS), its bytes at HBM's rate; the bound
-        at the CUDA-core fp32 peak is printed beside it, for rows read
-        against that peak."""
+        """The bound of an fp32 body that runs 3xTF32 (the attention body and
+        K6): its operations on the tensor cores (H100_TF32X3_FLOPS), its
+        bytes at HBM's rate; the bound at the CUDA-core fp32 peak is printed
+        beside it, for rows read against that peak."""
         new, old = bound(flops, nbytes, H100_TF32X3_FLOPS), bound(flops, nbytes, H100_F32_FLOPS)
         print(f"[{tag}] {label}: bound_ms={new[0]} ({new[1]}; 3xTF32 at 495/3 TFLOP/s); at the fp32 "
               f"CUDA-core peak (67 TFLOP/s) {old[0]} ({old[1]})")
@@ -1265,30 +1324,36 @@ def check_f32_kernels(tag: str, dev: torch.device, g) -> tuple[list, list]:
                 "30 left-padded keys", out, fl.flash_attention_reference(q, k, v, **kw5), F32_TOL)
     del q, k, v, qkv, out, mask, kw5
 
-    # K6 with an fp32 model: 8 frames of the ViT MLP shape, unit-scale inputs
-    b, s, d, f = 8, 257, 1408, 6144
-    args = [torch.randn(*shape, device=dev, generator=g) * std + mean
-            for shape, std, mean in (((b, s, d), 1.0, 0.0), ((d,), 0.1, 1.0), ((d,), 0.1, 0.0),
-                                     ((d, f), d**-0.5, 0.0), ((f,), 0.1, 0.0), ((f, d), f**-0.5, 0.0),
-                                     ((d,), 0.1, 0.0))]
-    k6 = lambda args=args: fm.ln_mlp(*args)  # noqa: E731
-    k6_plain = lambda args=args: fm.ln_mlp_reference(*args)  # noqa: E731
-    err = check_close(tag, f"K6 ln_mlp fp32 ({b},{s},{d} -> {f})", k6(), k6_plain(), F32_TOL)
-    rows.append(row("ln_mlp_f32", "fused_mlp.cu", "eilev_tpu/ops/fused_mlp.py:101", err, k6, k6_plain, None,
-                    bound(*_k6_work(b * s, d, f, elem=4), H100_F32_FLOPS)))
+    # K6 with an fp32 model, unit-scale inputs: 8 frames of the ViT MLP shape
+    # (the kernels line's row) and the fp32 ViT's 136 (narration batch 1,
+    # phase 8's shape). Bound: both products as 3xTF32 on the tensor cores
+    # (H100_TF32X3_FLOPS), the CUDA-core one printed beside it
+    for b in (8, 136):
+        s, d, f = 257, 1408, 6144
+        args = _k6_args(dev, b, s, d, f, f32)
+        k6 = lambda args=args: fm.ln_mlp(*args)  # noqa: E731
+        k6_plain = lambda args=args: fm.ln_mlp_reference(*args)  # noqa: E731
+        err = check_close(tag, f"K6 ln_mlp fp32 ({b},{s},{d} -> {f})", counted(fm.ln_mlp, k6), k6_plain(), F32_TOL)
+        k6_row = row("ln_mlp_f32" if b == 8 else f"ln_mlp_f32 at ({b}, {s})", "fused_mlp.cu",
+                     "eilev_tpu/ops/fused_mlp.py:101", err, k6, k6_plain, None,
+                     attn_bound(f"K6 fp32 ({b},{s},{d} -> {f})", *_k6_work(b * s, d, f, elem=4)))
+        k6_row["composite"] = _k6_composite(args)
+        (rows if b == 8 else extra).append(k6_row)
     return rows, extra
 
 
 def kernel_times(tag: str, dev: torch.device, tree: str) -> None:
     """The A/B timing of ``--kernel-times``: K3 and K4 at the decode shapes,
-    K5 at (a), batch 1 and 4, and the fp32 attention body (K1, K2, K5 with
-    fp32 q, k, v) at its check shapes and the full-path ones, on the
-    eilev_tpu_torch that was imported (the one under ``tree``), kernel only,
-    median of 20 twice each, per launch. No check: the full run holds every
-    kernel against its twin."""
+    K5 at (a), batch 1 and 4, the fp32 attention body (K1, K2, K5 with
+    fp32 q, k, v) at its check shapes and the full-path ones, and K6 (bf16
+    at the ViT's 136 frames, fp32 at 8 and 136), on the eilev_tpu_torch that
+    was imported (the one under ``tree``), kernel only, median of 20 twice
+    each, per launch. No check: the full run holds every kernel against its
+    twin."""
     from eilev_tpu_torch.ops import decode_attention as da
     from eilev_tpu_torch.ops import flash_attention as fl
     from eilev_tpu_torch.ops import fused_attention as fa
+    from eilev_tpu_torch.ops import fused_mlp as fm
 
     g = torch.Generator(device=dev).manual_seed(0)
     runs = {}
@@ -1313,6 +1378,11 @@ def kernel_times(tag: str, dev: torch.device, tree: str) -> None:
         ones = torch.ones(b, 766, dtype=torch.int32, device=dev)
         runs[f"K2 fp32 ({b},766,32x80)"] = (
             (lambda qkv=qkv, ones=ones: fa.packed_qkv_causal_attention(qkv, 32, 80, ones)), 1)
+    # K6 on phase 2's and 2b's inputs
+    for b, dtype in ((136, torch.bfloat16), (8, torch.float32), (136, torch.float32)):
+        args = _k6_args(dev, b, 257, 1408, 6144, dtype)
+        name = "bf16" if dtype == torch.bfloat16 else "fp32"
+        runs[f"K6 {name} ({b},257,1408->6144)"] = ((lambda args=args: fm.ln_mlp(*args)), 1)
     times = {}
     for name, (fn, n) in runs.items():
         times[name] = [median_ms(fn) / n, median_ms(fn) / n]
@@ -1529,8 +1599,8 @@ def run_k6_on_vit_layers(tag: str, model, run, launches: dict, tol: float = 2e-2
     before gelu, which K6 and the reference do not, so the bar there is the
     min cosine over rows, > 0.999 (a wrong weight, transpose or layer gives
     ~0), and the same cosine against the twin. With an fp32 model (``run.dtype``)
-    the fp32 body runs, held to the twin at ``tol``, and the branch is not
-    timed."""
+    the fp32 body runs, held to the twin at ``tol``. Then the modules and K6
+    are timed in turns on layer 0's input."""
     from eilev_tpu_torch.ops import fused_mlp as fm
     from eilev_tpu_torch.ops.preprocess import process_videos
 
@@ -1576,21 +1646,18 @@ def run_k6_on_vit_layers(tag: str, model, run, launches: dict, tol: float = 2e-2
     print(f"[{tag}] K6 over {len(layers)} ViT layers: max_rel_err_vs_twin={max(errs)} "
           f"min_cosine_vs_twin={min(cos_ref)} min_cosine_vs_modules={min(cos_mod)}")
     assert min(cos_ref) > 0.999 and min(cos_mod) > 0.999, (min(cos_ref), min(cos_mod))
-    if f32:
-        launches["ln_mlp_f32"] = counts["ln_mlp_f32"]
-        return
-    launches["ln_mlp"] = counts["ln_mlp"]
+    launches["ln_mlp_f32" if f32 else "ln_mlp"] = counts["ln_mlp_f32" if f32 else "ln_mlp"]
 
     # what the ViT runs today in K6's place (layer_norm2, then fc1, gelu, fc2
-    # as bf16 modules), in turns with K6, on layer 0's input: the question
-    # whether to route the ViT through K6
+    # as modules in the model's dtype), in turns with K6, on layer 0's input:
+    # the question whether to route the ViT through K6
     x, w, layer = inputs[0], weights[0], layers[0]
     with torch.inference_mode():
         modules = [median_ms(f) for f in (lambda: layer.mlp(layer.layer_norm2(x)),
                                           lambda: fm.ln_mlp(x, *w, eps=eps),
                                           lambda: fm.ln_mlp(x, *w, eps=eps),
                                           lambda: layer.mlp(layer.layer_norm2(x)))]
-    print(f"[{tag}] ViT MLP branch at (136, 257, 1408): modules_ms={modules[0]},{modules[3]} "
+    print(f"[{tag}] ViT MLP branch at {tuple(x.shape)} {run.dtype}: modules_ms={modules[0]},{modules[3]} "
           f"K6_ms={modules[1]},{modules[2]} (not counted: timing only)")
 
 
@@ -2999,7 +3066,7 @@ def main(argv: list) -> int:
         tree = os.path.abspath(argv[1])
         sys.path.insert(0, tree)  # its eilev_tpu_torch, built into its own build/
         try:
-            build_kernels(tag, ("decode_attention", "flash_attention", "attention_f32"))
+            build_kernels(tag, ("decode_attention", "flash_attention", "attention_f32", "fused_mlp"))
             kernel_times(tag, dev, tree)
         except Exception:
             traceback.print_exc()
@@ -3042,7 +3109,8 @@ def main(argv: list) -> int:
         {"name": k["name"], "route": "cuda", "source": k["source"], "replaces": k["replaces"],
          "launches": launches[k["name"]], "max_abs_err": k["max_abs_err"],
          "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
-         "library_ms": k["library_ms"]}
+         "library_ms": k["library_ms"],
+         **({"composite": k["composite"], "composite_ms": k["composite_ms"]} if "composite_ms" in k else {})}
         for k in kernels
     ]}
     assert all(k["launches"] > 0 for k in line["kernels"]), line

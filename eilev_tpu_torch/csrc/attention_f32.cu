@@ -85,8 +85,13 @@
 #include <stdint.h>
 
 #include "sm90_mma.cuh"
+#include "sm90_tf32.cuh"
 
 namespace {
+
+using sm90::mma_3xtf32;
+using sm90::record;
+using sm90::split;
 
 constexpr int WARPS = 8;
 constexpr int THREADS = 32 * WARPS;
@@ -94,46 +99,6 @@ constexpr int BQ = 16 * WARPS;          // queries a block
 constexpr int BK = 32;                  // keys a tile
 constexpr int NB = BK / 8;              // 8-key blocks a tile: QK's n blocks, PV's k steps
 constexpr int MAX_QUERY_TILES = 65535;  // grid z
-
-__device__ __forceinline__ uint32_t tf32_rna(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
-  return r;
-}
-
-// x = hi + lo to ~2^-22 relative, hi and lo each a tf32 rounded to nearest
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  hi = tf32_rna(x);
-  lo = tf32_rna(x - __uint_as_float(hi));
-}
-
-// A record: the two B values of one lane for one (8-key block, 8-wide
-// chunk), split: {hi(b0), hi(b1), lo(b0), lo(b1)}
-__device__ __forceinline__ float4 record(float b0, float b1) {
-  uint32_t h0, l0, h1, l1;
-  split(b0, h0, l0);
-  split(b1, h1, l1);
-  return make_float4(__uint_as_float(h0), __uint_as_float(h1), __uint_as_float(l0), __uint_as_float(l1));
-}
-
-// c (16 x 8) += a (16 x 8, row) b (8 x 8, col), tf32 operands, fp32 sums.
-// Layout, lane = 4g + t: a0 = (g, t), a1 = (g + 8, t), a2 = (g, t + 4),
-// a3 = (g + 8, t + 4); b0 = (k t, n g), b1 = (k t + 4, n g); c0, c1 = (g,
-// 2t..2t + 1), c2, c3 = (g + 8, 2t..2t + 1).
-__device__ __forceinline__ void mma_tf32(float* c, const uint32_t* a, float b0, float b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(__float_as_uint(b0)), "r"(__float_as_uint(b1)));
-}
-
-// c += a b to fp32 accuracy (3xTF32), b a split record: the two cross terms,
-// then hi x hi
-__device__ __forceinline__ void mma_3xtf32(float* c, const uint32_t* a_hi, const uint32_t* a_lo, float4 b) {
-  mma_tf32(c, a_lo, b.x, b.y);
-  mma_tf32(c, a_hi, b.z, b.w);
-  mma_tf32(c, a_hi, b.x, b.y);
-}
 
 // 2^x (ex2.approx, 2 ulp; results below 2^-126 flush to 0, far under what
 // an fp32 output at 1e-4 can show)

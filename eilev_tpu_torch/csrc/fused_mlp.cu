@@ -1,70 +1,131 @@
-// LayerNorm -> fc1 -> exact-erf gelu -> fc2 for Hopper (sm_90a), bf16 in and out.
+// LayerNorm -> fc1 -> exact-erf gelu -> fc2 for Hopper (sm_90a): K6, bf16 and
+// fp32.
 //
 // Replaces the Pallas kernel eilev_tpu/ops/fused_mlp.py:101 ln_mlp (body
 // _kernel :59): K6, the EVA-ViT MLP. x (M, D) with M = frames * tokens,
 // LayerNorm scale/bias (D), w1 (D, F), b1 (F), w2 (F, D), b2 (D); the
 // weights keep the JAX (in, out) layout.
 //
-// What bounds it on the H100: operations. At the ViT shape (136 x 257 rows,
-// D = 1408, F = 6144) the two products are 4 M D F = 1.21 TFLOP, 1.22 ms at
-// the bf16 tensor-core peak, against ~0.07 ms for the ~231 MB of x, out and
-// weights. The design spends its effort on the products and keeps the rest
-// to memory-rate passes:
-//   * Three launches on one stream. (1) LayerNorm, one warp per row: fp32
-//     mean and variance (two passes, as flax's use_fast_variance=False), h =
-//     (x - mu) * rsqrt(var + eps) * scale + bias rounded to bf16 - the
-//     reference's rounding point - written to scratch (M, D). (2) act =
-//     bf16(gelu(h @ w1 + b1)), the fc1 accumulator and gelu in fp32, rounded
-//     where the reference rounds (_kernel :82). (3) out = bf16(act @ w2 + b2).
-//     The Pallas body keeps one frame's (S, D) fp32 output and the fc1
-//     activation in 110 MB of VMEM; a Hopper block has 227 KB, so the
-//     activation makes a round trip through device memory in bf16 (~0.26 ms
-//     of traffic at the ViT shape, under the operation bound) and the fc2
-//     sum over F stays in one block's registers: no split over F, no
-//     atomics, the same bits on every run.
-//   * Both products are one tiled kernel: 128 x 128 output tiles, 8 warps of
-//     64 x 32, mma.sync m16n8k16 (bf16 in, fp32 accumulate), operands by
-//     ldmatrix (w row-major (K, N), so its fragments come through
-//     ldmatrix.trans), a 3-stage cp.async ring of 64-deep k tiles so loads
-//     overlap the tensor cores; two blocks share an SM (a 128 x 256 tile of
-//     64 x 64 warps needs 209 registers a thread, so one block an SM, and
-//     ran slower). Ragged M, N and K edges are zero-filled on load and
-//     masked on store; K and N must be multiples of 8 (16-byte rows).
-//     With mma.sync every operand passes through shared memory and
-//     registers: ldmatrix and the cp.async writes take more of the SM's
-//     shared-memory bandwidth than the tensor cores take time, so the
-//     products run at about a quarter of the bf16 peak.
-//   * gelu is the exact one with CUDA's erff; the Pallas body's
-//     Abramowitz-Stegun polynomial stood in for an erf Mosaic lacks, and both
-//     are far below bf16 resolution.
-// wgmma, TMA and a persistent schedule are later steps.
+// What it computes (the rounding points of the reference's _xla_fallback):
+// LayerNorm statistics and the affine in fp32, h rounded to the model dtype;
+// fc1 accumulated in fp32, + b1, exact-erf gelu in fp32 (erff; the Pallas
+// body's Abramowitz-Stegun polynomial stood in for an erf Mosaic lacks),
+// rounded to the model dtype; fc2 accumulated in fp32, + b2, rounded to the
+// model dtype. In fp32 every rounding is the identity.
 //
-// The fp32 body (eilev_ln_mlp_f32), for an fp32 model, where the reference's
-// roundings to the model dtype are the identity: the same three launches in
-// fp32 on the CUDA cores (the tensor cores take no fp32, and TF32 keeps too
-// few bits for the 1e-4 the fp32 reference is held to). LayerNorm one warp a
-// row; both products one plain tiled fp32 kernel: 128 x 128 output tiles,
-// 256 threads of 8 x 8 outputs, 8-deep k tiles through shared memory, the
-// sum over k in order, + bias (+ erf gelu) in the epilogue. Correct first:
-// it runs at a small share of the 67 TFLOP/s fp32 peak.
+// What bounds it on the H100: operations, in both dtypes. At the ViT shape
+// (136 x 257 rows, D = 1408, F = 6144) the two products are 4 M D F = 1.21
+// TFLOP: 1.22 ms at the bf16 tensor-core peak (989 TFLOP/s), against ~0.07
+// ms for the ~231 MB of x, out and weights. fp32 runs as 3xTF32 (three TF32
+// products for each fp32 one, sm90_tf32.cuh), so its bound is 3 x FLOPs at
+// 495 TFLOP/s: 7.33 ms at 136 frames, 0.431 ms at 8 (the CUDA cores' 67
+// TFLOP/s would give 18.1 and 1.06).
+//
+// The design: three launches on one stream. (1) LayerNorm, one warp a row:
+// fp32 mean and variance (two passes, as flax's use_fast_variance=False), h
+// written to scratch (M, D) in the model dtype. (2) act = round(gelu(h @ w1
+// + b1)), (3) out = round(act @ w2 + b2): one product kernel each dtype,
+// which differs between the two products only in its epilogue. The Pallas
+// body keeps one frame's fc1 activation in VMEM; a Hopper block has 227 KB,
+// so the activation makes one round trip through device memory in the
+// model dtype (429 MB in bf16 at the ViT shape, ~0.26 ms of traffic that
+// overlaps the products), and each output tile's sum over K stays in one
+// block's registers: no split over K, no atomics, the same bits every run.
+//
+// bf16 products, wgmma + TMA, warp-specialised and persistent:
+//   * a block is one producer warp and two consumer warpgroups (288
+//     threads), one block an SM; the grid is one block an SM, each walking
+//     output tiles t, t + grid, ... in row-major tile order, so the blocks
+//     in flight share a band of A rows, and both weights (17.3 MB each at
+//     the ViT shape) stay in the 50 MB L2;
+//   * an output tile is 256 x 128: each consumer warpgroup owns two 64-row
+//     sub-tiles (128 fp32 accumulators a thread) and issues
+//     wgmma.mma_async m64n128k16 with both operands in shared memory; W
+//     keeps its row-major layout and is read through the descriptor's
+//     transpose bit (MN-major B), no per-call transpose. One k tile's
+//     products stay in flight while the next one's are issued (wait_group
+//     1), then the older stage is released. 256 x 128 reads as few operand
+//     bytes a product as 128 x 256, and fc2's N = 1408 is 11 whole tiles;
+//   * the producer's lane 0 issues TMA loads of A (a box of 256 rows x 64
+//     k) and W (two boxes of 64 k x 64 n) into a ring of four 48 KB stages,
+//     128-byte swizzled, one full and one empty mbarrier a stage; it runs
+//     ahead across tiles, so a tile's epilogue overlaps the next tile's
+//     loads;
+//   * the epilogue (bias, erf gelu for fc1, round to bf16) goes through
+//     shared memory: each warp writes its 16 rows x 128 columns with
+//     stmatrix into a 4 KB tile of its own (swizzled, conflict-free), then
+//     stores whole 16-byte chunks, two 256-byte rows a store. Stored straight
+//     from the fragment layout, 16 bytes of a row a store, the outputs took
+//     about as long as the products;
+//   * ragged M, N and K edges are TMA's zero fill on load and a mask on
+//     store; TMA asks 16-byte global strides, so D % 8 == 0 and F % 8 == 0
+//     (the wrapper's rule), and 16-byte aligned bases.
+//
+// fp32 products, 3xTF32 on the tensor cores, warp-specialised and persistent:
+//   * every operand value x is split once, when its k tile has landed in
+//     shared memory, into hi = tf32(x) and lo = tf32(x - hi)
+//     (sm90_tf32.cuh), and each 8-deep k step runs lo_a hi_w + hi_a lo_w +
+//     hi_a hi_w as three wgmma m64n128k8 tf32, both operands in shared
+//     memory. Not mma.sync: on the H100 mma.sync m16n8k8 tf32 issues at about
+//     two thirds of the TF32 peak that wgmma reaches (tools/mma_rate.cu), and
+//     a body built on it, each warp loading fragment-order hi/lo records,
+//     ran no faster than the fp32 cuBLAS products: the record loads and the
+//     products took turns. tf32 wgmma takes K-major operands only, so the
+//     split writes W transposed;
+//   * a block is two producer and two consumer warpgroups (512 threads;
+//     setmaxnreg gives the producers 56 registers, the consumers 200), one
+//     block an SM, persistent as above, 128 x 128 output tiles in k tiles of
+//     32 (one 128-byte row of fp32);
+//   * each producer thread cp.asyncs its share of a k tile into a raw stage
+//     (16-byte copies where the rows allow, 4-byte ones otherwise: fp32
+//     takes any D and F) and, once it has landed, splits exactly those
+//     values into four 128-byte-swizzled K-major tiles (A hi, A lo, W hi, W
+//     lo), then arrives on the stage's full mbarrier. Two raw and two record
+//     stages: the copy of k tile j + 2 and the split of j + 1 run under the
+//     products of j. Splitting is most of the block's work: with one
+//     producer warpgroup the products waited on it;
+//   * each consumer warpgroup owns 64 rows; a k tile's 12 products are
+//     summed from 0 in a partial, then added to the accumulator: the tensor
+//     cores' fp32 sums round toward zero, which over the 2,304 products of K
+//     = 6144 into one accumulator biased the outputs by ~1e-4;
+//   * ragged edges are zero-filled copies and masked stores.
+//
+// nvcc -Xptxas -v (sm_90a), as chip_smoke.py's build step prints it:
+// wg::gemm_kernel<false> 168 registers, no spills, and <true> (gelu) 168
+// with 16 bytes of spills in its epilogue: ptxas holds a 288-thread block to
+// 168 a thread (as for 384), under the 224 its size would allow; 225 KB of
+// shared memory, one block an SM. tf::gemm_kernel<false> and <true>: 128
+// registers at launch (512 threads; then 56 / 200 by setmaxnreg), no spills,
+// 193 KB. layer_norm_kernel 40, layer_norm_f32_kernel 32, no spills.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <math.h>
 #include <stdint.h>
 
 #include "sm90_mma.cuh"
+#include "sm90_tf32.cuh"
+#include "sm90_wgmma.cuh"
 
 namespace {
 
 using namespace sm90;
 
+// row indices and TMA coordinates are int: the last tile's rows (< M + 256
+// + 8) must fit (ops/fused_mlp.py:_MAX_ROWS)
+constexpr int MAX_ROWS = INT_MAX - 511;
 constexpr int LN_WARPS = 8;  // rows per LayerNorm block
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
   return v;
+}
+
+__device__ __forceinline__ float gelu_erf(float v) {
+  return 0.5f * v * (1.f + erff(v * 0.70710678118654752f));
 }
 
 __global__ void __launch_bounds__(LN_WARPS * 32)
@@ -118,145 +179,6 @@ layer_norm_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__
   }
 }
 
-// ---- C (M, N) = bf16(epilogue(A (M, K) @ W (K, N) + bias)), all row-major
-
-constexpr int BM = 128, BN = 128, BK = 64, STAGES = 3;
-constexpr int GEMM_THREADS = 256;  // 8 warps: 2 along M x 4 along N, 64 x BN / 4 each
-constexpr int NJ = BN / 32;        // 8-column tiles of a warp
-constexpr int LDA = BK + 8;        // padded rows: ldmatrix rows fall in distinct banks
-constexpr int LDB = BN + 8;
-constexpr int A_TILE = BM * LDA;
-constexpr int B_TILE = BK * LDB;
-constexpr size_t GEMM_SMEM = sizeof(__nv_bfloat16) * STAGES * (A_TILE + B_TILE);
-constexpr int GEMM_MIN_BLOCKS = NJ <= 4 && 2 * (GEMM_SMEM + 1024) <= 233472 ? 2 : 1;
-
-// Starts the copies of A rows [m0, m0 + BM) x cols [k0, k0 + BK) and W rows
-// [k0, k0 + BK) x cols [n0, n0 + BN); anything past M, N or K is zero.
-__device__ __forceinline__ void load_stage(__nv_bfloat16* as, __nv_bfloat16* bs,
-                                           const __nv_bfloat16* A, const __nv_bfloat16* W,
-                                           int m0, int n0, int k0, int M, int N, int K) {
-  for (int idx = threadIdx.x; idx < BM * (BK / 8); idx += GEMM_THREADS) {
-    const int r = idx / (BK / 8);
-    const int c = idx % (BK / 8);
-    const bool valid = m0 + r < M && k0 + c * 8 < K;
-    cp_async16(as + r * LDA + c * 8, valid ? A + (size_t)(m0 + r) * K + k0 + c * 8 : A, valid);
-  }
-  for (int idx = threadIdx.x; idx < BK * (BN / 8); idx += GEMM_THREADS) {
-    const int r = idx / (BN / 8);
-    const int c = idx % (BN / 8);
-    const bool valid = k0 + r < K && n0 + c * 8 < N;
-    cp_async16(bs + r * LDB + c * 8, valid ? W + (size_t)(k0 + r) * N + n0 + c * 8 : W, valid);
-  }
-}
-
-__device__ __forceinline__ float gelu_erf(float v) {
-  return 0.5f * v * (1.f + erff(v * 0.70710678118654752f));
-}
-
-template <bool GELU>
-__global__ void __launch_bounds__(GEMM_THREADS, GEMM_MIN_BLOCKS)
-gemm_bias_kernel(const __nv_bfloat16* __restrict__ A, const __nv_bfloat16* __restrict__ W,
-                 const float* __restrict__ bias, __nv_bfloat16* __restrict__ C, int M, int N,
-                 int K) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* As = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* Bs = As + STAGES * A_TILE;
-
-  const int n0 = blockIdx.x * BN;
-  const int m0 = blockIdx.y * BM;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int wm = (warp / 4) * 64;  // the warp's rows within the tile
-  const int wn = (warp % 4) * (BN / 4);  // and columns
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int lr = lane & 7;  // ldmatrix: row within the 8x8 matrix
-  const int lm = lane >> 3;  // and which matrix
-
-  float acc[4][NJ][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0.f;
-
-  const int k_tiles = (K + BK - 1) / BK;
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < k_tiles) load_stage(As + s * A_TILE, Bs + s * B_TILE, A, W, m0, n0, s * BK, M, N, K);
-    cp_async_commit();  // possibly empty: one group per stage keeps the count simple
-  }
-
-  for (int kt = 0; kt < k_tiles; ++kt) {
-    cp_async_wait<STAGES - 2>();  // stage kt has landed
-    __syncthreads();              // ... for every thread; and slot kt - 1 is free
-    const int nk = kt + STAGES - 1;
-    if (nk < k_tiles) {
-      const int slot = nk % STAGES;
-      load_stage(As + slot * A_TILE, Bs + slot * B_TILE, A, W, m0, n0, nk * BK, M, N, K);
-    }
-    cp_async_commit();
-
-    const __nv_bfloat16* as = As + (kt % STAGES) * A_TILE;
-    const __nv_bfloat16* bs = Bs + (kt % STAGES) * B_TILE;
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      uint32_t a[4][4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        ldmatrix_x4(a[i], as + (wm + i * 16 + lr + (lm & 1) * 8) * LDA + kk * 16 + (lm >> 1) * 8);
-      uint32_t b[NJ][2];
-#pragma unroll
-      for (int j = 0; j < NJ; j += 2) {
-        uint32_t r[4];  // b0, b1 of column tile j, then of column tile j + 1
-        ldmatrix_x4_trans(r, bs + (kk * 16 + (lm & 1) * 8 + lr) * LDB + wn + j * 8 + (lm >> 1) * 8);
-        b[j][0] = r[0];
-        b[j][1] = r[1];
-        b[j + 1][0] = r[2];
-        b[j + 1][1] = r[3];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < NJ; ++j) mma_bf16_16816(acc[i][j], a[i], b[j]);
-    }
-  }
-  cp_async_wait<0>();
-
-#pragma unroll
-  for (int j = 0; j < NJ; ++j) {
-    const int col = n0 + wn + j * 8 + 2 * t;
-    if (col >= N) continue;  // N % 8 == 0: col + 1 < N as well
-    const float bias0 = bias[col], bias1 = bias[col + 1];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = m0 + wm + i * 16 + g;
-      float v[4] = {acc[i][j][0] + bias0, acc[i][j][1] + bias1, acc[i][j][2] + bias0,
-                    acc[i][j][3] + bias1};
-      if (GELU) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) v[e] = gelu_erf(v[e]);
-      }
-      if (row < M) *reinterpret_cast<uint32_t*>(C + (size_t)row * N + col) = pack_bf16(v[0], v[1]);
-      if (row + 8 < M)
-        *reinterpret_cast<uint32_t*>(C + (size_t)(row + 8) * N + col) = pack_bf16(v[2], v[3]);
-    }
-  }
-}
-
-template <bool GELU>
-int launch_gemm(const __nv_bfloat16* A, const __nv_bfloat16* W, const float* bias,
-                __nv_bfloat16* C, int M, int N, int K, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(gemm_bias_kernel<GELU>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)GEMM_SMEM);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  gemm_bias_kernel<GELU><<<grid, GEMM_THREADS, GEMM_SMEM, stream>>>(A, W, bias, C, M, N, K);
-  return (int)cudaGetLastError();
-}
-
-// ---- the fp32 body
-
 __global__ void __launch_bounds__(LN_WARPS * 32)
 layer_norm_f32_kernel(const float* __restrict__ x, const float* __restrict__ scale,
                       const float* __restrict__ bias, float* __restrict__ h, int M, int D, float eps) {
@@ -277,121 +199,544 @@ layer_norm_f32_kernel(const float* __restrict__ x, const float* __restrict__ sca
   for (int i = lane; i < D; i += 32) hr[i] = (xr[i] - mu) * rstd * scale[i] + bias[i];
 }
 
-constexpr int FBM = 128, FBN = 128, FBK = 8;
-constexpr int F_THREADS = 256;  // 16 x 16 threads of 8 x 8 outputs
+// The SMs of the current device: the persistent grids' size.
+int sm_count() {
+  int dev = 0, n = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+    return 0;
+  return n;
+}
 
-// C (M, N) = epilogue(A (M, K) @ W (K, N) + bias), fp32, all row-major.
-// Thread (ty, tx) owns rows 4ty + i and 64 + 4ty + i, columns 4tx + j and 64
-// + 4tx + j, so its shared-memory reads are 16-byte loads a half-warp shares.
-template <bool GELU>
-__global__ void __launch_bounds__(F_THREADS)
-sgemm_bias_kernel(const float* __restrict__ A, const float* __restrict__ W,
-                  const float* __restrict__ bias, float* __restrict__ C, int M, int N, int K) {
-  __shared__ __align__(16) float As[FBK][FBM + 4];  // k-major
-  __shared__ __align__(16) float Bs[FBK][FBN + 4];
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int m0 = blockIdx.y * FBM, n0 = blockIdx.x * FBN;
-  float acc[8][8] = {};
-  for (int k0 = 0; k0 < K; k0 += FBK) {
-    {  // A: row t / 2, k (t % 2) * 4 .. + 3
-      const int r = threadIdx.x / 2, kk = (threadIdx.x % 2) * 4, m = m0 + r;
+// ---- bf16 products: C (M, N) = bf16(epilogue(A (M, K) @ W (K, N) + bias)) ----
+
+namespace wg {
+
+// An output tile is 256 rows x 128 columns: each consumer warpgroup owns two
+// 64-row sub-tiles, 128 accumulators a thread.
+constexpr int BM = 256, BN = 128, BK = 64;       // BK: one 128-byte swizzled row of bf16
+constexpr int SUBS = BM / 128;                   // 64-row sub-tiles a consumer warpgroup
+constexpr int CHUNK = 64;                        // W columns a TMA box: 128 bytes
+constexpr int CONSUMERS = 256;                   // two warpgroups
+constexpr int THREADS = CONSUMERS + 32;          // and the producer warp
+constexpr uint32_t SUB_BYTES = 64 * BK * 2;      // 8 KB: 64 rows of A
+constexpr uint32_t A_BYTES = BM * BK * 2;        // 32 KB
+constexpr uint32_t CHUNK_BYTES = BK * CHUNK * 2; // 8 KB: 64 k rows of 128 bytes
+constexpr uint32_t STAGE = A_BYTES + (BN / CHUNK) * CHUNK_BYTES;  // 48 KB
+constexpr int STAGES = 4;
+constexpr uint32_t OUT_BYTES = 16 * BN * 2;      // 4 KB a consumer warp: 16 rows x 128 columns
+// the stages, the consumer warps' output tiles, a full and an empty barrier
+// a stage, and 1 KB to align the base: 225 KB
+constexpr uint32_t OFF_OUT = STAGES * STAGE;
+constexpr uint32_t OFF_BAR = OFF_OUT + (CONSUMERS / 32) * OUT_BYTES;
+constexpr size_t SMEM = OFF_BAR + 2 * STAGES * sizeof(uint64_t) + 1024;
+
+// One k tile's four 16-deep products into this warpgroup's acc, from the
+// stage at `st` (the first of a tile overwrites acc).
+__device__ __forceinline__ void issue_k_tile(float (&acc)[SUBS][BN / 2], const unsigned char* st, int cw,
+                                             bool first) {
+  wgmma_fence();
 #pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const int k = k0 + kk + u;
-        As[kk + u][r] = m < M && k < K ? A[(size_t)m * K + k] : 0.f;
-      }
+  for (int kk = 0; kk < BK / 16; ++kk) {
+    const uint64_t db = wgmma_desc(st + A_BYTES + kk * 16 * 128, CHUNK_BYTES, 1024);
+#pragma unroll
+    for (int r = 0; r < SUBS; ++r) {
+      const uint64_t da = wgmma_desc(st + (cw * SUBS + r) * SUB_BYTES + kk * 32, 16, 1024);
+      wgmma_ss_tb<BN>(acc[r], da, db, first && kk == 0 ? 0 : 1);
     }
-    {  // W: k t / 32, columns (t % 32) * 4 .. + 3
-      const int kk = threadIdx.x / 32, c = (threadIdx.x % 32) * 4, k = k0 + kk;
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const int n = n0 + c + u;
-        Bs[kk][c + u] = k < K && n < N ? W[(size_t)k * N + n] : 0.f;
-      }
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < FBK; ++kk) {
-      const float4 a0 = *reinterpret_cast<const float4*>(&As[kk][4 * ty]);
-      const float4 a1 = *reinterpret_cast<const float4*>(&As[kk][64 + 4 * ty]);
-      const float4 b0 = *reinterpret_cast<const float4*>(&Bs[kk][4 * tx]);
-      const float4 b1 = *reinterpret_cast<const float4*>(&Bs[kk][64 + 4 * tx]);
-      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
   }
+  wgmma_commit();
+}
+
+// Waits until ring position i has landed, then reconverges the warp for the
+// warpgroup-wide wgmma.
+__device__ __forceinline__ void wait_full(uint64_t* full, uint32_t i) {
+  mbar_wait(&full[i % STAGES], (i / STAGES) & 1);
+  __syncwarp();
+}
+
+template <bool GELU>
+__global__ void __launch_bounds__(THREADS, 1)
+gemm_kernel(const __grid_constant__ CUtensorMap tm_a, const __grid_constant__ CUtensorMap tm_w,
+            const float* __restrict__ bias, __nv_bfloat16* __restrict__ C, int M, int N, int K) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + OFF_BAR);
+  uint64_t* empty = full + STAGES;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int n_blocks = (N + BN - 1) / BN;
+  const long long n_tiles = (long long)((M + BM - 1) / BM) * n_blocks;
+  const int k_tiles = (K + BK - 1) / BK;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], CONSUMERS);  // every consumer thread releases
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp == CONSUMERS / 32) {
+    // ---- the producer: lane 0 keeps the ring full, across tiles ----
+    if (lane != 0) return;
+    uint32_t it = 0;
+    for (long long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+      const int m0 = (int)(tile / n_blocks) * BM;
+      const int n0 = (int)(tile % n_blocks) * BN;
+      for (int kt = 0; kt < k_tiles; ++kt, ++it) {
+        const uint32_t s = it % STAGES;
+        mbar_wait(&empty[s], ((it / STAGES) & 1) ^ 1);  // the first pass finds it free
+        unsigned char* st = smem + s * STAGE;
+        mbar_arrive_expect_tx(&full[s], STAGE);  // zero-filled boxes count in full
+        tma_load_2d(st, &tm_a, &full[s], kt * BK, m0);
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int m = m0 + (i < 4 ? 4 * ty + i : 64 + 4 * ty + i - 4);
-    if (m >= M) continue;
+        for (int c = 0; c < BN / CHUNK; ++c)
+          tma_load_2d(st + A_BYTES + c * CHUNK_BYTES, &tm_w, &full[s], n0 + c * CHUNK, kt * BK);
+      }
+    }
+    return;
+  }
+
+  // ---- the consumers: warpgroup cw owns rows 64 SUBS cw.. of each tile ----
+  const int cw = warp / 4;
+  const int q = lane & 3;
+  unsigned char* out_s = smem + OFF_OUT + warp * OUT_BYTES;
+  float acc[SUBS][BN / 2];
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int n = n0 + (j < 4 ? 4 * tx + j : 64 + 4 * tx + j - 4);
-      if (n >= N) continue;
-      const float v = acc[i][j] + bias[n];
-      C[(size_t)m * N + n] = GELU ? gelu_erf(v) : v;
+  for (int r = 0; r < SUBS; ++r)
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) acc[r][i] = 0.f;
+  uint32_t it = 0;
+
+  for (long long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const int m0 = (int)(tile / n_blocks) * BM;
+    const int n0 = (int)(tile % n_blocks) * BN;
+#pragma unroll
+    for (int r = 0; r < SUBS; ++r) wgmma_pin<BN / 2>(acc[r]);
+    wait_full(full, it);
+    issue_k_tile(acc, smem + (it % STAGES) * STAGE, cw, true);
+    for (int kt = 1; kt < k_tiles; ++kt) {
+      wait_full(full, it + 1);
+      issue_k_tile(acc, smem + ((it + 1) % STAGES) * STAGE, cw, false);
+      wgmma_wait<1>();  // k tile kt - 1's products are done: release its stage
+      mbar_arrive(&empty[it % STAGES]);
+      ++it;
+    }
+    wgmma_wait<0>();
+    mbar_arrive(&empty[it % STAGES]);
+    ++it;
+#pragma unroll
+    for (int r = 0; r < SUBS; ++r) wgmma_pin<BN / 2>(acc[r]);
+
+    // epilogue: acc[r][4i + e] is row 16 (warp % 4) + lane / 4 (+ 8 for e >=
+    // 2) of sub-tile r, column 8i + 2q + (e & 1). Each warp rounds its 16
+    // rows into its own shared tile (stmatrix; 256-byte rows, 16-byte chunk c
+    // of row y at c ^ (y % 8): conflict-free both ways), then writes them
+    // back as whole 16-byte chunks, two rows a store.
+#pragma unroll
+    for (int r = 0; r < SUBS; ++r) {
+      const int row0 = m0 + 64 * (cw * SUBS + r) + 16 * (warp % 4);
+#pragma unroll
+      for (int i = 0; i < BN / 8; i += 2) {
+        uint32_t packed[4];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int col = min(n0 + 8 * (i + h) + 2 * q, N - 2);  // past N: any column, not stored
+          const float2 b = *reinterpret_cast<const float2*>(bias + col);
+          float v[4] = {acc[r][4 * (i + h)] + b.x, acc[r][4 * (i + h) + 1] + b.y, acc[r][4 * (i + h) + 2] + b.x,
+                        acc[r][4 * (i + h) + 3] + b.y};
+          if (GELU) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) v[e] = gelu_erf(v[e]);
+          }
+          packed[2 * h] = pack_bf16(v[0], v[1]);
+          packed[2 * h + 1] = pack_bf16(v[2], v[3]);
+        }
+        // matrix l / 8: rows 8 ((l / 8) & 1) .., column chunk i + l / 16
+        const int y = 8 * ((lane >> 3) & 1) + (lane & 7);
+        stmatrix_x4(out_s + y * 256 + (((i + (lane >> 4)) ^ (y & 7)) * 16), packed[0], packed[1], packed[2],
+                    packed[3]);
+      }
+      __syncwarp();
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int y = 2 * j + (lane >> 4), c = lane & 15;
+        const uint4 v = *reinterpret_cast<const uint4*>(out_s + y * 256 + ((c ^ (y & 7)) * 16));
+        if (row0 + y < M && n0 + 8 * c < N) *reinterpret_cast<uint4*>(C + (size_t)(row0 + y) * N + n0 + 8 * c) = v;
+      }
+      __syncwarp();
     }
   }
 }
 
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver, found once through the runtime
+// (nothing links -lcuda).
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) ==
+            cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A row-major (rows, cols) bf16 matrix as (box_rows x 64)-element boxes,
+// 128-byte swizzled; reads past an edge are zeros.
+bool make_map(CUtensorMap* map, EncodeTiled fn, const void* base, int rows, int cols, int box_rows) {
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
+  const cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims, strides, box, elem,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// C = bf16(epilogue(A @ W + bias))
 template <bool GELU>
-int launch_sgemm(const float* A, const float* W, const float* bias, float* C, int M, int N, int K,
-                 cudaStream_t stream) {
-  dim3 grid((N + FBN - 1) / FBN, (M + FBM - 1) / FBM);
-  sgemm_bias_kernel<GELU><<<grid, F_THREADS, 0, stream>>>(A, W, bias, C, M, N, K);
+int launch(EncodeTiled fn, const __nv_bfloat16* A, const __nv_bfloat16* W, const float* bias,
+           __nv_bfloat16* C, int M, int N, int K, int sms, cudaStream_t stream) {
+  CUtensorMap tm_a, tm_w;
+  if (!make_map(&tm_a, fn, A, M, K, BM) || !make_map(&tm_w, fn, W, K, N, BK)) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(gemm_kernel<GELU>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM);
+  if (err != cudaSuccess) return (int)err;
+  const long long tiles = (long long)((M + BM - 1) / BM) * ((N + BN - 1) / BN);
+  const int grid = (int)(tiles < sms ? tiles : sms);
+  gemm_kernel<GELU><<<grid, THREADS, SMEM, stream>>>(tm_a, tm_w, bias, C, M, N, K);
   return (int)cudaGetLastError();
 }
+
+}  // namespace wg
+
+// ---- fp32 products: C (M, N) = epilogue(A (M, K) @ W (K, N) + bias), 3xTF32 ----
+
+namespace tf {
+
+// An output tile is 128 rows x 128 columns: each consumer warpgroup owns 64
+// rows, 64 accumulators a thread.
+constexpr int BM = 128, BN = 128, BK = 32;        // BK: one 128-byte swizzled row of fp32
+constexpr int KS = BK / 8;                        // wgmma k steps a k tile
+constexpr int CONSUMERS = 256;                    // two warpgroups
+constexpr int PRODUCERS = 256;                    // two warpgroups: copies and splits
+constexpr int THREADS = CONSUMERS + PRODUCERS;
+constexpr uint32_t OP_BYTES = 128 * BK * 4;       // 16 KB: 128 rows of 128 bytes
+constexpr uint32_t OFF_A_HI = 0, OFF_A_LO = OP_BYTES, OFF_W_HI = 2 * OP_BYTES, OFF_W_LO = 3 * OP_BYTES;
+constexpr uint32_t REC_STAGE = 4 * OP_BYTES;      // 64 KB: the split operands of one k tile
+constexpr uint32_t RAW_STAGE = 2 * OP_BYTES;      // 32 KB: A's and W's values as copied
+constexpr uint32_t OFF_RAW = 2 * REC_STAGE;
+constexpr uint32_t OFF_BAR = OFF_RAW + 2 * RAW_STAGE;
+// two record stages, two raw stages, a full and an empty barrier a record
+// stage, and 1 KB to align the base: 193 KB
+constexpr size_t SMEM = OFF_BAR + 4 * sizeof(uint64_t) + 1024;
+
+struct Args {
+  const float* A;
+  const float* W;
+  const float* bias;
+  float* C;
+  int M, N, K;
+  int vec_a, vec_w;  // 16-byte copies of A's / W's rows
+};
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(valid ? 4 : 0));
+}
+
+// Four floats row[c0 .. c0 + 3] into dst; zero past `limit` or where the
+// row is out (row == nullptr). `base` is a valid address for the zero fills.
+__device__ __forceinline__ void copy4(float* dst, const float* row, const float* base, int c0, int limit,
+                                      bool vec) {
+  if (vec) {  // limit % 4 == 0: a chunk is all in or all out
+    const bool ok = row != nullptr && c0 < limit;
+    cp_async16(dst, ok ? row + c0 : base, ok);
+  } else {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const bool ok = row != nullptr && c0 + e < limit;
+      cp_async4(dst + e, ok ? row + c0 + e : base, ok);
+    }
+  }
+}
+
+// The 16-byte chunk c (k 4c .. 4c + 3) of row y of a 128-byte-swizzled
+// K-major operand tile: chunk c lands at c ^ (y % 8), as TMA's
+// CU_TENSOR_MAP_SWIZZLE_128B would put it, for wgmma's descriptors.
+__device__ __forceinline__ uint32_t swizzled(int y, int c) { return y * 128 + ((c ^ (y & 7)) * 16); }
+
+// One k tile's raw values: A's chunk u (row u / 8, k chunk u % 8) at 16 u;
+// W's unit w (k rows 4c .. 4c + 3 of columns 4nb .. 4nb + 3, nb = w / 8, c
+// = w % 8), its row e at OP_BYTES + 4096 e + 16 w. Producer thread p copies
+// A chunks p + 256 m and W unit p, and later splits exactly those.
+__device__ __forceinline__ void copy_tile(const Args& a, unsigned char* raw, int p, int m0, int n0, int k0) {
+#pragma unroll 1
+  for (int u = p; u < 1024; u += PRODUCERS) {
+    const int row = m0 + (u >> 3);
+    copy4(reinterpret_cast<float*>(raw + 16 * u), row < a.M ? a.A + (size_t)row * a.K : nullptr, a.A,
+          k0 + 4 * (u & 7), a.K, a.vec_a);
+  }
+#pragma unroll 1
+  for (int w = p; w < 256; w += PRODUCERS) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int k = k0 + 4 * (w & 7) + e;
+      copy4(reinterpret_cast<float*>(raw + OP_BYTES + 4096 * e + 16 * w), k < a.K ? a.W + (size_t)k * a.N : nullptr,
+            a.W, n0 + 4 * (w >> 3), a.N, a.vec_w);
+    }
+  }
+}
+
+__device__ __forceinline__ float4 as_float4(const uint32_t (&r)[4]) {
+  return make_float4(__uint_as_float(r[0]), __uint_as_float(r[1]), __uint_as_float(r[2]), __uint_as_float(r[3]));
+}
+
+// x = hi + lo, four at a time, into the two split tiles at byte offset off
+__device__ __forceinline__ void put_split(unsigned char* rec, uint32_t off_hi, uint32_t off_lo, uint32_t off,
+                                          const float (&x)[4]) {
+  uint32_t hi[4], lo[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) split(x[i], hi[i], lo[i]);
+  *reinterpret_cast<float4*>(rec + off_hi + off) = as_float4(hi);
+  *reinterpret_cast<float4*>(rec + off_lo + off) = as_float4(lo);
+}
+
+// Producer thread p's values, landed in `raw`, split into the four K-major
+// operand tiles of `rec`: A's chunks keep their place (row-major A is
+// K-major), W's are transposed (the n rows of 32 k that tf32 wgmma reads).
+// A warp's 16-byte stores hit 8 distinct slots of each 128-byte row group.
+__device__ __forceinline__ void split_tile(const unsigned char* raw, unsigned char* rec, int p) {
+#pragma unroll 1
+  for (int u = p; u < 1024; u += PRODUCERS) {
+    const float4 v = *reinterpret_cast<const float4*>(raw + 16 * u);
+    const float x[4] = {v.x, v.y, v.z, v.w};
+    put_split(rec, OFF_A_HI, OFF_A_LO, swizzled(u >> 3, u & 7), x);
+  }
+#pragma unroll 1
+  for (int w = p; w < 256; w += PRODUCERS) {
+    float4 r[4];  // k rows 4c .. 4c + 3 of columns 4nb .. 4nb + 3
+#pragma unroll
+    for (int e = 0; e < 4; ++e) r[e] = *reinterpret_cast<const float4*>(raw + OP_BYTES + 4096 * e + 16 * w);
+    const float x[4][4] = {{r[0].x, r[1].x, r[2].x, r[3].x}, {r[0].y, r[1].y, r[2].y, r[3].y},
+                           {r[0].z, r[1].z, r[2].z, r[3].z}, {r[0].w, r[1].w, r[2].w, r[3].w}};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) put_split(rec, OFF_W_HI, OFF_W_LO, swizzled(4 * (w >> 3) + e, w & 7), x[e]);
+  }
+}
+
+// A cursor over the block's k tiles, all its output tiles' in order: k
+// tile kt of tile `tile`, then the next (no division a step).
+struct Cursor {
+  int tile, kt;
+  __device__ void next(int k_tiles) {
+    if (++kt == k_tiles) {
+      kt = 0;
+      tile += gridDim.x;
+    }
+  }
+};
+
+// One k tile's products into `part`, from 0: per 8-deep k step lo_a hi_w,
+// hi_a lo_w, hi_a hi_w (3xTF32), the small terms first.
+__device__ __forceinline__ void issue_k_tile(float* part, const unsigned char* rec, int cw) {
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) {
+    const uint32_t a = cw * 64 * 128 + kk * 32, w = kk * 32;
+    const uint64_t a_hi = wgmma_desc(rec + OFF_A_HI + a, 16, 1024), a_lo = wgmma_desc(rec + OFF_A_LO + a, 16, 1024);
+    const uint64_t w_hi = wgmma_desc(rec + OFF_W_HI + w, 16, 1024), w_lo = wgmma_desc(rec + OFF_W_LO + w, 16, 1024);
+    wgmma_tf32<BN>(part, a_lo, w_hi, kk > 0);
+    wgmma_tf32<BN>(part, a_hi, w_lo, 1);
+    wgmma_tf32<BN>(part, a_hi, w_hi, 1);
+  }
+  wgmma_commit();
+}
+
+__device__ __forceinline__ void add_to(float (&acc)[BN / 2], const float (&part)[BN / 2]) {
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) acc[i] += part[i];
+}
+
+template <bool GELU>
+__global__ void __launch_bounds__(THREADS, 1) gemm_kernel(const Args a) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + OFF_BAR);
+  uint64_t* empty = full + 2;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int n_blocks = (a.N + BN - 1) / BN;
+  const int n_tiles = ((a.M + BM - 1) / BM) * n_blocks;  // the launch checks it fits
+  const int k_tiles = (a.K + BK - 1) / BK;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < 2; ++s) {
+      mbar_init(&full[s], PRODUCERS);
+      mbar_init(&empty[s], CONSUMERS);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp >= CONSUMERS / 32) {
+    // ---- the producers: copy k tile j + 2 while k tile j is split ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 56;\n" ::: "memory");
+    const int p = threadIdx.x - CONSUMERS;
+    Cursor copy{(int)blockIdx.x, 0};  // the next k tile to copy
+    auto copy_next = [&](unsigned char* raw) {
+      if (copy.tile < n_tiles) {
+        copy_tile(a, raw, p, copy.tile / n_blocks * BM, copy.tile % n_blocks * BN, copy.kt * BK);
+        copy.next(k_tiles);
+      }
+      cp_async_commit();  // one group a k tile, empty past the last
+    };
+    copy_next(smem + OFF_RAW);
+    copy_next(smem + OFF_RAW + RAW_STAGE);
+    uint32_t j = 0;
+    for (Cursor work{(int)blockIdx.x, 0}; work.tile < n_tiles; work.next(k_tiles), ++j) {
+      const int s = j & 1;
+      cp_async_wait<1>();                        // this thread's copies of k tile j have landed
+      mbar_wait(&empty[s], ((j >> 1) & 1) ^ 1);  // the consumers are done with k tile j - 2
+      split_tile(smem + OFF_RAW + s * RAW_STAGE, smem + s * REC_STAGE, p);
+      fence_proxy_async();                       // the records, before wgmma reads them
+      mbar_arrive(&full[s]);
+      copy_next(smem + OFF_RAW + s * RAW_STAGE);  // k tile j + 2
+    }
+    cp_async_wait<0>();  // nothing in flight at exit
+  } else {
+    // ---- the consumers: two warpgroups of 64 rows; each k tile's products
+    // are summed from 0 in `part`, then added to acc: the tensor cores' fp32
+    // sums round toward zero, which over thousands of steps into one
+    // accumulator biases it (~1e-4 at K = 6144). ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 200;\n" ::: "memory");
+    const int cw = warp / 4;
+    const int g = lane / 4, q = lane % 4;
+    float acc[BN / 2], part[BN / 2] = {};
+    uint32_t j = 0;  // the ring position of the next k tile
+    for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+      const int m0 = tile / n_blocks * BM;
+      const int n0 = tile % n_blocks * BN;
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+      for (int kt = 0; kt < k_tiles; ++kt, ++j) {
+        mbar_wait(&full[j & 1], (j >> 1) & 1);
+        __syncwarp();  // reconverge for the warpgroup-wide wgmma
+        issue_k_tile(part, smem + (j & 1) * REC_STAGE, cw);
+        wgmma_wait<0>();
+        wgmma_pin<BN / 2>(part);
+        mbar_arrive(&empty[j & 1]);
+        add_to(acc, part);
+      }
+
+      // epilogue: acc[4i + e] is row 16 (warp % 4) + g (+ 8 for e >= 2) of
+      // this warpgroup's 64, column 8i + 2q + (e & 1)
+      const int row = m0 + 64 * cw + 16 * (warp % 4) + g;
+#pragma unroll
+      for (int i = 0; i < BN / 8; ++i) {
+        const int col = n0 + 8 * i + 2 * q;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int y = row + 8 * h;
+          if (y >= a.M || col >= a.N) continue;
+          float* c = a.C + (size_t)y * a.N + col;
+          float v0 = acc[4 * i + 2 * h] + __ldg(a.bias + col);
+          if (GELU) v0 = gelu_erf(v0);
+          if (col + 1 < a.N) {
+            float v1 = acc[4 * i + 2 * h + 1] + __ldg(a.bias + col + 1);
+            if (GELU) v1 = gelu_erf(v1);
+            if ((a.N & 1) == 0) {
+              *reinterpret_cast<float2*>(c) = make_float2(v0, v1);  // 8-byte aligned: N and col even
+            } else {
+              c[0] = v0;
+              c[1] = v1;
+            }
+          } else {
+            c[0] = v0;
+          }
+        }
+      }
+    }
+  }
+}
+
+template <bool GELU>
+int launch(const float* A, const float* W, const float* bias, float* C, int M, int N, int K, int sms,
+           cudaStream_t stream) {
+  const Args a{A, W, bias, C, M, N, K,
+               K % 4 == 0 && reinterpret_cast<uintptr_t>(A) % 16 == 0,
+               N % 4 == 0 && reinterpret_cast<uintptr_t>(W) % 16 == 0};
+  const long long tiles = (long long)((M + BM - 1) / BM) * ((N + BN - 1) / BN);
+  if (tiles > INT_MAX / 2) return (int)cudaErrorInvalidValue;  // tile indices are int
+  cudaError_t err = cudaFuncSetAttribute(gemm_kernel<GELU>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)SMEM);
+  if (err != cudaSuccess) return (int)err;
+  const int grid = (int)(tiles < sms ? tiles : sms);
+  gemm_kernel<GELU><<<grid, THREADS, SMEM, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace tf
 
 }  // namespace
 
 // The fp32 body: every tensor fp32 (x, h, act, out as in eilev_ln_mlp_bf16),
-// contiguous; any D and F. Launches three kernels on `stream`, no
-// synchronise; returns the first failing launch's cudaError_t (0 on success).
+// contiguous; any D and F; x, w1, w2 at least 4-byte aligned. Launches
+// three kernels on `stream`, no synchronise; returns the first failing
+// launch's cudaError_t (0 on success).
 extern "C" int eilev_ln_mlp_f32(const void* x, const void* ln_scale, const void* ln_bias,
                                 const void* w1, const void* b1, const void* w2, const void* b2,
                                 void* h, void* act, void* out, int M, int D, int F, float eps,
                                 void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (M <= 0 || D <= 0 || F <= 0 || (M + FBM - 1) / FBM > 65535) return (int)cudaErrorInvalidValue;
-  const float* s = static_cast<const float*>(ln_scale);
+  if (M <= 0 || D <= 0 || F <= 0 || M > MAX_ROWS) return (int)cudaErrorInvalidValue;
+  const int sms = sm_count();
+  if (sms <= 0) return (int)cudaErrorInvalidDevice;
   layer_norm_f32_kernel<<<(M + LN_WARPS - 1) / LN_WARPS, LN_WARPS * 32, 0, st>>>(
-      static_cast<const float*>(x), s, static_cast<const float*>(ln_bias), static_cast<float*>(h), M,
-      D, eps);
+      static_cast<const float*>(x), static_cast<const float*>(ln_scale), static_cast<const float*>(ln_bias),
+      static_cast<float*>(h), M, D, eps);
   int err = (int)cudaGetLastError();
   if (err != 0) return err;
-  err = launch_sgemm<true>(static_cast<const float*>(h), static_cast<const float*>(w1),
-                           static_cast<const float*>(b1), static_cast<float*>(act), M, F, D, st);
+  err = tf::launch<true>(static_cast<const float*>(h), static_cast<const float*>(w1),
+                         static_cast<const float*>(b1), static_cast<float*>(act), M, F, D, sms, st);
   if (err != 0) return err;
-  return launch_sgemm<false>(static_cast<const float*>(act), static_cast<const float*>(w2),
-                             static_cast<const float*>(b2), static_cast<float*>(out), M, D, F, st);
+  return tf::launch<false>(static_cast<const float*>(act), static_cast<const float*>(w2),
+                           static_cast<const float*>(b2), static_cast<float*>(out), M, D, F, sms, st);
 }
 
 // x: (M, D) bf16; ln_scale, ln_bias: (D) fp32; w1: (D, F) bf16; b1: (F) fp32;
 // w2: (F, D) bf16; b2: (D) fp32; scratch h: (M, D) bf16 and act: (M, F) bf16;
-// out: (M, D) bf16. All contiguous and 16-byte aligned; D % 8 == 0 and
-// F % 8 == 0. Launches three kernels on `stream`, no synchronise; returns the
-// first failing launch's cudaError_t (0 on success).
+// out: (M, D) bf16. All contiguous and 16-byte aligned (the vectors too);
+// D % 8 == 0 and F % 8 == 0 (TMA's 16-byte row strides). Launches three
+// kernels on `stream`, no synchronise; returns the first failing launch's
+// cudaError_t (0 on success).
 extern "C" int eilev_ln_mlp_bf16(const void* x, const void* ln_scale, const void* ln_bias,
                                  const void* w1, const void* b1, const void* w2, const void* b2,
                                  void* h, void* act, void* out, int M, int D, int F, float eps,
                                  void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (M <= 0 || D <= 0 || F <= 0 || D % 8 != 0 || F % 8 != 0 || (M + BM - 1) / BM > 65535)
+  if (M <= 0 || D <= 0 || F <= 0 || D % 8 != 0 || F % 8 != 0 || M > MAX_ROWS)
     return (int)cudaErrorInvalidValue;
+  const wg::EncodeTiled fn = wg::encode_tiled();
+  if (fn == nullptr) return (int)cudaErrorNotSupported;
+  const int sms = sm_count();
+  if (sms <= 0) return (int)cudaErrorInvalidDevice;
   using bf = __nv_bfloat16;
   layer_norm_kernel<<<(M + LN_WARPS - 1) / LN_WARPS, LN_WARPS * 32, 0, st>>>(
       static_cast<const bf*>(x), static_cast<const float*>(ln_scale),
       static_cast<const float*>(ln_bias), static_cast<bf*>(h), M, D, eps);
   int err = (int)cudaGetLastError();
   if (err != 0) return err;
-  err = launch_gemm<true>(static_cast<const bf*>(h), static_cast<const bf*>(w1),
-                          static_cast<const float*>(b1), static_cast<bf*>(act), M, F, D, st);
+  err = wg::launch<true>(fn, static_cast<const bf*>(h), static_cast<const bf*>(w1),
+                         static_cast<const float*>(b1), static_cast<bf*>(act), M, F, D, sms, st);
   if (err != 0) return err;
-  return launch_gemm<false>(static_cast<const bf*>(act), static_cast<const bf*>(w2),
-                            static_cast<const float*>(b2), static_cast<bf*>(out), M, D, F, st);
+  return wg::launch<false>(fn, static_cast<const bf*>(act), static_cast<const bf*>(w2),
+                           static_cast<const float*>(b2), static_cast<bf*>(out), M, D, F, sms, st);
 }

@@ -50,6 +50,15 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const __nv_bfloat
                : "r"(smem_addr(p)));
 }
 
+// Four 8x8 b16 matrices from the mma C layout (thread 4g + t holds row g,
+// columns 2t..2t+1 of each) to shared memory; lane l gives the row address
+// of matrix l / 8.
+__device__ __forceinline__ void stmatrix_x4(void* p, uint32_t r0, uint32_t r1, uint32_t r2, uint32_t r3) {
+  asm volatile("stmatrix.sync.aligned.m8n8.x4.shared.b16 [%0], {%1, %2, %3, %4};\n" ::"r"(smem_addr(p)),
+               "r"(r0), "r"(r1), "r"(r2), "r"(r3)
+               : "memory");
+}
+
 // c (16 x 8, fp32) += a (16 x 16, bf16) * b (16 x 8, bf16)
 __device__ __forceinline__ void mma_bf16_16816(float* c, const uint32_t* a, const uint32_t* b) {
   asm volatile(

@@ -71,6 +71,24 @@ def build(source: str) -> Path:
     return lib
 
 
+def ptxas_report(source: str) -> str:
+    """What ``nvcc -Xptxas -v`` says of ``csrc/<source>`` built with the
+    library's flags: each kernel's registers, shared memory and spills. The
+    library it builds is thrown away."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = BUILD_DIR / f"{Path(source).stem}.ptxas.{os.getpid()}.so"
+    try:
+        proc = subprocess.run(
+            [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", str(tmp), str(CSRC / source)],
+            capture_output=True, text=True,
+        )
+    finally:
+        tmp.unlink(missing_ok=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {source}:\n{proc.stdout}\n{proc.stderr}")
+    return proc.stdout + proc.stderr
+
+
 @functools.lru_cache(maxsize=None)
 def packed_attention_lib() -> ctypes.CDLL:
     """The packed-QKV attention library (K1 and K2), built and bound once."""

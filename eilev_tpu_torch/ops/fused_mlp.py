@@ -29,16 +29,19 @@ import torch
 
 from .fused_attention import refuse_grad
 
-# the product kernel's grid has one row of 128-row tiles per y index (< 65536)
-_MAX_ROWS = 65535 * 128
+# the kernels' row indices and TMA coordinates are int32, and the last
+# tile (rows < M + 264) must fit: csrc/fused_mlp.cu:MAX_ROWS (the
+# product kernels' grids are persistent, one block an SM, so no grid
+# dimension limits M)
+_MAX_ROWS = 2**31 - 512
 
 
-def _mm_f32(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """(M, K) @ (K, N) with exact products accumulated in fp32 (the JAX
-    ``preferred_element_type=float32``)."""
+def _mm_acc(a: torch.Tensor, w: torch.Tensor, acc: torch.dtype) -> torch.Tensor:
+    """(M, K) @ (K, N) with exact products accumulated in ``acc``: fp32 (the
+    JAX ``preferred_element_type=float32``), or fp64 for fp64 inputs."""
     if a.is_cuda and a.dtype in (torch.bfloat16, torch.float16):
         return torch.mm(a, w, out_dtype=torch.float32)
-    return a.float() @ w.float()
+    return a.to(acc) @ w.to(acc)
 
 
 def ln_mlp_reference(
@@ -53,16 +56,18 @@ def ln_mlp_reference(
     eps: float = 1e-6,
 ) -> torch.Tensor:
     """Plain twin of K6 (the JAX ``_xla_fallback``): x (B, S, D), w1 (D, F),
-    w2 (F, D); returns (B, S, D) in x.dtype."""
+    w2 (F, D); returns (B, S, D) in x.dtype. Statistics and sums in fp32, or
+    in fp64 for fp64 inputs (the yardstick of the fp32 body's numerics)."""
     b, s, d = x.shape
-    xf = x.float()
+    acc = torch.float64 if x.dtype == torch.float64 else torch.float32
+    xf = x.to(acc)
     mu = xf.mean(dim=-1, keepdim=True)
     var = (xf - mu).square().mean(dim=-1, keepdim=True)
     h = (xf - mu) * torch.rsqrt(var + eps)
-    h = (h * ln_scale.float() + ln_bias.float()).to(x.dtype)
-    a = _mm_f32(h.reshape(b * s, d), w1) + b1.float()
+    h = (h * ln_scale.to(acc) + ln_bias.to(acc)).to(x.dtype)
+    a = _mm_acc(h.reshape(b * s, d), w1, acc) + b1.to(acc)
     a = torch.nn.functional.gelu(a).to(x.dtype)
-    o = _mm_f32(a, w2) + b2.float()
+    o = _mm_acc(a, w2, acc) + b2.to(acc)
     return o.to(x.dtype).reshape(b, s, d)
 
 

@@ -28,38 +28,10 @@ import torch
 from eilev_tpu_torch.ops import flash_attention as tfl
 from eilev_tpu_torch.ops import fused_attention as tfa
 
+from ._torch_port import tf32_product, tf32_rna, tf32_split
+
 TOL = 1e-4
 FLT_MIN = torch.finfo(torch.float32).min
-
-
-def tf32_rna(x: torch.Tensor) -> torch.Tensor:
-    """fp32 -> tf32 (10 explicit mantissa bits), to nearest, ties away from
-    zero: add half of the dropped 13 bits to the magnitude and clear them
-    (the sign bit is apart; a carry into the exponent rounds up a binade)."""
-    bits = x.contiguous().view(torch.int32)
-    return ((bits + 0x1000) & -0x2000).view(torch.float32)
-
-
-def split(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    hi = tf32_rna(x)
-    return hi, tf32_rna(x - hi)
-
-
-def tf32_product(a: torch.Tensor, b: torch.Tensor, passes: int) -> torch.Tensor:
-    """a (..., m, k) @ b (..., k, n) in fp32 as the tensor cores compute it:
-    k steps of 8, each adding (passes 3) lo_a hi_b, hi_a lo_b, then hi_a hi_b
-    to an fp32 accumulator, or (passes 1) hi_a hi_b only. Each product of two
-    tf32 values is exact in fp32."""
-    a_hi, a_lo = split(a)
-    b_hi, b_lo = split(b)
-    c = torch.zeros(*a.shape[:-1], b.shape[-1], dtype=torch.float32)
-    for k0 in range(0, a.shape[-1], 8):
-        ks = slice(k0, k0 + 8)
-        if passes == 3:
-            c = c + a_lo[..., ks] @ b_hi[..., ks, :]
-            c = c + a_hi[..., ks] @ b_lo[..., ks, :]
-        c = c + a_hi[..., ks] @ b_hi[..., ks, :]
-    return c
 
 
 def emulated_attention(q, k, v, *, passes, uniform, mask=None, bias=None, causal=False, q_offset=0,
@@ -207,5 +179,5 @@ def test_tf32_rounding_is_to_nearest_ties_away():
                       2.0 - 2.0**-23, 3.0, -0.0], dtype=torch.float32)
     want = torch.tensor([1.0 + one_ulp, -(1.0 + one_ulp), 1.0, 2.0, 3.0, -0.0], dtype=torch.float32)
     assert torch.equal(tf32_rna(x), want)
-    hi, lo = split(torch.tensor([1.0 / 3.0]))
+    hi, lo = tf32_split(torch.tensor([1.0 / 3.0]))
     assert hi.item() != 1.0 / 3.0 and abs((hi + lo).item() - 1.0 / 3.0) < 2.0**-22 / 3.0 * 2

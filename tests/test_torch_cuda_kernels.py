@@ -542,6 +542,56 @@ def test_k6_kernel_matches_plain(cuda, dtype, b, s, d, f):
     torch.testing.assert_close(out, tfm.ln_mlp_reference(*args), **TOL[dtype])
 
 
+# K6 at the edges of its tiling, (B, S, D, F, byte offset of w1 and w2 past
+# a 256-byte boundary): the bf16 body's 128 x 256 (or x 128) tiles of
+# 64-deep k over a persistent grid of one block an SM, the fp32 body's
+# 128 x 128 tiles of 32-deep k. The ViT shape: M = 34,952 = 273 * 128 + 8,
+# fc2's N = 1408 on 128-wide tiles, 6,576 fc1 tiles (~50 waves); M = 37
+# (odd, fewer tiles than one wave); F = 200 (fc1's N ragged against 256,
+# fc2's K ragged); D = 32 (fc1's K under one k tile) and 88 (not a multiple
+# of it); 133 x 128 rows at F = 128 (133 fc1 tiles: one past a wave of 132);
+# weights 16 bytes past a 128-byte boundary (TMA takes any 16-byte aligned
+# base), and in fp32 4 bytes past (the fp32 body's 4-byte copies).
+K6_EDGES = {
+    "vit_rows_34952": (136, 257, 1408, 6144, 0),
+    "odd_rows_37": (1, 37, 64, 128, 0),
+    "f_200": (3, 50, 64, 200, 0),
+    "d_32": (2, 40, 32, 96, 0),
+    "d_88": (2, 70, 88, 256, 0),
+    "tiles_133": (133, 128, 64, 128, 0),
+    "weights_16_bytes_off": (2, 129, 128, 512, 16),
+    "weights_4_bytes_off": (2, 129, 128, 512, 4),  # fp32 only: the bf16 body takes 16-byte bases
+}
+K6_EDGE_CASES = [(dt, name) for dt in DTYPES for name in K6_EDGES
+                 if dt == torch.float32 or K6_EDGES[name][4] % 16 == 0]
+
+
+def _at_offset(t, offset):
+    """A contiguous copy of ``t`` whose data starts ``offset`` bytes past a
+    256-byte boundary (offset a multiple of the element size)."""
+    skip = offset // t.element_size()
+    buf = torch.empty(t.numel() + skip, dtype=t.dtype, device=t.device)
+    out = buf[skip:].view(t.shape)
+    out.copy_(t)
+    assert out.data_ptr() % 256 == offset
+    return out
+
+
+@pytest.mark.parametrize("dtype,name", K6_EDGE_CASES)
+def test_k6_at_the_edges_of_its_tiling(cuda, dtype, name):
+    b, s, d, f, offset = K6_EDGES[name]
+    args = [a.to(dtype) for a in _mlp_inputs(b, s, d, f, cuda)]
+    if offset:
+        args[3], args[5] = _at_offset(args[3], offset), _at_offset(args[5], offset)
+    before = (tfm.ln_mlp.launches, tfm.ln_mlp.launches_f32)
+    out = tfm.ln_mlp(*args)
+    torch.cuda.synchronize()
+    assert (tfm.ln_mlp.launches, tfm.ln_mlp.launches_f32) == (before[0] + 1, before[1] + (dtype == torch.float32))
+    assert out.shape == (b, s, d) and out.dtype == dtype
+    assert torch.isfinite(out).all()
+    torch.testing.assert_close(out, tfm.ln_mlp_reference(*args), **TOL[dtype])
+
+
 def test_k6_refuses_what_it_does_not_take(cuda):
     args = _mlp_inputs(2, 8, 32, 64, cuda)
     with pytest.raises(TypeError, match="all bf16 or all fp32"):

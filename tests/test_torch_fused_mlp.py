@@ -127,3 +127,16 @@ def test_k6_cuda_check_takes_bf16_or_fp32():
     mixed[3] = mixed[3].bfloat16()
     with pytest.raises(TypeError, match="all bf16 or all fp32"):
         tfm._check(*mixed)
+
+
+def test_k6_cuda_check_rows_limit():
+    """The rows limit of the CUDA kernels (persistent grids: only the int32
+    row indices and TMA coordinates bound M), read on meta tensors."""
+    def args(rows):
+        return (torch.empty(1, rows, 8, device="meta"), torch.empty(8, device="meta"), torch.empty(8, device="meta"),
+                torch.empty(8, 16, device="meta"), torch.empty(16, device="meta"), torch.empty(16, 8, device="meta"),
+                torch.empty(8, device="meta"))
+    assert tfm._MAX_ROWS == 2**31 - 512
+    tfm._check(*args(tfm._MAX_ROWS))
+    with pytest.raises(ValueError, match="at most"):
+        tfm._check(*args(tfm._MAX_ROWS + 1))
