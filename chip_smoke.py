@@ -74,6 +74,18 @@ final result line):
    a fully masked row), K4 against dequantize_kv + the twin at 2e-3 (3e-2
    at 20 rows), each timed as in 3 beside SDPA (K3) and its bound; printed
    on a JSON line of their own with their launches in the beam runs.
+2d. The kernel shapes the decoding modes reach (SPEC_DECODE_SHAPES and
+   SPEC_K5_SLOTS): K3 over the narration's speculative caches (804 slots =
+   766 + 32 + gamma 4 + 2, 790 filled, 32 x 80) of the target's 32 layers
+   and of the 4-layer self-draft, at batch 1 and 4, and over the text LM's
+   4-layer draft cache (2,054 slots, 32 x 128, score-side scale), at the
+   first, a middle and the last layer with full and mid-decode masks and
+   NaN in a fully masked row; K5 at B = 1, the 1,984-token prompt into
+   2,054 and 2,058 slots (a partial last key tile), on its Hopper body. Each
+   against its twin at 2e-2 and timed as in 3 beside SDPA and its bound;
+   printed on a JSON line of their own (decoding_mode_shapes) with their
+   launches in the mode runs (none over the target's speculative cache: its
+   verify pass is plain attention, as JAX's is XLA).
 3. Time each kernel against its twin with CUDA events, in turns (plain,
    kernel, kernel, plain; warm-up, median of 20), each call queued behind a
    device sleep so that the events measure device time, then one PyTorch
@@ -139,6 +151,21 @@ final result line):
    at batch 4 with 2 sequences a row (and a profiler pass), and beam_sample
    at batch 1, each with a generator seeded anew for every request: the
    same seed gives the same tokens twice.
+4e. The decoding modes on the same bf16 model at batch 1 and 4:
+   contrastive search (penalty_alpha 0.6, top_k 4), generate_stream
+   (greedy, chunk 4), self-draft speculative greedy (the first 4 layers,
+   gamma 4) and prompt-lookup greedy (gamma 8, match 3), then prompt-lookup
+   sampling (temperature 0.7, top_p 0.9) at batch 4 with a seeded
+   generator. Each request counted against its own iterations (K1 = 39; K2
+   = 32 a target prefill + 4 a draft prefill; K3 = 32 a target one-token
+   forward + 4 a draft one-token forward, gamma + 1 draft steps a verify
+   pass), p50 of 3 warm requests, peak memory, tokens a verify pass, and a
+   torch.profiler pass over prompt-lookup greedy at batch 1. The stream's
+   tokens equal generate's greedy tokens; speculative greedy rows equal
+   plain greedy's or leave them at a near-tie of the plain path's logits
+   (top-2 gap within NEAR_TIE of the row's largest |logit|, printed);
+   sampling gives the same tokens twice for the same seed, all in the
+   vocabulary.
 5. The int8 serving mode (load_model(int8_lm=True, int8_kv=True)): the same
    model quantized on the card, in place, from its own bf16 weights; batch 1
    and batch 4. K1 = 39, K2 = 32, K4 = 32 per one-token forward, K3 = 0;
@@ -164,7 +191,11 @@ final result line):
    per one-token forward over the 4 beam rows). Then the LM quantized in
    place (int8 LM + int8 KV cache), batch 1: K4 = 32 per one-token forward,
    K3 = 0, K5 = 32 (over the dequantized cache slice); prefill logits' min
-   cosine against bf16 above INT8_MIN_COSINE.
+   cosine against bf16 above INT8_MIN_COSINE. Before the int8 part (c):
+   the text LM's speculative modes at batch 1, 64 new tokens: prompt lookup
+   (gamma 8, 2,058 slots; K5 = 32, K3 = 0) and the self-draft of 4 layers
+   (gamma 4, 2,054 slots; K5 = 36 on the Hopper body, K3 = 4 a draft step),
+   counted and compared with plain greedy as in 4e.
 8. The fp32 model paths, each counted and held to the same model's plain
    path on the card (every wrapper swapped for its twin, no launch): greedy
    tokens identical, prefill logits within 1e-4 relative. The narration
@@ -179,7 +210,11 @@ final result line):
    beam_sample and sampling (2 sequences a row) of the fp32 narration
    model, and beam-4 of the fp32 text LM, must give the plain path's tokens
    too (a sampling run's generator is seeded anew for each path, so both
-   draw the same noise).
+   draw the same noise). (b) The decoding modes on the fp32 narration cut,
+   token for token: the self-draft of 1 of its 2 layers, prompt-lookup
+   greedy and the stream equal the plain path's greedy tokens, contrastive
+   search the plain path's contrastive tokens; over its int8 KV cache the
+   two speculative modes again (the draft steps on K4's fp32-query body).
 9. Training, after the earlier models are freed. (a) The v2 training step
    (training.make_train_step: forward with labels, backward into the fp32
    masters of the query tokens, Q-Former and language projection, AdamW)
@@ -240,11 +275,15 @@ final result line):
    that cut loaded as the CLI loads it, 2 steps of 2 datapoints, an eval
    and --export_hf (the fp32 K1 body on the frozen ViT): the export
    reloaded through load_model holds the trainer's trainable tensors
-   exactly. The directories are temporary and deleted at the phase's end.
+   exactly; (g) the two samples' run with synthetic frames and the word
+   tokenizer: EILeV's (beam 5, eos 50118) on (c)'s model and VideoBLIP's
+   (sampling) on the checkpoint loaded as the v1 model, counted (K1 = 4,
+   K2 = 4, K3 = 4 per one-token forward), the same text twice. The
+   directories are temporary and deleted at the phase's end.
 
 Prints every number tagged with the card's name and power limit, then the
 JSON line of the beam shapes' K3/K4 rows, the JSON line of the training
-variants, then one JSON line of per-kernel results (every body: the bf16 ones and the fp32
+variants, the JSON line of the decoding modes' kernel shapes, then one JSON line of per-kernel results (every body: the bf16 ones and the fp32
 ones, whose launches come from phase 8; K6's rows also carry composite_ms), then the result line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
@@ -350,6 +389,43 @@ BEAM_DECODE_SHAPES = {
     "beam-5 batch 4": (32, 20, 798, 780, 32, 80, True),
     "text-LM beam-4": (32, 4, LLAMA_CACHE, LLAMA_BEAM_PROMPT + LLAMA_BEAM_NEW // 2, 32, 128, False),
 }
+# the decoding modes (phase 4e; (c) in phase 7, (b) in phase 8): the
+# narration CLI's defaults, gamma 4 for the self-draft of the first 4 layers
+# and 8 for prompt lookup (match 3), contrastive search at penalty_alpha 0.6
+# and top_k 4, streaming in chunks of 4. Speculative caches hold s + max_new
+# + gamma + 2 slots: 804 (766 + 32 + 4 + 2) for the narration's self-draft,
+# 2,054 and 2,058 for the text LM's self-draft and prompt lookup. A
+# speculative row whose bf16 tokens leave plain greedy's must do so at a
+# near-tie of the plain path's logits: a top-2 gap within NEAR_TIE of the
+# row's largest |logit| (the verify pass computes the same logits by plain
+# attention over a block of gamma + 1 queries, K3 one query at a time)
+DRAFT_LAYERS = 4
+DRAFT_GAMMA = 4
+LOOKUP_GAMMA = 8
+LOOKUP_MATCH = 3
+CONTRASTIVE_KNOBS = dict(penalty_alpha=0.6, top_k=4)
+STREAM_CHUNK = 4
+NEAR_TIE = 2e-2
+DECODING_MODES = {
+    "contrastive (penalty_alpha 0.6, top_k 4)": (CONTRASTIVE_KNOBS, {}),
+    f"stream (greedy, chunk {STREAM_CHUNK})": ({}, {"chunk_tokens": STREAM_CHUNK}),
+    f"self-draft ({DRAFT_LAYERS} layers, gamma {DRAFT_GAMMA})": (
+        {}, {"draft_layers": DRAFT_LAYERS, "draft_tokens": DRAFT_GAMMA}),
+    f"prompt lookup greedy (gamma {LOOKUP_GAMMA}, match {LOOKUP_MATCH})": (
+        {}, {"draft": "prompt_lookup", "draft_tokens": LOOKUP_GAMMA, "draft_match_len": LOOKUP_MATCH}),
+}
+# the new kernel shapes the modes reach (phase 2d): K3 over the
+# speculative caches of the narration (32 x 80, the target's 32 layers and
+# the 4-layer draft's, batch 1 and 4) and the text LM's draft (32 x 128,
+# score-side scale), and K5 at the text LM's speculative prefills
+SPEC_DECODE_SHAPES = {
+    "narration speculative cache, batch 1": (32, 1, 804, 790, 32, 80, True),
+    "narration speculative cache, batch 4": (32, 4, 804, 790, 32, 80, True),
+    "narration 4-layer draft cache, batch 1": (4, 1, 804, 790, 32, 80, True),
+    "narration 4-layer draft cache, batch 4": (4, 4, 804, 790, 32, 80, True),
+    "text-LM 4-layer draft cache": (4, 1, LLAMA_PROMPT + LLAMA_NEW + DRAFT_GAMMA + 2, 2040, 32, 128, False),
+}
+SPEC_K5_SLOTS = (LLAMA_PROMPT + LLAMA_NEW + DRAFT_GAMMA + 2, LLAMA_PROMPT + LLAMA_NEW + LOOKUP_GAMMA + 2)
 # K4 against dequantize_kv + the twin: 3e-2 (the JAX int8 kernel test's bar)
 # at the narration's batch 4, where it has always been held; every other K4
 # check at 2e-3, from its measured maxima on an H100 (4.9e-4 at the text
@@ -599,11 +675,11 @@ def _k5_causal_work(real, s, nh, hd, l, elem=2):
 
 
 def _decode_case(dev, g, da, shape: str, dtype=torch.bfloat16) -> SimpleNamespace:
-    """A 32-layer model-dtype cache of DECODE_SHAPES[shape] (or
-    BEAM_DECODE_SHAPES[shape]), its int8 copy
+    """A stacked model-dtype cache of DECODE_SHAPES[shape] (or
+    BEAM_DECODE_SHAPES[shape] or SPEC_DECODE_SHAPES[shape]), its int8 copy
     (quantize_kv), a query and the mid-decode keep-mask (slots past the
     filled ones empty)."""
-    n_layers, b, s, filled, nh, hd, scale_query = {**DECODE_SHAPES, **BEAM_DECODE_SHAPES}[shape]
+    n_layers, b, s, filled, nh, hd, scale_query = {**DECODE_SHAPES, **BEAM_DECODE_SHAPES, **SPEC_DECODE_SHAPES}[shape]
     q = torch.randn(b, nh * hd, device=dev, generator=g).to(dtype)
     k5 = torch.randn(n_layers, b, s, nh, hd, device=dev, generator=g).to(dtype)
     v5 = torch.randn(n_layers, b, s, nh, hd, device=dev, generator=g).to(dtype)
@@ -1030,6 +1106,82 @@ def check_beam_decode(tag: str, dev: torch.device) -> list[dict]:
     return rows
 
 
+def check_decoding_mode_shapes(tag: str, dev: torch.device) -> list[dict]:
+    """Phase 2d: the kernel shapes the decoding modes reach, each against its
+    twin at 2e-2 (bf16) and timed against the twin, SDPA and its bound. K3
+    over SPEC_DECODE_SHAPES (the narration's speculative caches of 804 slots,
+    the target's 32 layers and the 4-layer draft's, at batch 1 and 4; the
+    text LM's 4-layer draft cache of 2,054 slots, 32 x 128, score-side
+    scale) at the first, a middle and the last layer, full and mid-decode
+    masks, and NaN in a fully masked row; K5 at B = 1, the 1,984-token
+    prompt into SPEC_K5_SLOTS (2,054 and 2,058 slots: a partial last
+    128-key tile), causal with the cache's empty tail, on its Hopper body.
+    Returns the rows."""
+    from eilev_tpu_torch.ops import decode_attention as da
+    from eilev_tpu_torch.ops import flash_attention as fl
+
+    g = torch.Generator(device=dev).manual_seed(2)
+    rows = []
+    for shape in SPEC_DECODE_SHAPES:
+        c = _decode_case(dev, g, da, shape)
+        n_layers, b, s, filled, nh, hd = c.dims
+        body = (f"the split, a cluster of {da.cluster_size(b, nh, s)}" if da.k3_split(b, nh, s)
+                else "one block a (head, row)")
+        print(f"[{tag}] K3 bf16 {shape}: the body rule k3_split(B={b}, H={nh}, S={s}) picks {body}")
+        errs = []
+        for layer in sorted({0, n_layers // 2, n_layers - 1}):
+            for name, mask in (("full", torch.ones_like(c.mask)), ("mid-decode", c.mask)):
+                errs.append(check_close(
+                    tag, f"K3 decode_attention_stacked bf16 {shape} ({n_layers},{b},{s} with {filled} filled,"
+                    f"{nh}x{hd}) layer {layer} {name} mask",
+                    da.decode_attention_stacked(c.q, c.kb, c.vb, mask, layer, **c.kw),
+                    da.decode_attention_stacked_reference(c.q, c.kb, c.vb, mask, layer, **c.kw), 2e-2))
+        dead = c.mask.clone()
+        dead[-1] = 0
+        out = da.decode_attention_stacked(c.q, c.kb, c.vb, dead, n_layers - 1, **c.kw)
+        ref = da.decode_attention_stacked_reference(c.q, c.kb, c.vb, dead, n_layers - 1, **c.kw)
+        torch.cuda.synchronize()
+        assert bool(torch.isnan(out[-1]).all()) and bool(torch.isnan(ref[-1]).all()), "K3 masked row not NaN"
+        torch.testing.assert_close(out, ref, atol=2e-2, rtol=2e-2, equal_nan=True)
+        sd_q = c.q.view(b, nh, 1, hd)
+        sd_mask = c.mask.bool()[:, None, None, :]
+        scale = hd**-0.5
+        lib = lambda c=c, sd_q=sd_q, sd_mask=sd_mask, scale=scale: [  # noqa: E731
+            _sdpa(sd_q, c.k5[i].transpose(1, 2), c.v5[i].transpose(1, 2), attn_mask=sd_mask, scale=scale)
+            for i in range(c.dims[0])]
+        r = {"name": f"decode_attention_stacked_bf16 at {shape}", "source": "eilev_tpu_torch/csrc/decode_attention.cu",
+             "replaces": "eilev_tpu/ops/decode_attention.py:117", "max_abs_err": max(errs),
+             "run": _k3_step(da, c), "plain": _k3_step(da, c, plain=True), "per_call": n_layers,
+             "library": lib, "bound": _decode_bound(c, int8=False)}
+        time_row(tag, r)
+        rows.append(r)
+        del c, r, lib, dead, out, ref
+        torch.cuda.empty_cache()
+    for slots in SPEC_K5_SLOTS:
+        q, k, v, mask = _k5_inputs(dev, g, 1, LLAMA_PROMPT, slots, 32, 128, (LLAMA_PROMPT,), tail_empty=True)
+        kw5 = dict(padding_mask=mask, causal=True, scale=128**-0.5)
+        before = fl.flash_attention.launches_sm90
+        out = fl.flash_attention(q, k, v, **kw5)
+        torch.cuda.synchronize()
+        assert fl.flash_attention.launches_sm90 == before + 1, f"K5 at {slots} slots did not take the Hopper body"
+        err = check_close(tag, f"K5 speculative prefill B=1 S={LLAMA_PROMPT} L={slots} 32x128 causal, empty tail "
+                          f"(Hopper body; {slots % 128} keys in the last 128-key tile)",
+                          out, fl.flash_attention_reference(q, k, v, **kw5), 2e-2)
+        qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        r = {"name": f"flash_attention at {slots} slots", "source": "eilev_tpu_torch/csrc/flash_attention.cu",
+             "replaces": "eilev_tpu/ops/flash_attention.py:157", "max_abs_err": err, "per_call": 1,
+             "run": (lambda q=q, k=k, v=v, kw5=kw5: fl.flash_attention(q, k, v, **kw5)),
+             "plain": (lambda q=q, k=k, v=v, kw5=kw5: fl.flash_attention_reference(q, k, v, **kw5)),
+             # upper-left causal alignment masks the empty tail too: the same function
+             "library": (lambda qt=qt, kt=kt, vt=vt: _sdpa(qt, kt, vt, is_causal=True, scale=128**-0.5)),
+             "bound": bound(*_k5_causal_work((LLAMA_PROMPT,), LLAMA_PROMPT, 32, 128, slots))}
+        time_row(tag, r)
+        rows.append(r)
+        del q, k, v, out, r
+        torch.cuda.empty_cache()
+    return rows
+
+
 def check_two_pass(tag: str, dev: torch.device, g) -> None:
     """The bf16 two-pass body of K1 and K2 (S past K2_MAX_SEQ = 2,048, where a
     query tile's scores no longer fit shared memory): K2 at (1, 4,096, 32x80),
@@ -1392,15 +1544,19 @@ def kernel_times(tag: str, dev: torch.device, tree: str) -> None:
 
 class Variants:
     """Decoding knobs on top of a run's inputs: ``variant`` gives the same
-    inputs decoded with other GenerationConfig knobs and, for sampling, a
-    generator seeded with ``seed`` anew for every request."""
+    inputs decoded with other GenerationConfig knobs, the decoding mode's
+    arguments ``mode`` (``draft``, ``draft_layers``, ``draft_tokens``,
+    ``draft_match_len``; ``chunk_tokens`` streams the request through
+    ``generate_stream``) and, for sampling, a generator seeded with ``seed``
+    anew for every request."""
 
     knobs: dict = {}
+    mode: dict = {}
     seed = None
 
-    def variant(self, seed=None, **knobs):
+    def variant(self, seed=None, mode=None, **knobs):
         run = copy.copy(self)
-        run.knobs, run.seed = knobs, seed
+        run.knobs, run.seed, run.mode = knobs, seed, dict(mode or {})
         return run
 
     @property
@@ -1431,15 +1587,19 @@ class Narration(Variants):
         return f"videos_per_s={self.n_videos / p50_s}"
 
     def generate(self):
-        from eilev_tpu_torch.generation import GenerationConfig, generate
+        """The request's tokens; a streamed request's chunks concatenated
+        (on the host, where generate_stream yields them)."""
+        from eilev_tpu_torch.generation import GenerationConfig, generate, generate_stream
         from eilev_tpu_torch.ops.preprocess import process_videos
 
         pixel = process_videos(self.frames, dtype=self.dtype)
-        return generate(self.model, input_ids=self.ids, attention_mask=self.mask, pixel_values=pixel,
-                        video_input_mask=self.vim, generator=self.generator(self.ids.device),
-                        generation_config=GenerationConfig(
-                            max_new_tokens=self.new_tokens, pad_token_id=1, eos_token_id=(NEWLINE,),
-                            **self.knobs))
+        kw = dict(input_ids=self.ids, attention_mask=self.mask, pixel_values=pixel, video_input_mask=self.vim,
+                  generator=self.generator(self.ids.device),
+                  generation_config=GenerationConfig(max_new_tokens=self.new_tokens, pad_token_id=1,
+                                                     eos_token_id=(NEWLINE,), **self.knobs))
+        if "chunk_tokens" in self.mode:
+            return torch.cat(list(generate_stream(self.model, chunk_tokens=self.mode["chunk_tokens"], **kw)), 1)
+        return generate(self.model, **kw, **self.mode)
 
     @torch.inference_mode()
     def embeds(self):
@@ -1587,6 +1747,219 @@ def run_generation(tag: str, model, lm_calls: list, runs: dict, launches: dict) 
         print(f"[{tag}] {label} batch={run.batch}: the same seed gives the same tokens twice={same}; "
               f"tokens in the vocabulary={in_vocab}; row 0 {first[0].tolist()}")
         assert same and in_vocab, (same, in_vocab)
+
+
+def greedy_with_logits(run):
+    """The run's plain greedy tokens (its variant with no knobs and no mode)
+    and the last-position logits of each of its LM forwards, in order: the
+    logits token t was chosen from are entry t."""
+    rec: list = []
+    handle = run.model.language_model.register_forward_hook(lambda mod, args, out: rec.append(out[0][:, -1].float()))
+    try:
+        tokens = run.variant().generate()
+    finally:
+        handle.remove()
+    torch.cuda.synchronize()
+    return tokens, rec
+
+
+def compare_speculative(tag: str, label: str, tokens, greedy, rec) -> float:
+    """Speculative greedy against plain greedy in bf16: the share of
+    identical rows; each other row's first divergence must come at a
+    near-tie of the plain path's logits (top-2 gap within NEAR_TIE of the
+    row's largest |logit|). Returns the share."""
+    a, b = tokens.cpu(), greedy.cpu()
+    n = min(a.shape[1], b.shape[1])
+    same = (a[:, :n] == b[:, :n]).all(dim=1)
+    ties = []
+    for r in (~same).nonzero().flatten().tolist():
+        t = int((a[r, :n] != b[r, :n]).nonzero()[0])
+        top2 = rec[t][r].topk(2).values
+        gap, scale = (top2[0] - top2[1]).item(), rec[t][r].abs().max().item()
+        ties.append({"row": r, "position": t, "top2_gap": gap, "of_max_abs_logit": gap / scale})
+        assert gap <= NEAR_TIE * scale, f"{label}: row {r} leaves greedy at {t} with a top-2 gap of {gap}"
+    share = same.float().mean().item()
+    print(f"[{tag}] {label}: rows identical to plain greedy {int(same.sum())}/{len(same)} (share {share}); "
+          f"first divergences at near-ties {ties}")
+    return share
+
+
+def drive_mode(tag: str, label: str, run, lm_calls: list, layer_calls: list, prefill_kernel: str,
+               n_vision: int, reps: int):
+    """One counted request of a decoding mode (counters at 0 just before,
+    read just after), then ``reps`` timed requests. The expected launches
+    come from the run's own iterations, read off the LM forwards
+    (``lm_calls``: the target's) and the calls of the first decoder layer
+    (``layer_calls``: the target's and its self-draft's, which shares the
+    layer): K1 once per ViT layer, the prefill kernel once per layer of each
+    prefill (the target's, and the draft's), K3 once per layer of every
+    one-token forward (the target's: contrastive commits, stream and greedy
+    steps; the draft's: gamma + 1 a verify pass); the verify passes
+    themselves run plain attention. Returns (tokens, counts)."""
+    lm = run.model.language_model
+    n_lm = lm.config.num_hidden_layers
+    n_draft = run.mode.get("draft_layers") or 0
+    gamma = run.mode.get("draft_tokens", 0)
+    prompt = run.ids.shape[1]
+    torch.cuda.reset_peak_memory_stats()
+    lm_calls.clear()
+    layer_calls.clear()
+    reset_counters()
+    tokens = run.generate()
+    torch.cuda.synchronize()
+    counts = counters()
+    target = [s_len for s_len, _ in lm_calls]
+    t_prefill, t_step = target.count(prompt), target.count(1)
+    t_verify = sum(1 for s_len in target if 1 < s_len < prompt)
+    d_prefill, d_step = layer_calls.count(prompt) - t_prefill, layer_calls.count(1) - t_step
+    want = dict.fromkeys(counters(), 0)
+    want["packed_qkv_attention"] = n_vision
+    want[prefill_kernel] = n_lm * t_prefill + n_draft * d_prefill
+    if prefill_kernel == "flash_attention":
+        want["flash_attention_sm90"] = want[prefill_kernel]
+    want["decode_attention_stacked_bf16"] = n_lm * t_step + n_draft * d_step
+    print(f"[{tag}] {label} batch={run.batch} launches {counts} expected {want}: target prefills={t_prefill} "
+          f"one-token forwards={t_step} verify passes={t_verify}; draft prefills={d_prefill} "
+          f"one-token forwards={d_step}")
+    assert counts == want, f"launch counts {counts}, expected {want}"
+    assert t_prefill == 1 and lm_calls and all(bool(ok) for _, ok in lm_calls), "a prefill missing or non-finite"
+    if n_draft:
+        assert d_prefill == 1 and t_step == 0 and d_step == (gamma + 1) * t_verify >= gamma + 1
+    elif "draft" in run.mode:
+        assert d_prefill == d_step == t_step == 0 and t_verify >= 1
+    else:
+        assert d_prefill == d_step == t_verify == 0 and t_step >= 1
+    assert tokens.shape[0] == run.rows
+    vocab = lm.config.vocab_size
+    assert bool(((tokens >= 0) & (tokens < vocab)).all()), "a token outside the vocabulary"
+    accept = ""
+    if t_verify:
+        live = (tokens != run.model.config.text_config.pad_token_id).any(dim=0).nonzero()
+        emitted = min(int(live.max()) + 1 if live.numel() else 1, run.new_tokens)
+        accept = f"tokens_per_verify_pass={emitted / t_verify} "
+    peak = torch.cuda.max_memory_allocated()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run.generate()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    p50 = statistics.median(times) if times else float("nan")
+    print(f"[{tag}] {label} batch={run.batch} {accept}generate_s={times} p50_s={p50} "
+          f"max_memory_allocated_bytes={peak} first tokens={tokens[0, :8].tolist()}")
+    return tokens, counts
+
+
+def _layer_log(lm) -> tuple[list, object]:
+    """The sequence length of every call of ``lm``'s first decoder layer (a
+    self-draft shares it), and the hook's handle."""
+    calls: list = []
+    return calls, lm.layers[0].register_forward_pre_hook(lambda mod, args: calls.append(args[0].shape[1]))
+
+
+def run_decoding_modes(tag: str, model, lm_calls: list, runs: dict, launches: dict) -> None:
+    """Phase 4e: the decoding modes on the main path's bf16 model at full
+    width, batch 1 and 4: contrastive search (0.6, top_k 4), generate_stream
+    (greedy, chunk 4), the self-draft of the first 4 layers (gamma 4) and
+    prompt-lookup greedy (gamma 8, match 3), then prompt-lookup sampling
+    (temperature 0.7, top_p 0.9) at batch 4 with a generator seeded with
+    GEN_SEED. Each counted against its own iterations (drive_mode), p50 of
+    3 warm requests, peak memory and acceptance, and a torch.profiler pass
+    over prompt-lookup greedy at batch 1. The stream's tokens equal
+    generate's greedy tokens; the speculative greedy rows equal plain
+    greedy's or leave it at a near-tie (compare_speculative); sampling gives
+    the same tokens twice for the same seed."""
+    n_vit = model.config.vision_config.num_hidden_layers
+    layer_calls, handle = _layer_log(model.language_model)
+    lookup = DECODING_MODES[f"prompt lookup greedy (gamma {LOOKUP_GAMMA}, match {LOOKUP_MATCH})"][1]
+    try:
+        for batch in (1, 4):
+            greedy, rec = greedy_with_logits(runs[batch])
+            for label, (knobs, mode) in DECODING_MODES.items():
+                run = runs[batch].variant(mode=mode, **knobs)
+                tokens, counts = drive_mode(tag, label, run, lm_calls, layer_calls, "packed_qkv_causal_attention",
+                                            n_vit, reps=3)
+                if batch == 1 and mode.get("draft") == "prompt_lookup":
+                    profile_request(tag, f"narration {label}", run)
+                if "chunk_tokens" in mode:
+                    g = greedy.cpu()
+                    same = bool(torch.equal(tokens, g[:, : tokens.shape[1]])) and bool(
+                        (g[:, tokens.shape[1]:] == 1).all())
+                    print(f"[{tag}] {label} batch={batch}: the streamed tokens equal generate's greedy={same}")
+                    assert same, "the stream differs from generate's greedy tokens"
+                elif mode:
+                    compare_speculative(tag, f"{label} batch={batch}", tokens, greedy, rec)
+                if mode.get("draft_layers"):
+                    launches[f"decode_attention_stacked_bf16 at narration 4-layer draft cache, batch {batch}"] = \
+                        counts["decode_attention_stacked_bf16"]
+            del rec
+        label = "prompt lookup sampling (temperature 0.7, top_p 0.9)"
+        run = runs[4].variant(seed=GEN_SEED, mode=lookup, **SAMPLE_KNOBS)
+        drive_mode(tag, label, run, lm_calls, layer_calls, "packed_qkv_causal_attention", n_vit, reps=3)
+        first, second = run.generate(), run.generate()
+        same = bool(torch.equal(first, second))
+        print(f"[{tag}] {label} batch=4: the same seed gives the same tokens twice={same}; row 0 {first[0].tolist()}")
+        assert same
+    finally:
+        handle.remove()
+
+
+def run_text_decoding_modes(tag: str, run, lm_calls: list, launches: dict) -> None:
+    """Phase 7 (c): the text LM's speculative modes at the Llama-2-7b
+    geometry, bf16, batch 1, the 1,984-token prompt and 64 new tokens:
+    prompt lookup (gamma 8: 2,058 slots) and the self-draft of the first 4
+    layers (gamma 4: 2,054 slots). K5 (on its Hopper body) once per layer of
+    each prefill, the target's and the draft's; K3 over the draft's cache
+    only; against plain greedy as in phase 4e; p50 of 2 warm requests."""
+    layer_calls, handle = _layer_log(run.model.language_model)
+    greedy, rec = greedy_with_logits(run)
+    modes = {f"text LM prompt lookup (gamma {LOOKUP_GAMMA}, match {LOOKUP_MATCH})":
+             {"draft": "prompt_lookup", "draft_tokens": LOOKUP_GAMMA, "draft_match_len": LOOKUP_MATCH},
+             f"text LM self-draft ({DRAFT_LAYERS} layers, gamma {DRAFT_GAMMA})":
+             {"draft_layers": DRAFT_LAYERS, "draft_tokens": DRAFT_GAMMA}}
+    try:
+        for label, mode in modes.items():
+            tokens, counts = drive_mode(tag, label, run.variant(mode=mode), lm_calls, layer_calls,
+                                        "flash_attention", 0, reps=2)
+            compare_speculative(tag, label, tokens, greedy, rec)
+            slots = LLAMA_PROMPT + LLAMA_NEW + mode["draft_tokens"] + 2
+            launches[f"flash_attention at {slots} slots"] = counts["flash_attention"]
+            if mode.get("draft_layers"):
+                launches["decode_attention_stacked_bf16 at text-LM 4-layer draft cache"] = \
+                    counts["decode_attention_stacked_bf16"]
+    finally:
+        handle.remove()
+
+
+def run_decoding_modes_f32(tag: str, run, int8: bool = False) -> None:
+    """Phase 8 (b): the decoding modes on the fp32 cut (TF32 off), token for
+    token: the self-draft of 1 of its 2 layers (gamma 4), prompt-lookup
+    greedy (gamma 8) and the stream (chunk 4) equal the plain path's greedy
+    tokens (every wrapper swapped for its twin), and contrastive search the
+    plain path's contrastive tokens; over the int8 KV cache (``int8``) the
+    two speculative modes, whose draft steps run K4."""
+    with plain_kernels():
+        greedy = run.variant().generate().cpu()
+    modes = {"self-draft (1 layer, gamma 4)": {"draft_layers": 1, "draft_tokens": DRAFT_GAMMA},
+             f"prompt lookup greedy (gamma {LOOKUP_GAMMA})": {"draft": "prompt_lookup", "draft_tokens": LOOKUP_GAMMA}}
+    if not int8:
+        modes[f"stream (chunk {STREAM_CHUNK})"] = {"chunk_tokens": STREAM_CHUNK}
+    cache = "int8 KV cache" if int8 else "fp32 cache"
+    for label, mode in modes.items():
+        reset_counters()
+        tokens = run.variant(mode=mode).generate().cpu()
+        torch.cuda.synchronize()
+        counts = counters()
+        same = bool(torch.equal(tokens, greedy[:, : tokens.shape[1]]))
+        print(f"[{tag}] fp32 narration {label}, {cache}: launches {counts}; tokens identical to the plain "
+              f"path's greedy={same}: {tokens[0].tolist()}")
+        assert same, f"fp32 {label} differs from the plain path's greedy tokens"
+        if mode.get("draft_layers"):
+            k = "decode_attention_stacked_int8_f32" if int8 else "decode_attention_stacked_f32"
+            assert counts[k] > 0, f"the fp32 self-draft launched no {k}"
+    if not int8:
+        _same_tokens_as_plain(tag, "fp32 narration contrastive (0.6, top_k 4)", run.variant(**CONTRASTIVE_KNOBS))
 
 
 def run_k6_on_vit_layers(tag: str, model, run, launches: dict, tol: float = 2e-2) -> None:
@@ -2031,13 +2404,22 @@ class TextRun(Variants):
 
     @torch.inference_mode()
     def generate(self):
+        """As TextLM.generate decodes: a speculative mode (``mode``) where it
+        applies, else the greedy/sampling loop or beam search."""
         from eilev_tpu_torch.generation import GenerationConfig
-        from eilev_tpu_torch.generation.decoding import _decode
+        from eilev_tpu_torch.generation.decoding import _decode, _speculative
 
         embeds = self.model.embed_and_scatter(self.ids)
         cfg = GenerationConfig(max_new_tokens=self.new_tokens, pad_token_id=0, eos_token_id=(LLAMA_EOS,),
                                **self.knobs)
-        return _decode(self.model, embeds, self.mask, cfg, self.generator(self.ids.device))
+        gen = self.generator(self.ids.device)
+        tokens = None
+        if self.mode and cfg.num_beams == 1:
+            m = self.mode
+            tokens = _speculative(self.model.language_model, self.ids, None, embeds, self.mask, cfg, gen,
+                                  m.get("draft"), m.get("draft_layers"), m.get("draft_tokens", 4),
+                                  m.get("draft_match_len", 3), None)
+        return _decode(self.model, embeds, self.mask, cfg, gen) if tokens is None else tokens
 
     @torch.inference_mode()
     def prefill_logits(self):
@@ -2115,6 +2497,7 @@ def run_llama(tag: str, dev: torch.device, launches: dict) -> None:
     counts = drive(tag, f"llama bf16 beam-4 ({LLAMA_BEAM_PROMPT}-token prompt, {LLAMA_BEAM_NEW} new tokens)",
                    beam.variant(num_beams=4), lm_calls, bf16, reps=3)
     launches["decode_attention_stacked_bf16 at text-LM beam-4"] = counts["decode_attention_stacked_bf16"]
+    run_text_decoding_modes(tag, runs[1], lm_calls, launches)
 
     # prefill logits through K5 against the plain path on the same ids
     k5_logits = runs[1].prefill_logits()
@@ -2294,6 +2677,7 @@ def run_f32_paths(tag: str, dev: torch.device, launches: dict) -> None:
         ("sampling, 2 sequences a row", run.variant(seed=GEN_SEED, num_return_sequences=2, **SAMPLE_KNOBS)),
     ):
         _same_tokens_as_plain(tag, f"fp32 narration {label}", variant)
+    run_decoding_modes_f32(tag, run)
     run_k6_on_vit_layers(tag, model, run, launches, tol=F32_TOL)
 
     quantize_model_(model, int8_kv=True)
@@ -2302,6 +2686,7 @@ def run_f32_paths(tag: str, dev: torch.device, launches: dict) -> None:
     counts = drive(tag, "fp32 narration, int8 KV cache", run, lm_calls, want, reps=1)
     launches["decode_attention_stacked_int8_f32"] = counts["decode_attention_stacked_int8_f32"]
     _same_tokens_as_plain(tag, "fp32 narration, int8 KV cache", run)
+    run_decoding_modes_f32(tag, run, int8=True)
     del model, run, lm_calls
     gc.collect()
     torch.cuda.empty_cache()
@@ -2969,6 +3354,53 @@ def run_train_cli(tag: str, dev, out_dir: str) -> None:
     del reloaded, state, trained
 
 
+def run_samples(tag: str, model, ckpt: str, size: int, dev) -> None:
+    """Phase 10 (g): the two samples' ``run`` on the card with synthetic uint8
+    frames and the ICL phase's word tokenizer (the native decoder is not
+    used here). EILeV's (beam 5, length_penalty -1, eos 50118) on the
+    CLI-default model: two videos of 8 frames interleaved with text, K1 =
+    ViT layers (one encode), K2 = OPT layers, K3 = OPT layers per one-token
+    forward over the 5 beam rows. VideoBLIP's (sampling, 128 new tokens) on
+    the checkpoint loaded as the v1 model (features prepended): one video of
+    10 frames, counted the same way, the same text twice (its generator is
+    seeded with 0 on the card for each request)."""
+    from eilev_tpu_torch.samples import eilev_generate_action_narration as eilev
+    from eilev_tpu_torch.samples import video_blip_generate_action_narration as vblip
+
+    n_vit, n_lm = model.config.vision_config.num_hidden_layers, model.config.text_config.num_hidden_layers
+    rng = np.random.default_rng(5)
+    clips = [rng.integers(0, 256, (3, eilev.NUM_FRAMES, 224, 224), dtype=np.uint8) for _ in range(2)]
+    prompts = [("What is the camera wearer doing? He opens a drawer.", 1), ("What is the camera wearer doing?", 1)]
+    v1, _ = timed_load(tag, "(g) the v1 model", ckpt, size, dev, version="v1", dtype=torch.bfloat16)
+    frames = rng.integers(0, 256, (3, 10, 224, 224), dtype=np.uint8)
+    for label, mdl, call in (
+        ("EILeV sample run (beam 5)", model, lambda: eilev.run(model, WordTokenizer(), prompts, clips)),
+        ("VideoBLIP sample run (v1, sampling)", v1,
+         lambda: vblip.run(v1, WordTokenizer(), frames, "What is the camera wearer doing?")),
+    ):
+        calls = lm_forward_log(mdl)
+        reset_counters()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        text = call()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = counters()
+        one_token = sum(1 for s_len, _ in calls if s_len == 1)
+        want = narration_counts(mdl.config, "decode_attention_stacked_bf16")
+        want["packed_qkv_attention"] = n_vit
+        want["decode_attention_stacked_bf16"] = n_lm * one_token
+        print(f"[{tag}] checkpoints (g) {label}: {secs} s, launches {counts}, one-token forwards {one_token}, "
+              f"text {text[:120]!r}")
+        assert counts == want, (counts, want)
+        assert one_token >= 1 and all(bool(ok) for _, ok in calls), "no decode step, or non-finite logits"
+        again = call()
+        assert again == text, "the same request gave another text"
+    del v1
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def run_checkpoints(tag: str, dev) -> None:
     """Phase 10: HF checkpoints and the three CLIs at the eilev-blip2-opt-2.7b
     widths, depth cut to CKPT_LAYERS."""
@@ -3039,6 +3471,7 @@ def run_checkpoints(tag: str, dev) -> None:
                                                    dtype=np.uint8)
         run_narration_cli(tag, cli_model, frames, root, dev)
         run_icl_cli(tag, cli_model, frames, root, dev)
+        run_samples(tag, cli_model, ckpt, size, dev)
         del cli_model, run_c
         gc.collect()
         torch.cuda.empty_cache()
@@ -3076,6 +3509,7 @@ def main(argv: list) -> int:
         build_kernels(tag)
         kernels = check_kernels(tag, dev)
         beam_rows = check_beam_decode(tag, dev)
+        mode_rows = check_decoding_mode_shapes(tag, dev)
         launches: dict = {}
         model, lm_calls, runs = run_main_path(tag, dev, launches)
         run_k6_on_vit_layers(tag, model, runs[1], launches)
@@ -3086,6 +3520,9 @@ def main(argv: list) -> int:
         t0 = time.perf_counter()
         run_generation(tag, model, lm_calls, runs, launches)
         print(f"[{tag}] generation phase took {time.perf_counter() - t0} s")
+        t0 = time.perf_counter()
+        run_decoding_modes(tag, model, lm_calls, runs, launches)
+        print(f"[{tag}] decoding modes phase took {time.perf_counter() - t0} s")
         gc.collect()
         torch.cuda.empty_cache()
         run_int8_serving(tag, model, lm_calls, runs, launches)
@@ -3119,6 +3556,11 @@ def main(argv: list) -> int:
     print(json.dumps({"beam_decode_shapes": [
         dict(r, route="cuda", launches=launches.get(r["name"], 0)) for r in beam_rows]}))
     print(json.dumps({"training": training}))
+    # the decoding modes' new shapes, with their launches in the mode runs
+    # (K3 over the target's speculative cache: none, its verify pass is
+    # plain attention)
+    print(json.dumps({"decoding_mode_shapes": [
+        dict(r, route="cuda", launches=launches.get(r["name"], 0)) for r in mode_rows]}))
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                               "count": torch.cuda.device_count()}}))

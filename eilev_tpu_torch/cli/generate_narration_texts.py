@@ -3,7 +3,8 @@
 
 Left-padded batched generation with the fixed "Question: What is the camera
 wearer doing? Answer:" prompt through ``generation.generate`` on
-``--device`` (the card by default), writing (frame_path, video_uid,
+``--device`` (the card by default; ``--draft``/``--draft_layers`` for
+speculative decoding), writing (frame_path, video_uid,
 clip_index, generated, ground_truth, in_context_frame_paths) rows to a CSV.
 
     python -m eilev_tpu_torch.cli.generate_narration_texts --model DIR \\
@@ -42,10 +43,14 @@ def parse_args(argv: Optional[list[str]] = None) -> argparse.Namespace:
     p.add_argument("--int8_vision", action="store_true", help="W8A8 vision tower (serving mode)")
     p.add_argument("--model_parallel", type=int, default=0,
                    help="shard the model weights over N devices; not ported (one device)")
-    p.add_argument("--draft_layers", type=int, default=0, help="self-drafting speculative decoding; not ported")
-    p.add_argument("--draft_tokens", type=int, default=None, help="draft tokens per verify pass; not ported")
+    p.add_argument("--draft_layers", type=int, default=0,
+                   help="> 0: token-identical speculative greedy decoding with the first N layers self-drafting")
+    p.add_argument("--draft_tokens", type=int, default=None,
+                   help="draft tokens per verify pass (default 4 with --draft_layers, 8 with --draft "
+                        "prompt_lookup, whose drafts cost no model pass)")
     p.add_argument("--draft", choices=("prompt_lookup",), default=None,
-                   help="prompt-lookup speculative decoding; not ported")
+                   help="prompt_lookup: model-free token-identical speculative decoding, drafts from n-gram "
+                        "matches against the prompt and the text generated so far")
     p.add_argument("--draft_match_len", type=int, default=3, help="longest n-gram tail of --draft prompt_lookup")
     p.add_argument("--vision_cache", type=int, default=0,
                    help="LRU video-feature cache capacity (videos), keyed by frame_path: each distinct "
@@ -71,9 +76,6 @@ def check_args(args: argparse.Namespace) -> None:
     if args.model_parallel > 1:
         raise NotImplementedError(
             "--model_parallel > 1 is not ported: the port runs on one device (parallel/, ROADMAP Queue 1 item 9)")
-    if args.draft_layers or args.draft is not None:
-        raise NotImplementedError(
-            "--draft/--draft_layers (speculative decoding) is not ported yet (ROADMAP Queue 1 item 6)")
     if args.vision_cache and args.shuffle_in_context_example_frames:
         # the derangement ablation permutes videos relative to their
         # frame_paths, so path-keyed caching would reuse wrong features
@@ -191,6 +193,10 @@ def run(args: argparse.Namespace, model, tokenizer, datasets: dict[str, Any]) ->
             video_input_mask=tensor(batch["video_input_mask"]),
             generation_config=gen_cfg,
             vision_chunks=args.vision_chunks,
+            draft_layers=args.draft_layers or None,
+            draft_tokens=args.draft_tokens or (8 if args.draft == "prompt_lookup" else 4),
+            draft=args.draft,
+            draft_match_len=args.draft_match_len,
             video_features=video_features,
         )
         texts = tokenizer.batch_decode(tokens.cpu().numpy(), skip_special_tokens=True)

@@ -3,20 +3,28 @@
 
 The OPT branch of :func:`generate`: greedy, sampling (with
 ``num_return_sequences``), the HF logits processors and warpers
-(``generation/logits.py``), and the beam engine (beam, beam_sample and group
-beam search). Prefill writes the prompt into the stacked KV cache (kernel K2
-runs there for OPT, K5 for a long LLaMA prompt), then a Python loop decodes
-one token per step (K3 over a model-dtype cache, K4 over an int8 one), with
-early exit once every row (or every beam group) is done. Precomputed
-``video_features`` (``serving.VideoFeatureCache``) and ``vision_chunks > 1``
-are taken as in JAX. Contrastive search and speculative drafting raise
-``NotImplementedError`` naming the mode.
+(``generation/logits.py``), the beam engine (beam, beam_sample and group
+beam search), contrastive search (``penalty_alpha``), and speculative
+decoding (``draft_layers``: the target's first layers draft;
+``draft="prompt_lookup"``: model-free drafts, greedy and sampling;
+``generation/speculative.py``). Prefill writes the prompt into the stacked
+KV cache (kernel K2 runs there for OPT, K5 for a long LLaMA prompt), then a
+Python loop decodes one token per step (K3 over a model-dtype cache, K4 over
+an int8 one), with early exit once every row (or every beam group) is done.
+:func:`generate_stream` yields the greedy or sampled tokens in chunks.
+Precomputed ``video_features`` (``serving.VideoFeatureCache``) and
+``vision_chunks > 1`` are taken as in JAX.
 
 The JAX loops are one compiled ``while_loop`` each; here the host drives
 them, with one ``bool(....all())`` read a step for the early exit and no
 other device read inside a step. Beam search keeps JAX's host-visible
 semantics: the cache is reordered (gathered along the beam axis) before each
 model step, and the step is skipped once every group is done.
+
+Contrastive search runs the k candidates as one ``lm_candidates`` pass over
+the shared, read-only cache (``score_with_prefix`` with C = k: plain
+einsums, as in JAX), then commits the chosen token through the ordinary
+one-token step (K3/K4).
 
 Sampling draws Gumbel noise from a ``torch.Generator`` (the public entry
 points take ``generator`` where JAX takes ``rng``, and seed one on the
@@ -32,13 +40,13 @@ VideoBLIP, and ``generation/text_lm``'s text-only module over OPT or LLaMA.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Optional
+from typing import Callable, Iterator, Optional
 
 import numpy as np
 import torch
 from torch import nn
 
-from ..configs import OPTConfig, VideoBlipConfig
+from ..configs import LlamaConfig, OPTConfig, VideoBlipConfig
 from ..models.opt import init_cache
 from ..models.video_blip import VideoBlipForConditionalGeneration as VB
 from ..models.video_blip import embed_and_scatter_chunked
@@ -147,20 +155,25 @@ def _validate_beam_groups(gen_cfg: GenerationConfig) -> None:
         )
 
 
-def _seeded_noise(generator: Optional[torch.Generator], device: torch.device) -> Noise:
-    """Gumbel noise from ``generator``, or from a generator on ``device``
-    seeded with 0 (JAX defaults to ``PRNGKey(0)``). A generator on another
-    device than ``device`` raises ``ValueError``: each step would draw the
-    noise there and copy it over."""
+def _seeded_generator(generator: Optional[torch.Generator], device: torch.device) -> torch.Generator:
+    """``generator``, or a generator on ``device`` seeded with 0 (JAX
+    defaults to ``PRNGKey(0)``). A generator on another device than
+    ``device`` raises ``ValueError``: each step would draw the noise there
+    and copy it over."""
     if generator is None:
-        return gumbel_noise(torch.Generator(device=device).manual_seed(0))
+        return torch.Generator(device=device).manual_seed(0)
     gen_dev, device = generator.device, torch.device(device)
     if gen_dev.type != device.type or (None not in (gen_dev.index, device.index) and gen_dev.index != device.index):
         raise ValueError(
             f"the generator is on {gen_dev} and the model on {device}: "
             "pass a torch.Generator(device=...) on the model's device"
         )
-    return gumbel_noise(generator)
+    return generator
+
+
+def _seeded_noise(generator: Optional[torch.Generator], device: torch.device) -> Noise:
+    """Gumbel noise from :func:`_seeded_generator`'s generator."""
+    return gumbel_noise(_seeded_generator(generator, device))
 
 
 def _prefill(model: nn.Module, inputs_embeds, attention_mask, max_new_tokens: int):
@@ -455,6 +468,158 @@ def _decode(
     return loop(model, inputs_embeds, attention_mask, gen_cfg, noise)
 
 
+def _contrastive_decoder_only(
+    model: nn.Module,
+    inputs_embeds: torch.Tensor,
+    attention_mask: torch.Tensor,
+    gen_cfg: GenerationConfig,
+) -> torch.Tensor:
+    """HF contrastive search (``penalty_alpha > 0``, ``top_k > 1``), with no
+    cache surgery. HF repeats the KV cache k times, runs the k candidates as
+    a B*k batch and reorders the cache to the chosen branch; here, as in JAX,
+    the k candidates (all at the same next position over the same prefix)
+    are one ``lm_candidates`` pass over the shared read-only cache, and the
+    chosen token commits through the ordinary one-token step. The context
+    hidden states (HF ``hidden_states[-1]``) fill an fp32 (B, S + max_new,
+    D) buffer; the degeneration penalty is the largest cosine (eps 1e-8,
+    ``F.cosine_similarity``'s) against its filled prefix, prompt pads
+    included, as in HF. Early exit once every row has emitted eos. Returns
+    (B, max_new_tokens) int64 tokens, pad after eos."""
+    b, s, _ = inputs_embeds.shape
+    k = gen_cfg.top_k
+    alpha = gen_cfg.penalty_alpha
+    max_new = gen_cfg.max_new_tokens
+    device = inputs_embeds.device
+    cache = init_cache(model.config.text_config, b, s + max_new, dtype=inputs_embeds.dtype, device=device)
+    logits, hidden, cache = model.lm_forward_hidden(inputs_embeds, attention_mask=attention_mask, cache=cache)
+    hbuf = torch.zeros(b, s + max_new, hidden.shape[-1], dtype=torch.float32, device=device)
+    hbuf[:, :s] = hidden.float()
+    logits = logits[:, -1]
+    out = torch.full((b, max_new), gen_cfg.pad_token_id, dtype=torch.int64, device=device)
+    finished = torch.zeros(b, dtype=torch.bool, device=device)
+    step_mask = torch.ones(b, 1, dtype=torch.int32, device=device)
+    for step in range(max_new):
+        x = logits.float()
+        if gen_cfg.has_logits_processors:
+            x = _process_scores(x, gen_cfg, out, step, step)
+        top_p, top_ids = _top_k(torch.softmax(x, dim=-1), k)  # (B, k)
+        _, cand_hidden = model.lm_candidates(model.lm_embed(top_ids), cache)  # (B, k, D)
+        ch, ctx = cand_hidden.float(), hbuf[:, : s + step]
+        dots = torch.einsum("bkd,btd->bkt", ch, ctx)
+        norms = ch.norm(dim=-1)[:, :, None] * ctx.norm(dim=-1)[:, None, :]
+        penalty = (dots / norms.clamp_min(1e-8)).max(dim=-1).values  # (B, k)
+        score = (1.0 - alpha) * top_p - alpha * penalty
+        tok = top_ids.gather(1, score.argmax(dim=-1, keepdim=True))[:, 0]
+        tok = torch.where(finished, gen_cfg.pad_token_id, tok)
+        finished = finished | _is_eos(tok, gen_cfg)
+        out[:, step] = tok
+        if step == max_new - 1 or bool(finished.all()):
+            break
+        # commit: the ordinary cached step for the chosen token (the values
+        # the expansion computed for it), writing its k/v and hidden state
+        next_logits, next_hidden, cache = model.lm_forward_hidden(
+            model.lm_embed(tok[:, None]), attention_mask=step_mask, cache=cache)
+        hbuf[:, s + step] = next_hidden[:, 0].float()
+        logits = next_logits[:, -1]
+    return out
+
+
+def _is_contrastive(gen_cfg: GenerationConfig) -> bool:
+    """HF's mode selection: contrastive search iff penalty_alpha > 0,
+    top_k > 1, num_beams == 1 and do_sample is off."""
+    return (
+        bool(gen_cfg.penalty_alpha)
+        and gen_cfg.penalty_alpha > 0
+        and gen_cfg.top_k > 1
+        and gen_cfg.num_beams == 1
+        and not gen_cfg.do_sample
+    )
+
+
+def _embed_prompt(model, input_ids, attention_mask, pixel_values, video_input_mask, video_features=None,
+                  vision_chunks: int = 1):
+    """The prompt's embeddings with the videos scattered in (or prepended, by
+    a v1 model, whose mask is then extended with ones on the left), and the
+    mask over them."""
+    if attention_mask is None:
+        attention_mask = torch.ones_like(input_ids)
+    if video_features is not None:
+        inputs_embeds = model.embed_and_scatter(input_ids, None, video_input_mask, video_features=video_features)
+    elif vision_chunks > 1 and pixel_values is not None:
+        inputs_embeds = embed_and_scatter_chunked(
+            model, input_ids, pixel_values, video_input_mask, vision_chunks=vision_chunks
+        )
+    else:
+        inputs_embeds = model.embed_and_scatter(input_ids, pixel_values, video_input_mask)
+    extra = inputs_embeds.shape[1] - attention_mask.shape[1]
+    if extra:
+        attention_mask = torch.cat([attention_mask.new_ones(attention_mask.shape[0], extra), attention_mask], dim=1)
+    return inputs_embeds, attention_mask
+
+
+def _speculative(
+    lm: nn.Module,
+    input_ids: torch.Tensor,
+    video_input_mask: Optional[torch.Tensor],
+    inputs_embeds: torch.Tensor,
+    attention_mask: torch.Tensor,
+    gen_cfg: GenerationConfig,
+    generator: Optional[torch.Generator],
+    draft: Optional[str],
+    draft_layers: Optional[int],
+    draft_tokens: int,
+    draft_match_len: int,
+    lookup_corpus: Optional[torch.Tensor],
+) -> Optional[torch.Tensor]:
+    """The speculative modes of ``generate`` and ``TextLM.generate`` over the
+    bare LM ``lm``, with JAX's guards: ``draft="prompt_lookup"`` (greedy or
+    sampling), then ``draft_layers`` with greedy. None when neither applies
+    (``draft_layers`` with sampling falls through to the plain loop, as in
+    JAX)."""
+    from .speculative import (
+        build_lookup_corpus,
+        make_self_draft,
+        prompt_lookup_greedy_decode,
+        prompt_lookup_sample_decode,
+        speculative_greedy_decode,
+    )
+
+    if draft == "prompt_lookup":
+        if gen_cfg.has_logits_processors:
+            raise NotImplementedError(
+                "speculative decoding implements plain greedy/sampling; drop "
+                "draft='prompt_lookup' to use repetition_penalty/"
+                "no_repeat_ngram_size/min_new_tokens"
+            )
+        if gen_cfg.num_return_sequences > 1:
+            raise NotImplementedError(
+                "speculative decoding returns one sequence per input; drop "
+                "draft='prompt_lookup' to use num_return_sequences > 1"
+            )
+        if lookup_corpus is None:
+            lookup_corpus = build_lookup_corpus(
+                input_ids, attention_mask[:, -input_ids.shape[1]:], video_input_mask)
+        if gen_cfg.do_sample:
+            return prompt_lookup_sample_decode(
+                lm, lookup_corpus, inputs_embeds, attention_mask, gen_cfg,
+                _seeded_generator(generator, inputs_embeds.device), gamma=draft_tokens, match_len=draft_match_len,
+            )
+        return prompt_lookup_greedy_decode(
+            lm, lookup_corpus, inputs_embeds, attention_mask, gen_cfg,
+            gamma=draft_tokens, match_len=draft_match_len,
+        )
+    if draft_layers and not gen_cfg.do_sample:
+        if gen_cfg.has_logits_processors:
+            raise NotImplementedError(
+                "speculative decoding implements plain greedy; drop "
+                "draft_layers to use repetition_penalty/no_repeat_ngram_size/"
+                "min_new_tokens"
+            )
+        return speculative_greedy_decode(
+            lm, make_self_draft(lm, draft_layers), inputs_embeds, attention_mask, gen_cfg, gamma=draft_tokens)
+    return None
+
+
 @torch.inference_mode()
 def generate(
     model: VB,
@@ -467,29 +632,39 @@ def generate(
     generator: Optional[torch.Generator] = None,
     vision_chunks: int = 1,
     draft_layers: Optional[int] = None,
+    draft_tokens: int = 4,
     draft: Optional[str] = None,
+    draft_match_len: int = 3,
+    lookup_corpus: Optional[torch.Tensor] = None,
     video_features: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """``generate`` for OPT-backed VideoBLIP: encode the videos, scatter them
-    into the prompt embeddings, decode.
+    into the prompt embeddings (a v1 model prepends them), decode.
 
     ``num_beams > 1`` runs beam search (``do_sample``: beam_sample;
     ``num_beam_groups > 1``: group beam search) and returns the best
     ``num_return_sequences`` hypotheses a row, cut at the longest one's
-    length. Otherwise the greedy/sampling loop runs, with the logits
-    processors and warpers; ``num_return_sequences > 1`` (sampling) returns
-    that many rows an input row. Rows come back interleaved (``row*n + i``).
-    ``generator`` (where JAX takes ``rng``) feeds the sampling noise and
-    must be on the model's device (another raises ``ValueError``); with none,
-    a generator on the model's device seeded with 0.
+    length. ``penalty_alpha > 0`` with ``top_k > 1`` (greedy) runs
+    contrastive search. ``draft="prompt_lookup"`` runs model-free
+    speculative decoding: each verify pass checks the ``draft_tokens``
+    tokens that followed the emitted tail n-gram (``draft_match_len`` down
+    to 1) in ``lookup_corpus`` (default: ``input_ids`` with padding and video
+    positions masked) and the text so far; greedy is token-identical to the
+    plain loop, sampling has its output law. ``draft_layers=k`` (greedy)
+    runs speculative decoding with the LM's first k layers drafting
+    ``draft_tokens`` tokens a pass, token-identical. Otherwise the
+    greedy/sampling loop runs, with the logits processors and warpers;
+    ``num_return_sequences > 1`` (sampling) returns that many rows an input
+    row. Rows come back interleaved (``row*n + i``). ``generator`` (where
+    JAX takes ``rng``) feeds the sampling draws and must be on the model's
+    device (another raises ``ValueError``); with none, a generator on the
+    model's device seeded with 0.
 
     Returns (B*n, <= max_new_tokens) generated token ids (new tokens only;
     pad after eos). ``video_features`` (precomputed ``encode_videos`` output,
     (num_videos * num_query_tokens, text_hidden)) skips the vision tower and
     takes precedence over ``pixel_values``; ``vision_chunks > 1`` runs the
-    vision tower over that many sequential pieces of the videos. Contrastive
-    search and speculative drafting (``draft``/``draft_layers``) are not
-    ported yet and raise ``NotImplementedError``.
+    vision tower over that many sequential pieces of the videos.
     """
     cfg: VideoBlipConfig = model.config
     if not isinstance(cfg.text_config, OPTConfig):
@@ -501,36 +676,125 @@ def generate(
         gen_cfg = gen_cfg.with_eos(cfg.text_config.eos_token_id)
     _validate_num_return_sequences(gen_cfg)
     _validate_beam_groups(gen_cfg)
-    # HF mode selection: contrastive search iff num_beams == 1,
-    # do_sample=False, top_k > 1 and penalty_alpha > 0
-    contrastive = (
-        bool(gen_cfg.penalty_alpha)
-        and gen_cfg.penalty_alpha > 0
-        and gen_cfg.top_k > 1
-        and gen_cfg.num_beams == 1
-        and not gen_cfg.do_sample
-    )
-    unported = {
-        "contrastive search (penalty_alpha)": contrastive,
-        "speculative decoding (draft)": draft is not None,
-        "speculative decoding (draft_layers)": bool(draft_layers),
-    }
-    for mode, requested in unported.items():
-        if requested:
-            raise NotImplementedError(f"{mode} is not ported yet")
-    if attention_mask is None:
-        attention_mask = torch.ones_like(input_ids)
-    if video_features is not None:
-        inputs_embeds = model.embed_and_scatter(
-            input_ids, None, video_input_mask, video_features=video_features
-        )
-    elif vision_chunks > 1 and pixel_values is not None:
-        inputs_embeds = embed_and_scatter_chunked(
-            model, input_ids, pixel_values, video_input_mask, vision_chunks=vision_chunks
-        )
-    else:
-        inputs_embeds = model.embed_and_scatter(input_ids, pixel_values, video_input_mask)
-    # HF counts min_length/max_length over prompt + generated; the scattered
-    # embeddings are as long as input_ids
+    inputs_embeds, attention_mask = _embed_prompt(
+        model, input_ids, attention_mask, pixel_values, video_input_mask, video_features, vision_chunks)
+    if draft is not None and draft != "prompt_lookup":
+        raise ValueError(f"unknown draft strategy {draft!r}; supported: 'prompt_lookup'")
+    # HF counts min_length/max_length over prompt + generated
     gen_cfg = _resolve_lengths(gen_cfg, start_len=inputs_embeds.shape[1])
+    if gen_cfg.num_beams > 1:
+        return _decode(model, inputs_embeds, attention_mask, gen_cfg, generator)
+    if _is_contrastive(gen_cfg):
+        if draft is not None or draft_layers:
+            raise NotImplementedError(
+                "contrastive search (penalty_alpha) does not compose with "
+                "speculative drafting; drop draft/draft_layers"
+            )
+        return _contrastive_decoder_only(model, inputs_embeds, attention_mask, gen_cfg)
+    tokens = _speculative(
+        model.language_model, input_ids, video_input_mask, inputs_embeds, attention_mask, gen_cfg, generator,
+        draft, draft_layers, draft_tokens, draft_match_len, lookup_corpus)
+    if tokens is not None:
+        return tokens
     return _decode(model, inputs_embeds, attention_mask, gen_cfg, generator)
+
+
+# ---------------------------------------------------------------------------
+# streaming generation (decoder-only)
+# ---------------------------------------------------------------------------
+
+
+def _decode_chunk(
+    model: nn.Module,
+    cache: dict,
+    logits: torch.Tensor,
+    finished: torch.Tensor,
+    gen_cfg: GenerationConfig,
+    noise: Optional[Noise],
+    chunk: int,
+):
+    """``chunk`` decode steps: select a token from ``logits``, then the
+    one-token model step, as JAX's scan (the cache is updated in place).
+    Returns (logits, finished, tokens (B, chunk))."""
+    b = logits.shape[0]
+    step_mask = torch.ones(b, 1, dtype=torch.int32, device=logits.device)
+    toks = []
+    for _ in range(chunk):
+        tok = _select_token(logits, gen_cfg, noise)
+        tok = torch.where(finished, gen_cfg.pad_token_id, tok)
+        finished = finished | _is_eos(tok, gen_cfg)
+        next_logits, cache = model.lm_forward(model.lm_embed(tok[:, None]), attention_mask=step_mask, cache=cache)
+        logits = next_logits[:, -1]
+        toks.append(tok)
+    return logits, finished, torch.stack(toks, dim=1)
+
+
+def generate_stream(
+    model: VB,
+    *,
+    input_ids: torch.Tensor,
+    attention_mask: Optional[torch.Tensor] = None,
+    pixel_values: Optional[torch.Tensor] = None,
+    video_input_mask: Optional[torch.Tensor] = None,
+    generation_config: GenerationConfig = GenerationConfig(),
+    generator: Optional[torch.Generator] = None,
+    chunk_tokens: int = 4,
+) -> Iterator[torch.Tensor]:
+    """Stream greedy or sampled tokens in chunks of ``chunk_tokens``.
+
+    Yields (B, <= chunk_tokens) int64 CPU tensors of NEW tokens (pad after
+    each row's eos) until every row is finished or the budget is spent; one
+    device read a chunk. The concatenated stream is ``generate``'s tokens
+    (the same step, the same kernels; with ``do_sample`` the same draws from
+    the same ``generator``). Decoder-only LMs; beam search, contrastive
+    search, ``num_return_sequences > 1``, the history-dependent logits
+    processors and a minimum length raise ``NotImplementedError``, as in
+    JAX.
+    """
+    cfg: VideoBlipConfig = model.config
+    if not isinstance(cfg.text_config, (OPTConfig, LlamaConfig)):
+        raise NotImplementedError(
+            f"generate_stream supports decoder-only LMs (OPT, LLaMA), got "
+            f"{type(cfg.text_config).__name__}"
+        )
+    if generation_config.num_beams > 1:
+        raise NotImplementedError("beam search cannot stream; use generate()")
+    if generation_config.has_logits_processors:
+        raise NotImplementedError(
+            "history-dependent logits processors (repetition_penalty/"
+            "no_repeat_ngram_size/min_new_tokens/bad_words_ids/forced/"
+            "suppress tokens) need the full generated history per step; "
+            "use generate()"
+        )
+    if generation_config.num_return_sequences > 1:
+        raise NotImplementedError(
+            "num_return_sequences > 1 cannot stream (rows would interleave "
+            "mid-yield); use generate()"
+        )
+    if _is_contrastive(generation_config):
+        raise NotImplementedError("contrastive search (penalty_alpha) does not stream; use generate()")
+    gen_cfg = generation_config
+    if gen_cfg.eos_token_id is None:
+        gen_cfg = gen_cfg.with_eos(cfg.text_config.eos_token_id)
+    with torch.inference_mode():
+        inputs_embeds, attention_mask = _embed_prompt(
+            model, input_ids, attention_mask, pixel_values, video_input_mask)
+        gen_cfg = _resolve_lengths(gen_cfg, start_len=inputs_embeds.shape[1])
+        if gen_cfg.min_new_tokens > 0:
+            raise NotImplementedError(
+                "min_length translates to min_new_tokens, which needs a step "
+                "counter in the decode loop; use generate()"
+            )
+        noise = _seeded_noise(generator, inputs_embeds.device) if gen_cfg.do_sample else None
+        logits, cache = _prefill(model, inputs_embeds, attention_mask, gen_cfg.max_new_tokens)
+        finished = torch.zeros(inputs_embeds.shape[0], dtype=torch.bool, device=inputs_embeds.device)
+    emitted = 0
+    while emitted < gen_cfg.max_new_tokens:
+        chunk = min(chunk_tokens, gen_cfg.max_new_tokens - emitted)
+        with torch.inference_mode():
+            logits, finished, toks = _decode_chunk(model, cache, logits, finished, gen_cfg, noise, chunk)
+            done = torch.cat([toks.flatten(), finished.all().view(1).to(toks.dtype)]).cpu()
+        emitted += chunk
+        yield done[:-1].view(toks.shape)
+        if bool(done[-1]):
+            return

@@ -4,9 +4,10 @@ Drives a bare decoder-only LM through the same decoding loop as VideoBLIP. The
 reference's sentence-ification utilities run Llama-2-chat; :class:`TextLM`
 runs those recipes from local HF checkpoints, LLaMA-family (``models/llama.py``)
 or OPT-family (``models/opt.py``), with greedy, sampling (and
-``num_return_sequences``), the logits processors and beam search
-(``generation/decoding.py``); speculative decoding raises
-``NotImplementedError`` naming the mode.
+``num_return_sequences``), the logits processors, beam search
+(``generation/decoding.py``) and speculative decoding: prompt lookup
+(greedy and sampling) and self-drafting by the first layers (greedy;
+``generation/speculative.py``).
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ from ..models.convert import convert_llama, convert_opt, llama_config_from_hf, o
 from ..models.llama import LlamaForCausalLM
 from ..models.opt import OPTForCausalLM
 from .config import GenerationConfig
-from .decoding import _decode, _resolve_lengths, _validate_num_return_sequences
+from .decoding import _decode, _resolve_lengths, _speculative, _validate_num_return_sequences
 
 
 class _TextOnlyModule(nn.Module):
@@ -44,8 +45,10 @@ class _TextOnlyModule(nn.Module):
     def lm_embed(self, input_ids):
         return self.language_model.embed(input_ids)
 
-    def lm_forward(self, inputs_embeds, attention_mask=None, cache=None):
-        return self.language_model(inputs_embeds, attention_mask=attention_mask, cache=cache)
+    def lm_forward(self, inputs_embeds, attention_mask=None, cache=None, cache_append=False):
+        return self.language_model(
+            inputs_embeds, attention_mask=attention_mask, cache=cache, cache_append=cache_append
+        )
 
 
 def load_tokenizer(path: str):
@@ -119,14 +122,20 @@ class TextLM:
         generation_config: Optional[GenerationConfig] = None,
         generator: Optional[torch.Generator] = None,
         draft_layers: int = 0,
+        draft_tokens: int = 4,
         draft: Optional[str] = None,
+        draft_match_len: int = 3,
     ) -> list[str]:
         """Continue each prompt (left-padded into one batch): beam search when
-        ``num_beams > 1``, else greedy or sampled decoding, with the logits
-        processors. ``generator`` (where JAX takes ``rng``) feeds the sampling
-        noise and must be on the model's device (another raises
-        ``ValueError``); with none, a generator there seeded with 0.
-        Returns ``num_return_sequences`` texts a prompt, interleaved.
+        ``num_beams > 1``; else ``draft="prompt_lookup"`` (model-free
+        speculative decoding over the prompts' n-grams, greedy or sampling),
+        ``draft_layers > 0`` (greedy, the first N layers drafting
+        ``draft_tokens`` tokens a verify pass; token-identical to greedy), or
+        greedy or sampled decoding, with the logits processors. ``generator``
+        (where JAX takes ``rng``) feeds the sampling draws and must be on the
+        model's device (another raises ``ValueError``); with none, a
+        generator there seeded with 0. Returns ``num_return_sequences`` texts
+        a prompt, interleaved.
 
         The processors see the generated tokens only, as in JAX (the loops
         drive the LM through inputs_embeds, where HF starts from an empty
@@ -136,23 +145,25 @@ class TextLM:
         if gen_cfg.eos_token_id is None:
             gen_cfg = gen_cfg.with_eos(self.config.text_config.eos_token_id)
         _validate_num_return_sequences(gen_cfg)
-        unported = {
-            "speculative decoding (draft)": draft is not None,
-            "speculative decoding (draft_layers)": bool(draft_layers),
-        }
-        for mode, requested in unported.items():
-            if requested:
-                raise NotImplementedError(f"{mode} is not ported yet")
         enc = [self.tokenizer(t)["input_ids"] for t in prompts]
         longest = max(len(e) for e in enc)
         ids = np.stack(
             [_pad_1d(np.asarray(e), longest, self.tokenizer.pad_token_id, "left") for e in enc]
         )
         mask = np.stack([_pad_1d(np.ones(len(e), np.int64), longest, 0, "left") for e in enc])
-        embeds = self.module.embed_and_scatter(torch.from_numpy(ids).to(self.device))
+        ids = torch.from_numpy(ids).to(self.device)
+        embeds = self.module.embed_and_scatter(ids)
         mask = torch.from_numpy(mask).to(self.device)
         # HF counts min_length/max_length over prompt + generated on the
         # inputs_embeds path
         gen_cfg = _resolve_lengths(gen_cfg, start_len=embeds.shape[1])
-        tokens = _decode(self.module, embeds, mask, gen_cfg, generator)
+        if draft is not None and draft != "prompt_lookup":
+            raise ValueError(f"unknown draft strategy {draft!r}; supported: 'prompt_lookup'")
+        tokens = None
+        if gen_cfg.num_beams == 1:
+            tokens = _speculative(
+                self.module.language_model, ids, None, embeds, mask, gen_cfg, generator,
+                draft, draft_layers, draft_tokens, draft_match_len, None)
+        if tokens is None:
+            tokens = _decode(self.module, embeds, mask, gen_cfg, generator)
         return self.tokenizer.batch_decode(tokens.cpu().numpy(), skip_special_tokens=True)

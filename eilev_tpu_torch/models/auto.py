@@ -22,6 +22,7 @@ from ..configs import replace as cfg_replace
 from ..ops.quantization import quantize_model_
 from .convert import load_hf_checkpoint
 from .video_blip import VideoBlipForConditionalGeneration
+from .video_blip_v1 import VideoBlipV1ForConditionalGeneration
 
 
 def config_from_hf_dict(cfg: dict) -> VideoBlipConfig:
@@ -131,8 +132,9 @@ def load_model(
     matmuls), ``w8a8_prefill`` (requires ``int8_lm``: the LM's prefill
     matmuls W8A8). None is bit-parity with bf16; all are off by default.
     ``remat`` sets per-layer rematerialization of the LM trunk (training).
-    ``version="v1"`` and T5 checkpoints raise ``NotImplementedError``: they
-    are not ported yet. The model comes back in eval mode with no parameter
+    Any other ``version`` than ``"v2"`` builds the v1 model, as in JAX (video features prepended,
+    ``models/video_blip_v1.py``) over the same weights; T5 checkpoints raise
+    ``NotImplementedError``: they are not ported yet. The model comes back in eval mode with no parameter
     requiring grad (the Trainer sets its own).
     """
     with open(os.path.join(path, "config.json")) as f:
@@ -141,10 +143,6 @@ def load_model(
         raise ValueError("w8a8_prefill requires int8_lm (shared int8 weights)")
     if (int8_lm or int8_kv) and not isinstance(config.text_config, OPTConfig):
         raise ValueError("int8_lm/int8_kv currently support OPT-family LMs only")
-    if version != "v2":
-        raise NotImplementedError(
-            f"version={version!r}: the v1 model (models/video_blip_v1.py) is not ported yet (ROADMAP Queue 1 item 9)"
-        )
     if not isinstance(config.text_config, OPTConfig):
         raise NotImplementedError(
             f"only the OPT language model is ported, got {type(config.text_config).__name__}"
@@ -153,7 +151,8 @@ def load_model(
         config = cfg_replace(config, text_config=dataclasses.replace(config.text_config, remat=True))
     state = load_hf_checkpoint(path, config, dtype=param_dtype, device=device)
     stored = state["language_model.embed_tokens.weight"].dtype  # the weights' dtype after the load
-    model = VideoBlipForConditionalGeneration(config, device="meta", dtype=dtype, param_dtype=stored)
+    cls = VideoBlipForConditionalGeneration if version == "v2" else VideoBlipV1ForConditionalGeneration
+    model = cls(config, device="meta", dtype=dtype, param_dtype=stored)
     model.load_state_dict(state, strict=True, assign=True)
     del state
     model.eval().requires_grad_(False)

@@ -24,10 +24,15 @@ port's OPT, the cache is UPDATED IN PLACE and the same dict is returned.
   path). The JAX module gates its decode kernel behind ``EILEV_DECODE_KERNEL``,
   a TPU v5e measurement; the port runs the kernel on the card with no switch.
 
+- A multi-token append into a partly filled cache (``cache_append=True``,
+  the speculative verify pass) attends the whole layer slice through the
+  additive (B, 1, S, L) bias of ``models/opt.append_bias``, by plain
+  attention, as in JAX.
+
 Grouped-query attention stores only the kv heads; the attention functions
 read kv head h // (heads // kv_heads), which equals the JAX ``jnp.repeat``.
-Not ported, and raising ``NotImplementedError``: ``cache_append`` and
-multi-token writes into a filled cache (speculative decoding).
+A multi-token write into a filled cache without ``cache_append`` raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -42,6 +47,7 @@ from ..configs import LlamaConfig
 from ..ops.attention import dot_product_attention
 from ..ops.decode_attention import decode_attention_stacked, dequantize_kv, quantize_kv
 from ..ops.quantization import dense_cls
+from .opt import append_bias
 
 Cache = dict[str, Any]
 
@@ -241,11 +247,11 @@ class LlamaForCausalLM(nn.Module):
 
         Without cache: ``attention_mask`` is the (B, S) padding mask. With
         cache: the S tokens are written at ``cache['index']`` and the cache is
-        updated in place. S > 1 is only allowed into a fresh cache (the
-        prefill); S == 1 is a decode step over everything filled so far.
+        updated in place. S > 1 goes into a fresh cache (the prefill) or, with
+        ``cache_append``, into a partly filled one (query j attends the
+        filled slots up to ``index + j``); S == 1 is a decode step over
+        everything filled so far.
         """
-        if cache_append:
-            raise NotImplementedError("multi-token cache appends are not ported yet")
         cfg = self.config
         b, s, _ = inputs_embeds.shape
         if attention_mask is None:
@@ -258,15 +264,18 @@ class LlamaForCausalLM(nn.Module):
             cache_index = None
         else:
             index = cache["index"]
-            if s > 1 and index != 0:
+            if s > 1 and index != 0 and not cache_append:
                 raise NotImplementedError(
-                    "multi-token writes go into a fresh cache only (cache_append is not ported)"
+                    "a multi-token write into a filled cache needs cache_append=True"
                 )
             cache["mask"][:, index : index + s] = attention_mask
             new_counts = torch.cumsum(attention_mask, dim=1, dtype=torch.int32)
             pos = cache["pos"][:, None] + new_counts - 1
             position_ids = torch.where(attention_mask == 0, 1, pos)
-            attn = {"causal": s > 1, "padding_mask": cache["mask"]}
+            if s > 1 and cache_append:
+                attn = {"bias": append_bias(cache["mask"], index, s), "causal": False}
+            else:
+                attn = {"causal": s > 1, "padding_mask": cache["mask"]}
             cache_index = index
 
         cos, sin = rope_cos_sin(position_ids, cfg.head_dim, cfg.rope_theta)

@@ -22,8 +22,15 @@ Serving modes, as in the JAX module: ``quantize_matmuls`` (+ ``w8a8_prefill``)
 makes the projection and FFN matmuls int8 layers (``ops/quantization.py``);
 ``int8_kv_cache`` stores k/v as int8 with bf16 per-(position, head) scales
 (``k_scale``/``v_scale``, (num_layers, B, max_len, H)), quantized as they are
-written. Not in this port yet, and raising ``NotImplementedError``:
-``cache_append``.
+written.
+
+A multi-token append into a partly filled cache (``cache_append=True``, the
+verify pass of speculative decoding) attends the whole cache through one
+additive (B, 1, S, L) bias, ``slots <= index + j`` for query j and the
+cache mask, by plain attention, as the JAX module does in XLA (no Pallas
+kernel there, so none here); an int8 cache is dequantized layer by layer
+for it. ``with_hidden=True`` also returns the final hidden states (HF
+``hidden_states[-1]``), contrastive search's context vectors.
 
 Training (the no-cache forward): dropout at the JAX module's three sites
 (after the position embeddings, after attention, after fc2), active in
@@ -99,6 +106,16 @@ def init_cache(
     return cache
 
 
+def append_bias(cache_mask: torch.Tensor, index: int, s: int) -> torch.Tensor:
+    """The (B, 1, S, L) additive bias of an S-token append at slot ``index``:
+    query j may attend slot t iff ``t <= index + j`` and the (already
+    updated) cache mask keeps t; ``finfo(float32).min`` elsewhere, in fp32."""
+    slots = torch.arange(cache_mask.shape[1], device=cache_mask.device)[None, None, None, :]
+    qpos = torch.arange(s, device=cache_mask.device)[None, None, :, None]
+    keep = (slots <= index + qpos) & cache_mask.bool()[:, None, None, :]
+    return mask_to_bias(keep)
+
+
 class OPTAttention(nn.Module):
     def __init__(self, config: OPTConfig, *, device=None, dtype=None):
         super().__init__()
@@ -121,7 +138,9 @@ class OPTAttention(nn.Module):
         stacked cache (the scales are None for a model-dtype cache); the fresh
         k/v rows are written into it in place at ``cache_index``, quantized
         first for an int8 cache. With a cache, S is the whole prompt into a
-        fresh cache (``attn['prefill_fresh']``) or one decode token."""
+        fresh cache (``attn['prefill_fresh']``), one decode token, or an
+        append (``attn['bias']``) that attends the whole cache under the
+        bias, dequantized first for an int8 cache."""
         cfg = self.config
         b, s, d = hidden_states.shape
         nh, hd = cfg.num_attention_heads, cfg.head_dim
@@ -140,7 +159,13 @@ class OPTAttention(nn.Module):
             else:
                 k_buf[li, :, rows] = k
                 v_buf[li, :, rows] = v
-            if not prefill_fresh:
+            if "bias" in attn:
+                if ks_buf is not None:
+                    k = dequantize_kv(k_buf[li], ks_buf[li], dtype=hidden_states.dtype)
+                    v = dequantize_kv(v_buf[li], vs_buf[li], dtype=hidden_states.dtype)
+                else:
+                    k, v = k_buf[li], v_buf[li]
+            elif not prefill_fresh:
                 n_layers, _, s_len = k_buf.shape[:3]
                 out = decode_attention_stacked(
                     qkv[:, 0, :d].contiguous(),
@@ -167,7 +192,8 @@ class OPTAttention(nn.Module):
             q,
             k,
             v,
-            padding_mask=attn["padding_mask"],
+            bias=attn.get("bias"),
+            padding_mask=attn.get("padding_mask"),
             causal=attn["causal"],
             scale=hd**-0.5,
             scale_query_first=True,  # HF OPT scales q before the matmul
@@ -356,17 +382,21 @@ class OPTForCausalLM(nn.Module):
         cache: Optional[Cache] = None,
         cache_append: bool = False,
         rng: Optional[MaskSource] = None,
-    ) -> tuple[torch.Tensor, Optional[Cache]]:
-        """inputs_embeds: (B, S, word_embed_proj_dim). Returns (logits, cache).
+        with_hidden: bool = False,
+    ) -> tuple:
+        """inputs_embeds: (B, S, word_embed_proj_dim). Returns (logits, cache),
+        or (logits, hidden, cache) with ``with_hidden`` (hidden: the final
+        norm and out-projection's output, HF ``hidden_states[-1]``).
 
         Without cache: ``attention_mask`` is the (B, S) padding mask. With
         cache: the S tokens are written at ``cache['index']`` and the cache is
-        updated in place. S > 1 is only allowed into a fresh cache (the
-        prefill); S == 1 is a decode step over everything filled so far.
-        ``rng`` is the dropout mask source (training mode only).
+        updated in place, ``mask``, ``pos`` and ``index`` as the JAX module's
+        functional update gives them. S > 1 goes into a fresh cache (the
+        prefill) or, with ``cache_append``, into a partly filled one, query j
+        attending the filled slots up to ``index + j``; S == 1 is a decode
+        step over everything filled so far. ``rng`` is the dropout mask
+        source (training mode only).
         """
-        if cache_append:
-            raise NotImplementedError("multi-token cache appends are not ported yet")
         b, s, _ = inputs_embeds.shape
         device = inputs_embeds.device
         if attention_mask is None:
@@ -379,14 +409,16 @@ class OPTForCausalLM(nn.Module):
             cache_index = None
         else:
             index = cache["index"]
-            if s > 1 and index != 0:
+            if s > 1 and index != 0 and not cache_append:
                 raise NotImplementedError(
-                    "multi-token writes go into a fresh cache only (cache_append is not ported)"
+                    "a multi-token write into a filled cache needs cache_append=True"
                 )
             cache["mask"][:, index : index + s] = attention_mask
             new_counts = torch.cumsum(attention_mask, dim=1, dtype=torch.int32)
             position_ids = (cache["pos"][:, None] + new_counts) * attention_mask - 1
-            if s > 1:
+            if s > 1 and cache_append:
+                attn = {"bias": append_bias(cache["mask"], index, s), "causal": False}
+            elif s > 1:
                 # prefill-at-0: the fresh (B, S) k/v under the short mask is the
                 # same math as the padded cache buffers, and runs kernel K2
                 attn = {"causal": True, "padding_mask": attention_mask, "prefill_fresh": True}
@@ -410,10 +442,13 @@ class OPTForCausalLM(nn.Module):
                 ckv = (cache["k"], cache["v"], cache.get("k_scale"), cache.get("v_scale"), i)
             x = layer(x, attn, cache_kv=ckv, cache_index=cache_index, rng=rng)
 
-        logits = self.lm_head(self._pre_head(x))
+        hidden = self._pre_head(x)
+        logits = self.lm_head(hidden)
         if cache is not None:
             cache["pos"] += new_counts[:, -1]
             cache["index"] = cache_index + s
+        if with_hidden:
+            return logits, hidden, cache
         return logits, cache
 
     def score_with_prefix(

@@ -161,8 +161,35 @@ class VideoBlipForConditionalGeneration(nn.Module):
         inputs_embeds: torch.Tensor,
         attention_mask: Optional[torch.Tensor] = None,
         cache: Optional[Cache] = None,
+        cache_append: bool = False,
     ) -> tuple[torch.Tensor, Optional[Cache]]:
-        return self.language_model(inputs_embeds, attention_mask=attention_mask, cache=cache)
+        return self.language_model(
+            inputs_embeds, attention_mask=attention_mask, cache=cache, cache_append=cache_append
+        )
+
+    def lm_forward_hidden(
+        self,
+        inputs_embeds: torch.Tensor,
+        attention_mask: Optional[torch.Tensor] = None,
+        cache: Optional[Cache] = None,
+    ) -> tuple[torch.Tensor, torch.Tensor, Optional[Cache]]:
+        """``lm_forward`` that also returns HF's ``hidden_states[-1]``: (logits,
+        hidden, cache), the context vectors contrastive search penalises."""
+        return self.language_model(
+            inputs_embeds, attention_mask=attention_mask, cache=cache, with_hidden=True
+        )
+
+    def lm_candidates(self, cand_embeds: torch.Tensor, cache: Cache) -> tuple[torch.Tensor, torch.Tensor]:
+        """Contrastive search's candidate expansion: (B, k) one-token
+        candidates, all at the same next position, over the shared read-only
+        cache (nothing duplicated or written): ``score_with_prefix`` with C =
+        k, L = 1. Returns (logits (B, k, V), hidden (B, k, D))."""
+        b, k, _ = cand_embeds.shape
+        ones = torch.ones(b, k, 1, dtype=torch.int32, device=cand_embeds.device)
+        logits, hidden = self.language_model.score_with_prefix(
+            cand_embeds[:, :, None, :], ones, cache, return_hidden=True
+        )
+        return logits[:, :, 0], hidden[:, :, 0]
 
     def lm_score_with_prefix(
         self, class_embeds: torch.Tensor, class_attention_mask: torch.Tensor, cache: Cache

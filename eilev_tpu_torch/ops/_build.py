@@ -5,7 +5,10 @@ a plain C interface and loaded with ``ctypes``; nothing includes PyTorch's
 headers, so a build takes seconds. Libraries go to ``build/eilev_tpu_torch/``
 at the repository root, named by a hash of the source, of every shared header
 (``csrc/*.cuh``) and of the flags, so an edited source or header is rebuilt
-and an unchanged one is reused.
+and an unchanged one is reused. :func:`build_host` builds a host C++ source
+the same way with ``g++`` (the libav video decoder, ``native/``). A build
+holds a lock file beside its library, so parallel test workers build it
+once, and renames the library into place when it is whole.
 
 Nothing here runs at import time: the CPU tests import every module of the
 port on hosts with no ``nvcc``.
@@ -14,11 +17,13 @@ port on hosts with no ``nvcc``.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import functools
 import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 _PACKAGE = Path(__file__).resolve().parents[1]
@@ -28,6 +33,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 )
+HOST_FLAGS = ("-O2", "-shared", "-fPIC")
 
 
 def _nvcc() -> str:
@@ -52,23 +58,49 @@ def library_path(source: str, csrc: Path = CSRC) -> Path:
     return BUILD_DIR / f"{Path(source).stem}_{digest.hexdigest()[:16]}.so"
 
 
-def build(source: str) -> Path:
-    """Compile ``csrc/<source>`` into ``build/eilev_tpu_torch/`` and return the
-    library's path; a library already built from the same bytes is reused."""
-    src = CSRC / source
-    lib = library_path(source)
+def _build_locked(lib: Path, command: list, what: str) -> Path:
+    """Run ``command`` with ``-o <tmp>`` and rename its output to ``lib``,
+    once: under an exclusive lock on ``lib``'s lock file, and not at all when
+    ``lib`` exists (a concurrent build never sees half a file)."""
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
-        capture_output=True, text=True,
-    )
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {src.name}:\n{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, lib)  # atomic: a concurrent build never sees half a file
+    with open(lib.with_suffix(".lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            if lib.exists():  # built by another worker while this one waited
+                return lib
+            tmp = lib.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
+            proc = subprocess.run([*command, "-o", str(tmp)], capture_output=True, text=True)
+            if proc.returncode != 0:
+                tmp.unlink(missing_ok=True)
+                raise RuntimeError(f"{Path(command[0]).name} failed on {what}:\n{proc.stdout}\n{proc.stderr}")
+            os.replace(tmp, lib)
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
     return lib
+
+
+def build(source: str) -> Path:
+    """Compile ``csrc/<source>`` into ``build/eilev_tpu_torch/`` and return the
+    library's path; a library already built from the same bytes is reused."""
+    return _build_locked(library_path(source), [_nvcc(), *NVCC_FLAGS, str(CSRC / source)], source)
+
+
+def host_library_path(source: Path, libs: tuple = ()) -> Path:
+    """Where :func:`build_host` puts the library of ``source``: named by a
+    hash of the source, the flags and the libraries it links."""
+    digest = hashlib.sha256(Path(source).read_bytes())
+    digest.update(" ".join(HOST_FLAGS + tuple(libs)).encode())
+    return BUILD_DIR / f"{Path(source).stem}_{digest.hexdigest()[:16]}.so"
+
+
+def build_host(source: Path, libs: tuple = ()) -> Path:
+    """Compile the host C++ file ``source`` with ``g++`` into a shared library
+    in ``build/eilev_tpu_torch/``, linked against ``libs`` (``-l`` flags);
+    a library already built from the same bytes is reused."""
+    source = Path(source)
+    return _build_locked(host_library_path(source, libs), ["g++", *HOST_FLAGS, str(source), *libs], source.name)
 
 
 def ptxas_report(source: str) -> str:

@@ -183,11 +183,24 @@ def test_generate_narration_texts_cli_matches_jax(world, tmp_path, vision_cache)
     assert any(r["generated"] for r in ours)
 
 
+@pytest.mark.parametrize("draft", [["--draft", "prompt_lookup"], ["--draft_layers", "1"]],
+                         ids=["prompt_lookup", "draft_layers"])
+def test_generate_narration_texts_cli_speculative_matches_greedy(world, tmp_path, draft):
+    """--draft prompt_lookup and --draft_layers 1: the plain greedy CSV, and
+    the JAX CLI's with the same flags."""
+    plain, ours, ref = (str(tmp_path / f"{n}.csv") for n in ("plain", "ours", "ref"))
+    generate_narration_texts.main(_narration_argv(world, plain) + ["--device", "cpu"])
+    generate_narration_texts.main(_narration_argv(world, ours) + draft + ["--device", "cpu"])
+    _run_jax_script("generate_narration_texts.py", _narration_argv(world, ref) + draft)
+    rows = [list(csv.DictReader(open(f))) for f in (plain, ours, ref)]
+    assert rows[1] == rows[0] == rows[2] and len(rows[1]) == 3
+
+
 def test_cli_unported_modes_raise():
+    # --draft/--draft_layers are ported
+    # (test_generate_narration_texts_cli_speculative_matches_greedy)
     base = ["--model", "m", "--eval_frames_dir", "e", "--in_context_query_map_file", "q",
             "--in_context_example_frames_dir", "c", "--output_csv", "o", "--device", "cpu"]
-    with pytest.raises(NotImplementedError, match="speculative"):
-        generate_narration_texts.main(base + ["--draft", "prompt_lookup"])
     with pytest.raises(NotImplementedError, match="one device"):
         generate_narration_texts.main(base + ["--model_parallel", "2"])
     train = ["--model_name_or_path", "m", "--train_frames_dir", "t", "--val_frames_dir", "v",

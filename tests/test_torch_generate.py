@@ -6,6 +6,8 @@ Tokens must be identical to ``eilev_tpu.generation.generate`` for 2
 datapoints x 2 videos, with one row stopping early on eos.
 """
 
+from types import SimpleNamespace
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -132,12 +134,27 @@ def test_default_eos_is_the_text_configs(slice_setup):
     ],
 )
 def test_unported_modes_raise(slice_setup, gen_kwargs, call_kwargs):
-    model, ids, vim = slice_setup[3], slice_setup[5], slice_setup[7]
-    with pytest.raises(NotImplementedError, match="not ported"):
-        generate(
-            model, input_ids=torch.from_numpy(ids), video_input_mask=torch.from_numpy(vim),
-            generation_config=GenerationConfig(max_new_tokens=2, **gen_kwargs), **call_kwargs,
-        )
+    """Contrastive search and both speculative modes are ported (they no
+    longer raise): the slice's tokens equal JAX's ``generate`` with the same
+    arguments, and a T5 text config, still unported, raises."""
+    cfg, jmodel, params, model, frames, ids, mask, vim, t = slice_setup
+    img = cfg.vision_config.image_size
+    ref = jgenerate(
+        jmodel, {"params": params}, input_ids=jnp.asarray(ids), attention_mask=jnp.asarray(mask),
+        pixel_values=jprocess(jnp.asarray(frames), num_frames=t, height=img, width=img),
+        video_input_mask=jnp.asarray(vim),
+        generation_config=JGenerationConfig(max_new_tokens=MAX_NEW, pad_token_id=1, **gen_kwargs), **call_kwargs,
+    )
+    ours = generate(
+        model, input_ids=torch.from_numpy(ids), attention_mask=torch.from_numpy(mask),
+        pixel_values=process_videos(torch.from_numpy(frames), num_frames=t, height=img, width=img),
+        video_input_mask=torch.from_numpy(vim),
+        generation_config=GenerationConfig(max_new_tokens=MAX_NEW, pad_token_id=1, **gen_kwargs), **call_kwargs,
+    )
+    np.testing.assert_array_equal(ours.numpy(), np.asarray(ref))
+    t5 = tconfigs.replace(model.config, text_config=tconfigs.tiny_config(text_model="t5").text_config)
+    with pytest.raises(NotImplementedError, match="T5Config"):
+        generate(SimpleNamespace(config=t5), input_ids=torch.from_numpy(ids))
 
 
 def test_greedy_rejects_num_return_sequences(slice_setup):

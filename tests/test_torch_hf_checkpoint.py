@@ -167,8 +167,13 @@ def test_config_from_hf_dict_matches_jax(text):
 
 
 def test_v1_and_t5_raise(ckpt, tmp_path):
-    with pytest.raises(NotImplementedError, match="v1"):
-        auto.load_model(ckpt, version="v1", device="cpu")
+    # the v1 model is ported: the same weights under the prepending v1 class
+    from eilev_tpu_torch.models.video_blip_v1 import VideoBlipV1ForConditionalGeneration
+
+    v1, _ = auto.load_model(ckpt, version="v1", device="cpu")
+    v2, _ = auto.load_model(ckpt, device="cpu")
+    assert type(v1) is VideoBlipV1ForConditionalGeneration
+    assert all(torch.equal(a, b) for a, b in zip(v1.state_dict().values(), v2.state_dict().values()))
     with open(tmp_path / "config.json", "w") as f:
         json.dump(_t5_dict(), f)
     with pytest.raises(NotImplementedError, match="T5Config"):

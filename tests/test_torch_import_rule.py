@@ -30,19 +30,26 @@ PORT_MODULES = [
     "eilev_tpu_torch.models.qformer",
     "eilev_tpu_torch.models.safetensors_io",
     "eilev_tpu_torch.models.video_blip",
+    "eilev_tpu_torch.models.video_blip_v1",
     "eilev_tpu_torch.models.vision",
     "eilev_tpu_torch.generation",
     "eilev_tpu_torch.generation.config",
     "eilev_tpu_torch.generation.decoding",
+    "eilev_tpu_torch.generation.logits",
+    "eilev_tpu_torch.generation.speculative",
     "eilev_tpu_torch.generation.text_lm",
     "eilev_tpu_torch.generation.classify",
     "eilev_tpu_torch.serving",
     "eilev_tpu_torch.serving.feature_cache",
     "eilev_tpu_torch.data",
+    "eilev_tpu_torch.data.clip_sampler",
     "eilev_tpu_torch.data.collate",
     "eilev_tpu_torch.data.frame",
     "eilev_tpu_torch.data.prompts",
     "eilev_tpu_torch.data.text",
+    "eilev_tpu_torch.data.video_datasets",
+    "eilev_tpu_torch.native",
+    "eilev_tpu_torch.native.decoder",
     "eilev_tpu_torch.eval",
     "eilev_tpu_torch.eval.icl",
     "eilev_tpu_torch.eval.metrics",
@@ -58,6 +65,9 @@ PORT_MODULES = [
     "eilev_tpu_torch.cli.generate_narration_texts",
     "eilev_tpu_torch.cli.icl_eval",
     "eilev_tpu_torch.cli.train_v2",
+    "eilev_tpu_torch.samples",
+    "eilev_tpu_torch.samples.eilev_generate_action_narration",
+    "eilev_tpu_torch.samples.video_blip_generate_action_narration",
 ]
 
 _PROBE = """
@@ -77,6 +87,17 @@ def test_port_imports_no_jax():
     )
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip().splitlines()[-1] == "FORBIDDEN:", proc.stdout
+
+
+def test_every_port_module_is_probed():
+    """PORT_MODULES lists every module of the package, so a new one cannot
+    slip past the probe."""
+    root = Path(__file__).resolve().parents[1]
+    found = set()
+    for path in (root / "eilev_tpu_torch").rglob("*.py"):
+        parts = path.relative_to(root).with_suffix("").parts
+        found.add(".".join(parts[:-1] if parts[-1] == "__init__" else parts))
+    assert found <= set(PORT_MODULES), sorted(found - set(PORT_MODULES))
 
 
 def test_chip_smoke_imports_no_jax():

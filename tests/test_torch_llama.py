@@ -174,13 +174,15 @@ def test_causal_lm_prefill_and_decode_match_jax_cache(impl, int8_kv):
 def test_unported_modes_raise():
     model = tl.LlamaForCausalLM(_cfg(tconfigs))
     x = torch.zeros(1, 3, 32)
-    with pytest.raises(NotImplementedError):
-        model(x, cache_append=True)
     cache = init_cache(model.config, 1, 8)
     with torch.no_grad():
+        model(x, cache_append=True)  # no cache: the flag has nothing to append to
         model(x, cache=cache)
         with pytest.raises(NotImplementedError):  # multi-token write into a filled cache
             model(x, cache=cache)
+        # the speculative verify append is ported (tests/test_torch_cache_append.py)
+        logits, _ = model(x, cache=cache, cache_append=True)
+    assert logits.shape == (1, 3, 96) and cache["index"] == 6
 
 
 def test_text_only_module_greedy_matches_jax(impl):

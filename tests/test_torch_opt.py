@@ -106,13 +106,15 @@ def test_opt_unported_modes_raise():
         OPTForCausalLM(tconfigs.replace(tcfg, **flags))
     model = OPTForCausalLM(tcfg)
     x = torch.zeros(1, 3, tcfg.hidden_size)
-    with pytest.raises(NotImplementedError):
-        model(x, cache_append=True)
     cache = init_cache(tcfg, 1, 8)
     with torch.no_grad():
+        model(x, cache_append=True)  # no cache: the flag has nothing to append to
         model(x, cache=cache)
         with pytest.raises(NotImplementedError):  # multi-token write into a filled cache
             model(x, cache=cache)
+        # the speculative verify append is ported (tests/test_torch_cache_append.py)
+        logits, _ = model(x, cache=cache, cache_append=True)
+    assert logits.shape == (1, 3, tcfg.vocab_size) and cache["index"] == 6
     # shared-prefix class scoring is ported (tests/test_torch_classify.py): it
     # reads the filled cache and returns (B, C, L, vocab) logits
     with torch.no_grad():

@@ -1,7 +1,7 @@
 """Port vs JAX: TextLM (generation/text_lm.py) on tiny HF checkpoints built in
 the test, LLaMA (GQA) and OPT, in fp32: the same greedy tokens and texts as
 ``eilev_tpu.generation.text_lm.TextLM``, also with ``int8 + int8_kv``; the
-converters map every HF weight; speculative decoding raises.
+converters map every HF weight; speculative decoding gives JAX's texts.
 """
 
 import jax
@@ -109,13 +109,26 @@ def test_text_lm_loads_every_weight(request, family):
     torch.testing.assert_close(lm.embed_tokens.weight, hf[emb], atol=0, rtol=0)
 
 
-def test_text_lm_unported_modes_raise(llama_checkpoint):
-    tlm = TextLM(llama_checkpoint, dtype=torch.float32, device="cpu")
-    base = dict(max_new_tokens=2, pad_token_id=0, eos_token_id=(0,))
-    with pytest.raises(NotImplementedError, match="draft"):
-        tlm.generate(["cut onion"], GenerationConfig(**base), draft="prompt_lookup")
-    with pytest.raises(NotImplementedError, match="draft_layers"):
-        tlm.generate(["cut onion"], GenerationConfig(**base), draft_layers=1)
+def test_text_lm_unported_modes_raise(request):
+    """Speculative decoding is ported (it no longer raises): ``draft=
+    "prompt_lookup"`` (greedy and sampling) and ``draft_layers=1`` give the
+    JAX TextLM's texts on LLaMA and OPT, the greedy ones the plain greedy
+    texts; an unknown draft strategy raises ValueError, as in JAX."""
+    for family in ("llama", "opt"):
+        path = request.getfixturevalue(f"{family}_checkpoint")
+        jlm = JTextLM(path, dtype=jnp.float32)
+        tlm = TextLM(path, dtype=torch.float32, device="cpu")
+        base = dict(max_new_tokens=8, pad_token_id=0, eos_token_id=(0,))
+        plain = tlm.generate(PROMPTS, GenerationConfig(**base))
+        for kw in (dict(draft="prompt_lookup", draft_tokens=4), dict(draft_layers=1, draft_tokens=3)):
+            ours = tlm.generate(PROMPTS, GenerationConfig(**base), **kw)
+            assert ours == jlm.generate(PROMPTS, JGenerationConfig(**base), **kw) == plain, (family, kw)
+        # sampling at a point mass: the greedy texts
+        point = dict(base, do_sample=True, temperature=1e-7)
+        assert tlm.generate(PROMPTS, GenerationConfig(**point), draft="prompt_lookup",
+                            generator=torch.Generator().manual_seed(1)) == plain
+        with pytest.raises(ValueError, match="prompt_lookup"):
+            tlm.generate(PROMPTS, GenerationConfig(**base), draft="tree")
 
 
 def test_text_lm_rejects_other_families(tmp_path):
