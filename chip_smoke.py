@@ -86,6 +86,18 @@ final result line):
    printed on a JSON line of their own (decoding_mode_shapes) with their
    launches in the mode runs (none over the target's speculative cache: its
    verify pass is plain attention, as JAX's is XLA).
+2e. K5's T5 forms (T5_K5_SHAPES, 32 heads x 64, no scale), bf16 (the
+   mma.sync body) and fp32: the encoder's self-attention over 766 tokens
+   with the (32, 766, 766) relative bias at B = 1 and at B = 4 with a padded
+   row, the decoder's cached step (1 query over a layer slice of the
+   33-slot stacked cache, the (32, 1, 33) bias, the filled-slot mask
+   expanded to (B, L)) and its cross step (1 query over 766 encoder keys, a
+   padded row), each against its twin at 2e-2 / 1e-4 and timed as in 3
+   beside one SDPA call with the bias and mask folded into one float mask
+   and beside its bound (the bias counted as the fp32 the wrapper hands the
+   kernel); the wrapper's fp32 copy of the encoder's permuted bf16 bias
+   timed alone; printed on a JSON line of their own (t5_shapes) with their
+   launches in phase 8b's flash runs.
 3. Time each kernel against its twin with CUDA events, in turns (plain,
    kernel, kernel, plain; warm-up, median of 20), each call queued behind a
    device sleep so that the events measure device time, then one PyTorch
@@ -215,6 +227,22 @@ final result line):
    greedy and the stream equal the plain path's greedy tokens, contrastive
    search the plain path's contrastive tokens; over its int8 KV cache the
    two speculative modes again (the draft steps on K4's fp32-query body).
+8b. The T5 family at the eilev-blip2-flan-t5-xl geometry (ViT 39 x 1408,
+   Q-Former 12, flan-t5-xl 24 + 24 layers of 2048, 32 x 64, gated-gelu
+   5,120, vocab 32,128, untied head), random bf16 weights N(0, 0.02) from
+   T5_SEED, the 16-shot prompt in flan-t5's ids (766 tokens), 32 new
+   tokens: (a) greedy at batch 1 and 4 under "auto" (K1 = 39 a request,
+   nothing else; every T5 attention plain), p50 of 3 warm requests,
+   videos/s, peak memory, a torch.profiler pass at batch 1; (b) the same
+   under "flash", restored after (K5 = 18 Q-Former + 24 encoder + 48 a
+   decoder step, on every T5 attention with its bias), the encoder states'
+   min cosine against (a)'s > 0.999, each row's tokens equal to (a)'s or
+   parting at a near-tie (NEAR_TIE); (c) beam-5 at batch 1 (the reorder
+   gathers the cross K/V too), p50; (d) the seq2seq classify of the
+   187-verb stage at batch 4 against the plain path (score_bar); (e) the
+   fp32 model at F32_LAYERS a stack by its default construction, under
+   "auto" and "flash": tokens and encoder states the plain twins' (K5's
+   fp32 body with the bias). Printed on a JSON line of its own (t5).
 9. Training, after the earlier models are freed. (a) The v2 training step
    (training.make_train_step: forward with labels, backward into the fp32
    masters of the query tokens, Q-Former and language projection, AdamW)
@@ -278,12 +306,16 @@ final result line):
    exactly; (g) the two samples' run with synthetic frames and the word
    tokenizer: EILeV's (beam 5, eos 50118) on (c)'s model and VideoBLIP's
    (sampling) on the checkpoint loaded as the v1 model, counted (K1 = 4,
-   K2 = 4, K3 = 4 per one-token forward), the same text twice. The
-   directories are temporary and deleted at the phase's end.
+   K2 = 4, K3 = 4 per one-token forward), the same text twice; (h) a bf16
+   VideoBLIP-T5 at the flan-t5-xl widths, F32_LAYERS a stack, exported and
+   loaded back with bf16 weights: every tensor bit for bit, greedy tokens
+   identical to the source model's (K1 = F32_LAYERS). The directories are
+   temporary and deleted at the phase's end.
 
 Prints every number tagged with the card's name and power limit, then the
 JSON line of the beam shapes' K3/K4 rows, the JSON line of the training
-variants, the JSON line of the decoding modes' kernel shapes, then one JSON line of per-kernel results (every body: the bf16 ones and the fp32
+variants, the JSON line of the decoding modes' kernel shapes, the JSON lines
+of K5's T5 forms and of the T5 phase, then one JSON line of per-kernel results (every body: the bf16 ones and the fp32
 ones, whose launches come from phase 8; K6's rows also carry composite_ms), then the result line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
@@ -406,6 +438,22 @@ LOOKUP_MATCH = 3
 CONTRASTIVE_KNOBS = dict(penalty_alpha=0.6, top_k=4)
 STREAM_CHUNK = 4
 NEAR_TIE = 2e-2
+# the T5 phase (the eilev-blip2-flan-t5-xl geometry): flan-t5's eos and the
+# whitespace id its tokenizer reads "\n" as, and the seed of its weights.
+# K5's T5 forms (phase 2e), 32 heads x 64, no scale: (batch, queries, keys)
+# of the encoder's self-attention over the 766-token prompt (a padded row at
+# batch 4), the decoder's cached step (one query over 33 slots, 13 filled)
+# and its cross step over the encoder states (a padded row)
+T5_EOS = 1
+T5_NEWLINE = 3
+T5_SEED = 47
+T5_K5_SHAPES = {
+    "T5 encoder, batch 1": (1, 766, 766),
+    "T5 encoder, batch 4": (4, 766, 766),
+    "T5 decoder self, batch 4": (4, 1, MAX_NEW_TOKENS + 1),
+    "T5 cross, batch 4": (4, 1, 766),
+}
+T5_DECODE_FILLED = 13
 DECODING_MODES = {
     "contrastive (penalty_alpha 0.6, top_k 4)": (CONTRASTIVE_KNOBS, {}),
     f"stream (greedy, chunk {STREAM_CHUNK})": ({}, {"chunk_tokens": STREAM_CHUNK}),
@@ -486,17 +534,22 @@ def card_tag() -> str:
     return out[0].strip()
 
 
-def build_prompt(num_query_tokens: int, batch: int):
+def build_prompt(num_query_tokens: int, batch: int, t5: bool = False):
     """bench.py's interleaved 16-shot layout: bos + per video [32 query slots +
-    newline + 12 text tokens]."""
+    newline + 12 text tokens]; for flan-t5 (the seq2seq prompt builder's) no
+    bos, its ids (pad 0 in the query slots, "\n" read as its whitespace
+    token), and the eos closing the prompt. 766 tokens either way."""
     rng = np.random.default_rng(0)
-    ids, vim = [2], [0]
+    ids, vim = ([], []) if t5 else ([2], [0])
+    pad, newline, high = (0, T5_NEWLINE, 32000) if t5 else (1, NEWLINE, 40000)
     for _ in range(SHOTS + 1):
-        ids += [1] * num_query_tokens + [NEWLINE]
+        ids += [pad] * num_query_tokens + [newline]
         vim += [1] * num_query_tokens + [0]
-        toks = rng.integers(1000, 40000, size=TEXT_TOKENS_PER_SHOT).tolist()
+        toks = rng.integers(1000, high, size=TEXT_TOKENS_PER_SHOT).tolist()
         ids += toks
         vim += [0] * len(toks)
+    if t5:
+        ids, vim = ids + [T5_EOS], vim + [0]
     ids = np.asarray([ids] * batch)
     vim = np.asarray([vim] * batch)
     return ids, np.ones_like(ids), vim
@@ -1182,6 +1235,89 @@ def check_decoding_mode_shapes(tag: str, dev: torch.device) -> list[dict]:
     return rows
 
 
+def _t5_k5_case(dev, g, name: str, dtype):
+    """q, k, v and K5's arguments at T5_K5_SHAPES[name]: the (H, S, L) bias in
+    the model dtype (as the model computes it), the decoder's k/v as a layer
+    slice of a stacked cache and its filled-slot mask expanded to (B, L), the
+    cross k/v as a layer slice of the stacked encoder K/V; the last row of a
+    batch of 4 padded from key 700 (encoder) or 500 (cross). Returns
+    (q, k, v, kwargs, real keys a row)."""
+    b, s, l = T5_K5_SHAPES[name]
+    nh, hd = 32, 64
+    q = torch.randn(b, s, nh, hd, device=dev, generator=g).to(dtype)
+    mask = torch.ones(b, l, dtype=torch.int32, device=dev)
+    bias = None
+    if "encoder" in name:
+        k = torch.randn(b, l, nh, hd, device=dev, generator=g).to(dtype)
+        v = torch.randn(b, l, nh, hd, device=dev, generator=g).to(dtype)
+        bias = (torch.randn(nh, s, l, device=dev, generator=g) * 2.0).to(dtype)
+        if b > 1:
+            mask[-1, 700:] = 0
+    else:
+        kv = torch.randn(2, b, l, nh, hd, device=dev, generator=g).to(dtype)
+        k, v = kv[0], kv[1]
+        if "self" in name:
+            bias = (torch.randn(nh, s, l, device=dev, generator=g) * 2.0).to(dtype)
+            mask = (torch.arange(l, device=dev) < T5_DECODE_FILLED).to(torch.int32)[None].expand(b, l)
+        else:
+            mask[-1, 500:] = 0
+    return q, k, v, dict(padding_mask=mask, bias=bias), mask.sum(dim=1).tolist()
+
+
+def check_t5_shapes(tag: str, dev: torch.device) -> list[dict]:
+    """Phase 2e: K5 at the T5 path's forms (T5_K5_SHAPES), bf16 (the
+    mma.sync body) and fp32 (attention_f32.cu's body, TF32 off): each
+    against its twin at 2e-2 and F32_TOL, then timed as in 3 beside one SDPA
+    call with the bias and the mask folded into one float attn_mask (scale
+    1) and beside its bound: q, k, v, out in the model dtype, the bias as the
+    fp32 the wrapper hands the kernel, the mask's int32, each once; only the
+    real keys' k/v and products counted."""
+    from eilev_tpu_torch.ops import flash_attention as fl
+
+    g = torch.Generator(device=dev).manual_seed(14)
+    rows = []
+    for dtype in (torch.bfloat16, torch.float32):
+        f32 = dtype == torch.float32
+        for name in T5_K5_SHAPES:
+            q, k, v, kw5, real = _t5_k5_case(dev, g, name, dtype)
+            before = (fl.flash_attention.launches, fl.flash_attention.launches_f32, fl.flash_attention.launches_sm90)
+            out = fl.flash_attention(q, k, v, **kw5)
+            torch.cuda.synchronize()
+            after = (fl.flash_attention.launches, fl.flash_attention.launches_f32, fl.flash_attention.launches_sm90)
+            assert after == (before[0] + 1, before[1] + int(f32), before[2]), (name, before, after)
+            shape = None if kw5["bias"] is None else tuple(kw5["bias"].shape)
+            err = check_close(tag, f"K5 {name}{' fp32' if f32 else ''} (32x64, bias {shape})",
+                              out, fl.flash_attention_reference(q, k, v, **kw5), F32_TOL if f32 else 2e-2)
+            b, s, l = T5_K5_SHAPES[name]
+            elem = 4 if f32 else 2
+            nbytes = (2 * b * s + 2 * sum(real)) * 32 * 64 * elem + b * l * 4
+            if kw5["bias"] is not None:
+                nbytes += 32 * s * l * 4
+            fold = torch.where(kw5["padding_mask"].bool(), 0.0, -torch.inf)[:, None, None, :]
+            if kw5["bias"] is not None:
+                fold = fold + kw5["bias"].float()[None]
+            fold = fold.to(dtype)
+            qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+            rows.append({
+                "name": f"flash_attention{'_f32' if f32 else ''} at {name}",
+                "source": f"eilev_tpu_torch/csrc/{'attention_f32' if f32 else 'flash_attention'}.cu",
+                "replaces": "eilev_tpu/ops/flash_attention.py:157", "max_abs_err": err, "per_call": 1,
+                "run": (lambda q=q, k=k, v=v, kw5=kw5: fl.flash_attention(q, k, v, **kw5)),
+                "plain": (lambda q=q, k=k, v=v, kw5=kw5: fl.flash_attention_reference(q, k, v, **kw5)),
+                "library": (lambda qt=qt, kt=kt, vt=vt, fold=fold: _sdpa(qt, kt, vt, attn_mask=fold, scale=1.0)),
+                "bound": bound(4 * s * sum(real) * 32 * 64, nbytes, H100_TF32X3_FLOPS if f32 else H100_BF16_FLOPS),
+            })
+    # the wrapper's fp32 copy of the bias, as the encoder hands it over: the
+    # (S, S, H) embedding gather permuted to (H, S, S), bf16
+    rel = torch.randn(766, 766, 32, device=dev, generator=g).to(torch.bfloat16).permute(2, 0, 1)
+    copy_ms = min(median_ms(lambda: rel.to(torch.float32).contiguous()) for _ in range(2))
+    print(f"[{tag}] K5's bias copy to fp32 at the T5 encoder (32, 766, 766) bf16, permuted: ms={copy_ms} "
+          f"({rel.numel() * 6 / copy_ms / 1e6} GB/s read + written)")
+    for r in rows:
+        time_row(tag, r)
+    return rows
+
+
 def check_two_pass(tag: str, dev: torch.device, g) -> None:
     """The bf16 two-pass body of K1 and K2 (S past K2_MAX_SEQ = 2,048, where a
     query tile's scores no longer fit shared memory): K2 at (1, 4,096, 32x80),
@@ -1571,9 +1707,12 @@ class Variants:
 class Narration(Variants):
     """The main path's inputs at one batch size, and the calls that drive it."""
 
+    t5 = False
+    pad_token_id, eos_token_id = 1, (NEWLINE,)
+
     def __init__(self, model, cfg, batch: int, dev: torch.device, dtype=torch.bfloat16,
                  new_tokens: int = MAX_NEW_TOKENS):
-        ids, mask, vim = build_prompt(cfg.num_query_tokens, batch)
+        ids, mask, vim = build_prompt(cfg.num_query_tokens, batch, t5=self.t5)
         self.model, self.batch, self.dtype, self.new_tokens = model, batch, dtype, new_tokens
         self.n_videos = batch * (SHOTS + 1)
         self.frames = torch.from_numpy(
@@ -1595,8 +1734,8 @@ class Narration(Variants):
         pixel = process_videos(self.frames, dtype=self.dtype)
         kw = dict(input_ids=self.ids, attention_mask=self.mask, pixel_values=pixel, video_input_mask=self.vim,
                   generator=self.generator(self.ids.device),
-                  generation_config=GenerationConfig(max_new_tokens=self.new_tokens, pad_token_id=1,
-                                                     eos_token_id=(NEWLINE,), **self.knobs))
+                  generation_config=GenerationConfig(max_new_tokens=self.new_tokens, pad_token_id=self.pad_token_id,
+                                                     eos_token_id=self.eos_token_id, **self.knobs))
         if "chunk_tokens" in self.mode:
             return torch.cat(list(generate_stream(self.model, chunk_tokens=self.mode["chunk_tokens"], **kw)), 1)
         return generate(self.model, **kw, **self.mode)
@@ -1618,12 +1757,15 @@ class Narration(Variants):
         return logits
 
 
-def drive(tag: str, label: str, run, lm_calls: list, expect: dict, reps: int) -> dict:
+def drive(tag: str, label: str, run, lm_calls: list, expect: dict, reps: int, stats: dict = None) -> dict:
     """One counted run (counters at 0 just before, read just after), its checks,
     then ``reps`` timed runs. ``expect`` maps every kernel to its launches per
-    request, "lm" meaning one per LM layer and one-token forward. ``run`` has
-    ``model``, ``batch``, ``rows``, ``generate()`` and ``rate(p50_s, new_tokens)``."""
-    n_lm = run.model.config.text_config.num_hidden_layers
+    request, "lm" meaning one per LM layer and one-token forward, a callable
+    its launches given the one-token forwards. ``run`` has ``model``,
+    ``batch``, ``rows``, ``generate()`` and ``rate(p50_s, new_tokens)``.
+    ``stats``, when given, receives the p50, the peak memory, the one-token
+    forwards and the counted run's tokens."""
+    n_lm = getattr(run.model.config.text_config, "num_hidden_layers", None)
     torch.cuda.reset_peak_memory_stats()
     lm_calls.clear()
     reset_counters()
@@ -1634,7 +1776,8 @@ def drive(tag: str, label: str, run, lm_calls: list, expect: dict, reps: int) ->
     print(f"[{tag}] {label} batch={run.batch} launches {counts} one_token_lm_forwards={one_token} "
           f"tokens_shape={tuple(tokens.shape)}")
     print(f"[{tag}] {label} batch={run.batch} first tokens={tokens[0, :8].tolist()}")
-    want = {name: n_lm * one_token if per == "lm" else per for name, per in expect.items()}
+    want = {name: per(one_token) if callable(per) else n_lm * one_token if per == "lm" else per
+            for name, per in expect.items()}
     assert counts == want, f"launch counts {counts}, expected {want}"
     assert one_token >= 1, "no decode step ran"
     assert tokens.shape[0] == run.rows, tokens.shape
@@ -1652,6 +1795,8 @@ def drive(tag: str, label: str, run, lm_calls: list, expect: dict, reps: int) ->
     p50 = statistics.median(times)
     print(f"[{tag}] {label} batch={run.batch} generate_s={times} p50_s={p50} "
           f"{run.rate(p50, one_token + 1)} max_memory_allocated_bytes={peak}")
+    if stats is not None:
+        stats.update(p50_s=p50, peak_bytes=peak, one_token_forwards=one_token, tokens=tokens)
     return counts
 
 
@@ -2104,7 +2249,8 @@ class IclBatch:
 
         builts = [generate_input_ids_and_labels_from_interleaved(
             self.tok, [(" ".join([FEW_SHOT_PROMPT, clean_narration_text(n)]), 1) for n in narrs]
-            + [(FEW_SHOT_PROMPT + suffix, 1)], None, self.model.config.num_query_tokens, True)
+            + [(FEW_SHOT_PROMPT + suffix, 1)], None, self.model.config.num_query_tokens,
+            self.model.config.use_decoder_only_language_model)
             for narrs in self.narrations]
         n = max(len(b["input_ids"]) for b in builts)
         ids = np.full((self.batch, n), self.tok.pad_token_id, np.int64)
@@ -2433,9 +2579,10 @@ class TextRun(Variants):
         return logits
 
 
-def profile_request(tag: str, label: str, run) -> None:
+def profile_request(tag: str, label: str, run) -> dict:
     """torch.profiler over one warm request: device kernel time, launches, the
-    idle share of the profiled window and of an unprofiled run, top kernels."""
+    idle share of the profiled window and of an unprofiled run, the top
+    kernels. Returns the numbers printed."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -2456,6 +2603,8 @@ def profile_request(tag: str, label: str, run) -> None:
           f"unprofiled_wall_s={wall} idle_share_vs_unprofiled={1 - dev_us / 1e6 / wall}")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
         print(f"[{tag}]   {e.self_device_time_total / 1e3:10.3f} ms {e.count:6d}x  {e.key[:90]}")
+    return {"device_kernel_ms": dev_us / 1e3, "launches": n_launch, "unprofiled_wall_s": wall,
+            "idle_share_vs_unprofiled": 1 - dev_us / 1e6 / wall}
 
 
 def run_llama(tag: str, dev: torch.device, launches: dict) -> None:
@@ -2706,6 +2855,225 @@ def run_f32_paths(tag: str, dev: torch.device, launches: dict) -> None:
     launches["flash_attention_f32"] = counts["flash_attention_f32"]
     _same_tokens_as_plain(tag, "fp32 text LM", run)
     _same_tokens_as_plain(tag, "fp32 text LM beam-4", run.variant(num_beams=4))
+
+
+# ---------------------------------------------------------------------------
+# phase 8b: the T5 family
+# ---------------------------------------------------------------------------
+
+
+class T5Narration(Narration):
+    """The main path's inputs for the flan-t5 LM: build_prompt's T5 layout
+    (766 tokens), pad 0, eos flan-t5's; tokens start with the decoder start
+    token."""
+
+    t5 = True
+    pad_token_id, eos_token_id = 0, (T5_EOS,)
+
+    @torch.inference_mode()
+    def prefill_logits(self, embeds):
+        """The prompt's pass, the encoder states (B, S, d_model) (T5 has no
+        prefill: what _same_tokens_as_plain holds to 1e-4 besides the tokens)."""
+        return self.model.t5_encode(embeds, self.mask)
+
+
+class T5WordTokenizer(WordTokenizer):
+    """WordTokenizer with flan-t5's special ids (pad 0, eos 1 appended, no
+    bos; "\n" its whitespace token), every id below its vocabulary."""
+
+    bos_token_id = None
+    pad_token_id = 0
+    eos_token_id = T5_EOS
+
+    def __init__(self):
+        self.vocab = {"\n": T5_NEWLINE}
+
+    def __call__(self, text: str, add_special_tokens: bool = True, **kwargs):
+        ids = [self.vocab.setdefault(w, 999 + len(self.vocab)) for w in re.findall(r"\n|\S+", text)]
+        assert max(ids, default=0) < 32128, "word ids past flan-t5's vocabulary"
+        return {"input_ids": ids + ([self.eos_token_id] if add_special_tokens else [])}
+
+
+def t5_config(layers=None):
+    """eilev-blip2-flan-t5-xl's geometry, each stack cut to ``layers`` when given."""
+    from eilev_tpu_torch import configs
+
+    cfg = configs.blip2_flan_t5_xl()
+    if layers is None:
+        return cfg
+    return dataclasses.replace(
+        cfg,
+        vision_config=dataclasses.replace(cfg.vision_config, num_hidden_layers=layers),
+        qformer_config=dataclasses.replace(cfg.qformer_config, num_hidden_layers=layers),
+        text_config=dataclasses.replace(cfg.text_config, num_layers=layers, num_decoder_layers=layers))
+
+
+def t5_step_log(model) -> list:
+    """(tokens in, all logits finite) of every T5 decoder step, read at the
+    LM head, so that drive counts the steps as one-token forwards."""
+    calls: list = []
+    model.language_model.lm_head.register_forward_hook(
+        lambda mod, args, out: calls.append((args[0].shape[1], torch.isfinite(out).all())))
+    return calls
+
+
+def t5_counts(cfg, flash: bool, f32: bool = False) -> dict:
+    """Launches per T5 request: K1 once per ViT layer; under "flash" K5 once
+    per Q-Former attention (self in every layer, cross every
+    cross_attention_frequency), per encoder layer, and twice per decoder
+    layer and step (self and cross); nothing else."""
+    want = dict.fromkeys(counters(), 0)
+    names = ["packed_qkv_attention"] + (["packed_qkv_attention_f32"] if f32 else [])
+    want.update(dict.fromkeys(names, cfg.vision_config.num_hidden_layers))
+    if flash:
+        q, t = cfg.qformer_config, cfg.text_config
+        n_qf = q.num_hidden_layers + len(range(0, q.num_hidden_layers, q.cross_attention_frequency))
+
+        def k5(steps: int) -> int:
+            return n_qf + t.num_layers + 2 * t.num_decoder_layers * steps
+
+        want.update(dict.fromkeys(["flash_attention"] + (["flash_attention_f32"] if f32 else []), k5))
+    return want
+
+
+def t5_greedy_with_logits(run):
+    """The run's greedy tokens and the last-position logits of each of its
+    decoder steps, in order (entry t chose generated token t)."""
+    rec: list = []
+    handle = run.model.language_model.lm_head.register_forward_hook(
+        lambda mod, args, out: rec.append(out[:, -1].float()))
+    try:
+        tokens = run.variant().generate()
+    finally:
+        handle.remove()
+    torch.cuda.synchronize()
+    return tokens, rec
+
+
+@contextlib.contextmanager
+def attention_impl(impl: str):
+    """The dispatcher's default set to ``impl``, and back to "auto"."""
+    from eilev_tpu_torch.ops.attention import set_default_attention_impl
+
+    set_default_attention_impl(impl)
+    try:
+        yield
+    finally:
+        set_default_attention_impl("auto")
+
+
+def run_t5(tag: str, dev: torch.device, launches: dict) -> dict:
+    """Phase 8b: the T5 path at the eilev-blip2-flan-t5-xl geometry (ViT 39
+    x 1408, Q-Former 12, flan-t5-xl 24 + 24 layers of 2048, 32 heads x 64,
+    gated-gelu FFN 5,120, vocab 32,128, untied head) with random bf16 weights
+    N(0, 0.02) from T5_SEED: (a) greedy narration, 32 new tokens, at batch 1
+    and 4 under "auto" (K1 = 39, nothing else), p50 of 3 warm requests, peak
+    memory, a profiler pass at batch 1; (b) the same under "flash" (K5 = 18
+    Q-Former + 24 encoder + 48 a decoder step; the bias form on every T5
+    attention), the encoder states' min cosine against (a)'s > 0.999, tokens
+    equal to (a)'s or parting at a near-tie (NEAR_TIE); (c) beam-5 at batch 1 (the reorder
+    gathers the cross K/V too), p50; (d) seq2seq classify of the 187-verb
+    stage at batch 4 against the plain path (score_bar); (e) the fp32 model
+    at F32_LAYERS a stack by its default construction, greedy tokens and
+    encoder states equal to the plain twins' under "auto" and "flash" (K5's
+    fp32 body with the bias). Returns the numbers for the T5 JSON line."""
+    from eilev_tpu_torch.models import VideoBlipForConditionalGeneration
+
+    t_phase = time.perf_counter()
+    result: dict = {"model": "eilev-blip2-flan-t5-xl, random bf16 N(0, 0.02)"}
+    cfg = t5_config()
+    model = VideoBlipForConditionalGeneration(cfg, device=dev, dtype=torch.bfloat16).eval()
+    random_init_(model, torch.Generator(device=dev).manual_seed(T5_SEED), std=0.02)
+    print(f"[{tag}] T5 model eilev-blip2-flan-t5-xl bf16 params={sum(p.numel() for p in model.parameters())}")
+    calls = t5_step_log(model)
+    runs = {batch: T5Narration(model, cfg, batch, dev) for batch in (1, 4)}
+    n_dec = cfg.text_config.num_decoder_layers
+
+    # (a) auto, (b) flash, at batch 1 and 4
+    for batch in (1, 4):
+        run = runs[batch]
+        stats: dict = {}
+        counts = drive(tag, "T5 (a) greedy bf16 auto", run, calls, t5_counts(cfg, flash=False), reps=3, stats=stats)
+        launches["packed_qkv_attention at the T5 path"] = counts["packed_qkv_attention"]
+        result[f"greedy_b{batch}"] = {"p50_s": stats["p50_s"], "videos_per_s": run.n_videos / stats["p50_s"],
+                                      "peak_bytes": stats["peak_bytes"], "decoder_steps": stats["one_token_forwards"]}
+        if batch == 1:
+            result["profile_b1"] = profile_request(tag, "T5 narration bf16 auto", run)
+        greedy, rec = t5_greedy_with_logits(run)
+        enc = run.prefill_logits(run.embeds())
+        with attention_impl("flash"):
+            stats = {}
+            counts = drive(tag, "T5 (b) greedy bf16 flash", run, calls, t5_counts(cfg, flash=True), reps=3,
+                           stats=stats)
+            steps = stats["one_token_forwards"]
+            flash_tokens, flash_enc = stats["tokens"], run.prefill_logits(run.embeds())
+        cos = torch.nn.functional.cosine_similarity(flash_enc.float(), enc.float(), dim=-1).min().item()
+        print(f"[{tag}] T5 (b) batch={batch} encoder states flash vs auto: min_cosine over positions={cos}")
+        assert cos > 0.999, cos
+        share = compare_speculative(tag, f"T5 (b) flash vs auto greedy batch {batch}", flash_tokens[:, 1:],
+                                    greedy[:, 1:], rec)
+        result[f"flash_b{batch}"] = {"p50_s": stats["p50_s"], "encoder_min_cosine": cos,
+                                     "rows_identical_share": share, "k5_launches": counts["flash_attention"]}
+        launches[f"flash_attention at T5 encoder, batch {batch}"] = cfg.text_config.num_layers
+        if batch == 4:
+            launches["flash_attention at T5 decoder self, batch 4"] = n_dec * steps
+            launches["flash_attention at T5 cross, batch 4"] = n_dec * steps
+
+    print(f"[{tag}] T5 (a) and (b) took {time.perf_counter() - t_phase} s")
+
+    # (c) beam-5 at batch 1
+    stats = {}
+    drive(tag, "T5 (c) beam-5 (length_penalty -1)", runs[1].variant(**BEAM_KNOBS), calls,
+          t5_counts(cfg, flash=False), reps=3, stats=stats)
+    result["beam5_b1"] = {"p50_s": stats["p50_s"], "peak_bytes": stats["peak_bytes"]}
+
+    # (d) seq2seq classify, the verb stage at batch 4, kernels vs plain path
+    verbs, nouns = icl_class_sets()
+    req = IclBatch(model, T5WordTokenizer(), [icl_narrations(verbs, nouns, np.random.default_rng(5))] * ICL_BATCH,
+                   dev)
+    reset_counters()
+    scores = req.classify(" The camera wearer", list(verbs))
+    torch.cuda.synchronize()
+    counts = counters()
+    want = t5_counts(cfg, flash=False)
+    assert counts == want, (counts, want)
+    with plain_kernels():
+        ref = req.classify(" The camera wearer", list(verbs))
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        req.classify(" The camera wearer", list(verbs))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    err = score_bar(tag, "T5 (d) seq2seq classify, verb stage bf16 batch 4, kernels vs plain path", scores, ref)
+    print(f"[{tag}] T5 (d) classify verb stage batch 4: launches {counts} classify_s={times}")
+    result["classify_verbs_b4"] = {"p50_s": statistics.median(times), "max_abs_err": err}
+    del model, runs, req, calls
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[{tag}] T5 (a)-(d) took {time.perf_counter() - t_phase} s")
+
+    # (e) fp32 at the phase-8 cut, both dispatches, against the plain twins
+    cfg = t5_config(F32_LAYERS)
+    model = VideoBlipForConditionalGeneration(cfg).eval()
+    assert next(model.parameters()).dtype == torch.float32
+    random_init_(model, torch.Generator(device=dev).manual_seed(T5_SEED + 1), std=0.02)
+    calls = t5_step_log(model)
+    run = T5Narration(model, cfg, 1, dev, dtype=torch.float32, new_tokens=F32_NEW_TOKENS)
+    for impl in ("auto", "flash"):
+        with attention_impl(impl):
+            counts = drive(tag, f"T5 (e) fp32 {impl} (2+2+2+2 layers)", run, calls,
+                           t5_counts(cfg, flash=impl == "flash", f32=True), reps=1)
+            _same_tokens_as_plain(tag, f"T5 (e) fp32 {impl}", run)
+        if impl == "flash":
+            launches["flash_attention_f32 at the T5 path"] = counts["flash_attention_f32"]
+            launches["flash_attention_f32 at T5 encoder, batch 1"] = cfg.text_config.num_layers
+    del model, run, calls
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[{tag}] T5 phase took {time.perf_counter() - t_phase} s")
+    return result
 
 
 # ---------------------------------------------------------------------------
@@ -3113,8 +3481,13 @@ def run_training(tag: str, dev) -> list:
 # ---------------------------------------------------------------------------
 
 
+T5_HF_FIELDS = ("vocab_size", "d_model", "d_kv", "d_ff", "num_layers", "num_decoder_layers", "num_heads",
+                "relative_attention_num_buckets", "relative_attention_max_distance", "layer_norm_epsilon",
+                "tie_word_embeddings", "pad_token_id", "eos_token_id", "decoder_start_token_id")
+
+
 def hf_config_dict(cfg) -> dict:
-    """The HF Blip2Config dict (config.json) of an OPT-backed VideoBlipConfig."""
+    """The HF Blip2Config dict (config.json) of an OPT- or T5-backed VideoBlipConfig."""
     v, q, t = cfg.vision_config, cfg.qformer_config, cfg.text_config
     fields = {
         "vision_config": (v, ("hidden_size", "intermediate_size", "num_hidden_layers", "num_attention_heads",
@@ -3125,10 +3498,16 @@ def hf_config_dict(cfg) -> dict:
                             "max_position_embeddings", "word_embed_proj_dim", "do_layer_norm_before",
                             "activation_function", "bos_token_id", "eos_token_id", "pad_token_id")),
     }
+    if not cfg.use_decoder_only_language_model:
+        fields["text_config"] = (t, T5_HF_FIELDS)
     out = {"model_type": "blip-2", "num_query_tokens": cfg.num_query_tokens}
     for key, (sub, names) in fields.items():
         out[key] = {name: getattr(sub, name) for name in names}
-    out["text_config"]["model_type"] = "opt"
+    if cfg.use_decoder_only_language_model:
+        out["text_config"]["model_type"] = "opt"
+    else:
+        assert t.is_gated_act and t.dense_act_fn == "gelu_new", "flan-t5's FFN"
+        out["text_config"].update(model_type="t5", feed_forward_proj="gated-gelu")
     return out
 
 
@@ -3141,7 +3520,7 @@ def write_hf_checkpoint(tag: str, model, cfg, path: str) -> float:
     hf = hf_config_dict(cfg)
     back = config_from_hf_dict(hf)
     for sub in ("vision_config", "qformer_config", "text_config"):
-        want = {k: getattr(getattr(cfg, sub), k) for k in hf[sub] if k != "model_type"}
+        want = {k: getattr(getattr(cfg, sub), k) for k in hf[sub] if hasattr(getattr(cfg, sub), k)}
         assert {k: getattr(getattr(back, sub), k) for k in want} == want, sub
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -3401,6 +3780,38 @@ def run_samples(tag: str, model, ckpt: str, size: int, dev) -> None:
     torch.cuda.empty_cache()
 
 
+def run_t5_checkpoint(tag: str, dev, root: str) -> None:
+    """(h) A bf16 VideoBLIP-T5 at the eilev-blip2-flan-t5-xl widths, F32_LAYERS
+    a stack, N(0, 0.02) weights from a seed: exported (convert_t5's inverse)
+    beside its config.json, loaded with bf16 weights, every tensor equal to
+    the source's, bit for bit, and greedy narration at batch 1 (K1 =
+    F32_LAYERS, nothing else) token-identical to the source model."""
+    from eilev_tpu_torch.models import VideoBlipForConditionalGeneration
+
+    cfg = t5_config(F32_LAYERS)
+    src = VideoBlipForConditionalGeneration(cfg, device=dev, dtype=torch.bfloat16).eval()
+    random_init_(src, torch.Generator(device=dev).manual_seed(CKPT_SEED + 1), std=0.02)
+    path = os.path.join(root, "t5")
+    size = write_hf_checkpoint(tag, src, cfg, path)
+    loaded, _ = timed_load(tag, "(h) T5 bf16", path, size, dev, dtype=torch.bfloat16, param_dtype=torch.bfloat16)
+    ref_state, state = src.state_dict(), loaded.state_dict()
+    bits = set(ref_state) == set(state) and all(
+        state[k].dtype == v.dtype and torch.equal(state[k], v) for k, v in ref_state.items())
+    print(f"[{tag}] checkpoints (h) T5: {len(state)} tensors equal to the source's, bit for bit={bits}")
+    assert bits
+    src_tokens = T5Narration(src, cfg, 1, dev).generate()
+    run = T5Narration(loaded, cfg, 1, dev)
+    drive(tag, "checkpoints (h) T5 bf16 load", run, t5_step_log(loaded), t5_counts(cfg, flash=False), reps=1)
+    tokens = run.generate()
+    same = bool(torch.equal(tokens, src_tokens))
+    print(f"[{tag}] checkpoints (h) T5 greedy batch 1, 32 new tokens, token-identical to the source model={same}: "
+          f"{tokens[0].tolist()}")
+    assert same
+    del src, loaded, run, ref_state, state
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def run_checkpoints(tag: str, dev) -> None:
     """Phase 10: HF checkpoints and the three CLIs at the eilev-blip2-opt-2.7b
     widths, depth cut to CKPT_LAYERS."""
@@ -3478,6 +3889,8 @@ def run_checkpoints(tag: str, dev) -> None:
 
         # (f) the train CLI at the fp32 cut
         run_train_cli(tag, dev, root)
+        # (h) a T5 checkpoint at the fp32 cut's depth
+        run_t5_checkpoint(tag, dev, root)
     gc.collect()
     torch.cuda.empty_cache()
     print(f"[{tag}] checkpoints phase took {time.perf_counter() - t_phase} s")
@@ -3510,6 +3923,7 @@ def main(argv: list) -> int:
         kernels = check_kernels(tag, dev)
         beam_rows = check_beam_decode(tag, dev)
         mode_rows = check_decoding_mode_shapes(tag, dev)
+        t5_rows = check_t5_shapes(tag, dev)
         launches: dict = {}
         model, lm_calls, runs = run_main_path(tag, dev, launches)
         run_k6_on_vit_layers(tag, model, runs[1], launches)
@@ -3533,6 +3947,9 @@ def main(argv: list) -> int:
         gc.collect()
         torch.cuda.empty_cache()
         run_f32_paths(tag, dev, launches)
+        gc.collect()
+        torch.cuda.empty_cache()
+        t5 = run_t5(tag, dev, launches)
         gc.collect()
         torch.cuda.empty_cache()
         training = run_training(tag, dev)
@@ -3561,6 +3978,12 @@ def main(argv: list) -> int:
     # plain attention)
     print(json.dumps({"decoding_mode_shapes": [
         dict(r, route="cuda", launches=launches.get(r["name"], 0)) for r in mode_rows]}))
+    # K5's T5 forms, with their launches in the T5 phase's flash runs (fp32:
+    # the cut's encoder at batch 1; its decoder steps run at other lengths)
+    print(json.dumps({"t5_shapes": [
+        dict(r, route="cuda", launches=launches.get(r["name"], 0)) for r in t5_rows]}))
+    print(json.dumps({"t5": dict(t5, k1_launches=launches["packed_qkv_attention at the T5 path"],
+                                 k5_f32_launches=launches["flash_attention_f32 at the T5 path"])}))
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                               "count": torch.cuda.device_count()}}))

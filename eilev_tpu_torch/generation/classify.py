@@ -8,8 +8,11 @@ against that shared cache through ``OPTForCausalLM.score_with_prefix``: the
 cache is never copied per class, and ``class_batch_size`` only bounds the
 (B, C, H, L, P) score tile. Returns the per-class mean log-likelihood.
 
-Only the decoder-only (OPT) branch is ported; a seq2seq (T5) model raises
-``NotImplementedError``.
+A seq2seq (T5) model encodes the prompt once and scores the classes'
+decoder continuations (the class ids shifted right) against the SHARED
+encoder states through ``T5ForConditionalGeneration.score_classes``: the
+encoder states are never copied per class, and ``class_batch_size`` bounds
+the class chunk.
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ from typing import Optional
 import torch
 
 from ..models.opt import init_cache
+from ..models.video_blip import shift_tokens_right
 
 
 def _prefill_prompt(
@@ -37,6 +41,33 @@ def _prefill_prompt(
     return logits[:, -1], cache
 
 
+def _encode_prompt_seq2seq(model, input_ids, attention_mask, pixel_values, video_input_mask, video_features=None):
+    inputs_embeds = model.embed_and_scatter(input_ids, pixel_values, video_input_mask, video_features=video_features)
+    return model.t5_encode(inputs_embeds, attention_mask)
+
+
+def _score_classes_seq2seq(model, class_input_ids, class_attention_mask, encoder_hidden, encoder_mask):
+    """Score (C, L) class label sequences against the shared encoder states.
+    Returns the (B, C) mean log-likelihood."""
+    tcfg = model.config.text_config
+    dec_in = shift_tokens_right(class_input_ids, tcfg.pad_token_id, tcfg.decoder_start_token_id)
+    logits = model.t5_score_classes(dec_in, class_attention_mask, encoder_hidden, encoder_mask)  # (B, C, L, V)
+    return _mean_log_likelihood(logits, class_input_ids, class_attention_mask)
+
+
+def _mean_log_likelihood(logits, class_input_ids, class_attention_mask):
+    """(B, C, L, V) logits of the class tokens -> the (B, C) mean
+    log-likelihood over each class's unmasked tokens."""
+    b = logits.shape[0]
+    c, l = class_input_ids.shape
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    index = class_input_ids[None, :, :, None].expand(b, c, l, 1).long()
+    token_ll = torch.gather(logp, -1, index)[..., 0]
+    token_ll = token_ll * class_attention_mask[None].float()
+    lengths = class_attention_mask.sum(dim=-1)[None].clamp(min=1)
+    return token_ll.sum(dim=-1) / lengths  # (B, C)
+
+
 def _score_classes(model, class_input_ids, class_attention_mask, last_logits, cache):
     """class_input_ids: (C, L). Returns the (B, C) mean log-likelihood."""
     b = last_logits.shape[0]
@@ -51,12 +82,7 @@ def _score_classes(model, class_input_ids, class_attention_mask, last_logits, ca
     shift_logits = torch.cat(
         [last_logits[:, None, None].expand(b, c, 1, logits.shape[-1]), logits[:, :, :-1]], dim=2
     )
-    logp = torch.log_softmax(shift_logits.float(), dim=-1)
-    index = class_input_ids[None, :, :, None].expand(b, c, l, 1).long()
-    token_ll = torch.gather(logp, -1, index)[..., 0]
-    token_ll = token_ll * class_attention_mask[None].float()
-    lengths = class_attention_mask.sum(dim=-1)[None].clamp(min=1)
-    return token_ll.sum(dim=-1) / lengths  # (B, C)
+    return _mean_log_likelihood(shift_logits, class_input_ids, class_attention_mask)
 
 
 @torch.inference_mode()
@@ -79,22 +105,30 @@ def classify(
     skips the vision tower: the two-stage ICL eval scores the same videos
     twice per datapoint. Returns (batch, num_classes) float32.
     """
-    if not model.config.use_decoder_only_language_model:
-        raise NotImplementedError(
-            "seq2seq (T5) classify is not ported yet; the decoder-only (OPT) branch is"
-        )
     if prompt_attention_mask is None:
         prompt_attention_mask = torch.ones_like(prompt_input_ids)
     if class_attention_mask is None:
         class_attention_mask = torch.ones_like(class_input_ids)
-
-    last_logits, cache = _prefill_prompt(
-        model, prompt_input_ids, prompt_attention_mask,
-        None if video_features is not None else pixel_values,
-        prompt_video_input_mask, video_features,
-    )
+    pixel_values = None if video_features is not None else pixel_values
     num_classes = class_input_ids.shape[0]
     step = class_batch_size if class_batch_size else num_classes
+
+    if not model.config.use_decoder_only_language_model:
+        # seq2seq: one encoder pass, the classes attend the shared encoder states
+        encoder_hidden = _encode_prompt_seq2seq(
+            model, prompt_input_ids, prompt_attention_mask, pixel_values, prompt_video_input_mask, video_features)
+        chunks = [
+            _score_classes_seq2seq(
+                model, class_input_ids[i : i + step], class_attention_mask[i : i + step],
+                encoder_hidden, prompt_attention_mask,
+            )
+            for i in range(0, num_classes, step)
+        ]
+        return chunks[0] if len(chunks) == 1 else torch.cat(chunks, dim=1)
+
+    last_logits, cache = _prefill_prompt(
+        model, prompt_input_ids, prompt_attention_mask, pixel_values, prompt_video_input_mask, video_features,
+    )
     chunks = [
         _score_classes(
             model,

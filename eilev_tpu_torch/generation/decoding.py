@@ -1,4 +1,4 @@
-"""Decoder-only generation for VideoBLIP-OPT (counterpart of
+"""Generation for VideoBLIP-OPT and VideoBLIP-T5 (counterpart of
 ``eilev_tpu/generation/decoding.py``).
 
 The OPT branch of :func:`generate`: greedy, sampling (with
@@ -14,6 +14,15 @@ an int8 one), with early exit once every row (or every beam group) is done.
 :func:`generate_stream` yields the greedy or sampled tokens in chunks.
 Precomputed ``video_features`` (``serving.VideoFeatureCache``) and
 ``vision_chunks > 1`` are taken as in JAX.
+
+The T5 branch: the prompt is encoded once (``t5_encode``; its attention
+through the dispatcher, so K5 with the relative bias under ``flash``),
+``init_decode_cache`` projects every decoder layer's cross K/V once, and the
+decoder steps from ``decoder_start_token_id``: greedy and sampling (with
+``num_return_sequences``, the cache tiled after one encode) or the beam
+engine, whose reorder gathers the cross K/V with the self K/V. Its outputs
+start with the start token, as HF's. Contrastive search, speculative
+decoding and streaming are decoder-only, as in JAX.
 
 The JAX loops are one compiled ``while_loop`` each; here the host drives
 them, with one ``bool(....all())`` read a step for the early exit and no
@@ -46,7 +55,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..configs import LlamaConfig, OPTConfig, VideoBlipConfig
+from ..configs import LlamaConfig, OPTConfig, T5Config, VideoBlipConfig
 from ..models.opt import init_cache
 from ..models.video_blip import VideoBlipForConditionalGeneration as VB
 from ..models.video_blip import embed_and_scatter_chunked
@@ -61,7 +70,7 @@ def _is_eos(tokens: torch.Tensor, cfg: GenerationConfig) -> torch.Tensor:
 #: cache entries laid out (layers, batch, ...): tiled and gathered along
 #: dim 1; ``mask`` and ``pos`` are (batch, ...), along dim 0; ``index`` is a
 #: Python int
-_CACHE_LAYERS_FIRST = ("k", "v", "k_scale", "v_scale")
+_CACHE_LAYERS_FIRST = ("k", "v", "k_scale", "v_scale", "cross_k", "cross_v")
 
 
 def _tile_cache(cache: dict, n: int) -> dict:
@@ -88,8 +97,9 @@ def _reorder_cache(cache: dict, idx: torch.Tensor) -> dict:
 
 def _resolve_lengths(gen_cfg: GenerationConfig, start_len: int) -> GenerationConfig:
     """Translate HF total-length knobs (``min_length``/``max_length``) into
-    new-token counts; ``start_len`` is the inputs_embeds length, as in HF's
-    decoder-only inputs_embeds path."""
+    new-token counts; ``start_len`` is what HF subtracts: the inputs_embeds
+    length on the decoder-only inputs_embeds path, 1 (the decoder start
+    token) for seq2seq."""
     changes: dict = {}
     if gen_cfg.max_length is not None:
         if int(gen_cfg.max_length) <= start_len:
@@ -186,6 +196,34 @@ def _prefill(model: nn.Module, inputs_embeds, attention_mask, max_new_tokens: in
     return logits[:, -1], cache
 
 
+def _sample_loop(logits: torch.Tensor, step_fn: Callable, gen_cfg: GenerationConfig,
+                 noise: Optional[Noise], prefix: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The greedy/sampling loop from the first token's ``logits`` (N, V):
+    the logits processors, a greedy or sampled token (``noise`` with
+    ``do_sample``), pad after eos, early exit once every row has emitted
+    eos. ``step_fn(tokens (N,)) -> logits (N, V)`` runs the model step; the
+    loop skips the step whose logits would go unused (after the last token,
+    or once all finished). The processors see ``prefix`` (N, P), if given
+    (seq2seq's start token), then the generated tokens, as HF's input_ids.
+    Returns (N, max_new_tokens) int64 tokens."""
+    n, max_new = logits.shape[0], gen_cfg.max_new_tokens
+    out = torch.full((n, max_new), gen_cfg.pad_token_id, dtype=torch.int64, device=logits.device)
+    finished = torch.zeros(n, dtype=torch.bool, device=logits.device)
+    n_prefix = 0 if prefix is None else prefix.shape[1]
+    for step in range(max_new):
+        if gen_cfg.has_logits_processors:
+            history = out if prefix is None else torch.cat([prefix, out], dim=1)
+            logits = _process_scores(logits, gen_cfg, history, step + n_prefix, step)
+        tok = _select_token(logits, gen_cfg, noise)
+        tok = torch.where(finished, gen_cfg.pad_token_id, tok)
+        finished = finished | _is_eos(tok, gen_cfg)
+        out[:, step] = tok
+        if step == max_new - 1 or bool(finished.all()):
+            break
+        logits = step_fn(tok)
+    return out
+
+
 def _greedy_sample_decoder_only(
     model: nn.Module,
     inputs_embeds: torch.Tensor,
@@ -193,46 +231,29 @@ def _greedy_sample_decoder_only(
     gen_cfg: GenerationConfig,
     noise: Optional[Noise] = None,
 ) -> torch.Tensor:
-    """Prefill, then greedy or sampled decode with early exit once every row
-    has emitted eos. Returns (B * nrs, max_new_tokens) int64 tokens; positions
-    after eos hold pad.
+    """Prefill, then :func:`_sample_loop` over one-token steps. Returns (B *
+    nrs, max_new_tokens) int64 tokens; positions after eos hold pad.
 
-    The logits processors see the generated tokens (the out buffer, with
-    ``n_valid = n_generated = step``). With ``do_sample`` each step draws
-    ``noise(warped)`` once (``noise`` is required then; :func:`_decode`
-    makes it from a generator); ``num_return_sequences > 1`` prefills once, tiles
-    the cache and returns rows interleaved (``row*nrs + i``), as JAX. Same
-    tokens as the JAX while-loop given the same noise; the loop here also
-    skips the model step whose logits would go unused (after the last token,
-    or once all finished).
+    The logits processors see the generated tokens (HF's input_ids: the
+    inputs_embeds path starts generate with an empty input_ids). With
+    ``do_sample`` each step draws ``noise(warped)`` once (``noise`` is
+    required then; :func:`_decode` makes it from a generator);
+    ``num_return_sequences > 1`` prefills once, tiles the cache and returns
+    rows interleaved (``row*nrs + i``), as JAX. Same tokens as the JAX
+    while-loop given the same noise.
     """
-    b = inputs_embeds.shape[0]
-    max_new = gen_cfg.max_new_tokens
-    device = inputs_embeds.device
-    logits, cache = _prefill(model, inputs_embeds, attention_mask, max_new)
+    logits, cache = _prefill(model, inputs_embeds, attention_mask, gen_cfg.max_new_tokens)
     nrs = gen_cfg.num_return_sequences if gen_cfg.do_sample else 1
     if nrs > 1:
         cache = _tile_cache(cache, nrs)
         logits = logits.repeat_interleave(nrs, dim=0)
-        b *= nrs
-    out = torch.full((b, max_new), gen_cfg.pad_token_id, dtype=torch.int64, device=device)
-    finished = torch.zeros(b, dtype=torch.bool, device=device)
-    step_mask = torch.ones(b, 1, dtype=torch.int32, device=device)
-    for step in range(max_new):
-        if gen_cfg.has_logits_processors:
-            # HF sees input_ids == the generated tokens (the inputs_embeds
-            # path starts generate with an empty input_ids)
-            logits = _process_scores(logits, gen_cfg, out, step, step)
-        tok = _select_token(logits, gen_cfg, noise)
-        tok = torch.where(finished, gen_cfg.pad_token_id, tok)
-        finished = finished | _is_eos(tok, gen_cfg)
-        out[:, step] = tok
-        if step == max_new - 1 or bool(finished.all()):
-            break
-        embeds = model.lm_embed(tok[:, None])
-        next_logits, cache = model.lm_forward(embeds, attention_mask=step_mask, cache=cache)
-        logits = next_logits[:, -1]
-    return out
+    step_mask = torch.ones(logits.shape[0], 1, dtype=torch.int32, device=logits.device)
+
+    def step_fn(tok):
+        next_logits, _ = model.lm_forward(model.lm_embed(tok[:, None]), attention_mask=step_mask, cache=cache)
+        return next_logits[:, -1]
+
+    return _sample_loop(logits, step_fn, gen_cfg, noise)
 
 
 def _pow32(x: int, p: float) -> float:
@@ -247,6 +268,7 @@ def _beam_engine(
     gen_cfg: GenerationConfig,
     b: int,
     noise: Optional[Noise] = None,
+    prefix_ids: Optional[torch.Tensor] = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The beam loop (HF BeamSearchScorer.process/finalize semantics, in JAX's
     fixed-shape form: per batch row and group a heap of finished hypotheses,
@@ -264,6 +286,8 @@ def _beam_engine(
     frequency of each token the groups before it chose this step, pads of
     done groups included (an HF quirk). Every top-k is :func:`_top_k`: ties
     go to the lowest index, which puts existing hypotheses before new ones.
+    ``prefix_ids`` (b*nb, P), seq2seq's start token, lead the history the
+    logits processors see.
 
     Returns (hyp_scores (b, nb), hyp_tokens (b, nb, max_new)): finished
     hypotheses sorted best-first, pad-filled after each one's end.
@@ -309,7 +333,12 @@ def _beam_engine(
                 # HF applies processors to the log-softmaxed scores, per beam,
                 # before adding the cumulative beam scores
                 hist = generated[:, gs : gs + ng].reshape(b * ng, max_new)
-                lp_g = _process_scores(lp_g.reshape(b * ng, vocab), gen_cfg, hist, step, step)
+                n_prefix = 0
+                if prefix_ids is not None:
+                    n_prefix = prefix_ids.shape[1]
+                    pref = prefix_ids.reshape(b, nb, n_prefix)[:, gs : gs + ng].reshape(b * ng, n_prefix)
+                    hist = torch.cat([pref, hist], dim=1)
+                lp_g = _process_scores(lp_g.reshape(b * ng, vocab), gen_cfg, hist, step + n_prefix, step)
                 lp_g = lp_g.reshape(b, ng, vocab)
 
             if gen_cfg.do_sample:
@@ -453,6 +482,87 @@ def _trim_to_longest(best: torch.Tensor, pad: int) -> torch.Tensor:
     return best[:, : int(used.max()) + 1]
 
 
+def _t5_cache(model: VB, inputs_embeds, attention_mask, max_new: int) -> dict:
+    """Encode the prompt; the decode cache of ``max_new + 1`` slots (the
+    start token and every new one), the cross K/V projected once from the
+    encoder states. The cached steps read the cross K/V, never the states."""
+    encoder_hidden = model.t5_encode(inputs_embeds, attention_mask)
+    return model.language_model.init_decode_cache(encoder_hidden, max_new + 1)
+
+
+def _greedy_sample_seq2seq(
+    model: VB,
+    inputs_embeds: torch.Tensor,
+    attention_mask: torch.Tensor,
+    gen_cfg: GenerationConfig,
+    noise: Optional[Noise] = None,
+) -> torch.Tensor:
+    """Encode, run the start token, then :func:`_sample_loop` over the
+    decoder steps. Returns (B * nrs, 1 + max_new_tokens) int64 tokens, the
+    start token first and pad after eos; the logits processors see ``[start]
+    + generated``, as HF's seq2seq input_ids. ``num_return_sequences > 1``
+    (sampling) encodes once and tiles the cache, rows interleaved
+    (``row*nrs + i``)."""
+    cache = _t5_cache(model, inputs_embeds, attention_mask, gen_cfg.max_new_tokens)
+    nrs = gen_cfg.num_return_sequences if gen_cfg.do_sample else 1
+    if nrs > 1:
+        cache = _tile_cache(cache, nrs)
+        attention_mask = attention_mask.repeat_interleave(nrs, dim=0)
+    start = torch.full((attention_mask.shape[0], 1), model.config.text_config.decoder_start_token_id,
+                       dtype=torch.int64, device=inputs_embeds.device)
+
+    def step_fn(tok):
+        logits, _ = model.t5_decode_step(tok[:, None], None, attention_mask, cache)
+        return logits[:, -1]
+
+    out = _sample_loop(step_fn(start[:, 0]), step_fn, gen_cfg, noise, prefix=start)
+    return torch.cat([start, out], dim=1)
+
+
+def _beam_search_seq2seq_device(
+    model: VB,
+    inputs_embeds: torch.Tensor,
+    attention_mask: torch.Tensor,
+    gen_cfg: GenerationConfig,
+    noise: Optional[Noise] = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Encode once per batch row and build its decode cache (cross K/V
+    included) once, tile both across the beams (rows ``row*nb + beam``), run
+    the start token, then the beam engine; its reorder gathers ``k``, ``v``,
+    ``cross_k`` and ``cross_v`` along the beam axis."""
+    b = inputs_embeds.shape[0]
+    nb = gen_cfg.num_beams
+    cache = _t5_cache(model, inputs_embeds, attention_mask, gen_cfg.max_new_tokens)
+    cache = _tile_cache(cache, nb)
+    enc_mask = attention_mask.repeat_interleave(nb, dim=0)
+
+    def step_fn(tokens, cache):
+        logits, cache = model.t5_decode_step(tokens[:, None], None, enc_mask, cache)
+        return torch.log_softmax(logits[:, -1].float(), dim=-1), cache
+
+    start = torch.full((b * nb,), model.config.text_config.decoder_start_token_id, dtype=torch.int64,
+                       device=inputs_embeds.device)
+    logprobs0, cache = step_fn(start, cache)
+    return _beam_engine(logprobs0, cache, step_fn, gen_cfg, b, noise=noise, prefix_ids=start[:, None])
+
+
+def _beam_search_seq2seq(
+    model: VB,
+    inputs_embeds: torch.Tensor,
+    attention_mask: torch.Tensor,
+    gen_cfg: GenerationConfig,
+    noise: Optional[Noise] = None,
+) -> torch.Tensor:
+    """Seq2seq beam search: the best ``num_return_sequences`` hypotheses of
+    each row, interleaved, cut at the longest one's length, then the start
+    token prepended (HF's sequences begin with it)."""
+    _, tokens = _beam_search_seq2seq_device(model, inputs_embeds, attention_mask, gen_cfg, noise)
+    nrs = gen_cfg.num_return_sequences
+    best = _trim_to_longest(tokens[:, :nrs].reshape(-1, tokens.shape[-1]), gen_cfg.pad_token_id)
+    start = best.new_full((best.shape[0], 1), model.config.text_config.decoder_start_token_id)
+    return torch.cat([start, best], dim=1)
+
+
 def _decode(
     model: nn.Module,
     inputs_embeds: torch.Tensor,
@@ -460,11 +570,15 @@ def _decode(
     gen_cfg: GenerationConfig,
     generator: Optional[torch.Generator] = None,
 ) -> torch.Tensor:
-    """The mode ``gen_cfg`` asks for: beam search when ``num_beams > 1``,
-    else the greedy/sampling loop; with ``do_sample`` the noise comes from
-    ``generator`` (:func:`_seeded_noise`)."""
+    """The mode ``gen_cfg`` asks for, decoder-only or seq2seq by the text
+    config: beam search when ``num_beams > 1``, else the greedy/sampling
+    loop; with ``do_sample`` the noise comes from ``generator``
+    (:func:`_seeded_noise`)."""
     noise = _seeded_noise(generator, inputs_embeds.device) if gen_cfg.do_sample else None
-    loop = _beam_search_decoder_only if gen_cfg.num_beams > 1 else _greedy_sample_decoder_only
+    if isinstance(model.config.text_config, T5Config):
+        loop = _beam_search_seq2seq if gen_cfg.num_beams > 1 else _greedy_sample_seq2seq
+    else:
+        loop = _beam_search_decoder_only if gen_cfg.num_beams > 1 else _greedy_sample_decoder_only
     return loop(model, inputs_embeds, attention_mask, gen_cfg, noise)
 
 
@@ -638,8 +752,10 @@ def generate(
     lookup_corpus: Optional[torch.Tensor] = None,
     video_features: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """``generate`` for OPT-backed VideoBLIP: encode the videos, scatter them
-    into the prompt embeddings (a v1 model prepends them), decode.
+    """``generate`` for VideoBLIP over OPT or T5: encode the videos, scatter
+    them into the prompt embeddings (a v1 model prepends them), decode. A T5
+    model runs beam search or the greedy/sampling loop below over its
+    encoder states; the contrastive and speculative modes are OPT's.
 
     ``num_beams > 1`` runs beam search (``do_sample``: beam_sample;
     ``num_beam_groups > 1``: group beam search) and returns the best
@@ -660,29 +776,39 @@ def generate(
     device (another raises ``ValueError``); with none, a generator on the
     model's device seeded with 0.
 
-    Returns (B*n, <= max_new_tokens) generated token ids (new tokens only;
-    pad after eos). ``video_features`` (precomputed ``encode_videos`` output,
+    Returns (B*n, <= max_new_tokens) generated token ids (OPT: new tokens
+    only; T5: the decoder start token, then the new tokens, as HF; pad after
+    eos). ``video_features`` (precomputed ``encode_videos`` output,
     (num_videos * num_query_tokens, text_hidden)) skips the vision tower and
     takes precedence over ``pixel_values``; ``vision_chunks > 1`` runs the
     vision tower over that many sequential pieces of the videos.
     """
     cfg: VideoBlipConfig = model.config
-    if not isinstance(cfg.text_config, OPTConfig):
+    if not isinstance(cfg.text_config, (OPTConfig, T5Config)):
         raise NotImplementedError(
-            f"generate() is ported for OPT text configs only, got {type(cfg.text_config).__name__}"
+            f"generate() supports OPT and T5 text configs, got {type(cfg.text_config).__name__}; "
+            "for LLaMA-family LMs use eilev_tpu_torch.generation.text_lm.TextLM"
         )
+    seq2seq = isinstance(cfg.text_config, T5Config)
     gen_cfg = generation_config
     if gen_cfg.eos_token_id is None:
         gen_cfg = gen_cfg.with_eos(cfg.text_config.eos_token_id)
     _validate_num_return_sequences(gen_cfg)
     _validate_beam_groups(gen_cfg)
+    if seq2seq and _is_contrastive(gen_cfg):
+        raise NotImplementedError(
+            "contrastive search (penalty_alpha) is implemented for the "
+            "decoder-only family; for T5 drop penalty_alpha (or set top_k=1) "
+            "to fall back to greedy"
+        )
     inputs_embeds, attention_mask = _embed_prompt(
         model, input_ids, attention_mask, pixel_values, video_input_mask, video_features, vision_chunks)
     if draft is not None and draft != "prompt_lookup":
         raise ValueError(f"unknown draft strategy {draft!r}; supported: 'prompt_lookup'")
-    # HF counts min_length/max_length over prompt + generated
-    gen_cfg = _resolve_lengths(gen_cfg, start_len=inputs_embeds.shape[1])
-    if gen_cfg.num_beams > 1:
+    # HF counts min_length/max_length over prompt + generated for decoder-only
+    # and over the decoder tokens, start token included, for seq2seq
+    gen_cfg = _resolve_lengths(gen_cfg, start_len=1 if seq2seq else inputs_embeds.shape[1])
+    if seq2seq or gen_cfg.num_beams > 1:
         return _decode(model, inputs_embeds, attention_mask, gen_cfg, generator)
     if _is_contrastive(gen_cfg):
         if draft is not None or draft_layers:

@@ -133,9 +133,10 @@ def load_model(
     matmuls W8A8). None is bit-parity with bf16; all are off by default.
     ``remat`` sets per-layer rematerialization of the LM trunk (training).
     Any other ``version`` than ``"v2"`` builds the v1 model, as in JAX (video features prepended,
-    ``models/video_blip_v1.py``) over the same weights; T5 checkpoints raise
-    ``NotImplementedError``: they are not ported yet. The model comes back in eval mode with no parameter
-    requiring grad (the Trainer sets its own).
+    ``models/video_blip_v1.py``) over the same weights. OPT and T5 (flan-t5)
+    checkpoints load; ``int8_lm``/``int8_kv`` take OPT only, as in JAX. The
+    model comes back in eval mode with no parameter requiring grad (the
+    Trainer sets its own).
     """
     with open(os.path.join(path, "config.json")) as f:
         config = config_from_hf_dict(json.load(f))
@@ -143,14 +144,11 @@ def load_model(
         raise ValueError("w8a8_prefill requires int8_lm (shared int8 weights)")
     if (int8_lm or int8_kv) and not isinstance(config.text_config, OPTConfig):
         raise ValueError("int8_lm/int8_kv currently support OPT-family LMs only")
-    if not isinstance(config.text_config, OPTConfig):
-        raise NotImplementedError(
-            f"only the OPT language model is ported, got {type(config.text_config).__name__}"
-        )
     if remat:
         config = cfg_replace(config, text_config=dataclasses.replace(config.text_config, remat=True))
     state = load_hf_checkpoint(path, config, dtype=param_dtype, device=device)
-    stored = state["language_model.embed_tokens.weight"].dtype  # the weights' dtype after the load
+    table = "embed_tokens" if isinstance(config.text_config, OPTConfig) else "shared"
+    stored = state[f"language_model.{table}.weight"].dtype  # the weights' dtype after the load
     cls = VideoBlipForConditionalGeneration if version == "v2" else VideoBlipV1ForConditionalGeneration
     model = cls(config, device="meta", dtype=dtype, param_dtype=stored)
     model.load_state_dict(state, strict=True, assign=True)

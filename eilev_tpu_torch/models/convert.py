@@ -32,8 +32,10 @@ layout (3*p*p, D); ``query_tokens`` (1, Q, D) becomes (Q, D). Keys the
 query-only path never reads (the Q-Former's text-path FFN, the tied
 ``lm_head``) are left. :func:`load_hf_checkpoint` reads a ``save_pretrained``
 directory through ``models/safetensors_io.py``, one tensor at a time onto
-the device. Only the OPT language model is ported: a T5 checkpoint raises
-``NotImplementedError``.
+the device. :func:`convert_t5` maps HF's T5 names (``encoder.block.<i>.layer.<j>``)
+onto the port's, which are the flax module's (``encoder.layers.<i>.self_attention``,
+``ff``, and in the decoder ``cross_attention``); the ``embed_tokens`` copies of
+``shared`` are left.
 """
 
 from __future__ import annotations
@@ -44,7 +46,7 @@ from typing import Any, Mapping, Optional
 import numpy as np
 import torch
 
-from ..configs import LlamaConfig, OPTConfig, VideoBlipConfig
+from ..configs import LlamaConfig, OPTConfig, T5Config, VideoBlipConfig
 from .safetensors_io import SafetensorsDirectory
 
 _LAYER = re.compile(r"^layers_(\d+)$")
@@ -75,12 +77,13 @@ def flax_to_state_dict(tree: Mapping[str, Any], prefix: str = "") -> dict[str, t
 
 
 def params_from_jax(params: Mapping[str, Any], config: VideoBlipConfig) -> dict[str, torch.Tensor]:
-    """The flax ``VideoBlipForConditionalGeneration`` params (OPT text config),
-    or the ``{"language_model": ...}`` tree of the text-only module
+    """The flax ``VideoBlipForConditionalGeneration`` params (OPT or T5 text
+    config), or the ``{"language_model": ...}`` tree of the text-only module
     ``generation/text_lm._TextOnlyModule`` (OPT or LLaMA text config) -> the
-    port's state dict."""
-    if not isinstance(config.text_config, (OPTConfig, LlamaConfig)):
-        raise NotImplementedError("only the OPT and LLaMA language models are ported")
+    port's state dict. The port's modules carry the flax names, so this is
+    :func:`flax_to_state_dict`'s rule for every family."""
+    if not isinstance(config.text_config, (OPTConfig, LlamaConfig, T5Config)):
+        raise NotImplementedError(f"no port of the {type(config.text_config).__name__} language model")
     return flax_to_state_dict(params)
 
 
@@ -246,15 +249,47 @@ def convert_qformer(
     return out
 
 
+#: (HF block sub-layer, the port's module) of a T5 encoder and decoder layer
+T5_ENCODER_PARTS = (("layer.0", "self_attention"), ("layer.1", "ff"))
+T5_DECODER_PARTS = (("layer.0", "self_attention"), ("layer.1", "cross_attention"), ("layer.2", "ff"))
+T5_ATTENTION_NAMES = {"self_attention": "SelfAttention", "cross_attention": "EncDecAttention"}
+
+
+def convert_t5(sd: Mapping[str, torch.Tensor], config: T5Config) -> dict[str, torch.Tensor]:
+    """HF ``T5ForConditionalGeneration`` state dict -> the port's
+    ``T5ForConditionalGeneration`` state dict (each sub-layer's RMS norm
+    ``layer_norm``, its attention's ``q``/``k``/``v``/``o`` and layer 0's
+    ``relative_attention_bias``, the FFN's ``wi_0``/``wi_1`` or ``wi``, and
+    ``wo``)."""
+    out = {"shared.weight": sd["shared.weight"]}
+    if not config.tie_word_embeddings:
+        out["lm_head.weight"] = sd["lm_head.weight"]
+    ff = ("wi_0", "wi_1", "wo") if config.is_gated_act else ("wi", "wo")
+    for stack, n_layers, parts in (("encoder", config.num_layers, T5_ENCODER_PARTS),
+                                   ("decoder", config.num_decoder_layers, T5_DECODER_PARTS)):
+        out[f"{stack}.final_layer_norm.weight"] = sd[f"{stack}.final_layer_norm.weight"]
+        for i in range(n_layers):
+            for hf_part, ours in parts:
+                hf, dst = f"{stack}.block.{i}.{hf_part}.", f"{stack}.layers.{i}.{ours}."
+                out[dst + "layer_norm.weight"] = sd[hf + "layer_norm.weight"]
+                if ours == "ff":
+                    for name in ff:
+                        out[f"{dst}{name}.weight"] = sd[f"{hf}DenseReluDense.{name}.weight"]
+                    continue
+                att = f"{hf}{T5_ATTENTION_NAMES[ours]}."
+                names = ["q", "k", "v", "o"]
+                if f"{att}relative_attention_bias.weight" in sd:
+                    names.append("relative_attention_bias")
+                for name in names:
+                    out[f"{dst}attention.{name}.weight"] = sd[f"{att}{name}.weight"]
+    return out
+
+
 def convert_videoblip(state_dict: Mapping[str, torch.Tensor], config: VideoBlipConfig) -> dict[str, torch.Tensor]:
     """A full HF ``VideoBlipForConditionalGeneration`` state dict -> the
     port's ``VideoBlipForConditionalGeneration`` state dict. Each HF tensor is
     looked up once, so a lazy mapping (``safetensors_io.TensorView``) reads
     the checkpoint one tensor at a time."""
-    if not isinstance(config.text_config, OPTConfig):
-        raise NotImplementedError(
-            f"only the OPT language model is ported, got {type(config.text_config).__name__}"
-        )
     q, qd = config.num_query_tokens, config.qformer_config.hidden_size
     out = {"query_tokens": state_dict["query_tokens"].reshape(q, qd)}
     out.update(_under("vision_model.vision.", convert_vision(
@@ -263,7 +298,8 @@ def convert_videoblip(state_dict: Mapping[str, torch.Tensor], config: VideoBlipC
         _Prefixed(state_dict, "qformer."), config.qformer_config.num_hidden_layers,
         config.qformer_config.cross_attention_frequency)))
     _param(out, state_dict, "language_projection", "language_projection")
-    out.update(_under("language_model.", convert_opt(_Prefixed(state_dict, "language_model."), config.text_config)))
+    convert_lm = convert_opt if isinstance(config.text_config, OPTConfig) else convert_t5
+    out.update(_under("language_model.", convert_lm(_Prefixed(state_dict, "language_model."), config.text_config)))
     return out
 
 

@@ -2,12 +2,14 @@
 
 Time-flattened vision tower -> Q-Former over T*S image tokens -> linear
 projection -> video features scattered into the token embeddings at the
-positions flagged by ``video_input_mask`` -> OPT. Only the OPT language model
-is ported; a T5 ``text_config`` raises ``NotImplementedError``.
+positions flagged by ``video_input_mask`` -> OPT (causal) or T5 (seq2seq,
+``models/t5.py``).
 
 The training forward (``forward`` with ``labels``) returns ``{"logits",
-"loss"}``, the loss HF's causal-LM cross entropy (:func:`masked_cross_entropy`
-of the logits shifted by one). Dropout is active in training mode when a mask
+"loss"}``: for OPT the loss is HF's causal-LM cross entropy
+(:func:`masked_cross_entropy` of the logits shifted by one); for T5 the
+decoder inputs are the labels shifted right (:func:`shift_tokens_right`,
+-100 -> pad) unless given, and the loss is the unshifted cross entropy. Dropout is active in training mode when a mask
 source ``dropout_rng`` is given (``ops/dropout.py``). The vision tower runs
 without a graph when none of its parameters requires grad (the recipe
 freezes it), so its attention kernel K1, which has no backward, never sees a
@@ -36,6 +38,7 @@ from ..ops.dropout import MaskSource
 from .mixed_precision import MixedLinear
 from .opt import Cache, OPTForCausalLM
 from .qformer import QFormerModel
+from .t5 import T5ForConditionalGeneration
 from .vision import VideoVisionModel
 
 
@@ -58,10 +61,6 @@ class VideoBlipForConditionalGeneration(nn.Module):
     def __init__(self, config: VideoBlipConfig, *, device="cuda", dtype=None, param_dtype=None,
                  trainable_dtype=None):
         super().__init__()
-        if not isinstance(config.text_config, OPTConfig):
-            raise NotImplementedError(
-                f"only the OPT language model is ported, got {type(config.text_config).__name__}"
-            )
         self.config = config
         # a compute dtype of its own only where the weights differ from it;
         # otherwise the towers follow their weights' dtype (so a .double() or
@@ -78,13 +77,15 @@ class VideoBlipForConditionalGeneration(nn.Module):
         self.language_projection = MixedLinear(
             config.qformer_config.hidden_size, config.text_hidden_size, **train_kw
         )
-        self.language_model = OPTForCausalLM(config.text_config, compute_dtype=compute, **kw)
+        lm_cls = OPTForCausalLM if isinstance(config.text_config, OPTConfig) else T5ForConditionalGeneration
+        self.language_model = lm_cls(config.text_config, compute_dtype=compute, **kw)
 
     @property
     def compute_dtype(self) -> torch.dtype:
         """The dtype every tower computes in."""
         lm = self.language_model
-        return lm.compute_dtype or lm.embed_tokens.weight.dtype
+        table = lm.embed_tokens if isinstance(lm, OPTForCausalLM) else lm.shared
+        return lm.compute_dtype or table.weight.dtype
 
     def encode_videos(
         self, pixel_values: torch.Tensor, dropout_rng: Optional[MaskSource] = None
@@ -130,11 +131,15 @@ class VideoBlipForConditionalGeneration(nn.Module):
         video_input_mask: Optional[torch.Tensor] = None,
         labels: Optional[torch.Tensor] = None,
         dropout_rng: Optional[MaskSource] = None,
+        decoder_input_ids: Optional[torch.Tensor] = None,
+        decoder_attention_mask: Optional[torch.Tensor] = None,
     ) -> dict[str, torch.Tensor]:
         """The training / scoring forward: ``{"logits"}``, and ``"loss"`` with
-        ``labels`` (HF's: shift by one, the mean over labels != -100). In
-        training mode with dropout rates above 0 it needs ``dropout_rng``, as
-        the JAX module needs a dropout key when ``deterministic=False``."""
+        ``labels`` (the mean over labels != -100; HF's shift by one for OPT,
+        the decoder's own positions for T5, whose ``decoder_input_ids``
+        default to the labels shifted right). In training mode with dropout
+        rates above 0 it needs ``dropout_rng``, as the JAX module needs a
+        dropout key when ``deterministic=False``."""
         if self.training and dropout_rng is None and self._has_dropout():
             raise ValueError(
                 "a training-mode forward draws dropout masks: pass dropout_rng "
@@ -143,15 +148,39 @@ class VideoBlipForConditionalGeneration(nn.Module):
         inputs_embeds = self.embed_and_scatter(
             input_ids, pixel_values, video_input_mask, dropout_rng=dropout_rng
         )
-        logits, _ = self.language_model(inputs_embeds, attention_mask=attention_mask, rng=dropout_rng)
+        return self.lm_loss(inputs_embeds, attention_mask, labels, dropout_rng, decoder_input_ids,
+                            decoder_attention_mask)
+
+    def lm_loss(
+        self,
+        inputs_embeds: torch.Tensor,
+        attention_mask: Optional[torch.Tensor],
+        labels: Optional[torch.Tensor],
+        dropout_rng: Optional[MaskSource] = None,
+        decoder_input_ids: Optional[torch.Tensor] = None,
+        decoder_attention_mask: Optional[torch.Tensor] = None,
+    ) -> dict[str, torch.Tensor]:
+        """The language model's half of :meth:`forward` over ready embeddings."""
+        tcfg = self.config.text_config
+        if isinstance(tcfg, OPTConfig):
+            logits, _ = self.language_model(inputs_embeds, attention_mask=attention_mask, rng=dropout_rng)
+            out = {"logits": logits}
+            if labels is not None:
+                out["loss"] = masked_cross_entropy(logits[:, :-1], labels[:, 1:])
+            return out
+        if decoder_input_ids is None and labels is not None:
+            decoder_input_ids = shift_tokens_right(labels, tcfg.pad_token_id, tcfg.decoder_start_token_id)
+        logits = self.language_model(
+            inputs_embeds, attention_mask, decoder_input_ids, decoder_attention_mask, rng=dropout_rng)
         out = {"logits": logits}
         if labels is not None:
-            out["loss"] = masked_cross_entropy(logits[:, :-1], labels[:, 1:])
+            out["loss"] = masked_cross_entropy(logits, labels)
         return out
 
     def _has_dropout(self) -> bool:
         q, t = self.config.qformer_config, self.config.text_config
-        return bool(q.hidden_dropout_prob or q.attention_probs_dropout_prob or t.dropout)
+        lm_rate = t.dropout if isinstance(t, OPTConfig) else t.dropout_rate
+        return bool(q.hidden_dropout_prob or q.attention_probs_dropout_prob or lm_rate)
 
     def lm_embed(self, input_ids: torch.Tensor) -> torch.Tensor:
         return self.language_model.embed(input_ids)
@@ -196,6 +225,16 @@ class VideoBlipForConditionalGeneration(nn.Module):
     ) -> torch.Tensor:
         return self.language_model.score_with_prefix(class_embeds, class_attention_mask, cache)
 
+    def t5_encode(self, inputs_embeds: torch.Tensor, attention_mask: Optional[torch.Tensor]) -> torch.Tensor:
+        return self.language_model.encode(inputs_embeds, attention_mask)
+
+    def t5_decode_step(self, decoder_input_ids, encoder_hidden, encoder_attention_mask, cache):
+        return self.language_model.decode_step(decoder_input_ids, encoder_hidden, encoder_attention_mask, cache)
+
+    def t5_score_classes(self, class_decoder_ids, class_attention_mask, encoder_hidden, encoder_attention_mask):
+        return self.language_model.score_classes(
+            class_decoder_ids, class_attention_mask, encoder_hidden, encoder_attention_mask)
+
 
 def masked_cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """Mean cross entropy over the positions where labels != -100 (HF's
@@ -206,6 +245,14 @@ def masked_cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Te
     token_ll = torch.gather(logp, -1, safe[..., None])[..., 0]
     token_loss = -torch.where(valid, token_ll, torch.zeros_like(token_ll))
     return token_loss.sum() / valid.sum().clamp(min=1)
+
+
+def shift_tokens_right(labels: torch.Tensor, pad_token_id: int, decoder_start_token_id: int) -> torch.Tensor:
+    """T5's decoder inputs (HF ``_shift_right``): the start token prepended,
+    the last label dropped, -100 replaced by pad."""
+    shifted = torch.roll(labels, 1, dims=-1)
+    shifted[:, 0] = decoder_start_token_id
+    return torch.where(shifted == -100, pad_token_id, shifted)
 
 
 def embed_and_scatter_chunked(

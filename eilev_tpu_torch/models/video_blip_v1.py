@@ -5,10 +5,11 @@ The reference's v1 model inherits ``Blip2ForConditionalGeneration``'s
 forward and generate of the transformers release it pins: the video's query
 tokens go in front of the token embeddings, the attention mask is extended
 with ones, and the decoder-only loss is taken over the last
-``labels.shape[1]`` logits. A subclass of the v2 module: the same towers and
-weights (a v1 checkpoint loads through ``models/auto.load_model(version="v1")``),
-only the text/video composition differs. OPT language models only, as the
-v2 module.
+``labels.shape[1]`` logits (a T5 language model takes the v2 module's
+seq2seq loss over the same composition). A subclass of the v2 module: the
+same towers and weights (a v1 checkpoint loads through
+``models/auto.load_model(version="v1")``), only the text/video composition
+differs.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ from typing import Optional
 
 import torch
 
+from ..configs import OPTConfig
 from ..ops.dropout import MaskSource
 from .video_blip import VideoBlipForConditionalGeneration, masked_cross_entropy
 
@@ -53,7 +55,8 @@ class VideoBlipV1ForConditionalGeneration(VideoBlipForConditionalGeneration):
         dropout_rng: Optional[MaskSource] = None,
     ) -> dict[str, torch.Tensor]:
         """``{"logits"}`` over [video | text], and ``"loss"`` with ``labels``:
-        HF Blip2's, over the last ``labels.shape[1]`` logits, shifted by one."""
+        HF Blip2's, over the last ``labels.shape[1]`` logits, shifted by one
+        (for T5 the v2 module's seq2seq loss)."""
         del video_input_mask
         if attention_mask is None:
             attention_mask = torch.ones_like(input_ids)
@@ -61,6 +64,8 @@ class VideoBlipV1ForConditionalGeneration(VideoBlipForConditionalGeneration):
         if pixel_values is not None:
             prefix = attention_mask.new_ones(input_ids.shape[0], self.config.num_query_tokens)
             attention_mask = torch.cat([prefix, attention_mask], dim=1)
+        if not isinstance(self.config.text_config, OPTConfig):
+            return self.lm_loss(inputs_embeds, attention_mask, labels, dropout_rng)
         logits, _ = self.language_model(inputs_embeds, attention_mask=attention_mask, rng=dropout_rng)
         out = {"logits": logits}
         if labels is not None:

@@ -28,7 +28,8 @@ from typing import Any, Mapping, Optional
 import torch
 from torch import nn
 
-from ..configs import OPTConfig, VideoBlipConfig
+from ..configs import OPTConfig, T5Config, VideoBlipConfig
+from ..models.convert import T5_ATTENTION_NAMES, T5_DECODER_PARTS, T5_ENCODER_PARTS
 from ..models.safetensors_io import save_file
 from .train_state import TrainState
 
@@ -191,10 +192,6 @@ def hf_state_dict(model: nn.Module, config: VideoBlipConfig) -> dict[str, torch.
     model holds it (views where the layout allows). The model must hold
     float weights: a quantized one raises ``ValueError``."""
     sd = model.state_dict()
-    if not isinstance(config.text_config, OPTConfig):
-        raise NotImplementedError(
-            f"only the OPT language model is ported, got {type(config.text_config).__name__}"
-        )
     if any(k.endswith(".w8") for k in sd):
         raise ValueError("hf_state_dict needs float weights: export the model before quantizing it")
     out: dict[str, torch.Tensor] = {}
@@ -227,7 +224,15 @@ def hf_state_dict(model: nn.Module, config: VideoBlipConfig) -> dict[str, torch.
 
     _put(out, sd, "language_projection", "language_projection")
 
-    tcfg, lm, base = config.text_config, "language_model.", "language_model.model.decoder."
+    if isinstance(config.text_config, OPTConfig):
+        _put_opt(out, sd, config.text_config)
+    else:
+        _put_t5(out, sd, config.text_config)
+    return out
+
+
+def _put_opt(out: dict, sd: Mapping[str, torch.Tensor], tcfg: OPTConfig) -> None:
+    lm, base = "language_model.", "language_model.model.decoder."
     out[base + "embed_tokens.weight"] = sd[lm + "embed_tokens.weight"]
     out["language_model.lm_head.weight"] = out[base + "embed_tokens.weight"]
     out[base + "embed_positions.weight"] = sd[lm + "embed_positions.weight"]
@@ -246,7 +251,33 @@ def hf_state_dict(model: nn.Module, config: VideoBlipConfig) -> dict[str, torch.
             out[f"{hf}self_attn.{proj}.bias"] = qkv_b[j * d : (j + 1) * d]
         for name in ("self_attn.out_proj", "self_attn_layer_norm", "final_layer_norm", "fc1", "fc2"):
             _put(out, sd, ours + name, hf + name)
-    return out
+
+
+def _put_t5(out: dict, sd: Mapping[str, torch.Tensor], tcfg: T5Config) -> None:
+    """The inverse of ``models/convert.py:convert_t5``, with ``shared`` also
+    written as both stacks' ``embed_tokens``, as HF saves it."""
+    base = "language_model."
+    out[base + "shared.weight"] = sd[base + "shared.weight"]
+    out[base + "encoder.embed_tokens.weight"] = out[base + "shared.weight"]
+    out[base + "decoder.embed_tokens.weight"] = out[base + "shared.weight"]
+    if not tcfg.tie_word_embeddings:
+        out[base + "lm_head.weight"] = sd[base + "lm_head.weight"]
+    ff = ("wi_0", "wi_1", "wo") if tcfg.is_gated_act else ("wi", "wo")
+    for stack, n_layers, parts in (("encoder", tcfg.num_layers, T5_ENCODER_PARTS),
+                                   ("decoder", tcfg.num_decoder_layers, T5_DECODER_PARTS)):
+        out[f"{base}{stack}.final_layer_norm.weight"] = sd[f"{base}{stack}.final_layer_norm.weight"]
+        for i in range(n_layers):
+            for hf_part, ours in parts:
+                hf, src = f"{base}{stack}.block.{i}.{hf_part}.", f"{base}{stack}.layers.{i}.{ours}."
+                out[hf + "layer_norm.weight"] = sd[src + "layer_norm.weight"]
+                if ours == "ff":
+                    for name in ff:
+                        out[f"{hf}DenseReluDense.{name}.weight"] = sd[f"{src}{name}.weight"]
+                    continue
+                att = f"{hf}{T5_ATTENTION_NAMES[ours]}."
+                for name in ("q", "k", "v", "o", "relative_attention_bias"):
+                    if f"{src}attention.{name}.weight" in sd:
+                        out[f"{att}{name}.weight"] = sd[f"{src}attention.{name}.weight"]
 
 
 def export_hf_safetensors(model: nn.Module, config: VideoBlipConfig, path: str) -> str:

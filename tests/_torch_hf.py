@@ -43,6 +43,14 @@ HF_CONFIG = {
 }
 
 
+# the same at a tiny flan-t5 text config (gated gelu, untied head)
+T5_HF_CONFIG = dict(copy.deepcopy(HF_CONFIG), text_config={
+    "model_type": "t5", "vocab_size": VOCAB, "d_model": 16, "d_kv": 8, "d_ff": 32, "num_layers": 2,
+    "num_decoder_layers": 2, "num_heads": 2, "feed_forward_proj": "gated-gelu", "tie_word_embeddings": False,
+    "pad_token_id": 0, "eos_token_id": 1, "decoder_start_token_id": 0,
+})
+
+
 def hf_config(**text) -> dict:
     """HF_CONFIG with ``text`` merged into its text_config."""
     cfg = copy.deepcopy(HF_CONFIG)
@@ -59,8 +67,9 @@ def write_checkpoint(path: str, hf: dict = HF_CONFIG, seed: int = 7, tokenizer: 
     ids = jnp.asarray([[2] + [1] * q + [4, 5]])
     vim = jnp.zeros_like(ids).at[:, 1 : 1 + q].set(1)
     img = cfg.vision_config.image_size
+    seq2seq = {} if cfg.use_decoder_only_language_model else {"decoder_input_ids": jnp.zeros((1, 1), jnp.int32)}
     params = random_params(JVB(cfg), seed, input_ids=ids, pixel_values=jnp.zeros((1, 3, 2, img, img)),
-                           video_input_mask=vim)
+                           video_input_mask=vim, **seq2seq)
     params = jax.tree.map(np.asarray, params)
     os.makedirs(path, exist_ok=True)
     export_hf_safetensors(params, cfg, path)

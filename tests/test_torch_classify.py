@@ -171,8 +171,22 @@ def test_bf16_left_padded_rows_are_nan_as_in_jax(setup):
     np.testing.assert_allclose(ours[1], ref[1], atol=2e-2, rtol=2e-2)
 
 
-def test_seq2seq_classify_is_not_ported():
-    t5 = SimpleNamespace(config=tconfigs.tiny_config(text_model="t5"))
-    with pytest.raises(NotImplementedError, match="seq2seq"):
-        classify(t5, prompt_input_ids=torch.ones(1, 4, dtype=torch.long),
-                 class_input_ids=torch.ones(2, 1, dtype=torch.long))
+def test_seq2seq_classify_is_not_ported(setup):
+    """Seq2seq classify is ported: on the same prompts and classes a T5
+    VideoBLIP scores (B, C) mean log-likelihoods within 1e-4 of JAX's, its
+    classes over the shared encoder states; precomputed video features give
+    the pixel path's scores."""
+    st = setup
+    cfg = configs.tiny_config(text_model="t5")
+    jmodel = JVB(cfg)
+    params = jax.tree.map(np.asarray, random_params(
+        jmodel, 22, input_ids=jnp.asarray(st.ids), pixel_values=jnp.asarray(st.pixel),
+        video_input_mask=jnp.asarray(st.vim), decoder_input_ids=jnp.zeros((2, L), jnp.int32)))
+    t5 = SimpleNamespace(**{**vars(st), "jmodel": jmodel, "params": params,
+                            "model": _port(params, tconfigs.tiny_config(text_model="t5"))})
+    ours, ref = _port_ll(t5), _jax_ll(t5)
+    assert ours.shape == (2, C) and np.isfinite(ref).all()
+    np.testing.assert_allclose(to_np(ours), ref, atol=ATOL, rtol=0)
+    with torch.inference_mode():
+        feats = t5.model.encode_videos(torch.from_numpy(st.pixel))
+    torch.testing.assert_close(_port_ll(t5, video_features=feats), ours, atol=1e-5, rtol=0)

@@ -415,6 +415,47 @@ def test_k5_reads_a_cache_layer_in_place(cuda, hd):
     torch.testing.assert_close(out, ref, atol=2e-2, rtol=2e-2)
 
 
+# K5's bias form at the flan-t5-xl shapes of the T5 path (32 heads x 64, no
+# scale): the encoder at the narration's 766 tokens (B 1, and B 4 with a
+# padded row), the decoder's cached step (one query over a layer slice of the
+# 33-slot stacked cache, the (H, 1, L) bias, the filled-slot mask expanded to
+# (B, L)) and its cross step (one query over a layer slice of the stacked
+# encoder K/V, padded keys)
+T5_SHAPES = ["encoder_b1", "encoder_b4_padded", "decoder_self", "decoder_cross"]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("name", T5_SHAPES)
+def test_k5_at_the_flan_t5_xl_shapes(cuda, name, dtype):
+    g = torch.Generator(device=cuda).manual_seed(len(name))
+    nh, hd, b = 32, 64, (1 if name == "encoder_b1" else 4)
+    q = torch.randn(b, 766 if name.startswith("encoder") else 1, nh, hd, device=cuda, generator=g).to(dtype)
+    bias = pm = None
+    if name.startswith("encoder"):
+        k = torch.randn(b, 766, nh, hd, device=cuda, generator=g).to(dtype)
+        v = torch.randn(b, 766, nh, hd, device=cuda, generator=g).to(dtype)
+        bias = torch.randn(nh, 766, 766, device=cuda, generator=g).to(dtype)
+        pm = torch.ones(b, 766, dtype=torch.int32, device=cuda)
+        pm[-1, 700:] = 0
+    elif name == "decoder_self":
+        kb = torch.randn(3, b, 33, nh, hd, device=cuda, generator=g).to(dtype)
+        k, v = kb[1], kb[2]
+        bias = torch.randn(nh, 1, 33, device=cuda, generator=g).to(dtype)
+        pm = (torch.arange(33, device=cuda) < 13).to(torch.int32)[None].expand(b, 33)
+    else:
+        kb = torch.randn(3, b, 766, nh, hd, device=cuda, generator=g).to(dtype)
+        k, v = kb[0], kb[2]
+        pm = torch.ones(b, 766, dtype=torch.int32, device=cuda)
+        pm[1, 500:] = 0
+    before = tfl.flash_attention.launches
+    out = tfl.flash_attention(q, k, v, padding_mask=pm, bias=bias)
+    torch.cuda.synchronize()
+    assert tfl.flash_attention.launches == before + 1
+    ref = tfl.flash_attention_reference(q, k.contiguous(), v.contiguous(), padding_mask=pm, bias=bias)
+    assert torch.isfinite(out).all()
+    torch.testing.assert_close(out, ref, **TOL[dtype])
+
+
 def test_flash_kernel_refuses_what_it_does_not_take(cuda):
     q = torch.zeros(1, 8, 2, 16, dtype=torch.bfloat16, device=cuda)
     with pytest.raises(TypeError, match="all bf16 or all fp32"):

@@ -76,6 +76,19 @@ def _case(name):
         pm = np.ones((2, 90), np.int32)
         pm[0, 80:] = 0
         return (q, k, v), {"bias": bias, "padding_mask": pm}
+    if name == "t5_decode_self":
+        # the T5 decoder's cached step: one query over 33 slots, the (H, 1, L)
+        # relative bias at q_offset = index, the (B, L) filled-slot mask
+        q, k, v = _inputs(9, 3, 1, 33, 4, 64)
+        bias = np.random.default_rng(41).normal(size=(4, 1, 33)).astype(np.float32) * 2.0
+        pm = np.zeros((3, 33), np.int32)
+        pm[:, :13] = 1
+        return (q, k, v), {"bias": bias, "padding_mask": pm}
+    if name == "t5_decode_cross":  # one query over padded encoder keys, no scale
+        pm = np.ones((3, 300), np.int32)
+        pm[1, 260:] = 0
+        pm[2, 140:] = 0
+        return _inputs(10, 3, 1, 300, 4, 64), {"padding_mask": pm}
     if name == "gqa_q_offset":  # 4 heads over 2 kv heads, causal with q_offset
         return _inputs(6, 2, 60, 190, 4, 64, kvh=2), {"causal": True, "q_offset": 130, "scale": 0.125}
     if name == "llama_left_padded_tile":
@@ -91,7 +104,7 @@ def _case(name):
 
 
 CASES = ["vit", "opt_causal_left_padded", "prefill_padded_cache", "cross_padded_keys", "t5_bias",
-         "gqa_q_offset", "llama_left_padded_tile"]
+         "t5_decode_self", "t5_decode_cross", "gqa_q_offset", "llama_left_padded_tile"]
 
 
 @pytest.mark.parametrize("name", CASES)
@@ -214,6 +227,10 @@ DISPATCH = [
     (1984, 2048, 3, "auto"), (1984, 2048, 4, "auto"), (4096, 4096, None, "auto"),
     (32, 2056, None, "auto"), (1, 2048, None, "auto"),
     (7, 9, None, "flash"), (2000, 4000, None, "xla"), (2000, 4000, None, "fused"),
+    # T5: the encoder at the narration's 766 and past both thresholds (bias),
+    # the decoder's cached step (bias over 33 slots) and its cross step
+    (766, 766, 3, "auto"), (2048, 2048, 3, "auto"), (1, 33, 3, "auto"), (1, 766, None, "auto"),
+    (766, 766, 3, "flash"), (1, 33, 3, "flash"), (1, 766, None, "flash"),
 ]
 
 

@@ -6,8 +6,6 @@ Tokens must be identical to ``eilev_tpu.generation.generate`` for 2
 datapoints x 2 videos, with one row stopping early on eos.
 """
 
-from types import SimpleNamespace
-
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -51,6 +49,21 @@ def slice_setup():
     model = VideoBlipForConditionalGeneration(tcfg, device="cpu")
     model.load_state_dict(params_from_jax(jax.tree.map(np.asarray, params), tcfg), strict=True)
     return cfg, jmodel, params, model.eval(), frames, ids, mask, vim, t
+
+
+@pytest.fixture(scope="module")
+def t5_pair(slice_setup):
+    """A T5 VideoBLIP in both packages on the same numpy weights, for the
+    slice's prompts (its towers' widths are the OPT slice's)."""
+    ids, vim = slice_setup[5], slice_setup[7]
+    cfg = configs.tiny_config(text_model="t5")
+    jmodel = JVB(cfg)
+    params = random_params(jmodel, 13, input_ids=jnp.asarray(ids), pixel_values=jnp.zeros((4, 3, 2, 16, 16)),
+                           video_input_mask=jnp.asarray(vim), decoder_input_ids=jnp.zeros((2, 1), jnp.int32))
+    tcfg = tconfigs.tiny_config(text_model="t5")
+    model = VideoBlipForConditionalGeneration(tcfg, device="cpu")
+    model.load_state_dict(params_from_jax(jax.tree.map(np.asarray, params), tcfg), strict=True)
+    return jmodel, params, model.eval()
 
 
 def _jax_tokens(setup, eos, features=False, **kw):
@@ -133,10 +146,12 @@ def test_default_eos_is_the_text_configs(slice_setup):
         ({}, {"draft_layers": 1}),
     ],
 )
-def test_unported_modes_raise(slice_setup, gen_kwargs, call_kwargs):
+def test_unported_modes_raise(slice_setup, t5_pair, gen_kwargs, call_kwargs):
     """Contrastive search and both speculative modes are ported (they no
     longer raise): the slice's tokens equal JAX's ``generate`` with the same
-    arguments, and a T5 text config, still unported, raises."""
+    arguments; and so does a T5 VideoBLIP's call (JAX's T5 greedy, which the
+    drafts leave alone; contrastive search refused by both, as it is
+    decoder-only)."""
     cfg, jmodel, params, model, frames, ids, mask, vim, t = slice_setup
     img = cfg.vision_config.image_size
     ref = jgenerate(
@@ -152,9 +167,24 @@ def test_unported_modes_raise(slice_setup, gen_kwargs, call_kwargs):
         generation_config=GenerationConfig(max_new_tokens=MAX_NEW, pad_token_id=1, **gen_kwargs), **call_kwargs,
     )
     np.testing.assert_array_equal(ours.numpy(), np.asarray(ref))
-    t5 = tconfigs.replace(model.config, text_config=tconfigs.tiny_config(text_model="t5").text_config)
-    with pytest.raises(NotImplementedError, match="T5Config"):
-        generate(SimpleNamespace(config=t5), input_ids=torch.from_numpy(ids))
+    jt5, params5, t5 = t5_pair
+    gen = dict(max_new_tokens=MAX_NEW, pad_token_id=0, **gen_kwargs)
+    jcall = lambda: jgenerate(  # noqa: E731
+        jt5, {"params": params5}, input_ids=jnp.asarray(ids), attention_mask=jnp.asarray(mask),
+        pixel_values=jprocess(jnp.asarray(frames), num_frames=t, height=img, width=img),
+        video_input_mask=jnp.asarray(vim), generation_config=JGenerationConfig(**gen), **call_kwargs)
+    call = lambda: generate(  # noqa: E731
+        t5, input_ids=torch.from_numpy(ids), attention_mask=torch.from_numpy(mask),
+        pixel_values=process_videos(torch.from_numpy(frames), num_frames=t, height=img, width=img),
+        video_input_mask=torch.from_numpy(vim), generation_config=GenerationConfig(**gen), **call_kwargs)
+    if "penalty_alpha" in gen_kwargs:
+        for run in (jcall, call):
+            with pytest.raises(NotImplementedError, match="decoder-only"):
+                run()
+        return
+    ref5, ours5 = np.asarray(jcall()), call().numpy()
+    assert ours5.shape == (2, 1 + MAX_NEW)
+    np.testing.assert_array_equal(ours5, ref5)
 
 
 def test_greedy_rejects_num_return_sequences(slice_setup):

@@ -14,6 +14,7 @@ import dataclasses
 import json
 import os
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -33,7 +34,7 @@ from eilev_tpu_torch.models.processing import VideoBlipProcessor
 from eilev_tpu_torch.models.safetensors_io import SafetensorsDirectory, load_file, save_file
 from eilev_tpu_torch.training.checkpoint import export_hf_safetensors, hf_state_dict
 
-from ._torch_hf import HF_CONFIG, hf_config, write_checkpoint
+from ._torch_hf import HF_CONFIG, T5_HF_CONFIG, hf_config, write_checkpoint
 from .util_tokenizer import build_tiny_tokenizer
 
 DTYPES = [torch.float32, torch.float16, torch.bfloat16, torch.int64, torch.int32, torch.int8]
@@ -174,10 +175,21 @@ def test_v1_and_t5_raise(ckpt, tmp_path):
     v2, _ = auto.load_model(ckpt, device="cpu")
     assert type(v1) is VideoBlipV1ForConditionalGeneration
     assert all(torch.equal(a, b) for a, b in zip(v1.state_dict().values(), v2.state_dict().values()))
-    with open(tmp_path / "config.json", "w") as f:
-        json.dump(_t5_dict(), f)
-    with pytest.raises(NotImplementedError, match="T5Config"):
-        auto.load_model(str(tmp_path), device="cpu")
+    # a T5 checkpoint loads (no longer raises): exactly the state dict that
+    # params_from_jax makes of JAX's loaded params, the same forward logits
+    t5_dir = str(tmp_path / "t5")
+    write_checkpoint(t5_dir, T5_HF_CONFIG)
+    jmodel, jvars, jcfg = jauto.load_model(t5_dir)
+    t5, cfg = auto.load_model(t5_dir, device="cpu")
+    _assert_same(t5.state_dict(), params_from_jax(jax.tree.map(np.asarray, jvars["params"]), cfg))
+    ids, vim = np.array([[2, 1, 1, 1, 1, 7, 9]]), np.array([[0, 1, 1, 1, 1, 0, 0]])
+    px, dec = np.random.default_rng(1).normal(size=(1, 3, 2, 16, 16)).astype(np.float32), np.array([[0, 5, 6]])
+    ref = jmodel.apply(jvars, jnp.asarray(ids), pixel_values=jnp.asarray(px), video_input_mask=jnp.asarray(vim),
+                       decoder_input_ids=jnp.asarray(dec))["logits"]
+    with torch.no_grad():
+        out = t5(torch.from_numpy(ids), pixel_values=torch.from_numpy(px), video_input_mask=torch.from_numpy(vim),
+                 decoder_input_ids=torch.from_numpy(dec))["logits"]
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-4, rtol=0)
     with pytest.raises(ValueError, match="requires int8_lm"):
         auto.load_model(ckpt, w8a8_prefill=True, device="cpu")
 

@@ -29,6 +29,7 @@ PORT_MODULES = [
     "eilev_tpu_torch.models.processing",
     "eilev_tpu_torch.models.qformer",
     "eilev_tpu_torch.models.safetensors_io",
+    "eilev_tpu_torch.models.t5",
     "eilev_tpu_torch.models.video_blip",
     "eilev_tpu_torch.models.video_blip_v1",
     "eilev_tpu_torch.models.vision",

@@ -176,10 +176,29 @@ def test_params_from_jax_full_model_forward():
 
 
 def test_t5_text_config_is_not_ported():
-    with pytest.raises(NotImplementedError):
-        VideoBlipForConditionalGeneration(tconfigs.tiny_config(text_model="t5"), device="cpu")
-    with pytest.raises(NotImplementedError):
-        params_from_jax({}, tconfigs.tiny_config(text_model="t5"))
+    """The T5 text config is ported: params_from_jax fills the port's T5
+    VideoBLIP exactly, and its training forward (decoder inputs shifted from
+    the labels, -100 -> pad) gives JAX's logits and loss."""
+    cfg = configs.tiny_config(text_model="t5")
+    pixel, ids, vim = _videoblip_inputs(cfg, 9)
+    labels = np.random.default_rng(10).integers(2, cfg.text_config.vocab_size, size=(2, 4)).astype(np.int32)
+    labels[1, -1] = -100
+    jmodel = JVB(cfg)
+    params = random_params(jmodel, 11, input_ids=jnp.asarray(ids), pixel_values=jnp.asarray(pixel),
+                           video_input_mask=jnp.asarray(vim), labels=jnp.asarray(labels))
+    ref = jmodel.apply({"params": params}, jnp.asarray(ids), pixel_values=jnp.asarray(pixel),
+                       video_input_mask=jnp.asarray(vim), labels=jnp.asarray(labels))
+    tcfg = tconfigs.tiny_config(text_model="t5")
+    ours = VideoBlipForConditionalGeneration(tcfg, device="cpu")
+    sd = params_from_jax(jax.tree.map(np.asarray, params), tcfg)
+    assert set(sd) == set(ours.state_dict())
+    ours.load_state_dict(sd, strict=True)
+    with torch.no_grad():
+        out = ours.eval()(torch.from_numpy(ids), pixel_values=torch.from_numpy(pixel),
+                   video_input_mask=torch.from_numpy(vim), labels=torch.from_numpy(labels))
+    assert out["logits"].shape == (2, 4, cfg.text_config.vocab_size)
+    np.testing.assert_allclose(to_np(out["logits"]), to_np(ref["logits"]), atol=ATOL, rtol=0)
+    np.testing.assert_allclose(float(out["loss"]), float(ref["loss"]), rtol=1e-5)
 
 
 def test_narration_model_defaults_to_the_card():
