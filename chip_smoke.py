@@ -311,11 +311,47 @@ final result line):
    loaded back with bf16 weights: every tensor bit for bit, greedy tokens
    identical to the source model's (K1 = F32_LAYERS). The directories are
    temporary and deleted at the phase's end.
+11. Serving (serving/engine.py, serving/session.py, cli/serve.py), each leg
+   counted (counters at 0 just before, read just after; K1 39 an encode, K2
+   32 an admission prefill, K3/K4 32 a one-token forward, the speculative
+   verify passes plain attention, as in JAX): (a) eilev-blip2-opt-2.7b in
+   fp32 at full depth (its default construction), six staggered requests
+   (P = 766 ... 790, their 17 videos encoded once by a VideoFeatureCache the
+   runs share) through a 4-slot engine (chunk 8, bucket 64, max_len 960:
+   compaction and slot reuse), plain and prompt-lookup speculative, every
+   row token-identical to the request's isolated fp32 generate; (c) on the
+   same model a captured speculative cache (4 slots x 2,048: sampled lookup
+   passes leave holes; a 46-token request admitted behind a dead prefix
+   longer than a split chunk), every layer through K3 and K4 against their
+   twins in fp32 (F32_TOL) and cast to bf16 (2e-2, K4_TOL), the bf16 calls
+   timed; (b) the bf16 model through cli/serve.py's run at its defaults (4
+   slots, max_len 2,048, chunk 8, bucket 128): 12 requests at once, then at
+   half the rate the first leg sustained, with p50/p95 latency, time to
+   first chunk, videos/s, peak memory, launches a request and the NaN rows
+   (left-padded bf16 admissions, the reference's behaviour: the finite rows
+   must be exactly the unpadded admissions); one decode chunk's host syncs
+   (torch.cuda.set_sync_debug_mode) and, profiled, its idle share; a
+   bucket-2 leg of four unpadded 766-token requests, rows within one bf16
+   ulp of isolated generate (phase 4e's rule); (c) K2 at an admission's shape
+   (1, 768, 32x80, left-padded by 2) held and timed; the int8 KV cache at
+   a 4-layer fp32 cut, rows identical; (e) ChatSession on the bf16 model,
+   three turns each adding a video and a question, each reply against a
+   from-scratch generate (NEAR_TIE) and timed beside it, and at the fp32
+   2-layer cut identical; (d) eilev-blip2-flan-t5-xl in bf16 at full depth,
+   8 staggered requests through a 4-slot engine (a 64-slot decoder cache),
+   under "auto" and "flash" (K5 = 42 an admission + 48 a decoder step):
+   rows against isolated generate of the prompt and of the prompt padded as
+   the engine encodes it (NEAR_TIE); under "auto" a request admitted into a
+   slot that decoded while empty may decode from NaN (token 0; the
+   reference's behaviour), under "flash" none; K5 at the engine's self (4,
+   1, 64) and cross (4, 1, 832) steps held and timed; the fp32 2-layer cut
+   identical. A JSON line "serving" with the legs' numbers and the phase's
+   launches, which the kernels line's rows also carry (serving_launches).
 
 Prints every number tagged with the card's name and power limit, then the
 JSON line of the beam shapes' K3/K4 rows, the JSON line of the training
 variants, the JSON line of the decoding modes' kernel shapes, the JSON lines
-of K5's T5 forms and of the T5 phase, then one JSON line of per-kernel results (every body: the bf16 ones and the fp32
+of K5's T5 forms, of the T5 phase and of serving, then one JSON line of per-kernel results (every body: the bf16 ones and the fp32
 ones, whose launches come from phase 8; K6's rows also carry composite_ms), then the result line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
@@ -347,6 +383,7 @@ import subprocess
 import sys
 import time
 import traceback
+import warnings
 from concurrent.futures import ThreadPoolExecutor
 from types import SimpleNamespace
 
@@ -1264,6 +1301,28 @@ def _t5_k5_case(dev, g, name: str, dtype):
     return q, k, v, dict(padding_mask=mask, bias=bias), mask.sum(dim=1).tolist()
 
 
+def _k5_bias_row(name: str, q, k, v, kw5: dict, err: float, bnd: tuple) -> dict:
+    """A kernels-line row of K5 with T5's relative bias, for time_row: K5,
+    its twin, and one SDPA call with the bias and the padding mask folded
+    into one float attn_mask of the inputs' dtype (scale 1)."""
+    from eilev_tpu_torch.ops import flash_attention as fl
+
+    fold = torch.where(kw5["padding_mask"].bool(), 0.0, -torch.inf)[:, None, None, :]
+    if kw5["bias"] is not None:
+        fold = fold + kw5["bias"].float()[None]
+    fold = fold.to(q.dtype)
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    return {
+        "name": name,
+        "source": f"eilev_tpu_torch/csrc/{'attention_f32' if q.dtype == torch.float32 else 'flash_attention'}.cu",
+        "replaces": "eilev_tpu/ops/flash_attention.py:157", "max_abs_err": err, "per_call": 1,
+        "run": (lambda: fl.flash_attention(q, k, v, **kw5)),
+        "plain": (lambda: fl.flash_attention_reference(q, k, v, **kw5)),
+        "library": (lambda: _sdpa(qt, kt, vt, attn_mask=fold, scale=1.0)),
+        "bound": bnd,
+    }
+
+
 def check_t5_shapes(tag: str, dev: torch.device) -> list[dict]:
     """Phase 2e: K5 at the T5 path's forms (T5_K5_SHAPES), bf16 (the
     mma.sync body) and fp32 (attention_f32.cu's body, TF32 off): each
@@ -1293,20 +1352,9 @@ def check_t5_shapes(tag: str, dev: torch.device) -> list[dict]:
             nbytes = (2 * b * s + 2 * sum(real)) * 32 * 64 * elem + b * l * 4
             if kw5["bias"] is not None:
                 nbytes += 32 * s * l * 4
-            fold = torch.where(kw5["padding_mask"].bool(), 0.0, -torch.inf)[:, None, None, :]
-            if kw5["bias"] is not None:
-                fold = fold + kw5["bias"].float()[None]
-            fold = fold.to(dtype)
-            qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-            rows.append({
-                "name": f"flash_attention{'_f32' if f32 else ''} at {name}",
-                "source": f"eilev_tpu_torch/csrc/{'attention_f32' if f32 else 'flash_attention'}.cu",
-                "replaces": "eilev_tpu/ops/flash_attention.py:157", "max_abs_err": err, "per_call": 1,
-                "run": (lambda q=q, k=k, v=v, kw5=kw5: fl.flash_attention(q, k, v, **kw5)),
-                "plain": (lambda q=q, k=k, v=v, kw5=kw5: fl.flash_attention_reference(q, k, v, **kw5)),
-                "library": (lambda qt=qt, kt=kt, vt=vt, fold=fold: _sdpa(qt, kt, vt, attn_mask=fold, scale=1.0)),
-                "bound": bound(4 * s * sum(real) * 32 * 64, nbytes, H100_TF32X3_FLOPS if f32 else H100_BF16_FLOPS),
-            })
+            rows.append(_k5_bias_row(f"flash_attention{'_f32' if f32 else ''} at {name}", q, k, v, kw5, err,
+                                     bound(4 * s * sum(real) * 32 * 64, nbytes,
+                                           H100_TF32X3_FLOPS if f32 else H100_BF16_FLOPS)))
     # the wrapper's fp32 copy of the bias, as the encoder hands it over: the
     # (S, S, H) embedding gather permuted to (H, S, S), bf16
     rel = torch.randn(766, 766, 32, device=dev, generator=g).to(torch.bfloat16).permute(2, 0, 1)
@@ -2197,6 +2245,9 @@ class WordTokenizer:
         ids = [self.vocab.setdefault(w, 999 + len(self.vocab)) for w in re.findall(r"\n|\S+", text)]
         assert max(ids, default=0) < 50272, "word ids past OPT's vocabulary"
         return {"input_ids": ([self.bos_token_id] if add_special_tokens else []) + ids}
+
+    def decode(self, ids, skip_special_tokens: bool = True) -> str:
+        return self.batch_decode([ids], skip_special_tokens)[0]
 
     def batch_decode(self, rows, skip_special_tokens: bool = True) -> list:
         """Known ids back to their words, others as ``<id>`` (the narration
@@ -3896,6 +3947,778 @@ def run_checkpoints(tag: str, dev) -> None:
     print(f"[{tag}] checkpoints phase took {time.perf_counter() - t_phase} s")
 
 
+# ---------------------------------------------------------------------------
+# phase 11: serving (serving/engine.py, serving/session.py, cli/serve.py)
+# ---------------------------------------------------------------------------
+
+# (a)'s engine: 4 slots, chunks of 8, prompt buckets of 64, 32 new tokens, a
+# max_len that holds one wave of admissions and makes a later admission
+# compact; the query text's extra tokens past the 766-token prompt (P = 766
+# ... 790), and the engine step each request is submitted before (two at
+# once, then one a step, the last two once the first wave is decoding)
+SERVE_SLOTS = 4
+SERVE_CHUNK = 8
+SERVE_BUCKET = 64
+SERVE_MAX_LEN = 960
+SERVE_EXTRA = (0, 5, 10, 15, 20, 24)
+SERVE_ARRIVAL = (0, 0, 1, 2, 5, 6)
+SERVE_SEED = 15
+# (b): 12 requests through the serve CLI at its defaults, all at once, then
+# at half the rate the first leg sustained; the bucket-2 leg's requests
+SERVE_CLI_REQUESTS = 12
+SERVE_UNPADDED = 4
+# (c): the captured cache's requests sample at most this many tokens (more
+# than 7 speculative passes of 9 slots can emit)
+SERVE_CAPTURE_NEW = 64
+# (d) T5: 8 requests (two at once, then one a step), a decoder cache of 64
+# slots (later admissions compact), the cross buffers 832 wide; (e) the
+# chat session's turns
+T5_SERVE_REQUESTS = 8
+T5_SERVE_ARRIVAL = (0, 0, 1, 2, 3, 4, 5, 6)
+T5_SERVE_MAX_LEN = 64
+T5_SERVE_PROMPT = 832
+SESSION_TURNS = 3
+
+
+def serving_requests(q: int, pixel, extras, seed: int, t5: bool = False, keys: bool = False) -> list:
+    """Requests of bench's 16-shot layout (build_prompt) over the videos
+    ``pixel``: each with its own query text (the last 12 tokens drawn anew)
+    and ``extras[i]`` more text tokens (before T5's closing eos), P = 766 +
+    extras[i]; ``keys`` names the videos for a feature cache."""
+    from eilev_tpu_torch.serving import Request
+
+    ids, _, vim = build_prompt(q, 1, t5=t5)
+    ids, vim = ids[0], vim[0]
+    body, tail = (ids[:-1], ids[-1:]) if t5 else (ids, ids[:0])
+    rng = np.random.default_rng(seed)
+    high = 32000 if t5 else 40000
+    requests = []
+    for n in extras:
+        text = body.copy()
+        text[-TEXT_TOKENS_PER_SHOT:] = rng.integers(1000, high, size=TEXT_TOKENS_PER_SHOT)
+        full = np.concatenate([text, rng.integers(1000, high, size=n), tail])
+        mask = np.concatenate([vim[: len(body)], np.zeros(n + len(tail), vim.dtype)])
+        requests.append(Request(input_ids=full, pixel_values=pixel, video_input_mask=mask,
+                                feature_keys=[f"video{j}" for j in range(SHOTS + 1)] if keys else None))
+    return requests
+
+
+def serving_frames(dev, n: int = SHOTS + 1, seed: int = 1) -> torch.Tensor:
+    return torch.from_numpy(np.random.default_rng(seed).integers(
+        0, 256, size=(n, 3, FRAMES, 224, 224), dtype=np.uint8)).to(dev)
+
+
+def lm_call_log(model) -> tuple[list, object]:
+    """(tokens in, an append, a left-padded prefill, all logits finite) of
+    every LM forward; the flags stay device tensors until read."""
+    calls: list = []
+
+    def hook(mod, args, kwargs, out):
+        mask = kwargs.get("attention_mask")
+        padded = None if mask is None else (mask == 0).any()
+        calls.append((args[0].shape[1], bool(kwargs.get("cache_append", False)), padded,
+                      torch.isfinite(out[0]).all()))
+
+    return calls, model.language_model.register_forward_hook(hook, with_kwargs=True)
+
+
+def prefills(calls: list) -> list:
+    """(left-padded, finite) of each admission prefill in ``calls``."""
+    return [(bool(p), bool(ok)) for s_len, app, p, ok in calls if s_len > 1 and not app]
+
+
+def serve_leg(tag: str, label: str, eng, requests: list, arrivals, calls: list, total: dict,
+              watch=None) -> tuple:
+    """One counted engine run (counters at 0 just before, read just after):
+    request i submitted before step arrivals[i]; ``watch(eng)`` after each
+    step. Adds the counts to ``total``. Returns (completions by rid,
+    counts, seconds, steps)."""
+    done, pending, steps = {}, list(range(len(requests))), 0
+    calls.clear()
+    reset_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    while pending or not eng.idle:
+        for i in [i for i in pending if arrivals[i] <= steps]:
+            assert eng.submit(dataclasses.replace(requests[i])) == i
+            pending.remove(i)
+        done.update((c.rid, c) for c in eng.step())
+        if watch is not None:
+            watch(eng)
+        steps += 1
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = counters()
+    for name, n in counts.items():
+        total[name] = total.get(name, 0) + n
+    one_token = sum(1 for s_len, _, _, _ in calls if s_len == 1)
+    print(f"[{tag}] serving {label}: {len(requests)} requests in {steps} steps, wall_s={secs} stats={eng.stats} "
+          f"admissions={len(prefills(calls))} one_token_forwards={one_token} launches {counts}")
+    return done, counts, secs, steps
+
+
+def serving_counts(model, calls: list, vision_encodes: int, f32: bool, int8_kv: bool = False) -> dict:
+    """The launches a serving leg must give: K1 per ViT layer and encode, K2
+    per OPT layer and admission prefill, K3 (K4 over an int8 cache) per
+    layer and one-token forward; the verify passes of speculation attend by
+    plain attention (no kernel), as in JAX."""
+    cfg = model.config
+    n_lm = cfg.text_config.num_hidden_layers
+    admissions = len(prefills(calls))
+    one_token = sum(1 for s_len, _, _, _ in calls if s_len == 1)
+    want = dict.fromkeys(counters(), 0)
+    k1 = vision_encodes * cfg.vision_config.num_hidden_layers
+    want["packed_qkv_attention"] = k1
+    want["packed_qkv_causal_attention"] = n_lm * admissions
+    if f32:
+        want["packed_qkv_attention_f32"] = k1
+        want["packed_qkv_causal_attention_f32"] = n_lm * admissions
+    if int8_kv:
+        want["decode_attention_stacked_int8"] = n_lm * one_token
+        if f32:
+            want["decode_attention_stacked_int8_f32"] = n_lm * one_token
+    else:
+        want["decode_attention_stacked_f32" if f32 else "decode_attention_stacked_bf16"] = n_lm * one_token
+    return want
+
+
+def isolated_rows(model, requests: list, gen_cfg, t5: bool = False, video_features=None,
+                  pad_to: int = 0) -> tuple[list, list]:
+    """Each request's isolated ``generate`` as an engine row (its new tokens,
+    pad after), and the last-position logits each token was chosen from.
+    ``pad_to`` > 0 right-pads each prompt to the next multiple (with its
+    attention mask), as the T5 engine's admission encodes it."""
+    from eilev_tpu_torch.generation import generate
+
+    dev = next(model.parameters()).device
+    rows, recs = [], []
+    for req in requests:
+        ids, vim = req.input_ids, req.video_input_mask
+        mask = np.ones_like(ids)
+        if pad_to:
+            pad = -len(ids) % pad_to
+            ids, vim, mask = (np.concatenate([a, np.zeros(pad, a.dtype)]) for a in (ids, vim, mask))
+        rec: list = []
+        if t5:
+            handle = model.language_model.lm_head.register_forward_hook(
+                lambda mod, args, out: rec.append(out[:, -1].float()))
+        else:
+            handle = model.language_model.register_forward_hook(
+                lambda mod, args, out: rec.append(out[0][:, -1].float()))
+        kw = {"video_features": video_features} if video_features is not None else {"pixel_values": req.pixel_values}
+        try:
+            out = generate(model, input_ids=torch.from_numpy(ids[None]).to(dev),
+                           attention_mask=torch.from_numpy(mask[None]).to(dev),
+                           video_input_mask=torch.from_numpy(vim[None]).to(dev),
+                           generation_config=gen_cfg, **kw)[0].cpu().numpy()
+        finally:
+            handle.remove()
+        out = out[1:] if t5 else out
+        row = np.full(gen_cfg.max_new_tokens, gen_cfg.pad_token_id, np.int32)
+        row[: len(out)] = out
+        rows.append(row)
+        recs.append(rec)
+    return rows, recs
+
+
+def bf16_ulp(x: float) -> float:
+    """One bf16 unit in the last place at |x| (8 significant bits)."""
+    return 2.0 ** (np.floor(np.log2(abs(x))) - 7)
+
+
+def compare_rows(tag: str, label: str, done: dict, rows: list, recs: list = None, rule: str = "identical",
+                 rids=None) -> int:
+    """Engine rows against the isolated rows: identical, or (``rule`` "ulp":
+    a top-2 gap of at most one bf16 ulp of the larger logit, the speculative modes' rule;
+    "near-tie": within NEAR_TIE of the largest |logit|) parting at a near-tie
+    of the isolated run's logits. Returns the identical rows."""
+    same, ties = 0, []
+    for rid, row in enumerate(rows):
+        if rids is not None and rid not in rids:
+            continue
+        got = done[rid].tokens
+        if np.array_equal(got, row):
+            same += 1
+            continue
+        t = int(np.nonzero(got != row)[0][0])
+        assert rule != "identical", f"{label}: request {rid} {got.tolist()} != isolated {row.tolist()} (at {t})"
+        logits = recs[rid][t][0]
+        top2 = logits.topk(2).values
+        gap = (top2[0] - top2[1]).item()
+        bar = bf16_ulp(top2[0].item()) if rule == "ulp" else NEAR_TIE * logits.abs().max().item()
+        ties.append({"request": rid, "position": t, "top2_gap": gap, "near_tie_bar": bar})
+        assert gap <= bar, f"{label}: request {rid} leaves isolated generate at {t}, top-2 gap {gap} > {bar}"
+    print(f"[{tag}] serving {label}: rows identical to isolated generate {same}/{len(rows if rids is None else rids)}; "
+          f"near-tie partings {ties}")
+    return same
+
+
+def serving_opt_f32(tag: str, dev, total: dict, result: dict) -> None:
+    """(a) The eilev-blip2-opt-2.7b model in fp32 at full depth (its default
+    construction, random N(0, 0.02) from SERVE_SEED): six staggered requests
+    (P = 766 ... 790) through the engine, plain and prompt-lookup
+    speculative, every row token-identical to the isolated fp32 generate of
+    its request. The 17 videos are encoded once, by a VideoFeatureCache
+    the engine and the isolated runs share, so every run scatters the same
+    features."""
+    from eilev_tpu_torch import configs
+    from eilev_tpu_torch.generation import GenerationConfig
+    from eilev_tpu_torch.models import VideoBlipForConditionalGeneration
+    from eilev_tpu_torch.ops.preprocess import process_videos
+    from eilev_tpu_torch.serving import ContinuousBatchingEngine, VideoFeatureCache
+
+    cfg = configs.blip2_opt_2_7b()
+    model = VideoBlipForConditionalGeneration(cfg, device=dev).eval()
+    random_init_(model, torch.Generator(device=dev).manual_seed(SERVE_SEED), std=0.02)
+    pixel = process_videos(serving_frames(dev), dtype=torch.float32)
+    requests = serving_requests(cfg.num_query_tokens, pixel, SERVE_EXTRA, SERVE_SEED, keys=True)
+    gen_cfg = GenerationConfig(max_new_tokens=MAX_NEW_TOKENS, pad_token_id=1, eos_token_id=(NEWLINE,))
+    cache = VideoFeatureCache(model, bucket=SHOTS + 1)
+    calls, handle = lm_call_log(model)
+    legs = {}
+    for spec in (None, "prompt_lookup"):
+        label = f"(a) fp32 full depth, {spec or 'plain'}"
+        eng = ContinuousBatchingEngine(model, gen_cfg, max_slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN,
+                                       chunk_tokens=SERVE_CHUNK, prefill_bucket=SERVE_BUCKET, feature_cache=cache,
+                                       speculative=spec, spec_gamma=LOOKUP_GAMMA, spec_match_len=LOOKUP_MATCH)
+        misses = cache.misses
+        done, counts, secs, steps = serve_leg(tag, label, eng, requests, SERVE_ARRIVAL, calls, total)
+        encodes = int(cache.misses > misses)
+        assert counts == serving_counts(model, calls, encodes, f32=True), (counts, encodes)
+        assert len(done) == len(requests) > SERVE_SLOTS  # slots were reused
+        if spec is None:
+            assert eng.stats["compactions"] >= 1, eng.stats
+        legs[spec or "plain"] = (done, dict(eng.stats, wall_s=secs, steps=steps,
+                                            admissions=len(prefills(calls))))
+    handle.remove()
+    feats = cache.features(requests[0].feature_keys)
+    rows, _ = isolated_rows(model, requests, gen_cfg, video_features=feats)
+    print(f"[{tag}] serving (a) prompt lengths {[len(r.input_ids) for r in requests]}; isolated rows "
+          f"{[r[:8].tolist() for r in rows]}")
+    for name, (done, stats) in legs.items():
+        compare_rows(tag, f"(a) fp32 {name}", done, rows)
+        result[f"opt_f32_{name}"] = stats
+    del cache, feats
+    serving_capture(tag, dev, model, cfg, pixel, result)
+
+
+def serving_dataset(n: int, frames: np.ndarray, seed: int) -> list:
+    """``n`` datapoints of SHOTS shots + a query over ``frames`` (17 uint8
+    videos), each shot narrated in 4 words, for the serve CLI's run."""
+    rng = np.random.default_rng(seed)
+    verbs, nouns = ("takes", "cuts", "washes", "opens"), ("the knife", "an onion", "the pot", "a cup")
+    data = []
+    for d in range(n):
+        items = [{"frame_path": f"clip{d}-{s}|0", "video_uid": f"clip{d}-{s}", "clip_index": "0",
+                  "narration_text": f"#C C {verbs[rng.integers(4)]} {nouns[rng.integers(4)]}", "video": frames[s]}
+                 for s in range(SHOTS + 1)]
+        data.append({"items": items})
+    return data
+
+
+def serving_bf16(tag: str, dev, total: dict, result: dict) -> None:
+    """(b) The bf16 model at full depth through cli/serve.py's run at its
+    defaults, then the profiled chunk, the bucket-2 leg and (e) the chat
+    session."""
+    from eilev_tpu_torch import configs
+    from eilev_tpu_torch.cli import serve as cli
+    from eilev_tpu_torch.generation import GenerationConfig
+    from eilev_tpu_torch.models import VideoBlipForConditionalGeneration
+    from eilev_tpu_torch.ops.preprocess import process_videos
+    from eilev_tpu_torch.serving import ContinuousBatchingEngine
+
+    cfg = configs.blip2_opt_2_7b()
+    model = VideoBlipForConditionalGeneration(cfg, device=dev, dtype=torch.bfloat16).eval()
+    random_init_(model, torch.Generator(device=dev).manual_seed(42), std=0.02)
+    frames = serving_frames(dev)
+    data = serving_dataset(SERVE_CLI_REQUESTS, frames.cpu().numpy(), seed=3)
+    calls, handle = lm_call_log(model)
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(out_dir, exist_ok=True)
+    rate = 0.0
+    for leg in ("saturation", "half rate"):
+        argv = ["--model", "unused", "--eval_frames_dir", "unused", "--in_context_query_map_file", "unused",
+                "--in_context_example_frames_dir", "unused", "--num_eval_datapoints", str(SERVE_CLI_REQUESTS),
+                "--arrival_rate", str(rate), "--output_csv", os.path.join(out_dir, "serve.csv"),
+                "--device", str(dev)]
+        args = cli.parse_args(argv)
+        calls.clear()
+        reset_counters()
+        torch.cuda.reset_peak_memory_stats()
+        rows, metrics = cli.run(args, model, WordTokenizer(), {"dataset": data})
+        torch.cuda.synchronize()
+        counts = counters()
+        for name, n in counts.items():
+            total[name] = total.get(name, 0) + n
+        adm = prefills(calls)
+        nan_rows = sum(1 for _, ok in adm if not ok)
+        lengths = sorted({s_len for s_len, app, _, _ in calls if s_len > 1 and not app})
+        assert len(rows) == SERVE_CLI_REQUESTS and len(adm) == SERVE_CLI_REQUESTS, (len(rows), len(adm))
+        assert all(ok == (not padded) for padded, ok in adm), adm  # finite exactly when not left-padded
+        assert counts == serving_counts(model, calls, SERVE_CLI_REQUESTS, f32=False), counts
+        per_request = {k: counts[k] / SERVE_CLI_REQUESTS for k in
+                       ("packed_qkv_attention", "packed_qkv_causal_attention", "decode_attention_stacked_bf16")}
+        result[f"cli_bf16_{leg}"] = dict(metrics, peak_bytes=torch.cuda.max_memory_allocated(),
+                                         launches_per_request=per_request, nan_rows=nan_rows,
+                                         padded_admissions=sum(p for p, _ in adm), admission_widths=lengths)
+        print(f"[{tag}] serving (b) serve CLI bf16 {leg}: {json.dumps(result[f'cli_bf16_{leg}'])} "
+              f"(NaN rows {nan_rows} of {len(adm)}: left-padded bf16 admissions, the reference's behaviour; "
+              f"these times are not of real narrations)")
+        rate = 0.5 * SERVE_CLI_REQUESTS / metrics["wall_sec"]
+
+    gen_cfg = GenerationConfig(max_new_tokens=MAX_NEW_TOKENS, pad_token_id=1, eos_token_id=(NEWLINE,))
+    pixel = process_videos(frames, dtype=torch.bfloat16)
+
+    # one decode chunk at the CLI's defaults: the host syncs it makes, and
+    # its idle share under the profiler
+    from torch.profiler import ProfilerActivity, profile
+
+    eng = ContinuousBatchingEngine(model, gen_cfg, max_slots=SERVE_SLOTS, max_len=2048, chunk_tokens=SERVE_CHUNK,
+                                   prefill_bucket=128)
+    for req in serving_requests(cfg.num_query_tokens, pixel, (0, 2, 4, 6), SERVE_SEED + 1):
+        eng.submit(req)
+    eng.step()  # the admissions and the first chunk
+    torch.cuda.synchronize()
+    assert not eng.idle, "no decode chunk left to count syncs in"
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            eng.step()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    syncs = [str(w.message).splitlines()[0] for w in caught if "synchroniz" in str(w.message)]
+    torch.cuda.synchronize()
+    assert not eng.idle, "the profiled step has no decode chunk to run"
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng.step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_us = sum(e.self_device_time_total for e in kernels)
+    result["profiled_chunk"] = {"wall_s": wall, "device_kernel_ms": dev_us / 1e3,
+                                "launches": sum(e.count for e in kernels),
+                                "idle_share": 1 - dev_us / 1e6 / wall, "host_syncs": len(syncs)}
+    print(f"[{tag}] serving (b) one decode chunk (4 slots, 8 tokens, 2,048 slots): {result['profiled_chunk']}; "
+          f"syncs {syncs}")
+    del eng
+
+    # the bucket-2 leg: four 766-token requests, none left-padded
+    requests = serving_requests(cfg.num_query_tokens, pixel, (0,) * SERVE_UNPADDED, SERVE_SEED + 2)
+    eng = ContinuousBatchingEngine(model, gen_cfg, max_slots=SERVE_SLOTS, max_len=2048, chunk_tokens=SERVE_CHUNK,
+                                   prefill_bucket=2)
+    done, counts, secs, _ = serve_leg(tag, "(b) bf16, bucket 2", eng, requests, (0,) * SERVE_UNPADDED, calls, total)
+    adm = prefills(calls)
+    assert adm == [(False, True)] * SERVE_UNPADDED, adm
+    assert counts == serving_counts(model, calls, SERVE_UNPADDED, f32=False), counts
+    rows, recs = isolated_rows(model, requests, gen_cfg)
+    result["bf16_unpadded_identical_rows"] = compare_rows(tag, "(b) bf16 bucket 2", done, rows, recs, rule="ulp")
+    del eng
+
+    handle.remove()
+    serving_session(tag, dev, model, frames, result)
+
+
+def serving_capture(tag: str, dev, model, cfg, pixel, result: dict) -> None:
+    """(c) K3 and K4 over a captured speculative engine cache (the fp32
+    model of (a), 4 slots x 2,048): a 16-shot request samples alone through
+    4 prompt-lookup passes (rejected drafts leave holes), then a chat-sized
+    request (one video, 46 tokens) is admitted at W = bucket(index), with a
+    dead prefix longer than a split chunk of K3/K4 (683 slots at 4 rows:
+    its first chunk holds no live slot); after 3 more passes, every layer
+    of the cache through K3 (the fp32 split body) and K4 (an fp32 query over
+    the cache quantized by quantize_kv) against their twins at F32_TOL (the
+    empty rows: the uniform average, in both), and the same cache cast to
+    bf16 through K3's one-block body (2e-2) and K4 (K4_TOL), its empty rows
+    NaN in both. The bf16 calls are then timed. (In bf16 a left-padded
+    admission's live slots hold NaN k/v, the reference's behaviour, which
+    would leave nothing to compare; fp32 admissions stay finite.)"""
+    from eilev_tpu_torch.generation import GenerationConfig
+    from eilev_tpu_torch.ops import decode_attention as da
+    from eilev_tpu_torch.serving import ContinuousBatchingEngine, Request
+
+    nh, hd = cfg.text_config.num_attention_heads, cfg.text_config.head_dim
+    split = -(-2048 // da.cluster_size(SERVE_SLOTS, nh, 2048))  # the slots of one split chunk at 4 rows
+    long_cfg = GenerationConfig(max_new_tokens=SERVE_CAPTURE_NEW, pad_token_id=1, eos_token_id=(), do_sample=True)
+    eng = ContinuousBatchingEngine(model, long_cfg, max_slots=SERVE_SLOTS, max_len=2048, chunk_tokens=SERVE_CHUNK,
+                                   prefill_bucket=SERVE_BUCKET, speculative="prompt_lookup",
+                                   spec_gamma=LOOKUP_GAMMA, spec_match_len=LOOKUP_MATCH,
+                                   generator=torch.Generator(device=dev).manual_seed(SERVE_SEED))
+    (r0,) = serving_requests(cfg.num_query_tokens, pixel, (0,), SERVE_SEED + 3)
+    q = cfg.num_query_tokens
+    text = np.random.default_rng(SERVE_SEED + 4).integers(1000, 40000, size=TEXT_TOKENS_PER_SHOT)
+    r1 = Request(input_ids=np.concatenate([[2], np.ones(q, np.int64), [NEWLINE], text]), pixel_values=pixel[:1],
+                 video_input_mask=np.concatenate([[0], np.ones(q, np.int64), np.zeros(1 + len(text), np.int64)]))
+    with torch.inference_mode():
+        eng.submit(r0)
+        for _ in range(4):  # sampled lookup passes: rejected drafts leave holes
+            eng.step()
+        eng.submit(r1)  # admitted at W = bucket(index) > 800: its dead prefix
+        for _ in range(3):
+            eng.step()
+    cache = eng._cache
+    mask = cache["mask"].clone()
+    index = cache["index"]
+    live = mask[:, :index].sum(dim=1).tolist()
+    starts = [int(row.nonzero()[0]) if row.any() else index for row in mask[:, :index]]
+    holes = [int((mask[r, starts[r]:index] == 0).sum()) for r in range(SERVE_SLOTS)]
+    print(f"[{tag}] serving (c) captured cache: index={index} live slots a row={live} live starts={starts} "
+          f"holes in the live windows={holes} split chunk={split} stats={eng.stats}")
+    assert starts[1] > split and holes[0] > 0, (starts, holes, split)
+    n_layers, b, s, _, _ = cache["k"].shape
+    g = torch.Generator(device=dev).manual_seed(11)
+    q32 = torch.randn(b, nh * hd, device=dev, generator=g)
+    kw = dict(num_heads=nh, head_dim=hd, scale=hd**-0.5, scale_query=True)
+    empty = [r for r in range(b) if live[r] == 0]
+    k8, ks = da.quantize_kv(cache["k"])
+    v8, vs = da.quantize_kv(cache["v"])
+    k8, v8 = k8.view(n_layers, b, s, -1), v8.view(n_layers, b, s, -1)
+    errs, calls = {}, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        f32 = dtype == torch.float32
+        qd = q32.to(dtype)
+        kb, vb = (cache[key].to(dtype).view(n_layers, b, s, -1) for key in ("k", "v"))
+        for name, args, extra, tol in (("K3", (kb, vb), {}, F32_TOL if f32 else 2e-2),
+                                       ("K4", (k8, v8), dict(k_scale=ks, v_scale=vs), F32_TOL if f32 else K4_TOL)):
+            label = f"{name} {'fp32' if f32 else 'bf16'}"
+            errs[label] = 0.0
+            for layer in range(n_layers):
+                out = da.decode_attention_stacked(qd, *args, mask, layer, **kw, **extra)
+                ref = da.decode_attention_stacked_reference(qd, *args, mask, layer, **kw, **extra)
+                torch.cuda.synchronize()
+                if f32:
+                    pairs = [(out, ref)]
+                else:  # the empty rows are NaN in both
+                    assert bool(torch.isnan(out[empty]).all() and torch.isnan(ref[empty]).all()), label
+                    keep = [r for r in range(b) if r not in empty]
+                    pairs = [(out[keep], ref[keep])]
+                for o, r in pairs:
+                    errs[label] = max(errs[label], (o.float() - r.float()).abs().max().item())
+                    torch.testing.assert_close(o, r, atol=tol, rtol=tol)
+            calls[label] = (qd, args, extra)
+    print(f"[{tag}] serving (c) K3 and K4 over the captured cache, every layer: max_abs_err={errs}; "
+          f"empty rows {empty}: the uniform average (fp32) and NaN (bf16) in kernel and twin alike")
+    kept = sum(live)
+    io = 2 * b * nh * hd * 2 + b * s * 4
+    rows = []
+    for name, row_bytes, label in (("K3 bf16", 2 * hd, "decode_attention_stacked_bf16"),
+                                   ("K4 bf16", hd + 2, "decode_attention_stacked_int8")):
+        qd, args, extra = calls[name]
+        lib = None
+        if name == "K3 bf16":  # one SDPA call a layer, as the kernel's step
+            fold = torch.where(mask.bool(), 0.0, -torch.inf).to(torch.bfloat16)[:, None, None, :]
+            qt = qd.view(b, nh, 1, hd) * hd**-0.5
+            kv = [tuple(a[i].view(b, s, nh, hd).transpose(1, 2) for a in args) for i in range(n_layers)]
+            lib = (lambda qt=qt, kv=kv, fold=fold: [_sdpa(qt, k, v, attn_mask=fold, scale=1.0) for k, v in kv])
+        rows.append({
+            "name": f"{label} at the serving engine's cache (4, 2,048) with holes", "per_call": n_layers,
+            "source": "eilev_tpu_torch/csrc/decode_attention.cu", "replaces": "eilev_tpu/ops/decode_attention.py:117",
+            "max_abs_err": errs[name],
+            "run": (lambda qd=qd, args=args, extra=extra: [da.decode_attention_stacked(qd, *args, mask, i, **kw, **extra)
+                                                           for i in range(n_layers)]),
+            "plain": (lambda qd=qd, args=args, extra=extra: [da.decode_attention_stacked_reference(
+                qd, *args, mask, i, **kw, **extra) for i in range(n_layers)]),
+            "library": lib,
+            "bound": bound(4 * nh * hd * kept, 2 * kept * nh * row_bytes + io),
+        })
+    for r in rows:
+        time_row(tag, r)
+    result["captured_cache"] = {"index": index, "live_slots": live, "live_starts": starts, "holes": holes,
+                                "split_chunk": split, "max_abs_err": errs, "rows": rows}
+
+
+def serving_admission_k2(tag: str, dev, result: dict) -> None:
+    """K2 at an OPT admission's shape: one row of W = 768 slots of 32 x 80,
+    left-padded by 2 (P = 766), bf16, against its twin (NaN in the two
+    padded query rows of both, the reference's mask), then timed."""
+    from eilev_tpu_torch.ops import fused_attention as fa
+
+    g = torch.Generator(device=dev).manual_seed(12)
+    qkv = torch.randn(1, 768, 3 * 2560, device=dev, generator=g).to(torch.bfloat16)
+    mask = torch.ones(1, 768, dtype=torch.int32, device=dev)
+    mask[:, :2] = 0
+    out = fa.packed_qkv_causal_attention(qkv, 32, 80, mask)
+    ref = fa.packed_qkv_causal_attention_reference(qkv, 32, 80, mask, 80**-0.5)
+    assert bool(torch.isnan(out[:, :2]).all() and torch.isnan(ref[:, :2]).all())
+    err = check_close(tag, "serving (c) K2 at the admission shape (1, 768, 32x80), left-padded by 2, real rows",
+                      out[:, 2:], ref[:, 2:], 2e-2)
+    q, k, v = (qkv[..., i * 2560:(i + 1) * 2560].reshape(1, 768, 32, 80).transpose(1, 2) for i in range(3))
+    fold = torch.where(torch.tril(torch.ones(768, 768, dtype=torch.bool, device=dev)) & mask.bool()[:, None, None, :],
+                       0.0, -torch.inf).to(torch.bfloat16)
+    flops, nbytes = _k5_causal_work([766], 768, 32, 80, 768)
+    row = {"name": "packed_qkv_causal_attention at an admission (1, 768, 32x80), left-padded by 2",
+           "source": "eilev_tpu_torch/csrc/packed_attention.cu", "replaces": "eilev_tpu/ops/fused_attention.py:187",
+           "max_abs_err": err, "per_call": 1,
+           "run": (lambda: fa.packed_qkv_causal_attention(qkv, 32, 80, mask)),
+           "plain": (lambda: fa.packed_qkv_causal_attention_reference(qkv, 32, 80, mask, 80**-0.5)),
+           "library": (lambda: _sdpa(q, k, v, attn_mask=fold)),
+           "bound": bound(flops, nbytes)}
+    time_row(tag, row)
+    result["k2_admission"] = row
+
+
+def serving_session(tag: str, dev, model, frames, result: dict) -> None:
+    """(e) ChatSession on the bf16 model: SESSION_TURNS turns, each adding a
+    video and a question to the conversation so far (its replies included);
+    each reply against a from-scratch generate on the whole prompt (the
+    NEAR_TIE rule), the turn's time beside the from-scratch time."""
+    from eilev_tpu_torch.generation import GenerationConfig
+    from eilev_tpu_torch.ops.preprocess import process_videos
+    from eilev_tpu_torch.serving import ChatSession, Request
+
+    gen_cfg = GenerationConfig(max_new_tokens=MAX_NEW_TOKENS, pad_token_id=1, eos_token_id=(NEWLINE,))
+    q = model.config.num_query_tokens
+    pixel = process_videos(frames[:SESSION_TURNS], dtype=model.compute_dtype)
+    sess = ChatSession(model, gen_cfg)
+    rng = np.random.default_rng(21)
+    ids, vim = np.asarray([2]), np.asarray([0])
+    turns = []
+    for turn in range(SESSION_TURNS):
+        text = rng.integers(1000, 40000, size=TEXT_TOKENS_PER_SHOT)
+        ids = np.concatenate([ids, np.ones(q, np.int64), [NEWLINE], text])
+        vim = np.concatenate([vim, np.ones(q, np.int64), np.zeros(1 + TEXT_TOKENS_PER_SHOT, np.int64)])
+        videos = pixel[: turn + 1]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        reply = sess.turn(ids, videos, vim)
+        turn_s = time.perf_counter() - t0
+        req = Request(input_ids=ids, pixel_values=videos, video_input_mask=vim)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rows, recs = isolated_rows(model, [req], gen_cfg)
+        scratch_s = time.perf_counter() - t0
+        full = np.full(MAX_NEW_TOKENS, 1, np.int32)
+        full[: len(reply)] = reply
+        same = compare_rows(tag, f"(e) session turn {turn}", {0: SimpleNamespace(tokens=full)}, rows, recs,
+                            rule="near-tie")
+        turns.append({"prompt_tokens": len(ids), "reply_tokens": len(reply), "turn_s": turn_s,
+                      "from_scratch_s": scratch_s, "reused": sess.reused_last_turn,
+                      "appended": sess.last_turn_appended, "identical": bool(same)})
+        ids = np.concatenate([ids, reply.astype(ids.dtype)])
+        vim = np.concatenate([vim, np.zeros(len(reply), vim.dtype)])
+    print(f"[{tag}] serving (e) ChatSession bf16 turns: {turns}")
+    assert [t["reused"] for t in turns] == [False] + [True] * (SESSION_TURNS - 1)
+    result["session_bf16"] = turns
+
+
+def serving_f32_cuts(tag: str, dev, total: dict, result: dict) -> None:
+    """(c) the int8 KV cache on (a)'s requests at the 4-layer fp32 cut (K4
+    with an fp32 query over the engine's cache), and (e) the session at the
+    fp32 2-layer cut: engine rows and replies token-identical to isolated
+    generate."""
+    from eilev_tpu_torch.generation import GenerationConfig
+    from eilev_tpu_torch.models import VideoBlipForConditionalGeneration
+    from eilev_tpu_torch.ops.preprocess import process_videos
+    from eilev_tpu_torch.serving import ChatSession, ContinuousBatchingEngine, Request
+
+    gen_cfg = GenerationConfig(max_new_tokens=MAX_NEW_TOKENS, pad_token_id=1, eos_token_id=(NEWLINE,))
+    base = f32_cut_config()
+    cfg = dataclasses.replace(base, text_config=dataclasses.replace(
+        base.text_config, num_hidden_layers=4, int8_kv_cache=True))
+    model = VideoBlipForConditionalGeneration(cfg, device=dev).eval()
+    random_init_(model, torch.Generator(device=dev).manual_seed(SERVE_SEED), std=0.02)
+    frames = serving_frames(dev)
+    pixel = process_videos(frames, dtype=torch.float32)
+    requests = serving_requests(cfg.num_query_tokens, pixel, SERVE_EXTRA, SERVE_SEED)
+    calls, handle = lm_call_log(model)
+    eng = ContinuousBatchingEngine(model, gen_cfg, max_slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN,
+                                   chunk_tokens=SERVE_CHUNK, prefill_bucket=SERVE_BUCKET)
+    done, counts, _, _ = serve_leg(tag, "(c) int8 KV cache, fp32 4-layer cut", eng, requests, SERVE_ARRIVAL, calls,
+                                   total)
+    assert counts == serving_counts(model, calls, len(requests), f32=True, int8_kv=True), counts
+    handle.remove()
+    rows, _ = isolated_rows(model, requests, gen_cfg)
+    compare_rows(tag, "(c) int8 KV fp32 cut", done, rows)
+    result["int8_kv_f32_cut"] = dict(eng.stats)
+    del model, eng
+
+    model = VideoBlipForConditionalGeneration(f32_cut_config(), device=dev).eval()
+    random_init_(model, torch.Generator(device=dev).manual_seed(SERVE_SEED), std=0.02)
+    sess = ChatSession(model, gen_cfg)
+    q = model.config.num_query_tokens
+    rng = np.random.default_rng(22)
+    ids, vim = np.asarray([2]), np.asarray([0])
+    for turn in range(SESSION_TURNS):
+        ids = np.concatenate([ids, np.ones(q, np.int64), [NEWLINE],
+                              rng.integers(1000, 40000, size=TEXT_TOKENS_PER_SHOT)])
+        vim = np.concatenate([vim, np.ones(q, np.int64), np.zeros(1 + TEXT_TOKENS_PER_SHOT, np.int64)])
+        reply = sess.turn(ids, pixel[: turn + 1], vim)
+        rows, _ = isolated_rows(model, [Request(input_ids=ids, pixel_values=pixel[: turn + 1],
+                                                video_input_mask=vim)], gen_cfg)
+        row = rows[0]
+        m = int(np.nonzero(row == NEWLINE)[0][0]) + 1 if (row == NEWLINE).any() else len(row)
+        assert np.array_equal(reply, row[:m]), (turn, reply, row)
+        ids = np.concatenate([ids, reply.astype(ids.dtype)])
+        vim = np.concatenate([vim, np.zeros(len(reply), vim.dtype)])
+    print(f"[{tag}] serving (e) ChatSession fp32 2-layer cut: {SESSION_TURNS} turns token-identical to "
+          f"from-scratch generate")
+    del model, sess
+
+
+class SlotWatch:
+    """For the T5 engine: the slot each request took, the slots that ran a
+    decode step while never occupied (an empty slot's encoder mask is all
+    0, so its cross attention is fully masked: NaN in bf16 on the plain
+    path, whose k/v then stay in the slot's self-cache row behind the next
+    occupant's mask), and each decoder step's finite flag by slot (an
+    lm_head hook)."""
+
+    def __init__(self, model, slots: int):
+        self.slots, self.occupied, self.flagged, self.slot_of, self.finite = slots, set(), set(), {}, []
+        self.handle = model.language_model.lm_head.register_forward_hook(
+            lambda mod, args, out: self.finite.append(torch.isfinite(out).all(dim=(1, 2))))
+
+    def __call__(self, eng) -> None:
+        for slot, req in enumerate(eng._active):
+            if req is not None:
+                self.slot_of.setdefault(req.rid, slot)
+                self.occupied.add(slot)
+        self.flagged |= set(range(self.slots)) - self.occupied
+
+    def nan_rows(self, done: dict, chunk: int) -> dict:
+        """The requests whose logits were not finite at some step of theirs:
+        rid -> whether each of those steps emitted token 0 (argmax of NaN)."""
+        finite = torch.stack(self.finite).cpu() if self.finite else torch.ones(0, self.slots, dtype=torch.bool)
+        out = {}
+        for rid, c in done.items():
+            ok = finite[c.admitted_at_chunk * chunk: c.finished_at_chunk * chunk, self.slot_of[rid]]
+            if not bool(ok.all()):
+                n = min(len(ok), len(c.tokens))
+                out[rid] = bool((c.tokens[:n][~ok[:n].numpy()] == 0).all())
+        return out
+
+
+def serving_t5(tag: str, dev, total: dict, result: dict) -> None:
+    """(d) The eilev-blip2-flan-t5-xl model in bf16 at full depth (random
+    N(0, 0.02) from T5_SEED): 8 staggered requests (P = 766 + extra) through
+    a 4-slot engine with a 64-slot decoder cache, under "auto" and "flash"
+    (K5's bias form on the decoder's self and cross steps), rows against
+    isolated generate of the prompt and of the same prompt right-padded as
+    the engine encodes it, under the same dispatch (NEAR_TIE). Under "auto" in bf16 a request admitted into a slot
+    that decoded while empty may decode from NaN (token 0), the reference's
+    behaviour: the NaN rows must lie in such slots and be all 0; under
+    "flash" (K5 zeroes a fully masked row) and in fp32 none is NaN. K5 at
+    the engine's step shapes held to its twin and timed; then the fp32
+    2-layer cut under "auto", token-identical to unpadded prompts."""
+    from eilev_tpu_torch.generation import GenerationConfig
+    from eilev_tpu_torch.models import VideoBlipForConditionalGeneration
+    from eilev_tpu_torch.ops import flash_attention as fl
+    from eilev_tpu_torch.ops.preprocess import process_videos
+    from eilev_tpu_torch.serving import ContinuousBatchingEngine
+
+    gen_cfg = GenerationConfig(max_new_tokens=MAX_NEW_TOKENS, pad_token_id=0, eos_token_id=(T5_EOS,))
+    extras = tuple(range(0, 4 * T5_SERVE_REQUESTS, 4))
+    for layers, dtype in ((None, torch.bfloat16), (F32_LAYERS, torch.float32)):
+        cfg = t5_config(layers)
+        model = VideoBlipForConditionalGeneration(cfg, device=dev, dtype=dtype).eval()
+        random_init_(model, torch.Generator(device=dev).manual_seed(T5_SEED), std=0.02)
+        pixel = process_videos(serving_frames(dev), dtype=dtype)
+        requests = serving_requests(cfg.num_query_tokens, pixel, extras, T5_SEED, t5=True)
+        for impl in ("auto", "flash") if layers is None else ("auto",):
+            label = f"(d) T5 {'bf16 full depth' if layers is None else 'fp32 2-layer cut'} {impl}"
+            with attention_impl(impl):
+                eng = ContinuousBatchingEngine(model, gen_cfg, max_slots=SERVE_SLOTS, max_len=T5_SERVE_MAX_LEN,
+                                               chunk_tokens=SERVE_CHUNK, prefill_bucket=SERVE_BUCKET,
+                                               max_prompt_len=T5_SERVE_PROMPT)
+                watch = SlotWatch(model, SERVE_SLOTS)
+                done, counts, secs, steps = serve_leg(tag, label, eng, requests, T5_SERVE_ARRIVAL, [], total,
+                                                      watch=watch)
+                watch.handle.remove()
+                n_steps = len(watch.finite)
+                nan_rows = watch.nan_rows(done, SERVE_CHUNK)
+                flagged_rows = {rid for rid, slot in watch.slot_of.items() if slot in watch.flagged}
+                print(f"[{tag}] serving {label}: slots that decoded while empty {sorted(watch.flagged)}; requests "
+                      f"admitted into them {sorted(flagged_rows)}; requests with non-finite logits (token 0 at each "
+                      f"such step) {nan_rows}")
+                # the reference's bf16 behaviour on the plain path: a request in
+                # a slot that decoded empty may decode from NaN (then token 0);
+                # K5 gives a fully masked row 0, and fp32 the uniform average
+                if layers is None and impl == "auto":
+                    assert set(nan_rows) <= flagged_rows and all(nan_rows.values()), (nan_rows, flagged_rows)
+                else:
+                    assert not nan_rows, nan_rows
+                finite_rids = set(range(len(requests))) - set(nan_rows)
+                rows, recs = isolated_rows(model, requests, gen_cfg, t5=True)
+                if layers is None:
+                    # bf16: the engine encodes each prompt right-padded to its
+                    # bucket, which rounds otherwise than the unpadded
+                    # prompt's products: held to both isolated runs
+                    compare_rows(tag, f"{label}, against unpadded prompts", done, rows, recs, rule="near-tie",
+                                 rids=finite_rids)
+                    rows, recs = isolated_rows(model, requests, gen_cfg, t5=True, pad_to=SERVE_BUCKET)
+            k5 = counts["flash_attention"]
+            if impl == "flash":
+                q_cfg = cfg.qformer_config
+                n_qf = q_cfg.num_hidden_layers + len(range(0, q_cfg.num_hidden_layers, q_cfg.cross_attention_frequency))
+                want = len(requests) * (n_qf + cfg.text_config.num_layers) + 2 * cfg.text_config.num_decoder_layers \
+                    * n_steps
+                assert k5 == want, (k5, want)
+            else:
+                assert k5 == 0, k5
+            same = compare_rows(tag, label, done, rows, recs, rule="identical" if layers else "near-tie",
+                                rids=finite_rids)
+            result[f"t5_{'bf16' if layers is None else 'f32_cut'}_{impl}"] = dict(
+                eng.stats, wall_s=secs, decoder_steps=n_steps, k5_launches=k5, identical_rows=same,
+                nan_rows=sorted(nan_rows), slots_decoded_empty=sorted(watch.flagged))
+        if layers is None:
+            # K5 at the engine's decoder step: self over (4, 1, 64) with the
+            # (32, 1, 64) bias and a per-row mask with dead prefixes, cross
+            # over (4, 1, 832) with right-padded rows
+            g = torch.Generator(device=dev).manual_seed(16)
+            rows_out = []
+            for name, l_kv in (("self", T5_SERVE_MAX_LEN), ("cross", T5_SERVE_PROMPT)):
+                q = torch.randn(4, 1, 32, 64, device=dev, generator=g).to(dtype)
+                k = torch.randn(4, l_kv, 32, 64, device=dev, generator=g).to(dtype)
+                v = torch.randn(4, l_kv, 32, 64, device=dev, generator=g).to(dtype)
+                mask = torch.ones(4, l_kv, dtype=torch.int32, device=dev)
+                bias = None
+                if name == "self":
+                    for r, start in enumerate((0, 9, 20, 31)):  # dead prefixes of reused slots
+                        mask[r, :start] = 0
+                    mask[:, 48:] = 0  # slots past the index
+                    bias = (torch.randn(32, 1, l_kv, device=dev, generator=g) * 2.0).to(dtype)
+                else:
+                    for r, real in enumerate((766, 770, 790, 794)):
+                        mask[r, real:] = 0
+                kw5 = dict(padding_mask=mask, bias=bias)
+                out = fl.flash_attention(q, k, v, **kw5)
+                err = check_close(tag, f"serving (d) K5 at the T5 engine's {name} step (4, 1, {l_kv}), bias "
+                                       f"{None if bias is None else tuple(bias.shape)}",
+                                  out, fl.flash_attention_reference(q, k, v, **kw5), 2e-2)
+                real = mask.sum(dim=1).tolist()
+                nbytes = (2 * 4 + 2 * sum(real)) * 32 * 64 * 2 + 4 * l_kv * 4 + (32 * l_kv * 4 if bias is not None
+                                                                                   else 0)
+                rows_out.append(_k5_bias_row(f"flash_attention at the T5 engine's {name} step (4, 1, {l_kv})", q, k,
+                                             v, kw5, err, bound(4 * sum(real) * 32 * 64, nbytes)))
+            for r in rows_out:
+                time_row(tag, r)
+            result["t5_engine_k5"] = rows_out
+        del model
+
+
+def run_serving(tag: str, dev) -> dict:
+    """Phase 11: serving. Returns the numbers of the serving JSON line, the
+    phase's launches by kernel among them."""
+    t_phase = time.perf_counter()
+    total: dict = {}
+    result: dict = {"card": tag}
+    for name, fn in (("(a)", lambda: serving_opt_f32(tag, dev, total, result)),
+                     ("(b), (c), (e) bf16", lambda: serving_bf16(tag, dev, total, result)),
+                     ("(c) K2", lambda: serving_admission_k2(tag, dev, result)),
+                     ("(c), (e) fp32 cuts", lambda: serving_f32_cuts(tag, dev, total, result)),
+                     ("(d)", lambda: serving_t5(tag, dev, total, result))):
+        t0 = time.perf_counter()
+        fn()
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"[{tag}] serving {name} took {time.perf_counter() - t0} s")
+    result["launches"] = total
+    result["seconds"] = time.perf_counter() - t_phase
+    print(f"[{tag}] serving phase took {result['seconds']} s")
+    return result
+
+
 def main(argv: list) -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke: no CUDA device; this script runs only on a GPU")
@@ -3956,6 +4779,9 @@ def main(argv: list) -> int:
         gc.collect()
         torch.cuda.empty_cache()
         run_checkpoints(tag, dev)
+        gc.collect()
+        torch.cuda.empty_cache()
+        serving = run_serving(tag, dev)
     except Exception:
         traceback.print_exc()
         return 1
@@ -3963,7 +4789,7 @@ def main(argv: list) -> int:
         {"name": k["name"], "route": "cuda", "source": k["source"], "replaces": k["replaces"],
          "launches": launches[k["name"]], "max_abs_err": k["max_abs_err"],
          "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
-         "library_ms": k["library_ms"],
+         "library_ms": k["library_ms"], "serving_launches": serving["launches"].get(k["name"], 0),
          **({"composite": k["composite"], "composite_ms": k["composite_ms"]} if "composite_ms" in k else {})}
         for k in kernels
     ]}
@@ -3984,6 +4810,9 @@ def main(argv: list) -> int:
         dict(r, route="cuda", launches=launches.get(r["name"], 0)) for r in t5_rows]}))
     print(json.dumps({"t5": dict(t5, k1_launches=launches["packed_qkv_attention at the T5 path"],
                                  k5_f32_launches=launches["flash_attention_f32 at the T5 path"])}))
+    # phase 11: the serving legs' numbers, K2/K3/K4/K5 at the serving shapes
+    # (their rows without the timing closures) and the phase's launches
+    print(json.dumps({"serving": serving}, default=str))
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                               "count": torch.cuda.device_count()}}))

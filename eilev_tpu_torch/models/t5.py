@@ -41,10 +41,15 @@ JAX's call order, active in training mode (``ops/dropout.py``). With
 rewound to the layer's entry for the recompute); a decoder layer projects
 its cross K/V inside, so only the encoder states are saved.
 
-Left to the serving slice (ROADMAP): the per-row cache ``mask`` of the
-continuous-batching engine, ``spec_append``/``decode_append``,
-``candidates``, ``decode_step_hidden`` and ``shared_prefix``; and the
-pipeline plumbing (``encoder_rel_bias`` ... ``decoder_post``).
+The serving engine's slot cache (``serving/engine.py``) carries a per-row
+attendable ``mask`` (slots, max_len): the cached decoder step then attends
+the slots that mask keeps plus the ones it writes, and ``spec_append`` /
+``decode_append`` run a multi-token verify block over it with intra-block
+causality and a relative bias over ATTENDED-token distances, so that
+rejection holes collapse out of the distances (as in JAX). Left for later
+(ROADMAP): ``candidates``, ``decode_step_hidden`` and ``shared_prefix``,
+which only T5 contrastive search reaches, and the pipeline plumbing
+(``encoder_rel_bias`` ... ``decoder_post``).
 """
 
 from __future__ import annotations
@@ -154,15 +159,19 @@ class T5Attention(nn.Module):
                      dtype: torch.dtype, device=None) -> torch.Tensor:
         """(1, heads, q_len, k_len) relative position bias in ``dtype`` (flax
         ``Embed(dtype=...)``: the table cast, then gathered)."""
+        positions = relative_positions(q_len, k_len, q_offset, device=device)
+        return self.bias_at(positions, dtype=dtype).permute(2, 0, 1)[None]
+
+    def bias_at(self, relative_position: torch.Tensor, *, dtype: torch.dtype) -> torch.Tensor:
+        """(..., H) relative position bias of ``relative_position`` (memory -
+        query, any shape) in ``dtype``."""
         cfg = self.config
         nb, md = cfg.relative_attention_num_buckets, cfg.relative_attention_max_distance
-        positions = relative_positions(q_len, k_len, q_offset, device=device)
-        where = positions.device
+        where = relative_position.device
         if where not in self._bucket_tables:
             self._bucket_tables[where] = distance_buckets(self.bidirectional, nb, md).to(where)
-        buckets = _lookup_buckets(positions, self._bucket_tables[where], self.bidirectional, nb, md)
-        values = F.embedding(buckets.long(), self.relative_attention_bias.weight.to(dtype))  # (q, k, H)
-        return values.permute(2, 0, 1)[None]
+        buckets = _lookup_buckets(relative_position, self._bucket_tables[where], self.bidirectional, nb, md)
+        return F.embedding(buckets.long(), self.relative_attention_bias.weight.to(dtype))
 
     def _heads(self, x: torch.Tensor) -> torch.Tensor:
         return x.reshape(*x.shape[:-1], self.config.num_heads, self.config.d_kv)
@@ -396,12 +405,23 @@ class T5Decoder(nn.Module):
         else:
             index = cache["index"]
             max_len = cache["k"].shape[2]
-            # decode appends left to right, so "filled" is "attendable"; JAX's
-            # (1, max_len) mask expanded to the (B, max_len) K5 takes
-            filled = (torch.arange(max_len, device=device) < index + s).to(torch.int32)
+            if "mask" in cache:
+                # the serving engine's slot cache: rows admitted at different
+                # times keep a PER-ROW attendable mask whose dead prefix
+                # stays 0; the written slots join every row's mask, in place
+                # (T5's relative bias is translation-invariant, so a row
+                # whose first token sits at any slot sees a fresh cache's
+                # distances)
+                cache["mask"][:, index : index + s] = 1
+                padding_mask = cache["mask"]
+            else:
+                # decode appends left to right, so "filled" is "attendable";
+                # JAX's (1, max_len) mask expanded to the (B, max_len) K5 takes
+                filled = (torch.arange(max_len, device=device) < index + s).to(torch.int32)
+                padding_mask = filled[None].expand(b, max_len)
             self_attn = {
                 "bias": rel.compute_bias(s, max_len, q_offset=index, dtype=dtype, device=device)[0],
-                "padding_mask": filled[None].expand(b, max_len),
+                "padding_mask": padding_mask,
             }
             cross = [(cache["cross_k"][i], cache["cross_v"][i]) for i in range(len(self.layers))]
 
@@ -420,6 +440,49 @@ class T5Decoder(nn.Module):
         if cache is not None:
             cache["index"] = index + s
         return x, cache
+
+    def spec_append(
+        self,
+        dec_embeds: torch.Tensor,
+        encoder_attention_mask: Optional[torch.Tensor],
+        cache: Cache,
+        active: torch.Tensor,
+    ) -> tuple[torch.Tensor, Cache]:
+        """A multi-token cached append over the serving slot cache (with its
+        per-row ``mask``): the (B, s) block ``dec_embeds`` is written at
+        ``cache['index']``; query j sees the kept slots up to its own (no
+        later draft of the block) and always itself. The relative bias is
+        taken over ATTENDED-token positions (the cumsum of the row's mask),
+        so rejection holes collapse out of T5's distance buckets as in a
+        fresh contiguous cache. ``active`` (B,) gates whole rows, or (B, s)
+        single block positions (the evict-replay block's pad tail): gated
+        writes stay out of the persisted mask. The bias is (B, H, s, L) in
+        fp32, so the attention takes the plain path (K5 takes an (H, S, L)
+        bias only, as JAX's Pallas kernel). Returns (final norm output,
+        cache), the cache updated in place."""
+        b, s, _ = dec_embeds.shape
+        device, dtype = dec_embeds.device, dec_embeds.dtype
+        index = cache["index"]
+        max_len = cache["k"].shape[2]
+        active2 = active[:, None] if active.ndim == 1 else active
+        mask = cache["mask"]
+        mask[:, index : index + s] = torch.maximum(mask[:, index : index + s],
+                                                   active2.expand(b, s).to(mask.dtype))
+        tok_pos = torch.cumsum(mask, dim=1) - 1  # (B, L): holes collapse out of the distances
+        qpos = tok_pos[:, index : index + s]
+        rel = self.layers[0].self_attention.attention
+        bias = rel.bias_at(tok_pos[:, None, :] - qpos[:, :, None], dtype=dtype)  # (B, s, L, H)
+        bias = bias.permute(0, 3, 1, 2).float()
+        slot_pos = torch.arange(max_len, device=device)[None, :]
+        q_slot = index + torch.arange(s, device=device)[:, None]
+        attend = ((mask[:, None, :] > 0) & (slot_pos <= q_slot)[None]) | (slot_pos == q_slot)[None]
+        bias = torch.where(attend[:, None], bias, torch.finfo(torch.float32).min)
+        x = dec_embeds
+        for i, layer in enumerate(self.layers):
+            x = layer(x, {"bias": bias}, cache["cross_k"][i], cache["cross_v"][i], encoder_attention_mask,
+                      cache_kv=(cache["k"], cache["v"], i), cache_index=index)
+        cache["index"] = index + s
+        return self.final_layer_norm(x), cache
 
     def make_cross_kv(self, encoder_hidden: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         """Every layer's cross K/V, stacked: (num_decoder_layers, B, P, H, hd) each."""
@@ -544,4 +607,17 @@ class T5ForConditionalGeneration(nn.Module):
         (``encoder_hidden`` is not read: the cross K/V are in the cache)."""
         hidden, cache = self.decoder(self.embed(decoder_input_ids), encoder_hidden, encoder_attention_mask,
                                      cache=cache)
+        return self._head(hidden), cache
+
+    def decode_append(
+        self,
+        decoder_input_ids: torch.Tensor,
+        encoder_attention_mask: Optional[torch.Tensor],
+        cache: Cache,
+        active: torch.Tensor,
+    ) -> tuple[torch.Tensor, Cache]:
+        """(B, s, vocab) logits of a speculative verify block over the
+        serving slot cache (:meth:`T5Decoder.spec_append`)."""
+        hidden, cache = self.decoder.spec_append(self.embed(decoder_input_ids), encoder_attention_mask, cache,
+                                                 active)
         return self._head(hidden), cache

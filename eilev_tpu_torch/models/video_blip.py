@@ -231,6 +231,9 @@ class VideoBlipForConditionalGeneration(nn.Module):
     def t5_decode_step(self, decoder_input_ids, encoder_hidden, encoder_attention_mask, cache):
         return self.language_model.decode_step(decoder_input_ids, encoder_hidden, encoder_attention_mask, cache)
 
+    def t5_decode_append(self, decoder_input_ids, encoder_attention_mask, cache, active):
+        return self.language_model.decode_append(decoder_input_ids, encoder_attention_mask, cache, active)
+
     def t5_score_classes(self, class_decoder_ids, class_attention_mask, encoder_hidden, encoder_attention_mask):
         return self.language_model.score_classes(
             class_decoder_ids, class_attention_mask, encoder_hidden, encoder_attention_mask)
