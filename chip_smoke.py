@@ -309,7 +309,12 @@ final result line):
    K2 = 4, K3 = 4 per one-token forward), the same text twice; (h) a bf16
    VideoBLIP-T5 at the flan-t5-xl widths, F32_LAYERS a stack, exported and
    loaded back with bf16 weights: every tensor bit for bit, greedy tokens
-   identical to the source model's (K1 = F32_LAYERS). The directories are
+   identical to the source model's (K1 = F32_LAYERS); (i) on (c)'s model the
+   evaluation CLIs: cli.get_vision_model_embs.run at batch 8 (K1 = the 4 ViT
+   layers, nothing else; finite embeddings), cli.train_v1.run for 2 steps on
+   the checkpoint loaded as the v1 model (bf16, K1 only, a finite eval loss),
+   cli.generation_eval.run and cli.verify_quality.run --generated_csv on a
+   CSV written here (random narrations: exit code 1). The directories are
    temporary and deleted at the phase's end.
 11. Serving (serving/engine.py, serving/session.py, cli/serve.py), each leg
    counted (counters at 0 just before, read just after; K1 39 an encode, K2
@@ -347,12 +352,30 @@ final result line):
    1, 64) and cross (4, 1, 832) steps held and timed; the fp32 2-layer cut
    identical. A JSON line "serving" with the legs' numbers and the phase's
    launches, which the kernels line's rows also carry (serving_launches).
+12. The evaluation encoders and the VideoMAE baseline: (a) K5 at VideoMAE's
+   form, (8, 1,568, 12 x 64), bidirectional, no mask, no bias, bf16 (the
+   mma.sync body) and fp32, against its twin at 2e-2 / F32_TOL and timed as
+   in 3 beside SDPA and its bound (two rows of the kernels line); VideoMAE-base
+   (12 x 768, 16 frames x 224^2, random weights from a seed) predicting at
+   batch 8 in fp32 under "auto" (plain, no K5) and "flash" (K5's fp32 body,
+   12 launches): the same argmax, max |delta| printed; a bf16 forward under
+   "flash" (12 bf16 launches); cli.baselines.videomae_train.run at its
+   defaults (batch 8, fp32, "auto", the augmentation on the card) for 3
+   steps: s/step, finite losses, peak memory, no kernel launch. (b)
+   roberta-large, all-mpnet-base-v2 and the stsb-roberta-large cross-encoder
+   at their published widths (N(0, 0.02), unit LayerNorms, from a seed)
+   through SentenceEncoder._from_parts with a word-level tokenizer: the three
+   metrics over 64 narration pairs at batch 32, each timed, and the first 8
+   pairs' scores on the card within 1e-4 of the same code on the CPU. A JSON
+   line "eval_baselines".
 
 Prints every number tagged with the card's name and power limit, then the
 JSON line of the beam shapes' K3/K4 rows, the JSON line of the training
 variants, the JSON line of the decoding modes' kernel shapes, the JSON lines
-of K5's T5 forms, of the T5 phase and of serving, then one JSON line of per-kernel results (every body: the bf16 ones and the fp32
-ones, whose launches come from phase 8; K6's rows also carry composite_ms), then the result line
+of K5's T5 forms, of the T5 phase, of serving and of phase 12, then one JSON
+line of per-kernel results (every body: the bf16 ones and the fp32 ones,
+whose launches come from phase 8, and K5's VideoMAE rows, whose launches
+come from phase 12; K6's rows also carry composite_ms), then the result line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 With ``--kernel-times DIR`` it imports eilev_tpu_torch from DIR instead (an
@@ -3934,6 +3957,9 @@ def run_checkpoints(tag: str, dev) -> None:
         run_narration_cli(tag, cli_model, frames, root, dev)
         run_icl_cli(tag, cli_model, frames, root, dev)
         run_samples(tag, cli_model, ckpt, size, dev)
+        t0 = time.perf_counter()
+        run_eval_clis(tag, cli_model, ckpt, size, frames, root, dev)
+        print(f"[{tag}] checkpoints (i) the evaluation CLIs took {time.perf_counter() - t0} s")
         del cli_model, run_c
         gc.collect()
         torch.cuda.empty_cache()
@@ -4719,6 +4745,373 @@ def run_serving(tag: str, dev) -> dict:
     return result
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the evaluation encoders and the VideoMAE baseline
+# ---------------------------------------------------------------------------
+
+# (a) VideoMAE-base (12 x 768, 12 heads x 64, 16 frames x 224^2, tubelet 2,
+# patch 16: 1,568 tokens) at videomae_train's batch, random weights from a
+# seed; its training at the CLI's defaults over in-memory clips whose short
+# side (240) the augmentation scales to 256-320 before the 224^2 crop
+VIDEOMAE_BATCH = 8
+VIDEOMAE_LABELS = 87
+VIDEOMAE_SEED = 16
+VIDEOMAE_TRAIN_STEPS = 3
+VIDEOMAE_CLIP = (3, 16, 240, 320)
+VIDEOMAE_CLIPS = 16
+# (b) the three encoders at their published widths, 64 narration-length
+# pairs at the metrics' batch of 32, the first 8 also scored on the CPU
+ENCODER_PAIRS = 64
+ENCODER_CPU_PAIRS = 8
+ENCODER_SEED = 17
+ENCODER_TOL = 1e-4
+
+
+def encoder_configs() -> dict:
+    """roberta-large (BERTScore's model), all-mpnet-base-v2 (the STS
+    bi-encoder) and cross-encoder/stsb-roberta-large (1 label), as their
+    config.json files give them."""
+    from eilev_tpu_torch.eval.encoder import EncoderConfig
+
+    roberta_large = dict(model_type="roberta", vocab_size=50265, hidden_size=1024, num_hidden_layers=24,
+                         num_attention_heads=16, intermediate_size=4096, max_position_embeddings=514,
+                         type_vocab_size=1, layer_norm_eps=1e-5, pad_token_id=1)
+    return {
+        "roberta-large": EncoderConfig(**roberta_large),
+        "all-mpnet-base-v2": EncoderConfig(model_type="mpnet", vocab_size=30527, hidden_size=768,
+                                           num_hidden_layers=12, num_attention_heads=12, intermediate_size=3072,
+                                           max_position_embeddings=514, layer_norm_eps=1e-5, pad_token_id=1,
+                                           relative_attention_num_buckets=32),
+        "stsb-roberta-large": EncoderConfig(**roberta_large, num_labels=1),
+    }
+
+
+class EncoderWordTokenizer:
+    """A word-level tokenizer in RoBERTa's (and MPNet's) layout: <s> = 0,
+    <pad> = 1, </s> = 2, a pair as <s> a </s></s> b </s>, right padding; each
+    word's id a CRC of it inside the vocabulary. No encoder tokenizer is in
+    the repository, and the card has no transformers: the metrics need ids
+    of the right count and layout, not their text."""
+
+    all_special_ids = [0, 1, 2]
+    pad_token_id = 1
+
+    def __init__(self, vocab_size: int):
+        self.vocab_size = vocab_size
+
+    def _ids(self, text: str) -> list:
+        import zlib
+
+        return [3 + zlib.crc32(w.encode()) % (self.vocab_size - 3) for w in re.findall(r"\w+|[^\w\s]", text.lower())]
+
+    def __call__(self, texts, text_pair=None, padding=True, truncation=True, max_length=None, return_tensors="np"):
+        rows = []
+        for i, text in enumerate(texts):
+            ids = [0] + self._ids(text) + [2]
+            if text_pair is not None:
+                ids += [2] + self._ids(text_pair[i]) + [2]
+            rows.append(ids[:max_length] if truncation and max_length else ids)
+        width = max(len(r) for r in rows)
+        input_ids = np.full((len(rows), width), self.pad_token_id, np.int64)
+        mask = np.zeros((len(rows), width), np.int64)
+        for i, r in enumerate(rows):
+            input_ids[i, : len(r)], mask[i, : len(r)] = r, 1
+        return {"input_ids": input_ids, "attention_mask": mask}
+
+
+def narration_pairs(n: int, seed: int) -> tuple[list, list]:
+    """``n`` (prediction, reference) narrations of 6-14 words."""
+    rng = np.random.default_rng(seed)
+    verbs = ("takes", "cuts", "washes", "opens", "puts", "picks up", "holds", "moves")
+    nouns = ("the knife", "an onion", "the pot", "a cup", "the drawer", "a plate", "the tap", "the lid")
+    tails = ("", "in the kitchen", "with the left hand", "on the table", "from the shelf", "into the sink")
+
+    def one():
+        return f"The camera wearer {rng.choice(verbs)} {rng.choice(nouns)} {rng.choice(tails)}".strip() + "."
+
+    return [one() for _ in range(n)], [one() for _ in range(n)]
+
+
+def _videomae_k5_row(name: str, q, k, v, err: float, bnd: tuple) -> dict:
+    """A kernels-line row of K5 at VideoMAE's form (bidirectional, no mask,
+    no bias, scale 64^-0.5), for time_row: K5, its twin, one SDPA call."""
+    from eilev_tpu_torch.ops import flash_attention as fl
+
+    scale = q.shape[-1] ** -0.5
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    return {
+        "name": name,
+        "source": f"eilev_tpu_torch/csrc/{'attention_f32' if q.dtype == torch.float32 else 'flash_attention'}.cu",
+        "replaces": "eilev_tpu/ops/flash_attention.py:157", "max_abs_err": err, "per_call": 1,
+        "run": (lambda: fl.flash_attention(q, k, v, scale=scale)),
+        "plain": (lambda: fl.flash_attention_reference(q, k, v, scale=scale)),
+        "library": (lambda: _sdpa(qt, kt, vt, scale=scale)),
+        "bound": bnd,
+    }
+
+
+def check_videomae_k5(tag: str, dev: torch.device) -> list[dict]:
+    """Phase 12 (a): K5 at VideoMAE's form, (8, 1,568, 12 x 64), bf16 (the
+    mma.sync body: head dim 64) and fp32 (attention_f32.cu's body), against
+    its twin at 2e-2 and F32_TOL, each call counted once (fp32 in
+    launches_f32, bf16 not in launches_sm90); timed as in 3 beside one SDPA
+    call and its bound: 4 B H S^2 D operations, q, k, v and out once."""
+    from eilev_tpu_torch.ops import flash_attention as fl
+
+    g = torch.Generator(device=dev).manual_seed(VIDEOMAE_SEED + 1)
+    b, s, nh, hd = VIDEOMAE_BATCH, 1568, 12, 64
+    rows = []
+    for dtype in (torch.bfloat16, torch.float32):
+        f32 = dtype == torch.float32
+        q, k, v = (torch.randn(b, s, nh, hd, device=dev, generator=g).to(dtype) for _ in range(3))
+        before = (fl.flash_attention.launches, fl.flash_attention.launches_f32, fl.flash_attention.launches_sm90)
+        out = fl.flash_attention(q, k, v, scale=hd**-0.5)
+        torch.cuda.synchronize()
+        after = (fl.flash_attention.launches, fl.flash_attention.launches_f32, fl.flash_attention.launches_sm90)
+        assert after == (before[0] + 1, before[1] + int(f32), before[2]), (before, after)
+        err = check_close(tag, f"K5 VideoMAE form{' fp32' if f32 else ''} ({b}, {s}, {nh}x{hd}), no mask, no bias",
+                          out, fl.flash_attention_reference(q, k, v, scale=hd**-0.5), F32_TOL if f32 else 2e-2)
+        bnd = bound(4 * b * nh * s * s * hd, 4 * b * s * nh * hd * (4 if f32 else 2),
+                    H100_TF32X3_FLOPS if f32 else H100_BF16_FLOPS)
+        rows.append(_videomae_k5_row(f"flash_attention{'_f32' if f32 else ''} at VideoMAE", q, k, v, err, bnd))
+    for r in rows:
+        time_row(tag, r)
+    return rows
+
+
+def run_videomae(tag: str, dev: torch.device, launches: dict) -> dict:
+    """Phase 12 (a): VideoMAE-base predicting at batch 8 in fp32 under
+    ``auto`` (plain: kv 1,568 < 2,048, no K5) and ``flash`` (the fp32 body, 12
+    launches), the same argmax; a bf16 forward under ``flash`` (the bf16
+    mma.sync body, 12 launches); then cli.baselines.videomae_train.run at
+    its defaults (batch 8, fp32, ``auto``) for VIDEOMAE_TRAIN_STEPS steps over
+    in-memory clips, s/step, finite losses, peak memory."""
+    from eilev_tpu_torch.cli.baselines import videomae_train
+    from eilev_tpu_torch.models.videomae import VideoMAEConfig, VideoMAEForVideoClassification
+    from eilev_tpu_torch.ops.attention import set_default_attention_impl
+
+    out: dict = {}
+    cfg = VideoMAEConfig(num_labels=VIDEOMAE_LABELS)
+    model = VideoMAEForVideoClassification(cfg, device=dev).init_weights_(
+        torch.Generator().manual_seed(VIDEOMAE_SEED)).requires_grad_(False).eval()
+    g = torch.Generator(device=dev).manual_seed(VIDEOMAE_SEED)
+    pixel = torch.randn(VIDEOMAE_BATCH, 3, cfg.num_frames, cfg.image_size, cfg.image_size, device=dev, generator=g)
+    logits, ms = {}, {}
+    for impl, dtype in (("auto", torch.float32), ("flash", torch.float32), ("flash", torch.bfloat16)):
+        label = f"{impl} {'fp32' if dtype == torch.float32 else 'bf16'}"
+        set_default_attention_impl(impl)
+        model.dtype = dtype
+        try:
+            with torch.no_grad():
+                reset_counters()
+                logits[label] = model(pixel)["logits"].float()
+                torch.cuda.synchronize()
+                counts = counters()
+                ms[label] = min(median_ms(lambda: model(pixel), reps=5, warmup=1) for _ in range(2))
+        finally:
+            set_default_attention_impl("auto")
+            model.dtype = torch.float32
+        fired = {k: n for k, n in counts.items() if n}
+        want = {} if impl == "auto" else {"flash_attention": cfg.num_hidden_layers}
+        if impl == "flash" and dtype == torch.float32:
+            want["flash_attention_f32"] = cfg.num_hidden_layers
+        print(f"[{tag}] VideoMAE-base predict batch {VIDEOMAE_BATCH}, {label}: ms={ms[label]} launches {fired} "
+              f"logits finite={bool(torch.isfinite(logits[label]).all())}")
+        assert fired == want, (label, fired, want)
+        assert bool(torch.isfinite(logits[label]).all()), label
+        if impl == "flash":
+            launches[f"flash_attention{'_f32' if dtype == torch.float32 else ''} at VideoMAE"] = fired[
+                "flash_attention"]
+    delta = (logits["flash fp32"] - logits["auto fp32"]).abs().max().item()
+    same = bool(torch.equal(logits["flash fp32"].argmax(-1), logits["auto fp32"].argmax(-1)))
+    bf16_same = (logits["flash bf16"].argmax(-1) == logits["auto fp32"].argmax(-1)).float().mean().item()
+    bf16_delta = (logits["flash bf16"] - logits["auto fp32"]).abs().max().item()
+    print(f"[{tag}] VideoMAE-base fp32 logits, flash vs auto: max_abs_delta={delta} argmax identical={same}; "
+          f"bf16 flash vs fp32 auto: max_abs_delta={bf16_delta} same_argmax_share={bf16_same}")
+    assert same, "fp32 argmax differs between the flash and auto dispatches"
+    out.update(predict_ms=ms, fp32_flash_vs_auto_max_abs=delta, bf16_vs_fp32_max_abs=bf16_delta,
+               bf16_same_argmax_share=bf16_same)
+    del model, pixel, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # videomae_train at its defaults: batch 8, fp32, auto, 16 x 224^2
+    rng = np.random.default_rng(VIDEOMAE_SEED)
+    verbs, nouns = ("take", "cut", "wash", "open"), ("knife", "onion", "pot", "cup")
+    clips = [{"video": rng.integers(0, 256, VIDEOMAE_CLIP, dtype=np.uint8), "frame_path": f"clip{i}|0",
+              "structured_verb": verbs[i % 4], "structured_noun": nouns[i // 4 % 4]} for i in range(VIDEOMAE_CLIPS)]
+    import tempfile
+
+    with tempfile.TemporaryDirectory(dir=os.path.dirname(os.path.abspath(__file__))) as root:
+        args = videomae_train.parse_args([
+            "--verb", "--train_frames_dir", "unused", "--val_frames_dir", "unused", "--output_dir", root,
+            "--num_train_steps", str(VIDEOMAE_TRAIN_STEPS), "--eval_steps", "0", "--logging_steps", "1",
+            "--device", str(dev)])
+        torch.cuda.reset_peak_memory_stats()
+        reset_counters()
+        t0 = time.perf_counter()
+        try:
+            result = videomae_train.run(args, {"train": clips, "val": clips[:4]})
+        except torch.cuda.OutOfMemoryError:
+            print(f"[{tag}] videomae_train at batch {VIDEOMAE_BATCH} does not fit: the plain attention keeps "
+                  f"(8, 12, 1568, 1568) fp32 scores and probabilities a layer for the backward")
+            raise
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {k: n for k, n in counters().items() if n}
+        saved = sorted(os.listdir(root))
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[{tag}] videomae_train (VideoMAE-base, fp32, auto) batch {VIDEOMAE_BATCH}, {VIDEOMAE_TRAIN_STEPS} "
+          f"steps: wall_s={wall} s_per_step={result['step_seconds']} losses={result['losses']} "
+          f"peak_memory_bytes={peak} launches {counts} wrote {saved}")
+    assert len(result["losses"]) == VIDEOMAE_TRAIN_STEPS and np.isfinite(result["losses"]).all()
+    assert counts == {} and saved == ["labels.json", "params.pkl"], (counts, saved)
+    out.update(train_s_per_step=result["step_seconds"], train_losses=result["losses"], train_peak_bytes=peak)
+    del result
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_encoders(tag: str, dev: torch.device) -> dict:
+    """Phase 12 (b): roberta-large, all-mpnet-base-v2 and the
+    stsb-roberta-large cross-encoder at their published widths, N(0, 0.02)
+    weights with unit LayerNorms from a seed, built through
+    SentenceEncoder._from_parts with the encoder word tokenizer; the three
+    metrics (bert_score_f1's roberta-large layer 17, sts_biencoder_cosine,
+    sts_crossencoder) over ENCODER_PAIRS pairs at batch 32, each timed; the
+    first ENCODER_CPU_PAIRS pairs scored on the card and by the same port
+    code on the CPU, within ENCODER_TOL."""
+    from eilev_tpu_torch.eval import metrics
+    from eilev_tpu_torch.eval.encoder import CrossEncoderModel, SentenceEncoder, TextEncoder
+
+    preds, refs = narration_pairs(ENCODER_PAIRS, ENCODER_SEED)
+    scorers = {"roberta-large": ("bert_score_f1", metrics._bert_score_f1),
+               "all-mpnet-base-v2": ("sts_biencoder_cosine", metrics._sts_biencoder_cosine),
+               "stsb-roberta-large": ("sts_crossencoder", metrics._sts_crossencoder)}
+    out: dict = {}
+    for i, (name, cfg) in enumerate(encoder_configs().items()):
+        metric, score = scorers[name]
+        module = (CrossEncoderModel if cfg.num_labels else TextEncoder)(cfg, device=dev)
+        random_init_(module, torch.Generator(device=dev).manual_seed(ENCODER_SEED + i), std=0.02)
+        unit_norms_(module)
+        state = module.state_dict()
+        tok = EncoderWordTokenizer(cfg.vocab_size)
+        enc = SentenceEncoder._from_parts(cfg, state, tok, device=dev)
+        score(enc, preds[:2], refs[:2])  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        value = score(enc, preds, refs)
+        secs = time.perf_counter() - t0
+        card = score(enc, preds[:ENCODER_CPU_PAIRS], refs[:ENCODER_CPU_PAIRS])
+        cpu_enc = SentenceEncoder._from_parts(cfg, {k: v.cpu() for k, v in state.items()}, tok, device="cpu")
+        cpu = score(cpu_enc, preds[:ENCODER_CPU_PAIRS], refs[:ENCODER_CPU_PAIRS])
+        # what the means are made of: the cross-encoder's per-pair scores, or
+        # the encoder's last hidden states, card against CPU
+        if cfg.num_labels:
+            pairs = list(zip(preds[:ENCODER_CPU_PAIRS], refs[:ENCODER_CPU_PAIRS]))
+            parts = [e.predict_pairs(pairs) for e in (enc, cpu_enc)]
+        else:
+            parts = [e.hidden_states(preds[:ENCODER_CPU_PAIRS])[0][-1] for e in (enc, cpu_enc)]
+        detail = float(np.abs(parts[0] - parts[1]).max())
+        params = sum(v.numel() for v in state.values())
+        print(f"[{tag}] encoders {name} ({cfg.num_hidden_layers} x {cfg.hidden_size}, {params} params): "
+              f"{metric} over {ENCODER_PAIRS} pairs = {value} in {secs * 1e3} ms; first {ENCODER_CPU_PAIRS} pairs "
+              f"card {card} vs CPU {cpu}, |delta| = {abs(card - cpu)}; "
+              f"{'per-pair scores' if cfg.num_labels else 'last hidden states'} max |delta| = {detail}")
+        assert np.isfinite(value) and abs(card - cpu) <= ENCODER_TOL, (name, card, cpu)
+        out[metric] = {"value": value, "ms": secs * 1e3, "card_vs_cpu": abs(card - cpu), "parts_card_vs_cpu": detail}
+        del module, state, enc, cpu_enc
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def run_eval_clis(tag: str, model, ckpt: str, size: int, frames: np.ndarray, root: str, dev) -> None:
+    """Phase 10 (i), on (c)'s model: cli.get_vision_model_embs.run at batch
+    8 over 8 clips (K1 = the ViT's layers, once: one encode of 64 frames,
+    nothing else), cli.train_v1.run for 2 steps on the checkpoint loaded as
+    the v1 model (bf16 compute, the frozen ViT under no grad: K1 = its
+    layers a micro-batch forward), then cli.generation_eval.run and
+    cli.verify_quality.run --generated_csv on a CSV written here."""
+    from eilev_tpu_torch.cli import generation_eval, get_vision_model_embs, train_v1, verify_quality
+
+    n_vit = model.config.vision_config.num_hidden_layers
+    data = [{"video": frames[i], "frame_path": f"clip{i}|0", "narration_text": "#C C takes the knife",
+             "video_uid": f"clip{i}", "clip_index": "0"} for i in range(8)]
+    prefix = os.path.join(root, "embs")
+    args = get_vision_model_embs.parse_args(["--model", ckpt, "--frames_dir", "unused", "--batch_size", "8",
+                                             "--num_subsample_frames", str(FRAMES), "--output_prefix", prefix,
+                                             "--device", str(dev)])
+    reset_counters()
+    t0 = time.perf_counter()
+    embs = get_vision_model_embs.run(args, model, data)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = {k: n for k, n in counters().items() if n}
+    print(f"[{tag}] checkpoints (i) get_vision_model_embs run, bf16 batch 8: wall_s={secs} embs {embs.shape} "
+          f"finite={bool(np.isfinite(embs).all())} launches {counts}")
+    assert counts == {"packed_qkv_attention": n_vit}, counts
+    assert embs.shape == (8, model.config.vision_config.hidden_size) and np.isfinite(embs).all()
+    assert np.load(prefix + "_embs.npy").shape == embs.shape
+
+    v1, _ = timed_load(tag, "(i) the v1 model", ckpt, size, dev, version="v1", dtype=torch.bfloat16)
+    args = train_v1.parse_args(["--model_name_or_path", ckpt, "--train_frames_dir", "unused",
+                                "--val_frames_dir", "unused", "--output_dir", os.path.join(root, "v1"),
+                                "--num_subsample_frames", str(FRAMES), "--num_train_steps", "2",
+                                "--per_device_train_batch_size", "2", "--gradient_accumulation_steps", "1",
+                                "--warmup_steps", "0", "--eval_steps", "2", "--save_steps", "2",
+                                "--logging_steps", "1", "--device", str(dev)])
+    reset_counters()
+    t0 = time.perf_counter()
+    trainer = train_v1.run(args, v1, WordTokenizer(), {"train": data, "val": data[:2]})
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = {k: n for k, n in counters().items() if n}
+    print(f"[{tag}] checkpoints (i) train_v1 run, bf16, 2 steps of 2 clips + an eval: wall_s={secs} "
+          f"best_eval_loss={trainer.best_eval_loss} launches {counts}")
+    assert trainer.state.step == 2 and np.isfinite(trainer.best_eval_loss)
+    assert set(counts) == {"packed_qkv_attention"} and counts["packed_qkv_attention"] % n_vit == 0, counts
+    del trainer, v1
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    preds, refs = narration_pairs(8, ENCODER_SEED + 5)
+    gen_csv = os.path.join(root, "generated.csv")
+    with open(gen_csv, "w", newline="") as f:
+        w = csv.DictWriter(f, ["frame_path", "generated", "ground_truth"])
+        w.writeheader()
+        w.writerows({"frame_path": f"clip{i}|0", "generated": p, "ground_truth": r}
+                    for i, (p, r) in enumerate(zip(preds, refs)))
+    metrics = generation_eval.run(generation_eval.parse_args(["--input_csv", gen_csv, "--device", str(dev)]))
+    code = 0
+    try:
+        verify_quality.run(verify_quality.parse_args(["--generated_csv", f"16={gen_csv}", "--tolerance", "0.02",
+                                                      "--work_dir", root, "--device", str(dev)]))
+    except SystemExit as e:
+        code = e.code
+    print(f"[{tag}] checkpoints (i) generation_eval {metrics}; verify_quality --generated_csv exit code {code} "
+          "(random narrations against the published 16-shot table: FAIL expected)")
+    assert set(metrics) == {"bleu", "rougeL"} and code == 1
+
+
+def run_eval_baselines(tag: str, dev: torch.device, launches: dict) -> tuple[list, dict]:
+    """Phase 12: (a) K5 at VideoMAE's form, VideoMAE-base predict and
+    train; (b) the encoders. Returns the K5 rows and the phase's numbers."""
+    t_phase = time.perf_counter()
+    result: dict = {"card": tag}
+    t0 = time.perf_counter()
+    rows = check_videomae_k5(tag, dev)
+    result["videomae"] = run_videomae(tag, dev, launches)
+    print(f"[{tag}] eval (a) VideoMAE took {time.perf_counter() - t0} s")
+    t0 = time.perf_counter()
+    result["encoders"] = run_encoders(tag, dev)
+    print(f"[{tag}] eval (b) encoders took {time.perf_counter() - t0} s")
+    result["seconds"] = time.perf_counter() - t_phase
+    print(f"[{tag}] eval and baselines phase took {result['seconds']} s")
+    return rows, result
+
+
 def main(argv: list) -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke: no CUDA device; this script runs only on a GPU")
@@ -4782,6 +5175,10 @@ def main(argv: list) -> int:
         gc.collect()
         torch.cuda.empty_cache()
         serving = run_serving(tag, dev)
+        gc.collect()
+        torch.cuda.empty_cache()
+        videomae_rows, evaluation = run_eval_baselines(tag, dev, launches)
+        kernels = kernels + videomae_rows
     except Exception:
         traceback.print_exc()
         return 1
@@ -4813,6 +5210,9 @@ def main(argv: list) -> int:
     # phase 11: the serving legs' numbers, K2/K3/K4/K5 at the serving shapes
     # (their rows without the timing closures) and the phase's launches
     print(json.dumps({"serving": serving}, default=str))
+    # phase 12: VideoMAE and the encoders (K5's VideoMAE rows are on the
+    # kernels line, with their launches in the flash predicts)
+    print(json.dumps({"eval_baselines": evaluation}, default=str))
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                               "count": torch.cuda.device_count()}}))

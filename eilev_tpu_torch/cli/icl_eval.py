@@ -153,7 +153,7 @@ def main(argv: Optional[list[str]] = None):
     args = parse_args(argv)
     if args.model_parallel > 1:
         raise NotImplementedError(
-            "--model_parallel > 1 is not ported: the port runs on one device (parallel/, ROADMAP Queue 1 item 9)"
+            "--model_parallel > 1 is not ported: the port runs on one device (it waits for parallel/)"
         )
     from ..models.auto import load_model, load_tokenizer
 

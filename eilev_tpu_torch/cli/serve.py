@@ -88,7 +88,7 @@ def parse_args(argv: Optional[list[str]] = None) -> argparse.Namespace:
 def check_args(args: argparse.Namespace) -> None:
     if args.model_parallel > 1:
         raise NotImplementedError(
-            "--model_parallel > 1 is not ported: the port runs on one device (parallel/, ROADMAP Queue 1 item 9)")
+            "--model_parallel > 1 is not ported: the port runs on one device (it waits for parallel/)")
 
 
 def load_datasets(args: argparse.Namespace) -> dict[str, Any]:

@@ -91,7 +91,7 @@ def check_args(args: argparse.Namespace) -> None:
     for flag, requested in unported.items():
         if requested:
             raise NotImplementedError(
-                f"{flag} is not ported: the port trains on one device (parallel/, ROADMAP Queue 1 item 9)")
+                f"{flag} is not ported: the port trains on one device (it waits for parallel/)")
 
 
 def load_datasets(args: argparse.Namespace) -> dict[str, Any]:

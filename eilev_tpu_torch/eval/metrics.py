@@ -6,9 +6,9 @@ BERTScore (rescaled), and two sentence-similarity models. BLEU, ROUGE-L and
 the macro multiclass F1 of the verb/noun ICL eval (torchmetrics
 MulticlassF1Score default semantics, reference scripts/general/icl_eval.py:
 174,205) are copies of the JAX package's, exact and deterministic. The
-model-based metrics (BERTScore, STS bi-/cross-encoder) need the sentence
-encoder of ``eilev_tpu/eval/encoder.py``, which is not ported yet: they raise
-``NotImplementedError``.
+model-based metrics (BERTScore, STS bi-/cross-encoder) run the encoders of
+``eval/encoder.py`` from local checkpoints on ``device`` (the card by
+default), and raise a clear error without one (no Hub egress).
 """
 
 from __future__ import annotations
@@ -143,15 +143,8 @@ def rouge_l(predictions: Sequence[str], references: Sequence[str]) -> float:
 
 
 # ---------------------------------------------------------------------------
-# model-based metrics (need eval/encoder.py, not ported yet)
+# model-based metrics (gated on local checkpoints)
 # ---------------------------------------------------------------------------
-
-
-def _encoder_not_ported(name: str):
-    raise NotImplementedError(
-        f"{name} needs the sentence encoder (eval/encoder.py), which is not ported "
-        "yet; BLEU and ROUGE-L are"
-    )
 
 
 def bert_score_f1(
@@ -161,29 +154,85 @@ def bert_score_f1(
     *,
     num_layers: Optional[int] = None,
     baseline: Optional[float] = None,
+    device="cuda",
 ) -> float:
-    """BERTScore F1 (reference generation_eval.py:58-72); not ported yet."""
-    _encoder_not_ported("BERTScore")
+    """BERTScore F1 (reference generation_eval.py:58-72) from a LOCAL
+    BERT/RoBERTa/MPNet checkpoint (eval/encoder.py) on ``device``.
+    ``num_layers`` defaults to bert_score's per-model table (roberta-large ->
+    17) when the geometry is recognized, else the last layer. ``baseline``
+    applies rescale_with_baseline given the model's published baseline value."""
+    raise_unless_local("BERTScore", model_path)
+    from .encoder import SentenceEncoder
+
+    enc = SentenceEncoder(model_path, device=device)
+    return _bert_score_f1(enc, predictions, references, num_layers=num_layers, baseline=baseline)
+
+
+def _bert_score_f1(enc, predictions: Sequence[str], references: Sequence[str], *,
+                   num_layers: Optional[int] = None, baseline: Optional[float] = None) -> float:
+    """:func:`bert_score_f1` over a loaded ``SentenceEncoder``."""
+    from .encoder import bertscore_native
+
+    if num_layers is None:
+        cfg = enc.config
+        if cfg.model_type == "roberta" and cfg.num_hidden_layers == 24:
+            num_layers = 17  # roberta-large, the torchmetrics default model
+    f1 = bertscore_native(predictions, references, enc, num_layers=num_layers, baseline=baseline)
+    return float(f1.mean())
 
 
 def sts_biencoder_cosine(
     predictions: Sequence[str],
     references: Sequence[str],
     model_path: Optional[str] = None,
+    *,
+    device="cuda",
 ) -> float:
-    """Mean pairwise cosine under a mean-pooled sentence encoder (reference
-    generation_eval.py:14-33); not ported yet."""
-    _encoder_not_ported("STS bi-encoder")
+    """Mean pairwise cosine under a mean-pooled sentence encoder: the
+    all-mpnet-base-v2 pipeline of the reference (generation_eval.py:14-33),
+    from a local checkpoint (eval/encoder.py) on ``device``."""
+    raise_unless_local("STS bi-encoder", model_path)
+    from .encoder import SentenceEncoder
+
+    return _sts_biencoder_cosine(SentenceEncoder(model_path, device=device), predictions, references)
+
+
+def _sts_biencoder_cosine(enc, predictions: Sequence[str], references: Sequence[str]) -> float:
+    """:func:`sts_biencoder_cosine` over a loaded ``SentenceEncoder``."""
+    a = enc.encode(list(predictions))
+    b = enc.encode(list(references))
+    return float(np.mean(np.sum(a * b, axis=-1)))
 
 
 def sts_crossencoder(
     predictions: Sequence[str],
     references: Sequence[str],
     model_path: Optional[str] = None,
+    *,
+    device="cuda",
 ) -> float:
-    """Cross-encoder STS score (reference generation_eval.py:37-49); not
-    ported yet."""
-    _encoder_not_ported("STS cross-encoder")
+    """Cross-encoder STS score (stsb-roberta-large in the reference,
+    generation_eval.py:37-49) from a local checkpoint on ``device``."""
+    raise_unless_local("STS cross-encoder", model_path)
+    from .encoder import SentenceEncoder
+
+    return _sts_crossencoder(SentenceEncoder(model_path, cross_encoder=True, device=device), predictions, references)
+
+
+def _sts_crossencoder(enc, predictions: Sequence[str], references: Sequence[str]) -> float:
+    """:func:`sts_crossencoder` over a loaded cross-encoder ``SentenceEncoder``."""
+    return float(np.mean(enc.predict_pairs(list(zip(predictions, references)))))
+
+
+def raise_unless_local(name: str, model_path: Optional[str]) -> None:
+    import os
+
+    if model_path is None or not os.path.exists(model_path):
+        raise RuntimeError(
+            f"{name} needs a local pretrained checkpoint (no Hub egress in this "
+            f"environment). Pass model_path=<local dir>; got {model_path!r}. "
+            "BLEU and ROUGE-L run without downloads."
+        )
 
 
 def generation_metric_suite(
@@ -193,18 +242,18 @@ def generation_metric_suite(
     bert_score_model: Optional[str] = None,
     sts_biencoder_model: Optional[str] = None,
     sts_crossencoder_model: Optional[str] = None,
+    device="cuda",
 ) -> dict[str, float]:
-    """The generation_eval.py metric set; a model-based entry is computed only
-    when its checkpoint is named, and raises ``NotImplementedError`` until the
-    encoder is ported."""
+    """The generation_eval.py metric set; model-based entries appear only when
+    their local checkpoints are provided, and run on ``device``."""
     out = {
         "bleu": bleu(predictions, references),
         "rougeL": rouge_l(predictions, references),
     }
     if bert_score_model:
-        out["bertscore_f1"] = bert_score_f1(predictions, references, bert_score_model)
+        out["bertscore_f1"] = bert_score_f1(predictions, references, bert_score_model, device=device)
     if sts_biencoder_model:
-        out["sts_biencoder"] = sts_biencoder_cosine(predictions, references, sts_biencoder_model)
+        out["sts_biencoder"] = sts_biencoder_cosine(predictions, references, sts_biencoder_model, device=device)
     if sts_crossencoder_model:
-        out["sts_crossencoder"] = sts_crossencoder(predictions, references, sts_crossencoder_model)
+        out["sts_crossencoder"] = sts_crossencoder(predictions, references, sts_crossencoder_model, device=device)
     return out

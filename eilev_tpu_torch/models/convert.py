@@ -76,15 +76,49 @@ def flax_to_state_dict(tree: Mapping[str, Any], prefix: str = "") -> dict[str, t
     return out
 
 
-def params_from_jax(params: Mapping[str, Any], config: VideoBlipConfig) -> dict[str, torch.Tensor]:
+def params_from_jax(params: Mapping[str, Any], config) -> dict[str, torch.Tensor]:
     """The flax ``VideoBlipForConditionalGeneration`` params (OPT or T5 text
-    config), or the ``{"language_model": ...}`` tree of the text-only module
-    ``generation/text_lm._TextOnlyModule`` (OPT or LLaMA text config) -> the
-    port's state dict. The port's modules carry the flax names, so this is
+    config), the ``{"language_model": ...}`` tree of the text-only module
+    ``generation/text_lm._TextOnlyModule`` (OPT or LLaMA text config), a
+    ``TextEncoder``/``CrossEncoderModel`` tree (an ``eval.encoder.EncoderConfig``)
+    or a ``VideoMAEForVideoClassification`` tree (a ``models.videomae.VideoMAEConfig``)
+    -> the port's state dict. The port's modules carry the flax names, so this is
     :func:`flax_to_state_dict`'s rule for every family."""
+    from ..eval.encoder import EncoderConfig
+    from .videomae import VideoMAEConfig
+
+    if isinstance(config, (EncoderConfig, VideoMAEConfig)):
+        return flax_to_state_dict(params)
     if not isinstance(config.text_config, (OPTConfig, LlamaConfig, T5Config)):
         raise NotImplementedError(f"no port of the {type(config.text_config).__name__} language model")
     return flax_to_state_dict(params)
+
+
+def state_dict_to_flax(module: torch.nn.Module) -> dict[str, Any]:
+    """:func:`flax_to_state_dict`'s inverse for a port module whose names are
+    the flax module's: nested dicts of numpy arrays (``layers.<i>`` ->
+    ``layers_<i>``; an ``nn.Linear`` weight -> its transpose as ``kernel``,
+    an ``nn.LayerNorm`` weight -> ``scale``, an ``nn.Embedding`` weight ->
+    ``embedding``; every other parameter keeps its name and layout)."""
+    leaf = {torch.nn.Linear: "kernel", torch.nn.LayerNorm: "scale", torch.nn.Embedding: "embedding"}
+    tree: dict[str, Any] = {}
+    for mod_name, mod in module.named_modules():
+        path: list[str] = []
+        for part in mod_name.split(".") if mod_name else []:
+            if part.isdigit() and path and path[-1] == "layers":
+                path[-1] = f"layers_{part}"
+            else:
+                path.append(part)
+        for name, param in mod.named_parameters(recurse=False):
+            arr = param.detach().cpu().numpy()
+            kind = next((v for k, v in leaf.items() if isinstance(mod, k)), None)
+            if name == "weight" and kind is not None:
+                name, arr = kind, (arr.T if kind == "kernel" else arr)
+            node = tree
+            for part in path:
+                node = node.setdefault(part, {})
+            node[name] = np.ascontiguousarray(arr)
+    return tree
 
 
 def _cat_qkv(sd: Mapping[str, torch.Tensor], prefix: str, bias: bool) -> dict[str, torch.Tensor]:

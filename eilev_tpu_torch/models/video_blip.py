@@ -100,6 +100,12 @@ class VideoBlipForConditionalGeneration(nn.Module):
         features = self.language_projection(self.qformer(query, image_embeds, rng=dropout_rng))
         return features.reshape(v * self.config.num_query_tokens, -1)
 
+    def vision_forward(self, pixel_values: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """The raw video vision outputs, (last_hidden (V, T*S, D), pooled (V,
+        T, D)), as the original's VideoBlipVisionModel.forward gives them; its
+        ViT runs K1."""
+        return self.vision_model(pixel_values)
+
     def embed_and_scatter(
         self,
         input_ids: torch.Tensor,

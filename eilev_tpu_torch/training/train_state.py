@@ -30,7 +30,7 @@ port's ``parallel/``.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Mapping, NamedTuple
+from typing import Any, Callable, Mapping, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -99,7 +99,7 @@ class OptimizerConfig:
     beta1: float = 0.9
     beta2: float = 0.999
     eps: float = 1e-8
-    max_grad_norm: float = 1.0
+    max_grad_norm: Optional[float] = 1.0  # None: no clip (optax's bare adamw)
     schedule: str = "linear"  # HF Trainer default: linear decay after warmup
     # > 0: keep an exponential moving average of the trainable params in the
     # optimizer state; read it back with ema_params(state). 0 disables.
@@ -138,8 +138,9 @@ def global_norm(tree: Mapping[str, torch.Tensor]) -> torch.Tensor:
 
 
 def make_optimizer(cfg: OptimizerConfig) -> GradientTransformation:
-    """``chain(clip_by_global_norm(max_grad_norm), adamw(schedule, ...))``,
-    with :func:`with_param_ema` when ``ema_decay`` > 0."""
+    """``chain(clip_by_global_norm(max_grad_norm), adamw(schedule, ...))``
+    (``adamw`` alone when ``max_grad_norm`` is None), with
+    :func:`with_param_ema` when ``ema_decay`` > 0."""
     sched = make_schedule(cfg)
     b1, b2, eps, wd, max_norm = cfg.beta1, cfg.beta2, cfg.eps, cfg.weight_decay, cfg.max_grad_norm
 
@@ -151,10 +152,11 @@ def make_optimizer(cfg: OptimizerConfig) -> GradientTransformation:
         }
 
     def update(grads: Params, state: dict, params: Params) -> tuple[Params, dict]:
-        # clip_by_global_norm: no epsilon; a norm below max_norm passes as is
-        g_norm = global_norm(grads)
-        keep = g_norm < max_norm
-        grads = {k: torch.where(keep, g, (g / g_norm.to(g.dtype)) * max_norm) for k, g in grads.items()}
+        if max_norm is not None:
+            # clip_by_global_norm: no epsilon; a norm below max_norm passes as is
+            g_norm = global_norm(grads)
+            keep = g_norm < max_norm
+            grads = {k: torch.where(keep, g, (g / g_norm.to(g.dtype)) * max_norm) for k, g in grads.items()}
         # scale_by_adam; the float32 scalars are host floats, so that no
         # step copies a scalar to the device
         count = state["count"] + 1

@@ -34,15 +34,31 @@ PROMPT = 14
 FRAMES = 2
 
 
-def make_world(text_model: str = "opt", seed: int = 3, dtype=None, int8_kv: bool = False) -> SimpleNamespace:
+def _serving_modes(mod, cfg, modes: dict):
+    """``cfg`` (either package's config module ``mod``) with the int8
+    serving switches of ``modes`` on: ``int8_lm`` (weight-only int8 LM
+    matmuls), ``int8_kv`` (the int8 KV cache), ``w8a8_prefill`` (W8A8 LM
+    prefill matmuls past 64 rows), ``int8_vision`` (a W8A8 vision tower)."""
+    if not modes:
+        return cfg
+    text = mod.replace(cfg.text_config, quantize_matmuls=modes.get("int8_lm", False),
+                       int8_kv_cache=modes.get("int8_kv", False), w8a8_prefill=modes.get("w8a8_prefill", False))
+    vision = mod.replace(cfg.vision_config, quantize_matmuls=modes.get("int8_vision", False))
+    return mod.replace(cfg, text_config=text, vision_config=vision)
+
+
+def make_world(text_model: str = "opt", seed: int = 3, dtype=None, modes: dict = None) -> SimpleNamespace:
     """Both packages' models on one numpy weight tree. ``dtype`` bf16 builds
     both at a bf16 compute over the fp32 weights (the JAX model's
-    ``dtype``, the port's ``param_dtype=float32``)."""
-    cfg = configs.tiny_config(text_model=text_model)
-    tcfg = tconfigs.tiny_config(text_model=text_model)
-    if int8_kv:
-        cfg = configs.replace(cfg, text_config=configs.replace(cfg.text_config, int8_kv_cache=True))
-        tcfg = tconfigs.replace(tcfg, text_config=tconfigs.replace(tcfg.text_config, int8_kv_cache=True))
+    ``dtype``, the port's ``param_dtype=float32``). ``modes`` (see
+    :func:`_serving_modes`) turns the int8 serving modes on: the float tree
+    is quantized by the JAX package's functions and loaded into both."""
+    from eilev_tpu.ops import quantization as jq
+
+    modes = modes or {}
+    float_cfg = configs.tiny_config(text_model=text_model)
+    cfg = _serving_modes(configs, float_cfg, modes)
+    tcfg = _serving_modes(tconfigs, tconfigs.tiny_config(text_model=text_model), modes)
     img, q = cfg.vision_config.image_size, cfg.num_query_tokens
 
     def make_request(rseed, extra_text=0, n_videos=1):
@@ -62,9 +78,14 @@ def make_world(text_model: str = "opt", seed: int = 3, dtype=None, int8_kv: bool
     extra = {"decoder_input_ids": jnp.zeros((1, 1), jnp.int32)} if text_model == "t5" else {}
     jdtype = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
     jmodel = JVB(cfg, dtype=jdtype)
-    params = random_params(JVB(cfg), seed, input_ids=jnp.asarray(first.input_ids[None]),
+    params = random_params(JVB(float_cfg), seed, input_ids=jnp.asarray(first.input_ids[None]),
                            pixel_values=jnp.asarray(first.pixel_values),
                            video_input_mask=jnp.asarray(first.video_input_mask[None]), std=0.5, **extra)
+    params = dict(jax.tree.map(np.asarray, params))
+    if modes.get("int8_lm"):
+        params["language_model"] = jq.quantize_lm_params(params["language_model"])
+    if modes.get("int8_vision"):
+        params["vision_model"] = jq.quantize_vision_params(params["vision_model"])
     params = jax.tree.map(np.asarray, params)
     kw = {} if dtype is None else {"dtype": dtype, "param_dtype": torch.float32}
     model = VideoBlipForConditionalGeneration(tcfg, device="cpu", **kw)

@@ -183,6 +183,11 @@ def test_bleu_and_rouge_l_match_jax():
 
 
 def test_encoder_metrics_are_not_ported():
-    for fn in (tmetrics.bert_score_f1, tmetrics.sts_biencoder_cosine, tmetrics.sts_crossencoder):
-        with pytest.raises(NotImplementedError, match="encoder"):
-            fn(["a"], ["a"], "unused")
+    """The encoder metrics are ported (tests/test_torch_encoder.py holds them
+    to JAX's); without a local checkpoint each refuses as JAX's does."""
+    for fn, jfn in ((tmetrics.bert_score_f1, jmetrics.bert_score_f1),
+                    (tmetrics.sts_biencoder_cosine, jmetrics.sts_biencoder_cosine),
+                    (tmetrics.sts_crossencoder, jmetrics.sts_crossencoder)):
+        for f in (fn, jfn):
+            with pytest.raises(RuntimeError, match="local pretrained checkpoint"):
+                f(["a"], ["a"], "unused")

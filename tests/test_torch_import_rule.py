@@ -26,6 +26,8 @@ for name in sys.argv[1:]:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "eilev_tpu"))
 print("FORBIDDEN:" + ",".join(bad))
+late = sorted(m for m in sys.modules if m.split(".")[0] in ("transformers", "safetensors", "spacy"))
+print("IMPORTED_AT_USE:" + ",".join(late))
 """
 
 
@@ -36,7 +38,33 @@ def test_port_imports_no_jax():
         cwd=root, capture_output=True, text=True, timeout=120,
     )
     assert proc.returncode == 0, proc.stderr
-    assert proc.stdout.strip().splitlines()[-1] == "FORBIDDEN:", proc.stdout
+    assert proc.stdout.strip().splitlines()[-2] == "FORBIDDEN:", proc.stdout
+
+
+EVAL_SLICE = {
+    "eilev_tpu_torch.eval.encoder", "eilev_tpu_torch.eval.published", "eilev_tpu_torch.models.videomae",
+    "eilev_tpu_torch.cli.generation_eval", "eilev_tpu_torch.cli.sample_in_context_examples",
+    "eilev_tpu_torch.cli.verify_quality", "eilev_tpu_torch.cli.train_v1", "eilev_tpu_torch.cli.get_vision_model_embs",
+    "eilev_tpu_torch.cli.baselines.videomae_train", "eilev_tpu_torch.cli.baselines.videomae_predict",
+    "eilev_tpu_torch.cli.baselines.videomae_generate_full_sent",
+    "eilev_tpu_torch.cli.baselines.majority_generate_full_sent", "eilev_tpu_torch.cli.baselines.majority_predict",
+}
+
+
+def test_eval_slice_modules_import_no_transformers():
+    """The evaluation encoders, VideoMAE, the baselines and their CLIs are
+    among the probed modules, and importing them (with the rest of the port)
+    loads neither transformers nor safetensors nor spaCy: the card has no
+    transformers and no safetensors, so each is imported where it is used
+    (a tokenizer load), or not at all (safetensors: models/safetensors_io.py)."""
+    assert EVAL_SLICE <= set(PORT_MODULES), sorted(EVAL_SLICE - set(PORT_MODULES))
+    root = Path(__file__).resolve().parents[1]
+    proc = subprocess.run(
+        [sys.executable, "-c", _PROBE, *sorted(EVAL_SLICE)],
+        cwd=root, capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().splitlines()[-2:] == ["FORBIDDEN:", "IMPORTED_AT_USE:"], proc.stdout
 
 
 def test_every_port_module_is_probed():

@@ -210,7 +210,7 @@ def test_engine_feature_loader_needs_cache(world):
 def test_engine_int8_kv_matches_isolated_generate():
     """The int8 KV cache serving mode: admission, decode (K4's twin) and
     compaction over int8 k/v with bf16 scales."""
-    w = make_world("opt", int8_kv=True)
+    w = make_world("opt", modes={"int8_kv": True})
     gen = dict(max_new_tokens=4, pad_token_id=1)
     requests = [w.make_request(40 + seed, extra_text=seed % 2) for seed in range(5)]
     ref = reference_rows(w, requests, **gen)
