@@ -158,7 +158,7 @@ final result line):
 4d. Generation on the same bf16 model: the flagship sample's beam search
    (5 beams, length_penalty -1, eos 50118, 32 new tokens) at batch 1 and
    4 (K1 = 39, K2 = 32, K3 = 32 per one-token forward over the 5 or 20
-   beam rows; p50 of 3 warm requests, peak memory, a torch.profiler pass at
+   beam rows; p50 of SECONDARY_REPS warm requests, peak memory, a torch.profiler pass at
    batch 4); the VideoBLIP sample's sampling (temperature 0.7, top_p 0.9)
    at batch 4 with 2 sequences a row (and a profiler pass), and beam_sample
    at batch 1, each with a generator seeded anew for every request: the
@@ -171,7 +171,7 @@ final result line):
    generator. Each request counted against its own iterations (K1 = 39; K2
    = 32 a target prefill + 4 a draft prefill; K3 = 32 a target one-token
    forward + 4 a draft one-token forward, gamma + 1 draft steps a verify
-   pass), p50 of 3 warm requests, peak memory, tokens a verify pass, and a
+   pass), p50 of SECONDARY_REPS warm requests, peak memory, tokens a verify pass, and a
    torch.profiler pass over prompt-lookup greedy at batch 1. The stream's
    tokens equal generate's greedy tokens; speculative greedy rows equal
    plain greedy's or leave them at a near-tie of the plain path's logits
@@ -232,7 +232,7 @@ final result line):
    5,120, vocab 32,128, untied head), random bf16 weights N(0, 0.02) from
    T5_SEED, the 16-shot prompt in flan-t5's ids (766 tokens), 32 new
    tokens: (a) greedy at batch 1 and 4 under "auto" (K1 = 39 a request,
-   nothing else; every T5 attention plain), p50 of 3 warm requests,
+   nothing else; every T5 attention plain), p50 of SECONDARY_REPS warm requests,
    videos/s, peak memory, a torch.profiler pass at batch 1; (b) the same
    under "flash", restored after (K5 = 18 Q-Former + 24 encoder + 48 a
    decoder step, on every T5 attention with its bias), the encoder states'
@@ -276,7 +276,26 @@ final result line):
    a query, augmented on the card, the ICL phase's word tokenizer), 2 a
    step; the loss falls; a run saved at step 4 and resumed ends with the
    uninterrupted run's trainable state, bit for bit. (e) K1 called under
-   grad on a tensor that requires grad raises, launching nothing.
+   grad on a tensor that requires grad raises, launching nothing. (f)
+   Parallel training (training/pipeline_step.py, parallel/): (a) on (a)'s
+   model (unit LayerNorm scales), the OPT trunk's 32 layers as a GPipe
+   schedule of PP_STAGES = 4 stages (8 layers each, every stage on the one
+   card) and PP_MICROBATCHES = 4 micro-batches over a micro-batch of
+   PP_MICRO = 4 datapoints, dropout off: loss within 2e-2 relative and the
+   gradients' cosines > 0.99 against the plain step on the same batch, K1 =
+   39 and nothing else, then the pipelined and the plain train step timed
+   (one counted warm step, PP_STEPS timed: s/step, peak memory); (b) fp32
+   cuts, TF32 off, unit LayerNorm scales: the 2.7b widths with PP_F32_LAYERS
+   = 4 OPT layers over 2 and 4 stages, and the flan-t5-xl widths with 4
+   encoder and 4 decoder layers over 2, each PP_F32_MICRO = 2 micro-batches:
+   the loss and every leaf's gradient within 1e-5 (relative to its largest
+   element) of the plain step's; (c) on (a)'s model, the process group on
+   NCCL with a world of one (NCCL takes one rank a card; the multi-rank
+   arithmetic is held on the CPU by gloo in tests/test_torch_parallel_dp.py):
+   two Trainer steps with zero_shard_opt_state against two without from the
+   same weights, the trainable leaves and the optimizer state bit-identical;
+   the all-reduce of the gradient's size and the all-gather of the ZeRO
+   update timed. A JSON line of its own (parallel).
 10. HF checkpoints and the CLIs, after the training models are freed, at
    the eilev-blip2-opt-2.7b widths with 4 ViT, 12 Q-Former and 4 OPT
    layers (CKPT_LAYERS): (a) a bf16 model of N(0, 0.02) weights from a seed
@@ -551,6 +570,10 @@ TWO_PASS_PAD = 100
 # path, and chunked and cached scores against unchunked pixel ones
 ICL_BATCH = 4
 ICL_REPS = 5
+# timed requests (after one counted warm request) of the legs whose p50 is
+# a secondary figure: the generation knobs, the decoding modes, T5, the text
+# LM's beam-4 and int8 legs (3 until the parallel-training phase needed the time)
+SECONDARY_REPS = 2
 ICL_SCORE_TOL = 5e-2
 ICL_MIN_COSINE = 0.999
 # phase 9, training: the JAX training bench's variants (datapoints a
@@ -571,6 +594,17 @@ TRAINER_SAVE_AT = 4
 TRAINER_SEED = 42
 TRAINER_LR = 5e-3
 TRAINER_FULL_STEPS = 4  # the Trainer's timed steps at the full geometry, after one
+# phase 9 (f), parallel training: the full-depth OPT pipeline's stages and
+# GPipe micro-batches over a micro-batch of PP_MICRO datapoints (all stages
+# on the one card), its timed steps; the fp32 cuts' LM depth and micro-batch
+PP_STAGES = 4
+PP_MICROBATCHES = 4
+PP_MICRO = 4
+PP_STEPS = 2
+PP_F32_LAYERS = 4
+PP_F32_MICRO = 2
+T5_TARGET = 32  # the T5 leg's decoder labels a row
+NCCL_STEPS = 2
 BF16_ROUNDOFF = 2.0**-7  # bf16's unit roundoff: a key bias's norm share "zero" in bf16
 # phase 10, checkpoints and CLIs: the exported model's ViT, Q-Former and OPT
 # layers (the widths are eilev-blip2-opt-2.7b's) and its weights' seed
@@ -1933,7 +1967,7 @@ def run_generation(tag: str, model, lm_calls: list, runs: dict, launches: dict) 
     """Phase 4d: beam search and sampling on the main path's bf16 model. (a)
     The flagship sample's beam search (5 beams, length_penalty -1, eos
     50118, 32 new tokens) at batch 1 and 4: counted (K1 = 39, K2 = 32, K3 =
-    32 per one-token forward over the 5 or 20 beam rows), then p50 of 3 warm
+    32 per one-token forward over the 5 or 20 beam rows), then p50 of SECONDARY_REPS warm
     requests and peak memory, and a torch.profiler pass at batch 4. (b) The
     VideoBLIP sample's sampling (temperature 0.7, top_p 0.9) at batch 4 with
     2 sequences a row (with a profiler pass), and beam_sample (5 beams) at
@@ -1944,13 +1978,13 @@ def run_generation(tag: str, model, lm_calls: list, runs: dict, launches: dict) 
     vocab = model.config.text_config.vocab_size
     for batch in (1, 4):
         counts = drive(tag, "beam-5 (length_penalty -1)", runs[batch].variant(**BEAM_KNOBS), lm_calls, want,
-                       reps=3)
+                       reps=SECONDARY_REPS)
         launches[f"decode_attention_stacked_bf16 at beam-5 batch {batch}"] = counts["decode_attention_stacked_bf16"]
         print(f"[{tag}] beam-5 batch={batch}: K3 launches a request={counts['decode_attention_stacked_bf16']}")
     profile_request(tag, "narration beam-5", runs[4].variant(**BEAM_KNOBS))
     for label, run, reps in (
         ("sampling (temperature 0.7, top_p 0.9, 2 sequences a row)",
-         runs[4].variant(seed=GEN_SEED, num_return_sequences=2, **SAMPLE_KNOBS), 3),
+         runs[4].variant(seed=GEN_SEED, num_return_sequences=2, **SAMPLE_KNOBS), SECONDARY_REPS),
         ("beam_sample (5 beams, temperature 0.7, top_p 0.9)",
          runs[1].variant(seed=GEN_SEED, **BEAM_KNOBS, **SAMPLE_KNOBS), 1),
     ):
@@ -2081,7 +2115,7 @@ def run_decoding_modes(tag: str, model, lm_calls: list, runs: dict, launches: di
     prompt-lookup greedy (gamma 8, match 3), then prompt-lookup sampling
     (temperature 0.7, top_p 0.9) at batch 4 with a generator seeded with
     GEN_SEED. Each counted against its own iterations (drive_mode), p50 of
-    3 warm requests, peak memory and acceptance, and a torch.profiler pass
+    SECONDARY_REPS warm requests, peak memory and acceptance, and a torch.profiler pass
     over prompt-lookup greedy at batch 1. The stream's tokens equal
     generate's greedy tokens; the speculative greedy rows equal plain
     greedy's or leave it at a near-tie (compare_speculative); sampling gives
@@ -2095,7 +2129,7 @@ def run_decoding_modes(tag: str, model, lm_calls: list, runs: dict, launches: di
             for label, (knobs, mode) in DECODING_MODES.items():
                 run = runs[batch].variant(mode=mode, **knobs)
                 tokens, counts = drive_mode(tag, label, run, lm_calls, layer_calls, "packed_qkv_causal_attention",
-                                            n_vit, reps=3)
+                                            n_vit, reps=SECONDARY_REPS)
                 if batch == 1 and mode.get("draft") == "prompt_lookup":
                     profile_request(tag, f"narration {label}", run)
                 if "chunk_tokens" in mode:
@@ -2112,7 +2146,7 @@ def run_decoding_modes(tag: str, model, lm_calls: list, runs: dict, launches: di
             del rec
         label = "prompt lookup sampling (temperature 0.7, top_p 0.9)"
         run = runs[4].variant(seed=GEN_SEED, mode=lookup, **SAMPLE_KNOBS)
-        drive_mode(tag, label, run, lm_calls, layer_calls, "packed_qkv_causal_attention", n_vit, reps=3)
+        drive_mode(tag, label, run, lm_calls, layer_calls, "packed_qkv_causal_attention", n_vit, reps=SECONDARY_REPS)
         first, second = run.generate(), run.generate()
         same = bool(torch.equal(first, second))
         print(f"[{tag}] {label} batch=4: the same seed gives the same tokens twice={same}; row 0 {first[0].tolist()}")
@@ -2656,7 +2690,10 @@ class TextRun(Variants):
 def profile_request(tag: str, label: str, run) -> dict:
     """torch.profiler over one warm request: device kernel time, launches, the
     idle share of the profiled window and of an unprofiled run, the top
-    kernels. Returns the numbers printed."""
+    kernels. Returns the numbers printed. It records the device's activity
+    only: CPU op events change none of these numbers (the same kernel time
+    and launches, measured on the card at the text LM's 92,700 launches)
+    and cost three times the post-processing (59 s against 19 there)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -2664,7 +2701,7 @@ def profile_request(tag: str, label: str, run) -> dict:
     run.generate()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         run.generate()
         torch.cuda.synchronize()
@@ -2718,7 +2755,7 @@ def run_llama(tag: str, dev: torch.device, launches: dict) -> None:
     # beam-4 at batch 1: K5 in the prefill, K3 over the 4 beam rows
     beam = TextRun(module, (LLAMA_BEAM_PROMPT,), LLAMA_BEAM_PROMPT, dev, seed=6, new_tokens=LLAMA_BEAM_NEW)
     counts = drive(tag, f"llama bf16 beam-4 ({LLAMA_BEAM_PROMPT}-token prompt, {LLAMA_BEAM_NEW} new tokens)",
-                   beam.variant(num_beams=4), lm_calls, bf16, reps=3)
+                   beam.variant(num_beams=4), lm_calls, bf16, reps=SECONDARY_REPS)
     launches["decode_attention_stacked_bf16 at text-LM beam-4"] = counts["decode_attention_stacked_bf16"]
     run_text_decoding_modes(tag, runs[1], lm_calls, launches)
 
@@ -2746,7 +2783,7 @@ def run_llama(tag: str, dev: torch.device, launches: dict) -> None:
           f"memory_allocated_bytes={torch.cuda.memory_allocated()}")
     int8 = dict.fromkeys(counters(), 0)
     int8.update({"flash_attention": n_layers, "flash_attention_sm90": n_layers, "decode_attention_stacked_int8": "lm"})
-    drive(tag, "llama int8 serving", runs[1], lm_calls, int8, reps=3)
+    drive(tag, "llama int8 serving", runs[1], lm_calls, int8, reps=SECONDARY_REPS)
     profile_request(tag, "llama int8 serving", runs[1])
     a = runs[1].prefill_logits()[0].float()
     b = k5_logits[0].float()
@@ -3041,7 +3078,7 @@ def run_t5(tag: str, dev: torch.device, launches: dict) -> dict:
     x 1408, Q-Former 12, flan-t5-xl 24 + 24 layers of 2048, 32 heads x 64,
     gated-gelu FFN 5,120, vocab 32,128, untied head) with random bf16 weights
     N(0, 0.02) from T5_SEED: (a) greedy narration, 32 new tokens, at batch 1
-    and 4 under "auto" (K1 = 39, nothing else), p50 of 3 warm requests, peak
+    and 4 under "auto" (K1 = 39, nothing else), p50 of SECONDARY_REPS warm requests, peak
     memory, a profiler pass at batch 1; (b) the same under "flash" (K5 = 18
     Q-Former + 24 encoder + 48 a decoder step; the bias form on every T5
     attention), the encoder states' min cosine against (a)'s > 0.999, tokens
@@ -3067,7 +3104,8 @@ def run_t5(tag: str, dev: torch.device, launches: dict) -> dict:
     for batch in (1, 4):
         run = runs[batch]
         stats: dict = {}
-        counts = drive(tag, "T5 (a) greedy bf16 auto", run, calls, t5_counts(cfg, flash=False), reps=3, stats=stats)
+        counts = drive(tag, "T5 (a) greedy bf16 auto", run, calls, t5_counts(cfg, flash=False), reps=SECONDARY_REPS,
+                       stats=stats)
         launches["packed_qkv_attention at the T5 path"] = counts["packed_qkv_attention"]
         result[f"greedy_b{batch}"] = {"p50_s": stats["p50_s"], "videos_per_s": run.n_videos / stats["p50_s"],
                                       "peak_bytes": stats["peak_bytes"], "decoder_steps": stats["one_token_forwards"]}
@@ -3077,8 +3115,8 @@ def run_t5(tag: str, dev: torch.device, launches: dict) -> dict:
         enc = run.prefill_logits(run.embeds())
         with attention_impl("flash"):
             stats = {}
-            counts = drive(tag, "T5 (b) greedy bf16 flash", run, calls, t5_counts(cfg, flash=True), reps=3,
-                           stats=stats)
+            counts = drive(tag, "T5 (b) greedy bf16 flash", run, calls, t5_counts(cfg, flash=True),
+                           reps=SECONDARY_REPS, stats=stats)
             steps = stats["one_token_forwards"]
             flash_tokens, flash_enc = stats["tokens"], run.prefill_logits(run.embeds())
         cos = torch.nn.functional.cosine_similarity(flash_enc.float(), enc.float(), dim=-1).min().item()
@@ -3098,7 +3136,7 @@ def run_t5(tag: str, dev: torch.device, launches: dict) -> dict:
     # (c) beam-5 at batch 1
     stats = {}
     drive(tag, "T5 (c) beam-5 (length_penalty -1)", runs[1].variant(**BEAM_KNOBS), calls,
-          t5_counts(cfg, flash=False), reps=3, stats=stats)
+          t5_counts(cfg, flash=False), reps=SECONDARY_REPS, stats=stats)
     result["beam5_b1"] = {"p50_s": stats["p50_s"], "peak_bytes": stats["peak_bytes"]}
 
     # (d) seq2seq classify, the verb stage at batch 4, kernels vs plain path
@@ -3246,6 +3284,8 @@ def _compare_grads(tag: str, label: str, loss, ref_loss, grads, ref, loss_tol: f
     assert min_cos is None or (worst_cos > min_cos and whole_cos > min_cos), (worst_cos, whole_cos)
     assert rel_tol is None or worst_rel < rel_tol, worst_rel
     assert all(share < zero_share for share in zero.values()), zero
+    return {"loss": float(loss), "reference_loss": float(ref_loss), "loss_rel_err": loss_rel,
+            "whole_gradient_cosine": whole_cos, "min_leaf_cosine": worst_cos, "max_leaf_rel_err": worst_rel}
 
 
 def _worst_leaf_err(a: tuple, b: tuple) -> tuple[float, str]:
@@ -3283,9 +3323,9 @@ class TrainRun:
         self.state, self.metrics = self.step_fn(self.state, self.batch_tensors)
 
 
-def run_train_variants(tag: str, dev, cfg) -> list:
-    """Phase 9 (a), (b) and (e) on the full eilev-blip2-opt-2.7b geometry.
-    Returns one row of numbers a variant."""
+def run_train_variants(tag: str, dev, cfg) -> tuple[list, dict]:
+    """Phase 9 (a), (b), (e) and (f) (a), (c) on the full eilev-blip2-opt-2.7b
+    geometry. Returns one row of numbers a variant, and (f)'s numbers."""
     from eilev_tpu_torch.models import VideoBlipForConditionalGeneration
     from eilev_tpu_torch.ops import fused_attention as fa
     from eilev_tpu_torch.training import freeze_towers
@@ -3375,10 +3415,241 @@ def run_train_variants(tag: str, dev, cfg) -> list:
     gc.collect()
     torch.cuda.empty_cache()
     run_trainer_full(tag, dev, cfg, model, rows[0])
+    parallel = run_pipeline_full(tag, dev, cfg, model)
+    parallel["nccl"] = run_nccl_zero(tag, dev, cfg, model)
     del model, trainable, frozen
     gc.collect()
     torch.cuda.empty_cache()
-    return rows
+    return rows, parallel
+
+
+def _pp_loss_and_grads(model, batch: dict, stages: int, microbatches: int, dev) -> tuple[torch.Tensor, dict]:
+    """``_loss_and_grads`` through training/pipeline_step's forward, the LM
+    trunk a GPipe schedule of ``stages`` stages on ``dev`` (repeated), dropout
+    off."""
+    from eilev_tpu_torch.parallel import make_pipeline_mesh, shard_stacked
+    from eilev_tpu_torch.training import partition_params
+    from eilev_tpu_torch.training.pipeline_step import make_pp_forward, pp_partition_frozen
+
+    trainable, _ = partition_params(dict(model.named_parameters()))
+    mesh = make_pipeline_mesh(stages, devices=[dev] * stages)
+    _, stacked = pp_partition_frozen(model, stages)
+    stacked = {k: shard_stacked(v, mesh) for k, v in stacked.items()}
+    model.train(False)
+    loss = make_pp_forward(model, mesh, num_microbatches=microbatches)(stacked, {k: v[0] for k, v in batch.items()},
+                                                                      None)
+    grads = torch.autograd.grad(loss, list(trainable.values()))
+    return loss.detach().float(), {k: g.float() for k, g in zip(trainable, grads)}
+
+
+def _timed_steps(step, steps: int) -> tuple[float, int, dict]:
+    """One counted warm step of ``step`` (a closure over its state and
+    batch), then ``steps`` timed: (s/step, peak bytes, the warm step's launches)."""
+    reset_counters()
+    step()
+    torch.cuda.synchronize()
+    counts = counters()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        step()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / steps, torch.cuda.max_memory_allocated(), counts
+
+
+def run_pipeline_full(tag: str, dev, cfg, model) -> dict:
+    """Phase 9 (f) (a): the full-depth OPT trunk as a PP_STAGES-stage GPipe
+    schedule on the one card, PP_MICROBATCHES micro-batches of a PP_MICRO
+    datapoint micro-batch; its loss and trainable gradients against the
+    plain step's on the same batch, dropout off; both steps timed."""
+    from eilev_tpu_torch.parallel import make_pipeline_mesh, shard_stacked
+    from eilev_tpu_torch.training import (OptimizerConfig, TrainState, make_optimizer, make_train_step,
+                                          partition_params)
+    from eilev_tpu_torch.training.pipeline_step import make_pp_train_step, pp_partition_frozen
+
+    t0 = time.perf_counter()
+    n_vit = cfg.vision_config.num_hidden_layers
+    batch = _train_batch(cfg, PP_MICRO, dev)
+    reset_counters()
+    pp = _pp_loss_and_grads(model, batch, PP_STAGES, PP_MICROBATCHES, dev)
+    pp_counts = counters()
+    plain = _loss_and_grads(model, batch, None)
+    label = (f"training (f) (a) OPT trunk, {cfg.text_config.num_hidden_layers} layers as a {PP_STAGES}-stage GPipe "
+             f"schedule of {PP_MICROBATCHES} micro-batches on one card vs the plain step, bf16, dropout off")
+    cmp = _compare_grads(tag, label, pp[0], plain[0], pp[1], plain[1], loss_tol=2e-2, zero_share=BF16_ROUNDOFF,
+                         min_cos=0.99)
+    del pp, plain
+    gc.collect()
+    torch.cuda.empty_cache()
+    want = dict.fromkeys(pp_counts, 0)
+    want["packed_qkv_attention"] = n_vit  # the frozen ViT, once a micro-batch; the trunk runs plain attention
+    assert pp_counts == want, f"pipeline launches {pp_counts}, expected {want}"
+
+    trainable, _ = partition_params(dict(model.named_parameters()))
+    mesh = make_pipeline_mesh(PP_STAGES, devices=[dev] * PP_STAGES)
+    _, stacked = pp_partition_frozen(model, PP_STAGES)
+    stacked = {k: shard_stacked(v, mesh) for k, v in stacked.items()}
+    out = {"stages": PP_STAGES, "microbatches": PP_MICROBATCHES, "micro": PP_MICRO, "seq": TRAIN_SEQ,
+           "devices": [str(d) for d in mesh.devices], "bubble": (PP_STAGES - 1) / (PP_MICROBATCHES + PP_STAGES - 1),
+           **cmp}
+    for name, make in (("pipeline", lambda: make_pp_train_step(model, mesh, stacked, dropout=False,
+                                                                num_microbatches=PP_MICROBATCHES)),
+                       ("plain", lambda: make_train_step(model, dropout=False))):
+        runs = {"state": TrainState.create(trainable, make_optimizer(OptimizerConfig())), "step": make()}
+
+        def step(runs=runs):
+            runs["state"], runs["metrics"] = runs["step"](runs["state"], batch)
+
+        s_step, peak, counts = _timed_steps(step, PP_STEPS)
+        loss = float(runs["metrics"]["loss"])
+        assert np.isfinite(loss) and counts["packed_qkv_attention"] == n_vit, (loss, counts)
+        out[f"{name}_s_per_step"], out[f"{name}_peak_bytes"] = s_step, peak
+        out[f"{name}_k1_launches"] = counts["packed_qkv_attention"]
+        print(f"[{tag}] training (f) (a) {name} step, micro {PP_MICRO} x {TRAIN_SEQ} tokens, dropout off: "
+              f"s_per_step={s_step} videos_per_s={PP_MICRO * (SHOTS + 1) / s_step} max_memory_allocated_bytes={peak} "
+              f"loss={loss} launches {counts}")
+        del runs
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    print(f"[{tag}] training (f) (a) took {out['seconds']} s")
+    return out
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def run_nccl_zero(tag: str, dev, cfg, model) -> dict:
+    """Phase 9 (f) (c): the process group on NCCL with a world of one (NCCL
+    takes one rank a card), two Trainer steps with zero_shard_opt_state
+    against two without, from the same weights: the trainable leaves and the
+    optimizer state bit-identical; the all-reduce of the gradient's size and
+    the all-gather of the ZeRO update timed."""
+    import itertools
+    import tempfile
+
+    import torch.distributed as dist
+
+    from eilev_tpu_torch.parallel import distributed
+    from eilev_tpu_torch.training.trainer import Trainer, TrainerConfig
+
+    t0 = time.perf_counter()
+    started = distributed.initialize(dev, init_method=f"tcp://localhost:{_free_port()}", world_size=1, rank=0)
+    assert started and dist.get_backend() == "nccl", dist.get_backend()
+    try:
+        start = {k: p.detach().clone() for k, p in model.named_parameters() if p.requires_grad}
+        batch = _train_batch(cfg, 1, dev)
+        runs = {}
+        with tempfile.TemporaryDirectory(dir=os.path.dirname(os.path.abspath(__file__))) as root:
+            for zero in (False, True):
+                with torch.no_grad():
+                    for k, p in model.named_parameters():
+                        if k in start:
+                            p.copy_(start[k])
+                conf = TrainerConfig(output_dir=os.path.join(root, str(zero)), num_train_steps=NCCL_STEPS,
+                                     gradient_accumulation_steps=1, eval_steps=0, save_steps=0, log_steps=1,
+                                     load_best_model_at_end=False, zero_shard_opt_state=zero)
+                logs = []
+                trainer = Trainer(model, conf, lambda seed: itertools.repeat(batch),
+                                  logger=lambda step, m, logs=logs: logs.append(m))
+                trainer.train()
+                torch.cuda.synchronize()
+                runs[zero] = ({k: p.detach().clone() for k, p in trainer.state.trainable.items()},
+                              trainer.state.opt_state, [m["loss"] for m in logs])
+                del trainer
+        (a, a_opt, a_loss), (b, b_opt, b_loss) = runs[False], runs[True]
+
+        def leaves(tree, prefix=""):
+            if isinstance(tree, dict):
+                for k, v in tree.items():
+                    yield from leaves(v, f"{prefix}{k}.")
+            else:
+                yield prefix, tree
+
+        opt_a, opt_b = dict(leaves(a_opt)), dict(leaves(b_opt))
+        unequal = [k for k in a if not torch.equal(a[k], b[k])]
+        unequal_opt = [k for k in opt_a if not (torch.equal(opt_a[k], opt_b[k]) if isinstance(opt_a[k], torch.Tensor)
+                                                 else opt_a[k] == opt_b[k])]
+        # the collectives at the step's sizes: the gradient all-reduce, the ZeRO parameter all-gather
+        n = sum(p.numel() for p in a.values())
+        flat = torch.ones(n, dtype=torch.float32, device=dev)
+        parts = [torch.empty_like(flat)]
+        all_reduce_ms = median_ms(lambda: dist.all_reduce(flat), reps=5, warmup=2)
+        all_gather_ms = median_ms(lambda: dist.all_gather(parts, flat), reps=5, warmup=2)
+        out = {"backend": dist.get_backend(), "world": dist.get_world_size(), "steps": NCCL_STEPS,
+               "trainable_elements": n, "losses": a_loss, "zero_losses": b_loss,
+               "trainable_bit_identical": not unequal, "opt_state_bit_identical": not unequal_opt,
+               "opt_state_leaves": len(opt_a), "all_reduce_ms": all_reduce_ms, "all_gather_ms": all_gather_ms}
+        print(f"[{tag}] training (f) (c) NCCL world of one, {NCCL_STEPS} Trainer steps with zero_shard_opt_state vs "
+              f"without: {out} unequal={unequal[:3]} unequal_opt={unequal_opt[:3]}")
+        assert not unequal and not unequal_opt and opt_a.keys() == opt_b.keys() and a_loss == b_loss, out
+        del runs, a, b, a_opt, b_opt, opt_a, opt_b, flat, parts
+    finally:
+        dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def _t5_train_batch(cfg, micro: int, dev, dtype=torch.float32) -> dict:
+    """The T5 leg's batch: bench's 16-shot flan-t5 prompt (766 tokens) for
+    ``micro`` datapoints, T5_TARGET decoder labels a row (row 0's last 8
+    -100), frames from a seed; a leading micro-batch axis of 1."""
+    from eilev_tpu_torch.ops.preprocess import process_videos
+
+    ids, mask, vim = build_prompt(cfg.num_query_tokens, micro, t5=True)
+    rng = np.random.default_rng(3)
+    labels = rng.integers(1000, 32000, size=(micro, T5_TARGET))
+    labels[0, -8:] = -100
+    frames = rng.integers(0, 256, size=(micro * (SHOTS + 1), 3, FRAMES, 224, 224), dtype=np.uint8)
+    batch = {k: torch.from_numpy(v).to(dev)[None] for k, v in
+             (("input_ids", ids), ("attention_mask", mask), ("video_input_mask", vim), ("labels", labels))}
+    batch["pixel_values"] = process_videos(torch.from_numpy(frames).to(dev), dtype=dtype)[None]
+    return batch
+
+
+def run_pipeline_f32(tag: str, dev) -> dict:
+    """Phase 9 (f) (b): fp32 depth cuts, TF32 off: the eilev-blip2-opt-2.7b
+    widths with PP_F32_LAYERS OPT layers over 2 and 4 stages, and
+    eilev-blip2-flan-t5-xl with PP_F32_LAYERS encoder and decoder layers
+    over 2; the loss and every trainable leaf's gradient against the plain
+    step's within 1e-5 (relative to the leaf's largest element), dropout
+    off, unit LayerNorm scales."""
+    from eilev_tpu_torch.models import VideoBlipForConditionalGeneration
+    from eilev_tpu_torch.training import freeze_towers
+
+    t0 = time.perf_counter()
+    base = f32_cut_config()
+    opt_cfg = dataclasses.replace(base, text_config=dataclasses.replace(base.text_config,
+                                                                        num_hidden_layers=PP_F32_LAYERS))
+    out = {}
+    for name, cfg, make_batch, stage_counts in (
+            ("opt", opt_cfg, _train_batch, (2, 4)),
+            ("t5", t5_config(layers=PP_F32_LAYERS), _t5_train_batch, (2,))):
+        model = VideoBlipForConditionalGeneration(cfg, device=dev)  # fp32
+        random_init_(model, torch.Generator(device=dev).manual_seed(49), std=0.02)
+        unit_norms_(model)
+        freeze_towers(model)
+        batch = make_batch(cfg, PP_F32_MICRO, dev, dtype=torch.float32)
+        ref = _loss_and_grads(model, batch, None)
+        for stages in stage_counts:
+            got = _pp_loss_and_grads(model, batch, stages, PP_F32_MICRO, dev)
+            out[f"{name}_{stages}_stages"] = _compare_grads(
+                tag, f"training (f) (b) fp32 {name} cut, {PP_F32_LAYERS} LM layers a stack as {stages} stages x "
+                f"{PP_F32_MICRO} micro-batches vs the plain step", got[0], ref[0], got[1], ref[1], loss_tol=1e-5,
+                zero_share=1e-5, rel_tol=1e-5)
+        del model, batch, ref, got
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    print(f"[{tag}] training (f) (b) took {out['seconds']} s")
+    return out
 
 
 def _train_dataset(n: int, shots: int, seed: int) -> list:
@@ -3539,15 +3810,17 @@ def run_train_f32(tag: str, dev) -> None:
     torch.cuda.empty_cache()
 
 
-def run_training(tag: str, dev) -> list:
-    """Phase 9. Returns the variants' rows."""
+def run_training(tag: str, dev) -> tuple[list, dict]:
+    """Phase 9. Returns the variants' rows and (f)'s numbers."""
     from eilev_tpu_torch import configs
 
     t0 = time.perf_counter()
-    rows = run_train_variants(tag, dev, configs.blip2_opt_2_7b())
+    rows, parallel = run_train_variants(tag, dev, configs.blip2_opt_2_7b())
     run_train_f32(tag, dev)
+    parallel["f32_cuts"] = run_pipeline_f32(tag, dev)
+    parallel["card"] = tag
     print(f"[{tag}] training phase took {time.perf_counter() - t0} s")
-    return rows
+    return rows, parallel
 
 
 # ---------------------------------------------------------------------------
@@ -5134,15 +5407,25 @@ def main(argv: list) -> int:
             traceback.print_exc()
             return 1
         return 0
+    t_script = time.perf_counter()
+
+    def took(phase: str, t0: float) -> float:
+        now = time.perf_counter()
+        print(f"[{tag}] {phase} took {now - t0} s (script at {now - t_script} s)")
+        return now
+
     try:
         build_kernels(tag)
+        t = took("build", t_script)
         kernels = check_kernels(tag, dev)
         beam_rows = check_beam_decode(tag, dev)
         mode_rows = check_decoding_mode_shapes(tag, dev)
         t5_rows = check_t5_shapes(tag, dev)
+        t = took("kernel checks and timings (phases 2-3)", t)
         launches: dict = {}
         model, lm_calls, runs = run_main_path(tag, dev, launches)
         run_k6_on_vit_layers(tag, model, runs[1], launches)
+        t = took("main path and K6 on the ViT layers", t)
         t0 = time.perf_counter()
         run_icl(tag, dev, model, runs[4])
         run_icl_evaluator_f32(tag, dev)
@@ -5155,20 +5438,24 @@ def main(argv: list) -> int:
         print(f"[{tag}] decoding modes phase took {time.perf_counter() - t0} s")
         gc.collect()
         torch.cuda.empty_cache()
+        t = time.perf_counter()
         run_int8_serving(tag, model, lm_calls, runs, launches)
+        t = took("int8 serving", t)
         del model, lm_calls, runs  # free the VideoBLIP model before the 13.5 GB LLaMA
         gc.collect()
         torch.cuda.empty_cache()
         run_llama(tag, dev, launches)
+        t = took("LLaMA", t)
         gc.collect()
         torch.cuda.empty_cache()
         run_f32_paths(tag, dev, launches)
+        took("fp32 paths", t)
         gc.collect()
         torch.cuda.empty_cache()
         t5 = run_t5(tag, dev, launches)
         gc.collect()
         torch.cuda.empty_cache()
-        training = run_training(tag, dev)
+        training, parallel = run_training(tag, dev)
         gc.collect()
         torch.cuda.empty_cache()
         run_checkpoints(tag, dev)
@@ -5179,6 +5466,7 @@ def main(argv: list) -> int:
         torch.cuda.empty_cache()
         videomae_rows, evaluation = run_eval_baselines(tag, dev, launches)
         kernels = kernels + videomae_rows
+        took("the whole script", t_script)
     except Exception:
         traceback.print_exc()
         return 1
@@ -5196,6 +5484,8 @@ def main(argv: list) -> int:
     print(json.dumps({"beam_decode_shapes": [
         dict(r, route="cuda", launches=launches.get(r["name"], 0)) for r in beam_rows]}))
     print(json.dumps({"training": training}))
+    # phase 9 (f): pipeline and data-parallel training
+    print(json.dumps({"parallel": parallel}))
     # the decoding modes' new shapes, with their launches in the mode runs
     # (K3 over the target's speculative cache: none, its verify pass is
     # plain attention)

@@ -75,7 +75,8 @@ def check_args(args: argparse.Namespace) -> None:
     """Refuse what the port does not run yet, and what cannot be combined."""
     if args.model_parallel > 1:
         raise NotImplementedError(
-            "--model_parallel > 1 is not ported: the port runs on one device (it waits for parallel/)")
+            "--model_parallel > 1 (tensor parallelism) is not ported: the port runs the model on one device "
+            "(it waits for the tensor-parallel slice)")
     if args.vision_cache and args.shuffle_in_context_example_frames:
         # the derangement ablation permutes videos relative to their
         # frame_paths, so path-keyed caching would reuse wrong features

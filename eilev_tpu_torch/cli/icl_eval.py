@@ -153,7 +153,8 @@ def main(argv: Optional[list[str]] = None):
     args = parse_args(argv)
     if args.model_parallel > 1:
         raise NotImplementedError(
-            "--model_parallel > 1 is not ported: the port runs on one device (it waits for parallel/)"
+            "--model_parallel > 1 (tensor parallelism) is not ported: the port runs the model on one device "
+            "(it waits for the tensor-parallel slice)"
         )
     from ..models.auto import load_model, load_tokenizer
 

@@ -88,7 +88,8 @@ def parse_args(argv: Optional[list[str]] = None) -> argparse.Namespace:
 def check_args(args: argparse.Namespace) -> None:
     if args.model_parallel > 1:
         raise NotImplementedError(
-            "--model_parallel > 1 is not ported: the port runs on one device (it waits for parallel/)")
+            "--model_parallel > 1 (tensor parallelism) is not ported: the port runs the model on one device "
+            "(it waits for the tensor-parallel slice)")
 
 
 def load_datasets(args: argparse.Namespace) -> dict[str, Any]:

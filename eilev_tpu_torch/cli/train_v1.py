@@ -1,12 +1,18 @@
 """VideoBLIP (v1) training: single-video narration fine-tuning with a fixed
-instruction prompt (counterpart of ``scripts/train_v1.py``), on one device
-(``--device``, the card by default).
+instruction prompt (counterpart of ``scripts/train_v1.py``), on the card by
+default (``--device``).
 
 The original's scripts/general/train_v1.py: the prompt 'Question: What is
 the camera wearer doing? Answer:', FrameDataset with a subsample-only
 transform, frozen towers; its README: batch 32 x accum 4 on one
 accelerator. The model is ``models/video_blip_v1.py`` (video features
 prepended), trained by ``training/trainer.Trainer``.
+
+Data parallelism, one process a replica, as in train_v2 (``torchrun
+--nproc_per_node N -m eilev_tpu_torch.cli.train_v1 ...``): each process
+loads its stride of the data, ``--per_device_train_batch_size`` rows of
+each micro-batch. The JAX v1 CLI has no ZeRO or pipeline flags, nor has
+this one.
 
     python -m eilev_tpu_torch.cli.train_v1 --model_name_or_path DIR \\
         --train_frames_dir TRAIN --val_frames_dir VAL --output_dir checkpoints/v1
@@ -49,15 +55,19 @@ def parse_args(argv: Optional[list[str]] = None) -> argparse.Namespace:
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--resume_from_checkpoint", action="store_true")
     p.add_argument("--wandb_project", default=None)
-    p.add_argument("--data_parallel", type=int, default=None, help="data-parallel devices; the port runs on one")
+    p.add_argument("--data_parallel", type=int, default=None,
+                   help="data-parallel processes (default: as many as torchrun started; must equal them)")
     return p.parse_args(argv)
 
 
-def check_args(args: argparse.Namespace) -> None:
-    """Refuse data parallelism, which waits for the port's ``parallel/``."""
-    if (args.data_parallel or 1) > 1:
-        raise NotImplementedError(
-            "--data_parallel > 1 is not ported: the port trains on one device (it waits for parallel/)")
+def data_mesh(args: argparse.Namespace):
+    """Join the process group torchrun started (a no-op for one process) and
+    return this process's data mesh."""
+    from ..parallel.distributed import initialize
+    from ..parallel.mesh import make_mesh
+
+    initialize(args.device)
+    return make_mesh(data=args.data_parallel, device=args.device)
 
 
 def load_datasets(args: argparse.Namespace) -> dict[str, Any]:
@@ -78,19 +88,22 @@ def run(args: argparse.Namespace, model, tokenizer, datasets: dict[str, Any]):
     from ..training.trainer import Trainer, TrainerConfig
     from ..utils import WandbLogger
 
-    check_args(args)
+    mesh = data_mesh(args)
     config = model.config
     dtype = DTYPES[args.dtype]
     micro = args.per_device_train_batch_size
 
-    def batches(dataset, seed, epochs=None, accum=None):
+    def batches(dataset, seed, epochs=None, accum=None, shard=True):
         return train_batch_iterator(
             dataset,
             tokenizer,
             num_query_tokens=config.num_query_tokens,
             decoder_only_lm=config.use_decoder_only_language_model,
             accum_steps=accum if accum is not None else args.gradient_accumulation_steps,
-            micro_batch_size=micro,
+            # training: this process's stride; eval: the whole global micro-batch on every process
+            micro_batch_size=micro if shard else micro * mesh.data_size,
+            process_index=mesh.data_rank if shard else 0,
+            process_count=mesh.data_size if shard else 1,
             max_length=args.max_length,
             num_frames=args.num_subsample_frames,
             image_size=config.vision_config.image_size,
@@ -99,11 +112,11 @@ def run(args: argparse.Namespace, model, tokenizer, datasets: dict[str, Any]):
             epochs=epochs,
             dtype=dtype,
             interleaved=False,
-            device=args.device,
+            device=mesh.device,
         )
 
     def eval_batches():
-        for batch in batches(datasets["val"], 0, epochs=1, accum=1):
+        for batch in batches(datasets["val"], 0, epochs=1, accum=1, shard=False):
             yield {k: v[0] for k, v in batch.items()}  # drop the accum axis
 
     trainer = Trainer(
@@ -128,6 +141,7 @@ def run(args: argparse.Namespace, model, tokenizer, datasets: dict[str, Any]):
         train_batches=lambda seed: batches(datasets["train"], seed),
         eval_batches=eval_batches,
         logger=WandbLogger(project=args.wandb_project, enabled=args.wandb_project is not None),
+        mesh=mesh,
     )
     trainer.train()
     return trainer
@@ -135,11 +149,10 @@ def run(args: argparse.Namespace, model, tokenizer, datasets: dict[str, Any]):
 
 def main(argv: Optional[list[str]] = None):
     args = parse_args(argv)
-    check_args(args)
     from ..models.auto import load_model, load_tokenizer
 
     model, _ = load_model(args.model_name_or_path, version="v1", dtype=DTYPES[args.dtype], remat=args.remat,
-                          device=args.device)
+                          device=data_mesh(args).device)
     tokenizer = load_tokenizer(args.model_name_or_path)
     return run(args, model, tokenizer, load_datasets(args))
 

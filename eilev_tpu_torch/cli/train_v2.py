@@ -1,6 +1,6 @@
 """EILeV (v2) training: interleaved in-context fine-tuning of the Q-Former,
 language projection and query tokens on frozen towers (counterpart of
-``scripts/train_v2.py``), on one device (``--device``, the card by default).
+``scripts/train_v2.py``), on the card by default (``--device``).
 
     python -m eilev_tpu_torch.cli.train_v2 --model_name_or_path DIR \\
         --train_frames_dir TRAIN --val_frames_dir VAL --num_subsample_frames 8 \\
@@ -12,6 +12,20 @@ With ``--export_hf`` the trained model is written to ``<output_dir>/hf`` as
 an HF ``save_pretrained`` directory (``model.safetensors`` in fp32 and the
 source checkpoint's ``config.json``), which both packages' ``load_model``
 read.
+
+Multi-device training, one process a data replica, started by torchrun
+(the process group is joined whenever torchrun started more than one
+process; ``--multihost`` is accepted for the JAX CLI's command lines)::
+
+    torchrun --nproc_per_node 8 -m eilev_tpu_torch.cli.train_v2 ... --per_device_train_batch_size 1
+    torchrun --nproc_per_node 8 -m eilev_tpu_torch.cli.train_v2 ... --zero_shard_opt_state
+    torchrun --nproc_per_node 2 -m eilev_tpu_torch.cli.train_v2 ... --pipeline_parallel 4
+
+Each process loads its stride of the data (``--per_device_train_batch_size``
+rows of each micro-batch) onto ``cuda:LOCAL_RANK``; with
+``--pipeline_parallel S`` it drives S cards, ``cuda:LOCAL_RANK * S`` on.
+``--device cpu`` runs every stage on the CPU (gloo for the collectives).
+Tensor parallelism (``--model_parallel`` > 1) is not ported.
 """
 
 from __future__ import annotations
@@ -52,7 +66,8 @@ def parse_args(argv: Optional[list[str]] = None) -> argparse.Namespace:
     p.add_argument("--num_train_steps", type=int, default=None,
                    help="step cap; default derives from --num_train_epochs")
     p.add_argument("--num_train_epochs", type=int, default=5)
-    p.add_argument("--zero_shard_opt_state", action="store_true", help="ZeRO-2; not ported (one device)")
+    p.add_argument("--zero_shard_opt_state", action="store_true",
+                   help="ZeRO-2: shard the optimizer moments over the data-parallel processes")
     p.add_argument("--async_save", action="store_true", help="overlap checkpoint writes with training compute")
     p.add_argument("--remat", action="store_true",
                    help="per-layer rematerialization of the frozen LM trunk (layer-boundary activations only)")
@@ -70,28 +85,57 @@ def parse_args(argv: Optional[list[str]] = None) -> argparse.Namespace:
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--resume_from_checkpoint", action="store_true")
     p.add_argument("--wandb_project", default=None)
-    p.add_argument("--data_parallel", type=int, default=None, help="data-parallel devices; the port runs on one")
-    p.add_argument("--multihost", action="store_true", help="multi-process training; not ported")
+    p.add_argument("--data_parallel", type=int, default=None,
+                   help="data-parallel processes (default: as many as torchrun started; must equal them)")
+    p.add_argument("--multihost", action="store_true",
+                   help="multi-process training (torchrun); the process group is joined whenever torchrun "
+                        "started more than one process")
     p.add_argument("--model_parallel", type=int, default=1, help="tensor-parallel devices; not ported")
-    p.add_argument("--pipeline_parallel", type=int, default=0, help="> 1: pipeline stages; not ported")
-    p.add_argument("--pipeline_microbatches", type=int, default=4, help="pipeline microbatches; not ported")
+    p.add_argument("--pipeline_parallel", type=int, default=0,
+                   help="> 1: GPipe the frozen LM layer stack over this many stages, one card each "
+                        "(exclusive with --model_parallel)")
+    p.add_argument("--pipeline_microbatches", type=int, default=4,
+                   help="GPipe micro-batches; each process's micro-batch must divide into them")
     p.add_argument("--export_hf", action="store_true", help="export the final model as HF safetensors")
     return p.parse_args(argv)
 
 
 def check_args(args: argparse.Namespace) -> None:
-    """Refuse the parallel modes, which wait for the port's ``parallel/``."""
-    unported = {
-        "--multihost": args.multihost,
-        "--pipeline_parallel > 1": args.pipeline_parallel > 1,
-        "--model_parallel > 1": args.model_parallel > 1,
-        "--data_parallel > 1": (args.data_parallel or 1) > 1,
-        "--zero_shard_opt_state": args.zero_shard_opt_state,
-    }
-    for flag, requested in unported.items():
-        if requested:
-            raise NotImplementedError(
-                f"{flag} is not ported: the port trains on one device (it waits for parallel/)")
+    """The JAX CLI's checks of the parallel flags: pipeline and tensor
+    parallelism are exclusive, ``--remat`` has no effect under the
+    pipeline, whose micro-batches must divide each process's rows; and
+    tensor parallelism is not ported."""
+    if args.pipeline_parallel > 1:
+        if args.model_parallel > 1:
+            raise ValueError("--pipeline_parallel and --model_parallel are exclusive")
+        if args.per_device_train_batch_size % args.pipeline_microbatches != 0:
+            raise ValueError(f"--per_device_train_batch_size {args.per_device_train_batch_size} does not split "
+                             f"into --pipeline_microbatches {args.pipeline_microbatches}")
+        if args.remat:
+            raise ValueError(
+                "--remat has no effect under --pipeline_parallel (the pipeline trunk runs the LM layers "
+                "outside the model's forward and stages activations per micro-batch); drop --remat")
+    if args.model_parallel > 1:
+        raise NotImplementedError(
+            "--model_parallel > 1 (tensor parallelism) is not ported: it waits for the port's tensor-parallel "
+            "slice (local-head OPT, T5, ViT and Q-Former modules)")
+
+
+def parallel_mesh(args: argparse.Namespace):
+    """Join the process group torchrun started (a no-op for one process) and
+    return this process's mesh: the data group, and ``--pipeline_parallel``
+    stage devices (the cards from ``LOCAL_RANK * stages`` on; every stage
+    on the CPU for ``--device cpu``)."""
+    from ..parallel.distributed import initialize
+    from ..parallel.mesh import make_mesh
+    from ..parallel.pipeline import make_pipeline_mesh
+
+    initialize(args.device)
+    stages = args.pipeline_parallel
+    if stages > 1:
+        devices = [args.device] * stages if torch.device(args.device).type == "cpu" else None
+        return make_pipeline_mesh(stages, data=args.data_parallel, devices=devices)
+    return make_mesh(data=args.data_parallel, model=args.model_parallel, device=args.device)
 
 
 def load_datasets(args: argparse.Namespace) -> dict[str, Any]:
@@ -132,10 +176,15 @@ def run(args: argparse.Namespace, model, tokenizer, datasets: dict[str, Any]):
     from ..utils import WandbLogger
 
     check_args(args)
+    mesh = parallel_mesh(args)
     config = model.config
     dtype = DTYPES[args.dtype]
     train_data, val_data = datasets["train"], datasets["val"]
-    micro = args.per_device_train_batch_size
+    # the global micro-batch, one process a replica: each loads its stride
+    # of it, --per_device_train_batch_size rows (so the process count
+    # always divides it, which JAX's CLI has to check)
+    n_proc, micro_local = mesh.data_size, args.per_device_train_batch_size
+    micro = micro_local * n_proc
     global_batch = micro * args.gradient_accumulation_steps
     steps_per_epoch = max(len(train_data) // global_batch, 1)
     total_steps = args.num_train_steps if args.num_train_steps is not None else steps_per_epoch * args.num_train_epochs
@@ -146,13 +195,14 @@ def run(args: argparse.Namespace, model, tokenizer, datasets: dict[str, Any]):
         num_frames=args.num_subsample_frames,
         image_size=config.vision_config.image_size,
         dtype=dtype,
-        device=args.device,
+        device=mesh.device,
     )
 
     def train_batches(seed):
         return train_batch_iterator(
-            train_data, tokenizer, accum_steps=args.gradient_accumulation_steps, micro_batch_size=micro,
-            augment=True, seed=seed, epochs=args.num_train_epochs if args.num_train_steps is None else None,
+            train_data, tokenizer, accum_steps=args.gradient_accumulation_steps, micro_batch_size=micro_local,
+            process_index=mesh.data_rank, process_count=n_proc, augment=True, seed=seed,
+            epochs=args.num_train_epochs if args.num_train_steps is None else None,
             num_workers=args.num_workers, **batch_kw,
         )
 
@@ -169,7 +219,10 @@ def run(args: argparse.Namespace, model, tokenizer, datasets: dict[str, Any]):
             output_dir=args.output_dir,
             num_train_steps=total_steps,
             gradient_accumulation_steps=args.gradient_accumulation_steps,
+            zero_shard_opt_state=args.zero_shard_opt_state,
             async_save=args.async_save,
+            pipeline_parallel=args.pipeline_parallel,
+            pipeline_microbatches=args.pipeline_microbatches,
             optimizer=OptimizerConfig(
                 learning_rate=args.learning_rate,
                 warmup_steps=args.warmup_steps,
@@ -187,10 +240,11 @@ def run(args: argparse.Namespace, model, tokenizer, datasets: dict[str, Any]):
         train_batches=train_batches,
         eval_batches=eval_batches,
         logger=WandbLogger(project=args.wandb_project, enabled=args.wandb_project is not None),
+        mesh=mesh,
     )
     trainer.train()
 
-    if args.export_hf:
+    if args.export_hf and mesh.data_rank == 0:
         out = os.path.join(args.output_dir, "hf")
         export_hf_safetensors(trainer.model, config, out)
         source_config = os.path.join(args.model_name_or_path, "config.json")
@@ -205,7 +259,8 @@ def main(argv: Optional[list[str]] = None):
     check_args(args)
     from ..models.auto import load_model, load_tokenizer
 
-    model, _ = load_model(args.model_name_or_path, dtype=DTYPES[args.dtype], remat=args.remat, device=args.device)
+    device = parallel_mesh(args).device
+    model, _ = load_model(args.model_name_or_path, dtype=DTYPES[args.dtype], remat=args.remat, device=device)
     tokenizer = load_tokenizer(args.model_name_or_path)
     return run(args, model, tokenizer, load_datasets(args))
 

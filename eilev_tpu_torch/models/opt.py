@@ -364,6 +364,23 @@ class OPTForCausalLM(nn.Module):
         embeds = self.embed_tokens(input_ids)
         return embeds if self.compute_dtype is None else embeds.to(self.compute_dtype)
 
+    # ---- pipeline-parallel plumbing (parallel/pipeline.py): the layer
+    # trunk runs as a GPipe schedule over the layer modules; these two
+    # methods are everything around it
+
+    def pre_layers(self, inputs_embeds: torch.Tensor, attention_mask: torch.Tensor) -> torch.Tensor:
+        """Everything ``forward`` does before the layer stack, with no cache
+        and no dropout (the pipeline trunk runs the frozen LM without it)."""
+        position_ids = opt_position_ids(attention_mask)
+        x = inputs_embeds
+        if self.project_in is not None:
+            x = self.project_in(x)
+        return x + self.embed_positions(position_ids.long() + 2).to(x.dtype)
+
+    def post_layers(self, x: torch.Tensor) -> torch.Tensor:
+        """The final norm, out-projection and tied lm head after the layer stack."""
+        return self.lm_head(self._pre_head(x))
+
     def lm_head(self, hidden: torch.Tensor) -> torch.Tensor:
         # tied to embed_tokens, like OPTForCausalLM
         return F.linear(hidden, self.embed_tokens.weight.to(hidden.dtype))

@@ -48,8 +48,11 @@ the slots that mask keeps plus the ones it writes, and ``spec_append`` /
 causality and a relative bias over ATTENDED-token distances, so that
 rejection holes collapse out of the distances (as in JAX). Left for later
 (ROADMAP): ``candidates``, ``decode_step_hidden`` and ``shared_prefix``,
-which only T5 contrastive search reaches, and the pipeline plumbing
-(``encoder_rel_bias`` ... ``decoder_post``).
+which only T5 contrastive search reaches.
+
+The pipeline plumbing (``encoder_rel_bias`` ... ``decoder_post``) exposes
+what runs around the layer trunks under pipeline parallelism
+(``training/pipeline_step.py``).
 """
 
 from __future__ import annotations
@@ -551,6 +554,31 @@ class T5ForConditionalGeneration(nn.Module):
     def encode(self, inputs_embeds: torch.Tensor, attention_mask: Optional[torch.Tensor],
                rng: Optional[MaskSource] = None) -> torch.Tensor:
         return self.encoder(inputs_embeds, attention_mask, rng)
+
+    # ---- pipeline-parallel plumbing (parallel/pipeline.py): the encoder
+    # and decoder layer trunks run as GPipe schedules over the layer
+    # modules; the shared relative-position biases are computed here, from
+    # layer 0's embedding, and passed to every stage whole
+
+    def _rel_bias(self, stack, s: int) -> torch.Tensor:
+        """(H, s, s) relative bias of ``stack``'s layer 0 in the compute
+        dtype, on the device of its bias table."""
+        attention = stack.layers[0].self_attention.attention
+        dtype = self.compute_dtype or self.shared.weight.dtype
+        return attention.compute_bias(s, s, dtype=dtype, device=attention.relative_attention_bias.weight.device)[0]
+
+    def encoder_rel_bias(self, s: int) -> torch.Tensor:
+        return self._rel_bias(self.encoder, s)
+
+    def decoder_rel_bias(self, s: int) -> torch.Tensor:
+        return self._rel_bias(self.decoder, s)
+
+    def encoder_post(self, x: torch.Tensor) -> torch.Tensor:
+        return self.encoder.final_layer_norm(x)
+
+    def decoder_post(self, x: torch.Tensor) -> torch.Tensor:
+        """The final decoder norm and the lm head after the decoder trunk."""
+        return self._head(self.decoder.final_layer_norm(x))
 
     def forward(
         self,

@@ -191,6 +191,26 @@ class VideoBlipForConditionalGeneration(nn.Module):
     def lm_embed(self, input_ids: torch.Tensor) -> torch.Tensor:
         return self.language_model.embed(input_ids)
 
+    # ---- pipeline-parallel plumbing (training/pipeline_step.py) ----------
+
+    def lm_pre_layers(self, inputs_embeds: torch.Tensor, attention_mask: torch.Tensor) -> torch.Tensor:
+        return self.language_model.pre_layers(inputs_embeds, attention_mask)
+
+    def lm_post_layers(self, x: torch.Tensor) -> torch.Tensor:
+        return self.language_model.post_layers(x)
+
+    def t5_encoder_rel_bias(self, s: int) -> torch.Tensor:
+        return self.language_model.encoder_rel_bias(s)
+
+    def t5_decoder_rel_bias(self, s: int) -> torch.Tensor:
+        return self.language_model.decoder_rel_bias(s)
+
+    def t5_encoder_post(self, x: torch.Tensor) -> torch.Tensor:
+        return self.language_model.encoder_post(x)
+
+    def t5_decoder_post(self, x: torch.Tensor) -> torch.Tensor:
+        return self.language_model.decoder_post(x)
+
     def lm_forward(
         self,
         inputs_embeds: torch.Tensor,

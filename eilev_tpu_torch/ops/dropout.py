@@ -39,18 +39,29 @@ class DropoutRng:
 
     ``get_state``/``set_state`` save and restore the generator's position, so
     a recomputed layer (``models/opt.py``, remat) draws the masks it drew the
-    first time."""
+    first time.
 
-    def __init__(self, generator: torch.Generator):
+    Data parallelism: rank ``rank`` of ``world`` processes, each holding an
+    equal block of the global batch's rows in rank order, draws the
+    uniforms of the GLOBAL rows (``world`` times the leading axis it is
+    asked for, from a generator seeded alike on every rank) and keeps its
+    own block, as JAX draws one mask over the global batch: the ranks
+    together take the masks one device takes over the concatenated batch.
+    Every dropout site of the port's models has the batch (or, in the
+    Q-Former, the videos) as its leading axis."""
+
+    def __init__(self, generator: torch.Generator, rank: int = 0, world: int = 1):
         self.generator = generator
+        self.rank, self.world = rank, world
 
     @classmethod
-    def seeded(cls, seed: int, device) -> "DropoutRng":
-        return cls(torch.Generator(device=device).manual_seed(seed))
+    def seeded(cls, seed: int, device, rank: int = 0, world: int = 1) -> "DropoutRng":
+        return cls(torch.Generator(device=device).manual_seed(seed), rank, world)
 
     def keep(self, shape: tuple, rate: float, device: torch.device) -> torch.Tensor:
-        u = torch.rand(shape, generator=self.generator, device=device)
-        return u < 1.0 - rate
+        rows = shape[0]
+        u = torch.rand((rows * self.world, *shape[1:]), generator=self.generator, device=device)
+        return u.narrow(0, self.rank * rows, rows) < 1.0 - rate
 
     def get_state(self) -> torch.Tensor:
         return self.generator.get_state()

@@ -1,7 +1,8 @@
 """v2 training (counterpart of ``eilev_tpu/training``): the train state and
 optax-exact AdamW, the batch iterator with on-card augmentation, native
-checkpoints with the HF safetensors export, and the Trainer. ZeRO and
-pipeline parallelism are not ported."""
+checkpoints with the HF safetensors export, and the Trainer, with data
+parallelism, ZeRO-2 and pipeline parallelism (``pipeline_step.py``,
+``parallel/``)."""
 
 from .train_state import (
     OptimizerConfig,
@@ -9,11 +10,13 @@ from .train_state import (
     ema_params,
     eval_step,
     freeze_towers,
+    full_opt_state,
     make_optimizer,
     make_train_step,
     merge_params,
     partition_params,
     with_param_ema,
+    zero_sharded_opt_state,
 )
 
 __all__ = [
@@ -22,9 +25,11 @@ __all__ = [
     "ema_params",
     "eval_step",
     "freeze_towers",
+    "full_opt_state",
     "make_optimizer",
     "make_train_step",
     "merge_params",
     "partition_params",
     "with_param_ema",
+    "zero_sharded_opt_state",
 ]

@@ -11,6 +11,14 @@ directory named by a step is always whole, and read with
 ``torch.load(weights_only=True)``: the payload is tensors, dicts and numbers
 only.
 
+Under data parallelism rank 0 writes. A state whose optimizer moments
+ZeRO sharded is written whole, in the same format
+(``train_state.full_opt_state`` gathers it first, ``Trainer._save``), so a
+checkpoint does not depend on the data size it was written at: a restore
+reads the whole state, and ``train_state.zero_sharded_opt_state`` cuts it
+to the rows of the data group that restores it, of any size, one device
+included.
+
 Interchange with the HF ecosystem goes through safetensors:
 ``models/convert.load_hf_checkpoint`` imports, and :func:`export_hf_safetensors`
 writes the exact inverse mapping (:func:`hf_state_dict`) as fp32, so a

@@ -23,8 +23,21 @@ before the update, so a warmup from 0 gives a first step with lr 0. The
 optimizer state is a nested dict of tensors, so that ``torch.save`` writes it
 and ``torch.load(weights_only=True)`` reads it back.
 
-``zero_sharded_opt_state`` (ZeRO-2) is not ported: it waits with the
-port's ``parallel/``.
+Data parallelism (a ``parallel.Mesh`` whose process group is up): one
+process a replica, each with its rows of the global micro-batch. The loss
+is JAX's: the masked mean over the GLOBAL micro-batch, each rank's mean
+weighted by its share of the valid labels (the counts are all-reduced
+before the forward), and the trainable gradients are summed across the
+ranks by one all-reduce a dtype after the micro-batches, not by
+``DistributedDataParallel``'s hooks, which attach to ``.backward``. The
+dropout masks are the global batch's rows (``ops/dropout.DropoutRng`` with
+the rank and world), so N ranks take the step one device takes over the
+concatenated batch. With ``zero_shard_opt_state`` (ZeRO-2) each rank keeps
+its block of rows of every optimizer moment whose first dimension the
+data size divides (:func:`zero_sharded_opt_state`), updates those rows of
+the parameters from the all-reduced gradient, whose global norm (the
+clip's) is taken whole, and all-gathers them; AdamW is elementwise, so
+the step is the replicated one bit for bit.
 """
 
 from __future__ import annotations
@@ -34,6 +47,7 @@ from typing import Any, Callable, Mapping, NamedTuple, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from ..ops.dropout import DropoutRng
@@ -68,7 +82,9 @@ def freeze_towers(model: nn.Module) -> tuple[Params, Params]:
 
 class GradientTransformation(NamedTuple):
     """optax's pair: ``init(params) -> state``, ``update(grads, state,
-    params) -> (updates, state)``, over name -> tensor maps."""
+    params, g_norm=None) -> (updates, state)``, over name -> tensor maps.
+    ``g_norm`` is the clip's global norm when ``grads`` is a shard of the
+    gradient (ZeRO); None takes it from ``grads``."""
 
     init: Callable[[Params], Any]
     update: Callable[[Params, Any, Params], tuple[Params, Any]]
@@ -151,10 +167,10 @@ def make_optimizer(cfg: OptimizerConfig) -> GradientTransformation:
             "nu": {k: torch.zeros_like(p) for k, p in params.items()},
         }
 
-    def update(grads: Params, state: dict, params: Params) -> tuple[Params, dict]:
+    def update(grads: Params, state: dict, params: Params, g_norm=None) -> tuple[Params, dict]:
         if max_norm is not None:
             # clip_by_global_norm: no epsilon; a norm below max_norm passes as is
-            g_norm = global_norm(grads)
+            g_norm = global_norm(grads) if g_norm is None else g_norm
             keep = g_norm < max_norm
             grads = {k: torch.where(keep, g, (g / g_norm.to(g.dtype)) * max_norm) for k, g in grads.items()}
         # scale_by_adam; the float32 scalars are host floats, so that no
@@ -187,8 +203,8 @@ def with_param_ema(tx: GradientTransformation, decay: float) -> GradientTransfor
     def init(params: Params) -> dict:
         return {"inner": tx.init(params), "ema": {k: p.detach().clone() for k, p in params.items()}}
 
-    def update(grads: Params, state: dict, params: Params) -> tuple[Params, dict]:
-        updates, inner = tx.update(grads, state["inner"], params)
+    def update(grads: Params, state: dict, params: Params, g_norm=None) -> tuple[Params, dict]:
+        updates, inner = tx.update(grads, state["inner"], params, g_norm)
         ema = {k: decay * e + (1.0 - decay) * (params[k].detach() + updates[k]) for k, e in state["ema"].items()}
         return updates, {"inner": inner, "ema": ema}
 
@@ -207,12 +223,178 @@ def _model_inputs(batch: Mapping[str, torch.Tensor]) -> dict:
     return {k: batch.get(k) for k in ("input_ids", "attention_mask", "pixel_values", "video_input_mask", "labels")}
 
 
+def valid_label_counts(labels: torch.Tensor, decoder_only: bool) -> torch.Tensor:
+    """The number of labels each micro-batch's loss averages over: labels
+    (accum, micro, S) != -100, shifted by one for a decoder-only LM (HF's
+    causal loss); (accum,) float32."""
+    if decoder_only:
+        labels = labels[..., 1:]
+    return (labels != -100).flatten(1).sum(1).to(torch.float32)
+
+
+def _tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
+    """``fn`` over the tensors of nested dicts/lists (with matching ``rest``
+    trees); other leaves (the step count) kept."""
+    if isinstance(tree, torch.Tensor):
+        return fn(tree, *rest)
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_tree_map(fn, v, *(r[i] for r in rest)) for i, v in enumerate(tree))
+    return tree
+
+
+def _sharded(t: torch.Tensor, size: int) -> bool:
+    """ZeRO's rule: a leaf whose first dimension ``size`` divides is split
+    over the data group along it; the rest stay whole on every rank."""
+    return t.ndim >= 1 and t.shape[0] % size == 0
+
+
+def _rows(t: torch.Tensor, size: int, rank: int) -> torch.Tensor:
+    """Rank ``rank``'s block of rows of ``t`` (a view), or ``t`` itself
+    where :func:`_sharded` keeps it whole."""
+    if not _sharded(t, size):
+        return t
+    n = t.shape[0] // size
+    return t.narrow(0, rank * n, n)
+
+
+def zero_sharded_opt_state(state: TrainState, mesh) -> Any:
+    """The ZeRO-2 layout of ``state.opt_state`` on ``mesh``'s data group:
+    every moment whose first dimension divides the data size is cut to this
+    rank's block of rows (a copy, so the whole one can be freed), the rest
+    kept whole (JAX returns the sharding spec of this layout; the port
+    returns the state in it). The step of :func:`make_train_step` with
+    ``zero_shard_opt_state`` takes it."""
+    size, rank = mesh.data_size, mesh.data_rank
+    return _tree_map(lambda t: _rows(t, size, rank).clone() if _sharded(t, size) else t, state.opt_state)
+
+
+def full_opt_state(state: TrainState, mesh) -> Any:
+    """Inverse of :func:`zero_sharded_opt_state`: every sharded moment
+    all-gathered to its whole shape (a collective: every rank calls it),
+    as a checkpoint holds it."""
+    size = mesh.data_size
+    if size == 1:
+        return state.opt_state
+    # the whole shapes, without memory: the optimizer's init on meta tensors
+    template = state.tx.init({k: torch.empty_like(p, device="meta") for k, p in state.trainable.items()})
+
+    def gather(t: torch.Tensor, whole: torch.Tensor) -> torch.Tensor:
+        if not _sharded(whole, size):
+            return t
+        parts = [torch.empty_like(t) for _ in range(size)]
+        dist.all_gather(parts, t.contiguous())
+        return torch.cat(parts)
+
+    return _tree_map(gather, state.opt_state, template)
+
+
+def _all_reduce_sum(tensors: list) -> list:
+    """Sum each tensor across the data group: one all-reduce of the
+    concatenation a dtype."""
+    out = list(tensors)
+    by_dtype: dict = {}
+    for i, t in enumerate(tensors):
+        by_dtype.setdefault(t.dtype, []).append(i)
+    for idx in by_dtype.values():
+        flat = torch.cat([tensors[i].reshape(-1) for i in idx])
+        dist.all_reduce(flat)
+        for i, piece in zip(idx, flat.split([tensors[i].numel() for i in idx])):
+            out[i] = piece.view(tensors[i].shape)
+    return out
+
+
+def _all_gather_rows_(params: Mapping[str, torch.Tensor], size: int, rank: int) -> None:
+    """After a ZeRO update of each rank's rows: every sharded parameter's
+    blocks all-gathered into it, in place (one all-gather a dtype)."""
+    by_dtype: dict = {}
+    for k, p in params.items():
+        if _sharded(p, size):
+            by_dtype.setdefault(p.dtype, []).append(k)
+    for names in by_dtype.values():
+        mine = torch.cat([_rows(params[k], size, rank).reshape(-1) for k in names])
+        parts = [torch.empty_like(mine) for _ in range(size)]
+        dist.all_gather(parts, mine)
+        sizes = [params[k].numel() // size for k in names]
+        for r, part in enumerate(parts):
+            for k, piece in zip(names, part.split(sizes)):
+                block = _rows(params[k], size, r)
+                block.copy_(piece.view(block.shape))
+
+
+def make_step(
+    model: nn.Module,
+    loss_fn: Callable[[Mapping[str, torch.Tensor], Any], torch.Tensor],
+    *,
+    accum_steps: int = 1,
+    dropout: bool = True,
+    mesh=None,
+    zero_shard_opt_state: bool = False,
+) -> Callable[[TrainState, Mapping[str, torch.Tensor]], tuple[TrainState, dict]]:
+    """The step around a loss: ``loss_fn(micro, dropout_rng) -> loss``, the
+    masked mean over this process's rows of one micro-batch. Shared by
+    :func:`make_train_step` and ``training/pipeline_step.make_pp_train_step``;
+    the data-parallel reductions and ZeRO are here (see the module's
+    docstring). With ``mesh`` and a process group up, the collectives run
+    whatever the group's size (a group of one gives the one-device step
+    bit for bit)."""
+    reduce = mesh is not None and dist.is_initialized()
+    size, rank = (mesh.data_size, mesh.data_rank) if reduce else (1, 0)
+    decoder_only = model.config.use_decoder_only_language_model
+
+    def train_step(state: TrainState, batch: Mapping[str, torch.Tensor]) -> tuple[TrainState, dict]:
+        names = list(state.trainable)
+        params = [state.trainable[k] for k in names]
+        device = params[0].device
+        model.train(dropout)
+        rng = DropoutRng.seeded(state.step, device, rank, size) if dropout else None
+        if reduce:
+            # each rank's share of every micro-batch's global valid-label count
+            local = valid_label_counts(batch["labels"], decoder_only)
+            (total,) = _all_reduce_sum([local])
+            weights = local / total.clamp(min=1)
+        loss_sum = torch.zeros((), dtype=torch.float32, device=device)
+        grad_sum = None
+        for i in range(accum_steps):
+            loss = loss_fn({k: v[i] for k, v in batch.items()}, rng)
+            if reduce:
+                loss = loss * weights[i]
+            grads = torch.autograd.grad(loss, params)
+            loss_sum = loss_sum + loss.detach()
+            grad_sum = list(grads) if grad_sum is None else [a + b for a, b in zip(grad_sum, grads)]
+        if reduce:
+            loss_sum, *grad_sum = _all_reduce_sum([loss_sum, *grad_sum])
+        inv = 1.0 / accum_steps
+        grads = {k: g * inv for k, g in zip(names, grad_sum)}
+        g_norm = global_norm(grads)
+        with torch.no_grad():
+            if zero_shard_opt_state:
+                mine = {k: _rows(p, size, rank) for k, p in state.trainable.items()}
+                updates, opt_state = state.tx.update(
+                    {k: _rows(g, size, rank) for k, g in grads.items()}, state.opt_state, mine, g_norm)
+                for k, p in mine.items():
+                    p.add_(updates[k])
+                if reduce:
+                    _all_gather_rows_(state.trainable, size, rank)
+            else:
+                updates, opt_state = state.tx.update(grads, state.opt_state, state.trainable)
+                for k, p in state.trainable.items():
+                    p.add_(updates[k])
+        metrics = {"loss": loss_sum * inv, "grad_norm": g_norm}
+        return dataclasses.replace(state, step=state.step + 1, opt_state=opt_state), metrics
+
+    return train_step
+
+
 def make_train_step(
     model: nn.Module,
     *,
     accum_steps: int = 1,
     loss_key: str = "loss",
     dropout: bool = True,
+    mesh=None,
+    zero_shard_opt_state: bool = False,
 ) -> Callable[[TrainState, Mapping[str, torch.Tensor]], tuple[TrainState, dict]]:
     """The train step: ``step(state, batch) -> (state, {"loss", "grad_norm"})``.
 
@@ -228,40 +410,39 @@ def make_train_step(
     runs in training mode and its masks come from a generator seeded with the
     step, as JAX's key is ``fold_in(PRNGKey(0), step)``: a resumed run draws
     what an uninterrupted one would. Without, it runs in eval mode.
+
+    ``mesh`` (a ``parallel.Mesh``) makes it the data-parallel step over this
+    process's rows of the batch, and ``zero_shard_opt_state`` the ZeRO-2 one
+    over a state whose optimizer moments :func:`zero_sharded_opt_state`
+    sharded (see the module's docstring).
     """
 
-    def train_step(state: TrainState, batch: Mapping[str, torch.Tensor]) -> tuple[TrainState, dict]:
-        names = list(state.trainable)
-        params = [state.trainable[k] for k in names]
-        device = params[0].device
-        model.train(dropout)
-        rng = DropoutRng.seeded(state.step, device) if dropout else None
-        loss_sum = torch.zeros((), dtype=torch.float32, device=device)
-        grad_sum = None
-        for i in range(accum_steps):
-            micro = _model_inputs({k: v[i] for k, v in batch.items()})
-            loss = model(**micro, dropout_rng=rng)[loss_key]
-            grads = torch.autograd.grad(loss, params)
-            loss_sum = loss_sum + loss.detach()
-            grad_sum = list(grads) if grad_sum is None else [a + b for a, b in zip(grad_sum, grads)]
-        inv = 1.0 / accum_steps
-        grads = {k: g * inv for k, g in zip(names, grad_sum)}
-        with torch.no_grad():
-            updates, opt_state = state.tx.update(grads, state.opt_state, state.trainable)
-            for k, p in state.trainable.items():
-                p.add_(updates[k])
-        metrics = {"loss": loss_sum * inv, "grad_norm": global_norm(grads)}
-        return dataclasses.replace(state, step=state.step + 1, opt_state=opt_state), metrics
+    def loss_fn(micro: Mapping[str, torch.Tensor], rng) -> torch.Tensor:
+        return model(**_model_inputs(micro), dropout_rng=rng)[loss_key]
 
-    return train_step
+    return make_step(model, loss_fn, accum_steps=accum_steps, dropout=dropout, mesh=mesh,
+                     zero_shard_opt_state=zero_shard_opt_state)
 
 
 @torch.no_grad()
-def eval_step(model: nn.Module, batch: Mapping[str, torch.Tensor]) -> torch.Tensor:
-    """The loss on one (micro-shaped) batch with dropout off."""
+def eval_step(model: nn.Module, batch: Mapping[str, torch.Tensor], mesh=None) -> torch.Tensor:
+    """The loss on one (micro-shaped) batch with dropout off. With ``mesh``
+    and a process group up, ``batch`` is this process's rows and the loss is
+    the masked mean over every rank's (the counts all-reduced)."""
     was_training = model.training
     model.eval()
     try:
-        return model(**_model_inputs(batch))["loss"]
+        loss = model(**_model_inputs(batch))["loss"]
     finally:
         model.train(was_training)
+    return global_mean(model, loss, batch["labels"], mesh)
+
+
+def global_mean(model: nn.Module, loss: torch.Tensor, labels: torch.Tensor, mesh) -> torch.Tensor:
+    """A rank's masked-mean ``loss`` over its (micro, S) ``labels`` ->
+    the masked mean over the data group's (the rank's own without a group)."""
+    if mesh is None or not dist.is_initialized():
+        return loss
+    count = valid_label_counts(labels[None], model.config.use_decoder_only_language_model)[0]
+    total_loss, total = _all_reduce_sum([loss.float() * count, count])
+    return total_loss / total.clamp(min=1)

@@ -7,9 +7,14 @@ resume-from-checkpoint, and the step-time and videos/s meters the reference
 lacks. A background thread keeps a queue of batches on the model's device,
 so data loading and the on-card augmentation overlap the steps.
 
-One device: the JAX trainer's parallel modes (``zero_shard_opt_state``,
-``pipeline_parallel`` > 1, a mesh) raise ``NotImplementedError``; they wait
-with the port's ``parallel/``.
+Parallel modes, as the JAX trainer has them: a data-parallel ``mesh``
+(``parallel.make_mesh``: one process a replica, each given its own rows by
+``train_batches``), ``zero_shard_opt_state`` (ZeRO-2: the optimizer moments
+sharded over the data group) and ``pipeline_parallel`` > 1 (the frozen LM
+trunk as a GPipe schedule over a ``parallel.make_pipeline_mesh``; composes
+with both). Only rank 0 logs and writes checkpoints; a checkpoint holds the
+whole optimizer state whatever the sharding, and a restore re-shards it
+onto the data group it finds.
 """
 
 from __future__ import annotations
@@ -25,14 +30,21 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..parallel.distributed import host_local_batch_to_global
+from ..parallel.mesh import make_mesh, shard_batch
+from ..parallel.pipeline import STAGE_AXIS, make_pipeline_mesh, shard_stacked
 from .checkpoint import AsyncCheckpointWriter, latest_checkpoint, restore_checkpoint, save_checkpoint
+from .pipeline_step import make_pp_eval_step, make_pp_train_step, pp_partition_frozen, pp_unpartition_frozen
 from .train_state import (
     OptimizerConfig,
     TrainState,
     eval_step,
     freeze_towers,
+    full_opt_state,
     make_optimizer,
     make_train_step,
+    merge_params,
+    zero_sharded_opt_state,
 )
 
 
@@ -40,9 +52,9 @@ from .train_state import (
 class TrainerConfig:
     """HF TrainingArguments subset used by the reference recipe
     (slurm-scripts/train/submit_train_v2.py:22-37). The micro-batch size is
-    that of the batches ``train_batches`` yields, so the JAX config's
-    ``per_device_batch_size`` (read there only by a mesh check) and
-    ``pipeline_microbatches`` (pipeline mode only) have no field here."""
+    that of the batches ``train_batches`` yields (this process's rows), so
+    the JAX config's ``per_device_batch_size`` (read there only by a mesh
+    check) has no field here."""
 
     output_dir: str = "checkpoints"
     num_train_steps: Optional[int] = 1000  # None = train until the data iterator ends
@@ -57,13 +69,17 @@ class TrainerConfig:
     seed: int = 42
     resume_from_checkpoint: bool = False
     prefetch: int = 2
-    # ZeRO-2: not ported (one device); True raises NotImplementedError
+    # ZeRO-2: shard the optimizer moments over the data group (the
+    # original's optional DeepSpeed ZeRO-2, submit_train_v2.py:38-65)
     zero_shard_opt_state: bool = False
     # overlap checkpoint writes with training; the final save always commits
     # before train() returns
     async_save: bool = False
-    # pipeline parallelism: not ported (one device); > 1 raises NotImplementedError
+    # > 1: pipeline the frozen LM layer stack over this many stages (GPipe,
+    # parallel/pipeline.py); composes with data parallelism and ZeRO
     pipeline_parallel: int = 0
+    # micro-batches of one GPipe schedule; this process's micro-batch must divide into them
+    pipeline_microbatches: int = 4
     # (start, stop) step interval to capture a torch.profiler trace for,
     # written to <output_dir>/trace as a Chrome trace
     profile_steps: Optional[tuple] = None
@@ -132,21 +148,27 @@ class Trainer:
         train_batches: Callable[[int], Iterable[dict]],
         eval_batches: Optional[Callable[[], Iterable[dict]]] = None,
         logger: Optional[Callable[[int, dict], None]] = None,
+        mesh=None,
     ):
         """
         :param model: a port ``VideoBlipForConditionalGeneration``; its vision
             tower and LM are frozen here (``requires_grad_(False)``) and its
-            trainable parameters are updated in place.
-        :param train_batches: fn(seed) -> iterable of batches shaped (accum,
-            micro_batch, ...) per tensor (see make_train_step); numpy arrays
-            or tensors, moved to the model's device.
-        :param eval_batches: fn() -> iterable of eval batches (micro shape).
-        :param logger: fn(step, metrics).
+            trainable parameters are updated in place. It lives on
+            ``mesh.device``; under pipeline parallelism its LM layers move
+            to their stages' devices.
+        :param train_batches: fn(seed) -> iterable of this process's batches
+            shaped (accum, micro_batch, ...) per tensor (see
+            make_train_step); numpy arrays or tensors, moved to the model's
+            device.
+        :param eval_batches: fn() -> iterable of eval batches (micro shape),
+            the whole batch on every process: each keeps its rows.
+        :param logger: fn(step, metrics), called on rank 0 only.
+        :param mesh: a ``parallel.Mesh``; default: the data group of the
+            process group if one is up (else this process alone) on the
+            model's device, with ``pipeline_parallel`` stages on the visible
+            CUDA devices from ``LOCAL_RANK * stages`` (on the model's device,
+            repeated, for a model on the CPU).
         """
-        if config.zero_shard_opt_state:
-            raise NotImplementedError("zero_shard_opt_state (ZeRO-2) is not ported: the port trains on one device")
-        if config.pipeline_parallel > 1:
-            raise NotImplementedError("pipeline_parallel is not ported: the port trains on one device")
         self.model = model
         self.config = config
         self.train_batches = train_batches
@@ -154,27 +176,65 @@ class Trainer:
         self.logger = logger
         trainable, _ = freeze_towers(model)
         self.device = next(iter(trainable.values())).device
-        self.state = TrainState.create(trainable, make_optimizer(config.optimizer))
-        self._step_fn = make_train_step(
-            model, accum_steps=config.gradient_accumulation_steps, dropout=config.dropout
-        )
+        self._pp = config.pipeline_parallel > 1
+        if mesh is None:
+            if not self._pp:
+                mesh = make_mesh(device=self.device)
+            elif self.device.type == "cuda":
+                mesh = make_pipeline_mesh(config.pipeline_parallel)
+            else:
+                mesh = make_pipeline_mesh(config.pipeline_parallel, devices=[self.device] * config.pipeline_parallel)
+        if self._pp and STAGE_AXIS not in mesh.shape:
+            raise ValueError("pipeline_parallel > 1 needs a mesh with a 'stage' axis "
+                             "(parallel.pipeline.make_pipeline_mesh)")
+        if mesh.device != self.device:
+            raise ValueError(f"the model's trainable parameters are on {self.device}, the mesh's device is "
+                             f"{mesh.device}: build the model there")
+        self.mesh = mesh
+        self.rank = mesh.data_rank
+        state = TrainState.create(trainable, make_optimizer(config.optimizer))
+        common = dict(accum_steps=config.gradient_accumulation_steps, dropout=config.dropout,
+                      zero_shard_opt_state=config.zero_shard_opt_state)
+        if self._pp:
+            rest, stacked = pp_partition_frozen(model, config.pipeline_parallel)
+            self.frozen = (rest, {k: shard_stacked(v, mesh) for k, v in stacked.items()})
+            self._step_fn = make_pp_train_step(model, mesh, stacked, num_microbatches=config.pipeline_microbatches,
+                                               **common)
+            self._eval_fn = make_pp_eval_step(model, mesh, stacked, num_microbatches=config.pipeline_microbatches)
+        else:
+            self._step_fn = make_train_step(model, mesh=mesh, **common)
+            self._eval_fn = lambda batch: eval_step(model, batch, mesh)
         self.best_eval_loss = float("inf")
         self.best_trainable: Optional[dict] = None
         self._ckpt_writer: Optional[AsyncCheckpointWriter] = None
         if config.resume_from_checkpoint:
             path = latest_checkpoint(config.output_dir)
             if path is not None:
-                self.state, best = restore_checkpoint(path, self.state, with_best=True)
+                state, best = restore_checkpoint(path, state, with_best=True)
                 if best is not None:
                     self.best_eval_loss, self.best_trainable = best
+        if config.zero_shard_opt_state:
+            state = dataclasses.replace(state, opt_state=zero_sharded_opt_state(state, mesh))
+        self.state = state
 
     def _to_device(self, batch: dict) -> dict:
-        return {k: torch.as_tensor(v).to(self.device, non_blocking=True) for k, v in batch.items()}
+        return host_local_batch_to_global(batch, self.mesh)
+
+    def current_params(self) -> dict:
+        """Every parameter, name -> tensor, the LM layers' unstacked under
+        pipeline parallelism (for export)."""
+        if self._pp:
+            rest, stacked = self.frozen
+            return merge_params(self.state.trainable, pp_unpartition_frozen(rest, stacked, self.model.config))
+        return dict(self.model.named_parameters())
 
     def evaluate(self) -> float:
+        """The mean eval loss over ``eval_batches``; each batch's rows split
+        over the data group (a batch that does not divide raises
+        ``ValueError``), its loss the masked mean over all of them."""
         if self.eval_batches is None:
             raise ValueError("evaluate needs the Trainer's eval_batches")
-        losses = [float(eval_step(self.model, self._to_device(b))) for b in self.eval_batches()]
+        losses = [float(self._eval_fn(shard_batch(b, self.mesh))) for b in self.eval_batches()]
         return float(np.mean(losses)) if losses else float("nan")
 
     def train(self) -> TrainState:
@@ -191,8 +251,8 @@ class Trainer:
                     profiler = self._profile(profiler, self.state.step)
                 self.state, metrics = self._step_fn(self.state, batch)
                 step = self.state.step
-                if "pixel_values" in batch:
-                    videos_since += int(np.prod(batch["pixel_values"].shape[:2]))
+                if "pixel_values" in batch:  # every rank's: the global batch's videos
+                    videos_since += int(np.prod(batch["pixel_values"].shape[:2])) * self.mesh.data_size
 
                 if step % cfg.log_steps == 0:
                     loss, grad_norm = float(metrics["loss"]), float(metrics["grad_norm"])  # waits for the step
@@ -205,14 +265,14 @@ class Trainer:
                         "videos_per_sec": videos_since / dt if dt > 0 else 0.0,
                     }
                     t_last, videos_since = now, 0
-                    if self.logger:
+                    if self.rank == 0 and self.logger:
                         self.logger(step, logd)
-                    else:
+                    elif self.rank == 0:
                         print(f"step {step}: {logd}")
 
                 if cfg.eval_steps and self.eval_batches is not None and step % cfg.eval_steps == 0:
                     eval_loss = self.evaluate()
-                    if self.logger:
+                    if self.rank == 0 and self.logger:
                         self.logger(step, {"eval_loss": eval_loss})
                     if eval_loss < self.best_eval_loss:
                         self.best_eval_loss = eval_loss
@@ -256,15 +316,21 @@ class Trainer:
         profiler.export_chrome_trace(os.path.join(trace_dir, f"steps_{lo}_{hi}.json"))
 
     def _save(self, cfg: TrainerConfig, final: bool = False) -> None:
-        """Periodic saves overlap compute when cfg.async_save; the final save
-        always commits before returning."""
+        """Rank 0 writes; under ZeRO every rank first takes part in gathering
+        the whole optimizer state. Periodic saves overlap compute when
+        cfg.async_save; the final save always commits before returning."""
         best = None if self.best_trainable is None else (self.best_eval_loss, self.best_trainable)
+        state = self.state
+        if cfg.zero_shard_opt_state:
+            state = dataclasses.replace(state, opt_state=full_opt_state(state, self.mesh))
+        if self.rank != 0:
+            return
         if cfg.async_save:
             if self._ckpt_writer is None:
                 self._ckpt_writer = AsyncCheckpointWriter()
-            self._ckpt_writer.save(cfg.output_dir, self.state, keep=cfg.save_total_limit, best=best)
+            self._ckpt_writer.save(cfg.output_dir, state, keep=cfg.save_total_limit, best=best)
             if final:
                 self._ckpt_writer.close()
                 self._ckpt_writer = None
         else:
-            save_checkpoint(cfg.output_dir, self.state, keep=cfg.save_total_limit, best=best)
+            save_checkpoint(cfg.output_dir, state, keep=cfg.save_total_limit, best=best)

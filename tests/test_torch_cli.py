@@ -203,11 +203,15 @@ def test_cli_unported_modes_raise():
             "--in_context_example_frames_dir", "c", "--output_csv", "o", "--device", "cpu"]
     with pytest.raises(NotImplementedError, match="one device"):
         generate_narration_texts.main(base + ["--model_parallel", "2"])
+    # train_v2's --multihost, --data_parallel, --pipeline_parallel and
+    # --zero_shard_opt_state run (tests/test_torch_parallel_cli.py); tensor
+    # parallelism waits for its own slice
     train = ["--model_name_or_path", "m", "--train_frames_dir", "t", "--val_frames_dir", "v",
              "--output_dir", "o", "--device", "cpu"]
-    for flag in (["--multihost"], ["--pipeline_parallel", "2"], ["--zero_shard_opt_state"]):
-        with pytest.raises(NotImplementedError, match="one device"):
-            train_v2.main(train + flag)
+    with pytest.raises(NotImplementedError, match="tensor-parallel slice"):
+        train_v2.main(train + ["--model_parallel", "2"])
+    with pytest.raises(ValueError, match="exclusive"):
+        train_v2.main(train + ["--model_parallel", "2", "--pipeline_parallel", "2"])
 
 
 def test_train_v2_cli_exports_what_it_trained(world, tmp_path, capsys):

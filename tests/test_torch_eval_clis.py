@@ -239,9 +239,11 @@ def test_train_v1_matches_jax(world, tmp_path, monkeypatch):  # noqa: F811
 
 
 def test_train_v1_refuses_data_parallel():
+    """--data_parallel is one process a replica: 2 asked of a run of one
+    process raises before anything loads (torchrun starts the two)."""
     argv = ["--model_name_or_path", "m", "--train_frames_dir", "t", "--val_frames_dir", "v", "--output_dir", "o",
             "--device", "cpu", "--data_parallel", "2"]
-    with pytest.raises(NotImplementedError, match="parallel/"):
+    with pytest.raises(ValueError, match="needs 2 processes, this run has 1"):
         train_v1.main(argv)
 
 

@@ -169,5 +169,26 @@ def test_best_eval_snapshot_restored_at_end(setup, tmp_path):
 
 @pytest.mark.parametrize("mode", [dict(zero_shard_opt_state=True), dict(pipeline_parallel=2)])
 def test_parallel_modes_are_not_ported(setup, tmp_path, mode):
-    with pytest.raises(NotImplementedError):
-        _trainer(setup, tmp_path, **mode)
+    """The parallel modes run in one process (the name is the one the test
+    had while they were refused). ZeRO over a data group of one is the plain
+    run bit for bit, dropout on; the pipeline (2 stages on the CPU, the
+    1-row micro-batch as one GPipe micro-batch) runs its frozen LM without
+    dropout, so both runs go without it, within 1e-5; its ``current_params``
+    is every parameter, and it evaluates and saves."""
+    kw = {"dropout": False, "pipeline_microbatches": 1} if "pipeline_parallel" in mode else {}
+    plain = _trainer(setup, tmp_path / "plain", **kw)
+    plain.train()
+    trainer = _trainer(setup, tmp_path / "mode", **mode, **kw)
+    trainer.train()
+    assert trainer.state.step == plain.state.step == 6
+    ours, ref = _trainable(trainer), _trainable(plain)
+    if "zero_shard_opt_state" in mode:
+        assert all(torch.equal(ours[k], v) for k, v in ref.items())
+    else:
+        for k, v in ref.items():
+            np.testing.assert_allclose(ours[k].numpy(), v.numpy(), atol=1e-5, rtol=0, err_msg=k)
+        assert trainer.current_params().keys() == dict(trainer.model.named_parameters()).keys()
+        cfg, _ = setup
+        trainer.eval_batches = lambda: [{k: v[0] for k, v in tiny_batch(cfg, 1, 2, seed=9).items()}]
+        assert np.isfinite(trainer.evaluate())
+    assert latest_checkpoint(str(tmp_path / "mode" / "ckpt")) is not None
