@@ -387,11 +387,33 @@ final result line):
    metrics over 64 narration pairs at batch 32, each timed, and the first 8
    pairs' scores on the card within 1e-4 of the same code on the CPU. A JSON
    line "eval_baselines".
+13. Tensor parallelism on one card (parallel/tensor.py, run_tensor_parallel):
+   TP_RANKS = 2 ranks spawned on cuda:0, one gloo group over CUDA tensors
+   (NCCL takes one rank a card), one model axis, beside the unsharded port
+   in this process. (a) eilev-blip2-opt-2.7b at full width and depth, bf16
+   N(0, 0.02) weights from TP_SEED exported once in bf16
+   (export_hf_safetensors) and loaded by each rank through
+   load_model(mesh=): greedy at batch 1 on bench.py's 16-shot prompt, 32 new
+   tokens, then with the int8 KV cache: the prefill's last logits' cosine
+   against the unsharded model's > 0.999, tokens identical or parting at a
+   near-tie (NEAR_TIE), the ranks' tokens equal; K1 = 39 at 8 x 88, K2 = 32
+   at 16 x 80, K3 (K4) = 32 a one-token forward at 16 x 80 on every rank;
+   per-rank peak memory and the bf16 p50 (two ranks share one card and every
+   collective goes through the host: no TP speed). (b) fp32 cuts, TF32 off,
+   F32_LAYERS a stack (the 2.7b widths, flan-t5-xl's and Llama-2-7b's with
+   the 1,984-token prompt, so K5 runs), each built whole from a seed and
+   sharded in memory: greedy tokens identical to the unsharded port's, ICL
+   classify at the OPT cut (TP_CLASSES classes) within 1e-4; the LLaMA cut
+   in bf16 too (K5's Hopper body at 16 x 128). (c) The kernels at the
+   local-head shapes against their twins and timed as in 3 (K1 (136, 257,
+   8 x 88), K2 (1, 766, 16 x 80), K3/K4 (1 and 4, 798, 16 x 80), K5 (1,
+   1,984 into 2,048, 16 x 128)), on a JSON line "tensor_parallel" with their
+   launches in (a) and (b) (K3/K4 at batch 4: check only).
 
 Prints every number tagged with the card's name and power limit, then the
 JSON line of the beam shapes' K3/K4 rows, the JSON line of the training
 variants, the JSON line of the decoding modes' kernel shapes, the JSON lines
-of K5's T5 forms, of the T5 phase, of serving and of phase 12, then one JSON
+of K5's T5 forms, of the T5 phase, of serving, of phase 12 and of phase 13, then one JSON
 line of per-kernel results (every body: the bf16 ones and the fp32 ones,
 whose launches come from phase 8, and K5's VideoMAE rows, whose launches
 come from phase 12; K6's rows also carry composite_ms), then the result line
@@ -606,6 +628,24 @@ PP_F32_MICRO = 2
 T5_TARGET = 32  # the T5 leg's decoder labels a row
 NCCL_STEPS = 2
 BF16_ROUNDOFF = 2.0**-7  # bf16's unit roundoff: a key bias's norm share "zero" in bf16
+# phase 13, tensor parallelism on one card: TP_RANKS ranks of one model
+# group over gloo with CUDA tensors (NCCL takes one rank a card), the seed
+# of the models' weights, timed bf16 greedy requests a rank after the
+# counted one (the int8 KV cache's counted request only: the phase keeps
+# inside 120 s), the classes of the ICL classify at the fp32 OPT cut (TP_CLASSES of
+# TP_CLASS_LEN tokens), and how long the parent waits for the ranks. The
+# local-head kernel shapes (c) are checked and timed at: the narration's
+# decode at batch 1 and 4 (K3 on the split at both: 2 * B * 16 <= 132)
+TP_RANKS = 2
+TP_SEED = 48
+TP_REPS = 1
+TP_CLASSES = 16
+TP_CLASS_LEN = 4
+TP_DEADLINE_S = 600
+TP_DECODE_SHAPES = {
+    "narration tp 2": (32, 1, 798, 780, 16, 80, True),
+    "narration batch 4 tp 2": (32, 4, 798, 780, 16, 80, True),
+}
 # phase 10, checkpoints and CLIs: the exported model's ViT, Q-Former and OPT
 # layers (the widths are eilev-blip2-opt-2.7b's) and its weights' seed
 CKPT_LAYERS = (4, 12, 4)
@@ -826,7 +866,8 @@ def _decode_case(dev, g, da, shape: str, dtype=torch.bfloat16) -> SimpleNamespac
     BEAM_DECODE_SHAPES[shape] or SPEC_DECODE_SHAPES[shape]), its int8 copy
     (quantize_kv), a query and the mid-decode keep-mask (slots past the
     filled ones empty)."""
-    n_layers, b, s, filled, nh, hd, scale_query = {**DECODE_SHAPES, **BEAM_DECODE_SHAPES, **SPEC_DECODE_SHAPES}[shape]
+    n_layers, b, s, filled, nh, hd, scale_query = {**DECODE_SHAPES, **BEAM_DECODE_SHAPES, **SPEC_DECODE_SHAPES,
+                                                   **TP_DECODE_SHAPES}[shape]
     q = torch.randn(b, nh * hd, device=dev, generator=g).to(dtype)
     k5 = torch.randn(n_layers, b, s, nh, hd, device=dev, generator=g).to(dtype)
     v5 = torch.randn(n_layers, b, s, nh, hd, device=dev, generator=g).to(dtype)
@@ -5385,6 +5426,384 @@ def run_eval_baselines(tag: str, dev: torch.device, launches: dict) -> tuple[lis
     return rows, result
 
 
+# ---------------------------------------------------------------------------
+# phase 13: tensor parallelism on one card
+# ---------------------------------------------------------------------------
+
+
+def _tp_cut(name: str, dev, tp=None):
+    """The fp32 cut ``name`` ("opt": the 2.7b widths, "t5": flan-t5-xl's,
+    "llama": Llama-2-7b's; F32_LAYERS a stack) with N(0, 0.02) weights from
+    its seed: the model itself, or under ``tp`` this rank's local-head model
+    holding its shard of those weights (built whole, sharded by
+    shard_state_dict, the whole one freed). Returns (model, config)."""
+    from eilev_tpu_torch import configs
+    from eilev_tpu_torch.generation.text_lm import _TextOnlyModule
+    from eilev_tpu_torch.models import VideoBlipForConditionalGeneration
+    from eilev_tpu_torch.parallel.tensor import shard_state_dict
+
+    if name == "llama":
+        cfg = configs.VideoBlipConfig(text_config=configs.LlamaConfig(num_hidden_layers=F32_LAYERS))
+        cls, layout = _TextOnlyModule, cfg.text_config
+    else:
+        cfg = f32_cut_config() if name == "opt" else t5_config(F32_LAYERS)
+        cls, layout = VideoBlipForConditionalGeneration, cfg
+    full = cls(cfg, device=dev, dtype=torch.float32).eval()
+    random_init_(full, torch.Generator(device=dev).manual_seed(TP_SEED + ("opt", "t5", "llama").index(name) + 1))
+    if tp is None:
+        return full, cfg
+    local = cls(cfg, device="meta", dtype=torch.float32, tp=tp).eval()
+    shards = shard_state_dict(full.state_dict(), layout, tp)
+    local.load_state_dict({k: v.clone(memory_format=torch.contiguous_format) for k, v in shards.items()},
+                          strict=True, assign=True)
+    del full, shards
+    return local, cfg
+
+
+def _tp_class_ids(dev) -> torch.Tensor:
+    return torch.from_numpy(np.random.default_rng(TP_SEED).integers(1000, 40000, size=(TP_CLASSES, TP_CLASS_LEN))).to(dev)
+
+
+@torch.inference_mode()
+def _tp_classify(model, run, dev) -> torch.Tensor:
+    """ICL classify of the run's prompt over the TP_CLASSES class continuations."""
+    from eilev_tpu_torch.generation.classify import classify
+    from eilev_tpu_torch.ops.preprocess import process_videos
+
+    return classify(model, prompt_input_ids=run.ids, prompt_attention_mask=run.mask,
+                    pixel_values=process_videos(run.frames, dtype=run.dtype), prompt_video_input_mask=run.vim,
+                    class_input_ids=_tp_class_ids(dev))
+
+
+def _tp_cut_runs(dev, tp=None) -> dict:
+    """Phase 13 (b) on one side (the unsharded port, or a rank under ``tp``):
+    each fp32 cut's greedy tokens (F32_NEW_TOKENS; LLAMA_NEW for the text LM,
+    whose cache of 2,048 slots makes auto take K5) and launches, the OPT
+    cut's classify scores, and the LLaMA cut in bf16 too (K5's Hopper body
+    at the local 16 x 128), with its prefill's last logits."""
+    out = {}
+    for name in ("opt", "t5", "llama"):
+        model, cfg = _tp_cut(name, dev, tp)
+        if name == "llama":
+            run = TextRun(model, (LLAMA_PROMPT,), LLAMA_PROMPT, dev, seed=3)  # 2,048 slots: auto takes K5
+        else:
+            run = (Narration if name == "opt" else T5Narration)(model, cfg, 1, dev, dtype=torch.float32,
+                                                              new_tokens=F32_NEW_TOKENS)
+        reset_counters()
+        tokens = run.generate()
+        torch.cuda.synchronize()
+        out[name] = {"tokens": tokens.cpu(), "counts": counters()}
+        if name == "opt":
+            out[name]["classify"] = _tp_classify(model, run, dev).cpu()
+        if name == "llama":
+            model.to(torch.bfloat16)
+            reset_counters()
+            tokens, rec = greedy_with_logits(run)
+            out["llama_bf16"] = {"tokens": tokens.cpu(), "counts": counters(), "logits": [r.cpu() for r in rec]}
+        del model, run
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def _tp_narration(tag: str, dev, path: str, mesh) -> dict:
+    """Phase 13 (a) on a rank: eilev-blip2-opt-2.7b loaded through
+    load_model(mesh=) from the parent's bf16 checkpoint, greedy at batch 1
+    (32 new tokens), then with the int8 KV cache: each counted (counters at 0
+    just before, read just after), its tokens and every step's last logits,
+    peak memory and the host time of the counted request and, in bf16,
+    TP_REPS more."""
+    from eilev_tpu_torch.models.auto import load_model
+    from eilev_tpu_torch.ops.quantization import quantize_model_
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model, cfg = load_model(path, dtype=torch.bfloat16, param_dtype=torch.bfloat16, device=dev, mesh=mesh)
+    torch.cuda.synchronize()
+    out = {"load_s": time.perf_counter() - t0, "params": sum(p.numel() for p in model.parameters()),
+           "weights_bytes": sum(p.numel() * p.element_size() for p in model.parameters())}
+    run = Narration(model, cfg, 1, dev)
+    for label in ("bf16", "int8_kv"):
+        if label == "int8_kv":
+            quantize_model_(model, int8_kv=True)
+        torch.cuda.reset_peak_memory_stats()
+        reset_counters()
+        t0 = time.perf_counter()
+        tokens, rec = greedy_with_logits(run)
+        times = [time.perf_counter() - t0]
+        counts = counters()
+        for _ in range(TP_REPS if label == "bf16" else 0):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run.generate()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        out[label] = {"tokens": tokens.cpu(), "logits": [r.cpu() for r in rec], "counts": counts,
+                      "peak_bytes": torch.cuda.max_memory_allocated(), "times_s": times}
+        if mesh.model_rank == 0:
+            print(f"[{tag}] tensor parallelism (a) rank 0 {label}: launches {counts} times_s={times} "
+                  f"peak_bytes={out[label]['peak_bytes']}")
+    del model, run
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_rank_main(rank: int, tag: str, port: int, root: str) -> None:
+    """One rank of phase 13: a gloo group of TP_RANKS on the one card (CUDA
+    tensors), one model axis; (a) and (b) on it, saved to root/rank{rank}.pt.
+    Any failure raises, which fails the parent's join."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from eilev_tpu_torch.parallel import make_mesh
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", world_size=TP_RANKS, rank=rank,
+                            timeout=datetime.timedelta(seconds=TP_DEADLINE_S))
+    try:
+        mesh = make_mesh(data=1, model=TP_RANKS, device="cuda")
+        assert mesh.tp is not None and mesh.device == torch.device("cuda", 0), mesh
+        dev = mesh.device
+        t0 = time.perf_counter()
+        out = {"a": _tp_narration(tag, dev, os.path.join(root, "opt-2.7b"), mesh)}
+        out["a_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["b"] = _tp_cut_runs(dev, mesh.tp)
+        out["b_s"] = time.perf_counter() - t0
+        torch.save(out, os.path.join(root, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def _tp_kernel_rows(tag: str, dev) -> list[dict]:
+    """Phase 13 (c): the kernels at the local-head shapes of TP = 2, each
+    against its twin (2e-2 bf16; K4 against dequantize_kv + the twin, 3e-2 at
+    4 rows, K4_TIGHT_TOL at 1) and timed as in phase 3 beside SDPA and its
+    bound: K1 (136, 257, 8 x 88); K2 (1, 766, 16 x 80), causal; K3 and K4
+    over 798 slots (780 filled), 16 x 80, at batch 1 and 4 (K3's split at
+    both); K5 (1, 1,984 into 2,048 slots, 16 x 128), causal, on its Hopper
+    body."""
+    from eilev_tpu_torch.ops import decode_attention as da
+    from eilev_tpu_torch.ops import flash_attention as fl
+    from eilev_tpu_torch.ops import fused_attention as fa
+
+    g = torch.Generator(device=dev).manual_seed(TP_SEED)
+    rows = []
+    b, s, nh, hd = 136, 257, 8, 88
+    qkv1 = torch.randn(b, s, 3 * nh * hd, device=dev, generator=g).to(torch.bfloat16)
+    q1, k1, v1 = qkv1.view(b, s, 3, nh, hd).permute(2, 0, 3, 1, 4)
+    err = check_close(tag, "tp K1 packed_qkv_attention (136,257,8x88)", fa.packed_qkv_attention(qkv1, nh, hd),
+                      fa.packed_qkv_attention_reference(qkv1, nh, hd, hd**-0.5), 2e-2)
+    rows.append({"name": "packed_qkv_attention at tp 2 (136,257,8x88)",
+                 "source": "eilev_tpu_torch/csrc/packed_attention.cu", "replaces": "eilev_tpu/ops/fused_attention.py:81",
+                 "max_abs_err": err, "per_call": 1,
+                 "run": lambda: fa.packed_qkv_attention(qkv1, nh, hd),
+                 "plain": lambda: fa.packed_qkv_attention_reference(qkv1, nh, hd, hd**-0.5),
+                 "library": lambda: _sdpa(q1, k1, v1, scale=hd**-0.5),
+                 "bound": bound(4 * b * nh * s * s * hd, 4 * b * s * nh * hd * 2)})
+    b2, s2, nh2, hd2 = 1, 766, 16, 80
+    qkv2 = torch.randn(b2, s2, 3 * nh2 * hd2, device=dev, generator=g).to(torch.bfloat16)
+    ones = torch.ones(b2, s2, dtype=torch.int32, device=dev)
+    q2, k2, v2 = qkv2.view(b2, s2, 3, nh2, hd2).permute(2, 0, 3, 1, 4)
+    err = check_close(tag, "tp K2 packed_qkv_causal_attention (1,766,16x80)",
+                      fa.packed_qkv_causal_attention(qkv2, nh2, hd2, ones),
+                      fa.packed_qkv_causal_attention_reference(qkv2, nh2, hd2, ones, hd2**-0.5), 2e-2)
+    rows.append({"name": "packed_qkv_causal_attention at tp 2 (1,766,16x80)",
+                 "source": "eilev_tpu_torch/csrc/packed_attention.cu",
+                 "replaces": "eilev_tpu/ops/fused_attention.py:187", "max_abs_err": err, "per_call": 1,
+                 "run": lambda: fa.packed_qkv_causal_attention(qkv2, nh2, hd2, ones),
+                 "plain": lambda: fa.packed_qkv_causal_attention_reference(qkv2, nh2, hd2, ones, hd2**-0.5),
+                 "library": lambda: _sdpa(q2, k2, v2, is_causal=True, scale=hd2**-0.5),
+                 "bound": bound(4 * b2 * nh2 * hd2 * s2 * (s2 + 1) // 2, 4 * b2 * s2 * nh2 * hd2 * 2 + b2 * s2 * 4)})
+    for shape in TP_DECODE_SHAPES:
+        c = _decode_case(dev, g, da, shape)
+        n_layers, bd, sd, filled, nhd, hdd = c.dims
+        assert da.k3_split(bd, nhd, sd), f"K3 at {shape}: expected the split (2 * {bd} * {nhd} <= 132)"
+        print(f"[{tag}] tp K3 bf16 {shape}: k3_split picks the split, a cluster of {da.cluster_size(bd, nhd, sd)}")
+        full = torch.ones_like(c.mask)
+        errs = [check_close(tag, f"tp K3 decode_attention_stacked bf16 {shape} {name} mask",
+                            da.decode_attention_stacked(c.q, c.kb, c.vb, mask, 17, **c.kw),
+                            da.decode_attention_stacked_reference(c.q, c.kb, c.vb, mask, 17, **c.kw), 2e-2)
+                for name, mask in (("full", full), ("mid-decode", c.mask))]
+        ref = da.decode_attention_stacked_reference(
+            c.q, da.dequantize_kv(c.k8[17:18].view(1, bd, sd, nhd, hdd), c.ks[17:18]).view(1, bd, sd, nhd * hdd),
+            da.dequantize_kv(c.v8[17:18].view(1, bd, sd, nhd, hdd), c.vs[17:18]).view(1, bd, sd, nhd * hdd),
+            c.mask, 0, **c.kw)
+        err4 = check_close(tag, f"tp K4 decode_attention_stacked int8 {shape} mid-decode mask vs dequantize_kv + twin",
+                           da.decode_attention_stacked(c.q, c.k8, c.v8, c.mask, 17, **c.i8), ref,
+                           K4_TOL if bd >= 4 else K4_TIGHT_TOL)
+        sd_q, sd_mask = c.q.view(bd, nhd, 1, hdd), c.mask.bool()[:, None, None, :]
+        rows += [{"name": f"decode_attention_stacked_bf16 at {shape} ({bd},{sd},{nhd}x{hdd})",
+                  "source": "eilev_tpu_torch/csrc/decode_attention.cu",
+                  "replaces": "eilev_tpu/ops/decode_attention.py:117", "max_abs_err": max(errs),
+                  "run": _k3_step(da, c), "plain": _k3_step(da, c, plain=True), "per_call": n_layers,
+                  "library": lambda c=c, sd_q=sd_q, sd_mask=sd_mask, hd=hdd: [
+                      _sdpa(sd_q, c.k5[i].transpose(1, 2), c.v5[i].transpose(1, 2), attn_mask=sd_mask,
+                            scale=hd**-0.5) for i in range(c.dims[0])],
+                  "bound": _decode_bound(c, int8=False)},
+                 {"name": f"decode_attention_stacked_int8 at {shape} ({bd},{sd},{nhd}x{hdd})",
+                  "source": "eilev_tpu_torch/csrc/decode_attention.cu",
+                  "replaces": "eilev_tpu/ops/decode_attention.py:75", "max_abs_err": err4,
+                  "run": _k4_step(da, c), "plain": _k4_step(da, c, plain=True), "per_call": n_layers,
+                  "library": None, "bound": _decode_bound(c, int8=True)}]
+    nh5 = 16
+    q, k, v, mask = _k5_inputs(dev, g, 1, LLAMA_PROMPT, LLAMA_CACHE, nh5, 128, (LLAMA_PROMPT,), tail_empty=True)
+    kw5 = dict(padding_mask=mask, causal=True, scale=128**-0.5)
+    before = fl.flash_attention.launches_sm90
+    out = fl.flash_attention(q, k, v, **kw5)
+    torch.cuda.synchronize()
+    assert fl.flash_attention.launches_sm90 == before + 1, "K5 at 16 x 128 did not take its Hopper body"
+    err = check_close(tag, "tp K5 flash_attention (1,1984 into 2048,16x128) causal (Hopper body)", out,
+                      fl.flash_attention_reference(q, k, v, **kw5), 2e-2)
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    rows.append({"name": "flash_attention at tp 2 (1,1984 into 2048,16x128)",
+                 "source": "eilev_tpu_torch/csrc/flash_attention.cu", "replaces": "eilev_tpu/ops/flash_attention.py:157",
+                 "max_abs_err": err, "per_call": 1,
+                 "run": lambda: fl.flash_attention(q, k, v, **kw5),
+                 "plain": lambda: fl.flash_attention_reference(q, k, v, **kw5),
+                 "library": lambda: _sdpa(qt, kt, vt, is_causal=True, scale=128**-0.5),
+                 "bound": bound(*_k5_causal_work((LLAMA_PROMPT,), LLAMA_PROMPT, nh5, 128, LLAMA_CACHE))})
+    for r in rows:
+        time_row(tag, r)
+    return rows
+
+
+def run_tensor_parallel(tag: str, dev: torch.device) -> tuple[list, dict]:
+    """Phase 13: tensor-parallel inference (parallel/tensor.py) at TP = 2 on
+    the one card, TP_RANKS gloo ranks over CUDA tensors beside the unsharded
+    port in this process. (a) eilev-blip2-opt-2.7b at full width and depth,
+    bf16 N(0, 0.02) weights from TP_SEED exported once in bf16 and loaded by
+    each rank through load_model(mesh=): greedy at batch 1 and with the int8
+    KV cache, against the unsharded model: the prefill's last logits' cosine
+    > 0.999, tokens identical or parting at a near-tie, the ranks' tokens
+    equal; K1 = 39 (8 x 88), K2 = 32 (16 x 80), K3 (K4) = 32 a one-token
+    forward on every rank. (b) The fp32 cuts (TF32 off): the 2.7b widths,
+    flan-t5-xl's and Llama-2-7b's (1,984-token prompt: K5), F32_LAYERS a
+    stack, greedy tokens identical to the unsharded port's, ICL classify at
+    the OPT cut within 1e-4; the LLaMA cut in bf16 too (K5's Hopper body at
+    16 x 128). (c) The kernels at the local-head shapes (_tp_kernel_rows),
+    with their launches from (a) and (b). Returns (rows, the phase's JSON)."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    from eilev_tpu_torch import configs
+    from eilev_tpu_torch.models import VideoBlipForConditionalGeneration
+    from eilev_tpu_torch.ops.quantization import quantize_model_
+    from eilev_tpu_torch.training.checkpoint import export_hf_safetensors
+
+    t_phase = time.perf_counter()
+    result: dict = {}
+    with tempfile.TemporaryDirectory(dir=os.path.dirname(os.path.abspath(__file__))) as root:
+        cfg = configs.blip2_opt_2_7b()
+        model = VideoBlipForConditionalGeneration(cfg, device=dev, dtype=torch.bfloat16).eval()
+        random_init_(model, torch.Generator(device=dev).manual_seed(TP_SEED))
+        path = os.path.join(root, "opt-2.7b")
+        t0 = time.perf_counter()
+        export_hf_safetensors(model, cfg, path, dtype=torch.bfloat16)
+        with open(os.path.join(path, "config.json"), "w") as fh:
+            json.dump(hf_config_dict(cfg), fh)
+        result["export_s"] = time.perf_counter() - t0
+        weights = sum(p.numel() * p.element_size() for p in model.parameters())
+        run = Narration(model, cfg, 1, dev)
+        ref = {}
+        for label in ("bf16", "int8_kv"):
+            if label == "int8_kv":
+                quantize_model_(model, int8_kv=True)
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            tokens, rec = greedy_with_logits(run)
+            ref[label] = {"tokens": tokens.cpu(), "logits": [r.cpu() for r in rec],
+                          "peak_bytes": torch.cuda.max_memory_allocated(), "s": time.perf_counter() - t0}
+        del model, run
+        gc.collect()
+        torch.cuda.empty_cache()
+        ref["b"] = _tp_cut_runs(dev)
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        ctx = mp.spawn(tp_rank_main, args=(tag, _free_port(), root), nprocs=TP_RANKS, join=False)
+        while not ctx.join(timeout=5):
+            if time.perf_counter() - t0 > TP_DEADLINE_S:
+                for proc in ctx.processes:
+                    proc.kill()
+                raise TimeoutError(f"the tensor-parallel ranks did not finish in {TP_DEADLINE_S} s")
+        result["ranks_s"] = time.perf_counter() - t0
+        ranks = [torch.load(os.path.join(root, f"rank{r}.pt"), weights_only=False) for r in range(TP_RANKS)]
+
+    # (a) against the unsharded model; the ranks against each other
+    a = result["a"] = {"unsharded_weights_bytes": weights}
+    for label in ("bf16", "int8_kv"):
+        mine, theirs = ranks[0]["a"][label], ref[label]
+        for other in ranks[1:]:
+            assert torch.equal(other["a"][label]["tokens"], mine["tokens"]), f"(a) {label}: the ranks' tokens differ"
+        cos = torch.nn.functional.cosine_similarity(mine["logits"][0], theirs["logits"][0], dim=-1).min().item()
+        share = compare_speculative(tag, f"tensor parallelism (a) {label} TP = 2 vs unsharded", mine["tokens"],
+                                     theirs["tokens"], theirs["logits"])
+        counts = mine["counts"]
+        decode = "decode_attention_stacked_int8" if label == "int8_kv" else "decode_attention_stacked_bf16"
+        one_token = len(mine["logits"]) - 1
+        want = {"packed_qkv_attention": 39, "packed_qkv_causal_attention": 32, decode: 32 * one_token}
+        assert {k: counts[k] for k in want} == want, (label, counts, want)
+        assert all(v == 0 for k, v in counts.items() if k not in want), (label, counts)
+        times = sorted(mine["times_s"][1:])
+        a[label] = {"prefill_logits_min_cosine": cos, "identical_rows_share": share,
+                    "tokens": mine["tokens"][0].tolist(), "launches": {k: counts[k] for k in want},
+                    "peak_bytes_per_rank": [r["a"][label]["peak_bytes"] for r in ranks],
+                    "unsharded_peak_bytes": theirs["peak_bytes"],
+                    "p50_s": statistics.median(times) if times else None, "counted_s": mine["times_s"][0],
+                    "unsharded_s": theirs["s"]}
+        print(f"[{tag}] tensor parallelism (a) eilev-blip2-opt-2.7b bf16 b1 {label} TP = 2 (two ranks on one card: "
+              f"the time is no TP speed): {a[label]}")
+        assert cos > 0.999, (label, cos)
+    a["load_s"] = [r["a"]["load_s"] for r in ranks]
+    a["local_weights_bytes"] = [r["a"]["weights_bytes"] for r in ranks]
+    a["rank_a_s"] = [r["a_s"] for r in ranks]
+
+    # (b) the fp32 cuts token for token; classify within 1e-4; LLaMA in bf16
+    b = result["b"] = {"rank_b_s": [r["b_s"] for r in ranks]}
+    for name in ("opt", "t5", "llama"):
+        mine, theirs = ranks[0]["b"][name], ref["b"][name]
+        for other in ranks[1:]:
+            assert torch.equal(other["b"][name]["tokens"], mine["tokens"]), f"(b) {name}: the ranks' tokens differ"
+        same = bool(torch.equal(mine["tokens"], theirs["tokens"]))
+        b[name] = {"identical": same, "tokens": mine["tokens"][0].tolist(),
+                   "launches": {k: v for k, v in mine["counts"].items() if v}}
+        print(f"[{tag}] tensor parallelism (b) fp32 {name} cut TP = 2: tokens {mine['tokens'][0].tolist()} vs "
+              f"unsharded {theirs['tokens'][0].tolist()}: identical={same}; launches {b[name]['launches']}")
+        assert same, f"(b) fp32 {name}: TP = 2 tokens differ from the unsharded port's"
+    assert b["opt"]["launches"].get("packed_qkv_causal_attention_f32") == F32_LAYERS, b["opt"]
+    assert b["llama"]["launches"].get("flash_attention_f32") == F32_LAYERS, b["llama"]
+    err = (ranks[0]["b"]["opt"]["classify"] - ref["b"]["opt"]["classify"]).abs().max().item()
+    b["opt_classify_max_abs_err"] = err
+    print(f"[{tag}] tensor parallelism (b) fp32 OPT cut ICL classify ({TP_CLASSES} classes) TP = 2 vs unsharded: "
+          f"max_abs_err={err}")
+    assert err <= 1e-4, err
+    mine, theirs = ranks[0]["b"]["llama_bf16"], ref["b"]["llama_bf16"]
+    cos = torch.nn.functional.cosine_similarity(mine["logits"][0], theirs["logits"][0], dim=-1).min().item()
+    b["llama_bf16"] = {"prefill_logits_min_cosine": cos, "launches": {k: v for k, v in mine["counts"].items() if v},
+                       "identical_rows_share": compare_speculative(tag, "tensor parallelism (b) LLaMA cut bf16",
+                                                                    mine["tokens"], theirs["tokens"],
+                                                                    theirs["logits"])}
+    assert cos > 0.999 and b["llama_bf16"]["launches"].get("flash_attention_sm90") == F32_LAYERS, b["llama_bf16"]
+
+    # (c) the kernels at the local-head shapes, with their launches in (a)/(b)
+    rows = _tp_kernel_rows(tag, dev)
+    a_bf16, a_int8 = ranks[0]["a"]["bf16"]["counts"], ranks[0]["a"]["int8_kv"]["counts"]
+    from_runs = [a_bf16["packed_qkv_attention"], a_bf16["packed_qkv_causal_attention"],
+                 a_bf16["decode_attention_stacked_bf16"], a_int8["decode_attention_stacked_int8"], 0, 0,
+                 ranks[0]["b"]["llama_bf16"]["counts"]["flash_attention"]]
+    for r, n in zip(rows, from_runs, strict=True):
+        r.update(route="cuda", launches=n)
+    result["seconds"] = time.perf_counter() - t_phase
+    print(f"[{tag}] tensor parallelism phase took {result['seconds']} s")
+    return rows, result
+
+
 def main(argv: list) -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke: no CUDA device; this script runs only on a GPU")
@@ -5466,6 +5885,9 @@ def main(argv: list) -> int:
         torch.cuda.empty_cache()
         videomae_rows, evaluation = run_eval_baselines(tag, dev, launches)
         kernels = kernels + videomae_rows
+        gc.collect()
+        torch.cuda.empty_cache()
+        tp_rows, tensor_parallel = run_tensor_parallel(tag, dev)
         took("the whole script", t_script)
     except Exception:
         traceback.print_exc()
@@ -5503,6 +5925,10 @@ def main(argv: list) -> int:
     # phase 12: VideoMAE and the encoders (K5's VideoMAE rows are on the
     # kernels line, with their launches in the flash predicts)
     print(json.dumps({"eval_baselines": evaluation}, default=str))
+    # phase 13: tensor parallelism; the kernels at the local-head shapes with
+    # their launches in its runs (K3/K4 at batch 4: check only, the runs are
+    # at batch 1)
+    print(json.dumps({"tensor_parallel": tensor_parallel, "tensor_parallel_shapes": tp_rows}, default=str))
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                               "count": torch.cuda.device_count()}}))

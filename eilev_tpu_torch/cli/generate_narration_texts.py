@@ -10,6 +10,14 @@ clip_index, generated, ground_truth, in_context_frame_paths) rows to a CSV.
     python -m eilev_tpu_torch.cli.generate_narration_texts --model DIR \\
         --eval_frames_dir EVAL --in_context_query_map_file MAP.jsonl \\
         --in_context_example_frames_dir TRAIN --batch_size 4 --output_csv out.csv
+
+``--model_parallel N`` shards the model over N processes, one card each
+(tensor parallelism, ``parallel/tensor.py``), started by
+``torchrun --nproc_per_node N -m eilev_tpu_torch.cli.generate_narration_texts
+... --model_parallel N``; every rank generates the same tokens, rank 0
+writes the CSV. The attention dispatch is set to ``xla`` there, as the JAX
+CLI sets it (the packed and decode kernels K1-K4 still run, on the local
+heads). The int8 weight modes do not run under it (``--int8_kv`` does).
 """
 
 from __future__ import annotations
@@ -42,7 +50,7 @@ def parse_args(argv: Optional[list[str]] = None) -> argparse.Namespace:
     p.add_argument("--w8a8_prefill", action="store_true", help="with --int8_lm: LM prefill matmuls W8A8")
     p.add_argument("--int8_vision", action="store_true", help="W8A8 vision tower (serving mode)")
     p.add_argument("--model_parallel", type=int, default=0,
-                   help="shard the model weights over N devices; not ported (one device)")
+                   help="shard the model weights over N processes, one device each (torchrun --nproc_per_node N)")
     p.add_argument("--draft_layers", type=int, default=0,
                    help="> 0: token-identical speculative greedy decoding with the first N layers self-drafting")
     p.add_argument("--draft_tokens", type=int, default=None,
@@ -72,11 +80,7 @@ def parse_args(argv: Optional[list[str]] = None) -> argparse.Namespace:
 
 
 def check_args(args: argparse.Namespace) -> None:
-    """Refuse what the port does not run yet, and what cannot be combined."""
-    if args.model_parallel > 1:
-        raise NotImplementedError(
-            "--model_parallel > 1 (tensor parallelism) is not ported: the port runs the model on one device "
-            "(it waits for the tensor-parallel slice)")
+    """Refuse what cannot be combined."""
     if args.vision_cache and args.shuffle_in_context_example_frames:
         # the derangement ablation permutes videos relative to their
         # frame_paths, so path-keyed caching would reuse wrong features
@@ -121,6 +125,7 @@ def run(args: argparse.Namespace, model, tokenizer, datasets: dict[str, Any]) ->
     from ..data.text import clean_narration_text, generate_chunks
     from ..generation import generate, generation_config_from_json
     from ..ops.preprocess import process_videos
+    from ..parallel.distributed import is_primary
     from ..utils import WandbLogger
 
     check_args(args)
@@ -170,7 +175,7 @@ def run(args: argparse.Namespace, model, tokenizer, datasets: dict[str, Any]) ->
     def tensor(array) -> torch.Tensor:
         return torch.from_numpy(np.asarray(array)).to(device)
 
-    logger = WandbLogger(project=args.wandb_project, enabled=args.wandb_project is not None)
+    logger = WandbLogger(project=args.wandb_project, enabled=args.wandb_project is not None and is_primary())
     rows: list[dict] = []
     meta_keys = ("frame_path", "video_uid", "clip_index", "narration_text", "in_context_frame_paths")
     n = len(dataset) if args.num_eval_datapoints is None else min(args.num_eval_datapoints, len(dataset))
@@ -216,9 +221,11 @@ def run(args: argparse.Namespace, model, tokenizer, datasets: dict[str, Any]) ->
                 "in_context_frame_paths": "|".join(m["in_context_frame_paths"]),
             }
             rows.append(row)
-            if args.print_narration_texts:
+            if args.print_narration_texts and is_primary():
                 print(f"Generated: {row['generated']}  |  GT: {row['ground_truth']}")
 
+    if not is_primary():  # tensor parallelism: every rank holds the same rows
+        return rows
     with open(args.output_csv, "w", newline="") as f:
         writer = csv.DictWriter(f, fieldnames=list(rows[0]))
         writer.writeheader()
@@ -237,13 +244,29 @@ def main(argv: Optional[list[str]] = None) -> list[dict]:
         from ..ops.gelu import set_gelu_impl
 
         set_gelu_impl("fast")
+    args, mesh = model_parallel_mesh(args)
     model, _ = load_model(
         args.model, dtype=DTYPES[args.dtype], int8_lm=args.int8_lm, int8_kv=args.int8_kv,
         int8_vision=args.int8_vision, int8_qformer=args.int8_qformer, w8a8_prefill=args.w8a8_prefill,
-        device=args.device,
+        device=args.device, mesh=mesh,
     )
     tokenizer = load_tokenizer(args.processor or args.model)
     return run(args, model, tokenizer, load_datasets(args))
+
+
+def model_parallel_mesh(args: argparse.Namespace) -> tuple[argparse.Namespace, Any]:
+    """(args, None) for one process; under ``--model_parallel N`` > 1 the
+    tensor-parallel mesh of this rank (``parallel/mesh.tensor_parallel_mesh``),
+    with ``--device`` made this rank's card and the attention dispatch set to
+    ``xla``, as the JAX CLIs set it."""
+    if args.model_parallel <= 1:
+        return args, None
+    from ..ops.attention import set_default_attention_impl
+    from ..parallel.mesh import tensor_parallel_mesh
+
+    mesh = tensor_parallel_mesh(args.model_parallel, args.device)
+    set_default_attention_impl("xla")
+    return argparse.Namespace(**{**vars(args), "device": str(mesh.device)}), mesh
 
 
 if __name__ == "__main__":

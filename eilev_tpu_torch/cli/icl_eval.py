@@ -13,6 +13,11 @@ prompt sets, macro F1 against the fho-lta taxonomy, through
 Class prompt CSVs use the original schema (``prompt,structured_verb`` /
 ``prompt,structured_noun``); the defaults are the vendored ones under
 ``scripts/ego4d/eval-data``.
+
+``--model_parallel N`` shards the model over N processes started by
+``torchrun --nproc_per_node N`` (tensor parallelism, as
+``generate_narration_texts``'s): every rank scores the same classes, rank 0
+prints and writes the JSON.
 """
 
 from __future__ import annotations
@@ -52,7 +57,7 @@ def parse_args(argv: Optional[list[str]] = None) -> argparse.Namespace:
                    help="LRU video-feature cache capacity (videos); encodes each distinct video "
                         "once across the verb+noun stages and across datapoints (0 = off)")
     p.add_argument("--model_parallel", type=int, default=0,
-                   help="shard the model weights over N devices; not ported (one device)")
+                   help="shard the model weights over N processes, one device each (torchrun --nproc_per_node N)")
     p.add_argument("--eval_batch_size", type=int, default=4, help="datapoints classified per classify call")
     p.add_argument("--log_verb_preds", action="store_true")
     p.add_argument("--log_noun_preds", action="store_true")
@@ -109,6 +114,7 @@ def run(args: argparse.Namespace, model, tokenizer, datasets: dict[str, Any]):
     ``frame_loader``, ``video``), print and log the F1s, write
     ``--output_json``. Returns the ``IclEvalResult``."""
     from ..eval import IclEvaluator
+    from ..parallel.distributed import is_primary
     from ..utils import WandbLogger
 
     taxonomy, verb_prompts, noun_prompts = datasets["taxonomy"], datasets["verb_prompts"], datasets["noun_prompts"]
@@ -129,8 +135,10 @@ def run(args: argparse.Namespace, model, tokenizer, datasets: dict[str, Any]):
         frame_loader=datasets.get("frame_loader"),
         device=args.device,
     )
-    result = evaluator.evaluate(datasets["eval"], datasets["train"], progress=True,
+    result = evaluator.evaluate(datasets["eval"], datasets["train"], progress=is_primary(),
                                 batch_size=args.eval_batch_size)
+    if not is_primary():  # tensor parallelism: every rank holds the same result
+        return result
 
     print(f"Verb F1: {result.verb_f1}")
     print(f"Noun F1: {result.noun_f1}")
@@ -151,21 +159,18 @@ def run(args: argparse.Namespace, model, tokenizer, datasets: dict[str, Any]):
 
 def main(argv: Optional[list[str]] = None):
     args = parse_args(argv)
-    if args.model_parallel > 1:
-        raise NotImplementedError(
-            "--model_parallel > 1 (tensor parallelism) is not ported: the port runs the model on one device "
-            "(it waits for the tensor-parallel slice)"
-        )
     from ..models.auto import load_model, load_tokenizer
+    from .generate_narration_texts import model_parallel_mesh
 
     if args.fast_gelu:
         from ..ops.gelu import set_gelu_impl
 
         set_gelu_impl("fast")
+    args, mesh = model_parallel_mesh(args)
     model, _ = load_model(
         args.model, dtype=DTYPES[args.dtype], int8_lm=args.int8_lm, int8_kv=args.int8_kv,
         int8_vision=args.int8_vision, int8_qformer=args.int8_qformer, w8a8_prefill=args.w8a8_prefill,
-        device=args.device,
+        device=args.device, mesh=mesh,
     )
     tokenizer = load_tokenizer(args.processor or args.model)
     return run(args, model, tokenizer, load_datasets(args))

@@ -88,8 +88,9 @@ def parse_args(argv: Optional[list[str]] = None) -> argparse.Namespace:
 def check_args(args: argparse.Namespace) -> None:
     if args.model_parallel > 1:
         raise NotImplementedError(
-            "--model_parallel > 1 (tensor parallelism) is not ported: the port runs the model on one device "
-            "(it waits for the tensor-parallel slice)")
+            "--model_parallel > 1: the serving engine does not run a tensor-parallel model (every rank would "
+            "have to keep one admission schedule); it waits for the tensor-parallel serving slice. "
+            "generate_narration_texts and icl_eval take --model_parallel")
 
 
 def load_datasets(args: argparse.Namespace) -> dict[str, Any]:

@@ -25,7 +25,8 @@ Each process loads its stride of the data (``--per_device_train_batch_size``
 rows of each micro-batch) onto ``cuda:LOCAL_RANK``; with
 ``--pipeline_parallel S`` it drives S cards, ``cuda:LOCAL_RANK * S`` on.
 ``--device cpu`` runs every stage on the CPU (gloo for the collectives).
-Tensor parallelism (``--model_parallel`` > 1) is not ported.
+Tensor-parallel training (``--model_parallel`` > 1) is not ported (tensor-parallel
+inference is: ``generate_narration_texts`` and ``icl_eval``).
 """
 
 from __future__ import annotations
@@ -90,7 +91,7 @@ def parse_args(argv: Optional[list[str]] = None) -> argparse.Namespace:
     p.add_argument("--multihost", action="store_true",
                    help="multi-process training (torchrun); the process group is joined whenever torchrun "
                         "started more than one process")
-    p.add_argument("--model_parallel", type=int, default=1, help="tensor-parallel devices; not ported")
+    p.add_argument("--model_parallel", type=int, default=1, help="tensor-parallel devices (training: not ported)")
     p.add_argument("--pipeline_parallel", type=int, default=0,
                    help="> 1: GPipe the frozen LM layer stack over this many stages, one card each "
                         "(exclusive with --model_parallel)")
@@ -117,8 +118,9 @@ def check_args(args: argparse.Namespace) -> None:
                 "outside the model's forward and stages activations per micro-batch); drop --remat")
     if args.model_parallel > 1:
         raise NotImplementedError(
-            "--model_parallel > 1 (tensor parallelism) is not ported: it waits for the port's tensor-parallel "
-            "slice (local-head OPT, T5, ViT and Q-Former modules)")
+            "--model_parallel > 1 (tensor-parallel training) is not ported: it waits for the tensor-parallel "
+            "training slice (autograd through the collectives, the sharded Q-Former under AdamW, ZeRO beside "
+            "it); tensor-parallel inference runs in generate_narration_texts and icl_eval")
 
 
 def parallel_mesh(args: argparse.Namespace):

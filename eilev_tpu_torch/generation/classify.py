@@ -13,6 +13,11 @@ decoder continuations (the class ids shifted right) against the SHARED
 encoder states through ``T5ForConditionalGeneration.score_classes``: the
 encoder states are never copied per class, and ``class_batch_size`` bounds
 the class chunk.
+
+Under tensor parallelism (``model.tp``) the class logits stay vocab-parallel:
+each rank scores its (B, C, L, V / tp) block and the log-likelihood meets in
+three small all_reduces (``parallel/tensor.vocab_parallel_log_prob``), not
+in a gather of the whole (B, C, L, V) tensor.
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ import torch
 
 from ..models.opt import init_cache
 from ..models.video_blip import shift_tokens_right
+from ..parallel.tensor import local_vocab, vocab_parallel_log_prob
 
 
 def _prefill_prompt(
@@ -35,7 +41,7 @@ def _prefill_prompt(
     )
     b, s, _ = inputs_embeds.shape
     cache = init_cache(
-        model.config.text_config, b, s, dtype=inputs_embeds.dtype, device=inputs_embeds.device
+        model.config.text_config, b, s, dtype=inputs_embeds.dtype, device=inputs_embeds.device, tp=model.tp
     )
     logits, cache = model.lm_forward(inputs_embeds, attention_mask=attention_mask, cache=cache)
     return logits[:, -1], cache
@@ -51,18 +57,23 @@ def _score_classes_seq2seq(model, class_input_ids, class_attention_mask, encoder
     Returns the (B, C) mean log-likelihood."""
     tcfg = model.config.text_config
     dec_in = shift_tokens_right(class_input_ids, tcfg.pad_token_id, tcfg.decoder_start_token_id)
-    logits = model.t5_score_classes(dec_in, class_attention_mask, encoder_hidden, encoder_mask)  # (B, C, L, V)
-    return _mean_log_likelihood(logits, class_input_ids, class_attention_mask)
+    logits = model.t5_score_classes(dec_in, class_attention_mask, encoder_hidden, encoder_mask,
+                                    local_logits=model.tp is not None)  # (B, C, L, V or V / tp)
+    return _mean_log_likelihood(model, logits, class_input_ids, class_attention_mask)
 
 
-def _mean_log_likelihood(logits, class_input_ids, class_attention_mask):
-    """(B, C, L, V) logits of the class tokens -> the (B, C) mean
-    log-likelihood over each class's unmasked tokens."""
+def _mean_log_likelihood(model, logits, class_input_ids, class_attention_mask):
+    """(B, C, L, V) logits of the class tokens (this rank's vocab block
+    under ``model.tp``) -> the (B, C) mean log-likelihood over each class's
+    unmasked tokens."""
     b = logits.shape[0]
     c, l = class_input_ids.shape
-    logp = torch.log_softmax(logits.float(), dim=-1)
-    index = class_input_ids[None, :, :, None].expand(b, c, l, 1).long()
-    token_ll = torch.gather(logp, -1, index)[..., 0]
+    index = class_input_ids[None].expand(b, c, l)
+    if model.tp is None:
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        token_ll = torch.gather(logp, -1, index[..., None].long())[..., 0]
+    else:
+        token_ll = vocab_parallel_log_prob(logits, index, model.tp, model.config.text_config.vocab_size)
     token_ll = token_ll * class_attention_mask[None].float()
     lengths = class_attention_mask.sum(dim=-1)[None].clamp(min=1)
     return token_ll.sum(dim=-1) / lengths  # (B, C)
@@ -75,14 +86,16 @@ def _score_classes(model, class_input_ids, class_attention_mask, last_logits, ca
     class_embeds = model.lm_embed(class_input_ids)  # (C, L, D)
     class_embeds = class_embeds[None].expand(b, c, l, class_embeds.shape[-1])
     cls_mask = class_attention_mask[None].expand(b, c, l)
-    logits = model.lm_score_with_prefix(class_embeds, cls_mask, cache)
+    logits = model.lm_score_with_prefix(class_embeds, cls_mask, cache, local_logits=model.tp is not None)
+    if model.tp is not None:  # the prompt's last logits are full-vocab; this rank's block of them
+        last_logits = local_vocab(last_logits, model.tp, model.config.text_config.vocab_size)
 
     # shift: token 0 is predicted by the prompt's last logits, token t by the
     # class logits at t - 1
     shift_logits = torch.cat(
         [last_logits[:, None, None].expand(b, c, 1, logits.shape[-1]), logits[:, :, :-1]], dim=2
     )
-    return _mean_log_likelihood(shift_logits, class_input_ids, class_attention_mask)
+    return _mean_log_likelihood(model, shift_logits, class_input_ids, class_attention_mask)
 
 
 @torch.inference_mode()

@@ -190,7 +190,7 @@ def _prefill(model: nn.Module, inputs_embeds, attention_mask, max_new_tokens: in
     b, s, _ = inputs_embeds.shape
     cache = init_cache(
         model.config.text_config, b, s + max_new_tokens,
-        dtype=inputs_embeds.dtype, device=inputs_embeds.device,
+        dtype=inputs_embeds.dtype, device=inputs_embeds.device, tp=model.tp,
     )
     logits, cache = model.lm_forward(inputs_embeds, attention_mask=attention_mask, cache=cache)
     return logits[:, -1], cache
@@ -604,7 +604,8 @@ def _contrastive_decoder_only(
     alpha = gen_cfg.penalty_alpha
     max_new = gen_cfg.max_new_tokens
     device = inputs_embeds.device
-    cache = init_cache(model.config.text_config, b, s + max_new, dtype=inputs_embeds.dtype, device=device)
+    cache = init_cache(model.config.text_config, b, s + max_new, dtype=inputs_embeds.dtype, device=device,
+                       tp=model.tp)
     logits, hidden, cache = model.lm_forward_hidden(inputs_embeds, attention_mask=attention_mask, cache=cache)
     hbuf = torch.zeros(b, s + max_new, hidden.shape[-1], dtype=torch.float32, device=device)
     hbuf[:, :s] = hidden.float()

@@ -99,7 +99,7 @@ def _accepted(agree: torch.Tensor, finished: torch.Tensor, gamma: int) -> tuple[
 def _start(lm: nn.Module, inputs_embeds: torch.Tensor, attention_mask: torch.Tensor, cache_len: int):
     """Prefill ``lm`` into a fresh cache of ``cache_len`` slots."""
     b = inputs_embeds.shape[0]
-    cache = init_cache(lm.config, b, cache_len, dtype=inputs_embeds.dtype, device=inputs_embeds.device)
+    cache = init_cache(lm.config, b, cache_len, dtype=inputs_embeds.dtype, device=inputs_embeds.device, tp=lm.tp)
     logits, cache = lm(inputs_embeds, attention_mask=attention_mask, cache=cache)
     return logits, cache
 

@@ -32,11 +32,12 @@ from .decoding import _decode, _resolve_lengths, _speculative, _validate_num_ret
 class _TextOnlyModule(nn.Module):
     """The VideoBLIP method surface the decoding loop uses, over a bare LM."""
 
-    def __init__(self, config: VideoBlipConfig, *, device=None, dtype=None):
+    def __init__(self, config: VideoBlipConfig, *, device=None, dtype=None, tp=None):
         super().__init__()
         self.config = config  # text_config is what matters
         lm_cls = LlamaForCausalLM if isinstance(config.text_config, LlamaConfig) else OPTForCausalLM
-        self.language_model = lm_cls(config.text_config, device=device, dtype=dtype)
+        self.language_model = lm_cls(config.text_config, tp=tp, device=device, dtype=dtype)
+        self.tp = self.language_model.tp
 
     def embed_and_scatter(self, input_ids, pixel_values=None, video_input_mask=None):
         del pixel_values, video_input_mask

@@ -113,6 +113,7 @@ def load_model(
     w8a8_prefill: bool = False,
     remat: bool = False,
     device="cuda",
+    mesh=None,
 ) -> tuple[VideoBlipForConditionalGeneration, VideoBlipConfig]:
     """Load a save_pretrained dir -> (model on ``device``, config).
 
@@ -132,6 +133,11 @@ def load_model(
     matmuls), ``w8a8_prefill`` (requires ``int8_lm``: the LM's prefill
     matmuls W8A8). None is bit-parity with bf16; all are off by default.
     ``remat`` sets per-layer rematerialization of the LM trunk (training).
+    ``mesh`` (a ``parallel.Mesh`` with a model axis > 1) builds the
+    tensor-parallel model of this rank: each tensor is read from the file
+    (memory-mapped, on the CPU) and only this rank's slice of it
+    (``parallel/tensor.shard_state_dict``) goes to ``device``; the int8
+    weight modes then raise ``NotImplementedError``.
     Any other ``version`` than ``"v2"`` builds the v1 model, as in JAX (video features prepended,
     ``models/video_blip_v1.py``) over the same weights. OPT and T5 (flan-t5)
     checkpoints load; ``int8_lm``/``int8_kv`` take OPT only, as in JAX. The
@@ -146,11 +152,12 @@ def load_model(
         raise ValueError("int8_lm/int8_kv currently support OPT-family LMs only")
     if remat:
         config = cfg_replace(config, text_config=dataclasses.replace(config.text_config, remat=True))
-    state = load_hf_checkpoint(path, config, dtype=param_dtype, device=device)
+    tp = None if mesh is None else mesh.tp
+    state = load_hf_checkpoint(path, config, dtype=param_dtype, device=device, tp=tp)
     table = "embed_tokens" if isinstance(config.text_config, OPTConfig) else "shared"
     stored = state[f"language_model.{table}.weight"].dtype  # the weights' dtype after the load
     cls = VideoBlipForConditionalGeneration if version == "v2" else VideoBlipV1ForConditionalGeneration
-    model = cls(config, device="meta", dtype=dtype, param_dtype=stored)
+    model = cls(config, device="meta", dtype=dtype, param_dtype=stored, tp=tp)
     model.load_state_dict(state, strict=True, assign=True)
     del state
     model.eval().requires_grad_(False)

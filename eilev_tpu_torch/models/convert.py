@@ -47,6 +47,7 @@ import numpy as np
 import torch
 
 from ..configs import LlamaConfig, OPTConfig, T5Config, VideoBlipConfig
+from ..parallel.tensor import shard_state_dict
 from .safetensors_io import SafetensorsDirectory
 
 _LAYER = re.compile(r"^layers_(\d+)$")
@@ -338,11 +339,21 @@ def convert_videoblip(state_dict: Mapping[str, torch.Tensor], config: VideoBlipC
 
 
 def load_hf_checkpoint(
-    path: str, config: VideoBlipConfig, *, dtype: Optional[torch.dtype] = None, device="cpu"
+    path: str, config: VideoBlipConfig, *, dtype: Optional[torch.dtype] = None, device="cpu", tp=None
 ) -> dict[str, torch.Tensor]:
     """A ``save_pretrained`` directory (its ``*.safetensors``, one file or
     shards) -> the port's state dict on ``device``, every floating-point
-    tensor cast to ``dtype`` (default: as stored). Raises
-    ``FileNotFoundError`` when the directory holds no ``*.safetensors``."""
+    tensor cast to ``dtype`` (default: as stored). Under ``tp`` (a
+    ``parallel.tensor.TensorParallel``) it is this rank's local state dict
+    (``parallel/tensor.shard_state_dict``): each tensor is converted from a
+    view of the mapped file and only its slice is copied to ``device``.
+    Raises ``FileNotFoundError`` when the directory holds no
+    ``*.safetensors``."""
     with SafetensorsDirectory(path) as files:
-        return convert_videoblip(files.view(dtype=dtype, device=device), config)
+        if tp is None:
+            return convert_videoblip(files.view(dtype=dtype, device=device), config)
+        full = convert_videoblip(files.view(dtype=dtype, copy=False), config)
+        local = {k: v.to(device=device, copy=True).contiguous()
+                 for k, v in shard_state_dict(full, config, tp).items()}
+        del full  # the views of the mapped files go before the files close
+    return local

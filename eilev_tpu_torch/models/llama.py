@@ -33,6 +33,13 @@ Grouped-query attention stores only the kv heads; the attention functions
 read kv head h // (heads // kv_heads), which equals the JAX ``jnp.repeat``.
 A multi-token write into a filled cache without ``cache_append`` raises
 ``NotImplementedError``.
+
+Tensor parallelism (``tp``, ``parallel/tensor.py``; inference): rank r holds q
+heads ``[r H/tp, (r+1) H/tp)`` and kv heads ``[r KVH/tp, ...)`` of the packed
+``qkv_proj`` (tp must divide KVH), so K5 and K3/K4 run on the local heads and
+the cache holds the local kv heads; ``gate_proj``/``up_proj`` are
+column-parallel, ``o_proj``/``down_proj`` row-parallel; ``embed_tokens`` and
+``lm_head`` are vocab-parallel, the logits gathered on every rank.
 """
 
 from __future__ import annotations
@@ -47,6 +54,7 @@ from ..configs import LlamaConfig
 from ..ops.attention import dot_product_attention
 from ..ops.decode_attention import decode_attention_stacked, dequantize_kv, quantize_kv
 from ..ops.quantization import dense_cls
+from ..parallel.tensor import gather_vocab, row_parallel, tower_tp, vocab_block, vocab_embedding
 from .opt import append_bias
 
 Cache = dict[str, Any]
@@ -96,16 +104,18 @@ class LlamaRMSNorm(nn.Module):
 
 
 class LlamaAttention(nn.Module):
-    def __init__(self, config: LlamaConfig, *, device=None, dtype=None):
+    def __init__(self, config: LlamaConfig, *, tp=None, device=None, dtype=None):
         super().__init__()
         self.config = config
         kw = {"device": device, "dtype": dtype}
         hd = config.head_dim
         dense = dense_cls(config)  # nn.Linear, or Int8Dense when opted in
+        size = tp.size if tp else 1
+        self.num_heads, self.kv_heads = config.num_attention_heads // size, config.num_key_value_heads // size
         # packed [q (nh*hd) | k (nkv*hd) | v (nkv*hd)] projection
-        packed = (config.num_attention_heads + 2 * config.num_key_value_heads) * hd
+        packed = (self.num_heads + 2 * self.kv_heads) * hd
         self.qkv_proj = dense(config.hidden_size, packed, bias=False, **kw)
-        self.o_proj = dense(config.num_attention_heads * hd, config.hidden_size, bias=False, **kw)
+        self.o_proj = row_parallel(dense, tp)(self.num_heads * hd, config.hidden_size, bias=False, **kw)
 
     def forward(
         self,
@@ -119,9 +129,8 @@ class LlamaAttention(nn.Module):
         """``cache_kv`` is (k_buf, v_buf, k_scale, v_scale, layer_idx) of the
         stacked cache (the scales are None for a model-dtype cache); the fresh
         rows are written into it in place at ``cache_index``."""
-        cfg = self.config
         b, s, _ = hidden_states.shape
-        nh, nkv, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+        nh, nkv, hd = self.num_heads, self.kv_heads, self.config.head_dim
         qkv = self.qkv_proj(hidden_states)
         dq, dkv = nh * hd, nkv * hd
         q = apply_rope(qkv[..., :dq].reshape(b, s, nh, hd), cos, sin)
@@ -173,25 +182,25 @@ class LlamaAttention(nn.Module):
 
 
 class LlamaMLP(nn.Module):
-    def __init__(self, config: LlamaConfig, *, device=None, dtype=None):
+    def __init__(self, config: LlamaConfig, *, tp=None, device=None, dtype=None):
         super().__init__()
         kw = {"device": device, "dtype": dtype}
         dense = dense_cls(config)
-        d, ffn = config.hidden_size, config.intermediate_size
+        d, ffn = config.hidden_size, config.intermediate_size // (tp.size if tp else 1)
         self.gate_proj = dense(d, ffn, bias=False, **kw)
         self.up_proj = dense(d, ffn, bias=False, **kw)
-        self.down_proj = dense(ffn, d, bias=False, **kw)
+        self.down_proj = row_parallel(dense, tp)(ffn, d, bias=False, **kw)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
 
 
 class LlamaDecoderLayer(nn.Module):
-    def __init__(self, config: LlamaConfig, *, device=None, dtype=None):
+    def __init__(self, config: LlamaConfig, *, tp=None, device=None, dtype=None):
         super().__init__()
         kw = {"device": device, "dtype": dtype}
-        self.self_attn = LlamaAttention(config, **kw)
-        self.mlp = LlamaMLP(config, **kw)
+        self.self_attn = LlamaAttention(config, tp=tp, **kw)
+        self.mlp = LlamaMLP(config, tp=tp, **kw)
         self.input_layernorm = LlamaRMSNorm(config.hidden_size, config.rms_norm_eps, **kw)
         self.post_attention_layernorm = LlamaRMSNorm(config.hidden_size, config.rms_norm_eps, **kw)
 
@@ -211,20 +220,23 @@ class LlamaDecoderLayer(nn.Module):
 
 class LlamaForCausalLM(nn.Module):
     """LLaMA with an explicit cache argument: the method surface of
-    :class:`models.opt.OPTForCausalLM`, so the decoding loops drive both."""
+    :class:`models.opt.OPTForCausalLM`, so the decoding loops drive both.
+    ``tp`` (a ``parallel.tensor.TensorParallel``) shards it."""
 
-    def __init__(self, config: LlamaConfig, *, device=None, dtype=None):
+    def __init__(self, config: LlamaConfig, *, tp=None, device=None, dtype=None):
         super().__init__()
         self.config = config
+        self.tp = tp = tower_tp(tp, config)
         kw = {"device": device, "dtype": dtype}
-        self.embed_tokens = nn.Embedding(config.vocab_size, config.hidden_size, **kw)
+        self.embed_tokens = vocab_embedding(config.vocab_size, config.hidden_size, tp, **kw)
         self.layers = nn.ModuleList(
-            LlamaDecoderLayer(config, **kw) for _ in range(config.num_hidden_layers)
+            LlamaDecoderLayer(config, tp=tp, **kw) for _ in range(config.num_hidden_layers)
         )
         self.norm = LlamaRMSNorm(config.hidden_size, config.rms_norm_eps, **kw)
+        rows = config.vocab_size if tp is None else vocab_block(config.vocab_size, tp)
         self.lm_head = (
             None if config.tie_word_embeddings
-            else nn.Linear(config.hidden_size, config.vocab_size, bias=False, **kw)
+            else nn.Linear(config.hidden_size, rows, bias=False, **kw)
         )
 
     def embed(self, input_ids: torch.Tensor) -> torch.Tensor:
@@ -233,8 +245,10 @@ class LlamaForCausalLM(nn.Module):
     def _head(self, x: torch.Tensor) -> torch.Tensor:
         x = self.norm(x)
         if self.lm_head is not None:
-            return self.lm_head(x)
-        return F.linear(x, self.embed_tokens.weight)  # tied, as flax Embed.attend
+            logits = self.lm_head(x)
+        else:
+            logits = F.linear(x, self.embed_tokens.weight)  # tied, as flax Embed.attend
+        return logits if self.tp is None else gather_vocab(logits, self.tp, self.config.vocab_size)
 
     def forward(
         self,

@@ -46,6 +46,15 @@ L) class continuations to the shared (B, P) prompt cache with a class axis,
 as the JAX module does: the prompt cache is read, never written or
 duplicated per class. Its attention is plain einsums with additive biases,
 as in JAX (no Pallas kernel there, so none here).
+
+Tensor parallelism (``tp``, ``parallel/tensor.py``; inference): each rank
+holds its heads of the packed ``qkv_proj`` and its block of ``fc1``, so K2,
+K3 and K4 run with ``num_heads = H / tp`` and the cache (:func:`init_cache`
+with ``tp``) holds the local heads; ``out_proj`` and ``fc2`` are
+row-parallel; ``embed_tokens`` is vocab-parallel and the tied head's logits
+are gathered (:func:`parallel.tensor.gather_vocab`), so every rank returns
+the same full-vocab logits. ``score_with_prefix`` runs on the local heads
+too, and returns the rank's vocab block with ``local_logits``.
 """
 
 from __future__ import annotations
@@ -63,6 +72,7 @@ from ..ops.decode_attention import decode_attention_stacked, dequantize_kv, quan
 from ..ops.dropout import Dropout, MaskSource
 from ..ops.fused_attention import packed_qkv_causal_attention
 from ..ops.quantization import dense_cls
+from ..parallel.tensor import gather_vocab, row_parallel, tower_tp, vocab_embedding
 from .mixed_precision import MixedLayerNorm, MixedLinear, mixed_dense_cls
 
 Cache = dict[str, Any]
@@ -81,13 +91,17 @@ def init_cache(
     max_len: int,
     dtype: torch.dtype = torch.float32,
     device: Optional[torch.device] = None,
+    tp=None,
 ) -> Cache:
     """Preallocate the stacked KV cache. ``index`` is a Python int.
 
     With ``config.int8_kv_cache`` k/v are int8 and ``k_scale``/``v_scale``
     hold their bf16 per-(position, head) scales; ``dtype`` is then unused.
+    Under ``tp`` (the model's ``tp``) it holds the rank's kv heads.
     """
     kv_heads = getattr(config, "num_key_value_heads", config.num_attention_heads)
+    tp = tower_tp(tp, config)
+    kv_heads //= tp.size if tp else 1
     shape = (config.num_hidden_layers, batch, max_len, kv_heads, config.head_dim)
     cache: Cache = {
         "index": 0,
@@ -117,15 +131,17 @@ def append_bias(cache_mask: torch.Tensor, index: int, s: int) -> torch.Tensor:
 
 
 class OPTAttention(nn.Module):
-    def __init__(self, config: OPTConfig, *, device=None, dtype=None):
+    def __init__(self, config: OPTConfig, *, tp=None, device=None, dtype=None):
         super().__init__()
         self.config = config
         d = config.hidden_size
         kw = {"device": device, "dtype": dtype}
         dense = mixed_dense_cls(dense_cls(config))  # or Int8Dense when opted in
+        self.num_heads = config.num_attention_heads // (tp.size if tp else 1)
+        inner = self.num_heads * config.head_dim
         # packed [q | k | v] projection: one GEMM instead of three
-        self.qkv_proj = dense(d, 3 * d, **kw)
-        self.out_proj = dense(d, d, **kw)
+        self.qkv_proj = dense(d, 3 * inner, **kw)
+        self.out_proj = row_parallel(dense, tp)(inner, d, **kw)
 
     def forward(
         self,
@@ -141,9 +157,9 @@ class OPTAttention(nn.Module):
         fresh cache (``attn['prefill_fresh']``), one decode token, or an
         append (``attn['bias']``) that attends the whole cache under the
         bias, dequantized first for an int8 cache."""
-        cfg = self.config
-        b, s, d = hidden_states.shape
-        nh, hd = cfg.num_attention_heads, cfg.head_dim
+        b, s, _ = hidden_states.shape
+        nh, hd = self.num_heads, self.config.head_dim
+        d = nh * hd  # the local heads' width
         qkv = self.qkv_proj(hidden_states)
         q = qkv[..., :d].reshape(b, s, nh, hd)
         k = qkv[..., d : 2 * d].reshape(b, s, nh, hd)
@@ -215,9 +231,9 @@ class OPTAttention(nn.Module):
         ``self_bias`` to (B, C, H, L, L); both are fp32 and ADDED to the
         model-dtype scores, as in JAX (so the scores are fp32 from there on,
         and a NaN k/v row of the prompt cache reaches every class score)."""
-        cfg = self.config
-        b, c, l, d = hidden_states.shape
-        nh, hd = cfg.num_attention_heads, cfg.head_dim
+        b, c, l, _ = hidden_states.shape
+        nh, hd = self.num_heads, self.config.head_dim
+        d = nh * hd  # the local heads' width
         qkv = self.qkv_proj(hidden_states)
         # the scale rounded to the model dtype first, as JAX's weak-typed product does
         q = (qkv[..., :d] * _scalar(hd**-0.5, qkv)).reshape(b, c, l, nh, hd)
@@ -235,17 +251,18 @@ class OPTAttention(nn.Module):
 
 
 class OPTDecoderLayer(nn.Module):
-    def __init__(self, config: OPTConfig, *, device=None, dtype=None):
+    def __init__(self, config: OPTConfig, *, tp=None, device=None, dtype=None):
         super().__init__()
         self.config = config
         kw = {"device": device, "dtype": dtype}
         d, eps = config.hidden_size, config.layer_norm_eps
-        self.self_attn = OPTAttention(config, **kw)
+        self.self_attn = OPTAttention(config, tp=tp, **kw)
         self.self_attn_layer_norm = MixedLayerNorm(d, eps=eps, **kw)
         self.final_layer_norm = MixedLayerNorm(d, eps=eps, **kw)
         dense = mixed_dense_cls(dense_cls(config))
-        self.fc1 = dense(d, config.ffn_dim, **kw)
-        self.fc2 = dense(config.ffn_dim, d, **kw)
+        ffn = config.ffn_dim // (tp.size if tp else 1)
+        self.fc1 = dense(d, ffn, **kw)
+        self.fc2 = row_parallel(dense, tp)(ffn, d, **kw)
         self.dropout_layer = Dropout(config.dropout)
 
     def _act(self, x: torch.Tensor) -> torch.Tensor:
@@ -328,14 +345,17 @@ class OPTForCausalLM(nn.Module):
     """OPT with an explicit cache argument and the tied ``lm_head``. It
     computes in ``compute_dtype``: the embeddings are cast to it and every
     layer casts its parameters at use. ``None`` (the default) follows the
-    parameters' dtype, also after a ``.to(dtype)`` of the module."""
+    parameters' dtype, also after a ``.to(dtype)`` of the module. ``tp`` (a
+    ``parallel.tensor.TensorParallel``) shards it where the model axis
+    divides its heads and FFN width."""
 
-    def __init__(self, config: OPTConfig, *, device=None, dtype=None, compute_dtype=None):
+    def __init__(self, config: OPTConfig, *, tp=None, device=None, dtype=None, compute_dtype=None):
         super().__init__()
         self.config = config
         self.compute_dtype = compute_dtype
+        self.tp = tp = tower_tp(tp, config)
         kw = {"device": device, "dtype": dtype}
-        self.embed_tokens = nn.Embedding(config.vocab_size, config.word_embed_proj_dim, **kw)
+        self.embed_tokens = vocab_embedding(config.vocab_size, config.word_embed_proj_dim, tp, **kw)
         # +2 offset slots, like torch's OPTLearnedPositionalEmbedding
         self.embed_positions = nn.Embedding(
             config.max_position_embeddings + 2, config.hidden_size, **kw
@@ -351,7 +371,7 @@ class OPTForCausalLM(nn.Module):
             self.project_in = None
             self.project_out = None
         self.layers = nn.ModuleList(
-            OPTDecoderLayer(config, **kw) for _ in range(config.num_hidden_layers)
+            OPTDecoderLayer(config, tp=tp, **kw) for _ in range(config.num_hidden_layers)
         )
         self.embed_dropout = Dropout(config.dropout)
         self.final_norm = (
@@ -381,9 +401,14 @@ class OPTForCausalLM(nn.Module):
         """The final norm, out-projection and tied lm head after the layer stack."""
         return self.lm_head(self._pre_head(x))
 
-    def lm_head(self, hidden: torch.Tensor) -> torch.Tensor:
+    def lm_head(self, hidden: torch.Tensor, local: bool = False) -> torch.Tensor:
+        """The tied head's logits: the full vocabulary on every rank, or with
+        ``local`` (under ``tp``) this rank's block of it."""
         # tied to embed_tokens, like OPTForCausalLM
-        return F.linear(hidden, self.embed_tokens.weight.to(hidden.dtype))
+        logits = F.linear(hidden, self.embed_tokens.weight.to(hidden.dtype))
+        if self.tp is None or local:
+            return logits
+        return gather_vocab(logits, self.tp, self.config.vocab_size)
 
     def _pre_head(self, x: torch.Tensor) -> torch.Tensor:
         if self.final_norm is not None:
@@ -474,12 +499,14 @@ class OPTForCausalLM(nn.Module):
         class_attention_mask: torch.Tensor,
         cache: Cache,
         return_hidden: bool = False,
+        local_logits: bool = False,
     ):
         """Run (B, C, L) class continuations against the shared prompt cache.
 
         ``class_embeds``: (B, C, L, word_embed_proj_dim). Returns the (B, C, L,
-        vocab) logits (and the (B, C, L, D) final hidden states with
-        ``return_hidden``). The cache is read only: positions continue from
+        vocab) logits, or this rank's vocab block of them with
+        ``local_logits`` under ``tp`` (and the (B, C, L, D) final hidden
+        states with ``return_hidden``). The cache is read only: positions continue from
         ``cache['pos']``, the prompt's padding and unfilled slots are masked
         by ``cache['mask']``, and an int8 cache is dequantized layer by layer
         (materialized, as in JAX)."""
@@ -511,7 +538,7 @@ class OPTForCausalLM(nn.Module):
                 pk, pv = cache["k"][i], cache["v"][i]
             x = layer.shared_prefix(x, pk, pv, prefix_bias, self_bias)
         hidden = self._pre_head(x)
-        logits = self.lm_head(hidden)
+        logits = self.lm_head(hidden, local=local_logits)
         if return_hidden:
             return logits, hidden
         return logits

@@ -18,6 +18,13 @@ mask source ``rng``.
 Every layer computes in its input's dtype (``models/mixed_precision.py``):
 the training recipe holds this subtree in fp32 master weights inside a bf16
 model, and the activations stay bf16, as flax's ``dtype`` keeps them.
+
+Under tensor parallelism (``tp``, ``parallel/tensor.py``) the self- and
+cross-attention's ``query``/``key``/``value`` and the FFN's ``intermediate``
+are column-parallel (the rank's heads, its block of the FFN), ``dense`` and
+the FFN's ``output`` row-parallel: the all_reduce comes before each residual
+add and LayerNorm. A model axis that does not divide the heads (12 at tp 8)
+leaves the Q-Former whole on every rank.
 """
 
 from __future__ import annotations
@@ -32,6 +39,7 @@ from ..configs import QFormerConfig
 from ..ops.attention import dot_product_attention
 from ..ops.dropout import Dropout, MaskSource
 from ..ops.quantization import vision_dense_cls
+from ..parallel.tensor import row_parallel, tower_tp
 from .mixed_precision import MixedLayerNorm, mixed_dense_cls
 
 
@@ -42,13 +50,14 @@ def _dense_cls(config: QFormerConfig) -> type:
 
 
 class QFormerMultiHeadAttention(nn.Module):
-    def __init__(self, config: QFormerConfig, is_cross_attention: bool = False, *,
+    def __init__(self, config: QFormerConfig, is_cross_attention: bool = False, *, tp=None,
                  device=None, dtype=None):
         super().__init__()
         self.config = config
         kw = {"device": device, "dtype": dtype}
         d = config.hidden_size
-        inner = config.num_attention_heads * config.head_dim
+        self.num_heads = config.num_attention_heads // (tp.size if tp else 1)
+        inner = self.num_heads * config.head_dim
         kv_in = config.encoder_hidden_size if is_cross_attention else d
         dense = _dense_cls(config)
         self.query = dense(d, inner, **kw)
@@ -63,8 +72,7 @@ class QFormerMultiHeadAttention(nn.Module):
         padding_mask: Optional[torch.Tensor] = None,
         rng: Optional[MaskSource] = None,
     ) -> torch.Tensor:
-        cfg = self.config
-        nh, hd = cfg.num_attention_heads, cfg.head_dim
+        nh, hd = self.num_heads, self.config.head_dim
         kv = kv_states if kv_states is not None else hidden_states
         b, s, _ = hidden_states.shape
         l = kv.shape[1]
@@ -78,11 +86,11 @@ class QFormerMultiHeadAttention(nn.Module):
 class QFormerSelfOutput(nn.Module):
     """dense -> residual add -> LayerNorm (post-LN BERT)."""
 
-    def __init__(self, config: QFormerConfig, *, device=None, dtype=None):
+    def __init__(self, config: QFormerConfig, *, tp=None, device=None, dtype=None):
         super().__init__()
         kw = {"device": device, "dtype": dtype}
         d = config.hidden_size
-        self.dense = _dense_cls(config)(d, d, **kw)
+        self.dense = row_parallel(_dense_cls(config), tp)(d // (tp.size if tp else 1), d, **kw)
         self.dropout = Dropout(config.hidden_dropout_prob)
         self.layer_norm = MixedLayerNorm(d, eps=config.layer_norm_eps, **kw)
 
@@ -94,12 +102,12 @@ class QFormerSelfOutput(nn.Module):
 
 
 class QFormerAttention(nn.Module):
-    def __init__(self, config: QFormerConfig, is_cross_attention: bool = False, *,
+    def __init__(self, config: QFormerConfig, is_cross_attention: bool = False, *, tp=None,
                  device=None, dtype=None):
         super().__init__()
         kw = {"device": device, "dtype": dtype}
-        self.attention = QFormerMultiHeadAttention(config, is_cross_attention, **kw)
-        self.output = QFormerSelfOutput(config, **kw)
+        self.attention = QFormerMultiHeadAttention(config, is_cross_attention, tp=tp, **kw)
+        self.output = QFormerSelfOutput(config, tp=tp, **kw)
 
     def forward(
         self,
@@ -115,13 +123,14 @@ class QFormerAttention(nn.Module):
 class QFormerFFN(nn.Module):
     """intermediate (dense + gelu) -> output (dense -> residual -> LayerNorm)."""
 
-    def __init__(self, config: QFormerConfig, *, device=None, dtype=None):
+    def __init__(self, config: QFormerConfig, *, tp=None, device=None, dtype=None):
         super().__init__()
         kw = {"device": device, "dtype": dtype}
         d = config.hidden_size
         dense = _dense_cls(config)
-        self.intermediate = dense(d, config.intermediate_size, **kw)
-        self.output = dense(config.intermediate_size, d, **kw)
+        ffn = config.intermediate_size // (tp.size if tp else 1)
+        self.intermediate = dense(d, ffn, **kw)
+        self.output = row_parallel(dense, tp)(ffn, d, **kw)
         self.dropout = Dropout(config.hidden_dropout_prob)
         self.layer_norm = MixedLayerNorm(d, eps=config.layer_norm_eps, **kw)
 
@@ -131,17 +140,17 @@ class QFormerFFN(nn.Module):
 
 
 class QFormerLayer(nn.Module):
-    def __init__(self, config: QFormerConfig, has_cross_attention: bool = False, *,
+    def __init__(self, config: QFormerConfig, has_cross_attention: bool = False, *, tp=None,
                  device=None, dtype=None):
         super().__init__()
         kw = {"device": device, "dtype": dtype}
-        self.attention = QFormerAttention(config, **kw)
+        self.attention = QFormerAttention(config, tp=tp, **kw)
         self.crossattention = (
-            QFormerAttention(config, is_cross_attention=True, **kw)
+            QFormerAttention(config, is_cross_attention=True, tp=tp, **kw)
             if has_cross_attention
             else None
         )
-        self.ffn_query = QFormerFFN(config, **kw)
+        self.ffn_query = QFormerFFN(config, tp=tp, **kw)
 
     def forward(
         self,
@@ -168,15 +177,18 @@ class QFormerModel(nn.Module):
     (B, kv_len), 1 = attend. Returns (B, num_query_tokens, hidden) in the
     dtype of ``encoder_hidden_states``, the compute dtype (flax casts the
     query embeddings to its ``dtype``); ``rng`` is the dropout mask source.
+    ``tp`` (a ``parallel.tensor.TensorParallel``) shards it where the model
+    axis divides its heads and FFN width.
     """
 
-    def __init__(self, config: QFormerConfig, *, device=None, dtype=None):
+    def __init__(self, config: QFormerConfig, *, tp=None, device=None, dtype=None):
         super().__init__()
         kw = {"device": device, "dtype": dtype}
+        tp = tower_tp(tp, config)
         self.layernorm = MixedLayerNorm(config.hidden_size, eps=config.layer_norm_eps, **kw)
         self.dropout = Dropout(config.hidden_dropout_prob)
         self.layers = nn.ModuleList(
-            QFormerLayer(config, i % config.cross_attention_frequency == 0, **kw)
+            QFormerLayer(config, i % config.cross_attention_frequency == 0, tp=tp, **kw)
             for i in range(config.num_hidden_layers)
         )
 

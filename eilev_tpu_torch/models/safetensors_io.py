@@ -63,9 +63,13 @@ class SafetensorsFile:
     def dtype(self, name: str) -> torch.dtype:
         return DTYPES[self._header[name]["dtype"]]
 
-    def get_tensor(self, name: str, *, dtype: Optional[torch.dtype] = None, device="cpu") -> torch.Tensor:
+    def get_tensor(self, name: str, *, dtype: Optional[torch.dtype] = None, device="cpu",
+                   copy: bool = True) -> torch.Tensor:
         """A new tensor of ``name`` on ``device``, cast to ``dtype`` (default:
-        as stored). Only this tensor's pages of the file are read."""
+        as stored). Only this tensor's pages of the file are read. With
+        ``copy=False`` on the CPU, a tensor of the stored dtype is a view of
+        the mapped file (nothing is read until it is used), valid until the
+        file is closed; a file with views alive cannot be closed."""
         info = self._header[name]
         stored = DTYPES[info["dtype"]]
         begin, end = info["data_offsets"]
@@ -79,7 +83,7 @@ class SafetensorsFile:
             return torch.empty(shape, dtype=dtype or stored, device=device)
         view = torch.frombuffer(self._mm, dtype=stored, count=numel, offset=self._base + begin).reshape(shape)
         if torch.device(device).type == "cpu":
-            return view.to(dtype=dtype or stored, copy=True)
+            return view.to(dtype=dtype or stored, copy=copy)
         # copy as stored, then cast on the device: a cast on the host first
         # runs there at a fraction of the copy's rate
         return view.to(device=device, copy=True).to(dtype or stored)
@@ -118,11 +122,12 @@ class SafetensorsDirectory:
     def dtype(self, name: str) -> torch.dtype:
         return self._where[name].dtype(name)
 
-    def get_tensor(self, name: str, *, dtype: Optional[torch.dtype] = None, device="cpu") -> torch.Tensor:
-        return self._where[name].get_tensor(name, dtype=dtype, device=device)
+    def get_tensor(self, name: str, *, dtype: Optional[torch.dtype] = None, device="cpu",
+                   copy: bool = True) -> torch.Tensor:
+        return self._where[name].get_tensor(name, dtype=dtype, device=device, copy=copy)
 
-    def view(self, *, dtype: Optional[torch.dtype] = None, device="cpu") -> "TensorView":
-        return TensorView(self, dtype=dtype, device=device)
+    def view(self, *, dtype: Optional[torch.dtype] = None, device="cpu", copy: bool = True) -> "TensorView":
+        return TensorView(self, dtype=dtype, device=device, copy=copy)
 
     def close(self) -> None:
         for sf in self.files:
@@ -139,16 +144,17 @@ class TensorView(Mapping):
     """A read-only name -> tensor mapping over a :class:`SafetensorsDirectory`
     that reads each tensor when it is looked up, on ``device``,
     floating-point tensors cast to ``dtype`` (default: as stored; integer
-    tensors keep theirs)."""
+    tensors keep theirs); ``copy`` as :meth:`SafetensorsFile.get_tensor`'s."""
 
-    def __init__(self, source: SafetensorsDirectory, *, dtype: Optional[torch.dtype] = None, device="cpu"):
-        self.source, self.dtype, self.device = source, dtype, device
+    def __init__(self, source: SafetensorsDirectory, *, dtype: Optional[torch.dtype] = None, device="cpu",
+                 copy: bool = True):
+        self.source, self.dtype, self.device, self.copy = source, dtype, device, copy
 
     def __getitem__(self, name: str) -> torch.Tensor:
         if name not in self.source:
             raise KeyError(name)
         cast = self.dtype if self.source.dtype(name).is_floating_point else None
-        return self.source.get_tensor(name, dtype=cast, device=self.device)
+        return self.source.get_tensor(name, dtype=cast, device=self.device, copy=self.copy)
 
     def __contains__(self, name: object) -> bool:
         return name in self.source

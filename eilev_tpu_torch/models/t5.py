@@ -53,6 +53,14 @@ which only T5 contrastive search reaches.
 The pipeline plumbing (``encoder_rel_bias`` ... ``decoder_post``) exposes
 what runs around the layer trunks under pipeline parallelism
 (``training/pipeline_step.py``).
+
+Tensor parallelism (``tp``, ``parallel/tensor.py``; inference): each rank
+holds its heads of ``q``/``k``/``v`` and its block of ``wi_0``/``wi_1`` (or
+``wi``); ``o`` and ``wo`` are row-parallel; the relative-position bias is read
+for the rank's heads only (the table stays whole); the decode and
+cross caches hold the local heads; ``shared`` and ``lm_head`` are
+vocab-parallel, the logits gathered on every rank (``score_classes`` returns
+the rank's block with ``local_logits``).
 """
 
 from __future__ import annotations
@@ -66,6 +74,7 @@ from torch import nn
 from ..configs import T5Config
 from ..ops.attention import _scalar, dot_product_attention, make_causal_bias, mask_to_bias
 from ..ops.dropout import Dropout, MaskSource
+from ..parallel.tensor import gather_vocab, row_parallel, tower_tp, vocab_block, vocab_embedding
 from .mixed_precision import MixedLinear
 from .opt import _remat_layer
 
@@ -141,16 +150,18 @@ class T5LayerNorm(nn.Module):
 
 class T5Attention(nn.Module):
     def __init__(self, config: T5Config, has_relative_attention_bias: bool = False,
-                 bidirectional: bool = True, *, device=None, dtype=None):
+                 bidirectional: bool = True, *, tp=None, device=None, dtype=None):
         super().__init__()
         self.config = config
         self.bidirectional = bidirectional
         kw = {"device": device, "dtype": dtype}
-        inner = config.inner_dim
+        # this rank's heads [head_start, head_start + num_heads)
+        self.num_heads, self.head_start = tp.block(config.num_heads) if tp else (config.num_heads, 0)
+        self.inner = inner = self.num_heads * config.d_kv
         self.q = MixedLinear(config.d_model, inner, bias=False, **kw)
         self.k = MixedLinear(config.d_model, inner, bias=False, **kw)
         self.v = MixedLinear(config.d_model, inner, bias=False, **kw)
-        self.o = MixedLinear(inner, config.d_model, bias=False, **kw)
+        self.o = row_parallel(MixedLinear, tp)(inner, config.d_model, bias=False, **kw)
         if has_relative_attention_bias:
             self.relative_attention_bias = nn.Embedding(
                 config.relative_attention_num_buckets, config.num_heads, **kw)
@@ -167,17 +178,18 @@ class T5Attention(nn.Module):
 
     def bias_at(self, relative_position: torch.Tensor, *, dtype: torch.dtype) -> torch.Tensor:
         """(..., H) relative position bias of ``relative_position`` (memory -
-        query, any shape) in ``dtype``."""
+        query, any shape) in ``dtype``, for this rank's heads."""
         cfg = self.config
         nb, md = cfg.relative_attention_num_buckets, cfg.relative_attention_max_distance
         where = relative_position.device
         if where not in self._bucket_tables:
             self._bucket_tables[where] = distance_buckets(self.bidirectional, nb, md).to(where)
         buckets = _lookup_buckets(relative_position, self._bucket_tables[where], self.bidirectional, nb, md)
-        return F.embedding(buckets.long(), self.relative_attention_bias.weight.to(dtype))
+        table = self.relative_attention_bias.weight[:, self.head_start:self.head_start + self.num_heads]
+        return F.embedding(buckets.long(), table.to(dtype))
 
     def _heads(self, x: torch.Tensor) -> torch.Tensor:
-        return x.reshape(*x.shape[:-1], self.config.num_heads, self.config.d_kv)
+        return x.reshape(*x.shape[:-1], self.num_heads, self.config.d_kv)
 
     def forward(
         self,
@@ -199,7 +211,7 @@ class T5Attention(nn.Module):
             v_buf[li, :, cache_index : cache_index + s] = v
             k, v = k_buf[li], v_buf[li]
         out = dot_product_attention(q, k, v, scale=None, **(attn or {}))  # T5: no scaling
-        return self.o(out.reshape(b, s, self.config.inner_dim))
+        return self.o(out.reshape(b, s, self.inner))
 
     def cross_kv(self, encoder_hidden: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         return self._heads(self.k(encoder_hidden)), self._heads(self.v(encoder_hidden))
@@ -212,7 +224,7 @@ class T5Attention(nn.Module):
         scores = torch.einsum("bclhd,bcmhd->bchlm", q, k) + bias.to(q.dtype)
         probs = torch.softmax(scores, dim=-1)
         ctx = torch.einsum("bchlm,bcmhd->bclhd", probs, v)
-        return self.o(ctx.reshape(*hidden.shape[:3], self.config.inner_dim))
+        return self.o(ctx.reshape(*hidden.shape[:3], self.inner))
 
     def cross_classes(self, hidden: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       enc_bias: torch.Tensor) -> torch.Tensor:
@@ -222,28 +234,29 @@ class T5Attention(nn.Module):
         scores = torch.einsum("bclhd,bshd->bchls", q, k) + enc_bias.to(q.dtype)
         probs = torch.softmax(scores, dim=-1)
         ctx = torch.einsum("bchls,bshd->bclhd", probs, v)
-        return self.o(ctx.reshape(*hidden.shape[:3], self.config.inner_dim))
+        return self.o(ctx.reshape(*hidden.shape[:3], self.inner))
 
     def cross_attend(self, hidden_states: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      padding_mask: Optional[torch.Tensor]) -> torch.Tensor:
         b, s, _ = hidden_states.shape
         q = self._heads(self.q(hidden_states))
         out = dot_product_attention(q, k, v, padding_mask=padding_mask, scale=None)
-        return self.o(out.reshape(b, s, self.config.inner_dim))
+        return self.o(out.reshape(b, s, self.inner))
 
 
 class T5FF(nn.Module):
-    def __init__(self, config: T5Config, *, device=None, dtype=None):
+    def __init__(self, config: T5Config, *, tp=None, device=None, dtype=None):
         super().__init__()
         self.config = config
         kw = {"device": device, "dtype": dtype}
         self.layer_norm = T5LayerNorm(config.d_model, config.layer_norm_epsilon, **kw)
+        d_ff = config.d_ff // (tp.size if tp else 1)
         if config.is_gated_act:
-            self.wi_0 = MixedLinear(config.d_model, config.d_ff, bias=False, **kw)
-            self.wi_1 = MixedLinear(config.d_model, config.d_ff, bias=False, **kw)
+            self.wi_0 = MixedLinear(config.d_model, d_ff, bias=False, **kw)
+            self.wi_1 = MixedLinear(config.d_model, d_ff, bias=False, **kw)
         else:
-            self.wi = MixedLinear(config.d_model, config.d_ff, bias=False, **kw)
-        self.wo = MixedLinear(config.d_ff, config.d_model, bias=False, **kw)
+            self.wi = MixedLinear(config.d_model, d_ff, bias=False, **kw)
+        self.wo = row_parallel(MixedLinear, tp)(d_ff, config.d_model, bias=False, **kw)
         self.dropout = Dropout(config.dropout_rate)
 
     def _act(self, x: torch.Tensor) -> torch.Tensor:
@@ -266,11 +279,11 @@ class T5FF(nn.Module):
 
 class T5SelfAttentionLayer(nn.Module):
     def __init__(self, config: T5Config, has_relative_attention_bias: bool = False,
-                 bidirectional: bool = True, *, device=None, dtype=None):
+                 bidirectional: bool = True, *, tp=None, device=None, dtype=None):
         super().__init__()
         kw = {"device": device, "dtype": dtype}
         self.layer_norm = T5LayerNorm(config.d_model, config.layer_norm_epsilon, **kw)
-        self.attention = T5Attention(config, has_relative_attention_bias, bidirectional, **kw)
+        self.attention = T5Attention(config, has_relative_attention_bias, bidirectional, tp=tp, **kw)
         self.dropout = Dropout(config.dropout_rate)
 
     def forward(self, x, attn=None, cache_kv=None, cache_index=None, rng=None):
@@ -282,11 +295,11 @@ class T5SelfAttentionLayer(nn.Module):
 
 
 class T5CrossAttentionLayer(nn.Module):
-    def __init__(self, config: T5Config, *, device=None, dtype=None):
+    def __init__(self, config: T5Config, *, tp=None, device=None, dtype=None):
         super().__init__()
         kw = {"device": device, "dtype": dtype}
         self.layer_norm = T5LayerNorm(config.d_model, config.layer_norm_epsilon, **kw)
-        self.attention = T5Attention(config, bidirectional=True, **kw)
+        self.attention = T5Attention(config, bidirectional=True, tp=tp, **kw)
         self.dropout = Dropout(config.dropout_rate)
 
     def forward(self, x, k, v, padding_mask=None, rng=None):
@@ -301,25 +314,25 @@ class T5CrossAttentionLayer(nn.Module):
 
 
 class T5EncoderLayer(nn.Module):
-    def __init__(self, config: T5Config, has_relative_attention_bias: bool = False, *,
+    def __init__(self, config: T5Config, has_relative_attention_bias: bool = False, *, tp=None,
                  device=None, dtype=None):
         super().__init__()
         kw = {"device": device, "dtype": dtype}
-        self.self_attention = T5SelfAttentionLayer(config, has_relative_attention_bias, True, **kw)
-        self.ff = T5FF(config, **kw)
+        self.self_attention = T5SelfAttentionLayer(config, has_relative_attention_bias, True, tp=tp, **kw)
+        self.ff = T5FF(config, tp=tp, **kw)
 
     def forward(self, x, attn, rng=None):
         return self.ff(self.self_attention(x, attn=attn, rng=rng), rng)
 
 
 class T5DecoderLayer(nn.Module):
-    def __init__(self, config: T5Config, has_relative_attention_bias: bool = False, *,
+    def __init__(self, config: T5Config, has_relative_attention_bias: bool = False, *, tp=None,
                  device=None, dtype=None):
         super().__init__()
         kw = {"device": device, "dtype": dtype}
-        self.self_attention = T5SelfAttentionLayer(config, has_relative_attention_bias, False, **kw)
-        self.cross_attention = T5CrossAttentionLayer(config, **kw)
-        self.ff = T5FF(config, **kw)
+        self.self_attention = T5SelfAttentionLayer(config, has_relative_attention_bias, False, tp=tp, **kw)
+        self.cross_attention = T5CrossAttentionLayer(config, tp=tp, **kw)
+        self.ff = T5FF(config, tp=tp, **kw)
 
     def forward(self, x, self_attn, cross_k, cross_v, cross_padding_mask,
                 cache_kv=None, cache_index=None, rng=None):
@@ -340,12 +353,12 @@ def _remat(config: T5Config) -> bool:
 
 
 class T5Encoder(nn.Module):
-    def __init__(self, config: T5Config, *, device=None, dtype=None):
+    def __init__(self, config: T5Config, *, tp=None, device=None, dtype=None):
         super().__init__()
         self.config = config
         kw = {"device": device, "dtype": dtype}
         self.layers = nn.ModuleList(
-            T5EncoderLayer(config, has_relative_attention_bias=(i == 0), **kw)
+            T5EncoderLayer(config, has_relative_attention_bias=(i == 0), tp=tp, **kw)
             for i in range(config.num_layers)
         )
         self.final_layer_norm = T5LayerNorm(config.d_model, config.layer_norm_epsilon, **kw)
@@ -365,12 +378,12 @@ class T5Encoder(nn.Module):
 
 
 class T5Decoder(nn.Module):
-    def __init__(self, config: T5Config, *, device=None, dtype=None):
+    def __init__(self, config: T5Config, *, tp=None, device=None, dtype=None):
         super().__init__()
         self.config = config
         kw = {"device": device, "dtype": dtype}
         self.layers = nn.ModuleList(
-            T5DecoderLayer(config, has_relative_attention_bias=(i == 0), **kw)
+            T5DecoderLayer(config, has_relative_attention_bias=(i == 0), tp=tp, **kw)
             for i in range(config.num_decoder_layers)
         )
         self.final_layer_norm = T5LayerNorm(config.d_model, config.layer_norm_epsilon, **kw)
@@ -528,28 +541,37 @@ class T5Decoder(nn.Module):
 class T5ForConditionalGeneration(nn.Module):
     """T5 with an explicit decode cache. It computes in ``compute_dtype``: the
     embeddings are cast to it and every layer casts its parameters at use.
-    ``None`` (the default) follows the parameters' dtype."""
+    ``None`` (the default) follows the parameters' dtype. ``tp`` (a
+    ``parallel.tensor.TensorParallel``) shards it where the model axis
+    divides its heads and FFN width."""
 
-    def __init__(self, config: T5Config, *, device=None, dtype=None, compute_dtype=None):
+    def __init__(self, config: T5Config, *, tp=None, device=None, dtype=None, compute_dtype=None):
         super().__init__()
         self.config = config
         self.compute_dtype = compute_dtype
+        self.tp = tp = tower_tp(tp, config)
         kw = {"device": device, "dtype": dtype}
-        self.shared = nn.Embedding(config.vocab_size, config.d_model, **kw)
-        self.encoder = T5Encoder(config, **kw)
-        self.decoder = T5Decoder(config, **kw)
-        self.lm_head = None if config.tie_word_embeddings else MixedLinear(
-            config.d_model, config.vocab_size, bias=False, **kw)
+        self.shared = vocab_embedding(config.vocab_size, config.d_model, tp, **kw)
+        self.encoder = T5Encoder(config, tp=tp, **kw)
+        self.decoder = T5Decoder(config, tp=tp, **kw)
+        rows = config.vocab_size if tp is None else vocab_block(config.vocab_size, tp)
+        self.lm_head = None if config.tie_word_embeddings else MixedLinear(config.d_model, rows, bias=False, **kw)
 
     def embed(self, input_ids: torch.Tensor) -> torch.Tensor:
         embeds = self.shared(input_ids)
         return embeds if self.compute_dtype is None else embeds.to(self.compute_dtype)
 
-    def _head(self, hidden: torch.Tensor) -> torch.Tensor:
+    def _head(self, hidden: torch.Tensor, local: bool = False) -> torch.Tensor:
+        """The logits: the full vocabulary on every rank, or with ``local``
+        (under ``tp``) this rank's block of it."""
         if self.config.tie_word_embeddings:
             hidden = hidden * _scalar(self.config.d_model**-0.5, hidden)
-            return F.linear(hidden, self.shared.weight.to(hidden.dtype))
-        return self.lm_head(hidden)
+            logits = F.linear(hidden, self.shared.weight.to(hidden.dtype))
+        else:
+            logits = self.lm_head(hidden)
+        if self.tp is None or local:
+            return logits
+        return gather_vocab(logits, self.tp, self.config.vocab_size)
 
     def encode(self, inputs_embeds: torch.Tensor, attention_mask: Optional[torch.Tensor],
                rng: Optional[MaskSource] = None) -> torch.Tensor:
@@ -601,7 +623,8 @@ class T5ForConditionalGeneration(nn.Module):
         layer's cross K/V projected once from ``encoder_hidden``."""
         cfg = self.config
         cross_k, cross_v = self.decoder.make_cross_kv(encoder_hidden)
-        shape = (cfg.num_decoder_layers, encoder_hidden.shape[0], max_len, cfg.num_heads, cfg.d_kv)
+        heads = cross_k.shape[3]  # this rank's under tp
+        shape = (cfg.num_decoder_layers, encoder_hidden.shape[0], max_len, heads, cfg.d_kv)
         kw = {"dtype": encoder_hidden.dtype, "device": encoder_hidden.device}
         return {"k": torch.zeros(shape, **kw), "v": torch.zeros(shape, **kw),
                 "cross_k": cross_k, "cross_v": cross_v, "index": 0}
@@ -612,9 +635,11 @@ class T5ForConditionalGeneration(nn.Module):
         class_attention_mask: torch.Tensor,
         encoder_hidden: torch.Tensor,
         encoder_attention_mask: Optional[torch.Tensor],
+        local_logits: bool = False,
     ) -> torch.Tensor:
         """(B, C, L, vocab) logits of class continuations over the shared
-        encoder states; ``class_decoder_ids`` (C, L) or (B, C, L) are already
+        encoder states (this rank's vocab block with ``local_logits`` under
+        ``tp``); ``class_decoder_ids`` (C, L) or (B, C, L) are already
         shifted right."""
         b = encoder_hidden.shape[0]
         c, l = class_decoder_ids.shape[-2:]
@@ -622,7 +647,7 @@ class T5ForConditionalGeneration(nn.Module):
         if emb.ndim == 3:  # (C, L, D) shared across the batch
             emb = emb[None].expand(b, c, l, emb.shape[-1])
         hidden = self.decoder.score_classes(emb, class_attention_mask, encoder_hidden, encoder_attention_mask)
-        return self._head(hidden)
+        return self._head(hidden, local=local_logits)
 
     def decode_step(
         self,

@@ -24,6 +24,15 @@ computes in ``dtype`` whatever its weights' dtype: fp32 master weights
 inside a bf16 model, as the training recipe keeps them, or fp32 weights
 everywhere under a bf16 compute, as the CLIs load a checkpoint
 (``models/auto.py:load_model``).
+
+Tensor parallelism (``tp``, a ``parallel.tensor.TensorParallel``; inference):
+the vision tower, the Q-Former and the language model are built with local
+heads and their weights sharded over the model group (each tower whole where
+the model axis does not divide it); ``query_tokens`` and
+``language_projection`` are whole on every rank, as JAX leaves them. The
+models return full-vocab logits on every rank, so the decoding loops need
+no change; ``tp`` is kept as :attr:`tp` for the caches and for
+classification's vocab-parallel scoring.
 """
 
 from __future__ import annotations
@@ -56,12 +65,14 @@ def scatter_video_features(
 
 class VideoBlipForConditionalGeneration(nn.Module):
     """The narration entry point. It builds on the card unless the caller
-    passes ``device="cpu"``; its submodules keep PyTorch's ``device=None``."""
+    passes ``device="cpu"``; its submodules keep PyTorch's ``device=None``.
+    ``tp`` shards it over a model group (``parallel/tensor.py``)."""
 
     def __init__(self, config: VideoBlipConfig, *, device="cuda", dtype=None, param_dtype=None,
-                 trainable_dtype=None):
+                 trainable_dtype=None, tp=None):
         super().__init__()
         self.config = config
+        self.tp = tp if tp is not None and tp.size > 1 else None
         # a compute dtype of its own only where the weights differ from it;
         # otherwise the towers follow their weights' dtype (so a .double() or
         # .to(dtype) of the model moves the compute with them)
@@ -69,16 +80,16 @@ class VideoBlipForConditionalGeneration(nn.Module):
         param_dtype = param_dtype or dtype
         kw = {"device": device, "dtype": param_dtype}
         train_kw = {"device": device, "dtype": trainable_dtype or param_dtype}
-        self.vision_model = VideoVisionModel(config.vision_config, compute_dtype=compute, **kw)
+        self.vision_model = VideoVisionModel(config.vision_config, tp=tp, compute_dtype=compute, **kw)
         self.query_tokens = nn.Parameter(
             torch.zeros(config.num_query_tokens, config.qformer_config.hidden_size, **train_kw)
         )
-        self.qformer = QFormerModel(config.qformer_config, **train_kw)
+        self.qformer = QFormerModel(config.qformer_config, tp=tp, **train_kw)
         self.language_projection = MixedLinear(
             config.qformer_config.hidden_size, config.text_hidden_size, **train_kw
         )
         lm_cls = OPTForCausalLM if isinstance(config.text_config, OPTConfig) else T5ForConditionalGeneration
-        self.language_model = lm_cls(config.text_config, compute_dtype=compute, **kw)
+        self.language_model = lm_cls(config.text_config, tp=tp, compute_dtype=compute, **kw)
 
     @property
     def compute_dtype(self) -> torch.dtype:
@@ -247,9 +258,11 @@ class VideoBlipForConditionalGeneration(nn.Module):
         return logits[:, :, 0], hidden[:, :, 0]
 
     def lm_score_with_prefix(
-        self, class_embeds: torch.Tensor, class_attention_mask: torch.Tensor, cache: Cache
+        self, class_embeds: torch.Tensor, class_attention_mask: torch.Tensor, cache: Cache,
+        local_logits: bool = False,
     ) -> torch.Tensor:
-        return self.language_model.score_with_prefix(class_embeds, class_attention_mask, cache)
+        return self.language_model.score_with_prefix(class_embeds, class_attention_mask, cache,
+                                                     local_logits=local_logits)
 
     def t5_encode(self, inputs_embeds: torch.Tensor, attention_mask: Optional[torch.Tensor]) -> torch.Tensor:
         return self.language_model.encode(inputs_embeds, attention_mask)
@@ -260,9 +273,10 @@ class VideoBlipForConditionalGeneration(nn.Module):
     def t5_decode_append(self, decoder_input_ids, encoder_attention_mask, cache, active):
         return self.language_model.decode_append(decoder_input_ids, encoder_attention_mask, cache, active)
 
-    def t5_score_classes(self, class_decoder_ids, class_attention_mask, encoder_hidden, encoder_attention_mask):
+    def t5_score_classes(self, class_decoder_ids, class_attention_mask, encoder_hidden, encoder_attention_mask,
+                         local_logits: bool = False):
         return self.language_model.score_classes(
-            class_decoder_ids, class_attention_mask, encoder_hidden, encoder_attention_mask)
+            class_decoder_ids, class_attention_mask, encoder_hidden, encoder_attention_mask, local_logits)
 
 
 def masked_cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:

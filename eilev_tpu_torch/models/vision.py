@@ -15,6 +15,11 @@ embedding casts the pixels and its parameters to it, and the layers cast
 their parameters at use (``models/mixed_precision.py``), so fp32 weights
 can serve a bf16 tower. ``None`` (the default) follows the parameters'
 dtype, also after a ``.to(dtype)`` of the module.
+
+Under tensor parallelism (``tp``, ``parallel/tensor.py``) each rank holds its
+heads of the packed ``qkv`` (``[q_local | k_local | v_local]``), so K1 runs
+on the local heads, and its block of ``fc1``; ``projection`` and ``fc2`` are
+row-parallel (one all_reduce each, the bias after it).
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ from ..configs import VisionConfig
 from ..ops.attention import packed_qkv_self_attention
 from ..ops.gelu import gelu
 from ..ops.quantization import vision_dense_cls
+from ..parallel.tensor import row_parallel, tower_tp
 from .mixed_precision import MixedLayerNorm, mixed_dense_cls
 
 
@@ -59,45 +65,47 @@ class VisionEmbeddings(nn.Module):
 
 
 class VisionAttention(nn.Module):
-    def __init__(self, config: VisionConfig, *, device=None, dtype=None):
+    def __init__(self, config: VisionConfig, *, tp=None, device=None, dtype=None):
         super().__init__()
         self.config = config
         d = config.hidden_size
         kw = {"device": device, "dtype": dtype}
         dense = mixed_dense_cls(vision_dense_cls(config))
+        self.num_heads = config.num_attention_heads // (tp.size if tp else 1)
+        inner = self.num_heads * config.head_dim
         # packed [q | k | v] projection; its bias is (q_bias, 0, v_bias) in HF
-        self.qkv = dense(d, 3 * d, bias=config.qkv_bias, **kw)
-        self.projection = dense(d, d, **kw)
+        self.qkv = dense(d, 3 * inner, bias=config.qkv_bias, **kw)
+        self.projection = row_parallel(dense, tp)(inner, d, **kw)
 
     def forward(self, hidden_states: torch.Tensor) -> torch.Tensor:
-        cfg = self.config
-        hd = cfg.head_dim
+        hd = self.config.head_dim
         qkv = self.qkv(hidden_states)
-        out = packed_qkv_self_attention(qkv, cfg.num_attention_heads, hd, scale=hd**-0.5)
+        out = packed_qkv_self_attention(qkv, self.num_heads, hd, scale=hd**-0.5)
         return self.projection(out)
 
 
 class VisionMLP(nn.Module):
-    def __init__(self, config: VisionConfig, *, device=None, dtype=None):
+    def __init__(self, config: VisionConfig, *, tp=None, device=None, dtype=None):
         super().__init__()
         kw = {"device": device, "dtype": dtype}
         dense = mixed_dense_cls(vision_dense_cls(config))
-        self.fc1 = dense(config.hidden_size, config.intermediate_size, **kw)
-        self.fc2 = dense(config.intermediate_size, config.hidden_size, **kw)
+        ffn = config.intermediate_size // (tp.size if tp else 1)
+        self.fc1 = dense(config.hidden_size, ffn, **kw)
+        self.fc2 = row_parallel(dense, tp)(ffn, config.hidden_size, **kw)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.fc2(gelu(self.fc1(x)))
 
 
 class VisionEncoderLayer(nn.Module):
-    def __init__(self, config: VisionConfig, *, device=None, dtype=None):
+    def __init__(self, config: VisionConfig, *, tp=None, device=None, dtype=None):
         super().__init__()
         kw = {"device": device, "dtype": dtype}
         d, eps = config.hidden_size, config.layer_norm_eps
         self.layer_norm1 = MixedLayerNorm(d, eps=eps, **kw)
-        self.self_attn = VisionAttention(config, **kw)
+        self.self_attn = VisionAttention(config, tp=tp, **kw)
         self.layer_norm2 = MixedLayerNorm(d, eps=eps, **kw)
-        self.mlp = VisionMLP(config, **kw)
+        self.mlp = VisionMLP(config, tp=tp, **kw)
 
     def forward(self, hidden_states: torch.Tensor) -> torch.Tensor:
         x = self.self_attn(self.layer_norm1(hidden_states)) + hidden_states
@@ -105,14 +113,17 @@ class VisionEncoderLayer(nn.Module):
 
 
 class VisionModel(nn.Module):
-    """Single-frame ViT. Returns (last_hidden_state, pooler_output)."""
+    """Single-frame ViT. Returns (last_hidden_state, pooler_output). ``tp``
+    (a ``parallel.tensor.TensorParallel``) shards it where the model axis
+    divides its heads and FFN width."""
 
-    def __init__(self, config: VisionConfig, *, device=None, dtype=None, compute_dtype=None):
+    def __init__(self, config: VisionConfig, *, tp=None, device=None, dtype=None, compute_dtype=None):
         super().__init__()
         kw = {"device": device, "dtype": dtype}
+        tp = tower_tp(tp, config)
         self.embeddings = VisionEmbeddings(config, compute_dtype=compute_dtype, **kw)
         self.layers = nn.ModuleList(
-            VisionEncoderLayer(config, **kw) for _ in range(config.num_hidden_layers)
+            VisionEncoderLayer(config, tp=tp, **kw) for _ in range(config.num_hidden_layers)
         )
         self.post_layernorm = MixedLayerNorm(
             config.hidden_size, eps=config.layer_norm_eps, **kw
@@ -131,9 +142,9 @@ class VisionModel(nn.Module):
 class VideoVisionModel(nn.Module):
     """(V, C, T, H, W) -> last_hidden_state (V, T*S, D), pooler_output (V, T, D)."""
 
-    def __init__(self, config: VisionConfig, *, device=None, dtype=None, compute_dtype=None):
+    def __init__(self, config: VisionConfig, *, tp=None, device=None, dtype=None, compute_dtype=None):
         super().__init__()
-        self.vision = VisionModel(config, device=device, dtype=dtype, compute_dtype=compute_dtype)
+        self.vision = VisionModel(config, tp=tp, device=device, dtype=dtype, compute_dtype=compute_dtype)
 
     def forward(self, pixel_values: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         v, c, t, h, w = pixel_values.shape

@@ -254,6 +254,11 @@ def quantize_model_(
     """
     if w8a8_prefill and not int8_lm:
         raise ValueError("w8a8_prefill requires int8_lm (shared int8 weights)")
+    if getattr(model, "tp", None) is not None and (int8_lm or int8_vision or int8_qformer or w8a8_prefill):
+        raise NotImplementedError(
+            "the int8 weight modes (int8_lm, int8_vision, int8_qformer, w8a8_prefill) do not run under tensor "
+            "parallelism: a row-parallel W8A8 layer needs an all_reduce MAX of its per-token absmax; they wait "
+            "for a later tensor-parallel slice (int8_kv runs)")
     old = model.config
     text, vision, qformer = old.text_config, old.vision_config, old.qformer_config
     if int8_lm or int8_kv:

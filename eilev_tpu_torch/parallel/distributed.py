@@ -86,6 +86,12 @@ def initialize(
     return True
 
 
+def is_primary() -> bool:
+    """Whether this process is rank 0 of the default group (or alone): the
+    one that writes a run's files and logs."""
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
 def host_local_batch_to_global(batch: Any, mesh, *, non_blocking: bool = True) -> Any:
     """This process's rows of the global batch, on its device.
 

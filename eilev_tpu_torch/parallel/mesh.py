@@ -1,29 +1,35 @@
-"""The data-parallel mesh and batch placement (counterpart of ``eilev_tpu/parallel/mesh.py``,
-its data-axis part).
+"""The device mesh and batch placement (counterpart of ``eilev_tpu/parallel/mesh.py``).
 
 The original's training parallelism is 8-GPU DDP over NCCL with optional
-ZeRO-2. The port runs it as one process a data replica: a :class:`Mesh`
-is the data group (this process's rank in it and its size) and the
-devices this process drives, one for data parallelism, one a stage for
-pipeline parallelism (``parallel/pipeline.make_pipeline_mesh``). The
-batch's rows split over the data group (:func:`shard_batch`); the weights
-are replicated (:func:`replicated`); the gradients are summed by explicit
-collectives in the train step, and the optimizer moments can shard over
-the data group like ZeRO-2 (``training/train_state.zero_sharded_opt_state``).
+ZeRO-2. The port runs one process a device: a :class:`Mesh` is this
+process's place on a ``data x model`` grid of the default process group's
+ranks (rank = d * model + m, as JAX's ``reshape(data, model)`` lays devices
+out; :func:`mesh_coords`) and the devices this process drives, one for data
+and tensor parallelism, one a stage for pipeline parallelism
+(``parallel/pipeline.make_pipeline_mesh``).
 
-Tensor parallelism (a "model" axis of size > 1) is not ported: it needs
-local-head modules in every model and is a slice of its own.
+- The data axis: the batch's rows split over the data group
+  (:func:`shard_batch`); the weights are replicated (:func:`replicated`);
+  the gradients are summed by explicit collectives in the train step, and
+  the optimizer moments can shard over the data group like ZeRO-2
+  (``training/train_state.zero_sharded_opt_state``). The train step's
+  collectives run over the default group, so training takes ``model=1``.
+- The model axis (tensor parallelism, inference): runs of ``model``
+  consecutive ranks form a model group (``dist.new_group``); the towers are
+  built with local heads and their weights sharded over it
+  (``parallel/tensor.py``, :attr:`Mesh.tp`).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Any, Optional
 
 import torch
 import torch.distributed as dist
 
-from .distributed import local_device
+from .distributed import initialize, local_device
+from .tensor import TensorParallel
 
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
@@ -31,17 +37,21 @@ MODEL_AXIS = "model"
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """The data group and this process's devices.
+    """This process's place on the mesh and its devices.
 
-    ``data_size`` processes hold one replica each; this one is
-    ``data_rank``; the data group is the default process group. ``devices``
-    are the devices this process drives: its one device, or a pipeline's
-    stage devices (stage s on ``devices[s]``)."""
+    ``data_size`` replicas, this one ``data_rank``; each replica is a model
+    group of ``model_size`` processes (``model_group``, a process group, or
+    None at size 1), this one ``model_rank`` in it. ``devices`` are the
+    devices this process drives: its one device, or a pipeline's stage
+    devices (stage s on ``devices[s]``)."""
 
     data_size: int
     data_rank: int
     devices: tuple
     axes: tuple = (DATA_AXIS, MODEL_AXIS)
+    model_size: int = 1
+    model_rank: int = 0
+    model_group: Any = None
 
     @property
     def device(self) -> torch.device:
@@ -52,9 +62,16 @@ class Mesh:
     @property
     def shape(self) -> dict:
         """Axis sizes as JAX's ``mesh.shape`` gives them: ``data`` and
-        ``model`` (1), or ``data`` and ``stage``."""
+        ``model``, or ``data`` and ``stage``."""
         second = self.axes[1]
-        return {DATA_AXIS: self.data_size, second: 1 if second == MODEL_AXIS else len(self.devices)}
+        return {DATA_AXIS: self.data_size, second: self.model_size if second == MODEL_AXIS else len(self.devices)}
+
+    @property
+    def tp(self) -> Optional[TensorParallel]:
+        """The model axis as the towers take it (``tp=``), or None at size 1."""
+        if self.model_size == 1:
+            return None
+        return TensorParallel(self.model_size, self.model_rank, self.model_group)
 
 
 def data_group() -> tuple[int, int]:
@@ -64,21 +81,58 @@ def data_group() -> tuple[int, int]:
     return 1, 0
 
 
+def mesh_coords(rank: int, data: int, model: int) -> tuple[int, int]:
+    """(data_rank, model_rank) of global ``rank`` on a ``data x model`` mesh:
+    rank = data_rank * model + model_rank."""
+    if not 0 <= rank < data * model:
+        raise ValueError(f"rank {rank} is not on a {data} x {model} mesh")
+    return divmod(rank, model)
+
+
+def model_group_ranks(data_rank: int, model: int) -> list[int]:
+    """The global ranks of replica ``data_rank``'s model group."""
+    return list(range(data_rank * model, (data_rank + 1) * model))
+
+
 def make_mesh(data: Optional[int] = None, model: int = 1, *, device="cuda") -> Mesh:
-    """The data mesh of this process: every process of the default group on
-    the data axis (one process without a group), this process's device
-    :func:`~.distributed.local_device` of ``device``. ``data``, if given,
-    must equal the process count; ``model`` > 1 (tensor parallelism) is not
-    ported."""
-    if model > 1:
-        raise NotImplementedError(
-            "tensor parallelism (a model axis > 1) is not ported: it waits for the port's tensor-parallel slice "
-            "(local-head OPT, LLaMA, T5, ViT and Q-Former modules)")
+    """The ``data x model`` mesh of this process over the default process
+    group (one process without a group), this process's device
+    :func:`~.distributed.local_device` of ``device``. ``data`` defaults to
+    the process count over ``model``; ``data * model`` must equal the
+    process count (``ValueError`` otherwise). With ``model`` > 1 every
+    process creates every model group (:func:`model_group_ranks`), as
+    ``dist.new_group`` needs, and keeps its own."""
     size, rank = data_group()
-    if data is not None and data != size:
-        raise ValueError(f"the data axis is one process a replica: data={data} needs {data} processes, "
-                         f"this run has {size} (start them with torchrun --nproc_per_node)")
-    return Mesh(size, rank, (local_device(device),))
+    if model < 1 or size % model:
+        raise ValueError(f"the model axis is one process a shard: model={model} needs a multiple of {model} "
+                         f"processes, this run has {size} (start them with torchrun --nproc_per_node)")
+    data = size // model if data is None else data
+    if data * model != size:
+        raise ValueError(f"the mesh is one process a device: data={data} x model={model} needs "
+                         f"{data * model} processes, this run has {size} (start them with torchrun --nproc_per_node)")
+    data_rank, model_rank = mesh_coords(rank, data, model)
+    group = None
+    if model > 1:
+        for d in range(data):
+            g = dist.new_group(model_group_ranks(d, model))
+            if d == data_rank:
+                group = g
+    return Mesh(data, data_rank, (local_device(device),), model_size=model, model_rank=model_rank,
+                model_group=group)
+
+
+def tensor_parallel_mesh(model: int, device="cuda") -> Mesh:
+    """The mesh of a tensor-parallel inference run (``--model_parallel``):
+    joins the process group ``torchrun`` started (:func:`~.distributed.initialize`)
+    and takes every process onto the model axis. A world of another size
+    than ``model`` raises ``ValueError``: a data axis beside it would only
+    repeat the work, as JAX's does in its inference CLIs."""
+    initialize(device)
+    size, _ = data_group()
+    if size != model:
+        raise ValueError(f"--model_parallel {model} runs one process a shard and no data axis: start {model} "
+                         f"processes with torchrun --nproc_per_node {model} (this run has {size})")
+    return make_mesh(data=1, model=model, device=device)
 
 
 @dataclasses.dataclass(frozen=True)

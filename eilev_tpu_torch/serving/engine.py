@@ -220,6 +220,10 @@ class ContinuousBatchingEngine:
     ):
         if feature_loader is not None and feature_cache is None:
             raise ValueError("feature_loader requires feature_cache")
+        if getattr(model, "tp", None) is not None:
+            raise NotImplementedError(
+                "the serving engine does not run a tensor-parallel model: every rank would have to keep one "
+                "admission schedule; it waits for the tensor-parallel serving slice")
         tcfg = model.config.text_config
         self._is_t5 = isinstance(tcfg, T5Config)
         if not self._is_t5 and not isinstance(tcfg, OPTConfig) and not hasattr(tcfg, "num_key_value_heads"):

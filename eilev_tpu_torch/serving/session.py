@@ -51,6 +51,9 @@ class ChatSession:
     ):
         if not isinstance(model.config.text_config, OPTConfig):
             raise ValueError("ChatSession supports decoder-only (OPT-family) LMs")
+        if getattr(model, "tp", None) is not None:
+            raise NotImplementedError("ChatSession does not run a tensor-parallel model: it waits for the "
+                                      "tensor-parallel serving slice")
         if generation_config.num_beams > 1 or generation_config.do_sample:
             raise ValueError("ChatSession is greedy-only (beam/sampling re-prefill)")
         if generation_config.has_logits_processors:

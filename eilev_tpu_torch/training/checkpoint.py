@@ -288,13 +288,14 @@ def _put_t5(out: dict, sd: Mapping[str, torch.Tensor], tcfg: T5Config) -> None:
                         out[f"{att}{name}.weight"] = sd[f"{src}attention.{name}.weight"]
 
 
-def export_hf_safetensors(model: nn.Module, config: VideoBlipConfig, path: str) -> str:
-    """Write ``<path>/model.safetensors`` (fp32, contiguous; the tied
-    ``lm_head`` written out as HF saves it) loadable by the torch reference
-    and by both packages' ``load_model`` once a ``config.json`` sits beside
-    it. Returns the file's path."""
+def export_hf_safetensors(model: nn.Module, config: VideoBlipConfig, path: str,
+                          dtype: torch.dtype = torch.float32) -> str:
+    """Write ``<path>/model.safetensors`` (``dtype``, fp32 by default,
+    contiguous; the tied ``lm_head`` written out as HF saves it) loadable by
+    the torch reference and by both packages' ``load_model`` once a
+    ``config.json`` sits beside it. Returns the file's path."""
     os.makedirs(path, exist_ok=True)
-    sd = {k: v.detach().float().contiguous() for k, v in hf_state_dict(model, config).items()}
+    sd = {k: v.detach().to(dtype).contiguous() for k, v in hf_state_dict(model, config).items()}
     f = os.path.join(path, "model.safetensors")
     save_file(sd, f)
     return f

@@ -198,17 +198,19 @@ def test_generate_narration_texts_cli_speculative_matches_greedy(world, tmp_path
 
 def test_cli_unported_modes_raise():
     # --draft/--draft_layers are ported
-    # (test_generate_narration_texts_cli_speculative_matches_greedy)
+    # (test_generate_narration_texts_cli_speculative_matches_greedy);
+    # --model_parallel runs one process a shard under torchrun
+    # (tests/test_torch_parallel_tp_generate.py), so one process asking for 2 raises
     base = ["--model", "m", "--eval_frames_dir", "e", "--in_context_query_map_file", "q",
             "--in_context_example_frames_dir", "c", "--output_csv", "o", "--device", "cpu"]
-    with pytest.raises(NotImplementedError, match="one device"):
+    with pytest.raises(ValueError, match="torchrun --nproc_per_node 2"):
         generate_narration_texts.main(base + ["--model_parallel", "2"])
     # train_v2's --multihost, --data_parallel, --pipeline_parallel and
-    # --zero_shard_opt_state run (tests/test_torch_parallel_cli.py); tensor
-    # parallelism waits for its own slice
+    # --zero_shard_opt_state run (tests/test_torch_parallel_cli.py); tensor-
+    # parallel training waits for its own slice
     train = ["--model_name_or_path", "m", "--train_frames_dir", "t", "--val_frames_dir", "v",
              "--output_dir", "o", "--device", "cpu"]
-    with pytest.raises(NotImplementedError, match="tensor-parallel slice"):
+    with pytest.raises(NotImplementedError, match="tensor-parallel training slice"):
         train_v2.main(train + ["--model_parallel", "2"])
     with pytest.raises(ValueError, match="exclusive"):
         train_v2.main(train + ["--model_parallel", "2", "--pipeline_parallel", "2"])

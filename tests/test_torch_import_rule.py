@@ -32,6 +32,7 @@ print("IMPORTED_AT_USE:" + ",".join(late))
 
 
 def test_port_imports_no_jax():
+    assert "eilev_tpu_torch.parallel.tensor" in PORT_MODULES  # tensor parallelism's layout and collectives
     root = Path(__file__).resolve().parents[1]
     proc = subprocess.run(
         [sys.executable, "-c", _PROBE, *PORT_MODULES],
