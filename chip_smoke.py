@@ -188,26 +188,28 @@ final result line):
 6. One batch-4 run with every serving mode on: also W8A8 prefill, W8A8
    vision tower and Q-Former, fast gelu. Counts and finiteness as in 5.
 7. The LLaMA text-LM path, after the VideoBLIP model is freed: the text-only
-   module of TextLM at the Llama-2-7b geometry (32 x 4096, 32 heads x 128,
-   FFN 11,008, vocab 32,000) with random bf16 weights N(0, 0.02), token ids
+   module of TextLM at the Llama-2-7b widths (4096 wide, 32 heads x 128,
+   FFN 11,008, vocab 32,000) with LLAMA_LAYERS = 8 of its 32 layers (a depth
+   cut for the script's time limit; the widths, prompts and kernel shapes
+   are the 7b model's) and random bf16 weights N(0, 0.02), token ids
    from a seed, greedy with 64 new tokens and eos 2 through the call
    TextLM.generate makes: batch 1 with a 1,984-token prompt, batch 4
-   left-padded as in (a), and a 40-token prompt. K5 = 32 per long-prompt
-   request (one per prefill layer, all through its Hopper body:
-   launches_sm90 = 32) and 0 for the short one, K3 = 32 per
+   left-padded as in (a), and a 40-token prompt. K5 = L (the layers) per
+   long-prompt request (one per prefill layer, all through its Hopper body:
+   launches_sm90 = L) and 0 for the short one, K3 = L per
    one-token forward, K1, K2, K4 = 0; every logit finite; the prefill logits
    through K5 against the plain path (attention impl "xla") on the same ids:
    min cosine > 0.999, max relative error < 5e-2. A torch.profiler pass over
    one batch-1 request. A beam-4 request at batch 1 over a 2,032-token
-   prompt with 16 new tokens (2,048 slots, so auto takes K5 = 32; K3 = 32
+   prompt with 16 new tokens (2,048 slots, so auto takes K5 = L; K3 = L
    per one-token forward over the 4 beam rows). Then the LM quantized in
-   place (int8 LM + int8 KV cache), batch 1: K4 = 32 per one-token forward,
-   K3 = 0, K5 = 32 (over the dequantized cache slice); prefill logits' min
+   place (int8 LM + int8 KV cache), batch 1: K4 = L per one-token forward,
+   K3 = 0, K5 = L (over the dequantized cache slice); prefill logits' min
    cosine against bf16 above INT8_MIN_COSINE. Before the int8 part (c):
    the text LM's speculative modes at batch 1, 64 new tokens: prompt lookup
-   (gamma 8, 2,058 slots; K5 = 32, K3 = 0) and the self-draft of 4 layers
-   (gamma 4, 2,054 slots; K5 = 36 on the Hopper body, K3 = 4 a draft step),
-   counted and compared with plain greedy as in 4e.
+   (gamma 8, 2,058 slots; K5 = L, K3 = 0) and the self-draft of 4 layers
+   (gamma 4, 2,054 slots; K5 = L + 4 on the Hopper body, K3 = 4 a draft
+   step), counted and compared with plain greedy as in 4e.
 8. The fp32 model paths, each counted and held to the same model's plain
    path on the card (every wrapper swapped for its twin, no launch): greedy
    tokens identical, prefill logits within 1e-4 relative. The narration
@@ -227,14 +229,16 @@ final result line):
    greedy and the stream equal the plain path's greedy tokens, contrastive
    search the plain path's contrastive tokens; over its int8 KV cache the
    two speculative modes again (the draft steps on K4's fp32-query body).
-8b. The T5 family at the eilev-blip2-flan-t5-xl geometry (ViT 39 x 1408,
-   Q-Former 12, flan-t5-xl 24 + 24 layers of 2048, 32 x 64, gated-gelu
-   5,120, vocab 32,128, untied head), random bf16 weights N(0, 0.02) from
+8b. The T5 family at the eilev-blip2-flan-t5-xl widths (ViT 1408, Q-Former
+   768, flan-t5-xl 2048, 32 x 64, gated-gelu 5,120, vocab 32,128, untied
+   head) at T5_LAYERS = 12 layers a stack (ViT, Q-Former, encoder, decoder:
+   a depth cut for the script's time limit; flan-t5-xl has 24 + 24, the ViT
+   39), random bf16 weights N(0, 0.02) from
    T5_SEED, the 16-shot prompt in flan-t5's ids (766 tokens), 32 new
-   tokens: (a) greedy at batch 1 and 4 under "auto" (K1 = 39 a request,
+   tokens: (a) greedy at batch 1 and 4 under "auto" (K1 = 12 a request,
    nothing else; every T5 attention plain), p50 of SECONDARY_REPS warm requests,
    videos/s, peak memory, a torch.profiler pass at batch 1; (b) the same
-   under "flash", restored after (K5 = 18 Q-Former + 24 encoder + 48 a
+   under "flash", restored after (K5 = 18 Q-Former + 12 encoder + 24 a
    decoder step, on every T5 attention with its bias), the encoder states'
    min cosine against (a)'s > 0.999, each row's tokens equal to (a)'s or
    parting at a near-tie (NEAR_TIE); (c) beam-5 at batch 1 (the reorder
@@ -361,9 +365,10 @@ final result line):
    a 4-layer fp32 cut, rows identical; (e) ChatSession on the bf16 model,
    three turns each adding a video and a question, each reply against a
    from-scratch generate (NEAR_TIE) and timed beside it, and at the fp32
-   2-layer cut identical; (d) eilev-blip2-flan-t5-xl in bf16 at full depth,
-   8 staggered requests through a 4-slot engine (a 64-slot decoder cache),
-   under "auto" and "flash" (K5 = 42 an admission + 48 a decoder step):
+   2-layer cut identical; (d) eilev-blip2-flan-t5-xl in bf16 at phase 8b's
+   T5_LAYERS cut, 8 staggered requests through a 4-slot engine (a 64-slot
+   decoder cache), under "auto" and "flash" (K5 = 30 an admission + 24 a
+   decoder step):
    rows against isolated generate of the prompt and of the prompt padded as
    the engine encodes it (NEAR_TIE); under "auto" a request admitted into a
    slot that decoded while empty may decode from NaN (token 0; the
@@ -398,8 +403,8 @@ final result line):
    against the unsharded model's > 0.999, tokens identical or parting at a
    near-tie (NEAR_TIE), the ranks' tokens equal; K1 = 39 at 8 x 88, K2 = 32
    at 16 x 80, K3 (K4) = 32 a one-token forward at 16 x 80 on every rank;
-   per-rank peak memory and the bf16 p50 (two ranks share one card and every
-   collective goes through the host: no TP speed). (b) fp32 cuts, TF32 off,
+   per-rank peak memory and the counted request's time (two ranks share one
+   card and every collective goes through the host: no TP speed). (b) fp32 cuts, TF32 off,
    F32_LAYERS a stack (the 2.7b widths, flan-t5-xl's and Llama-2-7b's with
    the 1,984-token prompt, so K5 runs), each built whole from a seed and
    sharded in memory: greedy tokens identical to the unsharded port's, ICL
@@ -409,11 +414,37 @@ final result line):
    8 x 88), K2 (1, 766, 16 x 80), K3/K4 (1 and 4, 798, 16 x 80), K5 (1,
    1,984 into 2,048, 16 x 128)), on a JSON line "tensor_parallel" with their
    launches in (a) and (b) (K3/K4 at batch 4: check only).
+14. Tensor-parallel training on one card (run_tensor_parallel_training):
+   TP_RANKS = 2 gloo ranks on cuda:0 over CUDA tensors, data 1 x model 2,
+   beside the unsharded port's step in this process (run first and freed).
+   (a) eilev-blip2-opt-2.7b at full width and depth, bf16 N(0, 0.02) weights
+   from TPT_SEED with the Q-Former in fp32 master weights, each rank building
+   it whole and keeping its shard: two steps of make_train_step (dropout on,
+   the recipe's clip, micro-batch 1 of one 16-shot datapoint, TRAIN_SEQ
+   tokens), the first counted (K1 = 39 a rank, 8 x 88, nothing else; the
+   OPT trunk's attention stays plain for its gradient) and the second timed:
+   loss and grad_norm of both steps within phase 9's bf16 bar (2e-2
+   relative) of the unsharded step's on the same batch and masks, the first
+   step's whole-gradient cosine printed, the replicated trainable leaves
+   bit-identical across the ranks, per-rank weights and peak memory below
+   the unsharded step's (the step time is a one-card gloo schedule's, no TP
+   speed). (b) fp32 cuts, TF32 off, F32_LAYERS a stack at the 2.7b widths
+   and flan-t5-xl's, N(0, 0.02) from TPT_SEED + 1: two steps with dropout
+   on, loss and grad_norm within 1e-5 relative and every gathered trainable
+   leaf within 1e-5 of the unsharded port's step evaluated in fp64 (the
+   plain path: the kernels take no fp64), the yardstick because the fp32
+   unsharded step is itself ~1e-5 off it (its distance and the TP step's to
+   it printed beside each other); a TP checkpoint (save_checkpoint with
+   the mesh) and the HF export from the ranks: the export loaded unsharded
+   holds the ranks' gathered trainable leaves bit for bit and the frozen
+   towers as they came in, and the checkpoint restores onto one process bit
+   for bit. A JSON line "tensor_parallel_training"; the phase's time.
 
 Prints every number tagged with the card's name and power limit, then the
 JSON line of the beam shapes' K3/K4 rows, the JSON line of the training
 variants, the JSON line of the decoding modes' kernel shapes, the JSON lines
-of K5's T5 forms, of the T5 phase, of serving, of phase 12 and of phase 13, then one JSON
+of K5's T5 forms, of the T5 phase, of serving, of phase 12, of phase 13 and
+of phase 14, then one JSON
 line of per-kernel results (every body: the bf16 ones and the fp32 ones,
 whose launches come from phase 8, and K5's VideoMAE rows, whose launches
 come from phase 12; K6's rows also carry composite_ms), then the result line
@@ -474,6 +505,7 @@ LLAMA_CACHE = LLAMA_PROMPT + LLAMA_NEW
 LLAMA_REAL = (1984, 1900, 1800, 1700)
 LLAMA_SHORT = 40
 LLAMA_EOS = 2
+LLAMA_LAYERS = 8  # of Llama-2-7b's 32: phase 7's depth cut (the script's time limit)
 # the H100 SXM's published peaks (NVIDIA data sheet, dense, 700 W): bf16
 # tensor cores, fp32 on the CUDA cores, and HBM3
 H100_BF16_FLOPS = 989e12
@@ -626,6 +658,7 @@ PP_STEPS = 2
 PP_F32_LAYERS = 4
 PP_F32_MICRO = 2
 T5_TARGET = 32  # the T5 leg's decoder labels a row
+T5_LAYERS = 12  # phases 8b and 11 (d): layers a stack (a depth cut for the script's time limit)
 NCCL_STEPS = 2
 BF16_ROUNDOFF = 2.0**-7  # bf16's unit roundoff: a key bias's norm share "zero" in bf16
 # phase 13, tensor parallelism on one card: TP_RANKS ranks of one model
@@ -638,7 +671,7 @@ BF16_ROUNDOFF = 2.0**-7  # bf16's unit roundoff: a key bias's norm share "zero" 
 # decode at batch 1 and 4 (K3 on the split at both: 2 * B * 16 <= 132)
 TP_RANKS = 2
 TP_SEED = 48
-TP_REPS = 1
+TP_REPS = 0  # phase 13 (a)'s timed repetitions (cut for the script's time limit)
 TP_CLASSES = 16
 TP_CLASS_LEN = 4
 TP_DEADLINE_S = 600
@@ -648,6 +681,12 @@ TP_DECODE_SHAPES = {
 }
 # phase 10, checkpoints and CLIs: the exported model's ViT, Q-Former and OPT
 # layers (the widths are eilev-blip2-opt-2.7b's) and its weights' seed
+# phase 14: tensor-parallel training on one card
+TPT_SEED = 50
+TPT_DEADLINE_S = 600
+# lr 1e-4 as the recipe, no warmup; eps 1e-6 as the CPU tests; the clip at the recipe's 1.0
+TPT_OCFG = dict(learning_rate=1e-4, eps=1e-6, warmup_steps=0, total_steps=10)
+TPT_TOL = 1e-5
 CKPT_LAYERS = (4, 12, 4)
 CKPT_SEED = 10
 # K6's inputs come from their own generator, so phases 2 and 2b and
@@ -2198,7 +2237,7 @@ def run_decoding_modes(tag: str, model, lm_calls: list, runs: dict, launches: di
 
 def run_text_decoding_modes(tag: str, run, lm_calls: list, launches: dict) -> None:
     """Phase 7 (c): the text LM's speculative modes at the Llama-2-7b
-    geometry, bf16, batch 1, the 1,984-token prompt and 64 new tokens:
+    widths (LLAMA_LAYERS deep), bf16, batch 1, the 1,984-token prompt and 64 new tokens:
     prompt lookup (gamma 8: 2,058 slots) and the self-draft of the first 4
     layers (gamma 4: 2,054 slots). K5 (on its Hopper body) once per layer of
     each prefill, the target's and the draft's; K3 over the draft's cache
@@ -2760,7 +2799,7 @@ def profile_request(tag: str, label: str, run) -> dict:
 
 
 def run_llama(tag: str, dev: torch.device, launches: dict) -> None:
-    """The LLaMA text-LM path at the Llama-2-7b geometry (random bf16 weights):
+    """The LLaMA text-LM path at the Llama-2-7b widths, LLAMA_LAYERS deep (random bf16 weights):
     K5 on every long-prompt prefill layer, K3 (bf16) or K4 (int8) on every
     decode step, then the int8 serving mode quantized in place."""
     from eilev_tpu_torch import configs
@@ -2768,13 +2807,14 @@ def run_llama(tag: str, dev: torch.device, launches: dict) -> None:
     from eilev_tpu_torch.ops.attention import set_default_attention_impl
     from eilev_tpu_torch.ops.quantization import quantize_model_
 
-    cfg = configs.VideoBlipConfig(text_config=configs.LlamaConfig())
+    cfg = configs.VideoBlipConfig(text_config=configs.LlamaConfig(num_hidden_layers=LLAMA_LAYERS))
     t0 = time.perf_counter()
     module = _TextOnlyModule(cfg, device=dev, dtype=torch.bfloat16).eval()
     random_init_(module, torch.Generator(device=dev).manual_seed(43), std=0.02)
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in module.parameters())
-    print(f"[{tag}] model llama-2-7b geometry bf16 params={n_params} init_s={time.perf_counter() - t0}")
+    print(f"[{tag}] model llama-2-7b widths, {LLAMA_LAYERS} layers, bf16 params={n_params} "
+          f"init_s={time.perf_counter() - t0}")
     lm_calls: list = []
     module.language_model.register_forward_hook(
         lambda mod, args, out: lm_calls.append((args[0].shape[1], torch.isfinite(out[0]).all()))
@@ -3115,13 +3155,13 @@ def attention_impl(impl: str):
 
 
 def run_t5(tag: str, dev: torch.device, launches: dict) -> dict:
-    """Phase 8b: the T5 path at the eilev-blip2-flan-t5-xl geometry (ViT 39
-    x 1408, Q-Former 12, flan-t5-xl 24 + 24 layers of 2048, 32 heads x 64,
-    gated-gelu FFN 5,120, vocab 32,128, untied head) with random bf16 weights
-    N(0, 0.02) from T5_SEED: (a) greedy narration, 32 new tokens, at batch 1
-    and 4 under "auto" (K1 = 39, nothing else), p50 of SECONDARY_REPS warm requests, peak
+    """Phase 8b: the T5 path at the eilev-blip2-flan-t5-xl widths (1408,
+    768, 2048, 32 heads x 64, gated-gelu FFN 5,120, vocab 32,128, untied
+    head), T5_LAYERS a stack, with random bf16 weights N(0, 0.02) from
+    T5_SEED: (a) greedy narration, 32 new tokens, at batch 1 and 4 under
+    "auto" (K1 = T5_LAYERS, nothing else), p50 of SECONDARY_REPS warm requests, peak
     memory, a profiler pass at batch 1; (b) the same under "flash" (K5 = 18
-    Q-Former + 24 encoder + 48 a decoder step; the bias form on every T5
+    Q-Former + 12 encoder + 24 a decoder step; the bias form on every T5
     attention), the encoder states' min cosine against (a)'s > 0.999, tokens
     equal to (a)'s or parting at a near-tie (NEAR_TIE); (c) beam-5 at batch 1 (the reorder
     gathers the cross K/V too), p50; (d) seq2seq classify of the 187-verb
@@ -3132,8 +3172,8 @@ def run_t5(tag: str, dev: torch.device, launches: dict) -> dict:
     from eilev_tpu_torch.models import VideoBlipForConditionalGeneration
 
     t_phase = time.perf_counter()
-    result: dict = {"model": "eilev-blip2-flan-t5-xl, random bf16 N(0, 0.02)"}
-    cfg = t5_config()
+    result: dict = {"model": f"eilev-blip2-flan-t5-xl widths, {T5_LAYERS} layers a stack, random bf16 N(0, 0.02)"}
+    cfg = t5_config(T5_LAYERS)
     model = VideoBlipForConditionalGeneration(cfg, device=dev, dtype=torch.bfloat16).eval()
     random_init_(model, torch.Generator(device=dev).manual_seed(T5_SEED), std=0.02)
     print(f"[{tag}] T5 model eilev-blip2-flan-t5-xl bf16 params={sum(p.numel() for p in model.parameters())}")
@@ -4930,7 +4970,7 @@ class SlotWatch:
 
 
 def serving_t5(tag: str, dev, total: dict, result: dict) -> None:
-    """(d) The eilev-blip2-flan-t5-xl model in bf16 at full depth (random
+    """(d) The eilev-blip2-flan-t5-xl model in bf16 at T5_LAYERS a stack (random
     N(0, 0.02) from T5_SEED): 8 staggered requests (P = 766 + extra) through
     a 4-slot engine with a 64-slot decoder cache, under "auto" and "flash"
     (K5's bias form on the decoder's self and cross steps), rows against
@@ -4949,14 +4989,15 @@ def serving_t5(tag: str, dev, total: dict, result: dict) -> None:
 
     gen_cfg = GenerationConfig(max_new_tokens=MAX_NEW_TOKENS, pad_token_id=0, eos_token_id=(T5_EOS,))
     extras = tuple(range(0, 4 * T5_SERVE_REQUESTS, 4))
-    for layers, dtype in ((None, torch.bfloat16), (F32_LAYERS, torch.float32)):
+    for layers, dtype in ((T5_LAYERS, torch.bfloat16), (F32_LAYERS, torch.float32)):
+        bf16 = dtype == torch.bfloat16
         cfg = t5_config(layers)
         model = VideoBlipForConditionalGeneration(cfg, device=dev, dtype=dtype).eval()
         random_init_(model, torch.Generator(device=dev).manual_seed(T5_SEED), std=0.02)
         pixel = process_videos(serving_frames(dev), dtype=dtype)
         requests = serving_requests(cfg.num_query_tokens, pixel, extras, T5_SEED, t5=True)
-        for impl in ("auto", "flash") if layers is None else ("auto",):
-            label = f"(d) T5 {'bf16 full depth' if layers is None else 'fp32 2-layer cut'} {impl}"
+        for impl in ("auto", "flash") if bf16 else ("auto",):
+            label = f"(d) T5 {'bf16' if bf16 else 'fp32'} {layers}-layer cut {impl}"
             with attention_impl(impl):
                 eng = ContinuousBatchingEngine(model, gen_cfg, max_slots=SERVE_SLOTS, max_len=T5_SERVE_MAX_LEN,
                                                chunk_tokens=SERVE_CHUNK, prefill_bucket=SERVE_BUCKET,
@@ -4974,13 +5015,13 @@ def serving_t5(tag: str, dev, total: dict, result: dict) -> None:
                 # the reference's bf16 behaviour on the plain path: a request in
                 # a slot that decoded empty may decode from NaN (then token 0);
                 # K5 gives a fully masked row 0, and fp32 the uniform average
-                if layers is None and impl == "auto":
+                if bf16 and impl == "auto":
                     assert set(nan_rows) <= flagged_rows and all(nan_rows.values()), (nan_rows, flagged_rows)
                 else:
                     assert not nan_rows, nan_rows
                 finite_rids = set(range(len(requests))) - set(nan_rows)
                 rows, recs = isolated_rows(model, requests, gen_cfg, t5=True)
-                if layers is None:
+                if bf16:
                     # bf16: the engine encodes each prompt right-padded to its
                     # bucket, which rounds otherwise than the unpadded
                     # prompt's products: held to both isolated runs
@@ -4996,12 +5037,12 @@ def serving_t5(tag: str, dev, total: dict, result: dict) -> None:
                 assert k5 == want, (k5, want)
             else:
                 assert k5 == 0, k5
-            same = compare_rows(tag, label, done, rows, recs, rule="identical" if layers else "near-tie",
+            same = compare_rows(tag, label, done, rows, recs, rule="near-tie" if bf16 else "identical",
                                 rids=finite_rids)
-            result[f"t5_{'bf16' if layers is None else 'f32_cut'}_{impl}"] = dict(
+            result[f"t5_{'bf16' if bf16 else 'f32_cut'}_{impl}"] = dict(
                 eng.stats, wall_s=secs, decoder_steps=n_steps, k5_launches=k5, identical_rows=same,
                 nan_rows=sorted(nan_rows), slots_decoded_empty=sorted(watch.flagged))
-        if layers is None:
+        if bf16:
             # K5 at the engine's decoder step: self over (4, 1, 64) with the
             # (32, 1, 64) bias and a per-row mask with dead prefixes, cross
             # over (4, 1, 832) with right-padded rows
@@ -5804,6 +5845,300 @@ def run_tensor_parallel(tag: str, dev: torch.device) -> tuple[list, dict]:
     return rows, result
 
 
+# ---------------------------------------------------------------------------
+# phase 14: tensor-parallel training on one card
+# ---------------------------------------------------------------------------
+
+
+def _tpt_optimizer(record: dict = None):
+    """Phase 14's optimizer (TPT_OCFG, the clip at the recipe's 1.0); with
+    ``record`` the first update's gradients, as the clip gets them (this
+    rank's shards under tensor parallelism), are kept there in fp32."""
+    from eilev_tpu_torch.training import OptimizerConfig, make_optimizer
+    from eilev_tpu_torch.training.train_state import GradientTransformation
+
+    tx = make_optimizer(OptimizerConfig(**TPT_OCFG))
+    if record is None:
+        return tx
+
+    def update(grads, state, params, g_norm=None):
+        if not record:
+            record.update({k: g.detach().float().clone() for k, g in grads.items()})
+        return tx.update(grads, state, params, g_norm)
+
+    return GradientTransformation(tx.init, update)
+
+
+def _tpt_model(cfg, dev, dtype, seed: int, tp=None):
+    """Phase 14's model of ``cfg`` in ``dtype`` with fp32 trainable masters,
+    N(0, 0.02) from ``seed``, its towers frozen: whole, or under ``tp`` this
+    rank's local-head model holding its shard (built whole, sharded by
+    shard_state_dict, the whole one freed)."""
+    from eilev_tpu_torch.models import VideoBlipForConditionalGeneration
+    from eilev_tpu_torch.parallel.tensor import shard_state_dict
+    from eilev_tpu_torch.training import freeze_towers
+
+    full = VideoBlipForConditionalGeneration(cfg, device=dev, dtype=dtype, trainable_dtype=torch.float32)
+    random_init_(full, torch.Generator(device=dev).manual_seed(seed))
+    if tp is not None:
+        local = VideoBlipForConditionalGeneration(cfg, device="meta", dtype=dtype, trainable_dtype=torch.float32,
+                                                  tp=tp)
+        shards = shard_state_dict(full.state_dict(), cfg, tp)
+        local.load_state_dict({k: v.clone(memory_format=torch.contiguous_format) for k, v in shards.items()},
+                              strict=True, assign=True)
+        del full, shards
+        gc.collect()
+        torch.cuda.empty_cache()
+        full = local
+    freeze_towers(full)
+    return full
+
+
+def _tpt_steps(model, batch: dict, mesh=None, record: dict = None) -> dict:
+    """Two steps of make_train_step (dropout on), the first counted (the
+    counters at 0 just before, read just after) and the second timed, peak
+    memory over both. Returns the numbers and the final state ("state")."""
+    from eilev_tpu_torch.training import TrainState, make_train_step, partition_params
+
+    trainable, _ = partition_params(dict(model.named_parameters()))
+    state = TrainState.create(trainable, _tpt_optimizer(record))
+    step = make_train_step(model, accum_steps=1, dropout=True, mesh=mesh)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = {"metrics": [], "weights_bytes": sum(p.numel() * p.element_size() for p in model.parameters())}
+    for i in range(2):
+        if i == 0:
+            reset_counters()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        out["counted_s" if i == 0 else "step_s"] = time.perf_counter() - t0
+        if i == 0:
+            out["counts"] = counters()
+        out["metrics"].append({k: float(v) for k, v in m.items()})
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    out["state"] = state
+    return out
+
+
+def _tpt_cuts() -> list:
+    """Phase 14 (b)'s fp32 cuts: (name, config, the function that makes its batch)."""
+    return [("opt", f32_cut_config(), _train_batch), ("t5", t5_config(F32_LAYERS), _t5_train_batch)]
+
+
+def tpt_rank_main(rank: int, tag: str, port: int, root: str) -> None:
+    """One rank of phase 14: a gloo group of TP_RANKS on the one card (CUDA
+    tensors), data 1 x model TP_RANKS; (a) and (b) on it, saved to
+    root/rank{rank}.pt (rank 0 also the gathered gradients and leaves), the
+    TP checkpoints and exports under root. Any failure raises, which fails
+    the parent's join."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from eilev_tpu_torch import configs
+    from eilev_tpu_torch.parallel import make_mesh
+    from eilev_tpu_torch.parallel.tensor import is_model_sharded, unshard_state_dict
+    from eilev_tpu_torch.training import save_checkpoint
+    from eilev_tpu_torch.training.checkpoint import export_hf_safetensors
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", world_size=TP_RANKS, rank=rank,
+                            timeout=datetime.timedelta(seconds=TPT_DEADLINE_S))
+    try:
+        mesh = make_mesh(data=1, model=TP_RANKS, device="cuda")
+        assert mesh.tp is not None and mesh.device == torch.device("cuda", 0), mesh
+        dev, tp = mesh.device, mesh.tp
+        t0 = time.perf_counter()
+        cfg = configs.blip2_opt_2_7b()
+        model = _tpt_model(cfg, dev, torch.bfloat16, TPT_SEED, tp)
+        grads: dict = {}
+        run = _tpt_steps(model, _train_batch(cfg, 1, dev), mesh, record=grads)
+        state = run.pop("state")
+        full = unshard_state_dict(grads, cfg, tp)  # a collective: both ranks
+        run["grads"] = {k: g.cpu() for k, g in full.items()} if rank == 0 else None
+        run["replicated"] = {k: p.detach().cpu() for k, p in state.trainable.items()
+                             if not is_model_sharded(k, cfg, tp)}
+        run["sharded_leaves"] = sum(is_model_sharded(k, cfg, tp) for k in state.trainable)
+        out = {"a": run}
+        del model, state, grads, full
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["a_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["b"] = {}
+        for name, cut, make_batch in _tpt_cuts():
+            model = _tpt_model(cut, dev, torch.float32, TPT_SEED + 1, tp)
+            run = _tpt_steps(model, make_batch(cut, 1, dev, dtype=torch.float32), mesh)
+            state = run.pop("state")
+            whole = unshard_state_dict(state.trainable, cut, tp)
+            run["trainable"] = {k: p.detach().cpu() for k, p in whole.items()} if rank == 0 else None
+            run["checkpoint"] = save_checkpoint(os.path.join(root, f"ckpt_{name}"), state, mesh=mesh, config=cut)
+            export = os.path.join(root, f"export_{name}")
+            export_hf_safetensors(model, cut, export)  # gathered; rank 0 writes
+            if rank == 0:
+                with open(os.path.join(export, "config.json"), "w") as fh:
+                    json.dump(hf_config_dict(cut), fh)
+            out["b"][name] = run
+            del model, state, whole
+            gc.collect()
+            torch.cuda.empty_cache()
+        out["b_s"] = time.perf_counter() - t0
+        torch.save(out, os.path.join(root, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def _tpt_compare(a: dict, ref: dict) -> dict:
+    """Run ``a`` against ``ref`` (metrics and trainable leaves): the largest
+    relative error of each step's loss and grad_norm, the largest absolute
+    error of any leaf element and its leaf."""
+    out = {f"step{s + 1}_{key}_rel_err": abs(a["metrics"][s][key] - ref["metrics"][s][key])
+           / abs(ref["metrics"][s][key]) for s in range(2) for key in ("loss", "grad_norm")}
+    errs = {k: float((a["trainable"][k].double() - r.double()).abs().max()) for k, r in ref["trainable"].items()}
+    out["leaf_max_abs_err"], out["worst_leaf"] = max((e, k) for k, e in errs.items())
+    assert a["trainable"].keys() == ref["trainable"].keys()
+    return out
+
+
+def run_tensor_parallel_training(tag: str, dev: torch.device) -> dict:
+    """Phase 14: tensor-parallel training at TP = 2 on the one card (see the
+    module's docstring). Returns the phase's JSON."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    from eilev_tpu_torch import configs
+    from eilev_tpu_torch.models.auto import load_model
+    from eilev_tpu_torch.training import (OptimizerConfig, TrainState, freeze_towers, make_optimizer,
+                                          partition_params, restore_checkpoint)
+
+    t_phase = time.perf_counter()
+    result: dict = {"card": tag}
+    with tempfile.TemporaryDirectory(dir=os.path.dirname(os.path.abspath(__file__))) as root:
+        # the unsharded references first, each freed before the ranks start
+        cfg = configs.blip2_opt_2_7b()
+        model = _tpt_model(cfg, dev, torch.bfloat16, TPT_SEED)
+        grads: dict = {}
+        ref_a = _tpt_steps(model, _train_batch(cfg, 1, dev), record=grads)
+        del ref_a["state"], model
+        ref_a["grads"] = {k: g.cpu() for k, g in grads.items()}
+        del grads
+        gc.collect()
+        torch.cuda.empty_cache()
+        ref_b = {}
+        for name, cut, make_batch in _tpt_cuts():
+            ref_b[name] = {}
+            for dtype in (torch.float32, torch.float64):  # the port's own step, and its fp64 yardstick
+                model = _tpt_model(cut, dev, torch.float32, TPT_SEED + 1)
+                batch = make_batch(cut, 1, dev, dtype=torch.float32)
+                if dtype == torch.float32:
+                    ref_b[name]["frozen"] = {k: p.detach().cpu() for k, p in model.named_parameters()
+                                             if not p.requires_grad}
+                    run = _tpt_steps(model, batch)
+                else:
+                    model.double()  # the dropout masks are drawn in fp32 whatever the dtype: the same ones
+                    with plain_kernels():
+                        run = _tpt_steps(model, {k: v.double() if v.is_floating_point() else v
+                                                 for k, v in batch.items()})
+                run["trainable"] = {k: p.detach().cpu() for k, p in run.pop("state").trainable.items()}
+                ref_b[name][str(dtype).split(".")[-1]] = run
+                del model, batch
+                gc.collect()
+                torch.cuda.empty_cache()
+        result["references_s"] = time.perf_counter() - t_phase
+
+        t0 = time.perf_counter()
+        ctx = mp.spawn(tpt_rank_main, args=(tag, _free_port(), root), nprocs=TP_RANKS, join=False)
+        while not ctx.join(timeout=5):
+            if time.perf_counter() - t0 > TPT_DEADLINE_S:
+                for proc in ctx.processes:
+                    proc.kill()
+                raise TimeoutError(f"the tensor-parallel training ranks did not finish in {TPT_DEADLINE_S} s")
+        result["ranks_s"] = time.perf_counter() - t0
+        ranks = [torch.load(os.path.join(root, f"rank{r}.pt"), weights_only=False) for r in range(TP_RANKS)]
+
+        # (a) the full model in bf16 against the unsharded step
+        n_vit = cfg.vision_config.num_hidden_layers
+        a = result["a"] = {}
+        for step in range(2):
+            for key in ("loss", "grad_norm"):
+                ours, theirs = ranks[0]["a"]["metrics"][step][key], ref_a["metrics"][step][key]
+                rel = abs(ours - theirs) / abs(theirs)
+                a[f"step{step + 1}_{key}"] = {"tp": ours, "unsharded": theirs, "rel_err": rel}
+                assert np.isfinite(ours) and rel < 2e-2, (step, key, ours, theirs)
+        for other in ranks[1:]:
+            assert other["a"]["metrics"] == ranks[0]["a"]["metrics"], "the ranks' losses differ"
+        got, want = ranks[0]["a"]["grads"], ref_a["grads"]
+        assert got.keys() == want.keys()
+        a["step1_whole_gradient_cosine"] = _cosine(torch.cat([got[k].flatten() for k in want]),
+                                                   torch.cat([g.flatten() for g in want.values()]))
+        rep = [r["a"]["replicated"] for r in ranks]
+        unequal = [k for k, t in rep[0].items() if not all(torch.equal(t, other[k]) for other in rep[1:])]
+        a["replicated_leaves"], a["replicated_bit_identical"] = len(rep[0]), not unequal
+        a["sharded_leaves"] = ranks[0]["a"]["sharded_leaves"]
+        want_counts = dict.fromkeys(ref_a["counts"], 0)
+        want_counts["packed_qkv_attention"] = n_vit  # 39 a micro-batch forward (no grad); K2-K6 never
+        for r in ranks:
+            assert r["a"]["counts"] == want_counts, (r["a"]["counts"], want_counts)
+        assert ref_a["counts"] == want_counts, ref_a["counts"]
+        a["k1_launches_per_rank"] = [r["a"]["counts"]["packed_qkv_attention"] for r in ranks]
+        a["k1_kernel"] = "packed_qkv_attention at tp 2 (136,257,8x88)"
+        a["weights_bytes_per_rank"] = [r["a"]["weights_bytes"] for r in ranks]
+        a["peak_bytes_per_rank"] = [r["a"]["peak_bytes"] for r in ranks]
+        a["unsharded_weights_bytes"], a["unsharded_peak_bytes"] = ref_a["weights_bytes"], ref_a["peak_bytes"]
+        a["step_s_per_rank"] = [r["a"]["step_s"] for r in ranks]
+        a["counted_s_per_rank"] = [r["a"]["counted_s"] for r in ranks]
+        a["unsharded_step_s"], a["unsharded_counted_s"] = ref_a["step_s"], ref_a["counted_s"]
+        print(f"[{tag}] tensor-parallel training (a) eilev-blip2-opt-2.7b bf16 (fp32 Q-Former masters) TP = 2, "
+              f"two steps, dropout on, clip on (two gloo ranks on one card: the step time is a one-card gloo "
+              f"schedule's, no TP speed): {a} unequal_replicated={unequal[:3]}")
+        assert not unequal and a["sharded_leaves"] > 0
+        assert all(p < ref_a["peak_bytes"] for p in a["peak_bytes_per_rank"]), a["peak_bytes_per_rank"]
+
+        # (b) the fp32 cuts: every gathered leaf against the fp64 step, the
+        # checkpoint and the export
+        b = result["b"] = {}
+        for name, cut, _ in _tpt_cuts():
+            mine, theirs = ranks[0]["b"][name], ref_b[name]
+            row = b[name] = {"tp_vs_fp64": _tpt_compare(mine, theirs["float64"]),
+                             "unsharded_fp32_vs_fp64": _tpt_compare(theirs["float32"], theirs["float64"]),
+                             "tp_vs_unsharded_fp32": _tpt_compare(mine, theirs["float32"])}
+            print(f"[{tag}] tensor-parallel training (b) fp32 {name} cut ({F32_LAYERS} layers a stack) TP = 2, two "
+                  f"steps, dropout on, against the unsharded port's step in fp64: {row}")
+            got = row["tp_vs_fp64"]
+            assert all(v < TPT_TOL for k, v in got.items() if k.endswith("rel_err")), (name, got)
+            assert got["leaf_max_abs_err"] < TPT_TOL, (name, got)
+            row["k1_f32_launches_per_rank"] = [r["b"][name]["counts"]["packed_qkv_attention_f32"] for r in ranks]
+            assert row["k1_f32_launches_per_rank"] == [F32_LAYERS] * TP_RANKS, row
+            model, _ = load_model(os.path.join(root, f"export_{name}"), dtype=torch.float32, device=dev)
+            sd = {k: v.cpu() for k, v in model.state_dict().items()}
+            trained, frozen = partition_params(sd)
+            row["export_trainable_bit_identical"] = all(torch.equal(v, mine["trainable"][k]) for k, v in trained.items())
+            row["export_frozen_as_they_came_in"] = (frozen.keys() == theirs["frozen"].keys() and all(
+                torch.equal(v, theirs["frozen"][k]) for k, v in frozen.items()))
+            fresh = TrainState.create(freeze_towers(model)[0], make_optimizer(OptimizerConfig(**TPT_OCFG)))
+            state = restore_checkpoint(mine["checkpoint"], fresh)
+            row["checkpoint_restores_bit_identical"] = state.step == 2 and all(
+                torch.equal(p.cpu(), mine["trainable"][k]) for k, p in state.trainable.items())
+            row["peak_bytes_per_rank"] = [r["b"][name]["peak_bytes"] for r in ranks]
+            row["unsharded_peak_bytes"] = theirs["float32"]["peak_bytes"]
+            print(f"[{tag}] tensor-parallel training (b) fp32 {name} cut: K1 fp32 launches a rank "
+                  f"{row['k1_f32_launches_per_rank']}, export and checkpoint {row}")
+            assert (row["export_trainable_bit_identical"] and row["export_frozen_as_they_came_in"]
+                    and row["checkpoint_restores_bit_identical"]), row
+            del model, state, fresh, sd
+            gc.collect()
+            torch.cuda.empty_cache()
+    result["rank_a_s"] = [r["a_s"] for r in ranks]
+    result["rank_b_s"] = [r["b_s"] for r in ranks]
+    result["seconds"] = time.perf_counter() - t_phase
+    print(f"[{tag}] tensor-parallel training phase took {result['seconds']} s")
+    return result
+
+
 def main(argv: list) -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke: no CUDA device; this script runs only on a GPU")
@@ -5888,6 +6223,9 @@ def main(argv: list) -> int:
         gc.collect()
         torch.cuda.empty_cache()
         tp_rows, tensor_parallel = run_tensor_parallel(tag, dev)
+        gc.collect()
+        torch.cuda.empty_cache()
+        tp_training = run_tensor_parallel_training(tag, dev)
         took("the whole script", t_script)
     except Exception:
         traceback.print_exc()
@@ -5929,6 +6267,9 @@ def main(argv: list) -> int:
     # their launches in its runs (K3/K4 at batch 4: check only, the runs are
     # at batch 1)
     print(json.dumps({"tensor_parallel": tensor_parallel, "tensor_parallel_shapes": tp_rows}, default=str))
+    # phase 14: tensor-parallel training (K1 at phase 13's local-head row, its
+    # launches a rank in the counted step)
+    print(json.dumps({"tensor_parallel_training": tp_training}, default=str))
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                               "count": torch.cuda.device_count()}}))

@@ -13,20 +13,25 @@ an HF ``save_pretrained`` directory (``model.safetensors`` in fp32 and the
 source checkpoint's ``config.json``), which both packages' ``load_model``
 read.
 
-Multi-device training, one process a data replica, started by torchrun
-(the process group is joined whenever torchrun started more than one
-process; ``--multihost`` is accepted for the JAX CLI's command lines)::
+Multi-device training, one process a device, started by torchrun (the
+process group is joined whenever torchrun started more than one process;
+``--multihost`` is accepted for the JAX CLI's command lines)::
 
     torchrun --nproc_per_node 8 -m eilev_tpu_torch.cli.train_v2 ... --per_device_train_batch_size 1
     torchrun --nproc_per_node 8 -m eilev_tpu_torch.cli.train_v2 ... --zero_shard_opt_state
     torchrun --nproc_per_node 2 -m eilev_tpu_torch.cli.train_v2 ... --pipeline_parallel 4
+    torchrun --nproc_per_node 8 -m eilev_tpu_torch.cli.train_v2 ... --model_parallel 2 --data_parallel 4
 
-Each process loads its stride of the data (``--per_device_train_batch_size``
-rows of each micro-batch) onto ``cuda:LOCAL_RANK``; with
-``--pipeline_parallel S`` it drives S cards, ``cuda:LOCAL_RANK * S`` on.
-``--device cpu`` runs every stage on the CPU (gloo for the collectives).
-Tensor-parallel training (``--model_parallel`` > 1) is not ported (tensor-parallel
-inference is: ``generate_narration_texts`` and ``icl_eval``).
+The processes form a ``data x model`` mesh (``--data_parallel`` x
+``--model_parallel``; the data axis defaults to the rest). Each data replica
+loads its stride of the data (``--per_device_train_batch_size`` rows of each
+micro-batch, the global micro-batch that times the data axis, as in JAX)
+onto ``cuda:LOCAL_RANK``; the ``--model_parallel`` processes of a replica
+(consecutive ranks) load the same rows and each holds its slice of every
+tower (``load_model(mesh=)``, tensor parallelism). With ``--pipeline_parallel
+S`` a process drives S cards, ``cuda:LOCAL_RANK * S`` on (exclusive with
+``--model_parallel``). ``--device cpu`` runs every process and stage on the
+CPU (gloo for the collectives).
 """
 
 from __future__ import annotations
@@ -91,7 +96,8 @@ def parse_args(argv: Optional[list[str]] = None) -> argparse.Namespace:
     p.add_argument("--multihost", action="store_true",
                    help="multi-process training (torchrun); the process group is joined whenever torchrun "
                         "started more than one process")
-    p.add_argument("--model_parallel", type=int, default=1, help="tensor-parallel devices (training: not ported)")
+    p.add_argument("--model_parallel", type=int, default=1,
+                   help="tensor-parallel processes a data replica (consecutive ranks; torchrun starts them)")
     p.add_argument("--pipeline_parallel", type=int, default=0,
                    help="> 1: GPipe the frozen LM layer stack over this many stages, one card each "
                         "(exclusive with --model_parallel)")
@@ -104,8 +110,7 @@ def parse_args(argv: Optional[list[str]] = None) -> argparse.Namespace:
 def check_args(args: argparse.Namespace) -> None:
     """The JAX CLI's checks of the parallel flags: pipeline and tensor
     parallelism are exclusive, ``--remat`` has no effect under the
-    pipeline, whose micro-batches must divide each process's rows; and
-    tensor parallelism is not ported."""
+    pipeline, whose micro-batches must divide each process's rows."""
     if args.pipeline_parallel > 1:
         if args.model_parallel > 1:
             raise ValueError("--pipeline_parallel and --model_parallel are exclusive")
@@ -116,18 +121,15 @@ def check_args(args: argparse.Namespace) -> None:
             raise ValueError(
                 "--remat has no effect under --pipeline_parallel (the pipeline trunk runs the LM layers "
                 "outside the model's forward and stages activations per micro-batch); drop --remat")
-    if args.model_parallel > 1:
-        raise NotImplementedError(
-            "--model_parallel > 1 (tensor-parallel training) is not ported: it waits for the tensor-parallel "
-            "training slice (autograd through the collectives, the sharded Q-Former under AdamW, ZeRO beside "
-            "it); tensor-parallel inference runs in generate_narration_texts and icl_eval")
 
 
 def parallel_mesh(args: argparse.Namespace):
     """Join the process group torchrun started (a no-op for one process) and
-    return this process's mesh: the data group, and ``--pipeline_parallel``
-    stage devices (the cards from ``LOCAL_RANK * stages`` on; every stage
-    on the CPU for ``--device cpu``)."""
+    return this process's mesh: the ``data x model`` grid, or the data group
+    and ``--pipeline_parallel`` stage devices (the cards from ``LOCAL_RANK *
+    stages`` on; every stage on the CPU for ``--device cpu``). A process
+    count the mesh does not match raises ``ValueError`` naming the torchrun
+    command."""
     from ..parallel.distributed import initialize
     from ..parallel.mesh import make_mesh
     from ..parallel.pipeline import make_pipeline_mesh
@@ -166,11 +168,13 @@ def load_datasets(args: argparse.Namespace) -> dict[str, Any]:
     return {"train": train, "val": val}
 
 
-def run(args: argparse.Namespace, model, tokenizer, datasets: dict[str, Any]):
+def run(args: argparse.Namespace, model, tokenizer, datasets: dict[str, Any], mesh=None):
     """Train ``model`` on ``datasets["train"]`` (evaluating on
     ``datasets["val"]``; sequences of ``{"items": [...]}`` datapoints with
     uint8 ``video`` clips), save checkpoints under ``--output_dir``, and with
-    ``--export_hf`` write ``<output_dir>/hf``. Returns the Trainer."""
+    ``--export_hf`` write ``<output_dir>/hf``. ``mesh``: the one the model
+    was loaded for (default: :func:`parallel_mesh`). Returns the Trainer."""
+    from ..parallel.distributed import is_primary
     from ..training import OptimizerConfig
     from ..training.checkpoint import export_hf_safetensors
     from ..training.data_module import train_batch_iterator
@@ -178,13 +182,13 @@ def run(args: argparse.Namespace, model, tokenizer, datasets: dict[str, Any]):
     from ..utils import WandbLogger
 
     check_args(args)
-    mesh = parallel_mesh(args)
+    mesh = parallel_mesh(args) if mesh is None else mesh
     config = model.config
     dtype = DTYPES[args.dtype]
     train_data, val_data = datasets["train"], datasets["val"]
-    # the global micro-batch, one process a replica: each loads its stride
-    # of it, --per_device_train_batch_size rows (so the process count
-    # always divides it, which JAX's CLI has to check)
+    # the global micro-batch, one data replica a stride of it: each loads
+    # --per_device_train_batch_size rows (so the data axis always divides
+    # it, which JAX's CLI has to check); a replica's model ranks load the same
     n_proc, micro_local = mesh.data_size, args.per_device_train_batch_size
     micro = micro_local * n_proc
     global_batch = micro * args.gradient_accumulation_steps
@@ -246,13 +250,14 @@ def run(args: argparse.Namespace, model, tokenizer, datasets: dict[str, Any]):
     )
     trainer.train()
 
-    if args.export_hf and mesh.data_rank == 0:
+    if args.export_hf and (mesh.model_size > 1 or is_primary()):
         out = os.path.join(args.output_dir, "hf")
-        export_hf_safetensors(trainer.model, config, out)
+        export_hf_safetensors(trainer.model, config, out)  # gathers a sharded model; rank 0 writes
         source_config = os.path.join(args.model_name_or_path, "config.json")
-        if os.path.exists(source_config):
+        if is_primary() and os.path.exists(source_config):
             shutil.copy(source_config, os.path.join(out, "config.json"))
-        print(f"exported HF safetensors to {out}")
+        if is_primary():
+            print(f"exported HF safetensors to {out}")
     return trainer
 
 
@@ -261,10 +266,13 @@ def main(argv: Optional[list[str]] = None):
     check_args(args)
     from ..models.auto import load_model, load_tokenizer
 
-    device = parallel_mesh(args).device
-    model, _ = load_model(args.model_name_or_path, dtype=DTYPES[args.dtype], remat=args.remat, device=device)
+    mesh = parallel_mesh(args)
+    # under a model axis each rank reads only its slices of the file; the
+    # trainable Q-Former stays in the file's fp32 (the master weights)
+    model, _ = load_model(args.model_name_or_path, dtype=DTYPES[args.dtype], remat=args.remat, device=mesh.device,
+                          mesh=mesh if mesh.model_size > 1 else None)
     tokenizer = load_tokenizer(args.model_name_or_path)
-    return run(args, model, tokenizer, load_datasets(args))
+    return run(args, model, tokenizer, load_datasets(args), mesh=mesh)
 
 
 if __name__ == "__main__":

@@ -137,7 +137,10 @@ def load_model(
     tensor-parallel model of this rank: each tensor is read from the file
     (memory-mapped, on the CPU) and only this rank's slice of it
     (``parallel/tensor.shard_state_dict``) goes to ``device``; the int8
-    weight modes then raise ``NotImplementedError``.
+    weight modes then raise ``NotImplementedError``. Such a model also
+    trains (``training.Trainer`` / ``make_train_step`` with that mesh; the
+    Q-Former keeps the file's fp32 as master weights under ``param_dtype``
+    None, as the one-device recipe loads it).
     Any other ``version`` than ``"v2"`` builds the v1 model, as in JAX (video features prepended,
     ``models/video_blip_v1.py``) over the same weights. OPT and T5 (flan-t5)
     checkpoints load; ``int8_lm``/``int8_kv`` take OPT only, as in JAX. The

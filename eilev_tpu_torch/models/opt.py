@@ -54,7 +54,12 @@ with ``tp``) holds the local heads; ``out_proj`` and ``fc2`` are
 row-parallel; ``embed_tokens`` is vocab-parallel and the tied head's logits
 are gathered (:func:`parallel.tensor.gather_vocab`), so every rank returns
 the same full-vocab logits. ``score_with_prefix`` runs on the local heads
-too, and returns the rank's vocab block with ``local_logits``.
+too, and returns the rank's vocab block with ``local_logits``. In training
+(the frozen LM under a graph, the gradient flowing to the video features)
+the inputs of ``qkv_proj``, ``fc1`` and the tied head go through
+``parallel.tensor.copy_to_model``, and ``forward(local_logits=True)`` gives
+the rank's vocab block to the vocab-parallel loss, with no full-vocab
+gather. Every dropout site is after a row-parallel sum, replicated.
 """
 
 from __future__ import annotations
@@ -72,7 +77,7 @@ from ..ops.decode_attention import decode_attention_stacked, dequantize_kv, quan
 from ..ops.dropout import Dropout, MaskSource
 from ..ops.fused_attention import packed_qkv_causal_attention
 from ..ops.quantization import dense_cls
-from ..parallel.tensor import gather_vocab, row_parallel, tower_tp, vocab_embedding
+from ..parallel.tensor import copy_to_model, gather_vocab, row_parallel, tower_tp, vocab_embedding
 from .mixed_precision import MixedLayerNorm, MixedLinear, mixed_dense_cls
 
 Cache = dict[str, Any]
@@ -134,6 +139,7 @@ class OPTAttention(nn.Module):
     def __init__(self, config: OPTConfig, *, tp=None, device=None, dtype=None):
         super().__init__()
         self.config = config
+        self.tp = tp
         d = config.hidden_size
         kw = {"device": device, "dtype": dtype}
         dense = mixed_dense_cls(dense_cls(config))  # or Int8Dense when opted in
@@ -160,7 +166,7 @@ class OPTAttention(nn.Module):
         b, s, _ = hidden_states.shape
         nh, hd = self.num_heads, self.config.head_dim
         d = nh * hd  # the local heads' width
-        qkv = self.qkv_proj(hidden_states)
+        qkv = self.qkv_proj(copy_to_model(hidden_states, self.tp))
         q = qkv[..., :d].reshape(b, s, nh, hd)
         k = qkv[..., d : 2 * d].reshape(b, s, nh, hd)
         v = qkv[..., 2 * d :].reshape(b, s, nh, hd)
@@ -254,6 +260,7 @@ class OPTDecoderLayer(nn.Module):
     def __init__(self, config: OPTConfig, *, tp=None, device=None, dtype=None):
         super().__init__()
         self.config = config
+        self.tp = tp
         kw = {"device": device, "dtype": dtype}
         d, eps = config.hidden_size, config.layer_norm_eps
         self.self_attn = OPTAttention(config, tp=tp, **kw)
@@ -275,7 +282,7 @@ class OPTDecoderLayer(nn.Module):
         residual = x
         if pre_ln:
             x = self.final_layer_norm(x)
-        x = residual + self.dropout_layer(self.fc2(self._act(self.fc1(x))), rng)
+        x = residual + self.dropout_layer(self.fc2(self._act(self.fc1(copy_to_model(x, self.tp)))), rng)
         if not pre_ln:
             x = self.final_layer_norm(x)
         return x
@@ -405,6 +412,7 @@ class OPTForCausalLM(nn.Module):
         """The tied head's logits: the full vocabulary on every rank, or with
         ``local`` (under ``tp``) this rank's block of it."""
         # tied to embed_tokens, like OPTForCausalLM
+        hidden = copy_to_model(hidden, self.tp)
         logits = F.linear(hidden, self.embed_tokens.weight.to(hidden.dtype))
         if self.tp is None or local:
             return logits
@@ -425,10 +433,12 @@ class OPTForCausalLM(nn.Module):
         cache_append: bool = False,
         rng: Optional[MaskSource] = None,
         with_hidden: bool = False,
+        local_logits: bool = False,
     ) -> tuple:
         """inputs_embeds: (B, S, word_embed_proj_dim). Returns (logits, cache),
         or (logits, hidden, cache) with ``with_hidden`` (hidden: the final
-        norm and out-projection's output, HF ``hidden_states[-1]``).
+        norm and out-projection's output, HF ``hidden_states[-1]``); with
+        ``local_logits`` under ``tp`` the logits are this rank's vocab block.
 
         Without cache: ``attention_mask`` is the (B, S) padding mask. With
         cache: the S tokens are written at ``cache['index']`` and the cache is
@@ -485,7 +495,7 @@ class OPTForCausalLM(nn.Module):
             x = layer(x, attn, cache_kv=ckv, cache_index=cache_index, rng=rng)
 
         hidden = self._pre_head(x)
-        logits = self.lm_head(hidden)
+        logits = self.lm_head(hidden, local=local_logits)
         if cache is not None:
             cache["pos"] += new_counts[:, -1]
             cache["index"] = cache_index + s

@@ -24,7 +24,10 @@ cross-attention's ``query``/``key``/``value`` and the FFN's ``intermediate``
 are column-parallel (the rank's heads, its block of the FFN), ``dense`` and
 the FFN's ``output`` row-parallel: the all_reduce comes before each residual
 add and LayerNorm. A model axis that does not divide the heads (12 at tp 8)
-leaves the Q-Former whole on every rank.
+leaves the Q-Former whole on every rank. In training the column inputs go
+through ``parallel.tensor.copy_to_model`` (their gradient summed over the
+model group), and the attention output's dropout, whose heads are sharded,
+draws the unsharded mask and keeps the rank's heads (``ops/dropout.py``).
 """
 
 from __future__ import annotations
@@ -39,7 +42,7 @@ from ..configs import QFormerConfig
 from ..ops.attention import dot_product_attention
 from ..ops.dropout import Dropout, MaskSource
 from ..ops.quantization import vision_dense_cls
-from ..parallel.tensor import row_parallel, tower_tp
+from ..parallel.tensor import copy_to_model, row_parallel, tower_tp
 from .mixed_precision import MixedLayerNorm, mixed_dense_cls
 
 
@@ -54,6 +57,7 @@ class QFormerMultiHeadAttention(nn.Module):
                  device=None, dtype=None):
         super().__init__()
         self.config = config
+        self.tp = tp
         kw = {"device": device, "dtype": dtype}
         d = config.hidden_size
         self.num_heads = config.num_attention_heads // (tp.size if tp else 1)
@@ -73,14 +77,15 @@ class QFormerMultiHeadAttention(nn.Module):
         rng: Optional[MaskSource] = None,
     ) -> torch.Tensor:
         nh, hd = self.num_heads, self.config.head_dim
-        kv = kv_states if kv_states is not None else hidden_states
+        x = copy_to_model(hidden_states, self.tp)
+        kv = copy_to_model(kv_states, self.tp) if kv_states is not None else x
         b, s, _ = hidden_states.shape
         l = kv.shape[1]
-        q = self.query(hidden_states).reshape(b, s, nh, hd)
+        q = self.query(x).reshape(b, s, nh, hd)
         k = self.key(kv).reshape(b, l, nh, hd)
         v = self.value(kv).reshape(b, l, nh, hd)
         out = dot_product_attention(q, k, v, padding_mask=padding_mask, scale=hd**-0.5)
-        return self.dropout(out, rng).reshape(b, s, nh * hd)
+        return self.dropout(out, rng, (2, self.tp)).reshape(b, s, nh * hd)
 
 
 class QFormerSelfOutput(nn.Module):
@@ -126,6 +131,7 @@ class QFormerFFN(nn.Module):
     def __init__(self, config: QFormerConfig, *, tp=None, device=None, dtype=None):
         super().__init__()
         kw = {"device": device, "dtype": dtype}
+        self.tp = tp
         d = config.hidden_size
         dense = _dense_cls(config)
         ffn = config.intermediate_size // (tp.size if tp else 1)
@@ -135,7 +141,7 @@ class QFormerFFN(nn.Module):
         self.layer_norm = MixedLayerNorm(d, eps=config.layer_norm_eps, **kw)
 
     def forward(self, hidden_states: torch.Tensor, rng: Optional[MaskSource] = None) -> torch.Tensor:
-        x = self.output(F.gelu(self.intermediate(hidden_states), approximate="none"))
+        x = self.output(F.gelu(self.intermediate(copy_to_model(hidden_states, self.tp)), approximate="none"))
         return self.layer_norm(self.dropout(x, rng) + hidden_states)
 
 

@@ -60,7 +60,12 @@ holds its heads of ``q``/``k``/``v`` and its block of ``wi_0``/``wi_1`` (or
 for the rank's heads only (the table stays whole); the decode and
 cross caches hold the local heads; ``shared`` and ``lm_head`` are
 vocab-parallel, the logits gathered on every rank (``score_classes`` returns
-the rank's block with ``local_logits``).
+the rank's block with ``local_logits``). In training the inputs of ``q``,
+``k``, ``v`` (self and cross), ``wi_0``/``wi_1`` (``wi``) and the head go
+through ``parallel.tensor.copy_to_model``; ``forward(local_logits=True)``
+gives the rank's vocab block to the vocab-parallel loss; the FFN's hidden
+dropout, on the rank's block of d_ff, draws the unsharded mask
+(``ops/dropout.py``). The other dropout sites are replicated.
 """
 
 from __future__ import annotations
@@ -74,7 +79,8 @@ from torch import nn
 from ..configs import T5Config
 from ..ops.attention import _scalar, dot_product_attention, make_causal_bias, mask_to_bias
 from ..ops.dropout import Dropout, MaskSource
-from ..parallel.tensor import gather_vocab, row_parallel, tower_tp, vocab_block, vocab_embedding
+from ..parallel.tensor import (copy_to_model, gather_vocab, row_parallel, tower_tp, vocab_block,
+                               vocab_embedding)
 from .mixed_precision import MixedLinear
 from .opt import _remat_layer
 
@@ -154,6 +160,7 @@ class T5Attention(nn.Module):
         super().__init__()
         self.config = config
         self.bidirectional = bidirectional
+        self.tp = tp
         kw = {"device": device, "dtype": dtype}
         # this rank's heads [head_start, head_start + num_heads)
         self.num_heads, self.head_start = tp.block(config.num_heads) if tp else (config.num_heads, 0)
@@ -202,9 +209,10 @@ class T5Attention(nn.Module):
         cache takes this step's k/v rows at ``cache_index``, in place, and
         the attention reads the whole layer slice."""
         b, s, _ = hidden_states.shape
-        q = self._heads(self.q(hidden_states))
-        k = self._heads(self.k(hidden_states))
-        v = self._heads(self.v(hidden_states))
+        x = copy_to_model(hidden_states, self.tp)
+        q = self._heads(self.q(x))
+        k = self._heads(self.k(x))
+        v = self._heads(self.v(x))
         if cache_kv is not None:
             k_buf, v_buf, li = cache_kv
             k_buf[li, :, cache_index : cache_index + s] = k
@@ -214,7 +222,8 @@ class T5Attention(nn.Module):
         return self.o(out.reshape(b, s, self.inner))
 
     def cross_kv(self, encoder_hidden: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-        return self._heads(self.k(encoder_hidden)), self._heads(self.v(encoder_hidden))
+        x = copy_to_model(encoder_hidden, self.tp)
+        return self._heads(self.k(x)), self._heads(self.v(x))
 
     def self_classes(self, hidden: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
         """Causal self-attention within (B, C, L) class continuations; ``bias``
@@ -239,7 +248,7 @@ class T5Attention(nn.Module):
     def cross_attend(self, hidden_states: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      padding_mask: Optional[torch.Tensor]) -> torch.Tensor:
         b, s, _ = hidden_states.shape
-        q = self._heads(self.q(hidden_states))
+        q = self._heads(self.q(copy_to_model(hidden_states, self.tp)))
         out = dot_product_attention(q, k, v, padding_mask=padding_mask, scale=None)
         return self.o(out.reshape(b, s, self.inner))
 
@@ -248,6 +257,7 @@ class T5FF(nn.Module):
     def __init__(self, config: T5Config, *, tp=None, device=None, dtype=None):
         super().__init__()
         self.config = config
+        self.tp = tp
         kw = {"device": device, "dtype": dtype}
         self.layer_norm = T5LayerNorm(config.d_model, config.layer_norm_epsilon, **kw)
         d_ff = config.d_ff // (tp.size if tp else 1)
@@ -267,13 +277,14 @@ class T5FF(nn.Module):
         return F.gelu(x, approximate="none")
 
     def forward(self, x: torch.Tensor, rng: Optional[MaskSource] = None) -> torch.Tensor:
-        h = self.layer_norm(x)
+        h = copy_to_model(self.layer_norm(x), self.tp)
         if self.config.is_gated_act:
             h = self._act(self.wi_0(h)) * self.wi_1(h)
         else:
             h = self._act(self.wi(h))
-        # HF T5LayerFF: dropout after the activation, then on the residual branch
-        h = self.dropout(h, rng)
+        # HF T5LayerFF: dropout after the activation (on this rank's block of
+        # d_ff under tp), then on the residual branch
+        h = self.dropout(h, rng, (-1, self.tp))
         return x + self.dropout(self.wo(h), rng)
 
 
@@ -564,6 +575,7 @@ class T5ForConditionalGeneration(nn.Module):
     def _head(self, hidden: torch.Tensor, local: bool = False) -> torch.Tensor:
         """The logits: the full vocabulary on every rank, or with ``local``
         (under ``tp``) this rank's block of it."""
+        hidden = copy_to_model(hidden, self.tp)
         if self.config.tie_word_embeddings:
             hidden = hidden * _scalar(self.config.d_model**-0.5, hidden)
             logits = F.linear(hidden, self.shared.weight.to(hidden.dtype))
@@ -609,14 +621,16 @@ class T5ForConditionalGeneration(nn.Module):
         decoder_input_ids: Optional[torch.Tensor] = None,
         decoder_attention_mask: Optional[torch.Tensor] = None,
         rng: Optional[MaskSource] = None,
+        local_logits: bool = False,
     ) -> torch.Tensor:
-        """The training / scoring forward: (B, S_dec, vocab) logits."""
+        """The training / scoring forward: (B, S_dec, vocab) logits (with
+        ``local_logits`` under ``tp``, this rank's vocab block of them)."""
         encoder_hidden = self.encoder(encoder_inputs_embeds, encoder_attention_mask, rng)
         hidden, _ = self.decoder(
             self.embed(decoder_input_ids), encoder_hidden, encoder_attention_mask,
             decoder_attention_mask, rng=rng,
         )
-        return self._head(hidden)
+        return self._head(hidden, local=local_logits)
 
     def init_decode_cache(self, encoder_hidden: torch.Tensor, max_len: int) -> Cache:
         """The decode cache of ``max_len`` self-attention slots, with every

@@ -25,14 +25,19 @@ inside a bf16 model, as the training recipe keeps them, or fp32 weights
 everywhere under a bf16 compute, as the CLIs load a checkpoint
 (``models/auto.py:load_model``).
 
-Tensor parallelism (``tp``, a ``parallel.tensor.TensorParallel``; inference):
-the vision tower, the Q-Former and the language model are built with local
+Tensor parallelism (``tp``, a ``parallel.tensor.TensorParallel``): the
+vision tower, the Q-Former and the language model are built with local
 heads and their weights sharded over the model group (each tower whole where
 the model axis does not divide it); ``query_tokens`` and
 ``language_projection`` are whole on every rank, as JAX leaves them. The
 models return full-vocab logits on every rank, so the decoding loops need
 no change; ``tp`` is kept as :attr:`tp` for the caches and for
-classification's vocab-parallel scoring.
+classification's vocab-parallel scoring. With ``labels`` (training) under a
+sharded LM the loss is vocab-parallel
+(``parallel.tensor.vocab_parallel_cross_entropy``, shifted for OPT,
+unshifted for T5) and ``"logits"`` is this rank's vocab block: the
+full-vocab logits are never gathered. The frozen ViT runs under no grad,
+so its row all_reduces stay in place and K1 runs at the local heads.
 """
 
 from __future__ import annotations
@@ -44,6 +49,7 @@ from torch import nn
 
 from ..configs import OPTConfig, VideoBlipConfig
 from ..ops.dropout import MaskSource
+from ..parallel.tensor import vocab_parallel_cross_entropy
 from .mixed_precision import MixedLinear
 from .opt import Cache, OPTForCausalLM
 from .qformer import QFormerModel
@@ -179,19 +185,29 @@ class VideoBlipForConditionalGeneration(nn.Module):
     ) -> dict[str, torch.Tensor]:
         """The language model's half of :meth:`forward` over ready embeddings."""
         tcfg = self.config.text_config
+        tp = self.language_model.tp
+        local = tp is not None and labels is not None  # the vocab-parallel loss
+
+        def loss(logits, targets):
+            if local:
+                return vocab_parallel_cross_entropy(logits, targets, tp, tcfg.vocab_size)
+            return masked_cross_entropy(logits, targets)
+
         if isinstance(tcfg, OPTConfig):
-            logits, _ = self.language_model(inputs_embeds, attention_mask=attention_mask, rng=dropout_rng)
+            logits, _ = self.language_model(inputs_embeds, attention_mask=attention_mask, rng=dropout_rng,
+                                            local_logits=local)
             out = {"logits": logits}
             if labels is not None:
-                out["loss"] = masked_cross_entropy(logits[:, :-1], labels[:, 1:])
+                out["loss"] = loss(logits[:, :-1], labels[:, 1:])
             return out
         if decoder_input_ids is None and labels is not None:
             decoder_input_ids = shift_tokens_right(labels, tcfg.pad_token_id, tcfg.decoder_start_token_id)
         logits = self.language_model(
-            inputs_embeds, attention_mask, decoder_input_ids, decoder_attention_mask, rng=dropout_rng)
+            inputs_embeds, attention_mask, decoder_input_ids, decoder_attention_mask, rng=dropout_rng,
+            local_logits=local)
         out = {"logits": logits}
         if labels is not None:
-            out["loss"] = masked_cross_entropy(logits, labels)
+            out["loss"] = loss(logits, labels)
         return out
 
     def _has_dropout(self) -> bool:

@@ -48,7 +48,13 @@ class DropoutRng:
     own block, as JAX draws one mask over the global batch: the ranks
     together take the masks one device takes over the concatenated batch.
     Every dropout site of the port's models has the batch (or, in the
-    Q-Former, the videos) as its leading axis."""
+    Q-Former, the videos) as its leading axis.
+
+    Tensor parallelism: a site whose activation is sharded on the model
+    axis asks for the unsharded shape and keeps its rank's block
+    (:func:`dropout`'s ``shard``), so every rank of a model group draws
+    the same uniforms in the same order, whatever the model axis, and
+    every replicated site the same mask."""
 
     def __init__(self, generator: torch.Generator, rank: int = 0, world: int = 1):
         self.generator = generator
@@ -70,14 +76,25 @@ class DropoutRng:
         self.generator.set_state(state)
 
 
-def dropout(x: torch.Tensor, rate: float, rng: Optional[MaskSource]) -> torch.Tensor:
+def dropout(x: torch.Tensor, rate: float, rng: Optional[MaskSource], shard=None) -> torch.Tensor:
     """flax's dropout law with masks from ``rng``; the identity when ``rng`` is
-    None or ``rate`` is 0."""
+    None or ``rate`` is 0. ``shard`` = (axis, tp) marks ``x`` as this rank's
+    block along ``axis`` of an activation sharded over the model group of
+    ``tp`` (a ``parallel.tensor.TensorParallel``, or None): the mask is
+    drawn at the unsharded shape and the rank's block of it kept, so it
+    is the unsharded model's mask."""
     if rng is None or rate == 0.0:
         return x
     if rate == 1.0:
         return torch.zeros_like(x)
-    keep = rng.keep(tuple(x.shape), rate, x.device)
+    axis, tp = shard if shard is not None else (0, None)
+    if tp is None or tp.size == 1:
+        keep = rng.keep(tuple(x.shape), rate, x.device)
+    else:
+        axis %= x.ndim
+        n = x.shape[axis]
+        full = (*x.shape[:axis], n * tp.size, *x.shape[axis + 1:])
+        keep = rng.keep(full, rate, x.device).narrow(axis, tp.rank * n, n)
     # x / keep_prob with keep_prob in x's dtype, as JAX's weak-typed division
     scaled = x / torch.tensor(1.0 - rate, dtype=x.dtype, device=x.device)
     return torch.where(keep, scaled, torch.zeros((), dtype=x.dtype, device=x.device))
@@ -90,8 +107,8 @@ class Dropout(nn.Module):
         super().__init__()
         self.rate = rate
 
-    def forward(self, x: torch.Tensor, rng: Optional[MaskSource] = None) -> torch.Tensor:
-        return dropout(x, self.rate, rng if self.training else None)
+    def forward(self, x: torch.Tensor, rng: Optional[MaskSource] = None, shard=None) -> torch.Tensor:
+        return dropout(x, self.rate, rng if self.training else None, shard)
 
     def extra_repr(self) -> str:
         return f"rate={self.rate}"

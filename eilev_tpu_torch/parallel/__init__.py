@@ -1,15 +1,17 @@
 """Multi-device training and inference (counterpart of ``eilev_tpu/parallel``):
 data parallelism over ``torch.distributed`` (one process a replica), ZeRO-2
 optimizer-state sharding (``training/train_state.py``), GPipe pipeline
-parallelism over a list of devices, and tensor-parallel inference over a
-model group (``tensor.py``: the layout rule, local-head towers, vocab-parallel
-tables; tensor-parallel training is not ported)."""
+parallelism over a list of devices, and tensor parallelism over a model
+group, for inference and training (``tensor.py``: the layout rule,
+local-head towers, vocab-parallel tables and loss, the collectives with
+their gradients, the sharded and gathered state dicts)."""
 
 from .mesh import (
     DATA_AXIS,
     MODEL_AXIS,
     Mesh,
     batch_sharding,
+    data_group_ranks,
     make_mesh,
     mesh_coords,
     replicated,
@@ -25,6 +27,14 @@ from .pipeline import (
     shard_stacked,
     stack_layer_params,
 )
+from .tensor import (
+    TensorParallel,
+    copy_to_model,
+    is_model_sharded,
+    shard_state_dict,
+    unshard_state_dict,
+    vocab_parallel_cross_entropy,
+)
 
 __all__ = [
     "DATA_AXIS",
@@ -32,7 +42,11 @@ __all__ = [
     "STAGE_AXIS",
     "Mesh",
     "StackedLayers",
+    "TensorParallel",
     "batch_sharding",
+    "copy_to_model",
+    "data_group_ranks",
+    "is_model_sharded",
     "make_mesh",
     "make_pipeline_mesh",
     "mesh_coords",
@@ -41,6 +55,9 @@ __all__ = [
     "replicated",
     "shard_batch",
     "shard_stacked",
+    "shard_state_dict",
     "stack_layer_params",
     "tensor_parallel_mesh",
+    "unshard_state_dict",
+    "vocab_parallel_cross_entropy",
 ]

@@ -12,11 +12,13 @@ and tensor parallelism, one a stage for pipeline parallelism
   (:func:`shard_batch`); the weights are replicated (:func:`replicated`);
   the gradients are summed by explicit collectives in the train step, and
   the optimizer moments can shard over the data group like ZeRO-2
-  (``training/train_state.zero_sharded_opt_state``). The train step's
-  collectives run over the default group, so training takes ``model=1``.
-- The model axis (tensor parallelism, inference): runs of ``model``
-  consecutive ranks form a model group (``dist.new_group``); the towers are
-  built with local heads and their weights sharded over it
+  (``training/train_state.zero_sharded_opt_state``). The ranks that share a
+  model rank, {m, model + m, ...}, form a data group
+  (:attr:`Mesh.data_group`); the train step's data collectives run over
+  it. At ``model=1`` it is the default group.
+- The model axis (tensor parallelism, inference and training): runs of
+  ``model`` consecutive ranks form a model group (``dist.new_group``); the
+  towers are built with local heads and their weights sharded over it
   (``parallel/tensor.py``, :attr:`Mesh.tp`).
 """
 
@@ -41,9 +43,10 @@ class Mesh:
 
     ``data_size`` replicas, this one ``data_rank``; each replica is a model
     group of ``model_size`` processes (``model_group``, a process group, or
-    None at size 1), this one ``model_rank`` in it. ``devices`` are the
-    devices this process drives: its one device, or a pipeline's stage
-    devices (stage s on ``devices[s]``)."""
+    None at size 1), this one ``model_rank`` in it; the replicas' processes
+    of this model rank form ``data_group`` (None: the default group, as at
+    ``model_size`` 1). ``devices`` are the devices this process drives: its
+    one device, or a pipeline's stage devices (stage s on ``devices[s]``)."""
 
     data_size: int
     data_rank: int
@@ -52,6 +55,7 @@ class Mesh:
     model_size: int = 1
     model_rank: int = 0
     model_group: Any = None
+    data_group: Any = None
 
     @property
     def device(self) -> torch.device:
@@ -94,31 +98,43 @@ def model_group_ranks(data_rank: int, model: int) -> list[int]:
     return list(range(data_rank * model, (data_rank + 1) * model))
 
 
+def data_group_ranks(model_rank: int, data: int, model: int) -> list[int]:
+    """The global ranks of model rank ``model_rank``'s data group: {m,
+    model + m, ...}."""
+    return [d * model + model_rank for d in range(data)]
+
+
 def make_mesh(data: Optional[int] = None, model: int = 1, *, device="cuda") -> Mesh:
     """The ``data x model`` mesh of this process over the default process
     group (one process without a group), this process's device
     :func:`~.distributed.local_device` of ``device``. ``data`` defaults to
     the process count over ``model``; ``data * model`` must equal the
     process count (``ValueError`` otherwise). With ``model`` > 1 every
-    process creates every model group (:func:`model_group_ranks`), as
-    ``dist.new_group`` needs, and keeps its own."""
+    process creates every model group (:func:`model_group_ranks`), then every
+    data group (:func:`data_group_ranks`), as ``dist.new_group`` needs, and
+    keeps its own."""
     size, rank = data_group()
+    want = model * (data or max(size // model, 1))
     if model < 1 or size % model:
         raise ValueError(f"the model axis is one process a shard: model={model} needs a multiple of {model} "
-                         f"processes, this run has {size} (start them with torchrun --nproc_per_node)")
+                         f"processes, this run has {size} (start them with torchrun --nproc_per_node {want})")
     data = size // model if data is None else data
     if data * model != size:
         raise ValueError(f"the mesh is one process a device: data={data} x model={model} needs "
-                         f"{data * model} processes, this run has {size} (start them with torchrun --nproc_per_node)")
+                         f"{want} processes, this run has {size} (start them with torchrun --nproc_per_node {want})")
     data_rank, model_rank = mesh_coords(rank, data, model)
-    group = None
+    group = data_grp = None
     if model > 1:
         for d in range(data):
             g = dist.new_group(model_group_ranks(d, model))
             if d == data_rank:
                 group = g
+        for m in range(model):
+            g = dist.new_group(data_group_ranks(m, data, model))
+            if m == model_rank:
+                data_grp = g
     return Mesh(data, data_rank, (local_device(device),), model_size=model, model_rank=model_rank,
-                model_group=group)
+                model_group=group, data_group=data_grp)
 
 
 def tensor_parallel_mesh(model: int, device="cuda") -> Mesh:

@@ -44,6 +44,18 @@ The only collective is ``all_reduce`` (SUM and MAX) over the model group,
 which NCCL runs on the card and gloo runs on the CPU and on CUDA tensors.
 The int8 weight modes do not run under tensor parallelism
 (``ops/quantization.quantize_model_`` refuses them); the int8 KV cache does.
+
+Training (Megatron's two conjugate operators, as autograd Functions): the
+input of every column-parallel projection goes through :func:`copy_to_model`
+(the identity forward; backward, each rank's partial gradient of the
+replicated input summed over the model group), and every row-parallel sum
+through :meth:`TensorParallel.all_reduce`, which under autograd is the
+all_reduce forward and the identity backward (the gradient of a replicated
+output is already whole on every rank). The LM heads stay local:
+:func:`vocab_parallel_cross_entropy` takes the loss from each rank's vocab
+block. :func:`is_model_sharded` tells the clip's global norm which leaves to
+sum over the model group, and :func:`unshard_state_dict` gathers the local
+dicts back into the full one (checkpoints, export).
 """
 
 from __future__ import annotations
@@ -83,7 +95,14 @@ class TensorParallel:
     group: Any = None
 
     def all_reduce(self, x: torch.Tensor, op=dist.ReduceOp.SUM) -> torch.Tensor:
-        """``x`` reduced over the model group, in place; returns ``x``."""
+        """``x`` reduced over the model group. Without a graph to build, in
+        place (returns ``x``); for an ``x`` that requires grad, a new tensor
+        whose gradient passes back unchanged (:class:`_ReduceFromModel`). A
+        MAX has no gradient: under autograd it raises ``ValueError``."""
+        if torch.is_grad_enabled() and x.requires_grad:
+            if op != dist.ReduceOp.SUM:
+                raise ValueError("only a SUM over the model group has a gradient: reduce a detached tensor")
+            return _ReduceFromModel.apply(x, self.group)
         dist.all_reduce(x, op=op, group=self.group)
         return x
 
@@ -91,6 +110,48 @@ class TensorParallel:
         """(length, start) of this rank's even block of ``n``."""
         per = n // self.size
         return per, self.rank * per
+
+
+class _CopyToModel(torch.autograd.Function):
+    """Identity forward; backward, the gradient all_reduced (SUM) over the
+    model group: each rank's column block gives a partial gradient of the
+    replicated input."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.clone(memory_format=torch.contiguous_format)  # autograd may hold the incoming buffer
+        dist.all_reduce(grad, group=ctx.group)
+        return grad, None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    """all_reduce (SUM) over the model group forward, of a copy (autograd
+    may have saved the input); the identity backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        out = x.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def copy_to_model(x: torch.Tensor, tp: Optional[TensorParallel]) -> torch.Tensor:
+    """``x`` as the input of a column-parallel projection under ``tp``: the
+    identity, whose gradient is summed over the model group
+    (:class:`_CopyToModel`) where ``x`` requires grad; ``x`` itself without
+    ``tp``."""
+    if tp is None or not (torch.is_grad_enabled() and x.requires_grad):
+        return x
+    return _CopyToModel.apply(x, tp.group)
 
 
 def param_layout(name: str) -> str:
@@ -205,7 +266,7 @@ def gather_vocab(local: torch.Tensor, tp: TensorParallel, vocab: int) -> torch.T
     block = local.shape[-1]
     full = local.new_zeros(*local.shape[:-1], block * tp.size)
     full[..., tp.rank * block:(tp.rank + 1) * block] = local
-    tp.all_reduce(full)
+    full = tp.all_reduce(full)
     return full if full.shape[-1] == vocab else full[..., :vocab].contiguous()
 
 
@@ -222,19 +283,33 @@ def vocab_parallel_log_prob(local: torch.Tensor, targets: torch.Tensor, tp: Tens
     logits, without the full tensor: an all_reduce MAX of the row maxima, an
     all_reduce SUM of the local sums of exp, and an all_reduce SUM of the
     target logit, which only its owning rank holds. ``targets`` has the
-    logits' leading shape."""
+    logits' leading shape. Differentiable in ``local``: the two sums carry
+    the gradient back to each rank's block (the row maximum is a constant
+    of the result)."""
     x = local.float()
     block = x.shape[-1]
     start = tp.rank * block
     columns = torch.arange(start, start + block, device=x.device)
     x = x.masked_fill(columns >= vocab, float("-inf"))
-    row_max = tp.all_reduce(x.amax(dim=-1), dist.ReduceOp.MAX)
+    row_max = tp.all_reduce(x.detach().amax(dim=-1), dist.ReduceOp.MAX)
     sum_exp = tp.all_reduce(torch.exp(x - row_max[..., None]).sum(dim=-1))
     at = targets.long() - start
     inside = (at >= 0) & (at < block)
     picked = torch.gather(x, -1, torch.where(inside, at, 0)[..., None])[..., 0]
     target = tp.all_reduce(torch.where(inside, picked, torch.zeros((), device=x.device)))
     return target - row_max - torch.log(sum_exp)
+
+
+def vocab_parallel_cross_entropy(local: torch.Tensor, labels: torch.Tensor, tp: TensorParallel,
+                                 vocab: int) -> torch.Tensor:
+    """``models/video_blip.masked_cross_entropy`` of the full logits from
+    each rank's (..., block) ones (:func:`vocab_parallel_log_prob`): the
+    mean over the positions where ``labels`` != -100, the same on every
+    rank, with its gradient to the local logits."""
+    valid = labels != -100
+    logp = vocab_parallel_log_prob(local, torch.where(valid, labels, torch.zeros_like(labels)), tp, vocab)
+    token_loss = -torch.where(valid, logp, torch.zeros_like(logp))
+    return token_loss.sum() / valid.sum().clamp(min=1)
 
 
 # ---------------------------------------------------------------------------
@@ -294,4 +369,64 @@ def shard_state_dict(state_dict: Mapping[str, torch.Tensor], config, tp: Optiona
     for name, tensor in state_dict.items():
         tower = _tower_config(name, config)
         out[name] = tensor if tower is None else shard_tensor(name, tensor, tower, tower_tp(tp, tower))
+    return out
+
+
+def is_model_sharded(name: str, config, tp: Optional[TensorParallel]) -> bool:
+    """Whether the state-dict entry ``name`` of a model of ``config`` is a
+    slice on the model axis under ``tp`` (its tower sharded and its layout
+    not :data:`REPLICATED`); the rest is whole, and the same, on every rank."""
+    if tp is None or tp.size == 1:
+        return False
+    tower = _tower_config(name, config)
+    return tower is not None and param_layout(name) != REPLICATED and tower_tp(tp, tower) is not None
+
+
+def _gather_cat(t: torch.Tensor, tp: TensorParallel, dim: int) -> torch.Tensor:
+    """The model group's equal shards of a tensor, concatenated along ``dim``
+    in rank order on every rank: each writes its shard into a zero-filled
+    buffer and an all_reduce SUM adds them (x + 0 is exact in any dtype)."""
+    n = t.shape[dim]
+    shape = list(t.shape)
+    shape[dim] = n * tp.size
+    full = t.new_zeros(shape)
+    full.narrow(dim, tp.rank * n, n).copy_(t)
+    dist.all_reduce(full, group=tp.group)
+    return full
+
+
+@torch.no_grad()
+def unshard_tensor(name: str, local: torch.Tensor, config, tp: Optional[TensorParallel]) -> torch.Tensor:
+    """Inverse of :func:`shard_tensor` (a collective over the model group:
+    every rank calls it, in the same order): the full tensor ``name`` from
+    the ranks' parts. Packed QKV is put back by heads, and a vocab table's
+    zero tail dropped."""
+    kind = param_layout(name)
+    if tp is None or kind == REPLICATED:
+        return local
+    if kind == ROW:
+        return _gather_cat(local, tp, 1)
+    full = _gather_cat(local, tp, 0)
+    if kind == VOCAB:
+        return full[:config.vocab_size]
+    if kind == COLUMN:
+        return full
+    _, widths = _split_dims(config)
+    per = [w // tp.size for w in widths]
+    ranks = full.split(sum(per))  # each rank's [q | k | v]
+    parts = [r.split(per) for r in ranks]
+    return torch.cat([torch.cat([p[i] for p in parts]) for i in range(len(per))])
+
+
+def unshard_state_dict(state_dict: Mapping[str, torch.Tensor], config, tp: Optional[TensorParallel]
+                       ) -> dict[str, torch.Tensor]:
+    """Inverse of :func:`shard_state_dict`: this rank's local state dict of a
+    model of ``config`` under ``tp`` -> the full one, on every rank of the
+    model group (a collective: every rank calls it with the same names)."""
+    if tp is None or tp.size == 1:
+        return dict(state_dict)
+    out = {}
+    for name, tensor in state_dict.items():
+        tower = _tower_config(name, config)
+        out[name] = tensor if tower is None else unshard_tensor(name, tensor, tower, tower_tp(tp, tower))
     return out

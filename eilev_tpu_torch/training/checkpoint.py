@@ -11,13 +11,17 @@ directory named by a step is always whole, and read with
 ``torch.load(weights_only=True)``: the payload is tensors, dicts and numbers
 only.
 
-Under data parallelism rank 0 writes. A state whose optimizer moments
-ZeRO sharded is written whole, in the same format
-(``train_state.full_opt_state`` gathers it first, ``Trainer._save``), so a
-checkpoint does not depend on the data size it was written at: a restore
-reads the whole state, and ``train_state.zero_sharded_opt_state`` cuts it
-to the rows of the data group that restores it, of any size, one device
-included.
+Under data and tensor parallelism the world's rank 0 writes, and what it
+writes is the whole state: :func:`whole_state` (every rank takes part)
+all-gathers the optimizer moments ZeRO sharded over the data group
+(``train_state.full_opt_state``) and then the trainable leaves, moments and
+best snapshot that tensor parallelism sliced over the model group
+(``parallel/tensor.unshard_state_dict``). So a checkpoint does not depend on
+the mesh it was written on: :func:`restore_checkpoint` reads the whole
+state and, given a mesh with a model axis, cuts each leaf to the rank's
+slice (``parallel/tensor.shard_state_dict``), and
+``train_state.zero_sharded_opt_state`` cuts the moments to the rows of the
+data group that restores it, of any size, one device included.
 
 Interchange with the HF ecosystem goes through safetensors:
 ``models/convert.load_hf_checkpoint`` imports, and :func:`export_hf_safetensors`
@@ -28,6 +32,7 @@ trained model goes back to the torch reference and to either package's
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import shutil
 from concurrent.futures import Future, ThreadPoolExecutor
@@ -39,7 +44,9 @@ from torch import nn
 from ..configs import OPTConfig, T5Config, VideoBlipConfig
 from ..models.convert import T5_ATTENTION_NAMES, T5_DECODER_PARTS, T5_ENCODER_PARTS
 from ..models.safetensors_io import save_file
-from .train_state import TrainState
+from ..parallel.distributed import is_primary
+from ..parallel.tensor import shard_state_dict, unshard_state_dict
+from .train_state import TrainState, full_opt_state
 
 CHECKPOINT_FILE = "checkpoint.pt"
 
@@ -81,14 +88,64 @@ def _write(ckpt_dir: str, payload: dict) -> str:
     return path
 
 
+def _by_name(fn, tree: Any, names) -> Any:
+    """``fn(name, tensor)`` over every tensor of ``tree`` held under a key in
+    ``names`` (the trainable leaves, the moments, the EMA); the rest kept."""
+    if isinstance(tree, dict):
+        return {k: fn(k, v) if k in names and isinstance(v, torch.Tensor) else _by_name(fn, v, names)
+                for k, v in tree.items()}
+    return tree
+
+
+def _zero_sharded(state: TrainState) -> bool:
+    """Whether a moment of ``state`` holds fewer rows than its parameter
+    (ZeRO's layout)."""
+    found = []
+    _by_name(lambda k, t: found.append(t.shape != state.trainable[k].shape), state.opt_state, state.trainable)
+    return any(found)
+
+
+def whole_state(state: TrainState, mesh, config, best: Optional[tuple] = None) -> tuple[TrainState, Optional[tuple]]:
+    """``(state, best)`` as a checkpoint holds them, whole, on every rank: the
+    ZeRO rows all-gathered over the data group, then the tensor-parallel
+    slices over the model group (a collective: every rank calls it).
+    ``config`` is the model's (its towers' layouts); ``best`` is
+    (best_eval_loss, best_trainable) or None."""
+    if mesh is None:
+        return state, best
+    if mesh.data_size > 1 and _zero_sharded(state):
+        state = dataclasses.replace(state, opt_state=full_opt_state(state, mesh))
+    tp = mesh.tp
+    if tp is None:
+        return state, best
+    names = set(state.trainable)
+
+    def gather(name, t):
+        return unshard_state_dict({name: t}, config, tp)[name]
+
+    state = dataclasses.replace(state, trainable=unshard_state_dict(state.trainable, config, tp),
+                                opt_state=_by_name(gather, state.opt_state, names))
+    if best is not None:
+        best = (best[0], unshard_state_dict(best[1], config, tp))
+    return state, best
+
+
 def save_checkpoint(
-    ckpt_dir: str, state: TrainState, *, keep: int = 3, best: Optional[tuple] = None
+    ckpt_dir: str, state: TrainState, *, keep: int = 3, best: Optional[tuple] = None, mesh=None,
+    config: Optional[VideoBlipConfig] = None,
 ) -> str:
     """Save {step, trainable, opt_state} under ckpt_dir/<step>; prune to the
     ``keep`` newest (reference recipe: save_total_limit 3).
 
     ``best`` = (best_eval_loss, best_trainable) persists the
-    load_best_model_at_end snapshot so it survives preemption."""
+    load_best_model_at_end snapshot so it survives preemption. With a
+    ``mesh`` (a ``parallel.Mesh``; ``config``, the model's, under a model
+    axis) every rank calls it: the whole state is gathered
+    (:func:`whole_state`) and the world's rank 0 writes it. Returns the
+    directory's path."""
+    state, best = whole_state(state, mesh, config, best)
+    if mesh is not None and not is_primary():
+        return os.path.join(os.path.abspath(ckpt_dir), str(int(state.step)))
     path = _write(ckpt_dir, _payload(state, best))
     _prune(ckpt_dir, keep)
     return path
@@ -147,13 +204,28 @@ def latest_checkpoint(ckpt_dir: str) -> Optional[str]:
     return os.path.join(os.path.abspath(ckpt_dir), str(max(steps)))
 
 
-def restore_checkpoint(path: str, state: TrainState, *, with_best: bool = False):
+def restore_checkpoint(path: str, state: TrainState, *, with_best: bool = False, mesh=None,
+                       config: Optional[VideoBlipConfig] = None):
     """Restore into ``state``: the trainable parameters are overwritten in
     place (they are the model's), the optimizer state is moved to their
     device. Returns the new state; with ``with_best`` ``(state, best)``,
     where best is (best_eval_loss, best_trainable) if the checkpoint carries
-    one, else None."""
+    one, else None. Under a ``mesh`` with a model axis (``config``, the
+    model's) every leaf of the whole checkpoint is cut to this rank's slice
+    first; the moments come back whole on the data axis (ZeRO cuts them with
+    ``train_state.zero_sharded_opt_state``)."""
     payload = torch.load(os.path.join(path, CHECKPOINT_FILE), map_location="cpu", weights_only=True)
+    tp = None if mesh is None else mesh.tp
+    if tp is not None:
+        names = set(payload["trainable"])
+
+        def cut(name, t):
+            return shard_state_dict({name: t}, config, tp)[name]
+
+        payload["trainable"] = shard_state_dict(payload["trainable"], config, tp)
+        payload["opt_state"] = _by_name(cut, payload["opt_state"], names)
+        if "best_trainable" in payload:
+            payload["best_trainable"] = shard_state_dict(payload["best_trainable"], config, tp)
     saved = payload["trainable"]
     if set(saved) != set(state.trainable):
         raise ValueError(
@@ -198,8 +270,11 @@ def hf_state_dict(model: nn.Module, config: VideoBlipConfig) -> dict[str, torch.
     """A port ``VideoBlipForConditionalGeneration`` -> the HF
     ``VideoBlipForConditionalGeneration`` tensor names, each tensor as the
     model holds it (views where the layout allows). The model must hold
-    float weights: a quantized one raises ``ValueError``."""
+    float weights: a quantized one raises ``ValueError``. A tensor-parallel
+    model's slices are gathered first (a collective over its model group)."""
     sd = model.state_dict()
+    if getattr(model, "tp", None) is not None:
+        sd = unshard_state_dict(sd, config, model.tp)
     if any(k.endswith(".w8") for k in sd):
         raise ValueError("hf_state_dict needs float weights: export the model before quantizing it")
     out: dict[str, torch.Tensor] = {}
@@ -293,9 +368,13 @@ def export_hf_safetensors(model: nn.Module, config: VideoBlipConfig, path: str,
     """Write ``<path>/model.safetensors`` (``dtype``, fp32 by default,
     contiguous; the tied ``lm_head`` written out as HF saves it) loadable by
     the torch reference and by both packages' ``load_model`` once a
-    ``config.json`` sits beside it. Returns the file's path."""
-    os.makedirs(path, exist_ok=True)
+    ``config.json`` sits beside it. Returns the file's path. A
+    tensor-parallel model is gathered whole (every rank of the process group
+    calls it) and the world's rank 0 writes it."""
+    sharded = getattr(model, "tp", None) is not None
     sd = {k: v.detach().to(dtype).contiguous() for k, v in hf_state_dict(model, config).items()}
     f = os.path.join(path, "model.safetensors")
-    save_file(sd, f)
+    if not sharded or is_primary():
+        os.makedirs(path, exist_ok=True)
+        save_file(sd, f)
     return f

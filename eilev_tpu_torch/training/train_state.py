@@ -38,6 +38,16 @@ data size divides (:func:`zero_sharded_opt_state`), updates those rows of
 the parameters from the all-reduced gradient, whose global norm (the
 clip's) is taken whole, and all-gathers them; AdamW is elementwise, so
 the step is the replicated one bit for bit.
+
+Tensor parallelism (a mesh with ``model_size`` > 1, the model built with
+its ``tp``): the trainable leaves are this rank's shards of the Q-Former
+(``parallel/tensor.py``) and whole copies of the rest; the data collectives
+above run over the mesh's data group (the ranks of this model rank), so
+each shard is summed over its replicas only. The clip's global norm is the
+full gradient's: the squared norms of the model-sharded leaves
+(``parallel.tensor.is_model_sharded``) are summed over the model group and
+each replicated leaf counted once. The moments follow the local shards,
+and ZeRO splits each local shard's rows over the data group.
 """
 
 from __future__ import annotations
@@ -51,6 +61,7 @@ import torch.distributed as dist
 from torch import nn
 
 from ..ops.dropout import DropoutRng
+from ..parallel.tensor import is_model_sharded
 
 TRAINABLE_PREFIXES = ("query_tokens", "qformer", "language_projection")
 
@@ -148,9 +159,17 @@ def make_schedule(cfg: OptimizerConfig) -> Callable[[int], np.float32]:
     return lambda count: warmup(count) if count < cfg.warmup_steps else decay(count - cfg.warmup_steps)
 
 
-def global_norm(tree: Mapping[str, torch.Tensor]) -> torch.Tensor:
-    """sqrt of the sum of every leaf's sum of squares (``optax.global_norm``)."""
-    return torch.sqrt(sum(torch.sum(g * g) for g in tree.values()))
+def global_norm(tree: Mapping[str, torch.Tensor], tp=None, sharded=frozenset()) -> torch.Tensor:
+    """sqrt of the sum of every leaf's sum of squares (``optax.global_norm``).
+    Under ``tp`` (a ``parallel.tensor.TensorParallel``) the leaves named in
+    ``sharded`` are this rank's slices of the full gradient: their squares
+    are summed over the model group, the other leaves' counted once."""
+    if tp is None:
+        return torch.sqrt(sum(torch.sum(g * g) for g in tree.values()))
+    zero = next(iter(tree.values())).new_zeros((), dtype=torch.float32)
+    mine = sum((torch.sum(g * g) for k, g in tree.items() if k in sharded), zero)
+    whole = sum((torch.sum(g * g) for k, g in tree.items() if k not in sharded), zero)
+    return torch.sqrt(tp.all_reduce(mine) + whole)
 
 
 def make_optimizer(cfg: OptimizerConfig) -> GradientTransformation:
@@ -272,8 +291,9 @@ def zero_sharded_opt_state(state: TrainState, mesh) -> Any:
 
 def full_opt_state(state: TrainState, mesh) -> Any:
     """Inverse of :func:`zero_sharded_opt_state`: every sharded moment
-    all-gathered to its whole shape (a collective: every rank calls it),
-    as a checkpoint holds it."""
+    all-gathered over the data group to its whole shape (a collective:
+    every rank calls it), as a checkpoint holds it. Under tensor
+    parallelism the whole shapes are the rank's local shards'."""
     size = mesh.data_size
     if size == 1:
         return state.opt_state
@@ -284,30 +304,31 @@ def full_opt_state(state: TrainState, mesh) -> Any:
         if not _sharded(whole, size):
             return t
         parts = [torch.empty_like(t) for _ in range(size)]
-        dist.all_gather(parts, t.contiguous())
+        dist.all_gather(parts, t.contiguous(), group=mesh.data_group)
         return torch.cat(parts)
 
     return _tree_map(gather, state.opt_state, template)
 
 
-def _all_reduce_sum(tensors: list) -> list:
-    """Sum each tensor across the data group: one all-reduce of the
-    concatenation a dtype."""
+def _all_reduce_sum(tensors: list, group=None) -> list:
+    """Sum each tensor across the data group ``group`` (None: the default
+    group): one all-reduce of the concatenation a dtype."""
     out = list(tensors)
     by_dtype: dict = {}
     for i, t in enumerate(tensors):
         by_dtype.setdefault(t.dtype, []).append(i)
     for idx in by_dtype.values():
         flat = torch.cat([tensors[i].reshape(-1) for i in idx])
-        dist.all_reduce(flat)
+        dist.all_reduce(flat, group=group)
         for i, piece in zip(idx, flat.split([tensors[i].numel() for i in idx])):
             out[i] = piece.view(tensors[i].shape)
     return out
 
 
-def _all_gather_rows_(params: Mapping[str, torch.Tensor], size: int, rank: int) -> None:
+def _all_gather_rows_(params: Mapping[str, torch.Tensor], size: int, rank: int, group=None) -> None:
     """After a ZeRO update of each rank's rows: every sharded parameter's
-    blocks all-gathered into it, in place (one all-gather a dtype)."""
+    blocks all-gathered over the data group ``group`` into it, in place (one
+    all-gather a dtype)."""
     by_dtype: dict = {}
     for k, p in params.items():
         if _sharded(p, size):
@@ -315,7 +336,7 @@ def _all_gather_rows_(params: Mapping[str, torch.Tensor], size: int, rank: int) 
     for names in by_dtype.values():
         mine = torch.cat([_rows(params[k], size, rank).reshape(-1) for k in names])
         parts = [torch.empty_like(mine) for _ in range(size)]
-        dist.all_gather(parts, mine)
+        dist.all_gather(parts, mine, group=group)
         sizes = [params[k].numel() // size for k in names]
         for r, part in enumerate(parts):
             for k, piece in zip(names, part.split(sizes)):
@@ -335,12 +356,16 @@ def make_step(
     """The step around a loss: ``loss_fn(micro, dropout_rng) -> loss``, the
     masked mean over this process's rows of one micro-batch. Shared by
     :func:`make_train_step` and ``training/pipeline_step.make_pp_train_step``;
-    the data-parallel reductions and ZeRO are here (see the module's
-    docstring). With ``mesh`` and a process group up, the collectives run
-    whatever the group's size (a group of one gives the one-device step
-    bit for bit)."""
+    the data-parallel reductions, the tensor-parallel clip and ZeRO are
+    here (see the module's docstring). With ``mesh`` and a process group
+    up, the collectives run whatever the group's size (a group of one gives
+    the one-device step bit for bit). A mesh with a model axis needs a
+    model built with its ``tp`` (``ValueError`` otherwise: its weights would
+    be summed over the model group as if they were replicas)."""
     reduce = mesh is not None and dist.is_initialized()
     size, rank = (mesh.data_size, mesh.data_rank) if reduce else (1, 0)
+    group = mesh.data_group if reduce else None
+    tp = check_tensor_parallel(model, mesh)
     decoder_only = model.config.use_decoder_only_language_model
 
     def train_step(state: TrainState, batch: Mapping[str, torch.Tensor]) -> tuple[TrainState, dict]:
@@ -352,7 +377,7 @@ def make_step(
         if reduce:
             # each rank's share of every micro-batch's global valid-label count
             local = valid_label_counts(batch["labels"], decoder_only)
-            (total,) = _all_reduce_sum([local])
+            (total,) = _all_reduce_sum([local], group)
             weights = local / total.clamp(min=1)
         loss_sum = torch.zeros((), dtype=torch.float32, device=device)
         grad_sum = None
@@ -364,10 +389,10 @@ def make_step(
             loss_sum = loss_sum + loss.detach()
             grad_sum = list(grads) if grad_sum is None else [a + b for a, b in zip(grad_sum, grads)]
         if reduce:
-            loss_sum, *grad_sum = _all_reduce_sum([loss_sum, *grad_sum])
+            loss_sum, *grad_sum = _all_reduce_sum([loss_sum, *grad_sum], group)
         inv = 1.0 / accum_steps
         grads = {k: g * inv for k, g in zip(names, grad_sum)}
-        g_norm = global_norm(grads)
+        g_norm = global_norm(grads, tp, {k for k in names if is_model_sharded(k, model.config, tp)})
         with torch.no_grad():
             if zero_shard_opt_state:
                 mine = {k: _rows(p, size, rank) for k, p in state.trainable.items()}
@@ -376,15 +401,31 @@ def make_step(
                 for k, p in mine.items():
                     p.add_(updates[k])
                 if reduce:
-                    _all_gather_rows_(state.trainable, size, rank)
+                    _all_gather_rows_(state.trainable, size, rank, group)
             else:
-                updates, opt_state = state.tx.update(grads, state.opt_state, state.trainable)
+                updates, opt_state = state.tx.update(grads, state.opt_state, state.trainable, g_norm)
                 for k, p in state.trainable.items():
                     p.add_(updates[k])
         metrics = {"loss": loss_sum * inv, "grad_norm": g_norm}
         return dataclasses.replace(state, step=state.step + 1, opt_state=opt_state), metrics
 
     return train_step
+
+
+def check_tensor_parallel(model: nn.Module, mesh):
+    """The model axis of ``mesh`` as ``model`` was built for it: its ``tp``
+    (None without a model axis). A mesh with ``model_size`` > 1 and a model
+    built without that ``tp`` (or for another rank of it) raises
+    ``ValueError``."""
+    if mesh is None or mesh.model_size == 1:
+        return None
+    tp = getattr(model, "tp", None)
+    if tp is None or tp.size != mesh.model_size or tp.rank != mesh.model_rank:
+        raise ValueError(
+            f"the mesh has a model axis of {mesh.model_size} (this process's model rank {mesh.model_rank}) but the "
+            f"model was built with tp={tp}: build it with tp=mesh.tp (models.auto.load_model(mesh=mesh)), so that "
+            "each rank holds its shard of the weights")
+    return tp
 
 
 def make_train_step(
@@ -428,7 +469,7 @@ def make_train_step(
 def eval_step(model: nn.Module, batch: Mapping[str, torch.Tensor], mesh=None) -> torch.Tensor:
     """The loss on one (micro-shaped) batch with dropout off. With ``mesh``
     and a process group up, ``batch`` is this process's rows and the loss is
-    the masked mean over every rank's (the counts all-reduced)."""
+    the masked mean over the data group's (the counts all-reduced)."""
     was_training = model.training
     model.eval()
     try:
@@ -444,5 +485,5 @@ def global_mean(model: nn.Module, loss: torch.Tensor, labels: torch.Tensor, mesh
     if mesh is None or not dist.is_initialized():
         return loss
     count = valid_label_counts(labels[None], model.config.use_decoder_only_language_model)[0]
-    total_loss, total = _all_reduce_sum([loss.float() * count, count])
+    total_loss, total = _all_reduce_sum([loss.float() * count, count], mesh.data_group)
     return total_loss / total.clamp(min=1)

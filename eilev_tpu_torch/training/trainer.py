@@ -10,11 +10,14 @@ so data loading and the on-card augmentation overlap the steps.
 Parallel modes, as the JAX trainer has them: a data-parallel ``mesh``
 (``parallel.make_mesh``: one process a replica, each given its own rows by
 ``train_batches``), ``zero_shard_opt_state`` (ZeRO-2: the optimizer moments
-sharded over the data group) and ``pipeline_parallel`` > 1 (the frozen LM
+sharded over the data group), tensor parallelism (a mesh with a model axis,
+``make_mesh(data, model)``, and a model built with its ``tp``, e.g. by
+``models.auto.load_model(mesh=)``: each rank trains its shard of the
+Q-Former; composes with both) and ``pipeline_parallel`` > 1 (the frozen LM
 trunk as a GPipe schedule over a ``parallel.make_pipeline_mesh``; composes
-with both). Only rank 0 logs and writes checkpoints; a checkpoint holds the
-whole optimizer state whatever the sharding, and a restore re-shards it
-onto the data group it finds.
+with data parallelism and ZeRO, not with a model axis). Only the world's
+rank 0 logs and writes checkpoints; a checkpoint holds the whole state
+whatever the sharding, and a restore re-shards it onto the mesh it finds.
 """
 
 from __future__ import annotations
@@ -33,14 +36,15 @@ from torch import nn
 from ..parallel.distributed import host_local_batch_to_global
 from ..parallel.mesh import make_mesh, shard_batch
 from ..parallel.pipeline import STAGE_AXIS, make_pipeline_mesh, shard_stacked
-from .checkpoint import AsyncCheckpointWriter, latest_checkpoint, restore_checkpoint, save_checkpoint
+from ..parallel.tensor import unshard_state_dict
+from .checkpoint import AsyncCheckpointWriter, latest_checkpoint, restore_checkpoint, save_checkpoint, whole_state
 from .pipeline_step import make_pp_eval_step, make_pp_train_step, pp_partition_frozen, pp_unpartition_frozen
 from .train_state import (
     OptimizerConfig,
     TrainState,
+    check_tensor_parallel,
     eval_step,
     freeze_towers,
-    full_opt_state,
     make_optimizer,
     make_train_step,
     merge_params,
@@ -167,7 +171,8 @@ class Trainer:
             process group if one is up (else this process alone) on the
             model's device, with ``pipeline_parallel`` stages on the visible
             CUDA devices from ``LOCAL_RANK * stages`` (on the model's device,
-            repeated, for a model on the CPU).
+            repeated, for a model on the CPU). A mesh with a model axis needs
+            the model built with its ``tp`` (``ValueError`` otherwise).
         """
         self.model = model
         self.config = config
@@ -190,8 +195,11 @@ class Trainer:
         if mesh.device != self.device:
             raise ValueError(f"the model's trainable parameters are on {self.device}, the mesh's device is "
                              f"{mesh.device}: build the model there")
+        if self._pp and mesh.model_size > 1:
+            raise ValueError("pipeline_parallel > 1 and a model axis are exclusive, as in JAX")
+        self.tp = check_tensor_parallel(model, mesh)
         self.mesh = mesh
-        self.rank = mesh.data_rank
+        self.rank = mesh.data_rank * mesh.model_size + mesh.model_rank  # the world's rank
         state = TrainState.create(trainable, make_optimizer(config.optimizer))
         common = dict(accum_steps=config.gradient_accumulation_steps, dropout=config.dropout,
                       zero_shard_opt_state=config.zero_shard_opt_state)
@@ -210,7 +218,7 @@ class Trainer:
         if config.resume_from_checkpoint:
             path = latest_checkpoint(config.output_dir)
             if path is not None:
-                state, best = restore_checkpoint(path, state, with_best=True)
+                state, best = restore_checkpoint(path, state, with_best=True, mesh=mesh, config=model.config)
                 if best is not None:
                     self.best_eval_loss, self.best_trainable = best
         if config.zero_shard_opt_state:
@@ -222,11 +230,14 @@ class Trainer:
 
     def current_params(self) -> dict:
         """Every parameter, name -> tensor, the LM layers' unstacked under
-        pipeline parallelism (for export)."""
+        pipeline parallelism, the whole ones gathered from the model group's
+        slices under tensor parallelism (a collective: every rank calls it)
+        (for export)."""
         if self._pp:
             rest, stacked = self.frozen
             return merge_params(self.state.trainable, pp_unpartition_frozen(rest, stacked, self.model.config))
-        return dict(self.model.named_parameters())
+        params = {k: p.detach() for k, p in self.model.named_parameters()}
+        return unshard_state_dict(params, self.model.config, self.tp)
 
     def evaluate(self) -> float:
         """The mean eval loss over ``eval_batches``; each batch's rows split
@@ -316,13 +327,12 @@ class Trainer:
         profiler.export_chrome_trace(os.path.join(trace_dir, f"steps_{lo}_{hi}.json"))
 
     def _save(self, cfg: TrainerConfig, final: bool = False) -> None:
-        """Rank 0 writes; under ZeRO every rank first takes part in gathering
-        the whole optimizer state. Periodic saves overlap compute when
-        cfg.async_save; the final save always commits before returning."""
+        """The world's rank 0 writes; under ZeRO and tensor parallelism every
+        rank first takes part in gathering the whole state. Periodic saves
+        overlap compute when cfg.async_save; the final save always commits
+        before returning."""
         best = None if self.best_trainable is None else (self.best_eval_loss, self.best_trainable)
-        state = self.state
-        if cfg.zero_shard_opt_state:
-            state = dataclasses.replace(state, opt_state=full_opt_state(state, self.mesh))
+        state, best = whole_state(self.state, self.mesh, self.model.config, best)
         if self.rank != 0:
             return
         if cfg.async_save:

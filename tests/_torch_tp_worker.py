@@ -1,10 +1,12 @@
 """The rank side of tests/test_torch_parallel_tp.py and
-tests/test_torch_parallel_tp_generate.py: one process of a 2-rank gloo group
-on the CPU, every rank on one model axis of 2 (tensor parallelism). It
+tests/test_torch_parallel_tp_generate.py (one process of a 2-rank gloo group
+on the CPU, every rank on one model axis of 2) and of
+tests/test_torch_parallel_tp_train.py (4 ranks: data 2 x model 2). It
 imports torch and the port only (no jax), so that a spawned rank starts in
 seconds; the parent passes numpy params and inputs, and reads what each rank
 saved (``rank{r}.pt``)."""
 
+import dataclasses
 import datetime
 import os
 import time
@@ -31,16 +33,16 @@ def join(ctx, out_dir) -> list:
             for p in ctx.processes:
                 p.kill()
             raise TimeoutError(f"the gloo ranks did not finish in {DEADLINE_S} s")
-    return [torch.load(os.path.join(out_dir, f"rank{r}.pt"), weights_only=False) for r in range(RANKS)]
+    return [torch.load(os.path.join(out_dir, f"rank{r}.pt"), weights_only=False) for r in range(len(ctx.processes))]
 
 
-def _mesh(rank, init_file):
+def _mesh(rank, init_file, data=1, model=RANKS):
     torch.set_num_threads(1)
     from eilev_tpu_torch.parallel import distributed, make_mesh
 
-    distributed.initialize("cpu", init_method=f"file://{init_file}", world_size=RANKS, rank=rank,
+    distributed.initialize("cpu", init_method=f"file://{init_file}", world_size=data * model, rank=rank,
                            timeout=datetime.timedelta(seconds=120))
-    return make_mesh(data=1, model=RANKS, device="cpu")
+    return make_mesh(data=data, model=model, device="cpu")
 
 
 def _sharded(cls, config, params, tp, **kw):
@@ -156,6 +158,147 @@ def generate_main(rank, init_file, out_dir, models, inputs, cli_runs):
         mains = {"generate_narration_texts": generate_narration_texts.main, "icl_eval": icl_eval.main}
         for name, argv in cli_runs:
             mains[name](argv + ["--model_parallel", str(RANKS), "--device", "cpu"])
+        torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+# ---------------------------------------------------------------------------
+# tests/test_torch_parallel_tp_train.py: tensor-parallel training, data 2 x model 2
+# ---------------------------------------------------------------------------
+
+TRAIN_DATA, TRAIN_MODEL = 2, 2
+
+
+def train_spawn(out_dir, *args):
+    """Start :func:`train_main` on the 2 x 2 mesh's 4 ranks (join with :func:`join`)."""
+    return mp.spawn(train_main, args=(os.path.join(out_dir, "rendezvous"), out_dir, *args),
+                    nprocs=TRAIN_DATA * TRAIN_MODEL, join=False)
+
+
+def train_model(cfg, params, tp=None, dtype=None):
+    """The port VideoBLIP of ``cfg`` on the CPU holding the numpy flax
+    ``params`` (this rank's slices under ``tp``), its towers frozen, cast to
+    ``dtype`` when given."""
+    from eilev_tpu_torch.models import VideoBlipForConditionalGeneration, params_from_jax
+    from eilev_tpu_torch.parallel.tensor import shard_state_dict
+    from eilev_tpu_torch.training import freeze_towers
+
+    model = VideoBlipForConditionalGeneration(cfg, device="cpu", tp=tp)
+    model.load_state_dict(shard_state_dict(params_from_jax(params, cfg), cfg, tp), strict=True)
+    freeze_towers(model)
+    return model if dtype is None else model.to(dtype)
+
+
+def run_steps(cfg, params, batch, ocfg, steps, *, dropout, mesh=None, zero=False, dtype=None):
+    """``steps`` train steps of the port (one process, or this rank's under
+    ``mesh``; the model and the batch's floats in ``dtype`` when given);
+    (model, state, [metrics as floats])."""
+    from eilev_tpu_torch.training import TrainState, freeze_towers, make_optimizer, make_train_step
+    from eilev_tpu_torch.training.train_state import zero_sharded_opt_state
+
+    model = train_model(cfg, params, None if mesh is None else mesh.tp, dtype)
+    if dtype is not None:
+        batch = {k: v.to(dtype) if v.is_floating_point() else v for k, v in batch.items()}
+    state = TrainState.create(freeze_towers(model)[0], make_optimizer(ocfg))
+    if zero:
+        state = dataclasses.replace(state, opt_state=zero_sharded_opt_state(state, mesh))
+    step = make_train_step(model, accum_steps=batch["labels"].shape[0], dropout=dropout, mesh=mesh,
+                           zero_shard_opt_state=zero)
+    metrics = []
+    for _ in range(steps):
+        state, m = step(state, batch)
+        metrics.append({k: float(v) for k, v in m.items()})
+    return model, state, metrics
+
+
+def adam_rms(nu: dict, count: int, beta2: float) -> dict:
+    """Adam's RMS of each element after ``count`` updates: sqrt of the
+    bias-corrected second moment ``nu``."""
+    return {k: (v / (1.0 - beta2**count)).sqrt() for k, v in nu.items()}
+
+
+def _function_cases(tp, inp) -> dict:
+    """Each collective Function's forward and input gradient, and the
+    vocab-parallel loss and its gradient to the local logits, on this rank."""
+    from eilev_tpu_torch.parallel.tensor import copy_to_model, local_vocab, vocab_parallel_cross_entropy
+
+    x, w, v, c, c2 = (_t(inp[k]) for k in ("x", "w", "v", "c", "c2"))
+    per, start = tp.block(w.shape[0])
+    out = {}
+    xc = x.clone().requires_grad_()
+    y = copy_to_model(xc, tp)
+    (y @ w[start:start + per].T * c[:, start:start + per]).sum().backward()  # a column block
+    out["copy"] = {"y": y.detach(), "grad": xc.grad}
+    per, start = tp.block(x.shape[1])
+    xr = x[:, start:start + per].clone().requires_grad_()
+    y = tp.all_reduce(xr @ v[:, start:start + per].T)  # a row block's partial product, summed
+    (y * c2).sum().backward()
+    out["reduce"] = {"y": y.detach(), "grad": xr.grad}
+    vocab = inp["logits"].shape[-1]
+    local = local_vocab(_t(inp["logits"]), tp, vocab).clone().requires_grad_()
+    loss = vocab_parallel_cross_entropy(local, _t(inp["labels"]), tp, vocab)
+    loss.backward()
+    out["loss"] = {"y": loss.detach(), "grad": local.grad}
+    return out
+
+
+def train_main(rank, init_file, out_dir, cases, fn_inputs, ocfg, steps, cli_argv):
+    """Every case of tests/test_torch_parallel_tp_train.py on this rank of the
+    2 x 2 mesh. ``cases``: name -> (torch config, numpy params, the global
+    numpy batch) for "opt" and "t5"; ``fn_inputs`` the Functions' inputs;
+    ``cli_argv`` train_v2's arguments (its model parallel flags added here).
+    Saves ``rank{rank}.pt``."""
+    import torch.distributed as dist
+
+    from eilev_tpu_torch.parallel import shard_batch
+    from eilev_tpu_torch.parallel.tensor import is_model_sharded, unshard_state_dict
+    from eilev_tpu_torch.training import restore_checkpoint, save_checkpoint, whole_state
+    from eilev_tpu_torch.training import TrainState, freeze_towers, make_optimizer
+    from eilev_tpu_torch.training.checkpoint import _to
+    from eilev_tpu_torch.training.train_state import zero_sharded_opt_state
+
+    mesh = _mesh(rank, init_file, TRAIN_DATA, TRAIN_MODEL)
+    try:
+        tp = mesh.tp
+        out = {"coords": (mesh.data_rank, mesh.model_rank),
+               "groups": (dist.get_process_group_ranks(mesh.data_group),
+                          dist.get_process_group_ranks(mesh.model_group)),
+               "functions": _function_cases(tp, fn_inputs)}
+        for name, (cfg, params, batch) in cases.items():
+            local = shard_batch({k: _t(x) for k, x in batch.items()}, mesh, axis=1)
+            for dropout in (False, True):
+                _, state, metrics = run_steps(cfg, params, local, ocfg, steps, dropout=dropout, mesh=mesh)
+                out[f"{name}_dropout_{dropout}"] = {
+                    "metrics": metrics, "trainable": unshard_state_dict(state.trainable, cfg, tp),
+                    "replicated": {k: p.detach().clone() for k, p in state.trainable.items()
+                                   if not is_model_sharded(k, cfg, tp)},
+                    "sharded": sorted(k for k in state.trainable if is_model_sharded(k, cfg, tp))}
+
+        # ZeRO beside TP, its checkpoint, and the restore onto this mesh
+        cfg, params, batch = cases["opt"]
+        local = shard_batch({k: _t(x) for k, x in batch.items()}, mesh, axis=1)
+        model, state, metrics = run_steps(cfg, params, local, ocfg, steps, dropout=False, mesh=mesh, zero=True)
+        whole, _ = whole_state(state, mesh, cfg)
+        out["zero"] = {"metrics": metrics, "trainable": unshard_state_dict(state.trainable, cfg, tp),
+                       "rows": {k: (state.opt_state["mu"][k].shape[0], p.shape[0])
+                                for k, p in state.trainable.items()},
+                       "whole_opt_state": _to(whole.opt_state, "cpu")}
+        path = save_checkpoint(os.path.join(out_dir, "tp_ckpt"), state, mesh=mesh, config=cfg)
+        dist.barrier()
+        fresh = TrainState.create(freeze_towers(train_model(cfg, params, tp))[0], make_optimizer(ocfg))
+        back = restore_checkpoint(path, fresh, mesh=mesh, config=cfg)
+        back = dataclasses.replace(back, opt_state=zero_sharded_opt_state(back, mesh))
+        out["restored_equal"] = (
+            back.step == state.step
+            and all(torch.equal(back.trainable[k], p) for k, p in state.trainable.items())
+            and all(torch.equal(back.opt_state[m][k], t) for m in ("mu", "nu")
+                    for k, t in state.opt_state[m].items()))
+
+        from eilev_tpu_torch.cli import train_v2
+
+        train_v2.main(cli_argv + ["--model_parallel", str(TRAIN_MODEL), "--data_parallel", str(TRAIN_DATA),
+                                  "--device", "cpu"])
         torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
     finally:
         torch.distributed.destroy_process_group()

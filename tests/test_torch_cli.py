@@ -206,11 +206,12 @@ def test_cli_unported_modes_raise():
     with pytest.raises(ValueError, match="torchrun --nproc_per_node 2"):
         generate_narration_texts.main(base + ["--model_parallel", "2"])
     # train_v2's --multihost, --data_parallel, --pipeline_parallel and
-    # --zero_shard_opt_state run (tests/test_torch_parallel_cli.py); tensor-
-    # parallel training waits for its own slice
+    # --zero_shard_opt_state run (tests/test_torch_parallel_cli.py), and
+    # --model_parallel under torchrun (tests/test_torch_parallel_tp_train.py),
+    # so one process asking for 2 raises
     train = ["--model_name_or_path", "m", "--train_frames_dir", "t", "--val_frames_dir", "v",
              "--output_dir", "o", "--device", "cpu"]
-    with pytest.raises(NotImplementedError, match="tensor-parallel training slice"):
+    with pytest.raises(ValueError, match="torchrun --nproc_per_node 2"):
         train_v2.main(train + ["--model_parallel", "2"])
     with pytest.raises(ValueError, match="exclusive"):
         train_v2.main(train + ["--model_parallel", "2", "--pipeline_parallel", "2"])
