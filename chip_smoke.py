@@ -231,15 +231,16 @@ final result line):
    two speculative modes again (the draft steps on K4's fp32-query body).
 8b. The T5 family at the eilev-blip2-flan-t5-xl widths (ViT 1408, Q-Former
    768, flan-t5-xl 2048, 32 x 64, gated-gelu 5,120, vocab 32,128, untied
-   head) at T5_LAYERS = 12 layers a stack (ViT, Q-Former, encoder, decoder:
+   head) at T5_LAYERS = 6 layers a stack (ViT, Q-Former, encoder, decoder:
    a depth cut for the script's time limit; flan-t5-xl has 24 + 24, the ViT
    39), random bf16 weights N(0, 0.02) from
    T5_SEED, the 16-shot prompt in flan-t5's ids (766 tokens), 32 new
-   tokens: (a) greedy at batch 1 and 4 under "auto" (K1 = 12 a request,
+   tokens: (a) greedy at batch 1 and 4 under "auto" (K1 = T5_LAYERS a request,
    nothing else; every T5 attention plain), p50 of SECONDARY_REPS warm requests,
    videos/s, peak memory, a torch.profiler pass at batch 1; (b) the same
-   under "flash", restored after (K5 = 18 Q-Former + 12 encoder + 24 a
-   decoder step, on every T5 attention with its bias), the encoder states'
+   under "flash", restored after (K5 for each Q-Former attention and encoder
+   layer, two a decoder layer and step, on every T5 attention with its
+   bias), the encoder states'
    min cosine against (a)'s > 0.999, each row's tokens equal to (a)'s or
    parting at a near-tie (NEAR_TIE); (c) beam-5 at batch 1 (the reorder
    gathers the cross K/V too), p50; (d) the seq2seq classify of the
@@ -440,11 +441,41 @@ final result line):
    towers as they came in, and the checkpoint restores onto one process bit
    for bit. A JSON line "tensor_parallel_training"; the phase's time.
 
+15. Tensor-parallel serving on one card (tps_legs and tps_check), run
+   inside phase 13 on its two gloo ranks over CUDA tensors and its
+   unsharded model, on the same models: eilev-blip2-opt-2.7b loaded by each
+   rank through load_model(mesh=) (one load serves both phases; (a) after
+   phase 13's bf16 request, (c) after its int8 KV request). (a) cli/serve.run at
+   --model_parallel 2, full width and depth: 4 requests of the 16-shot
+   layout (17 videos x 8 frames, the 16 in-context videos shared and
+   encoded once by --vision_cache), 2 slots, chunk 8, 8 new tokens,
+   staggered arrivals decided by rank 0's clock, a prefill bucket dividing
+   the prompt length (no bf16 admission left-padded): the ranks' rows the
+   same, equal to the unsharded engine's or parting at a near-tie, each
+   admission's logits within cosine 0.999 of the unsharded engine's; the
+   launches (K1 a feature-cache encode, K2 an admission, K3 a one-token
+   forward), weights and peak memory a rank against unsharded, the
+   all_reduces a token step (2 a layer + 2). (b) fp32 cuts (F32_LAYERS a
+   stack): prompt lookup, a two-turn ChatSession and greedy over the int8
+   KV cache at the 2.7b widths, flan-t5-xl's engine under "flash" (K5's
+   bias form at 16 x 64), tokens identical to the unsharded port's. (c)
+   int8_lm + w8a8_prefill + int8_vision + int8_qformer on the full-depth
+   model over phase 13's int8 KV cache, so every int8 mode at once
+   (quantize_model_ in place on each rank's loaded model, as load_model
+   with the flags does), at a 1-shot request (2 videos, 91 tokens):
+   prefill cosine > 0.99 against bf16, tokens the unsharded int8 model's or
+   parting at a near-tie, K4 at every decode step, the int8 bytes a rank. (d) K1 at a feature-cache encode (64, 257, 8 x 88),
+   K2 at an admission (1, 768, 16 x 80) left-padded by 2, K3 and K4 over a
+   rank's captured engine cache (4 x 2,048, 16 x 80) against their twins,
+   timed as in 3 beside SDPA and the bound. A JSON line
+   "tensor_parallel_serving" (printed after phase 14's); its time on each
+   side.
+
 Prints every number tagged with the card's name and power limit, then the
 JSON line of the beam shapes' K3/K4 rows, the JSON line of the training
 variants, the JSON line of the decoding modes' kernel shapes, the JSON lines
-of K5's T5 forms, of the T5 phase, of serving, of phase 12, of phase 13 and
-of phase 14, then one JSON
+of K5's T5 forms, of the T5 phase, of serving, of phase 12, of phase 13, of
+phase 14 and of phase 15, then one JSON
 line of per-kernel results (every body: the bf16 ones and the fp32 ones,
 whose launches come from phase 8, and K5's VideoMAE rows, whose launches
 come from phase 12; K6's rows also carry composite_ms), then the result line
@@ -476,6 +507,7 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 import warnings
@@ -658,7 +690,7 @@ PP_STEPS = 2
 PP_F32_LAYERS = 4
 PP_F32_MICRO = 2
 T5_TARGET = 32  # the T5 leg's decoder labels a row
-T5_LAYERS = 12  # phases 8b and 11 (d): layers a stack (a depth cut for the script's time limit)
+T5_LAYERS = 6  # phases 8b and 11 (d): layers a stack (a depth cut for the script's time limit)
 NCCL_STEPS = 2
 BF16_ROUNDOFF = 2.0**-7  # bf16's unit roundoff: a key bias's norm share "zero" in bf16
 # phase 13, tensor parallelism on one card: TP_RANKS ranks of one model
@@ -679,6 +711,22 @@ TP_DECODE_SHAPES = {
     "narration tp 2": (32, 1, 798, 780, 16, 80, True),
     "narration batch 4 tp 2": (32, 4, 798, 780, 16, 80, True),
 }
+# phase 15, tensor-parallel serving on one card: (a)'s requests (16-shot
+# layout, the in-context videos shared), slots, chunk and new tokens, a
+# prefill bucket that divides the prompt length (no bf16 admission
+# left-padded), the open-loop arrival rate (a second), the seed of the
+# requests and of (d)'s inputs, (d)'s captured engine cache (slots x slots),
+# (c)'s videos and (d)'s timing repetitions (the ranks are phase 13's)
+TPS_REQUESTS = 4
+TPS_SLOTS = 2
+TPS_CHUNK = 8
+TPS_NEW = 8
+TPS_BUCKET = 2
+TPS_RATE = 20.0
+TPS_SEED = 52
+TPS_CAPTURE = (4, 2048)
+TPS_INT8_VIDEOS = 2  # (c)'s request: one in-context shot and the query
+TPS_TIMING_REPS = 10  # (d)'s medians (the phase's time)
 # phase 10, checkpoints and CLIs: the exported model's ViT, Q-Former and OPT
 # layers (the widths are eilev-blip2-opt-2.7b's) and its weights' seed
 # phase 14: tensor-parallel training on one card
@@ -1249,18 +1297,18 @@ def check_kernels(tag: str, dev: torch.device) -> list[dict]:
     return results
 
 
-def time_row(tag: str, r: dict) -> None:
+def time_row(tag: str, r: dict, reps: int = 20) -> None:
     """Time one kernel row in turns, plain first: plain, kernel, kernel,
-    plain, then the library call twice, and fill in its times and bound. The
-    closures are dropped after, so the test caches are freed before the main
-    path's peak memory is read."""
+    plain, then the library call twice (each the median of ``reps``), and
+    fill in its times and bound. The closures are dropped after, so the test
+    caches are freed before the main path's peak memory is read."""
     n, run, plain, lib = r.pop("per_call"), r.pop("run"), r.pop("plain"), r.pop("library")
-    p1 = median_ms(plain) / n
-    k_a = median_ms(run) / n
-    k_b = median_ms(run) / n
-    p2 = median_ms(plain) / n
+    p1 = median_ms(plain, reps) / n
+    k_a = median_ms(run, reps) / n
+    k_b = median_ms(run, reps) / n
+    p2 = median_ms(plain, reps) / n
     r["ms"], r["plain_ms"] = min(k_a, k_b), min(p1, p2)
-    r["library_ms"] = None if lib is None else min(median_ms(lib), median_ms(lib)) / n
+    r["library_ms"] = None if lib is None else min(median_ms(lib, reps), median_ms(lib, reps)) / n
     composite = r.pop("composite", None)
     if composite is not None:  # K6: the modules it stands in for, not one call
         r["composite_ms"] = min(median_ms(composite), median_ms(composite))
@@ -3160,9 +3208,9 @@ def run_t5(tag: str, dev: torch.device, launches: dict) -> dict:
     head), T5_LAYERS a stack, with random bf16 weights N(0, 0.02) from
     T5_SEED: (a) greedy narration, 32 new tokens, at batch 1 and 4 under
     "auto" (K1 = T5_LAYERS, nothing else), p50 of SECONDARY_REPS warm requests, peak
-    memory, a profiler pass at batch 1; (b) the same under "flash" (K5 = 18
-    Q-Former + 12 encoder + 24 a decoder step; the bias form on every T5
-    attention), the encoder states' min cosine against (a)'s > 0.999, tokens
+    memory, a profiler pass at batch 1; (b) the same under "flash" (K5 for
+    each Q-Former attention and encoder layer, two a decoder layer and step;
+    the bias form on every T5 attention), the encoder states' min cosine against (a)'s > 0.999, tokens
     equal to (a)'s or parting at a near-tie (NEAR_TIE); (c) beam-5 at batch 1 (the reorder
     gathers the cross K/V too), p50; (d) seq2seq classify of the 187-verb
     stage at batch 4 against the plain path (score_bar); (e) the fp32 model
@@ -5547,13 +5595,14 @@ def _tp_cut_runs(dev, tp=None) -> dict:
     return out
 
 
-def _tp_narration(tag: str, dev, path: str, mesh) -> dict:
+def _tp_narration(tag: str, dev, path: str, mesh, after=None) -> dict:
     """Phase 13 (a) on a rank: eilev-blip2-opt-2.7b loaded through
     load_model(mesh=) from the parent's bf16 checkpoint, greedy at batch 1
     (32 new tokens), then with the int8 KV cache: each counted (counters at 0
     just before, read just after), its tokens and every step's last logits,
     peak memory and the host time of the counted request and, in bf16,
-    TP_REPS more."""
+    TP_REPS more; ``after(label, model)`` after each leg (phase 15's work on
+    the same model, tps_legs)."""
     from eilev_tpu_torch.models.auto import load_model
     from eilev_tpu_torch.ops.quantization import quantize_model_
 
@@ -5584,6 +5633,8 @@ def _tp_narration(tag: str, dev, path: str, mesh) -> dict:
         if mesh.model_rank == 0:
             print(f"[{tag}] tensor parallelism (a) rank 0 {label}: launches {counts} times_s={times} "
                   f"peak_bytes={out[label]['peak_bytes']}")
+        if after is not None:
+            after(label, model)
     del model, run
     gc.collect()
     torch.cuda.empty_cache()
@@ -5592,8 +5643,9 @@ def _tp_narration(tag: str, dev, path: str, mesh) -> dict:
 
 def tp_rank_main(rank: int, tag: str, port: int, root: str) -> None:
     """One rank of phase 13: a gloo group of TP_RANKS on the one card (CUDA
-    tensors), one model axis; (a) and (b) on it, saved to root/rank{rank}.pt.
-    Any failure raises, which fails the parent's join."""
+    tensors), one model axis; (a) and (b) on it, and phase 15's work (its
+    (a), (c) and (d) on (a)'s model, then its (b)), saved to
+    root/rank{rank}.pt. Any failure raises, which fails the parent's join."""
     import datetime
 
     import torch.distributed as dist
@@ -5608,13 +5660,18 @@ def tp_rank_main(rank: int, tag: str, port: int, root: str) -> None:
     try:
         mesh = make_mesh(data=1, model=TP_RANKS, device="cuda")
         assert mesh.tp is not None and mesh.device == torch.device("cuda", 0), mesh
-        dev = mesh.device
+        dev, serving = mesh.device, {}
         t0 = time.perf_counter()
-        out = {"a": _tp_narration(tag, dev, os.path.join(root, "opt-2.7b"), mesh)}
-        out["a_s"] = time.perf_counter() - t0
+        out = {"a": _tp_narration(tag, dev, os.path.join(root, "opt-2.7b"), mesh,
+                                  tps_legs(tag, root, dev, serving, mesh))}
+        out["a_s"] = time.perf_counter() - t0 - serving["after_bf16_s"] - serving["after_int8_kv_s"]
         t0 = time.perf_counter()
         out["b"] = _tp_cut_runs(dev, mesh.tp)
         out["b_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        serving["b"] = tps_cut_runs(dev, mesh.tp)
+        serving["b_s"] = time.perf_counter() - t0
+        out["serving"] = serving
         torch.save(out, os.path.join(root, f"rank{rank}.pt"))
     finally:
         dist.destroy_process_group()
@@ -5713,11 +5770,24 @@ def _tp_kernel_rows(tag: str, dev) -> list[dict]:
     return rows
 
 
-def run_tensor_parallel(tag: str, dev: torch.device) -> tuple[list, dict]:
+def export_tp_checkpoint(model, cfg, root: str) -> str:
+    """``model`` (bf16) as an HF checkpoint with its config.json in
+    root/opt-2.7b, which phases 13 and 15 load through load_model(mesh=)."""
+    from eilev_tpu_torch.training.checkpoint import export_hf_safetensors
+
+    path = os.path.join(root, "opt-2.7b")
+    export_hf_safetensors(model, cfg, path, dtype=torch.bfloat16)
+    with open(os.path.join(path, "config.json"), "w") as fh:
+        json.dump(hf_config_dict(cfg), fh)
+    return path
+
+
+def run_tensor_parallel(tag: str, dev: torch.device, root: str) -> tuple[list, dict, list, dict]:
     """Phase 13: tensor-parallel inference (parallel/tensor.py) at TP = 2 on
     the one card, TP_RANKS gloo ranks over CUDA tensors beside the unsharded
     port in this process. (a) eilev-blip2-opt-2.7b at full width and depth,
-    bf16 N(0, 0.02) weights from TP_SEED exported once in bf16 and loaded by
+    bf16 N(0, 0.02) weights from TP_SEED exported once in bf16 (into
+    ``root``, where phase 15 loads it again) and loaded by
     each rank through load_model(mesh=): greedy at batch 1 and with the int8
     KV cache, against the unsharded model: the prefill's last logits' cosine
     > 0.999, tokens identical or parting at a near-tie, the ranks' tokens
@@ -5727,54 +5797,54 @@ def run_tensor_parallel(tag: str, dev: torch.device) -> tuple[list, dict]:
     stack, greedy tokens identical to the unsharded port's, ICL classify at
     the OPT cut within 1e-4; the LLaMA cut in bf16 too (K5's Hopper body at
     16 x 128). (c) The kernels at the local-head shapes (_tp_kernel_rows),
-    with their launches from (a) and (b). Returns (rows, the phase's JSON)."""
-    import tempfile
-
+    with their launches from (a) and (b). Phase 15 runs inside it, on the
+    same two sides' models (tps_legs, then tps_check). Returns (rows, the
+    phase's JSON, phase 15's rows, phase 15's JSON)."""
     import torch.multiprocessing as mp
 
     from eilev_tpu_torch import configs
     from eilev_tpu_torch.models import VideoBlipForConditionalGeneration
     from eilev_tpu_torch.ops.quantization import quantize_model_
-    from eilev_tpu_torch.training.checkpoint import export_hf_safetensors
 
     t_phase = time.perf_counter()
     result: dict = {}
-    with tempfile.TemporaryDirectory(dir=os.path.dirname(os.path.abspath(__file__))) as root:
-        cfg = configs.blip2_opt_2_7b()
-        model = VideoBlipForConditionalGeneration(cfg, device=dev, dtype=torch.bfloat16).eval()
-        random_init_(model, torch.Generator(device=dev).manual_seed(TP_SEED))
-        path = os.path.join(root, "opt-2.7b")
+    cfg = configs.blip2_opt_2_7b()
+    model = VideoBlipForConditionalGeneration(cfg, device=dev, dtype=torch.bfloat16).eval()
+    random_init_(model, torch.Generator(device=dev).manual_seed(TP_SEED))
+    t0 = time.perf_counter()
+    export_tp_checkpoint(model, cfg, root)
+    result["export_s"] = time.perf_counter() - t0
+    weights = sum(p.numel() * p.element_size() for p in model.parameters())
+    run = Narration(model, cfg, 1, dev)
+    ref, serving = {}, {}
+    after = tps_legs(tag, root, dev, serving)
+    for label in ("bf16", "int8_kv"):
+        if label == "int8_kv":
+            quantize_model_(model, int8_kv=True)
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        export_hf_safetensors(model, cfg, path, dtype=torch.bfloat16)
-        with open(os.path.join(path, "config.json"), "w") as fh:
-            json.dump(hf_config_dict(cfg), fh)
-        result["export_s"] = time.perf_counter() - t0
-        weights = sum(p.numel() * p.element_size() for p in model.parameters())
-        run = Narration(model, cfg, 1, dev)
-        ref = {}
-        for label in ("bf16", "int8_kv"):
-            if label == "int8_kv":
-                quantize_model_(model, int8_kv=True)
-            torch.cuda.reset_peak_memory_stats()
-            t0 = time.perf_counter()
-            tokens, rec = greedy_with_logits(run)
-            ref[label] = {"tokens": tokens.cpu(), "logits": [r.cpu() for r in rec],
-                          "peak_bytes": torch.cuda.max_memory_allocated(), "s": time.perf_counter() - t0}
-        del model, run
-        gc.collect()
-        torch.cuda.empty_cache()
-        ref["b"] = _tp_cut_runs(dev)
-        gc.collect()
-        torch.cuda.empty_cache()
-        t0 = time.perf_counter()
-        ctx = mp.spawn(tp_rank_main, args=(tag, _free_port(), root), nprocs=TP_RANKS, join=False)
-        while not ctx.join(timeout=5):
-            if time.perf_counter() - t0 > TP_DEADLINE_S:
-                for proc in ctx.processes:
-                    proc.kill()
-                raise TimeoutError(f"the tensor-parallel ranks did not finish in {TP_DEADLINE_S} s")
-        result["ranks_s"] = time.perf_counter() - t0
-        ranks = [torch.load(os.path.join(root, f"rank{r}.pt"), weights_only=False) for r in range(TP_RANKS)]
+        tokens, rec = greedy_with_logits(run)
+        ref[label] = {"tokens": tokens.cpu(), "logits": [r.cpu() for r in rec],
+                      "peak_bytes": torch.cuda.max_memory_allocated(), "s": time.perf_counter() - t0}
+        after(label, model)
+    del model, run
+    gc.collect()
+    torch.cuda.empty_cache()
+    ref["b"] = _tp_cut_runs(dev)
+    t0 = time.perf_counter()
+    serving["b"] = tps_cut_runs(dev)
+    serving["seconds"] = time.perf_counter() - t0 + serving["after_bf16_s"] + serving["after_int8_kv_s"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ctx = mp.spawn(tp_rank_main, args=(tag, _free_port(), root), nprocs=TP_RANKS, join=False)
+    while not ctx.join(timeout=5):
+        if time.perf_counter() - t0 > TP_DEADLINE_S:
+            for proc in ctx.processes:
+                proc.kill()
+            raise TimeoutError(f"the tensor-parallel ranks did not finish in {TP_DEADLINE_S} s")
+    result["ranks_s"] = time.perf_counter() - t0
+    ranks = [torch.load(os.path.join(root, f"rank{r}.pt"), weights_only=False) for r in range(TP_RANKS)]
 
     # (a) against the unsharded model; the ranks against each other
     a = result["a"] = {"unsharded_weights_bytes": weights}
@@ -5840,9 +5910,10 @@ def run_tensor_parallel(tag: str, dev: torch.device) -> tuple[list, dict]:
                  ranks[0]["b"]["llama_bf16"]["counts"]["flash_attention"]]
     for r, n in zip(rows, from_runs, strict=True):
         r.update(route="cuda", launches=n)
+    serving_rows, serving_result = tps_check(tag, cfg, [r["serving"] for r in ranks], serving)
     result["seconds"] = time.perf_counter() - t_phase
-    print(f"[{tag}] tensor parallelism phase took {result['seconds']} s")
-    return rows, result
+    print(f"[{tag}] tensor parallelism phase (13, with 15) took {result['seconds']} s")
+    return rows, result, serving_rows, serving_result
 
 
 # ---------------------------------------------------------------------------
@@ -6139,6 +6210,570 @@ def run_tensor_parallel_training(tag: str, dev: torch.device) -> dict:
     return result
 
 
+# ---------------------------------------------------------------------------
+# phase 15: tensor-parallel serving on one card
+# ---------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def engine_log():
+    """Every ContinuousBatchingEngine's submitted requests (by rid), its
+    completions and the last engine built, while the block runs (cli/serve.py
+    builds its engine inside run)."""
+    from eilev_tpu_torch.serving import engine as engine_mod
+
+    cls = engine_mod.ContinuousBatchingEngine
+    submit, step = cls.submit, cls.step
+    log: dict = {"requests": {}, "done": {}, "engine": None}
+
+    def logged_submit(self, request):
+        rid = submit(self, request)
+        log["requests"][rid], log["engine"] = request, self
+        return rid
+
+    def logged_step(self):
+        out = step(self)
+        log["done"].update((c.rid, c) for c in out)
+        return out
+
+    cls.submit, cls.step = logged_submit, logged_step
+    try:
+        yield log
+    finally:
+        cls.submit, cls.step = submit, step
+
+
+@contextlib.contextmanager
+def collective_log():
+    """Counts of torch.distributed's all_reduce and broadcast_object_list
+    calls while the block runs (parallel/tensor.py and cli/serve.py look them
+    up on the module at each call)."""
+    import torch.distributed as dist
+
+    counts = {"all_reduce": 0, "broadcast_object_list": 0}
+    saved = {name: getattr(dist, name) for name in counts}
+
+    def counted(name):
+        def call(*args, **kwargs):
+            counts[name] += 1
+            return saved[name](*args, **kwargs)
+        return call
+
+    for name in counts:
+        setattr(dist, name, counted(name))
+    try:
+        yield counts
+    finally:
+        for name, fn in saved.items():
+            setattr(dist, name, fn)
+
+
+def tps_dataset(n: int, seed: int) -> tuple[list, dict, int]:
+    """(a)'s serve datasets: ``n`` datapoints of SHOTS in-context shots shared
+    by every request (frame paths shot0..15, one set of videos) and a query
+    video of its own (query{d}), each shot narrated in 4 words; the lazy
+    frame loader the feature cache reads the misses through (uint8 (3,
+    FRAMES, 224, 224) frames by frame path); and the prompt length P that
+    cli/serve.py's prompt builder gives every datapoint."""
+    from eilev_tpu_torch import configs
+    from eilev_tpu_torch.cli.serve import PROMPT
+    from eilev_tpu_torch.data.prompts import generate_input_ids_and_labels_from_interleaved
+    from eilev_tpu_torch.data.text import clean_narration_text
+
+    rng = np.random.default_rng(seed)
+    frames = {}
+    verbs, nouns = ("takes", "cuts", "washes", "opens"), ("the knife", "an onion", "the pot", "a cup")
+
+    def item(path):
+        frames[path] = rng.integers(0, 256, size=(3, FRAMES, 224, 224), dtype=np.uint8)
+        return {"frame_path": path, "video_uid": path, "clip_index": "0",
+                "narration_text": f"#C C {verbs[rng.integers(4)]} {nouns[rng.integers(4)]}"}
+
+    shots = [item(f"shot{s}") for s in range(SHOTS)]
+    data = [{"items": shots + [item(f"query{d}")]} for d in range(n)]
+    tokenizer, q = WordTokenizer(), configs.blip2_opt_2_7b().num_query_tokens
+    lengths = {len(generate_input_ids_and_labels_from_interleaved(
+        tokenizer, [(PROMPT + " " + clean_narration_text(i["narration_text"]), 1) for i in d["items"][:-1]]
+        + [(PROMPT, 1)], None, q, True)["input_ids"]) for d in data}
+    assert len(lengths) == 1, lengths
+    return data, {"frame_loader": lambda path: frames[path]}, lengths.pop()
+
+
+def tps_serve_args(p: int, out_csv: str, dev, model_parallel: int):
+    """cli/serve.py's arguments of (a): TPS_SLOTS slots, chunk TPS_CHUNK,
+    TPS_NEW new tokens, prefill bucket TPS_BUCKET (it divides P, so no bf16
+    admission is left-padded) and max_len P + TPS_NEW (an admission behind a
+    decoded row compacts first, so every admission starts at slot 0), the
+    feature cache, staggered open-loop arrivals."""
+    from eilev_tpu_torch.cli import serve as cli
+
+    assert p % TPS_BUCKET == 0, (p, TPS_BUCKET)
+    return cli.parse_args([
+        "--model", "unused", "--eval_frames_dir", "unused", "--in_context_query_map_file", "unused",
+        "--in_context_example_frames_dir", "unused", "--num_eval_datapoints", str(TPS_REQUESTS),
+        "--max_new_tokens", str(TPS_NEW), "--max_slots", str(TPS_SLOTS), "--max_len", str(p + TPS_NEW),
+        "--chunk_tokens", str(TPS_CHUNK), "--prefill_bucket", str(TPS_BUCKET), "--vision_cache", "64",
+        "--arrival_rate", str(TPS_RATE), "--model_parallel", str(model_parallel), "--output_csv", out_csv,
+        "--device", str(dev)])
+
+
+def tps_serve(model, root: str, dev, model_parallel: int) -> dict:
+    """(a) on one side: cli/serve.run over (a)'s datasets, counted (counters
+    at 0 just before, read just after) and held to serving_counts (K1 for
+    each feature-cache encode, K2 for each admission, K3 for each one-token
+    forward); the completions, each admission's last logits, the requests
+    and the engine's feature cache (dropped before a rank saves), the
+    all_reduces a token step
+    (between two one-token forwards of a decode chunk: the forward's and
+    the next token's embedding), the schedule's broadcasts, the weights and
+    peak memory, the time."""
+    from eilev_tpu_torch.cli import serve as cli
+
+    data, extra, p = tps_dataset(TPS_REQUESTS, TPS_SEED)
+    args = tps_serve_args(p, os.path.join(root, f"serve_mp{model_parallel}.csv"), dev, model_parallel)
+    calls, handle = lm_call_log(model)
+    encodes: list = []
+    marks: list = []
+    admitted: list = []  # each admission's last-position logits, in admission (rid) order
+    enc = model.vision_model.register_forward_hook(lambda mod, a, out: encodes.append(a[0].shape[0]))
+    adm = model.language_model.register_forward_hook(
+        lambda mod, a, out: admitted.append(out[0][0, -1].float().cpu()) if a[0].shape[1] > 1 else None)
+    with collective_log() as colls:
+        pre = model.language_model.register_forward_pre_hook(
+            lambda mod, a: marks.append((a[0].shape[1], colls["all_reduce"])))
+        reset_counters()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with engine_log() as log:
+            rows, metrics = cli.run(args, model, WordTokenizer(), {"dataset": data, **extra})
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = counters()
+        pre.remove()
+    handle.remove()
+    enc.remove()
+    adm.remove()
+    want = serving_counts(model, calls, len(encodes), f32=False)
+    assert counts == want, (counts, want)
+    assert all(ok for _, ok in prefills(calls)) and not any(p_ for p_, _ in prefills(calls)), prefills(calls)
+    step_colls = sorted({b[1] - a[1] for a, b in zip(marks, marks[1:]) if a[0] == b[0] == 1})
+    eng = log["engine"]
+    return {"done": {rid: c.tokens for rid, c in log["done"].items()}, "requests": log["requests"],
+            "cache": eng.feature_cache, "rows": rows, "metrics": metrics, "admission_logits": admitted,
+            "counts": counts, "encodes": encodes, "admissions": len(prefills(calls)),
+            "one_token_forwards": sum(1 for s, _, _, _ in calls if s == 1), "stats": dict(eng.stats),
+            "all_reduce": colls["all_reduce"], "broadcasts": colls["broadcast_object_list"],
+            "all_reduce_per_token_step": step_colls, "prompt_len": p, "seconds": secs,
+            "weights_bytes": sum(t.numel() * t.element_size() for t in [*model.parameters(), *model.buffers()]),
+            "peak_bytes": torch.cuda.max_memory_allocated(),
+            "kv_bytes": sum(v.numel() * v.element_size() for v in eng._cache.values() if torch.is_tensor(v))}
+
+
+def tps_reference_rows(model, log: dict) -> tuple[list, list]:
+    """The unsharded model's isolated generate of each request of (a) (its
+    videos' features from the engine's cache, as the engine scattered them)
+    and the logits each token was chosen from."""
+    from eilev_tpu_torch.generation import GenerationConfig
+
+    gen_cfg = GenerationConfig(max_new_tokens=TPS_NEW, pad_token_id=1).with_eos(
+        model.config.text_config.eos_token_id)
+    rows, recs = [], []
+    for rid in sorted(log["requests"]):
+        req = log["requests"][rid]
+        feats = log["cache"].features(req.feature_keys)
+        r, rec = isolated_rows(model, [req], gen_cfg, video_features=feats)
+        rows += r
+        recs += rec
+    return rows, recs
+
+
+def tps_capture(model, requests: dict, cache) -> dict:
+    """(d)'s captured cache: an engine of TPS_CAPTURE slots on the model
+    (bucket TPS_BUCKET, the features from ``cache``) admits (a)'s requests
+    at once and decodes one chunk; its shared cache (this rank's 16 heads)
+    and mask, and its bytes."""
+    from eilev_tpu_torch.generation import GenerationConfig
+    from eilev_tpu_torch.serving import ContinuousBatchingEngine
+
+    slots, max_len = TPS_CAPTURE
+    gen_cfg = GenerationConfig(max_new_tokens=TPS_NEW, pad_token_id=1)
+    eng = ContinuousBatchingEngine(model, gen_cfg, max_slots=slots, max_len=max_len, chunk_tokens=TPS_CHUNK,
+                                   prefill_bucket=TPS_BUCKET, feature_cache=cache)
+    for rid in sorted(requests)[:slots]:
+        eng.submit(dataclasses.replace(requests[rid]))
+    eng.step()
+    torch.cuda.synchronize()
+    c = eng._cache
+    return {"k": c["k"], "v": c["v"], "mask": c["mask"].clone(), "index": c["index"],
+            "kv_bytes": sum(v.numel() * v.element_size() for v in c.values() if torch.is_tensor(v))}
+
+
+def tps_kernel_rows(tag: str, dev, cap: dict) -> list[dict]:
+    """(d): the kernels at this slice's shapes against their twins, timed as
+    in phase 3 beside SDPA and the bound: K1 at a feature-cache encode of
+    TP = 2 (8 videos x 8 frames, 257, 8 x 88); K2 at an admission (1, 768,
+    16 x 80) left-padded by 2 (NaN in the two padded query rows of both, the
+    reference's mask; the real rows at 2e-2); K3 over the captured engine
+    cache (4 x 2,048, 16 x 80, (a)'s requests after one chunk) with a query
+    per row, at the middle layer against the twin (2e-2) and timed over the
+    32 layers; K4 over the same cache quantized by quantize_kv against
+    dequantize_kv + the twin (K4_TOL)."""
+    from eilev_tpu_torch.ops import decode_attention as da
+    from eilev_tpu_torch.ops import fused_attention as fa
+
+    g = torch.Generator(device=dev).manual_seed(TPS_SEED)
+    rows = []
+    b, s, nh, hd = 8 * FRAMES, 257, 8, 88
+    qkv1 = torch.randn(b, s, 3 * nh * hd, device=dev, generator=g).to(torch.bfloat16)
+    q1, k1, v1 = qkv1.view(b, s, 3, nh, hd).permute(2, 0, 3, 1, 4)
+    err = check_close(tag, f"tps K1 packed_qkv_attention at a feature-cache encode ({b},257,8x88)",
+                      fa.packed_qkv_attention(qkv1, nh, hd), fa.packed_qkv_attention_reference(qkv1, nh, hd, hd**-0.5),
+                      2e-2)
+    rows.append({"name": f"packed_qkv_attention at a TP = 2 feature-cache encode ({b},257,8x88)",
+                 "source": "eilev_tpu_torch/csrc/packed_attention.cu", "replaces": "eilev_tpu/ops/fused_attention.py:81",
+                 "max_abs_err": err, "per_call": 1,
+                 "run": lambda: fa.packed_qkv_attention(qkv1, nh, hd),
+                 "plain": lambda: fa.packed_qkv_attention_reference(qkv1, nh, hd, hd**-0.5),
+                 "library": lambda: _sdpa(q1, k1, v1, scale=hd**-0.5),
+                 "bound": bound(4 * b * nh * s * s * hd, 4 * b * s * nh * hd * 2)})
+    nh2, hd2, w = 16, 80, 768
+    qkv = torch.randn(1, w, 3 * nh2 * hd2, device=dev, generator=g).to(torch.bfloat16)
+    mask = torch.ones(1, w, dtype=torch.int32, device=dev)
+    mask[:, :2] = 0
+    out = fa.packed_qkv_causal_attention(qkv, nh2, hd2, mask)
+    ref = fa.packed_qkv_causal_attention_reference(qkv, nh2, hd2, mask, hd2**-0.5)
+    assert bool(torch.isnan(out[:, :2]).all() and torch.isnan(ref[:, :2]).all())
+    err = check_close(tag, "tps K2 at a TP = 2 admission (1, 768, 16x80), left-padded by 2, real rows",
+                      out[:, 2:], ref[:, 2:], 2e-2)
+    d2 = nh2 * hd2
+    q2, k2, v2 = (qkv[..., i * d2:(i + 1) * d2].reshape(1, w, nh2, hd2).transpose(1, 2) for i in range(3))
+    fold = torch.where(torch.tril(torch.ones(w, w, dtype=torch.bool, device=dev)) & mask.bool()[:, None, None, :],
+                       0.0, -torch.inf).to(torch.bfloat16)
+    rows.append({"name": "packed_qkv_causal_attention at a TP = 2 admission (1, 768, 16x80), left-padded by 2",
+                 "source": "eilev_tpu_torch/csrc/packed_attention.cu", "replaces": "eilev_tpu/ops/fused_attention.py:187",
+                 "max_abs_err": err, "per_call": 1,
+                 "run": lambda: fa.packed_qkv_causal_attention(qkv, nh2, hd2, mask),
+                 "plain": lambda: fa.packed_qkv_causal_attention_reference(qkv, nh2, hd2, mask, hd2**-0.5),
+                 "library": lambda: _sdpa(q2, k2, v2, attn_mask=fold),
+                 "bound": bound(*_k5_causal_work([w - 2], w, nh2, hd2, w))})
+    k5, v5, cmask = cap["k"], cap["v"], cap["mask"]
+    n_layers, bd, sd, nhd, hdd = k5.shape
+    filled = int(cmask.sum(dim=1).max())
+    flat = lambda x: x.reshape(n_layers, bd, sd, nhd * hdd)  # noqa: E731
+    k8, ks = da.quantize_kv(k5)
+    v8, vs = da.quantize_kv(v5)
+    c = SimpleNamespace(q=torch.randn(bd, nhd * hdd, device=dev, generator=g).to(torch.bfloat16), k5=k5, v5=v5,
+                        kb=flat(k5), vb=flat(v5), k8=flat(k8), v8=flat(v8), ks=ks, vs=vs, mask=cmask,
+                        kw=dict(num_heads=nhd, head_dim=hdd, scale_query=True),
+                        dims=(n_layers, bd, sd, filled, nhd, hdd))
+    c.i8 = dict(k_scale=ks, v_scale=vs, **c.kw)
+    li = n_layers // 2
+    err3 = check_close(tag, f"tps K3 over the captured TP engine cache ({bd},{sd},{nhd}x{hdd}), {filled} filled, "
+                       f"layer {li}", da.decode_attention_stacked(c.q, c.kb, c.vb, cmask, li, **c.kw),
+                       da.decode_attention_stacked_reference(c.q, c.kb, c.vb, cmask, li, **c.kw), 2e-2)
+    ref4 = da.decode_attention_stacked_reference(
+        c.q, da.dequantize_kv(c.k8[li:li + 1].view(1, bd, sd, nhd, hdd), ks[li:li + 1]).view(1, bd, sd, nhd * hdd),
+        da.dequantize_kv(c.v8[li:li + 1].view(1, bd, sd, nhd, hdd), vs[li:li + 1]).view(1, bd, sd, nhd * hdd),
+        cmask, 0, **c.kw)
+    err4 = check_close(tag, "tps K4 over the captured TP engine cache quantized, vs dequantize_kv + twin",
+                       da.decode_attention_stacked(c.q, c.k8, c.v8, cmask, li, **c.i8), ref4, K4_TOL)
+    sd_q, sd_mask = c.q.view(bd, nhd, 1, hdd), cmask.bool()[:, None, None, :]
+    rows += [{"name": f"decode_attention_stacked_bf16 over a TP = 2 engine cache ({bd},{sd},{nhd}x{hdd})",
+              "source": "eilev_tpu_torch/csrc/decode_attention.cu", "replaces": "eilev_tpu/ops/decode_attention.py:117",
+              "max_abs_err": err3, "run": _k3_step(da, c), "plain": _k3_step(da, c, plain=True),
+              "per_call": n_layers,
+              "library": lambda: [_sdpa(sd_q, k5[i].transpose(1, 2), v5[i].transpose(1, 2), attn_mask=sd_mask,
+                                        scale=hdd**-0.5) for i in range(n_layers)],
+              "bound": _decode_bound(c, int8=False)},
+             {"name": f"decode_attention_stacked_int8 over a TP = 2 engine cache ({bd},{sd},{nhd}x{hdd})",
+              "source": "eilev_tpu_torch/csrc/decode_attention.cu", "replaces": "eilev_tpu/ops/decode_attention.py:75",
+              "max_abs_err": err4, "run": _k4_step(da, c), "plain": _k4_step(da, c, plain=True),
+              "per_call": n_layers, "library": None, "bound": _decode_bound(c, int8=True)}]
+    for r in rows:
+        time_row(tag, r, reps=TPS_TIMING_REPS)
+    return rows
+
+
+def tps_int8_run(model, dev) -> Narration:
+    """(c)'s request: the narration layout cut to its first TPS_INT8_VIDEOS
+    videos (an in-context shot and the query, 91 tokens: a W8A8 prefill of
+    at least W8A8_PREFILL_MIN_ROWS rows), TPS_NEW new tokens."""
+    run = Narration(model, model.config, 1, dev, new_tokens=TPS_NEW)
+    keep = 1 + TPS_INT8_VIDEOS * (model.config.num_query_tokens + 1 + TEXT_TOKENS_PER_SHOT)
+    run.ids, run.mask, run.vim = run.ids[:, :keep], run.mask[:, :keep], run.vim[:, :keep]
+    run.frames, run.n_videos = run.frames[:TPS_INT8_VIDEOS], TPS_INT8_VIDEOS
+    return run
+
+
+def tps_int8(dev, model) -> dict:
+    """(c) on one side: ``model`` (bf16 weights over phase 13's int8 KV
+    cache, a rank's or unsharded) quantized in place into int8_lm +
+    w8a8_prefill + int8_vision + int8_qformer, what load_model does after its
+    load (on a rank: the row-parallel layers' scales over the model group),
+    then greedy on tps_int8_run's request with its logits, counted; the
+    bytes of its weights (the int8 w8, their scales and the float rest)."""
+    from eilev_tpu_torch.ops.quantization import quantize_model_
+
+    quantize_model_(model, int8_lm=True, w8a8_prefill=True, int8_vision=True, int8_qformer=True)
+    run = tps_int8_run(model, dev)
+    reset_counters()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tokens, rec = greedy_with_logits(run)
+    secs = time.perf_counter() - t0
+    return {"tokens": tokens.cpu(), "logits": [r.cpu() for r in rec], "counts": counters(), "seconds": secs,
+            "peak_bytes": torch.cuda.max_memory_allocated(),
+            "weights_bytes": sum(t.numel() * t.element_size() for t in [*model.parameters(), *model.buffers()]),
+            "int8_bytes": sum(t.numel() for t in model.buffers() if t.dtype == torch.int8)}
+
+
+def _tps_drive(eng, requests: list, arrivals) -> dict:
+    """Request i submitted before step arrivals[i]; {rid: tokens}."""
+    done, pending, steps = {}, list(range(len(requests))), 0
+    while pending or not eng.idle:
+        for i in [i for i in pending if arrivals[i] <= steps]:
+            eng.submit(dataclasses.replace(requests[i]))
+            pending.remove(i)
+        done.update((c.rid, torch.from_numpy(c.tokens)) for c in eng.step())
+        steps += 1
+    return done
+
+
+def tps_cut_runs(dev, tp=None) -> dict:
+    """(b) on one side (the unsharded port, or a rank under ``tp``): the
+    fp32 cuts of phase 13 (_tp_cut, F32_LAYERS a stack) through the engine
+    on three staggered 16-shot requests (P = 766, 769, 772; videos encoded
+    once by a feature cache): the OPT cut with prompt lookup, a two-turn
+    ChatSession, then greedy over the int8 KV cache; the flan-t5-xl cut
+    under "flash" (K5's bias form at its local heads). Each run's tokens
+    and launches (counters at 0 just before, read just after)."""
+    from eilev_tpu_torch.generation import GenerationConfig
+    from eilev_tpu_torch.ops.attention import set_default_attention_impl
+    from eilev_tpu_torch.ops.preprocess import process_videos
+    from eilev_tpu_torch.ops.quantization import quantize_model_
+    from eilev_tpu_torch.serving import ChatSession, ContinuousBatchingEngine, VideoFeatureCache
+
+    out = {}
+    gen_cfg = GenerationConfig(max_new_tokens=TPS_NEW, pad_token_id=1, eos_token_id=(NEWLINE,))
+    model, cfg = _tp_cut("opt", dev, tp)
+    pixel = process_videos(serving_frames(dev), dtype=torch.float32)
+    requests = serving_requests(cfg.num_query_tokens, pixel, (0, 3, 6), TPS_SEED, keys=True)
+    cache = VideoFeatureCache(model, bucket=SHOTS + 1)
+    kw = dict(max_slots=TPS_SLOTS, max_len=SERVE_MAX_LEN, chunk_tokens=TPS_CHUNK, prefill_bucket=SERVE_BUCKET,
+              feature_cache=cache)
+    for label, spec in (("prompt_lookup", "prompt_lookup"), ("int8_kv", None)):
+        if label == "int8_kv":
+            quantize_model_(model, int8_kv=True)
+        eng = ContinuousBatchingEngine(model, gen_cfg, speculative=spec, spec_gamma=LOOKUP_GAMMA,
+                                       spec_match_len=LOOKUP_MATCH, **kw)
+        reset_counters()
+        done = _tps_drive(eng, requests, (0, 1, 2))
+        torch.cuda.synchronize()
+        out[label] = {"tokens": done, "counts": counters(), "stats": dict(eng.stats)}
+        if label == "prompt_lookup":  # the two-turn session, on the model-dtype cache
+            sess, q = ChatSession(model, gen_cfg), cfg.num_query_tokens
+            rng = np.random.default_rng(TPS_SEED)
+            ids, vim, replies = np.asarray([2]), np.asarray([0]), []
+            for turn in range(2):
+                ids = np.concatenate([ids, np.ones(q, np.int64), [NEWLINE],
+                                      rng.integers(1000, 40000, size=TEXT_TOKENS_PER_SHOT)])
+                vim = np.concatenate([vim, np.ones(q, np.int64), np.zeros(1 + TEXT_TOKENS_PER_SHOT, np.int64)])
+                replies.append(sess.turn(ids, pixel[: turn + 1], vim))
+                ids = np.concatenate([ids, replies[-1].astype(ids.dtype)])
+                vim = np.concatenate([vim, np.zeros(len(replies[-1]), vim.dtype)])
+            out["session"] = {"tokens": replies, "reused": sess.reused_last_turn}
+    del model, cache, eng
+    model, cfg = _tp_cut("t5", dev, tp)
+    pixel = process_videos(serving_frames(dev, seed=2), dtype=torch.float32)
+    requests = serving_requests(cfg.num_query_tokens, pixel, (0, 3, 6), TPS_SEED, t5=True, keys=True)
+    t5_cfg = GenerationConfig(max_new_tokens=TPS_NEW, pad_token_id=0, eos_token_id=(T5_EOS,))
+    eng = ContinuousBatchingEngine(model, t5_cfg, max_slots=TPS_SLOTS, max_len=T5_SERVE_MAX_LEN,
+                                   chunk_tokens=TPS_CHUNK, prefill_bucket=SERVE_BUCKET,
+                                   max_prompt_len=T5_SERVE_PROMPT, feature_cache=VideoFeatureCache(model, bucket=SHOTS + 1))
+    set_default_attention_impl("flash")
+    try:
+        reset_counters()
+        done = _tps_drive(eng, requests, (0, 1, 2))
+        torch.cuda.synchronize()
+        out["t5_flash"] = {"tokens": done, "counts": counters(), "stats": dict(eng.stats)}
+    finally:
+        set_default_attention_impl("auto")
+    del model, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def tps_legs(tag: str, root: str, dev, out: dict, mesh=None):
+    """Phase 15's work on one side, as a hook of phase 13's legs (phase 13
+    loads the model once a side, on a rank through load_model(mesh=)):
+    after its bf16 leg, (a) serve at ``mesh``'s model parallelism (one
+    process without one) and, on a rank, (d)'s capture (rank 0 checks and
+    times the kernels while rank 1 waits; the unsharded side keeps the
+    isolated rows and the bf16 logits of (c)'s request instead); after its
+    int8 KV leg, (c) on the same model quantized in place. Fills ``out``."""
+    import torch.distributed as dist
+
+    def after(label: str, model) -> None:
+        t0 = time.perf_counter()
+        if label == "bf16":
+            out["a"] = tps_serve(model, root, dev, TP_RANKS if mesh is not None else 1)
+            if mesh is None:
+                out["isolated"] = tps_reference_rows(model, out["a"])
+                out["bf16_logits"] = greedy_with_logits(tps_int8_run(model, dev))[1]
+            else:
+                cap = tps_capture(model, out["a"]["requests"], out["a"]["cache"])
+                out["capture_kv_bytes"] = cap["kv_bytes"]
+                if mesh.model_rank == 0:
+                    out["d"] = tps_kernel_rows(tag, dev, cap)
+                del cap
+                torch.cuda.empty_cache()
+                dist.barrier()
+            del out["a"]["requests"], out["a"]["cache"]
+        else:
+            out["c"] = tps_int8(dev, model)
+        out[f"after_{label}_s"] = time.perf_counter() - t0
+
+    return after
+
+
+def tps_check(tag: str, cfg, ranks: list, ref: dict) -> tuple[list, dict]:
+    """Phase 15: tensor-parallel serving (serving/engine.py, serving/session.py,
+    cli/serve.py on a tp model) and the int8 weight modes under it at TP = 2
+    on the one card, run inside phase 13 (tps_legs: on its TP_RANKS gloo
+    ranks and on its unsharded model of eilev-blip2-opt-2.7b, bf16 N(0, 0.02)
+    from TP_SEED, each rank's loaded through load_model(mesh=)); ``ranks``
+    and ``ref`` are the two sides' results. (a) cli/serve.run at
+    --model_parallel 2 over TPS_REQUESTS 16-shot requests (17 videos x 8
+    frames; the 16 in-context videos shared, encoded once by --vision_cache),
+    TPS_SLOTS slots, chunk TPS_CHUNK, TPS_NEW new tokens, staggered open-loop
+    arrivals, no admission left-padded: the ranks' rows the same, each equal
+    to the unsharded engine's or parting at a near-tie (NEAR_TIE of the
+    isolated run's logits), each admission's last logits within cosine
+    0.999 of the unsharded engine's; weights, peak memory, all_reduces a
+    token step and K1/K2/K3 a request a rank. (b) fp32 cuts (tps_cut_runs):
+    tokens identical to the unsharded engine's and session's. (c) every int8
+    mode (tps_int8: the weight modes on phase 13's int8 KV cache) on the
+    full-depth model at a 1-shot request: prefill cosine > INT8_MIN_COSINE
+    against the unsharded bf16 model, tokens the unsharded int8 model's or
+    parting at a near-tie, the int8 bytes a rank. (d) the kernels at this
+    slice's shapes (tps_kernel_rows, rank 0 on its captured engine cache),
+    with their launches from (a) and (b). Returns (rows, the phase's JSON)."""
+    from eilev_tpu_torch.models import init_cache
+
+    result: dict = {"parent_s": ref["seconds"]}
+    ref_a, ref_b, ref_c = ref["a"], ref["b"], ref["c"]
+    rows, recs = ref["isolated"]
+    bf16_rec = ref["bf16_logits"]
+    unsharded_same = compare_rows(tag, "tensor-parallel serving (a) the unsharded engine vs isolated generate",
+                                  {rid: SimpleNamespace(tokens=t) for rid, t in ref_a["done"].items()}, rows, recs,
+                                  rule="near-tie")
+
+    # (a) the ranks against each other and the unsharded engine
+    mine = ranks[0]["a"]
+    for other in ranks[1:]:
+        assert other["a"]["done"].keys() == mine["done"].keys(), "(a): the ranks completed different requests"
+        assert all(np.array_equal(other["a"]["done"][r], t) for r, t in mine["done"].items()), \
+            "(a): the ranks' tokens differ"
+        assert other["a"]["counts"] == mine["counts"] and other["a"]["stats"] == mine["stats"]
+    assert mine["metrics"] is not None and all(r["a"]["metrics"] is None for r in ranks[1:]), "rank 0 reports alone"
+    engine_rows = [ref_a["done"][rid] for rid in sorted(ref_a["done"])]
+    same = compare_rows(tag, "tensor-parallel serving (a) TP = 2 vs the unsharded engine",
+                        {rid: SimpleNamespace(tokens=t) for rid, t in mine["done"].items()}, engine_rows, recs,
+                        rule="near-tie")
+    if same == len(engine_rows):
+        assert mine["rows"] == ref_a["rows"], "(a): the same tokens gave another CSV"
+    assert len(mine["admission_logits"]) == len(ref_a["admission_logits"]) == TPS_REQUESTS
+    adm_cos = min(torch.nn.functional.cosine_similarity(x, y, dim=0).item()
+                  for x, y in zip(mine["admission_logits"], ref_a["admission_logits"]))
+    full_kv = init_cache(cfg.text_config, *TPS_CAPTURE, dtype=torch.bfloat16, device="meta")
+    per_request = {k: mine["counts"][k] / TPS_REQUESTS for k in
+                   ("packed_qkv_attention", "packed_qkv_causal_attention", "decode_attention_stacked_bf16")}
+    a = result["a"] = {
+        "prompt_len": mine["prompt_len"], "identical_to_unsharded_engine": same,
+        "admission_logits_min_cosine": adm_cos,
+        "unsharded_engine_identical_to_isolated": unsharded_same,
+        "tokens": {rid: t[:TPS_NEW].tolist() for rid, t in mine["done"].items()},
+        "weights_bytes_per_rank": [r["a"]["weights_bytes"] for r in ranks],
+        "unsharded_weights_bytes": ref_a["weights_bytes"],
+        "peak_bytes_per_rank": [r["a"]["peak_bytes"] for r in ranks], "unsharded_peak_bytes": ref_a["peak_bytes"],
+        "engine_kv_bytes_per_rank": [r["a"]["kv_bytes"] for r in ranks], "unsharded_engine_kv_bytes": ref_a["kv_bytes"],
+        "captured_kv_bytes_per_rank": [r["capture_kv_bytes"] for r in ranks],
+        "unsharded_kv_bytes_at_capture": sum(v.numel() * v.element_size() for v in full_kv.values()
+                                             if torch.is_tensor(v)),
+        "all_reduce_per_token_step": mine["all_reduce_per_token_step"], "all_reduce": mine["all_reduce"],
+        "schedule_broadcasts": mine["broadcasts"], "launches_per_request_per_rank": per_request,
+        "encodes": mine["encodes"], "admissions": mine["admissions"], "stats": mine["stats"],
+        "metrics_rank0": mine["metrics"], "unsharded_metrics": ref_a["metrics"], "serve_s": mine["seconds"],
+        "unsharded_serve_s": ref_a["seconds"]}
+    print(f"[{tag}] tensor-parallel serving (a) eilev-blip2-opt-2.7b bf16 through cli/serve.run --model_parallel 2 "
+          f"(two ranks on one card over gloo: the times are a schedule's, no TP speed): {json.dumps(a)}")
+    assert a["all_reduce_per_token_step"] == [2 * cfg.text_config.num_hidden_layers + 2], a
+    assert adm_cos > 0.999, adm_cos
+    assert all(r["a"]["broadcasts"] > 0 for r in ranks) and ref_a["broadcasts"] == 0
+
+    # (b) the fp32 cuts, token for token
+    b = result["b"] = {}
+    for name in ("prompt_lookup", "int8_kv", "t5_flash"):
+        theirs = ref_b[name]
+        for r in ranks:
+            got = r["b"][name]["tokens"]
+            assert got.keys() == theirs["tokens"].keys() and all(torch.equal(got[k], v) for k, v in
+                                                                 theirs["tokens"].items()), \
+                f"(b) fp32 {name}: TP = 2 tokens differ from the unsharded engine's"
+        b[name] = {"identical": True, "launches": {k: v for k, v in ranks[0]["b"][name]["counts"].items() if v},
+                   "stats": ranks[0]["b"][name]["stats"]}
+    assert b["int8_kv"]["launches"].get("decode_attention_stacked_int8", 0) > 0, b["int8_kv"]
+    assert b["t5_flash"]["launches"].get("flash_attention_f32", 0) > 0, b["t5_flash"]
+    assert b["prompt_lookup"]["stats"]["spec_passes"] > 0, b["prompt_lookup"]
+    for r in ranks:
+        got = r["b"]["session"]["tokens"]
+        assert len(got) == 2 and all(np.array_equal(x, y) for x, y in zip(got, ref_b["session"]["tokens"])), \
+            "(b) fp32 ChatSession: TP = 2 replies differ"
+    b["session"] = {"identical": True, "replies": [t.tolist() for t in ref_b["session"]["tokens"]]}
+    print(f"[{tag}] tensor-parallel serving (b) fp32 cuts TP = 2: {json.dumps(b)}")
+
+    # (c) the int8 weight modes on the full-depth model
+    mine = ranks[0]["c"]
+    for other in ranks[1:]:
+        assert torch.equal(other["c"]["tokens"], mine["tokens"]), "(c): the ranks' tokens differ"
+    cos = torch.nn.functional.cosine_similarity(mine["logits"][0], bf16_rec[0].cpu(), dim=-1).min().item()
+    share = compare_speculative(tag, "tensor-parallel serving (c) int8 modes TP = 2 vs unsharded int8",
+                                mine["tokens"], ref_c["tokens"], ref_c["logits"])
+    n_lm = cfg.text_config.num_hidden_layers
+    want = {"packed_qkv_attention": cfg.vision_config.num_hidden_layers, "packed_qkv_causal_attention": n_lm,
+            "decode_attention_stacked_int8": n_lm * (len(mine["logits"]) - 1)}  # phase 13's int8 KV cache
+    assert {k: mine["counts"][k] for k in want} == want, (mine["counts"], want)
+    c = result["c"] = {"prefill_logits_min_cosine_vs_bf16": cos, "identical_rows_share": share,
+                       "tokens": mine["tokens"][0].tolist(), "unsharded_tokens": ref_c["tokens"][0].tolist(),
+                       "int8_bytes_per_rank": [r["c"]["int8_bytes"] for r in ranks],
+                       "unsharded_int8_bytes": ref_c["int8_bytes"],
+                       "weights_bytes_per_rank": [r["c"]["weights_bytes"] for r in ranks],
+                       "unsharded_weights_bytes": ref_c["weights_bytes"],
+                       "peak_bytes_per_rank": [r["c"]["peak_bytes"] for r in ranks],
+                       "unsharded_peak_bytes": ref_c["peak_bytes"], "launches": {k: mine["counts"][k] for k in want},
+                       "greedy_s": mine["seconds"],
+                       "unsharded_greedy_s": ref_c["seconds"]}
+    print(f"[{tag}] tensor-parallel serving (c) int8_lm + w8a8_prefill + int8_vision + int8_qformer (+ int8_kv) "
+          f"TP = 2: {json.dumps(c)}")
+    assert cos > INT8_MIN_COSINE, cos
+
+    # (d) the kernels at this slice's shapes, with their launches from (a) and (b)
+    rows_d = ranks[0]["d"]
+    from_runs = [ranks[0]["a"]["counts"]["packed_qkv_attention"], ranks[0]["a"]["counts"]["packed_qkv_causal_attention"],
+                 ranks[0]["a"]["counts"]["decode_attention_stacked_bf16"],
+                 ranks[0]["c"]["counts"]["decode_attention_stacked_int8"]]
+    for r, n in zip(rows_d, from_runs, strict=True):
+        r.update(route="cuda", launches=n)
+    result["rank_s"] = {k: [r[k] for r in ranks] for k in ("after_bf16_s", "after_int8_kv_s", "b_s")}
+    result["seconds"] = ref["seconds"] + max(sum(r.values()) for r in
+                                             ({k: r[k] for k in result["rank_s"]} for r in ranks))
+    print(f"[{tag}] tensor-parallel serving (phase 15, inside phase 13) took {result['seconds']} s: the unsharded "
+          f"side {ref['seconds']} s, a rank's {result['rank_s']} s")
+    return rows_d, result
+
+
 def main(argv: list) -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke: no CUDA device; this script runs only on a GPU")
@@ -6222,7 +6857,8 @@ def main(argv: list) -> int:
         kernels = kernels + videomae_rows
         gc.collect()
         torch.cuda.empty_cache()
-        tp_rows, tensor_parallel = run_tensor_parallel(tag, dev)
+        with tempfile.TemporaryDirectory(dir=os.path.dirname(os.path.abspath(__file__))) as tp_root:
+            tp_rows, tensor_parallel, tps_rows, tp_serving = run_tensor_parallel(tag, dev, tp_root)
         gc.collect()
         torch.cuda.empty_cache()
         tp_training = run_tensor_parallel_training(tag, dev)
@@ -6270,6 +6906,10 @@ def main(argv: list) -> int:
     # phase 14: tensor-parallel training (K1 at phase 13's local-head row, its
     # launches a rank in the counted step)
     print(json.dumps({"tensor_parallel_training": tp_training}, default=str))
+    # phase 15: tensor-parallel serving and the int8 weight modes under it;
+    # the kernels at its shapes with their launches a rank in (a) and (b)
+    print(json.dumps({"tensor_parallel_serving": tp_serving, "tensor_parallel_serving_shapes": tps_rows},
+                     default=str))
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                               "count": torch.cuda.device_count()}}))

@@ -15,6 +15,14 @@ speculative counters.
         --in_context_query_map_file MAP.jsonl --in_context_example_frames_dir TRAIN \\
         --output_csv out.csv
 
+``--model_parallel N`` serves a tensor-parallel model over N processes, one
+card each (``torchrun --nproc_per_node N -m eilev_tpu_torch.cli.serve ...
+--model_parallel N``): every rank loads its shards (``load_model(mesh=)``)
+and runs its own engine with the attention dispatch at ``xla``, as the JAX
+script sets it; rank 0's clock decides the arrivals, which it broadcasts
+over the model group each pass of the loop, and rank 0 alone writes the CSV
+and prints the metrics line.
+
 At the defaults (bf16, ``--prefill_bucket 128``) every OPT admission whose
 prompt is shorter than its bucket is left-padded, and such a request's rows
 are token 0 (the reference's mask value is -inf in bf16: the padded query
@@ -33,6 +41,7 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 DTYPES = {"fp32": torch.float32, "bf16": torch.bfloat16}
 PROMPT = "Question: What is the camera wearer doing? Answer:"
@@ -73,7 +82,8 @@ def parse_args(argv: Optional[list[str]] = None) -> argparse.Namespace:
                    help="LRU video-feature cache capacity (videos), keyed by frame_path: recurring "
                         "in-context videos skip the vision tower (0 = off)")
     p.add_argument("--model_parallel", type=int, default=0,
-                   help="shard the model weights over N devices; not ported (one device)")
+                   help="shard the model weights over N processes, one device each (tensor parallel; start "
+                        "them with torchrun --nproc_per_node N); 0/1 = one process")
     p.add_argument("--int8_lm", action="store_true")
     p.add_argument("--int8_kv", action="store_true")
     p.add_argument("--int8_vision", action="store_true")
@@ -83,14 +93,6 @@ def parse_args(argv: Optional[list[str]] = None) -> argparse.Namespace:
     p.add_argument("--random_seed", type=int, default=42)
     p.add_argument("--output_csv", required=True)
     return p.parse_args(argv)
-
-
-def check_args(args: argparse.Namespace) -> None:
-    if args.model_parallel > 1:
-        raise NotImplementedError(
-            "--model_parallel > 1: the serving engine does not run a tensor-parallel model (every rank would "
-            "have to keep one admission schedule); it waits for the tensor-parallel serving slice. "
-            "generate_narration_texts and icl_eval take --model_parallel")
 
 
 def load_datasets(args: argparse.Namespace) -> dict[str, Any]:
@@ -106,14 +108,15 @@ def run(args: argparse.Namespace, model, tokenizer, datasets: dict[str, Any]):
     query]}``, each item with ``frame_path``, ``video_uid``, ``clip_index``,
     ``narration_text`` and, without a ``frame_loader``, ``video``) through
     the engine on the open-loop arrival clock; write the CSV and print the
-    metrics line. Returns (rows, metrics)."""
+    metrics line. Returns (rows, metrics). On a tensor-parallel model every
+    rank of the model group calls it with the same data; rank 0 writes and
+    prints, and the other ranks return (rows, None)."""
     from ..data.prompts import generate_input_ids_and_labels_from_interleaved
     from ..data.text import clean_narration_text
     from ..generation import GenerationConfig
     from ..ops.preprocess import process_videos
     from ..serving import ContinuousBatchingEngine, Request, VideoFeatureCache
 
-    check_args(args)
     config = model.config
     dtype, device = DTYPES[args.dtype], torch.device(args.device)
     img = config.vision_config.image_size
@@ -175,10 +178,15 @@ def run(args: argparse.Namespace, model, tokenizer, datasets: dict[str, Any]):
     latency: dict[int, float] = {}
     pending = list(range(n))
     videos_per_request = None
+    schedule = _Schedule(model.tp)
     t0 = time.perf_counter()
     while pending or not engine.idle:
         now = time.perf_counter() - t0
-        for i in [i for i in pending if arrivals[i] <= now]:
+        due = [i for i in pending if arrivals[i] <= now]
+        # an idle engine with nothing due waits for the next arrival
+        wait = min(0.01, arrivals[min(pending)] - now) if pending and engine.idle and not due else None
+        due, wait = schedule.agree(due, wait)
+        for i in due:
             feats = preprocess(dataset[i])
             pixel = None
             if feature_cache is None:
@@ -195,8 +203,8 @@ def run(args: argparse.Namespace, model, tokenizer, datasets: dict[str, Any]):
             meta[rid] = feats
             submit_t[rid] = time.perf_counter() - t0
             pending.remove(i)
-        if pending and engine.idle and arrivals[min(pending)] > now:
-            time.sleep(min(0.01, arrivals[min(pending)] - now))
+        if wait is not None:
+            time.sleep(wait)
             continue
         completed = engine.step()
         now = time.perf_counter() - t0
@@ -219,6 +227,8 @@ def run(args: argparse.Namespace, model, tokenizer, datasets: dict[str, Any]):
             "ground_truth": m["narration_text"],
             "in_context_frame_paths": "|".join(m["in_context_frame_paths"]),
         })
+    if not schedule.lead:  # tensor parallelism: every rank holds the same rows; rank 0 writes them
+        return rows, None
     with open(args.output_csv, "w", newline="") as f:
         writer = csv.DictWriter(f, fieldnames=["frame_path", "video_uid", "clip_index", "generated",
                                                "ground_truth", "in_context_frame_paths"])
@@ -259,19 +269,43 @@ def run(args: argparse.Namespace, model, tokenizer, datasets: dict[str, Any]):
     return rows, metrics
 
 
+class _Schedule:
+    """The open-loop arrival decisions of one pass of the serving loop: which
+    pending requests are submitted and whether the loop sleeps instead of
+    stepping. Under tensor parallelism (``tp``) rank 0's clock decides and
+    one ``broadcast_object_list`` over the model group gives every rank its
+    decision, so that every rank's engine admits the same requests at the
+    same step (ranks that disagree would part in their collectives); a rank
+    that is not rank 0 does not sleep, it waits for the next decision."""
+
+    def __init__(self, tp):
+        self.tp = tp
+        self.lead = tp is None or tp.rank == 0
+        self.src = None if tp is None else dist.get_global_rank(tp.group, 0)
+
+    def agree(self, due: list, wait: Optional[float]) -> tuple[list, Optional[float]]:
+        if self.tp is None:
+            return due, wait
+        decision = [(due, wait) if self.lead else None]
+        dist.broadcast_object_list(decision, src=self.src, group=self.tp.group)
+        due, wait = decision[0]
+        return due, (wait if self.lead or wait is None else 0.0)
+
+
 def main(argv: Optional[list[str]] = None):
     args = parse_args(argv)
-    check_args(args)
     from ..models.auto import load_model, load_tokenizer
+    from .generate_narration_texts import model_parallel_mesh
 
     if args.fast_gelu:
         from ..ops.gelu import set_gelu_impl
 
         set_gelu_impl("fast")
+    args, mesh = model_parallel_mesh(args)
     model, _ = load_model(
         args.model, dtype=DTYPES[args.dtype], int8_lm=args.int8_lm, int8_kv=args.int8_kv,
         int8_vision=args.int8_vision, int8_qformer=args.int8_qformer, w8a8_prefill=args.w8a8_prefill,
-        device=args.device,
+        device=args.device, mesh=mesh,
     )
     tokenizer = load_tokenizer(args.processor or args.model)
     return run(args, model, tokenizer, load_datasets(args))

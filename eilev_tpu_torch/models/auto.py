@@ -137,7 +137,9 @@ def load_model(
     tensor-parallel model of this rank: each tensor is read from the file
     (memory-mapped, on the CPU) and only this rank's slice of it
     (``parallel/tensor.shard_state_dict``) goes to ``device``; the int8
-    weight modes then raise ``NotImplementedError``. Such a model also
+    modes then quantize each rank's slices, the row-parallel layers' scales
+    over the model group, as JAX quantizes the whole params before it
+    shards them (``ops/quantization.py``). Such a model also
     trains (``training.Trainer`` / ``make_train_step`` with that mesh; the
     Q-Former keeps the file's fp32 as master weights under ``param_dtype``
     None, as the one-device recipe loads it).

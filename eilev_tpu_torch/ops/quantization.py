@@ -19,6 +19,20 @@ int8, and for weight-only an fp32-accumulating product of exact products
 (``torch.mm(..., out_dtype=torch.float32)`` on bf16 operands on the card,
 where int8 -> bf16 is exact; fp32 operands on the CPU).
 
+Under tensor parallelism (``parallel/tensor.py``) a column-parallel or
+packed layer holds whole output columns, so its per-channel scales are the
+unsharded ones and it needs no collective. A row-parallel layer (built with
+``tp``, or quantized from a ``RowParallelLinear``) holds a slice of the
+input dimension: its weight scale is the all_reduce MAX of the local
+per-channel absmax over the model group, W8A8's per-row activation absmax is
+the all_reduce MAX of the local one, the int8 x int8 partial product is
+summed in int32 (a float sum would round: K x 127^2 passes 2^24), and the
+whole bias is added once after the sum, so each rank's ``w8``/``scale`` is
+its slice of the unsharded quantization and a W8A8 product equals the
+unsharded accumulator bit for bit. The weight-only product's fp32 partial
+sums are summed in fp32, as ``RowParallelLinear`` sums its products. A MAX
+has no gradient; these are serving modes.
+
 Layouts: the port keeps ``w8`` as (out, in), like ``nn.Linear.weight``;
 ``models/convert.py`` transposes the flax (in, out) ``w8``. The tree
 functions :func:`quantize_lm_params`, :func:`quantize_vision_params` and
@@ -35,6 +49,7 @@ from typing import Any, Mapping, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 # flax/port module names whose matmul gets quantized, per decoder family
@@ -52,25 +67,34 @@ QFORMER_QUANT_NAMES = frozenset({"query", "key", "value", "dense", "intermediate
 W8A8_PREFILL_MIN_ROWS = 64
 
 
-def quantize_int8(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+def quantize_int8(w: torch.Tensor, tp=None) -> tuple[torch.Tensor, torch.Tensor]:
     """Symmetric per-output-channel int8 quantization of an (in, out) kernel.
 
     Returns (w8 int8 (in, out), scale float32 (out,)) with w ~ w8 * scale.
+    Under ``tp`` ``w`` is this rank's slice of the input rows (a row-parallel
+    kernel) and the absmax is the MAX over the model group: the scale of the
+    whole column, and this rank's rows of the whole kernel's ``w8``.
     """
     wf = w.float()
     absmax = wf.abs().amax(dim=0)
+    if tp is not None:
+        absmax = tp.all_reduce(absmax, dist.ReduceOp.MAX)
     scale = torch.where(absmax > 0, absmax / 127.0, torch.ones_like(absmax))
     w8 = torch.clamp(torch.round(wf / scale), -127, 127).to(torch.int8)
     return w8, scale
 
 
-def quantize_act_rows(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+def quantize_act_rows(x: torch.Tensor, tp=None) -> tuple[torch.Tensor, torch.Tensor]:
     """Symmetric per-row dynamic int8 quantization of activations.
 
     x (..., K) -> (x8 int8 (..., K), scale float32 (..., 1)) with x ~ x8 * scale.
+    Under ``tp`` (a row-parallel layer's) ``x`` is this rank's slice of K and
+    the row absmax is the MAX over the model group, the unsharded row's.
     """
     xf = x.float()
     absmax = xf.abs().amax(dim=-1, keepdim=True)
+    if tp is not None:
+        absmax = tp.all_reduce(absmax.detach(), dist.ReduceOp.MAX)
     scale = torch.where(absmax > 0, absmax / 127.0, torch.ones_like(absmax))
     x8 = torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8)
     return x8, scale
@@ -94,12 +118,15 @@ class _Int8Linear(nn.Module):
     """Shared state of the int8 layers: ``w8`` (out, in) int8 and ``scale``
     (out,) fp32 as buffers, an optional ``bias`` parameter. Constructed like
     ``nn.Linear``; ``dtype`` is the bias's. The output is in the input's
-    dtype (the compute dtype), the bias cast to it."""
+    dtype (the compute dtype), the bias cast to it. With ``tp`` (a
+    ``parallel.tensor.TensorParallel``) the layer is row-parallel:
+    ``in_features`` is this rank's slice of the input."""
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True, *,
-                 device=None, dtype=None):
+                 tp=None, device=None, dtype=None):
         super().__init__()
         self.in_features, self.out_features = in_features, out_features
+        self.tp = tp
         self.out_dtype = dtype if dtype is not None else torch.get_default_dtype()
         self.register_buffer("w8", torch.zeros(out_features, in_features, dtype=torch.int8, device=device))
         self.register_buffer("scale", torch.ones(out_features, dtype=torch.float32, device=device))
@@ -110,15 +137,33 @@ class _Int8Linear(nn.Module):
 
     @classmethod
     def from_linear(cls, linear: nn.Linear) -> "_Int8Linear":
-        """Quantize ``linear``'s own weight; its bias is shared, not copied."""
-        w = linear.weight
-        mod = cls(linear.in_features, linear.out_features, bias=False, device=w.device, dtype=w.dtype)
+        """Quantize ``linear``'s own weight; its bias is shared, not copied.
+        A ``RowParallelLinear`` (one with a ``tp``) gives the row-parallel
+        form, its scales from the whole columns (a collective over the model
+        group: every rank quantizes its layers in the same order)."""
+        w, tp = linear.weight, getattr(linear, "tp", None)
+        mod = cls(linear.in_features, linear.out_features, bias=False, tp=tp, device=w.device, dtype=w.dtype)
         with torch.no_grad():
-            w8, scale = quantize_int8(w.t())
+            w8, scale = quantize_int8(w.t(), tp)
             mod.w8.copy_(w8.t())
             mod.scale.copy_(scale)
         mod.bias = linear.bias
         return mod
+
+    def _weight_only(self, x2d: torch.Tensor) -> torch.Tensor:
+        """The weight-only product in fp32; a row-parallel layer's partial
+        products summed over the model group in fp32."""
+        y32 = _weight_only_f32(x2d, self.w8)
+        return y32 if self.tp is None else self.tp.all_reduce(y32)
+
+    def _w8a8(self, x2d: torch.Tensor) -> torch.Tensor:
+        """The W8A8 product, dequantized to fp32 before the weight scale; a
+        row-parallel layer quantizes its rows by their unsharded absmax and
+        sums the partial int32 products over the model group first."""
+        if self.tp is None:
+            return _w8a8_f32(x2d, self.w8)
+        x8, xs = quantize_act_rows(x2d, self.tp)
+        return self.tp.all_reduce(torch._int_mm(x8, self.w8.t())).float() * xs
 
     def _finish(self, y32: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
         # the output in the input's (the compute) dtype, which is the model
@@ -137,17 +182,15 @@ class Int8Dense(_Int8Linear):
     ``w8a8_min_rows`` rows (or always, at 0), W8A8 at or above it."""
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True, *,
-                 w8a8_min_rows: int = 0, device=None, dtype=None):
-        super().__init__(in_features, out_features, bias, device=device, dtype=dtype)
+                 w8a8_min_rows: int = 0, tp=None, device=None, dtype=None):
+        super().__init__(in_features, out_features, bias, tp=tp, device=device, dtype=dtype)
         self.w8a8_min_rows = w8a8_min_rows
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x2d = x.reshape(-1, x.shape[-1])
         if self.w8a8_min_rows and x2d.shape[0] >= self.w8a8_min_rows:
-            y32 = _w8a8_f32(x2d, self.w8)
-        else:
-            y32 = _weight_only_f32(x2d, self.w8)
-        return self._finish(y32, x)
+            return self._finish(self._w8a8(x2d), x)
+        return self._finish(self._weight_only(x2d), x)
 
 
 class Int8W8A8Dense(_Int8Linear):
@@ -155,7 +198,7 @@ class Int8W8A8Dense(_Int8Linear):
     dequantized by (row scale x per-channel weight scale)."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self._finish(_w8a8_f32(x.reshape(-1, x.shape[-1]), self.w8), x)
+        return self._finish(self._w8a8(x.reshape(-1, x.shape[-1])), x)
 
 
 def dense_cls(config) -> type:
@@ -222,8 +265,9 @@ def quantize_qformer_params(params: Mapping[str, Any]) -> dict:
 def quantize_linears_(module: nn.Module, names: frozenset, cls=Int8Dense) -> int:
     """Replace, in place, every ``nn.Linear`` (or subclass, such as the
     Q-Former's ``MixedLinear``) under ``module`` whose attribute name is in
-    ``names`` by ``cls`` quantized from its own weight. Returns the number
-    replaced; layers already int8 stay as they are."""
+    ``names`` by ``cls`` quantized from its own weight; a row-parallel one
+    (``parallel.tensor.RowParallelLinear``) by ``cls``'s row-parallel form.
+    Returns the number replaced; layers already int8 stay as they are."""
     count = 0
     for parent in list(module.modules()):
         for name, child in list(parent.named_children()):
@@ -250,15 +294,14 @@ def quantize_model_(
 
     The chosen matmuls become int8 layers (their float weights are freed), and
     every submodule's config is replaced by the flagged one, so that
-    ``init_cache`` gives an int8 KV cache under ``int8_kv``.
+    ``init_cache`` gives an int8 KV cache under ``int8_kv``. On a
+    tensor-parallel model each rank quantizes its own slices, the
+    row-parallel layers' scales over the model group (every rank of the
+    group calls this together), which gives each rank its slice of what
+    quantizing the whole model gives.
     """
     if w8a8_prefill and not int8_lm:
         raise ValueError("w8a8_prefill requires int8_lm (shared int8 weights)")
-    if getattr(model, "tp", None) is not None and (int8_lm or int8_vision or int8_qformer or w8a8_prefill):
-        raise NotImplementedError(
-            "the int8 weight modes (int8_lm, int8_vision, int8_qformer, w8a8_prefill) do not run under tensor "
-            "parallelism: a row-parallel W8A8 layer needs an all_reduce MAX of its per-token absmax; they wait "
-            "for a later tensor-parallel slice (int8_kv runs)")
     old = model.config
     text, vision, qformer = old.text_config, old.vision_config, old.qformer_config
     if int8_lm or int8_kv:

@@ -42,8 +42,11 @@ tables at any size, where JAX's rule leaves tables of up to 1,024 rows whole.
 
 The only collective is ``all_reduce`` (SUM and MAX) over the model group,
 which NCCL runs on the card and gloo runs on the CPU and on CUDA tensors.
-The int8 weight modes do not run under tensor parallelism
-(``ops/quantization.quantize_model_`` refuses them); the int8 KV cache does.
+The int8 weight modes run under tensor parallelism as JAX lays them out:
+the int8 ``w8`` follows its layer's layout, the 1-D scales of a row-parallel
+layer stay whole (``ops/quantization.py``: the row-parallel int8 layers take
+their scales and their W8A8 row scales as all_reduce MAXes and sum their
+int8 products in int32); the int8 KV cache holds the local heads.
 
 Training (Megatron's two conjugate operators, as autograd Functions): the
 input of every column-parallel projection goes through :func:`copy_to_model`
@@ -61,6 +64,7 @@ dicts back into the full one (checkpoints, export).
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Mapping, Optional
 
 import torch
@@ -69,6 +73,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..configs import LlamaConfig, OPTConfig, QFormerConfig, T5Config, VideoBlipConfig, VisionConfig
+from ..ops.quantization import _Int8Linear
 
 COLUMN = "column"
 ROW = "row"
@@ -156,9 +161,10 @@ def copy_to_model(x: torch.Tensor, tp: Optional[TensorParallel]) -> torch.Tensor
 
 def param_layout(name: str) -> str:
     """The layout of the state-dict entry ``name`` under tensor parallelism:
-    :data:`COLUMN`, :data:`ROW` (a weight; the bias of a row-parallel layer
-    is whole), :data:`PACKED`, :data:`VOCAB` or :data:`REPLICATED`, by the
-    name of the module that holds it."""
+    :data:`COLUMN`, :data:`ROW` (a weight or an int8 ``w8``; the bias and
+    the int8 scale of a row-parallel layer are whole), :data:`PACKED`,
+    :data:`VOCAB` or :data:`REPLICATED`, by the name of the module that
+    holds it."""
     parts = name.split(".")
     module, leaf = (parts[-2] if len(parts) > 1 else ""), parts[-1]
     if module in _VOCAB_NAMES:
@@ -168,7 +174,7 @@ def param_layout(name: str) -> str:
     if module in _COLUMN_NAMES:
         return COLUMN
     if module in _ROW_NAMES:
-        return ROW if leaf == "weight" else REPLICATED
+        return ROW if leaf in ("weight", "w8") else REPLICATED
     return REPLICATED
 
 
@@ -227,9 +233,14 @@ class RowParallelLinear(nn.Linear):
 
 
 def row_parallel(cls: type, tp: Optional[TensorParallel]):
-    """The row-parallel layer of ``tp``, or ``cls`` itself without one."""
+    """The row-parallel form of the layer class ``cls`` under ``tp``:
+    :class:`RowParallelLinear` for a float layer, the int8 layer built with
+    ``tp`` (``ops/quantization.py``) for an int8 one; ``cls`` itself without
+    ``tp``."""
     if tp is None:
         return cls
+    if issubclass(getattr(cls, "func", cls), _Int8Linear):  # a class, or a functools.partial of one
+        return functools.partial(cls, tp=tp)
     return lambda *args, **kwargs: RowParallelLinear(*args, tp=tp, **kwargs)
 
 

@@ -43,6 +43,20 @@ engine's ``rng``): the output law is JAX's, the stream is not. The host
 reads the mask where JAX does (compaction and eviction), the tokens once a
 chunk, and, in speculative mode, the emitted counts with them.
 
+**Tensor parallelism.** On a model built with ``tp`` (``parallel/tensor.py``)
+every rank of the model group runs its own engine on the same requests,
+submitted in the same order; the caches hold the rank's heads (the OPT and
+LLaMA shared cache, T5's self cache and per-slot cross K/V). There is no
+GSPMD to keep the ranks together, so every host decision (admission and slot
+choice, compaction, eviction and defrag, the harvest, the speculative
+acceptance counts) must come out the same on every rank, or the ranks'
+collectives part and the group hangs. They do, because they read only the
+logits, which ``gather_vocab`` gives every rank byte for byte, the mask, and
+draws from the generator, which must be seeded alike on every rank (the
+default, seed 0, is; the engine checks it with one all_reduce at
+construction). A ``VideoFeatureCache`` beside it encodes the same misses in
+the same LRU order on every rank.
+
 Every LM serving mode of the port runs here: bf16, fp32, ``int8_lm``,
 ``int8_kv`` (the cache carries ``k_scale``/``v_scale``, which admission,
 compaction and the zeroing treat as k and v), ``int8_vision`` and
@@ -58,11 +72,13 @@ path, as in JAX; K5 under ``flash`` gives such a row 0 instead.
 from __future__ import annotations
 
 import dataclasses
+import zlib
 from collections import deque
 from typing import TYPE_CHECKING, Callable, Hashable, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from ..configs import OPTConfig, T5Config
@@ -161,6 +177,19 @@ def _residual_draw(x, a_row, drafts, gamma: int, noise):
     return (x_sel + noise(x_sel)).argmax(dim=-1)
 
 
+def _check_shared_generator(generator: torch.Generator, tp) -> None:
+    """Raise ``ValueError`` unless every rank of the model group holds a
+    generator in the same state (one all_reduce MAX of a hash of it and of
+    its negation): the ranks draw the sampling noise and the speculative
+    acceptance from it, and must draw alike."""
+    h = zlib.crc32(generator.get_state().numpy().tobytes())
+    both = torch.tensor([h, -h], dtype=torch.int64, device=generator.device)
+    tp.all_reduce(both, dist.ReduceOp.MAX)
+    if int(both[0]) != -int(both[1]):
+        raise ValueError("the ranks of the model group hold generators in different states: seed one alike on "
+                         "every rank (torch.Generator(device=...).manual_seed(seed), the seed shared)")
+
+
 def _compact_cache(cache: dict, delta: int) -> None:
     """Shift the shared cache left by ``delta`` slots, in place: every live
     window ends at ``cache['index']``, so the shift is uniform. Buffers roll
@@ -195,7 +224,10 @@ class ContinuousBatchingEngine:
     belongs to static batching. Output rows are token-identical to isolated
     ``generate`` calls for the same request (fp32; bf16 as the model's
     kernels give it). The engine runs on the model's device; ``generator``
-    (default: one seeded with 0 on that device) feeds sampling.
+    (default: one seeded with 0 on that device) feeds sampling. On a
+    tensor-parallel model every rank of the model group builds its engine
+    with a generator in the same state and submits the same requests in the
+    same order (``ValueError`` at construction for generators that differ).
     """
 
     def __init__(
@@ -220,10 +252,6 @@ class ContinuousBatchingEngine:
     ):
         if feature_loader is not None and feature_cache is None:
             raise ValueError("feature_loader requires feature_cache")
-        if getattr(model, "tp", None) is not None:
-            raise NotImplementedError(
-                "the serving engine does not run a tensor-parallel model: every rank would have to keep one "
-                "admission schedule; it waits for the tensor-parallel serving slice")
         tcfg = model.config.text_config
         self._is_t5 = isinstance(tcfg, T5Config)
         if not self._is_t5 and not isinstance(tcfg, OPTConfig) and not hasattr(tcfg, "num_key_value_heads"):
@@ -301,6 +329,8 @@ class ContinuousBatchingEngine:
         self._device = next(model.parameters()).device
         self._dtype = model.compute_dtype
         self._generator = _seeded_generator(generator, self._device)
+        if getattr(model, "tp", None) is not None:
+            _check_shared_generator(self._generator, model.tp)
         self._noise = gumbel_noise(self._generator)
         self._queue: deque[Request] = deque()
         self._next_rid = 0
@@ -397,8 +427,10 @@ class ContinuousBatchingEngine:
         tcfg = self.model.config.text_config
         dev = self._device
         if self._is_t5:
-            shape = (tcfg.num_decoder_layers, self.max_slots, self.max_len, tcfg.num_heads, tcfg.d_kv)
-            cross = (tcfg.num_decoder_layers, self.max_slots, self.max_prompt_len, tcfg.num_heads, tcfg.d_kv)
+            lm_tp = self.model.language_model.tp  # the rank's heads under tensor parallelism
+            heads = tcfg.num_heads // (lm_tp.size if lm_tp else 1)
+            shape = (tcfg.num_decoder_layers, self.max_slots, self.max_len, heads, tcfg.d_kv)
+            cross = (tcfg.num_decoder_layers, self.max_slots, self.max_prompt_len, heads, tcfg.d_kv)
             kw = dict(dtype=self._dtype, device=dev)
             self._cache = {
                 "index": 0,
@@ -412,7 +444,8 @@ class ContinuousBatchingEngine:
             self._next_tok = torch.full((self.max_slots,), self.gen_cfg.pad_token_id, dtype=torch.int64,
                                         device=dev)
         else:
-            self._cache = init_cache(tcfg, self.max_slots, self.max_len, dtype=self._dtype, device=dev)
+            self._cache = init_cache(tcfg, self.max_slots, self.max_len, dtype=self._dtype, device=dev,
+                                     tp=getattr(self.model, "tp", None))
             self._logits = torch.zeros(self.max_slots, tcfg.vocab_size, dtype=self._dtype, device=dev)
         if self._spec is not None:
             if self._is_t5:

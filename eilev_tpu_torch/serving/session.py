@@ -21,7 +21,11 @@ changed:
 
 Decoder-only (OPT-family) LMs, greedy decoding. The session runs on its
 model's device; the host reads one flag a decode step (the eos exit), a
-chunk's tokens once a chunk in ``turn_stream``.
+chunk's tokens once a chunk in ``turn_stream``. On a tensor-parallel model
+(``tp``) every rank of the model group runs its own session on the same
+turns: the cache holds the rank's heads, and the host's reads come from the
+gathered logits, the same bytes on every rank, so the ranks append, decode
+and stop alike.
 """
 
 from __future__ import annotations
@@ -51,9 +55,6 @@ class ChatSession:
     ):
         if not isinstance(model.config.text_config, OPTConfig):
             raise ValueError("ChatSession supports decoder-only (OPT-family) LMs")
-        if getattr(model, "tp", None) is not None:
-            raise NotImplementedError("ChatSession does not run a tensor-parallel model: it waits for the "
-                                      "tensor-parallel serving slice")
         if generation_config.num_beams > 1 or generation_config.do_sample:
             raise ValueError("ChatSession is greedy-only (beam/sampling re-prefill)")
         if generation_config.has_logits_processors:
@@ -88,7 +89,7 @@ class ChatSession:
 
     def _fresh_cache(self):
         return init_cache(self.model.config.text_config, 1, self.max_len, dtype=self.model.compute_dtype,
-                          device=self._device)
+                          device=self._device, tp=self.model.tp)
 
     def _lcp(self, full_ids: np.ndarray) -> int:
         n = min(len(self._ids), len(full_ids))

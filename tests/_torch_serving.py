@@ -47,18 +47,21 @@ def _serving_modes(mod, cfg, modes: dict):
     return mod.replace(cfg, text_config=text, vision_config=vision)
 
 
-def make_world(text_model: str = "opt", seed: int = 3, dtype=None, modes: dict = None) -> SimpleNamespace:
+def make_world(text_model: str = "opt", seed: int = 3, dtype=None, modes: dict = None,
+               geometry: dict = None) -> SimpleNamespace:
     """Both packages' models on one numpy weight tree. ``dtype`` bf16 builds
     both at a bf16 compute over the fp32 weights (the JAX model's
     ``dtype``, the port's ``param_dtype=float32``). ``modes`` (see
     :func:`_serving_modes`) turns the int8 serving modes on: the float tree
-    is quantized by the JAX package's functions and loaded into both."""
+    is quantized by the JAX package's functions and loaded into both.
+    ``geometry`` goes to both packages' ``tiny_config`` (``hidden``,
+    ``heads``, ``vocab_size``, ...)."""
     from eilev_tpu.ops import quantization as jq
 
-    modes = modes or {}
-    float_cfg = configs.tiny_config(text_model=text_model)
+    modes, geometry = modes or {}, geometry or {}
+    float_cfg = configs.tiny_config(text_model=text_model, **geometry)
     cfg = _serving_modes(configs, float_cfg, modes)
-    tcfg = _serving_modes(tconfigs, tconfigs.tiny_config(text_model=text_model), modes)
+    tcfg = _serving_modes(tconfigs, tconfigs.tiny_config(text_model=text_model, **geometry), modes)
     img, q = cfg.vision_config.image_size, cfg.num_query_tokens
 
     def make_request(rseed, extra_text=0, n_videos=1):
@@ -92,7 +95,7 @@ def make_world(text_model: str = "opt", seed: int = 3, dtype=None, modes: dict =
     model.load_state_dict(params_from_jax(params, tcfg), strict=True)
     model.requires_grad_(False).eval()
     pad = cfg.text_config.pad_token_id if text_model == "t5" else 1
-    return SimpleNamespace(cfg=cfg, jmodel=jmodel, variables={"params": params}, model=model,
+    return SimpleNamespace(cfg=cfg, tcfg=tcfg, jmodel=jmodel, variables={"params": params}, model=model,
                            make_request=make_request, pad=pad, t5=text_model == "t5")
 
 

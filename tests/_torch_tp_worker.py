@@ -1,5 +1,6 @@
-"""The rank side of tests/test_torch_parallel_tp.py and
-tests/test_torch_parallel_tp_generate.py (one process of a 2-rank gloo group
+"""The rank side of tests/test_torch_parallel_tp.py,
+tests/test_torch_parallel_tp_generate.py, tests/test_torch_parallel_tp_serving.py
+and tests/test_torch_parallel_tp_int8.py (one process of a 2-rank gloo group
 on the CPU, every rank on one model axis of 2) and of
 tests/test_torch_parallel_tp_train.py (4 ranks: data 2 x model 2). It
 imports torch and the port only (no jax), so that a spawned rank starts in
@@ -158,6 +159,149 @@ def generate_main(rank, init_file, out_dir, models, inputs, cli_runs):
         mains = {"generate_narration_texts": generate_narration_texts.main, "icl_eval": icl_eval.main}
         for name, argv in cli_runs:
             mains[name](argv + ["--model_parallel", str(RANKS), "--device", "cpu"])
+        torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+# ---------------------------------------------------------------------------
+# tests/test_torch_parallel_tp_serving.py: the engine, the feature cache,
+# ChatSession and serve --model_parallel
+# ---------------------------------------------------------------------------
+
+
+def drive(eng, requests, depth: int = 2) -> dict:
+    """Keep ``depth`` requests queued while any remain (staggered submits:
+    slots never all drain); {rid: tokens}."""
+    done, pending, steps = {}, [dataclasses.replace(r) for r in requests], 0
+    while pending or not eng.idle:
+        while pending and len(eng._queue) < depth:
+            eng.submit(pending.pop(0))
+        done.update((c.rid, torch.from_numpy(c.tokens)) for c in eng.step())
+        steps += 1
+        assert steps < 300
+    return done
+
+
+def _engine_cases(models, cases) -> dict:
+    """Each engine case ``name -> (model name, generation kwargs, engine
+    kwargs, requests, feature-cache capacity or 0, generator seed or None)``
+    on this rank's model: its rows, stats, and its cache's counters and key
+    order."""
+    from eilev_tpu_torch.generation import GenerationConfig
+    from eilev_tpu_torch.serving import ContinuousBatchingEngine, VideoFeatureCache
+
+    out = {}
+    for name, (model_name, gen_kw, eng_kw, requests, capacity, seed) in cases.items():
+        model = models[model_name]
+        kw = dict(eng_kw)
+        if capacity:
+            kw["feature_cache"] = VideoFeatureCache(model, capacity=capacity, bucket=2)
+        if seed is not None:
+            kw["generator"] = torch.Generator().manual_seed(seed)
+        eng = ContinuousBatchingEngine(model, GenerationConfig(**gen_kw), **kw)
+        out[name] = {"rows": drive(eng, requests), "stats": dict(eng.stats)}
+        if capacity:
+            cache = kw["feature_cache"]
+            out[name]["cache"] = (cache.hits, cache.misses, cache.evictions, list(cache._store))
+    return out
+
+
+def _chat(model, turns, gen_kw, **kw) -> list:
+    """ChatSession's replies to ``turns`` ((ids, videos, vim) of the whole
+    conversation so far; each reply is appended to the next turn's ids)."""
+    from eilev_tpu_torch.generation import GenerationConfig
+    from eilev_tpu_torch.serving import ChatSession
+
+    sess = ChatSession(model, GenerationConfig(**gen_kw), **kw)
+    replies, ids, vim = [], None, None
+    for extra_ids, videos, extra_vim in turns:
+        ids = extra_ids if ids is None else np.concatenate([ids, replies[-1].astype(ids.dtype), extra_ids])
+        vim = extra_vim if vim is None else np.concatenate([vim, np.zeros(len(replies[-1]), vim.dtype), extra_vim])
+        replies.append(sess.turn(ids, videos, vim))
+        assert sess.reused_last_turn == (len(replies) > 1)
+    return replies
+
+
+def serving_main(rank, init_file, out_dir, models, cases, chat, serve_argv):
+    """``models``: name -> (config, numpy params) of tiny VideoBLIPs;
+    ``cases`` the engine cases (:func:`_engine_cases`); ``chat`` (model
+    name, turns, generation kwargs, session kwargs); ``serve_argv`` the
+    serve CLI's arguments, run with ``--model_parallel 2`` and, on rank 1,
+    ``time.perf_counter`` running 3x slow. Saves the rows."""
+    mesh = _mesh(rank, init_file)
+    try:
+        tp_models = {name: _videoblip(*models[name], mesh.tp) for name in models}
+        out = _engine_cases(tp_models, cases)
+        name, turns, gen_kw, kw = chat
+        out["chat"] = _chat(tp_models[name], turns, gen_kw, **kw)
+        from eilev_tpu_torch.cli import serve
+
+        real = time.perf_counter
+        if rank == 1:  # a clock 3x slow: only rank 0's may decide the arrivals
+            time.perf_counter = lambda: real() / 3
+        try:
+            out["serve"] = serve.main(serve_argv + ["--model_parallel", str(RANKS), "--device", "cpu"])
+        finally:
+            time.perf_counter = real
+        torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+# ---------------------------------------------------------------------------
+# tests/test_torch_parallel_tp_int8.py: the int8 weight modes under tensor parallelism
+# ---------------------------------------------------------------------------
+
+#: the row-parallel layers whose int8 leaves the int8 test reads, by tower
+ROW_LAYERS = {
+    "opt_out_proj": "language_model.layers.0.self_attn.out_proj",
+    "opt_fc2": "language_model.layers.1.fc2",
+    "vit_projection": "vision_model.vision.layers.0.self_attn.projection",
+    "vit_fc2": "vision_model.vision.layers.1.mlp.fc2",
+    "qformer_dense": "qformer.layers.0.crossattention.output.dense",
+    "qformer_output": "qformer.layers.1.ffn_query.output",
+}
+
+
+def int8_main(rank, init_file, out_dir, model, inputs, dense, cli_argv):
+    """``model``: (config, numpy float params) of a tiny VideoBLIP-OPT;
+    ``inputs`` the generate batch; ``dense`` (weight (out, in), bias, x) of
+    one row-parallel W8A8 layer; ``cli_argv`` generate_narration_texts's
+    arguments, run with ``--model_parallel 2``. Quantizes this rank's model
+    in every int8 mode and saves the row-parallel layers' int8 leaves, the
+    greedy tokens, the layer's output and its int8 leaves."""
+    import torch.nn as nn
+
+    from eilev_tpu_torch.generation import GenerationConfig, generate
+    from eilev_tpu_torch.ops.quantization import Int8W8A8Dense, quantize_model_
+    from eilev_tpu_torch.parallel.tensor import RowParallelLinear
+
+    mesh = _mesh(rank, init_file)
+    try:
+        tp = mesh.tp
+        vb = _videoblip(*model, tp)
+        quantize_model_(vb, int8_lm=True, w8a8_prefill=True, int8_vision=True, int8_qformer=True)
+        mods = dict(vb.named_modules())
+        out = {"layers": {k: (mods[path].w8.clone(), mods[path].scale.clone(), mods[path].tp is tp)
+                          for k, path in ROW_LAYERS.items()}}
+        batch = {k: _t(inputs[k]) for k in ("input_ids", "attention_mask", "pixel_values", "video_input_mask")}
+        out["tokens"] = generate(vb, generation_config=GenerationConfig(max_new_tokens=5, pad_token_id=1), **batch)
+
+        weight, bias, x = (_t(a) for a in dense)
+        per, start = tp.block(weight.shape[1])
+        row = RowParallelLinear(per, weight.shape[0], tp=tp)
+        with torch.no_grad():
+            row.weight.copy_(weight[:, start:start + per])
+            row.bias.copy_(bias)
+        layer = Int8W8A8Dense.from_linear(row)
+        assert isinstance(row, nn.Linear) and layer.tp is tp
+        with torch.no_grad():
+            out["dense"] = {"y": layer(x[:, start:start + per]), "w8": layer.w8, "scale": layer.scale}
+
+        from eilev_tpu_torch.cli import generate_narration_texts
+
+        generate_narration_texts.main(cli_argv + ["--model_parallel", str(RANKS), "--device", "cpu"])
         torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
     finally:
         torch.distributed.destroy_process_group()

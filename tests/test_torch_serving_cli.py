@@ -62,13 +62,14 @@ def test_serve_cli_matches_jax(world, tmp_path, capsys, extra):  # noqa: F811
 
 
 def test_serve_cli_arrival_clock_and_refusals(world, tmp_path):  # noqa: F811
-    """An open-loop arrival rate gives the same rows; --model_parallel > 1 raises."""
+    """An open-loop arrival rate gives the same rows; --model_parallel > 1 in
+    one process raises, naming the torchrun it needs."""
     plain, timed = str(tmp_path / "plain.csv"), str(tmp_path / "timed.csv")
     serve.main(_serve_argv(world, plain) + ["--device", "cpu"])
     _, metrics = serve.main(_serve_argv(world, timed) + ["--arrival_rate", "50", "--device", "cpu"])
     assert _read(plain) == _read(timed)
     assert metrics["arrival_rate"] == 50.0
-    with pytest.raises(NotImplementedError, match="model_parallel"):
+    with pytest.raises(ValueError, match="--model_parallel 2 runs one process a shard"):
         serve.main(_serve_argv(world, plain) + ["--model_parallel", "2", "--device", "cpu"])
 
 
