@@ -99,7 +99,7 @@ final result line):
    timed alone; printed on a JSON line of their own (t5_shapes) with their
    launches in phase 8b's flash runs.
 3. Time each kernel against its twin with CUDA events, in turns (plain,
-   kernel, kernel, plain; warm-up, median of 20), each call queued behind a
+   kernel, kernel, plain; warm-up, median of 10), each call queued behind a
    device sleep so that the events measure device time, then one PyTorch
    call of the same function where there is one (scaled_dot_product_attention
    with the kernel's mask and scale; none for K4 and K6), and compute each kernel's
@@ -470,12 +470,46 @@ final result line):
    timed as in 3 beside SDPA and the bound. A JSON line
    "tensor_parallel_serving" (printed after phase 14's); its time on each
    side.
+16. The tools around the model (the data-preparation, sentence and
+   analysis CLIs and the v1 chat demo), each sub-phase timed. (e) After
+   phase 4e, on phase 4's bf16 weights as the v1 class (a meta-device
+   module given the same tensors): demo/video_blip_demo.VideoBlipChat with
+   the word tokenizer, 10 frames (set_video where the native decoder
+   builds, else set_frames), two turns of sampling (temperature 0.7, top_p
+   0.9, 128 new tokens), each counted (K1 = 39, K2 = 32, K3 = 32 a one-token
+   forward) and token-identical to generate called directly with a
+   generator seeded with the dialogue's length; with top_k 1 each turn
+   against greedy generate (identical, or parting at a tie: top_k keeps
+   every token tied at the top). (d) Inside phase 7, on its bf16 module:
+   cli/ego4d/generate_std_sent and cli/epic_kitchens/transform_to_full_sent
+   run over TextLM._from_parts and a word tokenizer with LLaMA's ids, 16
+   rows in batches of 8, 64 new tokens, newline eos, each batch's prompts
+   one length: K3 = the layers a one-token forward, nothing else; each row
+   of the first batch against its prompt alone (first-step logits' cosine >
+   0.999, tokens identical or parting at a near-tie). (a)-(c) after phase
+   12, in a temporary directory of the checkout: a 1920x1080, 30 fps, 12 s
+   y4m video with four narrated actions (one rejected); (a)
+   cli/ego4d/extract_frames (main where the decoder builds, else extract()
+   over seeded clips of the same shape; decoder_available() and the build
+   error printed) to 8 frames at 448^2 on the card in png and raw and on
+   the CPU in png: the CSVs equal, raw equal to png, the card's frames
+   within one uint8 level of the CPU's (the share that differ printed),
+   clips/s and the decode, resize and write seconds; (b)
+   cli/epic_kitchens/epic_kitchens_extract_frames over the video symlinked
+   under EK-55's layout; (c) the split twice (byte-identical) and the
+   structured columns backfilled into the card's and the CPU's CSVs (the
+   same bytes, equal to (a)'s columns). (f) K1 at the chat's (10, 257,
+   16x88), K2 at each turn's prefill, K3 over each turn's cache and each
+   sentence tool's (also with left-padded rows) against their twins at
+   2e-2, timed as in 3 beside SDPA with the same mask and
+   the bound. JSON lines "data_tools" and "data_tools_shapes" (with their
+   launches in (d) and (e)).
 
 Prints every number tagged with the card's name and power limit, then the
 JSON line of the beam shapes' K3/K4 rows, the JSON line of the training
 variants, the JSON line of the decoding modes' kernel shapes, the JSON lines
 of K5's T5 forms, of the T5 phase, of serving, of phase 12, of phase 13, of
-phase 14 and of phase 15, then one JSON
+phase 14, of phase 15 and the two of phase 16, then one JSON
 line of per-kernel results (every body: the bf16 ones and the fp32 ones,
 whose launches come from phase 8, and K5's VideoMAE rows, whose launches
 come from phase 12; K6's rows also carry composite_ms), then the result line
@@ -502,6 +536,7 @@ import dataclasses
 import gc
 import json
 import os
+import pathlib
 import random
 import re
 import statistics
@@ -948,13 +983,13 @@ def _k5_causal_work(real, s, nh, hd, l, elem=2):
     return flops, nbytes
 
 
-def _decode_case(dev, g, da, shape: str, dtype=torch.bfloat16) -> SimpleNamespace:
+def _decode_case(dev, g, da, shape, dtype=torch.bfloat16) -> SimpleNamespace:
     """A stacked model-dtype cache of DECODE_SHAPES[shape] (or
-    BEAM_DECODE_SHAPES[shape] or SPEC_DECODE_SHAPES[shape]), its int8 copy
-    (quantize_kv), a query and the mid-decode keep-mask (slots past the
-    filled ones empty)."""
-    n_layers, b, s, filled, nh, hd, scale_query = {**DECODE_SHAPES, **BEAM_DECODE_SHAPES, **SPEC_DECODE_SHAPES,
-                                                   **TP_DECODE_SHAPES}[shape]
+    BEAM_DECODE_SHAPES[shape] or SPEC_DECODE_SHAPES[shape], or the dims
+    tuple ``shape`` itself), its int8 copy (quantize_kv), a query and the
+    mid-decode keep-mask (slots past the filled ones empty)."""
+    n_layers, b, s, filled, nh, hd, scale_query = shape if isinstance(shape, tuple) else {
+        **DECODE_SHAPES, **BEAM_DECODE_SHAPES, **SPEC_DECODE_SHAPES, **TP_DECODE_SHAPES}[shape]
     q = torch.randn(b, nh * hd, device=dev, generator=g).to(dtype)
     k5 = torch.randn(n_layers, b, s, nh, hd, device=dev, generator=g).to(dtype)
     v5 = torch.randn(n_layers, b, s, nh, hd, device=dev, generator=g).to(dtype)
@@ -1297,7 +1332,7 @@ def check_kernels(tag: str, dev: torch.device) -> list[dict]:
     return results
 
 
-def time_row(tag: str, r: dict, reps: int = 20) -> None:
+def time_row(tag: str, r: dict, reps: int = 10) -> None:
     """Time one kernel row in turns, plain first: plain, kernel, kernel,
     plain, then the library call twice (each the median of ``reps``), and
     fill in its times and bound. The closures are dropped after, so the test
@@ -2846,10 +2881,11 @@ def profile_request(tag: str, label: str, run) -> dict:
             "idle_share_vs_unprofiled": 1 - dev_us / 1e6 / wall}
 
 
-def run_llama(tag: str, dev: torch.device, launches: dict) -> None:
+def run_llama(tag: str, dev: torch.device, launches: dict, phase16: dict) -> None:
     """The LLaMA text-LM path at the Llama-2-7b widths, LLAMA_LAYERS deep (random bf16 weights):
     K5 on every long-prompt prefill layer, K3 (bf16) or K4 (int8) on every
-    decode step, then the int8 serving mode quantized in place."""
+    decode step, phase 16 (d) (the sentence tools, into ``phase16``), then
+    the int8 serving mode quantized in place."""
     from eilev_tpu_torch import configs
     from eilev_tpu_torch.generation.text_lm import _TextOnlyModule
     from eilev_tpu_torch.ops.attention import set_default_attention_impl
@@ -2887,6 +2923,9 @@ def run_llama(tag: str, dev: torch.device, launches: dict) -> None:
                    beam.variant(num_beams=4), lm_calls, bf16, reps=SECONDARY_REPS)
     launches["decode_attention_stacked_bf16 at text-LM beam-4"] = counts["decode_attention_stacked_bf16"]
     run_text_decoding_modes(tag, runs[1], lm_calls, launches)
+    t0 = time.perf_counter()
+    run_sentence_tools(tag, module, lm_calls, launches, phase16)
+    _phase16_took(tag, "(d)", t0)
 
     # prefill logits through K5 against the plain path on the same ids
     k5_logits = runs[1].prefill_logits()
@@ -6774,6 +6813,536 @@ def tps_check(tag: str, cfg, ranks: list, ref: dict) -> tuple[list, dict]:
     return rows_d, result
 
 
+# phase 16: the data-preparation and sentence tools and the v1 chat, the
+# tools a host without jax runs around the model. (a)'s synthetic Ego4D
+# world: one 1080p video at 30 fps, 12 s, whose four narrated actions (one
+# rejected) become 8-frame clips resized to 448^2 (twice the model's image
+# size); (d) runs the two sentence tools at the Llama-2-7b widths on phase
+# 7's module (16 rows, batch 8, 64 new tokens, newline eos; each batch's
+# prompts one length, since a left-padded bf16 row is NaN on the plain
+# prefill path, the reference's behaviour); (e) the v1 chat, two turns of
+# 128 sampled tokens on 10 frames
+DT_SIZE = (1920, 1080)
+DT_FPS = 30
+DT_SECONDS = 12
+DT_FRAMES = 8
+DT_TARGET = 448
+DT_SEED = 60
+DT_ACTIONS = (("take", "knife"), ("cut_(slice)", "onion_(bulb)"), ("open", "drawer"), ("wash", "plate"))
+DT_REJECTED = 2
+SENT_ROWS = 16
+SENT_BATCH = 8
+SENT_NEW = 64
+LLAMA_NEWLINE = 13
+CHAT_QUESTIONS = ("What is the camera wearer doing?", "What does the camera wearer do next?")
+CHAT_FRAMES = 10
+CHAT_NEW = 128
+
+
+def write_y4m(path: str, w: int, h: int, fps: int, seconds: int, seed: int, distinct: int = 4) -> None:
+    """A 4:2:0 y4m video of ``distinct`` seeded random frames, cycled."""
+    rng = np.random.default_rng(seed)
+    frames = [b"FRAME\n" + b"".join(rng.integers(16, 236, shape, dtype=np.uint8).tobytes()
+                                    for shape in ((h, w), (h // 2, w // 2), (h // 2, w // 2)))
+              for _ in range(distinct)]
+    with open(path, "wb") as f:
+        f.write(f"YUV4MPEG2 W{w} H{h} F{fps}:1 Ip A1:1 C420jpeg\n".encode())
+        for i in range(fps * seconds):
+            f.write(frames[i % distinct])
+
+
+def dt_world(root: str) -> dict:
+    """Phase 16's synthetic Ego4D world under ``root``: the video as
+    ``videos/<uid>.mp4``, fho_main.json and a split naming the video."""
+    videos = os.path.join(root, "videos")
+    os.makedirs(videos)
+    uid = "dtvideo0"
+    t0 = time.perf_counter()
+    write_y4m(os.path.join(videos, uid + ".mp4"), *DT_SIZE, DT_FPS, DT_SECONDS, DT_SEED)
+    actions = [{"is_rejected": j == DT_REJECTED, "is_valid_action": j != DT_REJECTED,
+                "narration_timestamp_sec": 2.0 + 2.5 * j, "narration_text": f"#C C does {verb} {noun} ",
+                "structured_verb": verb,
+                "frames": [{"frame_type": "pnr_frame",
+                            "boxes": [{"object_type": "object_of_change", "structured_noun": noun}]}]}
+               for j, (verb, noun) in enumerate(DT_ACTIONS)]
+    w = {"root": root, "videos": videos, "uid": uid, "kept": len(DT_ACTIONS) - 1,
+         "fho_main": os.path.join(root, "fho_main.json"), "split": os.path.join(root, "split.json"),
+         "video_write_s": time.perf_counter() - t0}
+    with open(w["fho_main"], "w") as f:
+        json.dump({"videos": [{"video_uid": uid, "annotated_intervals": [{"narrated_actions": actions}]}]}, f)
+    with open(w["split"], "w") as f:
+        json.dump({"split": "all", "videos": {uid: w["kept"]}}, f)
+    return w
+
+
+def synthetic_items(dataset, seed: int) -> list:
+    """What ``dataset`` yields, with seeded random clips of the video's size
+    (C, DT_FRAMES, H, W) in place of the decoder's."""
+    rng = np.random.default_rng(seed)
+    return [dict(action, **{k: v for k, v in ann.items() if k != "narrated_actions"}, clip_index=i,
+                 video=rng.integers(0, 256, (3, DT_FRAMES, DT_SIZE[1], DT_SIZE[0]), dtype=np.uint8))
+            for _, ann in dataset._paths for i, action in enumerate(ann["narrated_actions"])]
+
+
+def _csv_rows(path: str) -> list:
+    with open(path, newline="") as f:
+        return list(csv.DictReader(f))
+
+
+def dt_extract_ego4d(tag: str, dev, w: dict) -> dict:
+    """Phase 16 (a): the Ego4D extractor on the card in png and raw format
+    and on the CPU in png; the CSVs equal, the card's frames within one
+    uint8 level of the CPU's (raw equal to png), and the stage times."""
+    from eilev_tpu_torch.cli.ego4d import extract_frames
+    from eilev_tpu_torch.data.frame import load_frame_video
+    from eilev_tpu_torch.data.video_datasets import Ego4dFHOMainDataset
+    from eilev_tpu_torch.native.decoder import build_error, decoder_available
+
+    available = decoder_available()
+    print(f"[{tag}] phase 16 (a) decoder_available()={available}"
+          + ("" if available else f"; build error: {build_error()}"))
+
+    def args(out: str, fmt: str, device: str) -> list:
+        return ["--fho_main_path", w["fho_main"], "--split_path", w["split"], "--video_dir_path", w["videos"],
+                "--frames_dir", os.path.join(w["root"], out), "--num_subsample_frames", str(DT_FRAMES),
+                "--target_size", str(DT_TARGET), "--format", fmt, "--device", device]
+
+    dataset = Ego4dFHOMainDataset(w["fho_main"], w["split"], w["videos"], num_frames=DT_FRAMES)
+    t0 = time.perf_counter()
+    if available:
+        route = "the native decoder, main end to end"
+        stats = extract_frames.main(args("card_png", "png", str(dev)))
+        wall = time.perf_counter() - t0
+        items = list(dataset)
+    else:
+        route = "clips from a seeded generator through extract() (no decoder on this host)"
+        items = synthetic_items(dataset, DT_SEED)
+        t0 = time.perf_counter()
+        stats = extract_frames.extract(items, extract_frames.parse_args(args("card_png", "png", str(dev))), dev)
+        wall = time.perf_counter() - t0
+    raw = extract_frames.extract(items, extract_frames.parse_args(args("card_raw", "raw", str(dev))), dev)
+    cpu = extract_frames.extract(items, extract_frames.parse_args(args("cpu_png", "png", "cpu")),
+                                 torch.device("cpu"))
+    dirs = {name: os.path.join(w["root"], name) for name in ("card_png", "card_raw", "cpu_png")}
+    rows = _csv_rows(os.path.join(dirs["card_png"], "narrated_actions.csv"))
+    assert all(_csv_rows(os.path.join(d, "narrated_actions.csv")) == rows for d in dirs.values())
+    assert [r["frame_path"] for r in rows] == [f"{w['uid']}|{i}" for i in range(w["kept"])], rows
+    kept = [a for j, a in enumerate(DT_ACTIONS) if j != DT_REJECTED]
+    assert [(r["structured_verb"], r["structured_noun"]) for r in rows] == kept, rows
+    assert all(r["narration_text"] == r["narration_text"].strip() for r in rows)
+    differ = total = 0
+    for r in rows:
+        assert len(os.listdir(os.path.join(dirs["card_png"], r["frame_path"]))) == DT_FRAMES
+        assert os.listdir(os.path.join(dirs["card_raw"], r["frame_path"])) == [r["frame_path"] + ".npy"]
+        a, b, c = (load_frame_video(pathlib.Path(dirs[name]) / r["frame_path"]).astype(np.int16)
+                   for name in ("card_png", "cpu_png", "card_raw"))
+        assert a.shape == (3, DT_FRAMES, DT_TARGET, DT_TARGET), a.shape
+        assert np.array_equal(a, c), "raw frames differ from png"
+        assert int(np.abs(a - b).max()) <= 1, "the card's frames are more than one level off the CPU's"
+        differ, total = differ + int((a != b).sum()), total + a.size
+    out = {"route": route, "decoder_available": available, "clips": stats["clips"],
+           "clips_per_s": stats["clips"] / wall, "wall_s": wall, "decode_s": stats["decode_s"],
+           "resize_s": stats["resize_s"], "write_s": stats["write_s"], "raw_resize_s": raw["resize_s"],
+           "raw_write_s": raw["write_s"], "cpu_resize_s": cpu["resize_s"],
+           "share_of_pixels_one_level_off_cpu": differ / total, "video_write_s": w["video_write_s"]}
+    print(f"[{tag}] phase 16 (a) Ego4D extraction via {route}: {stats['clips']} clips of {DT_FRAMES} frames "
+          f"{DT_SIZE[0]}x{DT_SIZE[1]} -> {DT_TARGET}^2, png: clips_per_s={out['clips_per_s']} decode_s="
+          f"{stats['decode_s']} resize_s={stats['resize_s']} write_s={stats['write_s']}; raw: resize_s="
+          f"{raw['resize_s']} write_s={raw['write_s']}; the CPU's resize_s={cpu['resize_s']}; CSVs equal; "
+          f"frames within one uint8 level of the CPU run, share of pixels that differ={differ / total}")
+    return out
+
+
+def dt_extract_epic_kitchens(tag: str, dev, w: dict, available: bool) -> dict:
+    """Phase 16 (b): the EPIC-KITCHENS extractor on the card over (a)'s video
+    symlinked under EK-55's layout, two narrations."""
+    from eilev_tpu_torch.cli.epic_kitchens import epic_kitchens_extract_frames as ek
+    from eilev_tpu_torch.data.video_datasets import EpicKitchensDataset
+
+    ek55 = os.path.join(w["root"], "ek55")
+    os.makedirs(os.path.join(ek55, "videos", "train", "P01"))
+    os.symlink(os.path.join(w["videos"], w["uid"] + ".mp4"), os.path.join(ek55, "videos", "train", "P01",
+                                                                          "P01_01.MP4"))
+    ann = os.path.join(w["root"], "ek_annotation.csv")
+    sentences = ["The camera wearer opens the drawer.", "The camera wearer washes the plate."]
+    with open(ann, "w", newline="") as f:
+        writer = csv.writer(f)
+        writer.writerow(["video_id", "narration", "full_sent_narration", "verb", "noun", "narration_timestamp",
+                         "start_timestamp", "stop_timestamp"])
+        writer.writerow(["P01_01", "open drawer", sentences[0], "open", "drawer", "00:00:03.00", "00:00:02.00",
+                         "00:00:04.00"])
+        writer.writerow(["P01_01", "wash plate", f" {sentences[1]} ", "wash", "plate", "", "00:00:07.00",
+                         "00:00:09.00"])
+    argv = ["--annotation_path", ann, "--epic_kitchens_55_video_dir_path", ek55,
+            "--epic_kitchens_100_video_dir_path", os.path.join(w["root"], "ek100"),
+            "--frames_dir", os.path.join(w["root"], "ek_frames"), "--num_subsample_frames", str(DT_FRAMES),
+            "--target_size", str(DT_TARGET), "--device", str(dev)]
+    t0 = time.perf_counter()
+    if available:
+        stats = ek.main(argv)
+    else:
+        items = synthetic_items(EpicKitchensDataset(ann, ek55, os.path.join(w["root"], "ek100"),
+                                                    num_frames=DT_FRAMES), DT_SEED + 1)
+        stats = ek.extract(items, ek.parse_args(argv), dev, row=ek.epic_kitchens_row)
+    wall = time.perf_counter() - t0
+    rows = _csv_rows(os.path.join(w["root"], "ek_frames", "narrated_actions.csv"))
+    assert [r["narration_text"] for r in rows] == sentences, rows
+    assert [(r["frame_path"], r["structured_verb"], r["structured_noun"]) for r in rows] == [
+        ("P01_01|0", "open", "drawer"), ("P01_01|1", "wash", "plate")], rows
+    assert all(len(os.listdir(os.path.join(w["root"], "ek_frames", r["frame_path"]))) == DT_FRAMES for r in rows)
+    print(f"[{tag}] phase 16 (b) EPIC-KITCHENS extraction: {stats['clips']} clips in {wall} s, CSV rows and "
+          f"frame files as expected")
+    return {"clips": stats["clips"], "wall_s": wall}
+
+
+def dt_split_and_annotate(tag: str, w: dict) -> dict:
+    """Phase 16 (c): the split on (a)'s world, twice (byte-identical files;
+    every kept action in a split), and the structured columns backfilled
+    into the CSVs of (a)'s card and CPU runs (stripped of them): the two
+    outputs byte-identical and equal to (a)'s columns."""
+    from eilev_tpu_torch.cli.ego4d import add_structured_verb_noun, split_train_val_test
+
+    t0 = time.perf_counter()
+    files = []
+    for n in (1, 2):
+        out = os.path.join(w["root"], f"splits{n}")
+        splits = split_train_val_test.main([w["fho_main"], out, w["videos"]])
+        assert sum(sum(v.values()) for v in splits.values()) == w["kept"], splits
+        files.append([open(os.path.join(out, f"fho_main_{s}.json"), "rb").read() for s in ("train", "val", "test")])
+    assert files[0] == files[1], "the split is not deterministic"
+    annotated = []
+    for name in ("card_png", "cpu_png"):
+        rows = _csv_rows(os.path.join(w["root"], name, "narrated_actions.csv"))
+        bare = os.path.join(w["root"], f"bare_{name}.csv")
+        with open(bare, "w", newline="") as f:
+            writer = csv.DictWriter(f, [k for k in rows[0] if not k.startswith("structured_")])
+            writer.writeheader()
+            writer.writerows({k: v for k, v in r.items() if not k.startswith("structured_")} for r in rows)
+        out = os.path.join(w["root"], f"annotated_{name}.csv")
+        add_structured_verb_noun.main([w["fho_main"], bare, out])
+        annotated.append(open(out, "rb").read())
+        assert _csv_rows(out) == rows, "the backfilled columns differ from the extractor's"
+    assert annotated[0] == annotated[1]
+    secs = time.perf_counter() - t0
+    print(f"[{tag}] phase 16 (c) split (deterministic, {w['kept']} narrated actions) and annotation backfill "
+          f"(the card's and the CPU's CSVs give the same bytes) in {secs} s")
+    return {"split": json.loads(files[0][0]), "s": secs}
+
+
+class LlamaWordTokenizer(WordTokenizer):
+    """WordTokenizer with LLaMA's special ids (bos 1, eos 2, pad 0, the
+    newline 13); every batch it decodes is kept (``decoded``), so a caller of
+    ``TextLM.generate`` can read its tokens."""
+
+    bos_token_id = 1
+    eos_token_id = LLAMA_EOS
+    pad_token_id = 0
+
+    def __init__(self):
+        self.vocab = {"\n": LLAMA_NEWLINE}
+        self.decoded: list = []
+
+    def batch_decode(self, rows, skip_special_tokens: bool = True) -> list:
+        self.decoded.append(torch.as_tensor(np.asarray(rows)))
+        return super().batch_decode(rows, skip_special_tokens)
+
+
+def _sentence_world(root: str) -> dict:
+    """The two sentence tools' inputs: SENT_ROWS verb/noun rows (structured
+    classes with their parenthesised senses) and SENT_ROWS two-word phrases."""
+    verbs = ["take", "cut_(slice)", "open", "wash", "put", "pick", "hold", "move"]
+    nouns = ["knife", "onion_(bulb)", "drawer", "plate", "cup", "spoon", "door", "bowl"]
+    ann = os.path.join(root, "std_annotation.csv")
+    with open(ann, "w", newline="") as f:
+        writer = csv.DictWriter(f, ["frame_path", "narration_text", "structured_verb", "structured_noun"])
+        writer.writeheader()
+        for i in range(SENT_ROWS):
+            writer.writerow({"frame_path": f"v|{i}", "narration_text": f"#C C does {i}",
+                             "structured_verb": verbs[i % 8], "structured_noun": nouns[(3 * i) % 8]})
+    ek = os.path.join(root, "ek_phrases.csv")
+    with open(ek, "w", newline="") as f:
+        writer = csv.DictWriter(f, ["video_id", "narration"])
+        writer.writeheader()
+        for i in range(SENT_ROWS):
+            writer.writerow({"video_id": f"P01_{i:02d}",
+                             "narration": f"{verbs[i % 8].split('_')[0]} {nouns[(5 * i) % 8].split('_')[0]}"})
+    return {"std": ann, "ek": ek}
+
+
+def run_sentence_tools(tag: str, module, lm_calls: list, launches: dict, phase16: dict) -> None:
+    """Phase 16 (d), inside phase 7 on its bf16 module (the Llama-2-7b widths,
+    LLAMA_LAYERS deep): cli/ego4d/generate_std_sent and
+    cli/epic_kitchens/transform_to_full_sent ``run`` over
+    ``TextLM._from_parts`` and a word-level tokenizer with LLaMA's ids,
+    SENT_ROWS rows in batches of SENT_BATCH, SENT_NEW new tokens, newline
+    eos. Counted (K3 = the layers x one-token forwards, nothing else; the
+    short prompts take the plain prefill, as in JAX); each row of the first
+    batch held to the same prompt run alone: first-step logits within cosine
+    0.999, tokens equal or parting at a near-tie (NEAR_TIE)."""
+    from eilev_tpu_torch.cli.baselines.full_sent import PROMPT_TEMPLATE as STD_TEMPLATE
+    from eilev_tpu_torch.cli.baselines.full_sent import newline_config
+    from eilev_tpu_torch.cli.ego4d import generate_std_sent
+    from eilev_tpu_torch.cli.epic_kitchens import transform_to_full_sent
+    from eilev_tpu_torch.generation.text_lm import TextLM
+
+    n_layers = module.config.text_config.num_hidden_layers
+    rec: list = []
+    handle = module.language_model.register_forward_hook(lambda mod, args, out: rec.append(out[0][:, -1].float()))
+    result = {}
+    try:
+        with tempfile.TemporaryDirectory(dir=os.path.dirname(os.path.abspath(__file__))) as root:
+            world = _sentence_world(root)
+            tools = {
+                "generate_std_sent": (generate_std_sent, [
+                    "--annotation", world["std"], "--annotation_with_std_sent", os.path.join(root, "std.csv")],
+                    lambda rows: [STD_TEMPLATE % (r["structured_verb"].split("_", 1)[0],
+                                                  r["structured_noun"].split("_", 1)[0]) for r in rows]),
+                "transform_to_full_sent": (transform_to_full_sent, [
+                    "--annotation", world["ek"], "--output", os.path.join(root, "full.csv")],
+                    lambda rows: [transform_to_full_sent.PROMPT_TEMPLATE % r["narration"] for r in rows]),
+            }
+            for name, (cli, argv, prompts_of) in tools.items():
+                tok = LlamaWordTokenizer()
+                lm = TextLM._from_parts(module, tok)
+                args = cli.parse_args(["--model", "-", "--batch_size", str(SENT_BATCH), "--max_new_tokens",
+                                       str(SENT_NEW), *argv])
+                prompts = prompts_of(_csv_rows(argv[1]))
+                lengths = {len(tok(p)["input_ids"]) for p in prompts}
+                assert len(lengths) == 1, f"{name}: prompts of lengths {lengths}"
+                lm_calls.clear()
+                rec.clear()
+                reset_counters()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                rows = cli.run(args, lm)
+                torch.cuda.synchronize()
+                secs = time.perf_counter() - t0
+                counts = counters()
+                one_token = sum(1 for s_len, _ in lm_calls if s_len == 1)
+                want = dict.fromkeys(counters(), 0)
+                want["decode_attention_stacked_bf16"] = n_layers * one_token
+                print(f"[{tag}] phase 16 (d) {name}: {len(rows)} rows in batches of {SENT_BATCH} in {secs} s, "
+                      f"launches {counts}, one-token forwards {one_token}, first row {rows[0]}")
+                assert counts == want, (counts, want)
+                assert one_token >= 1 and all(bool(ok) for _, ok in lm_calls), "no decode step, or non-finite logits"
+                assert len(rows) == SENT_ROWS and all(r[("narration_text" if name == "generate_std_sent"
+                                                        else "full_sent_narration")].endswith(".") for r in rows)
+                batched, first = tok.decoded[0], rec[0]
+                cosines, shares = [], []
+                for r in range(SENT_BATCH):
+                    rec.clear()
+                    lm.generate([prompts[r]], newline_config(lm, args.max_new_tokens))
+                    cosines.append(torch.nn.functional.cosine_similarity(first[r], rec[0][0], dim=0).item())
+                    shares.append(compare_speculative(tag, f"phase 16 (d) {name} row {r} batched against alone",
+                                                      batched[r:r + 1], tok.decoded[-1], list(rec)))
+                print(f"[{tag}] phase 16 (d) {name}: each batched row's first-step logits against the prompt "
+                      f"alone: cosines {cosines}; rows with identical tokens {sum(shares)}/{SENT_BATCH}")
+                assert min(cosines) > 0.999, cosines
+                prompt_len = lengths.pop()
+                launches[f"decode_attention_stacked_bf16 at {name}"] = counts["decode_attention_stacked_bf16"]
+                result[name] = {"prompt_tokens": prompt_len, "slots": prompt_len + SENT_NEW, "s": secs,
+                                "one_token_forwards": one_token, "min_cosine": min(cosines),
+                                "rows_identical_alone": sum(shares)}
+    finally:
+        handle.remove()
+    phase16["sentences"] = result
+
+
+def run_v1_chat(tag: str, dev, model, launches: dict, phase16: dict) -> None:
+    """Phase 16 (e), on phase 4's bf16 model: the v1 chat
+    (demo/video_blip_demo.VideoBlipChat) over the same weights as the v1
+    class (a meta-device module given phase 4's tensors), the word
+    tokenizer, CHAT_FRAMES frames (through set_video where the decoder
+    builds, else set_frames). Two turns of sampling (temperature 0.7, top_p
+    0.9, CHAT_NEW tokens), each counted (K1 = 39, K2 = 32, K3 = 32 a
+    one-token forward) and equal to generate called directly with a
+    generator seeded with the dialogue's length; then with top_k 1, each
+    turn equal to greedy generate."""
+    from eilev_tpu_torch.demo.video_blip_demo import VideoBlipChat, read_video
+    from eilev_tpu_torch.generation import GenerationConfig, generate
+    from eilev_tpu_torch.models.video_blip_v1 import VideoBlipV1ForConditionalGeneration
+    from eilev_tpu_torch.native.decoder import decoder_available
+
+    cfg = model.config
+    v1 = VideoBlipV1ForConditionalGeneration(cfg, device="meta", dtype=torch.bfloat16)
+    v1.load_state_dict(model.state_dict(), strict=True, assign=True)
+    v1.eval()
+    calls = lm_forward_log(v1)
+    n_vit, n_lm, q = cfg.vision_config.num_hidden_layers, cfg.text_config.num_hidden_layers, cfg.num_query_tokens
+    chat = VideoBlipChat(v1, WordTokenizer())
+    with tempfile.TemporaryDirectory(dir=os.path.dirname(os.path.abspath(__file__))) as root:
+        if decoder_available():
+            path = os.path.join(root, "chat.y4m")
+            write_y4m(path, 320, 240, DT_FPS, DT_SECONDS, DT_SEED + 2)
+            route = "set_video (the native decoder)"
+            chat.set_video(path)
+            frames = read_video(path)
+        else:
+            route = "set_frames (seeded frames; no decoder on this host)"
+            frames = np.random.default_rng(DT_SEED + 2).integers(0, 256, (3, CHAT_FRAMES, 240, 320), dtype=np.uint8)
+            chat.set_frames(frames)
+    assert frames.shape[1] == CHAT_FRAMES and tuple(chat.pixel.shape) == (1, 3, CHAT_FRAMES, 224, 224)
+    turns = []
+    greedy_chat = VideoBlipChat(v1, chat.tokenizer)
+    greedy_chat.set_frames(frames)
+    greedy_chat.generation_config = dataclasses.replace(chat.generation_config, top_k=1)
+    for question in CHAT_QUESTIONS:
+        calls.clear()
+        reset_counters()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        reply = chat.respond(question)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = counters()
+        one_token = sum(1 for s_len, _ in calls if s_len == 1)
+        want = narration_counts(cfg, "decode_attention_stacked_bf16")
+        want["decode_attention_stacked_bf16"] = n_lm * one_token
+        assert counts == want, (counts, want)
+        assert one_token >= 1 and all(bool(ok) for _, ok in calls), "no decode step, or non-finite logits"
+        ids = torch.as_tensor(chat.tokenizer(" ".join(chat.dialogue[:-1]))["input_ids"], device=dev)[None]
+        direct = generate(v1, input_ids=ids, pixel_values=chat.pixel, generation_config=chat.generation_config,
+                          generator=torch.Generator(device=dev).manual_seed(len(chat.dialogue) - 1))
+        same = bool(torch.equal(direct, chat.last_tokens))
+        greedy_chat.respond(question)
+        g_ids = torch.as_tensor(greedy_chat.tokenizer(" ".join(greedy_chat.dialogue[:-1]))["input_ids"],
+                                device=dev)[None]
+        rec: list = []
+        handle = v1.language_model.register_forward_hook(lambda mod, args, out: rec.append(out[0][:, -1].float()))
+        try:
+            greedy = generate(v1, input_ids=g_ids, pixel_values=greedy_chat.pixel, generation_config=GenerationConfig(
+                max_new_tokens=CHAT_NEW, pad_token_id=chat.tokenizer.pad_token_id))
+        finally:
+            handle.remove()
+        turn = {"prompt_tokens": ids.shape[1], "k2_seq": q + ids.shape[1], "slots": q + ids.shape[1] + CHAT_NEW,
+                "one_token_forwards": one_token, "s": secs, "launches": counts, "same_as_generate": same}
+        print(f"[{tag}] phase 16 (e) v1 chat turn {len(turns) + 1} via {route}: {secs} s, launches {counts}, "
+              f"prompt {ids.shape[1]} tokens (K2 over {turn['k2_seq']}), one-token forwards {one_token}, tokens "
+              f"equal to generate with the generator seeded {len(chat.dialogue) - 1}: {same}; reply {reply[:80]!r}")
+        assert same, turn
+        # top_k 1 keeps every token tied at the top (bf16 logits tie), so a
+        # turn may leave greedy's argmax at an exact tie
+        turn["top_k_1_same_as_greedy"] = compare_speculative(
+            tag, f"phase 16 (e) v1 chat turn {len(turns) + 1} sampled with top_k 1 against greedy generate",
+            greedy_chat.last_tokens, greedy, rec)
+        turns.append(turn)
+    for i, turn in enumerate(turns, 1):
+        launches[f"packed_qkv_causal_attention at v1 chat turn {i}"] = turn["launches"]["packed_qkv_causal_attention"]
+        launches[f"decode_attention_stacked_bf16 at v1 chat turn {i}"] = \
+            turn["launches"]["decode_attention_stacked_bf16"]
+    launches["packed_qkv_attention at v1 chat"] = sum(t["launches"]["packed_qkv_attention"] for t in turns)
+    phase16["chat"] = {"route": route, "turns": [{k: v for k, v in t.items() if k != "launches"} for t in turns]}
+    del v1, chat, greedy_chat
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def check_data_tools_shapes(tag: str, dev, phase16: dict) -> list:
+    """Phase 16 (f): the kernels at the shapes (d) and (e) ran, against
+    their twins at 2e-2 and timed beside SDPA with the same mask and their
+    bound: K1 at the chat's (CHAT_FRAMES, 257, 16 x 88); K2
+    at each chat turn's prefill (1, 32 + prompt, 32 x 80), causal; K3 over
+    each chat turn's cache (the 32 layers, 1 row, prompt + 32 + CHAT_NEW
+    slots, half the new tokens in, 32 x 80; the split body) and over each
+    sentence tool's (LLAMA_LAYERS layers, SENT_BATCH rows, prompt +
+    SENT_NEW slots, 32 x 128, score-side scale; one block a (head, row)),
+    the latter also with every other row left-padded by 7 slots."""
+    from eilev_tpu_torch.ops import decode_attention as da
+    from eilev_tpu_torch.ops import fused_attention as fa
+
+    g = torch.Generator(device=dev).manual_seed(DT_SEED)
+    rows = []
+    b, s, nh, hd = CHAT_FRAMES, 257, 16, 88
+    qkv = torch.randn(b, s, 3 * nh * hd, device=dev, generator=g).to(torch.bfloat16)
+    q, k, v = qkv.view(b, s, 3, nh, hd).permute(2, 0, 3, 1, 4)
+    err = check_close(tag, f"phase 16 (f) K1 packed_qkv_attention ({b},{s},{nh}x{hd})",
+                      fa.packed_qkv_attention(qkv, nh, hd), fa.packed_qkv_attention_reference(qkv, nh, hd, hd**-0.5),
+                      2e-2)
+    rows.append({"name": "packed_qkv_attention at v1 chat", "shape": [b, s, nh, hd],
+                 "source": "eilev_tpu_torch/csrc/packed_attention.cu",
+                 "replaces": "eilev_tpu/ops/fused_attention.py:81",
+                 "max_abs_err": err, "per_call": 1,
+                 "run": lambda qkv=qkv, nh=nh, hd=hd: fa.packed_qkv_attention(qkv, nh, hd),
+                 "plain": lambda qkv=qkv, nh=nh, hd=hd: fa.packed_qkv_attention_reference(qkv, nh, hd, hd**-0.5),
+                 "library": lambda q=q, k=k, v=v, hd=hd: _sdpa(q, k, v, scale=hd**-0.5),
+                 "bound": bound(4 * b * nh * s * s * hd, 4 * b * s * nh * hd * 2)})
+    for i, turn in enumerate(phase16["chat"]["turns"], 1):
+        s, nh, hd = turn["k2_seq"], 32, 80
+        qkv = torch.randn(1, s, 3 * nh * hd, device=dev, generator=g).to(torch.bfloat16)
+        ones = torch.ones(1, s, dtype=torch.int32, device=dev)
+        q, k, v = qkv.view(1, s, 3, nh, hd).permute(2, 0, 3, 1, 4)
+        err = check_close(tag, f"phase 16 (f) K2 packed_qkv_causal_attention (1,{s},{nh}x{hd}) chat turn {i}",
+                          fa.packed_qkv_causal_attention(qkv, nh, hd, ones),
+                          fa.packed_qkv_causal_attention_reference(qkv, nh, hd, ones, hd**-0.5), 2e-2)
+        rows.append({"name": f"packed_qkv_causal_attention at v1 chat turn {i}", "shape": [1, s, nh, hd],
+                     "source": "eilev_tpu_torch/csrc/packed_attention.cu",
+                     "replaces": "eilev_tpu/ops/fused_attention.py:187", "max_abs_err": err, "per_call": 1,
+                     "run": lambda qkv=qkv, ones=ones, nh=nh, hd=hd: fa.packed_qkv_causal_attention(qkv, nh, hd, ones),
+                     "plain": lambda qkv=qkv, ones=ones, nh=nh, hd=hd: fa.packed_qkv_causal_attention_reference(
+                         qkv, nh, hd, ones, hd**-0.5),
+                     "library": lambda q=q, k=k, v=v, hd=hd: _sdpa(q, k, v, is_causal=True, scale=hd**-0.5),
+                     "bound": bound(4 * nh * hd * s * (s + 1) // 2, 4 * s * nh * hd * 2 + s * 4)})
+    decode = [(f"v1 chat turn {i}", (32, 1, t["slots"], t["slots"] - CHAT_NEW // 2, 32, 80, True), False)
+              for i, t in enumerate(phase16["chat"]["turns"], 1)]
+    decode += [(name, (LLAMA_LAYERS, SENT_BATCH, t["slots"], t["slots"] - SENT_NEW // 2, 32, 128, False), True)
+               for name, t in phase16["sentences"].items()]
+    for name, dims, left_pad in decode:
+        c = _decode_case(dev, g, da, dims)
+        n_layers, b, s, filled, nh, hd = c.dims
+        body = (f"the split, a cluster of {da.cluster_size(b, nh, s)}" if da.k3_split(b, nh, s)
+                else "one block a (head, row)")
+        print(f"[{tag}] phase 16 (f) K3 bf16 at {name}: the body rule k3_split(B={b}, H={nh}, S={s}) picks {body}")
+        masks = [("mid-decode", c.mask)]
+        if left_pad:
+            padded = c.mask.clone()
+            padded[::2, :7] = 0
+            masks.append(("mid-decode, every other row left-padded by 7", padded))
+        errs = [check_close(tag, f"phase 16 (f) K3 decode_attention_stacked bf16 at {name} ({n_layers},{b},{s} "
+                                 f"with {filled} filled,{nh}x{hd}) layer {n_layers - 1} {label} mask",
+                            da.decode_attention_stacked(c.q, c.kb, c.vb, mask, n_layers - 1, **c.kw),
+                            da.decode_attention_stacked_reference(c.q, c.kb, c.vb, mask, n_layers - 1, **c.kw), 2e-2)
+                for label, mask in masks]
+        sd_q = c.q.view(b, nh, 1, hd)
+        sd_mask = c.mask.bool()[:, None, None, :]
+        scale = hd**-0.5
+        rows.append({"name": f"decode_attention_stacked_bf16 at {name}", "shape": list(dims[:-1]),
+                     "source": "eilev_tpu_torch/csrc/decode_attention.cu",
+                     "replaces": "eilev_tpu/ops/decode_attention.py:117", "max_abs_err": max(errs),
+                     "run": _k3_step(da, c), "plain": _k3_step(da, c, plain=True), "per_call": n_layers,
+                     "library": lambda c=c, sd_q=sd_q, sd_mask=sd_mask, scale=scale: [
+                         _sdpa(sd_q, c.k5[i].transpose(1, 2), c.v5[i].transpose(1, 2), attn_mask=sd_mask, scale=scale)
+                         for i in range(c.dims[0])],
+                     "bound": _decode_bound(c, int8=False)})
+    for r in rows:
+        time_row(tag, r)
+    return rows
+
+
+def run_data_tools(tag: str, dev, phase16: dict) -> tuple[dict, list]:
+    """Phase 16 (a)-(c) in a temporary directory inside the repository's
+    checkout (deleted after), then (f). Returns the phase's numbers and
+    (f)'s rows."""
+    t = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=os.path.dirname(os.path.abspath(__file__))) as root:
+        w = dt_world(root)
+        ego4d = dt_extract_ego4d(tag, dev, w)
+        t = _phase16_took(tag, "(a)", t)
+        phase16["ego4d"] = ego4d
+        phase16["epic_kitchens"] = dt_extract_epic_kitchens(tag, dev, w, ego4d["decoder_available"])
+        t = _phase16_took(tag, "(b)", t)
+        phase16["split_and_annotation"] = dt_split_and_annotate(tag, w)
+        t = _phase16_took(tag, "(c)", t)
+    rows = check_data_tools_shapes(tag, dev, phase16)
+    _phase16_took(tag, "(f)", t)
+    return phase16, rows
+
+
+def _phase16_took(tag: str, part: str, t0: float) -> float:
+    now = time.perf_counter()
+    print(f"[{tag}] phase 16 {part} took {now - t0} s")
+    return now
+
+
 def main(argv: list) -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke: no CUDA device; this script runs only on a GPU")
@@ -6825,6 +7394,10 @@ def main(argv: list) -> int:
         t0 = time.perf_counter()
         run_decoding_modes(tag, model, lm_calls, runs, launches)
         print(f"[{tag}] decoding modes phase took {time.perf_counter() - t0} s")
+        phase16: dict = {}
+        t0 = time.perf_counter()
+        run_v1_chat(tag, dev, model, launches, phase16)
+        _phase16_took(tag, "(e)", t0)
         gc.collect()
         torch.cuda.empty_cache()
         t = time.perf_counter()
@@ -6833,7 +7406,7 @@ def main(argv: list) -> int:
         del model, lm_calls, runs  # free the VideoBLIP model before the 13.5 GB LLaMA
         gc.collect()
         torch.cuda.empty_cache()
-        run_llama(tag, dev, launches)
+        run_llama(tag, dev, launches, phase16)
         t = took("LLaMA", t)
         gc.collect()
         torch.cuda.empty_cache()
@@ -6857,6 +7430,9 @@ def main(argv: list) -> int:
         kernels = kernels + videomae_rows
         gc.collect()
         torch.cuda.empty_cache()
+        t = time.perf_counter()
+        data_tools, data_rows = run_data_tools(tag, dev, phase16)
+        t = took("phase 16 (a)-(c) and (f)", t)
         with tempfile.TemporaryDirectory(dir=os.path.dirname(os.path.abspath(__file__))) as tp_root:
             tp_rows, tensor_parallel, tps_rows, tp_serving = run_tensor_parallel(tag, dev, tp_root)
         gc.collect()
@@ -6910,6 +7486,11 @@ def main(argv: list) -> int:
     # the kernels at its shapes with their launches a rank in (a) and (b)
     print(json.dumps({"tensor_parallel_serving": tp_serving, "tensor_parallel_serving_shapes": tps_rows},
                      default=str))
+    # phase 16: the data tools, the sentence tools and the v1 chat; the
+    # kernels at their shapes with their launches in (d) and (e)
+    print(json.dumps({"data_tools": data_tools}, default=str))
+    print(json.dumps({"data_tools_shapes": [dict(r, route="cuda", launches=launches.get(r["name"], 0))
+                                            for r in data_rows]}))
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                               "count": torch.cuda.device_count()}}))

@@ -1,7 +1,7 @@
 """The baselines' sentence-ifier: a verb and a noun -> "The camera wearer
 <verbs> the <noun>." through a local decoder-only LM (``TextLM``), shared by
-``majority_generate_full_sent`` and ``videomae_generate_full_sent`` (the
-JAX scripts each hold a copy of it)."""
+``majority_generate_full_sent``, ``videomae_generate_full_sent`` and
+``cli/ego4d/generate_std_sent`` (the JAX scripts each hold a copy of it)."""
 
 from __future__ import annotations
 
@@ -45,18 +45,29 @@ def load_lm(args: argparse.Namespace):
     return TextLM(args.model, int8=args.int8_lm, device=args.device)
 
 
+def newline_config(lm, max_new_tokens: int):
+    """Greedy decoding of up to ``max_new_tokens`` tokens that ends at the
+    LM's newline token, padded with its pad id."""
+    from ...generation import GenerationConfig
+
+    newline_id = lm.tokenizer("\n", add_special_tokens=False)["input_ids"][0]
+    return GenerationConfig(max_new_tokens=max_new_tokens, eos_token_id=(newline_id,),
+                            pad_token_id=lm.tokenizer.pad_token_id)
+
+
+def first_sentence(text: str) -> str:
+    """The generated text up to its first '.', with the '.'."""
+    return text.strip().split(".", maxsplit=1)[0] + "."
+
+
 def sentenceify(args: argparse.Namespace, lm, head_word: bool) -> list[dict]:
     """Read ``--predictions_csv``, add the ``generated`` and ``ground_truth``
     columns (greedy, up to 64 tokens, ending at a newline) and write
     ``--output_csv``; ``head_word`` reduces a class to its head word (split on
     '_'). Returns the rows."""
     from ...data.text import generate_chunks
-    from ...generation import GenerationConfig
 
-    newline_id = lm.tokenizer("\n", add_special_tokens=False)["input_ids"][0]
-    gen_cfg = GenerationConfig(
-        max_new_tokens=64, eos_token_id=(newline_id,), pad_token_id=lm.tokenizer.pad_token_id
-    )
+    gen_cfg = newline_config(lm, 64)
 
     def word(value: str, default: str) -> str:
         value = value or default
@@ -74,7 +85,7 @@ def sentenceify(args: argparse.Namespace, lm, head_word: bool) -> list[dict]:
                        for r in batch]
             texts = lm.generate(prompts, gen_cfg)
             for row, text in zip(batch, texts):
-                row["generated"] = text.strip().split(".", maxsplit=1)[0] + "."
+                row["generated"] = first_sentence(text)
                 row["ground_truth"] = row["ground_truth_narration_text"]
             writer.writerows(batch)
     print(f"wrote {len(rows)} rows to {args.output_csv}")

@@ -20,7 +20,9 @@ Parity targets (the original EILeV's eilev/data/frame.py):
     shuffle of example frames for ablations.
 
 Design deltas from the reference (intentional):
-  - torch-free: frames load via imageio into numpy uint8;
+  - torch-free: PNG frames are read and written by Pillow (the JAX package's
+    imageio reads and writes through the same Pillow plugin; the card's host
+    has Pillow and no imageio) into numpy uint8;
   - explicit ``rng: random.Random`` injection instead of the global ``random``
     module, so sampling is reproducible per worker/epoch without monkeypatching
     (the reference's tests patch ``random.sample`` to get determinism).
@@ -60,16 +62,27 @@ def load_frame_video(frames_dir: Path) -> np.ndarray:
                              f"{video.dtype} {video.shape}")
         return video
 
-    import imageio.v3 as iio
-
     files = sorted(
         frames_dir.glob("*.png"),
         key=lambda p: int(p.stem.rsplit("|", 1)[-1]),
     )
     if not files:
         raise FileNotFoundError(f"no frames under {frames_dir}")
-    frames = np.stack([iio.imread(f) for f in files])  # (T, H, W, C)
+    frames = np.stack([_read_png(f) for f in files])  # (T, H, W, C)
     return np.ascontiguousarray(frames.transpose(3, 0, 1, 2))
+
+
+def _read_png(path: Path) -> np.ndarray:
+    from PIL import Image
+
+    with Image.open(path) as image:
+        return np.asarray(image)
+
+
+def _write_png(path: Path, frame: np.ndarray) -> None:
+    from PIL import Image
+
+    Image.fromarray(frame).save(path, format="PNG")
 
 
 def save_frame_video(
@@ -92,20 +105,15 @@ def save_frame_video(
         return
     if fmt != "png":
         raise ValueError(f"unknown frame format {fmt!r}; supported: png, raw")
-    import imageio.v3 as iio
-
     thwc = video_u8.transpose(1, 2, 3, 0)
     jobs = [
         (clip_dir / f"{frame_path}|{i}.png", frame) for i, frame in enumerate(thwc)
     ]
     if pool is None:
         for path, frame in jobs:
-            iio.imwrite(path, frame, extension=".png")
+            _write_png(path, frame)
     else:
-        futures = [
-            pool.submit(iio.imwrite, path, frame, extension=".png")
-            for path, frame in jobs
-        ]
+        futures = [pool.submit(_write_png, path, frame) for path, frame in jobs]
         for f in futures:
             f.result()
 

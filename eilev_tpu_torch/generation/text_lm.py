@@ -116,6 +116,15 @@ class TextLM:
             self.config = self.module.config
         self.tokenizer = load_tokenizer(path)
 
+    @classmethod
+    def _from_parts(cls, module: _TextOnlyModule, tokenizer) -> "TextLM":
+        """A TextLM over an already built text-only ``module`` and a
+        ``tokenizer``, without a checkpoint directory or ``transformers``."""
+        lm = cls.__new__(cls)
+        lm.module, lm.config, lm.tokenizer = module, module.config, tokenizer
+        lm.device = next(module.parameters()).device
+        return lm
+
     @torch.inference_mode()
     def generate(
         self,

@@ -88,3 +88,56 @@ def test_chip_smoke_imports_no_jax():
     src = (Path(__file__).resolve().parents[1] / "chip_smoke.py").read_text()
     banned = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|eilev_tpu)\b", re.MULTILINE)
     assert not banned.findall(src)
+
+
+# the data-preparation, sentence and analysis tools, the v1 chat demo and the
+# job generators
+DATA_TOOLS = {
+    "eilev_tpu_torch.cli.ego4d.extract_frames", "eilev_tpu_torch.cli.ego4d.split_train_val_test",
+    "eilev_tpu_torch.cli.ego4d.add_structured_verb_noun", "eilev_tpu_torch.cli.ego4d.generate_std_sent",
+    "eilev_tpu_torch.cli.epic_kitchens.epic_kitchens_extract_frames",
+    "eilev_tpu_torch.cli.epic_kitchens.transform_to_full_sent", "eilev_tpu_torch.demo.video_blip_demo",
+    "eilev_tpu_torch.cli.explore_data", "eilev_tpu_torch.cli.select_qualitative_examples",
+    "eilev_tpu_torch.cli.plot_results", "eilev_tpu_torch.launch.launch_lib",
+    "eilev_tpu_torch.launch.submit_extract_frames", "eilev_tpu_torch.launch.submit_generate_full_sent",
+    "eilev_tpu_torch.launch.submit_generate_narration_texts", "eilev_tpu_torch.launch.submit_icl_eval",
+    "eilev_tpu_torch.launch.submit_train_v2", "eilev_tpu_torch.launch.submit_videomae_train",
+}
+
+
+def test_data_tools_import_no_jax_and_no_optional_packages():
+    """Every new tool is probed, and importing them loads no jax, flax or
+    eilev_tpu, nor transformers, safetensors or spaCy (neither is on the
+    card's host: a tokenizer is loaded where it is used), nor matplotlib or
+    scikit-learn (imported where a figure is drawn)."""
+    assert DATA_TOOLS <= set(PORT_MODULES), sorted(DATA_TOOLS - set(PORT_MODULES))
+    root = Path(__file__).resolve().parents[1]
+    probe = _PROBE + 'print("PLOTTING:" + ",".join(sorted(m for m in sys.modules if m.split(".")[0] in '
+    probe += '("matplotlib", "sklearn"))))\n'
+    proc = subprocess.run([sys.executable, "-c", probe, *sorted(DATA_TOOLS)], cwd=root, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().splitlines()[-3:] == ["FORBIDDEN:", "IMPORTED_AT_USE:", "PLOTTING:"], proc.stdout
+
+
+def test_device_entry_points_default_to_the_card():
+    """The tools that compute on a device run on the card unless asked for
+    the CPU."""
+    from eilev_tpu_torch.cli.ego4d import extract_frames, generate_std_sent
+    from eilev_tpu_torch.cli.epic_kitchens import epic_kitchens_extract_frames, transform_to_full_sent
+    from eilev_tpu_torch.demo import video_blip_demo
+
+    required = {
+        extract_frames: ["--fho_main_path", "f", "--split_path", "s", "--video_dir_path", "v", "--frames_dir", "o",
+                         "--num_subsample_frames", "8"],
+        epic_kitchens_extract_frames: ["--annotation_path", "a", "--epic_kitchens_55_video_dir_path", "a",
+                                       "--epic_kitchens_100_video_dir_path", "b", "--frames_dir", "o",
+                                       "--num_subsample_frames", "8"],
+        generate_std_sent: ["--model", "m", "--annotation", "a", "--annotation_with_std_sent", "o"],
+        transform_to_full_sent: ["--model", "m", "--annotation", "a", "--output", "o"],
+        video_blip_demo: ["--model", "m"],
+    }
+    for module, argv in required.items():
+        assert module.parse_args(argv).device == "cuda", module.__name__
+        assert module.parse_args(argv + ["--device", "cpu"]).device == "cpu"
+    assert video_blip_demo.LavisChat.__init__.__defaults__ == ("cuda",)
