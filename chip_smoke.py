@@ -10,6 +10,8 @@ final result line):
    kernels from eilev_tpu_torch/csrc with nvcc, one process per source (five),
    all started together, beside one more nvcc of fused_mlp.cu whose
    -Xptxas -v report (each K6 kernel's registers and spills) is printed.
+   Phases 2c-2e, which need only the decode, flash and fp32 attention
+   libraries, run while the others still build; phase 2 runs after.
 2. Check each kernel against its plain PyTorch twin in bf16 at the shapes of
    its path: K1 (packed ViT attention) at (136, 257, 3*1408), 16 heads x 88;
    K1 also past its whole-row limit, at S = 385, 577 (a 336^2 ViT) and 1,025
@@ -30,13 +32,16 @@ final result line):
    B=1 and 4, 1,984 queries into a 2,048-slot cache, 32 x 128, causal,
    score-side scale, the cache mask (empty tail; at B=4 rows left-padded to
    1,984/1,900/1,800/1,700 real tokens, whose padded rows must be exactly
-   0), (b) the T5 form (hd 64, (H, S, L) bias, padding mask, no scale), (c)
-   the Q-Former cross shape (32 queries over 2,056 keys, 12 x 64, padded
-   keys), (d) hd 88 at S=L=257 with no mask, (e) a q-side scale, hd 80,
-   q_offset > 0, (f) B=2, 300 queries into 320 slots, 32 x 128, causal, row
-   0 left-padded by 150 (a wholly masked key tile; its padded rows exactly
-   0); (a) and (f) must take K5's Hopper body (launches_sm90 + 1 each),
-   (b)-(e) its mma.sync body; K6 (LayerNorm -> MLP)
+   0), (b) the T5 form (hd 64, an fp32 (H, S, L) bias, padding mask, no
+   scale) and (b') the same with the bias in bf16 padded rows, (c) the
+   Q-Former cross shape (32 queries over 2,056 keys, 12 x 64, padded keys),
+   (d) hd 88 at S=L=257 with no mask, (e) a q-side scale, hd 80, q_offset >
+   0, (f) B=2, 300 queries into 320 slots, 32 x 128, causal, row 0
+   left-padded by 150 (a wholly masked key tile; its padded rows exactly 0),
+   (g) one query over 766 keys, 32 heads over 8 x 128, an fp32 bias, a row
+   with no kept key (exactly 0); each call's body by counter (k5_counted):
+   (a), (b'), (c) and (f) K5's Hopper body (launches_sm90), (b), (d) and (e)
+   its mma.sync body, (g) its decode body (launches_decode); K6 (LayerNorm -> MLP)
    at the ViT MLP shape (136, 257, 1408 -> 6144), activations of unit scale
    from their own generator (K6_SEED).
    Tolerance atol = rtol = 2e-2 for K1-K3, K5 and K6 (one bf16 ulp of a
@@ -86,18 +91,24 @@ final result line):
    printed on a JSON line of their own (decoding_mode_shapes) with their
    launches in the mode runs (none over the target's speculative cache: its
    verify pass is plain attention, as JAX's is XLA).
-2e. K5's T5 forms (T5_K5_SHAPES, 32 heads x 64, no scale), bf16 (the
-   mma.sync body) and fp32: the encoder's self-attention over 766 tokens
-   with the (32, 766, 766) relative bias at B = 1 and at B = 4 with a padded
-   row, the decoder's cached step (1 query over a layer slice of the
+2e. K5's T5 forms (T5_K5_SHAPES, 32 heads x 64, no scale), bf16 and fp32:
+   the encoder's self-attention over 766 tokens with the (32, 766, 766)
+   relative bias in the T5 module's layout (rows padded to 768 keys) at B =
+   1 and at B = 4 with a padded row (bf16: the Hopper body with its bias
+   tiles), the decoder's cached step (1 query over a layer slice of the
    33-slot stacked cache, the (32, 1, 33) bias, the filled-slot mask
    expanded to (B, L)) and its cross step (1 query over 766 encoder keys, a
-   padded row), each against its twin at 2e-2 / 1e-4 and timed as in 3
-   beside one SDPA call with the bias and mask folded into one float mask
-   and beside its bound (the bias counted as the fp32 the wrapper hands the
-   kernel); the wrapper's fp32 copy of the encoder's permuted bf16 bias
-   timed alone; printed on a JSON line of their own (t5_shapes) with their
-   launches in phase 8b's flash runs.
+   padded row) (bf16: the decode body), each body by counter, against its
+   twin at 2e-2 / 1e-4 and timed as in 3 beside one SDPA call with the bias
+   and mask folded into one float mask and beside its bound (the bias
+   counted in the dtype the kernel reads; the bf16 rows also carry
+   bound_ms_fp32_bias, the count of the fp32 copy the parent's wrapper
+   made); K5 at the Q-Former's self and cross attentions
+   (QFORMER_K5_SHAPES: 68 videos, 32 queries over 32 and 2,056 keys, 12 x
+   64, the Hopper body), held and timed the same way beside SDPA; the T5
+   module's bias build at the encoder timed alone; printed on a JSON line of
+   their own (t5_shapes) with their launches in phase 8b's flash runs. The
+   encoder (B = 1) and cross (B = 4) rows also go on the kernels line.
 3. Time each kernel against its twin with CUDA events, in turns (plain,
    kernel, kernel, plain; warm-up, median of 10), each call queued behind a
    device sleep so that the events measure device time, then one PyTorch
@@ -239,8 +250,9 @@ final result line):
    nothing else; every T5 attention plain), p50 of SECONDARY_REPS warm requests,
    videos/s, peak memory, a torch.profiler pass at batch 1; (b) the same
    under "flash", restored after (K5 for each Q-Former attention and encoder
-   layer, two a decoder layer and step, on every T5 attention with its
-   bias), the encoder states'
+   layer on its Hopper body, two a decoder layer and step on its decode
+   body, by counter, on every T5 attention with its bias), the encoder
+   states'
    min cosine against (a)'s > 0.999, each row's tokens equal to (a)'s or
    parting at a near-tie (NEAR_TIE); (c) beam-5 at batch 1 (the reorder
    gathers the cross K/V too), p50; (d) the seq2seq classify of the
@@ -368,23 +380,24 @@ final result line):
    from-scratch generate (NEAR_TIE) and timed beside it, and at the fp32
    2-layer cut identical; (d) eilev-blip2-flan-t5-xl in bf16 at phase 8b's
    T5_LAYERS cut, 8 staggered requests through a 4-slot engine (a 64-slot
-   decoder cache), under "auto" and "flash" (K5 = 30 an admission + 24 a
-   decoder step):
+   decoder cache), under "auto" and "flash" (K5 = 30 an admission on its
+   Hopper body + 24 a decoder step on its decode body, by counter):
    rows against isolated generate of the prompt and of the prompt padded as
    the engine encodes it (NEAR_TIE); under "auto" a request admitted into a
    slot that decoded while empty may decode from NaN (token 0; the
    reference's behaviour), under "flash" none; K5 at the engine's self (4,
-   1, 64) and cross (4, 1, 832) steps held and timed; the fp32 2-layer cut
+   1, 64) and cross (4, 1, 832) steps held, on the decode body, and timed;
+   the fp32 2-layer cut
    identical. A JSON line "serving" with the legs' numbers and the phase's
    launches, which the kernels line's rows also carry (serving_launches).
 12. The evaluation encoders and the VideoMAE baseline: (a) K5 at VideoMAE's
    form, (8, 1,568, 12 x 64), bidirectional, no mask, no bias, bf16 (the
-   mma.sync body) and fp32, against its twin at 2e-2 / F32_TOL and timed as
+   Hopper body at head dim 64) and fp32, against its twin at 2e-2 / F32_TOL and timed as
    in 3 beside SDPA and its bound (two rows of the kernels line); VideoMAE-base
    (12 x 768, 16 frames x 224^2, random weights from a seed) predicting at
    batch 8 in fp32 under "auto" (plain, no K5) and "flash" (K5's fp32 body,
    12 launches): the same argmax, max |delta| printed; a bf16 forward under
-   "flash" (12 bf16 launches); cli.baselines.videomae_train.run at its
+   "flash" (12 bf16 launches, on the Hopper body); cli.baselines.videomae_train.run at its
    defaults (batch 8, fp32, "auto", the augmentation on the card) for 3
    steps: s/step, finite losses, peak memory, no kernel launch. (b)
    roberta-large, all-mpnet-base-v2 and the stsb-roberta-large cross-encoder
@@ -518,7 +531,9 @@ come from phase 12; K6's rows also carry composite_ms), then the result line
 With ``--kernel-times DIR`` it imports eilev_tpu_torch from DIR instead (an
 unpacked parent commit, or this tree), builds K3-K6's sources and the fp32
 attention body there, and only times K3/K4 at the three decode shapes, K5
-at (a), batch 1 and 4, the fp32 attention body at K1 (2 and 136, 257,
+at (a), batch 1 and 4, K5's bf16 forms of the T5 path, the T5 engine,
+VideoMAE and the Q-Former (each bias as that tree's T5 module builds it,
+and the encoder's also as a contiguous fp32 bias: the kernel alone), the fp32 attention body at K1 (2 and 136, 257,
 16x88), K2 (2, 1 and 4, 766, 32x80) and K5 (a) batch 1 and 4, and K6 on
 phase 2's and 2b's inputs (bf16 at 136 frames, fp32 at 8 and 136), twice each
 (printing which K3 body the tree's rule picks, where it has one), then
@@ -654,6 +669,16 @@ T5_K5_SHAPES = {
     "T5 cross, batch 4": (4, 1, 766),
 }
 T5_DECODE_FILLED = 13
+# K5 at the Q-Former's attentions (phase 2e), 12 heads x 64, scale 64^-0.5:
+# (videos, queries, keys) of a batch-4 T5 request's 4 x 17 videos, the 32
+# query tokens over themselves and over 8 frames x 257 ViT tokens
+# the rows of phase 2e that also go on the kernels line (K5's bf16 Hopper
+# body with the bias tiles and its decode body)
+K5_T5_LINE_ROWS = ("flash_attention at T5 encoder, batch 1", "flash_attention at T5 cross, batch 4")
+QFORMER_K5_SHAPES = {
+    "Q-Former self, 68 videos": (4 * 17, 32, 32),
+    "Q-Former cross, 68 videos": (4 * 17, 32, 8 * 257),
+}
 DECODING_MODES = {
     "contrastive (penalty_alpha 0.6, top_k 4)": (CONTRASTIVE_KNOBS, {}),
     f"stream (greedy, chunk {STREAM_CHUNK})": ({}, {"chunk_tokens": STREAM_CHUNK}),
@@ -777,9 +802,11 @@ CKPT_SEED = 10
 K6_SEED = 6
 K6_COMPOSITE = ("models/vision.py MixedLayerNorm + VisionMLP (layer_norm2, fc1, gelu, fc2): what the ViT "
                 "runs in K6's place, several library calls, not one")
-# device sleep before each timed call: ~20 ms at the H100's 1.98 GHz, longer
-# than the host takes to enqueue a 32-layer decode step of the plain twin
+# device sleep before each timed call (median_ms): at most ~20 ms at the
+# H100's 1.98 GHz, longer than the host takes to enqueue a 32-layer decode
+# step of the plain twin; at least ~2 ms, several single-kernel enqueues
 SLEEP_CYCLES = 40_000_000
+MIN_SLEEP_CYCLES = 4_000_000
 
 
 def card_tag() -> str:
@@ -821,16 +848,25 @@ def random_init_(model: torch.nn.Module, generator: torch.Generator, std: float 
 
 def median_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     """Median device time of ``fn`` by CUDA events. Each timed call is queued
-    behind a device sleep (~20 ms), so the host has enqueued all of its launches
+    behind a device sleep, so the host has enqueued all of its launches
     before the start event fires: the events bracket device work, not the
-    host's launch overhead (which exceeds a decode-attention launch)."""
+    host's launch overhead (which exceeds a decode-attention launch). The
+    sleep is 4x the longest host time of a warm-up call (which includes any
+    wait that ``fn`` makes on the device), from MIN_SLEEP_CYCLES (~2 ms) to
+    SLEEP_CYCLES (~20 ms): a single kernel waits ~2 ms, a 32-layer plain
+    decode step the full 20."""
+    longest = 0.0
     for _ in range(warmup):
+        t0 = time.perf_counter()
         fn()
+        longest = max(longest, time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    cycles = int(min(SLEEP_CYCLES, max(MIN_SLEEP_CYCLES, 4 * longest * SLEEP_CYCLES / 0.02)))
     times = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(SLEEP_CYCLES)
+        torch.cuda._sleep(cycles)
         start.record()
         fn()
         end.record()
@@ -843,7 +879,8 @@ def _counter_refs() -> dict:
     """Each launch counter by name: (wrapper, attribute). K1, K2, K5 and K6
     count every launch in ``launches`` and their fp32 body's also in
     ``launches_f32`` (K1 and K2 their bf16 two-pass body's, past S = 2,048,
-    in ``launches_two_pass``); K3 counts by cache (bf16, fp32), K4 every int8-cache
+    in ``launches_two_pass``; K5 its bf16 Hopper body's in ``launches_sm90``
+    and its decode body's in ``launches_decode``); K3 counts by cache (bf16, fp32), K4 every int8-cache
     launch and those with an fp32 query also in ``launches_int8_f32``."""
     from eilev_tpu_torch.ops import decode_attention as da
     from eilev_tpu_torch.ops import flash_attention as fl
@@ -863,6 +900,7 @@ def _counter_refs() -> dict:
         "decode_attention_stacked_int8_f32": (da.decode_attention_stacked, "launches_int8_f32"),
         "flash_attention": (fl.flash_attention, "launches"),
         "flash_attention_sm90": (fl.flash_attention, "launches_sm90"),
+        "flash_attention_decode": (fl.flash_attention, "launches_decode"),
         "flash_attention_f32": (fl.flash_attention, "launches_f32"),
         "ln_mlp": (fm.ln_mlp, "launches"),
         "ln_mlp_f32": (fm.ln_mlp, "launches_f32"),
@@ -956,6 +994,32 @@ def _sdpa(q, k, v, **kw):
     """One PyTorch call of the same function: torch's fused attention on
     (B, H, S, D) views. The yardstick only; the port never calls it."""
     return torch.nn.functional.scaled_dot_product_attention(q, k, v, **kw)
+
+
+K5_BODY_NAMES = {"sm90": "Hopper", "decode": "decode", "mma": "mma.sync", "f32": "fp32"}
+
+
+def k5_counted(body: str, call, label: str = ""):
+    """One K5 call, synchronised; the launch counters must say it ran
+    ``body`` (ops.flash_attention.k5_body's name) and no other body."""
+    from eilev_tpu_torch.ops import flash_attention as fl
+
+    names = ("launches", "launches_sm90", "launches_decode", "launches_f32")
+    before = [getattr(fl.flash_attention, c) for c in names]
+    out = call()
+    torch.cuda.synchronize()
+    after = [getattr(fl.flash_attention, c) for c in names]
+    want = [before[0] + 1, before[1] + (body == "sm90"), before[2] + (body == "decode"), before[3] + (body == "f32")]
+    assert after == want, f"K5 {label}: counters {after}, expected {want} for the {body} body"
+    return out
+
+
+def padded_bias(nh: int, s: int, l: int, dev, g, dtype=torch.bfloat16, std: float = 2.0):
+    """An (nh, s, l) bias as the T5 module builds it (models/t5.py:
+    compute_bias): the [..., :l] view of an (nh, s, l rounded up to 8)
+    buffer in the model dtype."""
+    buf = torch.randn(nh, s, -(-l // 8) * 8, device=dev, generator=g) * std
+    return buf.to(dtype)[:, :, :l]
 
 
 def _k5_inputs(dev, g, b, s, l, nh, hd, real=None, tail_empty=False):
@@ -1226,18 +1290,15 @@ def check_kernels(tag: str, dev: torch.device) -> list[dict]:
     # p (a relative 2^-8) and no more.
     errs = []
 
-    def k5_case(label, q, k, v, kw5, sm90, padded=()):
-        """One K5 call against the twin (2e-2); which body ran must match
-        ``sm90``; the first ``padded[i]`` query rows of batch row i are
-        wholly left-padded and must be exactly 0."""
-        before = fl.flash_attention.launches_sm90
-        out = fl.flash_attention(q, k, v, **kw5)
-        torch.cuda.synchronize()
-        took = fl.flash_attention.launches_sm90 - before
-        assert took == int(sm90), f"K5 {label}: Hopper body launches {took}, expected {int(sm90)}"
+    def k5_case(label, q, k, v, kw5, body, padded=()):
+        """One K5 call against the twin (2e-2); the body the counters say ran
+        must be ``body`` (k5_body's name); the first ``padded[i]`` query rows
+        of batch row i are wholly left-padded and must be exactly 0."""
+        assert fl.k5_body(q, k, v, kw5.get("bias")) == body, (label, body)
+        out = k5_counted(body, lambda: fl.flash_attention(q, k, v, **kw5), label)
         for i, n in enumerate(padded):
             assert bool((out[i, :n] == 0).all()), f"K5 {label}: a left-padded row is not exactly 0"
-        errs.append(check_close(tag, f"K5 {label} ({'Hopper' if sm90 else 'mma.sync'} body)",
+        errs.append(check_close(tag, f"K5 {label} ({K5_BODY_NAMES[body]} body)",
                                 out, fl.flash_attention_reference(q, k, v, **kw5), 2e-2))
 
     for b_a, real in ((1, (LLAMA_PROMPT,)), (4, LLAMA_REAL)):
@@ -1245,33 +1306,48 @@ def check_kernels(tag: str, dev: torch.device) -> list[dict]:
         # causal, score-side scale, the cache mask (empty tail, left padding)
         q, k, v, mask = _k5_inputs(dev, g, b_a, LLAMA_PROMPT, LLAMA_CACHE, 32, 128, real, tail_empty=True)
         k5_case(f"(a) LLaMA prefill B={b_a} S=1984 L=2048 32x128 causal real={real}", q, k, v,
-                dict(padding_mask=mask, causal=True, scale=128**-0.5), True,
+                dict(padding_mask=mask, causal=True, scale=128**-0.5), "sm90",
                 padded=[LLAMA_PROMPT - n for n in real])
     del q, k, v
-    # (b) the T5 form: hd 64, an (H, S, L) bias, a padding mask, no scale
+    # (b) the T5 form with an fp32 (H, S, L) bias: hd 64, a padding mask, no
+    # scale (the mma.sync body, which reads the bias through its strides)
     q, k, v, mask = _k5_inputs(dev, g, 2, 1024, 1024, 32, 64)
     mask[1, 900:] = 0
     bias = torch.randn(32, 1024, 1024, device=dev, generator=g) * 2.0
-    k5_case("(b) T5 form B=2 S=L=1024 32x64 bias + padding, no scale", q, k, v,
-            dict(padding_mask=mask, bias=bias), False)
+    k5_case("(b) T5 form B=2 S=L=1024 32x64 fp32 bias + padding, no scale", q, k, v,
+            dict(padding_mask=mask, bias=bias), "mma")
+    # (b') the same with the bias in bf16 padded rows, as the T5 module
+    # builds it (the Hopper body, the bias tiles by TMA)
+    bias = padded_bias(32, 1024, 1024, dev, g)
+    k5_case("(b') T5 form B=2 S=L=1024 32x64 bf16 padded-row bias + padding, no scale", q, k, v,
+            dict(padding_mask=mask, bias=bias), "sm90")
     del bias
     # (c) the Q-Former cross attention: 32 queries over 8 x 257 keys, 12 x 64
     q, k, v, mask = _k5_inputs(dev, g, 17, 32, 2056, 12, 64)
     mask[::3, 1800:] = 0
     k5_case("(c) Q-Former cross B=17 q=32 kv=2056 12x64 padded keys", q, k, v,
-            dict(padding_mask=mask, scale=64**-0.5), False)
+            dict(padding_mask=mask, scale=64**-0.5), "sm90")
     # (d) hd 88 at S = L = 257, no mask (the ViT shape)
     q, k, v, _ = _k5_inputs(dev, g, 136, 257, 257, 16, 88)
-    k5_case("(d) ViT B=136 S=L=257 16x88 no mask", q, k, v, dict(scale=88**-0.5), False)
+    k5_case("(d) ViT B=136 S=L=257 16x88 no mask", q, k, v, dict(scale=88**-0.5), "mma")
     # (e) q-side scale, hd 80, causal with q_offset > 0
     q, k, v, _ = _k5_inputs(dev, g, 4, 256, 1022, 32, 80)
     k5_case("(e) q-side scale B=4 S=256 L=1022 q_offset=766 32x80 causal", q, k, v,
-            dict(causal=True, q_offset=766, scale=80**-0.5, scale_query_first=True), False)
+            dict(causal=True, q_offset=766, scale=80**-0.5, scale_query_first=True), "mma")
     # (f) 300 queries into 320 slots, row 0 left-padded by 150: its key tile
     # 0 is wholly masked, which the Hopper body skips
     q, k, v, mask = _k5_inputs(dev, g, 2, 300, 320, 32, 128, (150, 300), tail_empty=True)
     k5_case("(f) B=2 S=300 L=320 32x128 causal, row 0 left-padded by 150", q, k, v,
-            dict(padding_mask=mask, causal=True, scale=128**-0.5), True, padded=(150,))
+            dict(padding_mask=mask, causal=True, scale=128**-0.5), "sm90", padded=(150,))
+    # (g) one query over 766 keys, GQA 32 over 8 at hd 128, score-side
+    # scale, a fp32 bias, row 0 with no kept key (exactly 0): the decode body
+    q, k, v, mask = _k5_inputs(dev, g, 4, 1, 766, 32, 128)
+    k, v = k[:, :, :8].contiguous(), v[:, :, :8].contiguous()
+    mask[0] = 0
+    mask[2, 400:] = 0
+    k5_case("(g) decode B=4 S=1 L=766 32 over 8 x128, fp32 bias, row 0 keeps no key", q, k, v,
+            dict(padding_mask=mask, bias=torch.randn(32, 1, 766, device=dev, generator=g), scale=128**-0.5),
+            "decode", padded=(1,))
 
     # timed at (a), batch 1; batch 4 is printed beside it
     timed = {}
@@ -1292,7 +1368,7 @@ def check_kernels(tag: str, dev: torch.device) -> list[dict]:
             "library": lib, "per_call": 1,
             "bound": bound(*_k5_causal_work(real, LLAMA_PROMPT, 32, 128, LLAMA_CACHE)),
         }
-    results.append({"name": "flash_attention", "source": "eilev_tpu_torch/csrc/flash_attention.cu",
+    results.append({"name": "flash_attention", "body": "Hopper", "source": "eilev_tpu_torch/csrc/flash_attention.cu",
                     "replaces": "eilev_tpu/ops/flash_attention.py:157",
                     "max_abs_err": max(errs), **timed[1]})
     results_b4 = {"name": "flash_attention at batch 4", "max_abs_err": max(errs), **timed[4]}
@@ -1494,11 +1570,11 @@ def check_decoding_mode_shapes(tag: str, dev: torch.device) -> list[dict]:
 
 def _t5_k5_case(dev, g, name: str, dtype):
     """q, k, v and K5's arguments at T5_K5_SHAPES[name]: the (H, S, L) bias in
-    the model dtype (as the model computes it), the decoder's k/v as a layer
-    slice of a stacked cache and its filled-slot mask expanded to (B, L), the
-    cross k/v as a layer slice of the stacked encoder K/V; the last row of a
-    batch of 4 padded from key 700 (encoder) or 500 (cross). Returns
-    (q, k, v, kwargs, real keys a row)."""
+    the model dtype and layout (as the T5 module builds it: padded rows), the
+    decoder's k/v as a layer slice of a stacked cache and its filled-slot
+    mask expanded to (B, L), the cross k/v as a layer slice of the stacked
+    encoder K/V; the last row of a batch of 4 padded from key 700 (encoder)
+    or 500 (cross). Returns (q, k, v, kwargs, real keys a row)."""
     b, s, l = T5_K5_SHAPES[name]
     nh, hd = 32, 64
     q = torch.randn(b, s, nh, hd, device=dev, generator=g).to(dtype)
@@ -1507,14 +1583,14 @@ def _t5_k5_case(dev, g, name: str, dtype):
     if "encoder" in name:
         k = torch.randn(b, l, nh, hd, device=dev, generator=g).to(dtype)
         v = torch.randn(b, l, nh, hd, device=dev, generator=g).to(dtype)
-        bias = (torch.randn(nh, s, l, device=dev, generator=g) * 2.0).to(dtype)
+        bias = padded_bias(nh, s, l, dev, g, dtype)
         if b > 1:
             mask[-1, 700:] = 0
     else:
         kv = torch.randn(2, b, l, nh, hd, device=dev, generator=g).to(dtype)
         k, v = kv[0], kv[1]
         if "self" in name:
-            bias = (torch.randn(nh, s, l, device=dev, generator=g) * 2.0).to(dtype)
+            bias = padded_bias(nh, s, l, dev, g, dtype)
             mask = (torch.arange(l, device=dev) < T5_DECODE_FILLED).to(torch.int32)[None].expand(b, l)
         else:
             mask[-1, 500:] = 0
@@ -1544,13 +1620,20 @@ def _k5_bias_row(name: str, q, k, v, kw5: dict, err: float, bnd: tuple) -> dict:
 
 
 def check_t5_shapes(tag: str, dev: torch.device) -> list[dict]:
-    """Phase 2e: K5 at the T5 path's forms (T5_K5_SHAPES), bf16 (the
-    mma.sync body) and fp32 (attention_f32.cu's body, TF32 off): each
-    against its twin at 2e-2 and F32_TOL, then timed as in 3 beside one SDPA
-    call with the bias and the mask folded into one float attn_mask (scale
-    1) and beside its bound: q, k, v, out in the model dtype, the bias as the
-    fp32 the wrapper hands the kernel, the mask's int32, each once; only the
-    real keys' k/v and products counted."""
+    """Phase 2e: K5 at the T5 path's forms (T5_K5_SHAPES), bf16 (the encoder
+    on the Hopper body with its bias tiles, the one-query steps on the decode
+    body) and fp32 (attention_f32.cu's body, TF32 off), and at the Q-Former's
+    self and cross attentions (QFORMER_K5_SHAPES, bf16, the Hopper body):
+    each against its twin at 2e-2 and F32_TOL, the body by counter, then
+    timed as in 3 beside one SDPA call (the bias and the mask folded into one
+    float attn_mask, scale 1; the Q-Former's with its scale) and beside its
+    bound: q, k, v, out in the model dtype, the bias in the dtype the kernel
+    reads (the bf16 rows' bound with the bias counted as fp32, the count the
+    parent's wrapper handed its kernel, printed beside it), the mask's int32,
+    each once; only the real keys' k/v and products counted. Then the T5
+    module's bias build at the encoder (compute_bias, once a forward) timed
+    alone."""
+    from eilev_tpu_torch.models.t5 import T5Attention
     from eilev_tpu_torch.ops import flash_attention as fl
 
     g = torch.Generator(device=dev).manual_seed(14)
@@ -1559,28 +1642,40 @@ def check_t5_shapes(tag: str, dev: torch.device) -> list[dict]:
         f32 = dtype == torch.float32
         for name in T5_K5_SHAPES:
             q, k, v, kw5, real = _t5_k5_case(dev, g, name, dtype)
-            before = (fl.flash_attention.launches, fl.flash_attention.launches_f32, fl.flash_attention.launches_sm90)
-            out = fl.flash_attention(q, k, v, **kw5)
-            torch.cuda.synchronize()
-            after = (fl.flash_attention.launches, fl.flash_attention.launches_f32, fl.flash_attention.launches_sm90)
-            assert after == (before[0] + 1, before[1] + int(f32), before[2]), (name, before, after)
+            body = "f32" if f32 else "sm90" if "encoder" in name else "decode"
+            out = k5_counted(body, lambda: fl.flash_attention(q, k, v, **kw5), name)
             shape = None if kw5["bias"] is None else tuple(kw5["bias"].shape)
-            err = check_close(tag, f"K5 {name}{' fp32' if f32 else ''} (32x64, bias {shape})",
+            err = check_close(tag, f"K5 {name}{' fp32' if f32 else ''} (32x64, bias {shape}, "
+                                   f"{K5_BODY_NAMES[body]} body)",
                               out, fl.flash_attention_reference(q, k, v, **kw5), F32_TOL if f32 else 2e-2)
             b, s, l = T5_K5_SHAPES[name]
             elem = 4 if f32 else 2
             nbytes = (2 * b * s + 2 * sum(real)) * 32 * 64 * elem + b * l * 4
-            if kw5["bias"] is not None:
-                nbytes += 32 * s * l * 4
-            rows.append(_k5_bias_row(f"flash_attention{'_f32' if f32 else ''} at {name}", q, k, v, kw5, err,
-                                     bound(4 * s * sum(real) * 32 * 64, nbytes,
-                                           H100_TF32X3_FLOPS if f32 else H100_BF16_FLOPS)))
-    # the wrapper's fp32 copy of the bias, as the encoder hands it over: the
-    # (S, S, H) embedding gather permuted to (H, S, S), bf16
-    rel = torch.randn(766, 766, 32, device=dev, generator=g).to(torch.bfloat16).permute(2, 0, 1)
-    copy_ms = min(median_ms(lambda: rel.to(torch.float32).contiguous()) for _ in range(2))
-    print(f"[{tag}] K5's bias copy to fp32 at the T5 encoder (32, 766, 766) bf16, permuted: ms={copy_ms} "
-          f"({rel.numel() * 6 / copy_ms / 1e6} GB/s read + written)")
+            flops, peak = 4 * s * sum(real) * 32 * 64, H100_TF32X3_FLOPS if f32 else H100_BF16_FLOPS
+            bias_bytes = 0 if kw5["bias"] is None else 32 * s * l
+            row = _k5_bias_row(f"flash_attention{'_f32' if f32 else ''} at {name}", q, k, v, kw5, err,
+                               bound(flops, nbytes + bias_bytes * elem, peak))
+            row["body"] = K5_BODY_NAMES[body]
+            if bias_bytes and not f32:
+                row["bound_ms_fp32_bias"] = bound(flops, nbytes + bias_bytes * 4, peak)[0]
+            rows.append(row)
+    for name, (b, s, l) in QFORMER_K5_SHAPES.items():
+        q = torch.randn(b, s, 12, 64, device=dev, generator=g).to(torch.bfloat16)
+        k, v = (torch.randn(b, l, 12, 64, device=dev, generator=g).to(torch.bfloat16) for _ in range(2))
+        out = k5_counted("sm90", lambda: fl.flash_attention(q, k, v, scale=0.125), name)
+        err = check_close(tag, f"K5 {name} (12x64, no mask, Hopper body)", out,
+                          fl.flash_attention_reference(q, k, v, scale=0.125), 2e-2)
+        row = _videomae_k5_row(f"flash_attention at {name}", q, k, v, err,
+                               bound(4 * b * 12 * s * l * 64, 2 * (b * s + b * l) * 12 * 64 * 2))
+        row["body"] = "Hopper"
+        rows.append(row)
+    # the T5 module's bias at the encoder, built once a forward in bf16
+    # padded rows (flan-t5-xl's 32 heads, 766 tokens)
+    att = T5Attention(t5_config().text_config, has_relative_attention_bias=True, device=dev, dtype=torch.bfloat16)
+    build_ms = min(median_ms(lambda: att.compute_bias(766, 766, dtype=torch.bfloat16, device=dev)) for _ in range(2))
+    print(f"[{tag}] the T5 module's relative bias at the encoder, (32, 766, 766) bf16 into padded rows, built once "
+          f"a forward: ms={build_ms}")
+    del att
     for r in rows:
         time_row(tag, r)
     return rows
@@ -1898,14 +1993,66 @@ def check_f32_kernels(tag: str, dev: torch.device, g) -> tuple[list, list]:
     return rows, extra
 
 
+def _k5_form_runs(dev, g, fl) -> dict:
+    """K5's bf16 forms for ``--kernel-times``, each a call as the tree's own
+    models make it: the T5 encoder (B 1, and 4 with a padded row), the
+    decoder's cached self step over 33 slots (13 filled, the mask expanded)
+    and its cross step over 766 keys, the engine's self (64 slots, dead
+    prefixes) and cross (832) steps, VideoMAE (8, 1,568, 12 x 64) and the
+    Q-Former's attentions (QFORMER_K5_SHAPES). The bias is what the tree's
+    T5 module hands K5: bf16 in padded rows where the tree reads it in place
+    (it has ``k5_body``), else the (S, L, H) gather permuted to (H, S, L),
+    which the older wrapper copies to fp32 on every call (inside the timed
+    window, as on the path). The encoder's are also timed with a contiguous
+    fp32 bias ("kernel alone": the older wrapper copies nothing)."""
+    in_place = hasattr(fl, "k5_body")
+
+    def rand(*shape):
+        return torch.randn(*shape, device=dev, generator=g).to(torch.bfloat16)
+
+    def bias(s, l):
+        return padded_bias(32, s, l, dev, g) if in_place else rand(s, l, 32).permute(2, 0, 1)
+
+    runs = {}
+
+    def add(name, q, k, v, **kw5):
+        runs[f"K5 {name}"] = ((lambda: fl.flash_attention(q, k, v, **kw5)), 1)
+
+    for b in (1, 4):
+        q, k, v = rand(b, 766, 32, 64), rand(b, 766, 32, 64), rand(b, 766, 32, 64)
+        mask = torch.ones(b, 766, dtype=torch.int32, device=dev)
+        if b > 1:
+            mask[-1, 700:] = 0
+        add(f"T5 encoder B={b} (the model's bias)", q, k, v, padding_mask=mask, bias=bias(766, 766))
+        add(f"T5 encoder B={b} (fp32 contiguous bias, kernel alone)", q, k, v, padding_mask=mask,
+            bias=torch.randn(32, 766, 766, device=dev, generator=g))
+    for name, l_kv, n_filled, with_bias in (("T5 decoder self B=4 (1 over 33)", 33, T5_DECODE_FILLED, True),
+                                            ("T5 cross B=4 (1 over 766)", 766, 766, False),
+                                            ("T5 engine self (4, 1, 64)", 64, 48, True),
+                                            ("T5 engine cross (4, 1, 832)", 832, 790, False)):
+        kv = rand(2, 4, l_kv, 32, 64)
+        mask = (torch.arange(l_kv, device=dev) < n_filled).to(torch.int32)[None].expand(4, l_kv)
+        if "engine self" in name:
+            mask = mask.contiguous()
+            for r, start in enumerate((0, 9, 20, 31)):
+                mask[r, :start] = 0
+        add(name, rand(4, 1, 32, 64), kv[0], kv[1], padding_mask=mask, bias=bias(1, l_kv) if with_bias else None)
+    x = [rand(8, 1568, 12, 64) for _ in range(3)]
+    add("VideoMAE (8, 1568, 12x64)", *x, scale=0.125)
+    for name, (b, s, l) in QFORMER_K5_SHAPES.items():
+        add(name, rand(b, s, 12, 64), rand(b, l, 12, 64), rand(b, l, 12, 64), scale=0.125)
+    return runs
+
+
 def kernel_times(tag: str, dev: torch.device, tree: str) -> None:
     """The A/B timing of ``--kernel-times``: K3 and K4 at the decode shapes,
-    K5 at (a), batch 1 and 4, the fp32 attention body (K1, K2, K5 with
-    fp32 q, k, v) at its check shapes and the full-path ones, and K6 (bf16
-    at the ViT's 136 frames, fp32 at 8 and 136), on the eilev_tpu_torch that
-    was imported (the one under ``tree``), kernel only, median of 20 twice
-    each, per launch. No check: the full run holds every kernel against its
-    twin."""
+    K5 at (a), batch 1 and 4, K5's bf16 forms of the T5 path, the T5
+    serving engine, VideoMAE and the Q-Former (_k5_form_runs), the fp32
+    attention body (K1, K2, K5 with fp32 q, k, v) at its check shapes and
+    the full-path ones, and K6 (bf16 at the ViT's 136 frames, fp32 at 8 and
+    136), on the eilev_tpu_torch that was imported (the one under
+    ``tree``), median of 20 twice each, per launch. No check: the full run
+    holds every kernel against its twin."""
     from eilev_tpu_torch.ops import decode_attention as da
     from eilev_tpu_torch.ops import flash_attention as fl
     from eilev_tpu_torch.ops import fused_attention as fa
@@ -1926,6 +2073,7 @@ def kernel_times(tag: str, dev: torch.device, tree: str) -> None:
         runs[f"K5 B={b_a}"] = ((lambda q=q, k=k, v=v, kw5=kw5: fl.flash_attention(q, k, v, **kw5)), 1)
         q, k, v = q.float(), k.float(), v.float()
         runs[f"K5 fp32 (a) B={b_a}"] = ((lambda q=q, k=k, v=v, kw5=kw5: fl.flash_attention(q, k, v, **kw5)), 1)
+    runs.update(_k5_form_runs(dev, g, fl))
     for b in (2, 136):
         qkv = torch.randn(b, 257, 3 * 16 * 88, device=dev, generator=g)
         runs[f"K1 fp32 ({b},257,16x88)"] = ((lambda qkv=qkv: fa.packed_qkv_attention(qkv, 16, 88)), 1)
@@ -3200,7 +3348,9 @@ def t5_counts(cfg, flash: bool, f32: bool = False) -> dict:
     """Launches per T5 request: K1 once per ViT layer; under "flash" K5 once
     per Q-Former attention (self in every layer, cross every
     cross_attention_frequency), per encoder layer, and twice per decoder
-    layer and step (self and cross); nothing else."""
+    layer and step (self and cross); nothing else. In bf16 the Q-Former's
+    and the encoder's take K5's Hopper body, the decoder steps its decode
+    body."""
     want = dict.fromkeys(counters(), 0)
     names = ["packed_qkv_attention"] + (["packed_qkv_attention_f32"] if f32 else [])
     want.update(dict.fromkeys(names, cfg.vision_config.num_hidden_layers))
@@ -3212,6 +3362,9 @@ def t5_counts(cfg, flash: bool, f32: bool = False) -> dict:
             return n_qf + t.num_layers + 2 * t.num_decoder_layers * steps
 
         want.update(dict.fromkeys(["flash_attention"] + (["flash_attention_f32"] if f32 else []), k5))
+        if not f32:
+            want["flash_attention_sm90"] = n_qf + t.num_layers
+            want["flash_attention_decode"] = lambda steps: 2 * t.num_decoder_layers * steps
     return want
 
 
@@ -3296,8 +3449,12 @@ def run_t5(tag: str, dev: torch.device, launches: dict) -> dict:
                                      "rows_identical_share": share, "k5_launches": counts["flash_attention"]}
         launches[f"flash_attention at T5 encoder, batch {batch}"] = cfg.text_config.num_layers
         if batch == 4:
+            q_cfg = cfg.qformer_config
             launches["flash_attention at T5 decoder self, batch 4"] = n_dec * steps
             launches["flash_attention at T5 cross, batch 4"] = n_dec * steps
+            launches["flash_attention at Q-Former self, 68 videos"] = q_cfg.num_hidden_layers
+            launches["flash_attention at Q-Former cross, 68 videos"] = len(
+                range(0, q_cfg.num_hidden_layers, q_cfg.cross_attention_frequency))
 
     print(f"[{tag}] T5 (a) and (b) took {time.perf_counter() - t_phase} s")
 
@@ -5119,9 +5276,13 @@ def serving_t5(tag: str, dev, total: dict, result: dict) -> None:
             if impl == "flash":
                 q_cfg = cfg.qformer_config
                 n_qf = q_cfg.num_hidden_layers + len(range(0, q_cfg.num_hidden_layers, q_cfg.cross_attention_frequency))
-                want = len(requests) * (n_qf + cfg.text_config.num_layers) + 2 * cfg.text_config.num_decoder_layers \
-                    * n_steps
-                assert k5 == want, (k5, want)
+                encodes = len(requests) * (n_qf + cfg.text_config.num_layers)
+                steps_k5 = 2 * cfg.text_config.num_decoder_layers * n_steps
+                assert k5 == encodes + steps_k5, (k5, encodes, steps_k5)
+                # bf16: the Q-Former and the encoder on the Hopper body, every
+                # decoder step (self and cross) on the decode body
+                bodies = (counts["flash_attention_sm90"], counts["flash_attention_decode"])
+                assert bodies == (encodes, steps_k5), (bodies, encodes, steps_k5)
             else:
                 assert k5 == 0, k5
             same = compare_rows(tag, label, done, rows, recs, rule="near-tie" if bf16 else "identical",
@@ -5145,20 +5306,24 @@ def serving_t5(tag: str, dev, total: dict, result: dict) -> None:
                     for r, start in enumerate((0, 9, 20, 31)):  # dead prefixes of reused slots
                         mask[r, :start] = 0
                     mask[:, 48:] = 0  # slots past the index
-                    bias = (torch.randn(32, 1, l_kv, device=dev, generator=g) * 2.0).to(dtype)
+                    bias = padded_bias(32, 1, l_kv, dev, g, dtype)
                 else:
                     for r, real in enumerate((766, 770, 790, 794)):
                         mask[r, real:] = 0
                 kw5 = dict(padding_mask=mask, bias=bias)
-                out = fl.flash_attention(q, k, v, **kw5)
+                out = k5_counted("decode", lambda: fl.flash_attention(q, k, v, **kw5), f"engine {name}")
                 err = check_close(tag, f"serving (d) K5 at the T5 engine's {name} step (4, 1, {l_kv}), bias "
-                                       f"{None if bias is None else tuple(bias.shape)}",
+                                       f"{None if bias is None else tuple(bias.shape)} (decode body)",
                                   out, fl.flash_attention_reference(q, k, v, **kw5), 2e-2)
                 real = mask.sum(dim=1).tolist()
-                nbytes = (2 * 4 + 2 * sum(real)) * 32 * 64 * 2 + 4 * l_kv * 4 + (32 * l_kv * 4 if bias is not None
-                                                                                   else 0)
-                rows_out.append(_k5_bias_row(f"flash_attention at the T5 engine's {name} step (4, 1, {l_kv})", q, k,
-                                             v, kw5, err, bound(4 * sum(real) * 32 * 64, nbytes)))
+                nbytes = (2 * 4 + 2 * sum(real)) * 32 * 64 * 2 + 4 * l_kv * 4
+                flops = 4 * sum(real) * 32 * 64
+                row = _k5_bias_row(f"flash_attention at the T5 engine's {name} step (4, 1, {l_kv})", q, k, v, kw5,
+                                   err, bound(flops, nbytes + (32 * l_kv * 2 if bias is not None else 0)))
+                row["body"] = "decode"
+                if bias is not None:  # the parent's count: the bias as the fp32 its wrapper made
+                    row["bound_ms_fp32_bias"] = bound(flops, nbytes + 32 * l_kv * 4)[0]
+                rows_out.append(row)
             for r in rows_out:
                 time_row(tag, r)
             result["t5_engine_k5"] = rows_out
@@ -5275,8 +5440,9 @@ def narration_pairs(n: int, seed: int) -> tuple[list, list]:
 
 
 def _videomae_k5_row(name: str, q, k, v, err: float, bnd: tuple) -> dict:
-    """A kernels-line row of K5 at VideoMAE's form (bidirectional, no mask,
-    no bias, scale 64^-0.5), for time_row: K5, its twin, one SDPA call."""
+    """A kernels-line row of K5 with no mask and no bias, scale D^-0.5 (the
+    forms of VideoMAE and the Q-Former), for time_row: K5, its twin, one
+    SDPA call."""
     from eilev_tpu_torch.ops import flash_attention as fl
 
     scale = q.shape[-1] ** -0.5
@@ -5294,10 +5460,10 @@ def _videomae_k5_row(name: str, q, k, v, err: float, bnd: tuple) -> dict:
 
 def check_videomae_k5(tag: str, dev: torch.device) -> list[dict]:
     """Phase 12 (a): K5 at VideoMAE's form, (8, 1,568, 12 x 64), bf16 (the
-    mma.sync body: head dim 64) and fp32 (attention_f32.cu's body), against
+    Hopper body at head dim 64) and fp32 (attention_f32.cu's body), against
     its twin at 2e-2 and F32_TOL, each call counted once (fp32 in
-    launches_f32, bf16 not in launches_sm90); timed as in 3 beside one SDPA
-    call and its bound: 4 B H S^2 D operations, q, k, v and out once."""
+    launches_f32, bf16 in launches_sm90); timed as in 3 beside one SDPA call
+    and its bound: 4 B H S^2 D operations, q, k, v and out once."""
     from eilev_tpu_torch.ops import flash_attention as fl
 
     g = torch.Generator(device=dev).manual_seed(VIDEOMAE_SEED + 1)
@@ -5306,16 +5472,14 @@ def check_videomae_k5(tag: str, dev: torch.device) -> list[dict]:
     for dtype in (torch.bfloat16, torch.float32):
         f32 = dtype == torch.float32
         q, k, v = (torch.randn(b, s, nh, hd, device=dev, generator=g).to(dtype) for _ in range(3))
-        before = (fl.flash_attention.launches, fl.flash_attention.launches_f32, fl.flash_attention.launches_sm90)
-        out = fl.flash_attention(q, k, v, scale=hd**-0.5)
-        torch.cuda.synchronize()
-        after = (fl.flash_attention.launches, fl.flash_attention.launches_f32, fl.flash_attention.launches_sm90)
-        assert after == (before[0] + 1, before[1] + int(f32), before[2]), (before, after)
-        err = check_close(tag, f"K5 VideoMAE form{' fp32' if f32 else ''} ({b}, {s}, {nh}x{hd}), no mask, no bias",
+        out = k5_counted("f32" if f32 else "sm90", lambda: fl.flash_attention(q, k, v, scale=hd**-0.5), "VideoMAE")
+        err = check_close(tag, f"K5 VideoMAE form{' fp32' if f32 else ''} ({b}, {s}, {nh}x{hd}), no mask, no bias "
+                               f"({'fp32' if f32 else 'Hopper'} body)",
                           out, fl.flash_attention_reference(q, k, v, scale=hd**-0.5), F32_TOL if f32 else 2e-2)
         bnd = bound(4 * b * nh * s * s * hd, 4 * b * s * nh * hd * (4 if f32 else 2),
                     H100_TF32X3_FLOPS if f32 else H100_BF16_FLOPS)
-        rows.append(_videomae_k5_row(f"flash_attention{'_f32' if f32 else ''} at VideoMAE", q, k, v, err, bnd))
+        rows.append(dict(_videomae_k5_row(f"flash_attention{'_f32' if f32 else ''} at VideoMAE", q, k, v, err, bnd),
+                         body="fp32" if f32 else "Hopper"))
     for r in rows:
         time_row(tag, r)
     return rows
@@ -5325,7 +5489,7 @@ def run_videomae(tag: str, dev: torch.device, launches: dict) -> dict:
     """Phase 12 (a): VideoMAE-base predicting at batch 8 in fp32 under
     ``auto`` (plain: kv 1,568 < 2,048, no K5) and ``flash`` (the fp32 body, 12
     launches), the same argmax; a bf16 forward under ``flash`` (the bf16
-    mma.sync body, 12 launches); then cli.baselines.videomae_train.run at
+    Hopper body at head dim 64, 12 launches); then cli.baselines.videomae_train.run at
     its defaults (batch 8, fp32, ``auto``) for VIDEOMAE_TRAIN_STEPS steps over
     in-memory clips, s/step, finite losses, peak memory."""
     from eilev_tpu_torch.cli.baselines import videomae_train
@@ -5355,8 +5519,8 @@ def run_videomae(tag: str, dev: torch.device, launches: dict) -> dict:
             model.dtype = torch.float32
         fired = {k: n for k, n in counts.items() if n}
         want = {} if impl == "auto" else {"flash_attention": cfg.num_hidden_layers}
-        if impl == "flash" and dtype == torch.float32:
-            want["flash_attention_f32"] = cfg.num_hidden_layers
+        if impl == "flash":  # fp32: the fp32 body; bf16: the Hopper body at head dim 64
+            want["flash_attention_f32" if dtype == torch.float32 else "flash_attention_sm90"] = cfg.num_hidden_layers
         print(f"[{tag}] VideoMAE-base predict batch {VIDEOMAE_BATCH}, {label}: ms={ms[label]} launches {fired} "
               f"logits finite={bool(torch.isfinite(logits[label]).all())}")
         assert fired == want, (label, fired, want)
@@ -7373,13 +7537,19 @@ def main(argv: list) -> int:
         return now
 
     try:
-        build_kernels(tag)
-        t = took("build", t_script)
+        # the build runs in the background (nvcc outside the GIL); the decode,
+        # flash and fp32 attention libraries are ready well before K1/K2's,
+        # so phases 2c-2e, which need only those, run meanwhile (a library's
+        # first use waits on its build's lock)
+        with ThreadPoolExecutor(max_workers=1) as pool:
+            building = pool.submit(build_kernels, tag)
+            beam_rows = check_beam_decode(tag, dev)
+            mode_rows = check_decoding_mode_shapes(tag, dev)
+            t5_rows = check_t5_shapes(tag, dev)
+            building.result()
+        t = took("build and phases 2c-2e", t_script)
         kernels = check_kernels(tag, dev)
-        beam_rows = check_beam_decode(tag, dev)
-        mode_rows = check_decoding_mode_shapes(tag, dev)
-        t5_rows = check_t5_shapes(tag, dev)
-        t = took("kernel checks and timings (phases 2-3)", t)
+        t = took("kernel checks and timings (phases 2, 2b, 3)", t)
         launches: dict = {}
         model, lm_calls, runs = run_main_path(tag, dev, launches)
         run_k6_on_vit_layers(tag, model, runs[1], launches)
@@ -7415,6 +7585,9 @@ def main(argv: list) -> int:
         gc.collect()
         torch.cuda.empty_cache()
         t5 = run_t5(tag, dev, launches)
+        # K5's T5 bodies on the kernels line, with their launches in 8b's
+        # flash runs: the Hopper body with the bias tiles, the decode body
+        kernels = kernels + [r for r in t5_rows if r["name"] in K5_T5_LINE_ROWS]
         gc.collect()
         torch.cuda.empty_cache()
         training, parallel = run_training(tag, dev)
@@ -7447,7 +7620,8 @@ def main(argv: list) -> int:
          "launches": launches[k["name"]], "max_abs_err": k["max_abs_err"],
          "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
          "library_ms": k["library_ms"], "serving_launches": serving["launches"].get(k["name"], 0),
-         **({"composite": k["composite"], "composite_ms": k["composite_ms"]} if "composite_ms" in k else {})}
+         **({"composite": k["composite"], "composite_ms": k["composite_ms"]} if "composite_ms" in k else {}),
+         **({"body": k["body"]} if "body" in k else {})}
         for k in kernels
     ]}
     assert all(k["launches"] > 0 for k in line["kernels"]), line

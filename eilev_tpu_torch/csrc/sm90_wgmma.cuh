@@ -88,6 +88,17 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
+// A 3-d tile of `map` at coordinates (c0 innermost, c1, c2) into shared
+// memory; completion is reported to `bar` as transaction bytes.
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
 // A 2-d tile of `map` at coordinates (c0 innermost, c1) into shared memory;
 // completion is reported to `bar` as transaction bytes.
 __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar, int c0, int c1) {
@@ -164,6 +175,27 @@ __device__ __forceinline__ void wgmma_m64n128k16_rs_tb(float* d, const uint32_t*
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
 
+// d (64 x 64, fp32) += A (64 x 16, bf16, registers) * B (16 x 64, bf16,
+// shared, MN-major: k rows of 64 n, the transposed operand).
+__device__ __forceinline__ void wgmma_m64n64k16_rs_tb(float* d, const uint32_t* a, uint64_t desc_b) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : EILEV_WG_D8(0), EILEV_WG_D8(8), EILEV_WG_D8(16), EILEV_WG_D8(24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// d (64 x N, fp32) += A (64 x 16, registers) * B (16 x N, shared, MN-major)
+// for N = 64 or 128 (flash_attention.cu's PV at head dim N).
+template <int N>
+__device__ __forceinline__ void wgmma_rs_tb(float* d, const uint32_t* a, uint64_t desc_b) {
+  static_assert(N == 64 || N == 128, "wgmma_rs_tb: N is 64 or 128");
+  if constexpr (N == 128) wgmma_m64n128k16_rs_tb(d, a, desc_b);
+  else wgmma_m64n64k16_rs_tb(d, a, desc_b);
+}
 
 // d (64 x N, fp32) (+)= A (64 x 16, bf16, shared, K-major) * B (16 x N,
 // bf16, shared, MN-major: k rows of N, the transposed operand, as a

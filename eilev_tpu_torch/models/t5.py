@@ -17,6 +17,10 @@ under ``auto`` at the narration's lengths they take the plain path, and
 kernel K5 (``ops/flash_attention.py``, its bias form) under
 ``set_default_attention_impl("flash")`` or where q >= 1024 and kv >= 2048.
 The decode step does not use K3/K4, which take no bias, as JAX's does not.
+The relative bias is built once a forward (once a step, with a cache) in the
+model dtype, in a buffer whose rows of keys are padded to a multiple of 8
+(:meth:`T5Attention.compute_bias`), so K5 reads it in place; its values are
+those of JAX's ``compute_bias``.
 
 The decode cache is JAX's layout: ``k``/``v`` (num_decoder_layers, B,
 max_len, H, hd), ``cross_k``/``cross_v`` (num_decoder_layers, B, P, H, hd),
@@ -179,21 +183,34 @@ class T5Attention(nn.Module):
     def compute_bias(self, q_len: int, k_len: int, q_offset: int = 0, *,
                      dtype: torch.dtype, device=None) -> torch.Tensor:
         """(1, heads, q_len, k_len) relative position bias in ``dtype`` (flax
-        ``Embed(dtype=...)``: the table cast, then gathered)."""
-        positions = relative_positions(q_len, k_len, q_offset, device=device)
-        return self.bias_at(positions, dtype=dtype).permute(2, 0, 1)[None]
+        ``Embed(dtype=...)``: the table cast, then gathered). It is gathered
+        once, straight into an (heads, q_len, k_pad) buffer with k_pad the
+        multiple of 8 at or above k_len, and returned as its [..., :k_len]
+        view: keys contiguous and every row on a 16-byte boundary in bf16,
+        the layout K5 reads in place (its Hopper body by TMA, which does not
+        take a 1,532-byte row of 766 bf16 keys)."""
+        k_pad = -(-k_len // 8) * 8
+        buckets = self._buckets(relative_positions(q_len, k_pad, q_offset, device=device))
+        table = self._table(dtype).t().contiguous()  # (heads, buckets)
+        bias = torch.index_select(table, 1, buckets.reshape(-1).long()).view(self.num_heads, q_len, k_pad)
+        return bias[:, :, :k_len][None]
 
     def bias_at(self, relative_position: torch.Tensor, *, dtype: torch.dtype) -> torch.Tensor:
         """(..., H) relative position bias of ``relative_position`` (memory -
         query, any shape) in ``dtype``, for this rank's heads."""
+        return F.embedding(self._buckets(relative_position).long(), self._table(dtype))
+
+    def _table(self, dtype: torch.dtype) -> torch.Tensor:
+        """(num_buckets, H) bias table of this rank's heads in ``dtype``."""
+        return self.relative_attention_bias.weight[:, self.head_start:self.head_start + self.num_heads].to(dtype)
+
+    def _buckets(self, relative_position: torch.Tensor) -> torch.Tensor:
         cfg = self.config
         nb, md = cfg.relative_attention_num_buckets, cfg.relative_attention_max_distance
         where = relative_position.device
         if where not in self._bucket_tables:
             self._bucket_tables[where] = distance_buckets(self.bidirectional, nb, md).to(where)
-        buckets = _lookup_buckets(relative_position, self._bucket_tables[where], self.bidirectional, nb, md)
-        table = self.relative_attention_bias.weight[:, self.head_start:self.head_start + self.num_heads]
-        return F.embedding(buckets.long(), table.to(dtype))
+        return _lookup_buckets(relative_position, self._bucket_tables[where], self.bidirectional, nb, md)
 
     def _heads(self, x: torch.Tensor) -> torch.Tensor:
         return x.reshape(*x.shape[:-1], self.num_heads, self.config.d_kv)

@@ -183,8 +183,8 @@ def attention_f32_lib() -> ctypes.CDLL:
 
 @functools.lru_cache(maxsize=None)
 def flash_attention_lib() -> ctypes.CDLL:
-    """The flash attention library (K5: the mma.sync body and the Hopper
-    body), built and bound once."""
+    """The flash attention library (K5: the decode, Hopper and mma.sync
+    bodies), built and bound once."""
     lib = ctypes.CDLL(str(build("flash_attention.cu")))
     fn = lib.eilev_flash_attention_bf16
     fn.argtypes = [
@@ -192,7 +192,13 @@ def flash_attention_lib() -> ctypes.CDLL:
         ctypes.c_void_p,  # k
         ctypes.c_void_p,  # v
         ctypes.c_void_p,  # padding mask or NULL
+        ctypes.c_longlong,  # mask batch stride
+        ctypes.c_int,  # mask element bytes (1, 4 or 8)
         ctypes.c_void_p,  # bias or NULL
+        ctypes.c_longlong,  # bias head stride
+        ctypes.c_longlong,  # bias row stride
+        ctypes.c_longlong,  # bias key stride
+        ctypes.c_int,  # 1 for a bf16 bias, 0 for fp32
         ctypes.c_void_p,  # out
         ctypes.c_int,  # B
         ctypes.c_int,  # S
@@ -211,7 +217,7 @@ def flash_attention_lib() -> ctypes.CDLL:
         ctypes.c_int,  # causal
         ctypes.c_int,  # q_offset
         ctypes.c_void_p,  # stream
-        ctypes.POINTER(ctypes.c_int),  # out: 1 if the Hopper body ran, else 0
+        ctypes.POINTER(ctypes.c_int),  # out: the body that ran (0 mma.sync, 1 Hopper, 2 decode)
     ]
     fn.restype = ctypes.c_int
     return lib

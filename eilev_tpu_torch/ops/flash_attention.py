@@ -9,14 +9,21 @@ long cache).
 
 A CPU tensor runs the twin. A CUDA tensor launches a hand-written kernel on
 the current stream or raises; nothing falls back. bf16 q, k, v go to
-``csrc/flash_attention.cu``, whose entry point chooses between two bodies by
-the rule :func:`uses_sm90_body` states: a Hopper body (wgmma + TMA) for D =
-128 with no bias, the form the LLaMA prefill calls, and an mma.sync body for
-the rest; the entry point says which body it launched. fp32 q, k, v (an fp32
-model) go to the fp32 body of ``csrc/attention_f32.cu``; other or mixed
-dtypes raise ``TypeError``. The wrapper counts every launch in
+``csrc/flash_attention.cu``, whose entry point chooses between three bodies by
+the rule :func:`k5_body` states: a decode body (a GEMV split over the key
+tiles) for calls of at most ``DECODE_MAX_Q`` query rows, the T5 decoder's and
+the serving engine's one-query steps; a Hopper body (wgmma + TMA) for head
+dim 128 with no bias (the LLaMA prefill) and head dim 64 with no bias or a
+bf16 bias in padded rows (the T5 encoder, VideoMAE, the Q-Former); and an
+mma.sync body for the rest. The entry point says which body it launched.
+The keep-mask (1-, 4- or 8-byte integers with contiguous keys) and the bias
+(bf16 or fp32) are read in place through their strides: an expanded (1, L)
+mask and a bias view need no copy. fp32 q, k, v (an fp32 model) go to the
+fp32 body of ``csrc/attention_f32.cu`` (an fp32 bias, contiguous); other or
+mixed dtypes raise ``TypeError``. The wrapper counts every launch in
 ``flash_attention.launches``, the Hopper body's also in
-``flash_attention.launches_sm90`` and the fp32 body's in
+``flash_attention.launches_sm90``, the decode body's in
+``flash_attention.launches_decode`` and the fp32 body's in
 ``flash_attention.launches_f32``. It has no backward, as the Pallas kernel
 has none: with grad mode on, an input that requires grad raises
 ``RuntimeError`` on both devices.
@@ -45,7 +52,8 @@ recurrence over the same 128-key blocks as the kernel.
 What bounds it on the H100: at the LLaMA prefill (q 1,984 over a 2,048-slot
 cache, 32 heads x 128, causal) one layer needs ~32 GFLOP of tensor-core work
 against ~33 MB of traffic: compute-bound (33 us at 989 TFLOP/s, 10 us of
-bytes).
+bytes). A one-query step is bound by bytes: every K and V row it keeps is
+read once for 4 flops an element.
 """
 
 from __future__ import annotations
@@ -61,8 +69,10 @@ from .fused_attention import _device_kind, _model_scale, refuse_grad
 #: keys per block of the online softmax (the Pallas DEFAULT_BLOCK_KV)
 BLOCK_KV = 128
 NEG_INF = torch.finfo(torch.float32).min
-#: the head dim of the Hopper body, and the shared memory one H100 block may use
-SM90_HEAD_DIM = 128
+#: the head dims of the Hopper body (a bias only at 64), the query rows the
+#: decode body takes at most, and the shared memory one H100 block may use
+SM90_HEAD_DIMS = (64, 128)
+DECODE_MAX_Q = 4
 SMEM_LIMIT = 227 * 1024
 
 
@@ -97,9 +107,9 @@ def flash_attention_reference(
 
     q: (B, S, H, D); k, v: (B, L, KVH, D) with KVH dividing H (head h reads kv
     head h // (H // KVH)); padding_mask: (B, L) 0/1 keep-mask; bias: (H, S, L)
-    additive, fp32. Returns (B, S, H, D) in q.dtype. The recurrence runs in
-    fp32, or in fp64 for fp64 inputs (a yardstick for the fp32 body's
-    numerics).
+    additive, of any float dtype and strides, added in fp32. Returns (B, S, H,
+    D) in q.dtype. The recurrence runs in fp32, or in fp64 for fp64 inputs
+    (a yardstick for the fp32 body's numerics).
     """
     _check_shapes(q, k, v, padding_mask, bias)
     b, s, h, d = q.shape
@@ -166,34 +176,82 @@ def _check_cuda(q, k, v, padding_mask, bias) -> None:
             raise ValueError(f"the CUDA kernel takes an aligned {name}")
 
 
-def sm90_smem_bytes(kv_len: int) -> int:
+def sm90_smem_bytes(kv_len: int, head_dim: int = 128, bias: bool = False) -> int:
     """Dynamic shared memory of one block of the Hopper body (csrc
-    ``hopper::smem_bytes``): Q, two K and two V tiles of 128 x 128 bf16, the
-    mbarriers, 4 keep-bit words and one list entry per 128-key tile, and 1 KB
-    to align the base."""
+    ``hopper::smem_bytes``): at head dim 128 a block of 128 queries, at 64 of
+    64; Q, two K and two V tiles of 128 keys x ``head_dim`` bf16, two bias
+    tiles of the block's queries x 128 keys bf16 with a bias, the mbarriers,
+    4 keep-bit words and one list entry per 128-key tile, and 1 KB to align
+    the base."""
     tiles = -(-kv_len // BLOCK_KV)
-    return 5 * 128 * SM90_HEAD_DIM * 2 + 128 + tiles * 4 * 4 + tiles * 4 + 1024
+    rows = 128 if head_dim == 128 else 64
+    fixed = (head_dim // 64) * (rows + 4 * BLOCK_KV) * 64 * 2 + (2 * rows * BLOCK_KV * 2 if bias else 0)
+    return fixed + 128 + tiles * 4 * 4 + tiles * 4 + 1024
+
+
+def decode_smem_bytes(kv_len: int) -> int:
+    """Dynamic shared memory of one block of the decode body (csrc
+    ``decode::smem_bytes``): each 128-key tile's fp32 scores, up to 16
+    segment maxima and its running max, and 16 warps' partial output rows
+    (128 floats) and sums."""
+    tiles = -(-kv_len // BLOCK_KV)
+    return tiles * BLOCK_KV * 4 + tiles * 16 * 4 + tiles * 4 + 16 * (128 + 1) * 4
+
+
+def _sm90_bias_ok(bias: torch.Tensor) -> bool:
+    """A bias the Hopper body's tensor map reads: bf16, contiguous keys, rows
+    and heads on 16-byte boundaries (the T5 module's padded rows)."""
+    return (bias.dtype == torch.bfloat16 and bias.stride(2) == 1 and bias.stride(1) % 8 == 0
+            and bias.stride(0) % 8 == 0 and bias.data_ptr() % 16 == 0)
+
+
+def k5_body(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            bias: Optional[torch.Tensor] = None) -> str:
+    """Which body of K5 a CUDA call takes: the rule of the source's
+    ``choose_body``, which decides, stated here for the tests. Reads dtypes,
+    shapes, strides and the bias's alignment only; first match wins:
+
+    - ``"f32"``: fp32 q, k, v (``csrc/attention_f32.cu``);
+    - ``"decode"``: at most ``DECODE_MAX_Q`` query rows whose key tiles'
+      scores fit in shared memory (any head dim, bias or strides);
+    - ``"sm90"``: head dim 128 with no bias, or 64 with no bias or a bf16
+      bias of contiguous keys whose rows and heads start on 16-byte
+      boundaries; each of q, k, v with rows and batches that do not overlap
+      (row stride >= heads * head_dim, batch stride >= rows * row stride);
+      the block's shared memory fits at the key length;
+    - ``"mma"``: everything else (other head dims, head dim 128 with a
+      bias, an fp32 bias, overlapping strides).
+    """
+    if q.dtype == torch.float32:
+        return "f32"
+    s, d, l = q.shape[1], q.shape[3], k.shape[1]
+    if s <= DECODE_MAX_Q and decode_smem_bytes(l) <= SMEM_LIMIT:
+        return "decode"
+    if d not in SM90_HEAD_DIMS or (bias is not None and (d != 64 or not _sm90_bias_ok(bias))):
+        return "mma"
+    for t in (q, k, v):
+        batch, rows, heads = t.shape[:3]
+        if t.stride(1) < heads * d or (batch > 1 and t.stride(0) < rows * t.stride(1)):
+            return "mma"
+    return "sm90" if sm90_smem_bytes(l, d, bias is not None) <= SMEM_LIMIT else "mma"
 
 
 def uses_sm90_body(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    bias: Optional[torch.Tensor] = None) -> bool:
-    """Which body of ``csrc/flash_attention.cu`` a bf16 CUDA call takes: the
-    rule of the source's ``hopper::takes``, which decides, stated here for
-    the tests. The Hopper body (wgmma + TMA) takes head_dim 128 with
-    no bias, where each of q, k, v has rows and batches that do not overlap
-    (row stride >= heads * head_dim, batch stride >= rows * row stride) and
-    the block's shared memory fits at the key length. Everything else (head
-    dims other than 128, an (H, S, L) bias, other strides) takes the
-    mma.sync body, and fp32 takes neither (``csrc/attention_f32.cu``). Reads
-    the dtype, shapes and strides only."""
-    d = q.shape[3]
-    if q.dtype != torch.bfloat16 or d != SM90_HEAD_DIM or bias is not None:
-        return False
-    for t in (q, k, v):
-        batch, rows, heads = t.shape[:3]
-        if t.stride(1) < heads * d or (batch > 1 and t.stride(0) < rows * t.stride(1)):
-            return False
-    return sm90_smem_bytes(k.shape[1]) <= SMEM_LIMIT
+    """Whether a CUDA call takes the Hopper body: :func:`k5_body`'s
+    ``"sm90"`` case."""
+    return k5_body(q, k, v, bias) == "sm90"
+
+
+def _mask_in_place(padding_mask: torch.Tensor) -> torch.Tensor:
+    """The keep-mask as the bf16 bodies read it: 1-, 4- or 8-byte integers
+    (bool included) with contiguous keys, read in place through the batch
+    stride (0 for a (1, L) mask expanded to (B, L)); anything else converted
+    to int32."""
+    if padding_mask.element_size() in (1, 4, 8) and not padding_mask.is_floating_point() \
+            and padding_mask.stride(1) == 1:
+        return padding_mask
+    return padding_mask.to(torch.int32).contiguous()
 
 
 def flash_attention(
@@ -211,7 +269,8 @@ def flash_attention(
     """K5: flash attention forward. Arguments as for the twin.
 
     On the card q, k, v are all bf16 or all fp32 and read in place through
-    their strides (a layer slice of the stacked cache needs no copy).
+    their strides (a layer slice of the stacked cache needs no copy); in bf16
+    so are the keep-mask and the bias (bf16 or fp32).
     """
     refuse_grad("flash_attention", "flash_attention_reference", q, k, v, bias)
     if _device_kind(q) == "cpu":
@@ -225,8 +284,6 @@ def flash_attention(
     _check_cuda(q, k, v, padding_mask, bias)
     b, s, h, d = q.shape
     l, kvh = k.shape[1], k.shape[2]
-    mask = None if padding_mask is None else padding_mask.to(torch.int32).contiguous()
-    bias32 = None if bias is None else bias.to(torch.float32).contiguous()
     q_scale, s_scale = 1.0, 1.0
     if scale is not None and scale_query_first:
         q_scale = _model_scale(scale, q.dtype)  # jnp.asarray(scale, q.dtype)
@@ -236,6 +293,8 @@ def flash_attention(
     strides = (q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0), v.stride(1))
     stream = torch.cuda.current_stream(q.device).cuda_stream
     if q.dtype == torch.float32:
+        mask = None if padding_mask is None else padding_mask.to(torch.int32).contiguous()
+        bias32 = None if bias is None else bias.to(torch.float32).contiguous()
         rc = attention_f32_lib().eilev_attention_f32(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), None if mask is None else mask.data_ptr(),
             None if bias32 is None else bias32.data_ptr(), out.data_ptr(),
@@ -247,20 +306,29 @@ def flash_attention(
         flash_attention.launches += 1
         flash_attention.launches_f32 += 1
         return out
-    sm90 = ctypes.c_int(0)  # which body the kernel launched
+    mask = None if padding_mask is None else _mask_in_place(padding_mask)
+    mask_args = (None, 0, 4) if mask is None else (mask.data_ptr(), mask.stride(0), mask.element_size())
+    if bias is None:
+        bias_args = (None, 0, 0, 0, 0)
+    else:
+        if bias.dtype not in (torch.bfloat16, torch.float32):
+            raise TypeError(f"the bf16 kernel takes a bf16 or fp32 bias, got {bias.dtype}")
+        bias_args = (bias.data_ptr(), *bias.stride(), int(bias.dtype == torch.bfloat16))
+    body = ctypes.c_int(0)  # which body the kernel launched: 0 mma.sync, 1 Hopper, 2 decode
     rc = flash_attention_lib().eilev_flash_attention_bf16(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), None if mask is None else mask.data_ptr(),
-        None if bias32 is None else bias32.data_ptr(), out.data_ptr(),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), *mask_args, *bias_args, out.data_ptr(),
         b, s, l, h, kvh, d, *strides, q_scale, s_scale, int(causal), int(q_offset), stream,
-        ctypes.byref(sm90),
+        ctypes.byref(body),
     )
     if rc != 0:
         raise RuntimeError(f"flash attention kernel launch failed: cudaError_t {rc}")
     flash_attention.launches += 1
-    flash_attention.launches_sm90 += sm90.value
+    flash_attention.launches_sm90 += body.value == 1
+    flash_attention.launches_decode += body.value == 2
     return out
 
 
 flash_attention.launches = 0
 flash_attention.launches_sm90 = 0
+flash_attention.launches_decode = 0
 flash_attention.launches_f32 = 0

@@ -7,8 +7,8 @@ tests/test_torch_fused_mlp.py). Run on a GPU host with
 ``python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py``.
 Tolerance: bf16 atol = rtol = 2e-2 for K1-K3, K5 and K6 and 3e-2 for K4 (the
 int8 cache; the JAX int8 kernel test's bar). K5's cases check which of its
-two bodies the kernel reports it ran (``launches_sm90``) against the rule
-``uses_sm90_body`` states. Every kernel test runs in bf16 and in fp32 (an
+three bf16 bodies the kernel reports it ran (``launches_sm90``,
+``launches_decode``) against the rule ``k5_body`` states. Every kernel test runs in bf16 and in fp32 (an
 fp32 model: its ``dtype`` parameter); the fp32 bodies are held to their twins
 at atol = rtol = 1e-4 with TF32 off (the twins' products in full fp32; both
 sides differ only in the order of fp32 sums) and counted in ``launches_f32``
@@ -360,6 +360,28 @@ FLASH_CASES = [
 ]
 
 
+K5_COUNTERS = ("launches", "launches_sm90", "launches_decode", "launches_f32")
+
+
+def _k5_counted(body, call):
+    """One K5 call; the launch counters must say it ran ``body`` (k5_body's
+    name) and nothing else."""
+    before = [getattr(tfl.flash_attention, c) for c in K5_COUNTERS]
+    out = call()
+    torch.cuda.synchronize()
+    after = [getattr(tfl.flash_attention, c) for c in K5_COUNTERS]
+    assert after == [before[0] + 1, before[1] + (body == "sm90"), before[2] + (body == "decode"),
+                     before[3] + (body == "f32")], (body, before, after)
+    return out
+
+
+def _padded_bias(nh, s, l, device, g, scale=2.0):
+    """A bf16 (nh, s, l) bias as the T5 module builds it: a view of an (nh,
+    s, l rounded up to 8) buffer (models/t5.py: compute_bias)."""
+    buf = (torch.randn(nh, s, -(-l // 8) * 8, device=device, generator=g) * scale).to(torch.bfloat16)
+    return buf[:, :, :l]
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("b,s,l,nh,kvh,hd,causal,q_offset,sqf,mask,bias", FLASH_CASES)
 def test_k5_kernel_matches_plain(cuda, b, s, l, nh, kvh, hd, causal, q_offset, sqf, mask, bias, dtype):
@@ -381,14 +403,10 @@ def test_k5_kernel_matches_plain(cuda, b, s, l, nh, kvh, hd, causal, q_offset, s
     scale = None if sqf is None else hd**-0.5
     kw = dict(padding_mask=pm, bias=bias_t, causal=causal, q_offset=q_offset,
               scale=scale, scale_query_first=bool(sqf))
-    sm90 = tfl.uses_sm90_body(q, k, v, bias_t)
-    assert sm90 == (not f32 and hd == 128 and not bias)
-    counters = ("launches", "launches_sm90", "launches_f32")
-    before = [getattr(tfl.flash_attention, c) for c in counters]
-    out = tfl.flash_attention(q, k, v, **kw)
-    torch.cuda.synchronize()
-    assert [getattr(tfl.flash_attention, c) for c in counters] == [
-        before[0] + 1, before[1] + int(sm90), before[2] + int(f32)]
+    body = tfl.k5_body(q, k, v, bias_t)
+    # an fp32 bias takes the mma.sync body at these query counts
+    assert body == ("f32" if f32 else "sm90" if hd in (64, 128) and not bias else "mma")
+    out = _k5_counted(body, lambda: tfl.flash_attention(q, k, v, **kw))
     ref = tfl.flash_attention_reference(q, k, v, **kw)
     if padded:  # fully masked rows are exactly 0, in both
         assert (out[0, :padded] == 0).all() and (ref[0, :padded] == 0).all()
@@ -399,7 +417,7 @@ def test_k5_kernel_matches_plain(cuda, b, s, l, nh, kvh, hd, causal, q_offset, s
 @pytest.mark.parametrize("hd", [64, 128])
 def test_k5_reads_a_cache_layer_in_place(cuda, hd):
     """k, v as a layer slice of the stacked cache: strided rows, no copy (hd
-    128 through the Hopper body's tensor maps, 64 through the mma.sync body)."""
+    128 and 64 both through the Hopper body's tensor maps)."""
     g = torch.Generator(device=cuda).manual_seed(7)
     kb = torch.randn(3, 2, 160, 4, hd, device=cuda, generator=g).to(torch.bfloat16)
     vb = torch.randn(3, 2, 160, 4, hd, device=cuda, generator=g).to(torch.bfloat16)
@@ -407,10 +425,11 @@ def test_k5_reads_a_cache_layer_in_place(cuda, hd):
     pm = torch.zeros(2, 160, dtype=torch.int32, device=cuda)
     pm[:, :100] = 1
     kw = dict(padding_mask=pm, causal=True, scale=hd**-0.5)
+    assert tfl.k5_body(q, kb[1], vb[1]) == "sm90"
     before = tfl.flash_attention.launches_sm90
     out = tfl.flash_attention(q, kb[1], vb[1], **kw)
     torch.cuda.synchronize()
-    assert tfl.flash_attention.launches_sm90 == before + (hd == 128)
+    assert tfl.flash_attention.launches_sm90 == before + 1
     ref = tfl.flash_attention_reference(q, kb[1].contiguous(), vb[1].contiguous(), **kw)
     torch.testing.assert_close(out, ref, atol=2e-2, rtol=2e-2)
 
@@ -434,26 +453,132 @@ def test_k5_at_the_flan_t5_xl_shapes(cuda, name, dtype):
     if name.startswith("encoder"):
         k = torch.randn(b, 766, nh, hd, device=cuda, generator=g).to(dtype)
         v = torch.randn(b, 766, nh, hd, device=cuda, generator=g).to(dtype)
-        bias = torch.randn(nh, 766, 766, device=cuda, generator=g).to(dtype)
+        bias = _padded_bias(nh, 766, 766, cuda, g, scale=1.0).to(dtype)  # the module's layout
         pm = torch.ones(b, 766, dtype=torch.int32, device=cuda)
         pm[-1, 700:] = 0
     elif name == "decoder_self":
         kb = torch.randn(3, b, 33, nh, hd, device=cuda, generator=g).to(dtype)
         k, v = kb[1], kb[2]
-        bias = torch.randn(nh, 1, 33, device=cuda, generator=g).to(dtype)
+        bias = _padded_bias(nh, 1, 33, cuda, g, scale=1.0).to(dtype)
         pm = (torch.arange(33, device=cuda) < 13).to(torch.int32)[None].expand(b, 33)
     else:
         kb = torch.randn(3, b, 766, nh, hd, device=cuda, generator=g).to(dtype)
         k, v = kb[0], kb[2]
         pm = torch.ones(b, 766, dtype=torch.int32, device=cuda)
         pm[1, 500:] = 0
-    before = tfl.flash_attention.launches
-    out = tfl.flash_attention(q, k, v, padding_mask=pm, bias=bias)
-    torch.cuda.synchronize()
-    assert tfl.flash_attention.launches == before + 1
+    body = tfl.k5_body(q, k, v, bias)
+    assert body == ("f32" if dtype == torch.float32 else "sm90" if name.startswith("encoder") else "decode")
+    out = _k5_counted(body, lambda: tfl.flash_attention(q, k, v, padding_mask=pm, bias=bias))
     ref = tfl.flash_attention_reference(q, k.contiguous(), v.contiguous(), padding_mask=pm, bias=bias)
     assert torch.isfinite(out).all()
     torch.testing.assert_close(out, ref, **TOL[dtype])
+
+
+# K5's decode body (one to four query rows, a GEMV over the key tiles):
+# (B, S, L, heads, kv heads, hd, bias, mask, causal, q_offset, scale) at the
+# T5 decoder's and the serving engine's steps and ragged key counts (1, 33,
+# 127, 129, 766, 832; 2,054: more tiles than a block's 8 warps), the
+# filled-slot mask expanded to (B, L), dead prefixes and a row with no kept
+# key (exactly 0), a bool and an int64 mask read in place, an fp32 bias, GQA,
+# head dims 80 and 128, a q-side scale, causal with q_offset, 4 query rows
+DECODE_CASES = {
+    "self_l1": (4, 1, 1, 32, 32, 64, "bf16", "filled", False, 0, None),
+    "self_l33": (4, 1, 33, 32, 32, 64, "bf16", "filled", False, 0, None),
+    "cross_l127": (4, 1, 127, 32, 32, 64, None, "right", False, 0, None),
+    "cross_l129": (4, 1, 129, 32, 32, 64, None, "right", False, 0, None),
+    "cross_l766": (4, 1, 766, 32, 32, 64, None, "right", False, 0, None),
+    "engine_self_l64_dead_prefixes": (4, 1, 64, 32, 32, 64, "bf16", "dead-prefix", False, 0, None),
+    "engine_cross_l832": (4, 1, 832, 32, 32, 64, None, "right", False, 0, None),
+    "l2054_bool_mask": (2, 1, 2054, 8, 8, 64, None, "bool", False, 0, None),
+    "int64_mask_fp32_bias": (3, 1, 300, 4, 4, 64, "fp32", "int64", False, 0, None),
+    "gqa_hd128_score_scale": (2, 1, 700, 8, 2, 128, None, "right", False, 0, "score"),
+    "hd80_q_scale_causal": (2, 3, 400, 4, 4, 80, "bf16", None, True, 250, "query"),
+    "four_rows_causal": (2, 4, 333, 4, 4, 64, "bf16", "right", True, 100, None),
+}
+
+
+@pytest.mark.parametrize("name", list(DECODE_CASES))
+def test_k5_decode_body_matches_plain(cuda, name):
+    b, s, l, nh, kvh, hd, bias, mask, causal, q_offset, scale = DECODE_CASES[name]
+    g = torch.Generator(device=cuda).manual_seed(l + s)
+    q = torch.randn(b, s, nh, hd, device=cuda, generator=g).to(torch.bfloat16)
+    kv = torch.randn(2, 3, b, l, kvh, hd, device=cuda, generator=g).to(torch.bfloat16)
+    k, v = kv[0, 1], kv[1, 2]  # layer slices of a stacked cache
+    dead = []
+    pm = None
+    if mask == "filled":
+        pm = (torch.arange(l, device=cuda) < max(1, l * 2 // 5)).to(torch.int32)[None].expand(b, l)
+    elif mask is not None:
+        pm = torch.ones(b, l, dtype=torch.int32, device=cuda)
+        if mask == "dead-prefix":  # reused slots: dead prefixes, slots past the index, row 3 keeps nothing
+            for r, start in enumerate((0, 9, 20)):
+                pm[r, :start] = 0
+            pm[:, 48:] = 0
+            pm[3] = 0
+            dead = [3]
+        else:
+            pm[-1, l - l // 3:] = 0
+            pm[0] = 0  # a row with no kept key
+            dead = [0]
+        pm = {"bool": pm.bool(), "int64": pm.long()}.get(mask, pm)
+    bias_t = None
+    if bias == "bf16":
+        bias_t = _padded_bias(nh, s, l, cuda, g)
+    elif bias == "fp32":
+        bias_t = torch.randn(nh, s, l, device=cuda, generator=g) * 2.0
+    kw = dict(padding_mask=pm, bias=bias_t, causal=causal, q_offset=q_offset,
+              scale=None if scale is None else hd**-0.5, scale_query_first=scale == "query")
+    assert tfl.k5_body(q, k, v, bias_t) == "decode"
+    out = _k5_counted("decode", lambda: tfl.flash_attention(q, k, v, **kw))
+    ref = tfl.flash_attention_reference(q, k, v, **kw)
+    for r in dead:  # a row that keeps no key is exactly 0, in both
+        assert (out[r] == 0).all() and (ref[r] == 0).all()
+    assert torch.isfinite(out).all()
+    torch.testing.assert_close(out, ref, atol=2e-2, rtol=2e-2)
+
+
+# K5's Hopper body at head dim 64: (B, S, L, heads, kv heads, bias, mask,
+# causal, q_offset): the T5 encoder (the bf16 bias in padded rows; at B = 4 a
+# padded row whose last key tiles hold no kept key, and a row with no kept
+# key at all: exactly 0), VideoMAE, the Q-Former's self and cross
+# attentions, ragged L (127, 129), causal with GQA and a q_offset
+SM90_D64_CASES = {
+    "t5_encoder_b1": (1, 766, 766, 32, 32, True, None, False, 0),
+    "t5_encoder_b4_padded": (4, 766, 766, 32, 32, True, "padded", False, 0),
+    "videomae": (2, 1568, 1568, 12, 12, False, None, False, 0),
+    "qformer_self": (17, 32, 32, 12, 12, False, None, False, 0),
+    "qformer_cross": (17, 32, 2056, 12, 12, False, "right", False, 0),
+    "l127_bias": (2, 200, 127, 4, 4, True, "right", False, 0),
+    "l129_bias": (2, 129, 129, 4, 4, True, "padded", False, 0),
+    "gqa_causal_q_offset": (2, 300, 420, 8, 2, False, "right", True, 100),
+}
+
+
+@pytest.mark.parametrize("name", list(SM90_D64_CASES))
+def test_k5_hopper_body_at_head_dim_64(cuda, name):
+    b, s, l, nh, kvh, bias, mask, causal, q_offset = SM90_D64_CASES[name]
+    g = torch.Generator(device=cuda).manual_seed(s + l)
+    q = torch.randn(b, s, nh, 64, device=cuda, generator=g).to(torch.bfloat16)
+    k = torch.randn(b, l, kvh, 64, device=cuda, generator=g).to(torch.bfloat16)
+    v = torch.randn(b, l, kvh, 64, device=cuda, generator=g).to(torch.bfloat16)
+    pm, dead = None, []
+    if mask is not None:
+        pm = torch.ones(b, l, dtype=torch.int32, device=cuda)
+        pm[-1, l - l // 3:] = 0
+        if mask == "padded":  # the last row's tail; row 0 keeps nothing
+            pm[-1, min(l - 1, 100):] = 0
+            pm[0] = 0
+            dead = [0]
+    bias_t = _padded_bias(nh, s, l, cuda, g) if bias else None
+    kw = dict(padding_mask=pm, bias=bias_t, causal=causal, q_offset=q_offset,
+              scale=None if bias else 0.125)
+    assert tfl.k5_body(q, k, v, bias_t) == "sm90"
+    out = _k5_counted("sm90", lambda: tfl.flash_attention(q, k, v, **kw))
+    ref = tfl.flash_attention_reference(q, k, v, **kw)
+    for r in dead:
+        assert (out[r] == 0).all() and (ref[r] == 0).all()
+    assert torch.isfinite(out).all()
+    torch.testing.assert_close(out, ref, atol=2e-2, rtol=2e-2)
 
 
 def test_flash_kernel_refuses_what_it_does_not_take(cuda):

@@ -1,6 +1,7 @@
 """Port vs JAX: the K5 twin (ops/flash_attention.py) against the Pallas
 flash_attention in interpret mode at block 128, and the dispatcher
-ops/attention.dot_product_attention against the JAX one.
+ops/attention.dot_product_attention against the JAX one; the written rule
+of which body a CUDA call takes (k5_body) on meta tensors.
 
 Shapes are those of tests/models/test_flash_attention.py. Tolerances: fp32
 atol 1e-5 (the same recurrence, summed in another order); bf16 atol = rtol
@@ -197,7 +198,7 @@ def _sm90_rule_case(name):
 
 SM90_RULE = {
     "llama_prefill": True, "llama_prefill_b1": True, "gqa_4_over_1_q_offset": True,
-    "batch_1_any_batch_stride": True, "hd_88": False, "hd_64": False, "hd_80": False,
+    "batch_1_any_batch_stride": True, "hd_88": False, "hd_64": True, "hd_80": False,
     "hd_120": False, "bias": False, "rows_overlap": False, "batches_overlap": False,
     "keys_past_shared_memory": False, "fp32_llama_prefill": False,
 }
@@ -205,9 +206,10 @@ SM90_RULE = {
 
 @pytest.mark.parametrize("name", list(SM90_RULE))
 def test_sm90_body_rule(name):
-    """The written rule of which K5 body a CUDA call takes: the Hopper body
-    (wgmma + TMA) for head_dim 128 with no bias and non-overlapping rows and
-    batches whose shared memory fits; the mma.sync body for the rest."""
+    """Whether a CUDA call takes K5's Hopper body (wgmma + TMA): head_dim
+    128 or 64 with no bias and non-overlapping rows and batches whose shared
+    memory fits (a bias only at 64, in bf16 padded rows: test_k5_body_rule);
+    the mma.sync body for the rest of these rows."""
     q, k, v, bias = _sm90_rule_case(name)
     assert tflash.uses_sm90_body(q, k, v, bias) is SM90_RULE[name]
 
@@ -218,6 +220,127 @@ def test_sm90_shared_memory_layout():
     assert tflash.sm90_smem_bytes(2048) == 5 * 32768 + 128 + 16 * 20 + 1024
     assert tflash.sm90_smem_bytes(300) == 5 * 32768 + 128 + 3 * 20 + 1024
     assert tflash.sm90_smem_bytes(2048) <= tflash.SMEM_LIMIT < tflash.sm90_smem_bytes(500_000)
+
+
+def _padded_bias(h, s, l, dtype=torch.bfloat16):
+    """An (h, s, l) view of an (h, s, l rounded up to 8) buffer: the T5
+    module's bias layout (models/t5.py: compute_bias)."""
+    return _meta((h, s, -(-l // 8) * 8)).to(dtype)[:, :, :l]
+
+
+def _k5_form(name):
+    """(q, k, v, bias) of each form K5's callers give it, as meta tensors."""
+    if name.startswith("t5_encoder"):  # 766 prompt tokens, 32 x 64, the relative bias
+        b = 4 if name.startswith("t5_encoder_b4") else 1
+        x = _meta((b, 766, 32, 64))
+        bias = {"t5_encoder_b1": _padded_bias(32, 766, 766), "t5_encoder_b4": _padded_bias(32, 766, 766),
+                "t5_encoder_b4_fp32_bias": _padded_bias(32, 766, 766, torch.float32),
+                "t5_encoder_b4_unpadded_bias": _meta((32, 766, 766))}[name]
+        return x, x, x, bias
+    if name in ("t5_decoder_self", "engine_self"):  # one query over a layer slice of the stacked cache
+        slots = 33 if name == "t5_decoder_self" else 64
+        cache = _meta((6, 4, slots, 32, 64))
+        return _meta((4, 1, 32, 64)), cache[1], cache[1], _padded_bias(32, 1, slots)
+    if name in ("t5_cross", "engine_cross"):  # one query over the stacked encoder K/V
+        cross = _meta((6, 4, 766 if name == "t5_cross" else 832, 32, 64))
+        return _meta((4, 1, 32, 64)), cross[2], cross[2], None
+    if name == "videomae":  # (8, 1,568, 12 x 64), no mask, no bias
+        x = _meta((8, 1568, 12, 64))
+        return x, x, x, None
+    if name.startswith("qformer"):  # 32 queries of 68 videos over 32 queries or 8 x 257 frame tokens
+        keys = 32 if name == "qformer_self" else 2056
+        return _meta((68, 32, 12, 64)), _meta((68, keys, 12, 64)), _meta((68, keys, 12, 64)), None
+    if name == "llama_prefill":
+        cache = _meta((32, 4, 2048, 32, 128))
+        return _meta((4, 1984, 32, 128)), cache[3], cache[3], None
+    if name == "hd_80":
+        x = _meta((2, 257, 16, 80))
+        return x, x, x, None
+    if name == "hd_128_bias":
+        x = _meta((2, 90, 4, 128))
+        return x, x, x, _padded_bias(4, 90, 90)
+    if name == "rows_overlap":  # a row stride below heads * hd
+        x = _meta((2, 90, 4, 64), (90 * 128, 128, 64, 1))
+        return x, x, x, None
+    if name in ("four_queries", "five_queries"):
+        x = _meta((2, 4 if name == "four_queries" else 5, 8, 64))
+        return x, _meta((2, 500, 8, 64)), _meta((2, 500, 8, 64)), None
+    if name == "one_query_past_shared_memory":  # 57,600 keys: 450 tiles of scores, past 227 KB
+        return _meta((1, 1, 4, 64)), _meta((1, 57_600, 4, 64)), _meta((1, 57_600, 4, 64)), None
+    if name == "fp32":
+        x = torch.empty((1, 1, 4, 64), device="meta")
+        return x, x, x, None
+    raise KeyError(name)
+
+
+K5_BODY_RULE = {
+    "t5_encoder_b1": "sm90", "t5_encoder_b4": "sm90", "t5_encoder_b4_fp32_bias": "mma",
+    "t5_encoder_b4_unpadded_bias": "mma", "t5_decoder_self": "decode", "t5_cross": "decode",
+    "engine_self": "decode", "engine_cross": "decode", "videomae": "sm90", "qformer_self": "sm90",
+    "qformer_cross": "sm90", "llama_prefill": "sm90", "hd_80": "mma", "hd_128_bias": "mma",
+    "rows_overlap": "mma", "four_queries": "decode", "five_queries": "sm90",
+    "one_query_past_shared_memory": "sm90", "fp32": "f32",
+}
+
+
+@pytest.mark.parametrize("name", list(K5_BODY_RULE))
+def test_k5_body_rule(name):
+    """Which K5 body a CUDA call takes at every form its callers give it: the
+    decode body for the one-query steps (T5's decoder and cross steps, the
+    serving engine's), the Hopper body for the T5 encoder (its bf16 bias in
+    padded rows), VideoMAE, the Q-Former and the LLaMA prefill, the mma.sync
+    body for head dim 80, a bias at head dim 128, an fp32 or unpadded bias,
+    and overlapping rows; uses_sm90_body is the rule's "sm90" case."""
+    q, k, v, bias = _k5_form(name)
+    assert tflash.k5_body(q, k, v, bias) == K5_BODY_RULE[name]
+    assert tflash.uses_sm90_body(q, k, v, bias) is (K5_BODY_RULE[name] == "sm90")
+
+
+def test_shared_memory_of_the_new_bodies():
+    # head dim 64: a block of 64 queries; Q (64 x 64), 2 K and 2 V tiles of
+    # 128 x 64 bf16, and with a bias 2 bias tiles of 64 x 128 bf16
+    assert tflash.sm90_smem_bytes(766, 64) == 8192 + 4 * 16384 + 128 + 6 * 20 + 1024
+    assert tflash.sm90_smem_bytes(766, 64, bias=True) == 8192 + 4 * 16384 + 2 * 16384 + 128 + 6 * 20 + 1024
+    assert tflash.sm90_smem_bytes(2048, 128) == tflash.sm90_smem_bytes(2048)
+    # the decode body: 128 fp32 scores, 16 segment maxima and a running max a
+    # key tile, 16 warps' rows and sums
+    assert tflash.decode_smem_bytes(766) == 6 * 512 + 6 * 64 + 6 * 4 + 16 * 129 * 4
+    assert tflash.decode_smem_bytes(386 * 128) <= tflash.SMEM_LIMIT < tflash.decode_smem_bytes(386 * 128 + 1)
+
+
+def test_masks_are_read_in_place():
+    """The bf16 bodies read 1-, 4- and 8-byte integer masks with contiguous
+    keys where they lie, through the batch stride (0 for the T5 decoder's
+    filled-slot mask expanded to (B, L)); anything else is converted."""
+    filled = (torch.arange(33) < 13).to(torch.int32)[None].expand(4, 33)
+    for mask in (filled, torch.ones(4, 766, dtype=torch.int64), torch.ones(4, 766, dtype=torch.bool),
+                 torch.ones(4, 800, dtype=torch.int32)[:, :766]):
+        assert tflash._mask_in_place(mask) is mask
+    for mask in (torch.ones(4, 766), torch.ones(766, 4, dtype=torch.int32).t(), torch.ones(4, 766, dtype=torch.int16)):
+        got = tflash._mask_in_place(mask)
+        assert got.dtype == torch.int32 and got.is_contiguous() and torch.equal(got, mask.to(torch.int32))
+
+
+@pytest.mark.parametrize("name", ["t5_bias", "t5_decode_self"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_twin_takes_a_bf16_bias_in_padded_rows(name, dtype):
+    """The T5 module's bias as the wrapper now hands it over: bf16, in an
+    (H, S, L rounded up to 8) buffer viewed as (H, S, L). JAX gets the same
+    values (its wrapper casts the bias to fp32, exactly)."""
+    (q, k, v), kw = _case(name)
+    h, s, l = kw["bias"].shape
+    bias16 = torch.from_numpy(kw["bias"]).to(torch.bfloat16)
+    buf = torch.zeros(h, s, -(-l // 8) * 8, dtype=torch.bfloat16)
+    buf[:, :, :l] = bias16
+    view = buf[:, :, :l]
+    assert view.stride(1) % 8 == 0 and view.stride(2) == 1
+    tdtype, jdtype = getattr(torch, dtype), getattr(jnp, dtype)
+    ref = _jax_flash(q, k, v, jdtype, **dict(kw, bias=to_np(bias16)))
+    out = tflash.flash_attention(torch.from_numpy(q).to(tdtype), torch.from_numpy(k).to(tdtype),
+                                 torch.from_numpy(v).to(tdtype), padding_mask=torch.from_numpy(kw["padding_mask"]),
+                                 bias=view)
+    tol = 1e-5 if dtype == "float32" else 2e-2
+    np.testing.assert_allclose(to_np(out), ref, atol=tol, rtol=0 if dtype == "float32" else tol)
 
 
 # (q_len, kv_len, bias ndim or None, implementation): both sides of each

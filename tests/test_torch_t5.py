@@ -102,6 +102,55 @@ def test_bucket_tables_bit_equal(bidirectional):
     assert len(torch.unique(got)) == (31 if bidirectional else 32)  # bidirectional: +0 has no bucket
 
 
+# (q_len, k_len, q_offset) of the biases the forwards build: the encoder at
+# tiny and narration lengths (766 keys: a bf16 row of 1,532 bytes unpadded),
+# a cached decoder step over 33 slots, the decoder without a cache
+BIAS_LAYOUT_SHAPES = [(9, 9, 0), (766, 766, 0), (1, 33, 17), (5, 5, 0)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("stack", ["encoder", "decoder"])
+def test_relative_bias_buffer_holds_jax_compute_bias(pair, stack, dtype):
+    """compute_bias gathers into an (H, q_len, k_pad) buffer, k_pad the
+    multiple of 8 at or above k_len, and returns its [..., :k_len] view:
+    keys contiguous, rows on 16-byte boundaries in bf16 (what K5's Hopper
+    body reads by TMA), the values exactly JAX's compute_bias in the same
+    dtype."""
+    jcfg, _, params, model = pair
+    jatt = jt5.T5Attention(jcfg, has_relative_attention_bias=True, bidirectional=stack == "encoder",
+                           dtype=getattr(jnp, dtype))
+    variables = {"params": params[stack]["layers_0"]["self_attention"]["attention"]}
+    att = getattr(model, stack).layers[0].self_attention.attention
+    for q_len, k_len, off in BIAS_LAYOUT_SHAPES:
+        ref = jatt.apply(variables, q_len, k_len, off, method=jatt.compute_bias)
+        with torch.no_grad():
+            ours = att.compute_bias(q_len, k_len, off, dtype=getattr(torch, dtype))
+        k_pad = -(-k_len // 8) * 8
+        assert ours.shape == (1, jcfg.num_heads, q_len, k_len) and ours.dtype == getattr(torch, dtype)
+        assert ours.stride()[1:] == (q_len * k_pad, k_pad, 1), (ours.stride(), k_len)
+        np.testing.assert_array_equal(to_np(ours), np.asarray(ref.astype(jnp.float32)))
+
+
+def test_encoder_builds_its_bias_once_in_padded_rows(pair, monkeypatch):
+    """One bias a forward: every encoder layer's attention gets the same
+    (H, S, S) view of the padded buffer, in the model dtype."""
+    jcfg, _, _, model = pair
+    emb, mask, _, _ = _inputs(jcfg)
+    seen = []
+    real = tt5.dot_product_attention
+
+    def record(q, k, v, **kw):
+        seen.append(kw.get("bias"))
+        return real(q, k, v, **kw)
+
+    monkeypatch.setattr(tt5, "dot_product_attention", record)
+    with torch.no_grad():
+        model.encode(torch.from_numpy(emb), torch.from_numpy(mask))
+    assert len(seen) == jcfg.num_layers and all(b is seen[0] for b in seen)
+    assert seen[0].shape == (jcfg.num_heads, S, S) and seen[0].stride() == (S * 16, 16, 1)
+    assert seen[0].dtype == torch.float32
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_layer_norm_matches_jax(dtype):
     """The variance in fp32, y rounded to the model dtype, times the fp32

@@ -176,7 +176,8 @@ def test_full_geometry_dispatch_matches_jax(monkeypatch, mode):
 
 def test_bf16_qkv_meet_the_cuda_wrapper_rules(monkeypatch):
     """The three projections' (B, S, H, 64) views are packed rows the K5
-    wrapper reads in place, 16-byte aligned, and take its mma.sync body."""
+    wrapper reads in place, 16-byte aligned, and take its Hopper body (head
+    dim 64, no bias: k5_body's "sm90")."""
     seen = []
     _record(monkeypatch, tflash, "flash_attention", seen)
     tattn.set_default_attention_impl("flash")
@@ -190,4 +191,4 @@ def test_bf16_qkv_meet_the_cuda_wrapper_rules(monkeypatch):
         q, k, v = args
         assert q.dtype == torch.bfloat16 and q.shape[-1] == 64
         tflash._check_cuda(q, k, v, None, None)  # raises on anything the kernel does not take
-        assert not tflash.uses_sm90_body(q, k, v)
+        assert tflash.k5_body(q, k, v) == "sm90" and tflash.uses_sm90_body(q, k, v)
