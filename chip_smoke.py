@@ -15,7 +15,7 @@ final result line):
 2. Check each kernel against its plain PyTorch twin in bf16 at the shapes of
    its path: K1 (packed ViT attention) at (136, 257, 3*1408), 16 heads x 88;
    K1 also past its whole-row limit, at S = 385, 577 (a 336^2 ViT) and 1,025
-   (K2's body with no causal frontier);
+   (the two-pass body with no causal frontier);
    K2 (packed causal OPT prefill attention) at (4, 766, 3*2560), 32 heads x
    80, with all-ones and right-padded masks; K3 (decode attention, bf16
    stacked cache) at (L=32, B=4, S=798, 32x80), layer 17, with a full and a
@@ -48,12 +48,14 @@ final result line):
    rounded score, probability or activation moves an output by under 1%);
    3e-2 for K4 at the narration's batch 4 (the JAX int8 kernel test's bar)
    and 2e-3 for its other checks (K4_TIGHT_TOL: set from their measured
-   maxima). The bf16 two-pass body of K1 and K2 (S past 2,048): K2 at (1,
-   4,096, 32x80), causal, row 0 left-padded by 100 keys, and K1 at (1, 3,072,
+   maxima). K1 and K2 at long S on the bf16 two-pass body: K2 at (1, 4,096,
+   32x80), causal, row 0 left-padded by 100 keys, and K1 at (1, 3,072,
    16x88), against their twins at 2e-2 with the fully masked rows NaN in
    both, timed beside SDPA with the same mask and the bound, printed on a
-   JSON line of their own with their launches_two_pass, which come from this
-   check only (no path reaches S > 2,048).
+   JSON line of their own with their launches_sm90, which come from this
+   check only (no path reaches S > 2,048). Every bf16 K1 and K2 launch of
+   the script must be counted in its wrapper's launches_sm90 (the Hopper
+   bodies, wgmma + TMA): counters() checks it on every counted run.
 2b. The fp32 bodies (an fp32 model) against their twins, TF32 off, atol =
    rtol = 1e-4 (F32_TOL): K1 at (2, 257, 16x88) and at the fp32 ViT's
    (136, 257, 16x88); K2 at (2, 766, 32x80) with all-ones and left- and
@@ -878,10 +880,11 @@ def median_ms(fn, reps: int = 20, warmup: int = 3) -> float:
 def _counter_refs() -> dict:
     """Each launch counter by name: (wrapper, attribute). K1, K2, K5 and K6
     count every launch in ``launches`` and their fp32 body's also in
-    ``launches_f32`` (K1 and K2 their bf16 two-pass body's, past S = 2,048,
-    in ``launches_two_pass``; K5 its bf16 Hopper body's in ``launches_sm90``
-    and its decode body's in ``launches_decode``); K3 counts by cache (bf16, fp32), K4 every int8-cache
-    launch and those with an fp32 query also in ``launches_int8_f32``."""
+    ``launches_f32`` (K5 its bf16 Hopper body's in ``launches_sm90`` and its
+    decode body's in ``launches_decode``; K1's and K2's ``launches_sm90``,
+    every bf16 launch, are checked by :func:`counters`); K3 counts by cache
+    (bf16, fp32), K4 every int8-cache launch and those with an fp32 query
+    also in ``launches_int8_f32``."""
     from eilev_tpu_torch.ops import decode_attention as da
     from eilev_tpu_torch.ops import flash_attention as fl
     from eilev_tpu_torch.ops import fused_attention as fa
@@ -892,8 +895,6 @@ def _counter_refs() -> dict:
         "packed_qkv_attention_f32": (fa.packed_qkv_attention, "launches_f32"),
         "packed_qkv_causal_attention": (fa.packed_qkv_causal_attention, "launches"),
         "packed_qkv_causal_attention_f32": (fa.packed_qkv_causal_attention, "launches_f32"),
-        "packed_qkv_attention_two_pass": (fa.packed_qkv_attention, "launches_two_pass"),
-        "packed_qkv_causal_attention_two_pass": (fa.packed_qkv_causal_attention, "launches_two_pass"),
         "decode_attention_stacked_bf16": (da.decode_attention_stacked, "launches_bf16"),
         "decode_attention_stacked_f32": (da.decode_attention_stacked, "launches_f32"),
         "decode_attention_stacked_int8": (da.decode_attention_stacked, "launches_int8"),
@@ -907,14 +908,29 @@ def _counter_refs() -> dict:
     }
 
 
+def _packed_wrappers() -> dict:
+    from eilev_tpu_torch.ops import fused_attention as fa
+
+    return {"packed_qkv_attention": fa.packed_qkv_attention,
+            "packed_qkv_causal_attention": fa.packed_qkv_causal_attention}
+
+
 def counters() -> dict:
-    """Every kernel body's launch counter, by name."""
-    return {name: getattr(fn, attr) for name, (fn, attr) in _counter_refs().items()}
+    """Every kernel body's launch counter, by name. Checks that every bf16
+    K1 and K2 launch since the last reset took a Hopper body (wgmma + TMA):
+    each wrapper's launches_sm90 is its launches less its fp32 body's."""
+    counts = {name: getattr(fn, attr) for name, (fn, attr) in _counter_refs().items()}
+    for name, fn in _packed_wrappers().items():
+        assert fn.launches_sm90 == counts[name] - counts[f"{name}_f32"], (
+            f"{name}: {fn.launches_sm90} Hopper-body launches of {counts[name] - counts[name + '_f32']} in bf16")
+    return counts
 
 
 def reset_counters() -> None:
     for fn, attr in _counter_refs().values():
         setattr(fn, attr, 0)
+    for fn in _packed_wrappers().values():
+        fn.launches_sm90 = 0
 
 
 @contextlib.contextmanager
@@ -1151,18 +1167,20 @@ def check_kernels(tag: str, dev: torch.device) -> list[dict]:
     k1 = lambda nh=nh, hd=hd: fa.packed_qkv_attention(k1_qkv, nh, hd)  # noqa: E731
     k1_plain = lambda nh=nh, hd=hd: fa.packed_qkv_attention_reference(k1_qkv, nh, hd, hd**-0.5)  # noqa: E731
     k1_q, k1_k, k1_v = k1_qkv.view(b, s, 3, nh, hd).permute(2, 0, 3, 1, 4)
+    assert fa.packed_body(k1_qkv, causal=False) == "sm90_rows"
     err = check_close(tag, "K1 packed_qkv_attention (136,257,16x88)", k1(), k1_plain(), 2e-2)
-    results.append({"name": "packed_qkv_attention", "source": "eilev_tpu_torch/csrc/packed_attention.cu",
+    results.append({"name": "packed_qkv_attention", "body": "sm90_rows (wgmma + TMA, whole rows in registers)",
+                    "source": "eilev_tpu_torch/csrc/packed_attention.cu",
                     "replaces": "eilev_tpu/ops/fused_attention.py:81",
                     "max_abs_err": err, "run": k1, "plain": k1_plain, "per_call": 1,
                     "library": lambda hd=hd: _sdpa(k1_q, k1_k, k1_v, scale=hd**-0.5),
                     "bound": bound(4 * b * nh * s * s * hd, 4 * b * s * nh * hd * 2)})
-    # K1 past its whole-row limit (K1_MAX_SEQ = 384): K2's body with no causal
-    # frontier, up to 2,048; 577 is a 336^2 ViT (24^2 patches + CLS)
+    # K1 past its whole-row limit (K1_MAX_SEQ = 384): the two-pass body with
+    # no causal frontier; 577 is a 336^2 ViT (24^2 patches + CLS)
     for s_long in (385, 577, 1025):
         qkv = torch.randn(2, s_long, 3 * nh * hd, device=dev, generator=g).to(torch.bfloat16)
-        assert fa.packed_body(qkv, causal=False) == "streamed"
-        check_close(tag, f"K1 packed_qkv_attention (2,{s_long},{nh}x{hd}) past K1_MAX_SEQ, K2's body",
+        assert fa.packed_body(qkv, causal=False) == "sm90"
+        check_close(tag, f"K1 packed_qkv_attention (2,{s_long},{nh}x{hd}) past K1_MAX_SEQ, the two-pass body",
                     fa.packed_qkv_attention(qkv, nh, hd), fa.packed_qkv_attention_reference(qkv, nh, hd, hd**-0.5),
                     2e-2)
     del qkv
@@ -1184,7 +1202,8 @@ def check_kernels(tag: str, dev: torch.device) -> list[dict]:
     k2_plain = lambda nh=nh, hd=hd: fa.packed_qkv_causal_attention_reference(  # noqa: E731
         k2_qkv, nh, hd, ones, hd**-0.5)
     k2_q, k2_k, k2_v = k2_qkv.view(b, s, 3, nh, hd).permute(2, 0, 3, 1, 4)
-    results.append({"name": "packed_qkv_causal_attention", "source": "eilev_tpu_torch/csrc/packed_attention.cu",
+    results.append({"name": "packed_qkv_causal_attention", "body": "sm90 (wgmma + TMA, two passes)",
+                    "source": "eilev_tpu_torch/csrc/packed_attention.cu",
                     "replaces": "eilev_tpu/ops/fused_attention.py:187",
                     "max_abs_err": max(errs), "run": k2, "plain": k2_plain, "per_call": 1,
                     "library": lambda hd=hd: _sdpa(k2_q, k2_k, k2_v, is_causal=True, scale=hd**-0.5),
@@ -1682,22 +1701,21 @@ def check_t5_shapes(tag: str, dev: torch.device) -> list[dict]:
 
 
 def check_two_pass(tag: str, dev: torch.device, g) -> None:
-    """The bf16 two-pass body of K1 and K2 (S past K2_MAX_SEQ = 2,048, where a
-    query tile's scores no longer fit shared memory): K2 at (1, 4,096, 32x80),
-    causal, row 0 left-padded by TWO_PASS_PAD keys, and K1 at (1, 3,072,
-    16x88), each against its twin at atol = rtol = 2e-2 with the fully masked
-    rows NaN in both; then timed like the other kernels (in turns plain,
-    kernel, kernel, plain; one SDPA call with the same mask and scale) beside
-    its bound. Its launches come from this check only: no path of the port
-    reaches S > 2,048 (OPT's positions end there, every ViT is 257). Prints
-    one JSON line."""
+    """K1 and K2 at long S on the bf16 two-pass body (which takes any S): K2
+    at (1, 4,096, 32x80), causal, row 0 left-padded by TWO_PASS_PAD keys, and
+    K1 at (1, 3,072, 16x88), each against its twin at atol = rtol = 2e-2 with
+    the fully masked rows NaN in both; then timed like the other kernels (in
+    turns plain, kernel, kernel, plain; one SDPA call with the same mask and
+    scale) beside its bound. Its launches come from this check only: no path
+    of the port reaches S > 2,048 (OPT's positions end there, every ViT is
+    257). Prints one JSON line."""
     from eilev_tpu_torch.ops import fused_attention as fa
 
     rows = []
     for name, causal, (b, s, nh, hd) in (("packed_qkv_causal_attention", True, (1, 4096, 32, 80)),
                                          ("packed_qkv_attention", False, (1, 3072, 16, 88))):
         qkv = torch.randn(b, s, 3 * nh * hd, device=dev, generator=g).to(torch.bfloat16)
-        assert fa.packed_body(qkv, causal) == "two_pass"
+        assert fa.packed_body(qkv, causal) == "sm90"
         q, k, v = qkv.view(b, s, 3, nh, hd).permute(2, 0, 3, 1, 4)
         if causal:
             mask = torch.ones(b, s, dtype=torch.int32, device=dev)
@@ -1716,7 +1734,7 @@ def check_two_pass(tag: str, dev: torch.device, g) -> None:
             work = (4 * b * nh * s * s * hd, 4 * b * s * nh * hd * 2)
             label = f"K1 two-pass ({b},{s},{nh}x{hd})"
         fn = getattr(fa, name)
-        before = fn.launches_two_pass
+        before = fn.launches_sm90
         out, ref = run(), plain()
         torch.cuda.synchronize()
         nan_out, nan_ref = torch.isnan(out).any(-1), torch.isnan(ref).any(-1)
@@ -1725,16 +1743,16 @@ def check_two_pass(tag: str, dev: torch.device, g) -> None:
         err = (out.float() - ref.float())[~nan_ref].abs().max().item()
         print(f"[{tag}] {label} max_abs_err={err} (rows that are not NaN)")
         torch.testing.assert_close(out, ref, atol=2e-2, rtol=2e-2, equal_nan=True)
-        launches = fn.launches_two_pass - before
+        launches = fn.launches_sm90 - before
         del out, ref
         p1, k_a, k_b, p2 = (median_ms(f) for f in (plain, run, run, plain))
         library = min(median_ms(lib), median_ms(lib))
         bound_ms, bound_by = bound(*work)
         rows.append({"name": f"{name} two-pass body", "shape": [b, s, nh, hd], "causal": causal,
                      "max_abs_err": err, "ms": min(k_a, k_b), "plain_ms": min(p1, p2), "library_ms": library,
-                     "bound_ms": bound_ms, "bound_by": bound_by, "launches_two_pass": launches})
+                     "bound_ms": bound_ms, "bound_by": bound_by, "launches_sm90": launches})
         print(f"[{tag}] {label} kernel_ms={k_a},{k_b} plain_ms={p1},{p2} library_ms={library} "
-              f"bound_ms={bound_ms} ({bound_by}) launches_two_pass={launches} (this check only: no path "
+              f"bound_ms={bound_ms} ({bound_by}) launches_sm90={launches} (this check only: no path "
               f"reaches S > 2,048)")
         del qkv, q, k, v, run, plain, lib
     print(json.dumps({"two_pass": rows, "card": tag,
@@ -2044,8 +2062,56 @@ def _k5_form_runs(dev, g, fl) -> dict:
     return runs
 
 
+# K1 and K2 in bf16 at every shape of their PERF.md rows: (B, S, heads) at
+# head dim 88 (K1: the ViT at narration b1, the v1 chat's 10 frames, TP = 2's
+# local heads and a TP serving feature-cache encode, past the whole-row limit
+# at 385, 577 and 1,025, and the long check at 3,072) and (B, S, heads, left
+# padding) at head dim 80 (K2: the OPT prefill at b4 and b1, the serving
+# admission, TP = 2's prefill and admission, the chat's two prefills, the
+# long check at 4,096)
+K1_TIMED_SHAPES = ((136, 257, 16), (10, 257, 16), (136, 257, 8), (64, 257, 8), (2, 385, 16), (2, 577, 16),
+                   (2, 1025, 16), (1, 3072, 16))
+K2_TIMED_SHAPES = ((4, 766, 32, 0), (1, 766, 32, 0), (1, 768, 32, 2), (1, 766, 16, 0), (1, 768, 16, 2),
+                   (1, 41, 32, 0), (1, 178, 32, 0), (1, 4096, 32, 100))
+# the shapes whose host time a call (the wrapper, the tensor maps and the
+# launch; the card kept busy) --kernel-times also prints
+ENQUEUE_SHAPES = ("K1 bf16 (136,257,16x88)", "K2 bf16 (1,768,32x80) left-padded by 2", "K2 bf16 (1,41,32x80)")
+
+
+def _packed_form_runs(dev, g, fa) -> dict:
+    """K1 and K2 in bf16 at K1_TIMED_SHAPES and K2_TIMED_SHAPES, for
+    ``--kernel-times``; K2's left padding on batch row 0."""
+    runs = {}
+    for b, s, nh in K1_TIMED_SHAPES:
+        qkv = torch.randn(b, s, 3 * nh * 88, device=dev, generator=g).to(torch.bfloat16)
+        runs[f"K1 bf16 ({b},{s},{nh}x88)"] = ((lambda qkv=qkv, nh=nh: fa.packed_qkv_attention(qkv, nh, 88)), 1)
+    for b, s, nh, pad in K2_TIMED_SHAPES:
+        qkv = torch.randn(b, s, 3 * nh * 80, device=dev, generator=g).to(torch.bfloat16)
+        mask = torch.ones(b, s, dtype=torch.int32, device=dev)
+        mask[0, :pad] = 0
+        name = f"K2 bf16 ({b},{s},{nh}x80)" + (f" left-padded by {pad}" if pad else "")
+        runs[name] = ((lambda qkv=qkv, nh=nh, mask=mask: fa.packed_qkv_causal_attention(qkv, nh, 80, mask)), 1)
+    return runs
+
+
+def enqueue_us(fn, n: int = 50) -> float:
+    """Host microseconds a call of ``fn`` takes to return, behind a device
+    sleep so that no launch waits on the card."""
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(SLEEP_CYCLES)
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    host = (time.perf_counter() - t0) / n * 1e6
+    torch.cuda.synchronize()
+    return host
+
+
 def kernel_times(tag: str, dev: torch.device, tree: str) -> None:
-    """The A/B timing of ``--kernel-times``: K3 and K4 at the decode shapes,
+    """The A/B timing of ``--kernel-times``: K1 and K2 in bf16 at every shape
+    of their PERF.md rows (_packed_form_runs), with the host time of a call
+    at ENQUEUE_SHAPES; K3 and K4 at the decode shapes,
     K5 at (a), batch 1 and 4, K5's bf16 forms of the T5 path, the T5
     serving engine, VideoMAE and the Q-Former (_k5_form_runs), the fp32
     attention body (K1, K2, K5 with fp32 q, k, v) at its check shapes and
@@ -2074,6 +2140,7 @@ def kernel_times(tag: str, dev: torch.device, tree: str) -> None:
         q, k, v = q.float(), k.float(), v.float()
         runs[f"K5 fp32 (a) B={b_a}"] = ((lambda q=q, k=k, v=v, kw5=kw5: fl.flash_attention(q, k, v, **kw5)), 1)
     runs.update(_k5_form_runs(dev, g, fl))
+    runs.update(_packed_form_runs(dev, g, fa))
     for b in (2, 136):
         qkv = torch.randn(b, 257, 3 * 16 * 88, device=dev, generator=g)
         runs[f"K1 fp32 ({b},257,16x88)"] = ((lambda qkv=qkv: fa.packed_qkv_attention(qkv, 16, 88)), 1)
@@ -2091,7 +2158,10 @@ def kernel_times(tag: str, dev: torch.device, tree: str) -> None:
     for name, (fn, n) in runs.items():
         times[name] = [median_ms(fn) / n, median_ms(fn) / n]
         print(f"[{tag}] {tree} {name} kernel_ms={times[name][0]},{times[name][1]} (per launch)")
-    print(json.dumps({"tree": tree, "card": tag, "times_ms": times}))
+    host = {name: enqueue_us(runs[name][0]) for name in ENQUEUE_SHAPES}
+    for name, us in host.items():
+        print(f"[{tag}] {tree} {name} enqueue_us={us} (host, a call)")
+    print(json.dumps({"tree": tree, "card": tag, "times_ms": times, "enqueue_us": host}))
 
 
 class Variants:
@@ -2180,7 +2250,8 @@ def drive(tag: str, label: str, run, lm_calls: list, expect: dict, reps: int, st
     its launches given the one-token forwards. ``run`` has ``model``,
     ``batch``, ``rows``, ``generate()`` and ``rate(p50_s, new_tokens)``.
     ``stats``, when given, receives the p50, the peak memory, the one-token
-    forwards and the counted run's tokens."""
+    forwards, the counted run's tokens and its K1/K2 launches on their
+    Hopper bodies (``sm90``)."""
     n_lm = getattr(run.model.config.text_config, "num_hidden_layers", None)
     torch.cuda.reset_peak_memory_stats()
     lm_calls.clear()
@@ -2188,6 +2259,7 @@ def drive(tag: str, label: str, run, lm_calls: list, expect: dict, reps: int, st
     tokens = run.generate()
     torch.cuda.synchronize()
     counts = counters()
+    sm90 = {name: fn.launches_sm90 for name, fn in _packed_wrappers().items()}
     one_token = sum(1 for s_len, _ in lm_calls if s_len == 1)
     print(f"[{tag}] {label} batch={run.batch} launches {counts} one_token_lm_forwards={one_token} "
           f"tokens_shape={tuple(tokens.shape)}")
@@ -2212,7 +2284,7 @@ def drive(tag: str, label: str, run, lm_calls: list, expect: dict, reps: int, st
     print(f"[{tag}] {label} batch={run.batch} generate_s={times} p50_s={p50} "
           f"{run.rate(p50, one_token + 1)} max_memory_allocated_bytes={peak}")
     if stats is not None:
-        stats.update(p50_s=p50, peak_bytes=peak, one_token_forwards=one_token, tokens=tokens)
+        stats.update(p50_s=p50, peak_bytes=peak, one_token_forwards=one_token, tokens=tokens, sm90=sm90)
     return counts
 
 
@@ -2249,8 +2321,13 @@ def run_main_path(tag: str, dev: torch.device, launches: dict):
     )
     runs = {batch: Narration(model, cfg, batch, dev) for batch in (1, 4)}
     for batch, reps in ((1, 5), (4, 3)):
+        stats: dict = {}
         counts = drive(tag, "bf16", runs[batch], lm_calls, narration_counts(cfg, "decode_attention_stacked_bf16"),
-                       reps)
+                       reps, stats)
+        # every K1 and K2 launch of the counted run on a Hopper body (wgmma + TMA)
+        print(f"[{tag}] bf16 batch={batch} K1/K2 launches_sm90 {stats['sm90']}")
+        assert stats["sm90"] == {"packed_qkv_attention": cfg.vision_config.num_hidden_layers,
+                                 "packed_qkv_causal_attention": cfg.text_config.num_hidden_layers}, stats["sm90"]
         if batch == 1:
             launches.update({k: counts[k] for k in
                              ("packed_qkv_attention", "packed_qkv_causal_attention", "decode_attention_stacked_bf16")})
@@ -7523,7 +7600,8 @@ def main(argv: list) -> int:
         tree = os.path.abspath(argv[1])
         sys.path.insert(0, tree)  # its eilev_tpu_torch, built into its own build/
         try:
-            build_kernels(tag, ("decode_attention", "flash_attention", "attention_f32", "fused_mlp"))
+            build_kernels(tag, ("packed_attention", "decode_attention", "flash_attention", "attention_f32",
+                                "fused_mlp"))
             kernel_times(tag, dev, tree)
         except Exception:
             traceback.print_exc()

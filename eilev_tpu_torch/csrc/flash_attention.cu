@@ -1048,40 +1048,6 @@ flash_attention_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver, found once through the runtime.
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) ==
-            cudaSuccess &&
-        found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// A (D, heads, rows, batch) map of 128-byte-swizzled (64 x 1 x box_rows x
-// 1) boxes: one 64-column half of box_rows rows of one head. Out-of-range
-// rows read as zeros.
-bool make_map(CUtensorMap* map, EncodeTiled fn, const void* base, int D, int heads, int rows, int batch,
-              long long rs, long long bs, int box_rows) {
-  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads, (cuuint64_t)rows, (cuuint64_t)batch};
-  const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)rs * 2,
-                                 (cuuint64_t)(batch > 1 ? bs : (long long)rows * rs) * 2};
-  const cuuint32_t box[4] = {HALF, 1, (cuuint32_t)box_rows, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides, box,
-            elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 // A (keys, rows, heads) map of the bf16 bias in 128-byte-swizzled (64 x
 // box_rows x 1) boxes: 64 keys of box_rows query rows of one head. Keys past
 // L and rows past S read as zeros.
@@ -1115,9 +1081,9 @@ int launch_d(const Args& a, cudaStream_t stream) {
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return (int)cudaErrorNotSupported;
   CUtensorMap tm_q, tm_k, tm_v, tm_bias;
-  if (!make_map(&tm_q, fn, a.q, D, a.H, a.S, a.B, a.q_rs, a.q_bs, Lay::BQ) ||
-      !make_map(&tm_k, fn, a.k, D, a.KVH, a.L, a.B, a.k_rs, a.k_bs, BK) ||
-      !make_map(&tm_v, fn, a.v, D, a.KVH, a.L, a.B, a.v_rs, a.v_bs, BK))
+  if (!make_head_map(&tm_q, fn, a.q, D, a.H, a.S, a.B, a.q_rs, a.q_bs, Lay::BQ) ||
+      !make_head_map(&tm_k, fn, a.k, D, a.KVH, a.L, a.B, a.k_rs, a.k_bs, BK) ||
+      !make_head_map(&tm_v, fn, a.v, D, a.KVH, a.L, a.B, a.v_rs, a.v_bs, BK))
     return (int)cudaErrorInvalidValue;
   if constexpr (BIAS) {
     if (!make_bias_map(&tm_bias, fn, a, Lay::BQ)) return (int)cudaErrorInvalidValue;

@@ -1,6 +1,7 @@
 // Hopper-only helpers (sm_90a): TMA tile loads, mbarriers, wgmma with
-// 128-byte-swizzled shared-memory operands. Used by flash_attention.cu and
-// fused_mlp.cu.
+// 128-byte-swizzled shared-memory operands, and on the host the tensor maps
+// of heads cut into 64-column halves. Used by flash_attention.cu,
+// packed_attention.cu and fused_mlp.cu.
 //
 // Shared-memory tiles are written by TMA with CU_TENSOR_MAP_SWIZZLE_128B: a
 // tile of R rows x 64 bf16 (128 bytes a row) whose 16-byte chunk c of row r
@@ -24,6 +25,7 @@
 
 #include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "sm90_mma.cuh"
@@ -133,6 +135,21 @@ __device__ __forceinline__ uint64_t wgmma_desc(const void* p, uint32_t lbo_bytes
   return d;
 }
 
+// The same for a tile whose rows are W bf16 wide (128, 64 or 32 bytes)
+// under the swizzle of that width (layout types 1, 2 and 3: B128, B64,
+// B32), as TMA writes it (make_head_map with box_cols W): 8-row groups
+// 16 W bytes apart.
+template <int W>
+__device__ __forceinline__ uint64_t wgmma_desc_w(const void* p, uint32_t lbo_bytes) {
+  static_assert(W == 64 || W == 32 || W == 16, "rows of 128, 64 or 32 bytes");
+  uint64_t d = 0;
+  d |= (uint64_t)((smem_addr(p) & 0x3FFFF) >> 4);
+  d |= (uint64_t)((lbo_bytes >> 4) & 0x3FFF) << 16;
+  d |= (uint64_t)(((16 * W) >> 4) & 0x3FFF) << 32;
+  d |= (uint64_t)(W == 64 ? 1 : W == 32 ? 2 : 3) << 62;
+  return d;
+}
+
 __device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
 __device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
 template <int N>
@@ -164,6 +181,17 @@ __device__ __forceinline__ void wgmma_m64n128k16_ss(float* d, uint64_t desc_a, u
       : "l"(desc_a), "l"(desc_b), "r"(accumulate));
 }
 
+// d (64 x 16, fp32) (+)= A (64 x 16, bf16, shared, K-major) * B (16 x 16,
+// bf16, shared, K-major: 16 rows of k). accumulate == 0 overwrites d.
+__device__ __forceinline__ void wgmma_m64n16k16_ss(float* d, uint64_t desc_a, uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %10, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, 0, 0;\n}\n"
+      : EILEV_WG_D8(0)
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
 // d (64 x 128, fp32) += A (64 x 16, bf16, registers) * B (16 x 128, bf16,
 // shared, MN-major: k rows of 128 n, the transposed operand).
 __device__ __forceinline__ void wgmma_m64n128k16_rs_tb(float* d, const uint32_t* a, uint64_t desc_b) {
@@ -188,13 +216,39 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs_tb(float* d, const uint32_t* 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
 
+// d (64 x 32, fp32) += A (64 x 16, bf16, registers) * B (16 x 32, bf16,
+// shared, MN-major).
+__device__ __forceinline__ void wgmma_m64n32k16_rs_tb(float* d, const uint32_t* a, uint64_t desc_b) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %21, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : EILEV_WG_D8(0), EILEV_WG_D8(8)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// d (64 x 16, fp32) += A (64 x 16, bf16, registers) * B (16 x 16, bf16,
+// shared, MN-major).
+__device__ __forceinline__ void wgmma_m64n16k16_rs_tb(float* d, const uint32_t* a, uint64_t desc_b) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %13, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : EILEV_WG_D8(0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
 // d (64 x N, fp32) += A (64 x 16, registers) * B (16 x N, shared, MN-major)
-// for N = 64 or 128 (flash_attention.cu's PV at head dim N).
+// for N = 16, 32, 64 or 128 (flash_attention.cu's PV at head dim N,
+// packed_attention.cu's at each part of a head).
 template <int N>
 __device__ __forceinline__ void wgmma_rs_tb(float* d, const uint32_t* a, uint64_t desc_b) {
-  static_assert(N == 64 || N == 128, "wgmma_rs_tb: N is 64 or 128");
+  static_assert(N == 16 || N == 32 || N == 64 || N == 128, "wgmma_rs_tb: N is 16, 32, 64 or 128");
   if constexpr (N == 128) wgmma_m64n128k16_rs_tb(d, a, desc_b);
-  else wgmma_m64n64k16_rs_tb(d, a, desc_b);
+  else if constexpr (N == 64) wgmma_m64n64k16_rs_tb(d, a, desc_b);
+  else if constexpr (N == 32) wgmma_m64n32k16_rs_tb(d, a, desc_b);
+  else wgmma_m64n16k16_rs_tb(d, a, desc_b);
 }
 
 // d (64 x N, fp32) (+)= A (64 x 16, bf16, shared, K-major) * B (16 x N,
@@ -265,5 +319,50 @@ __device__ __forceinline__ void wgmma_fence_operand(float* d) { wgmma_pin<64>(d)
 #undef EILEV_WG_REGS64
 #undef EILEV_WG_D8
 #undef EILEV_WG_D64
+
+// ---- host: tensor maps ---------------------------------------------------------
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the CUDA driver, found once through the runtime (no
+// -lcuda at link time).
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) ==
+            cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A (D, heads, rows, batch) map of bf16 rows that hold `heads` heads of D
+// columns each (row stride rs and batch stride bs in elements), in swizzled
+// (box_cols x 1 x box_rows x 1) boxes: box_cols columns of box_rows rows of
+// one head, under the swizzle as wide as a box row (64 columns: 128 bytes,
+// 32: 64, 16: 32). Columns past D and rows past `rows` read as zeros: a head
+// of D = 80 is a 64-column part and a 16-column one (or, in 64-column boxes,
+// 16 columns and 48 zeros), and a box that runs past the last row never
+// reads the next batch row's.
+inline bool make_head_map(CUtensorMap* map, EncodeTiled fn, const void* base, int D, int heads, int rows,
+                          int batch, long long rs, long long bs, int box_rows, int box_cols = 64) {
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads, (cuuint64_t)rows, (cuuint64_t)batch};
+  const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)rs * 2,
+                                 (cuuint64_t)(batch > 1 ? bs : (long long)rows * rs) * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)box_cols, 1, (cuuint32_t)box_rows, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUtensorMapSwizzle swizzle = box_cols == 64   ? CU_TENSOR_MAP_SWIZZLE_128B
+                                     : box_cols == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                                      : CU_TENSOR_MAP_SWIZZLE_32B;
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides, box,
+            elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
 
 }  // namespace sm90

@@ -14,19 +14,19 @@ the fp32 body of ``csrc/attention_f32.cu``; any other dtype raises
 ``TypeError``. Neither has a backward (nor has either JAX kernel): each raises
 ``RuntimeError`` when grad mode is on and its input requires grad
 (:func:`refuse_grad`), on both devices. Each wrapper counts its kernel
-launches in its ``launches`` attribute, a plain integer, the fp32 body's also in ``launches_f32`` and
-the bf16 two-pass body's also in ``launches_two_pass``.
+launches in its ``launches`` attribute, a plain integer, the fp32 body's also
+in ``launches_f32`` and the bf16 Hopper bodies' (wgmma + TMA, both of them)
+also in ``launches_sm90``.
 
 Which body a CUDA call takes is the written rule :func:`packed_body`. In
-bf16, K1 keeps a head's K and V and a warp's whole score rows on chip up to
-S = ``K1_MAX_SEQ`` (384: at D = 128, K and V take 208,896 of the 232,448
-bytes of shared memory a block may use; every ViT geometry has S = 257);
-past it K1 runs K2's body, which keeps a query tile's bf16 scores in shared
-memory, with no causal frontier. Past ``K2_MAX_SEQ`` (2,048, OPT's
-positions), where a tile's scores no longer fit, both take the two-pass body,
-which keeps no score: pass 1 streams the keys for each row's max and sum,
-pass 2 recomputes the rounded scores and accumulates PV. The fp32 body
-streams the keys and takes any S.
+bf16, K1 up to S = ``K1_MAX_SEQ`` (384) keeps a head's K and V in shared
+memory and a warpgroup's whole score rows in registers ("sm90_rows"; every
+ViT geometry has S = 257); K2, and K1 past that limit, take the two-pass body
+("sm90"), which keeps no score: pass 1 streams the key tiles for each row's
+max and sum, pass 2 recomputes the same rounded scores and accumulates PV, so
+it takes any S. The fp32 body streams the keys and takes any S. Both bf16
+bodies take 128-query tiles at most (``QUERY_TILE``), the fp32 body's grid
+65,535 of them.
 
 The twins carry the rounding points of the JAX kernels, which follow HF's bf16
 numerics:
@@ -51,13 +51,16 @@ import torch
 
 from .attention import _scalar, plain_attention
 
-# the bf16 bodies' sequence limits (csrc/packed_attention.cu K1_MAX_S, K2_MAX_S)
+# the whole-row body's key capacity (csrc/packed_attention.cu K1_MAX_S)
 K1_MAX_SEQ = 384
-K2_MAX_SEQ = 2048
-# grid dimensions y (heads) and z (batch rows); the two-pass body's query
-# tiles, the z dimension of its grid
+# batch rows and heads (csrc entry points); query tiles of QUERY_TILE rows
+# (the fp32 body's grid z; the bf16 two-pass body's tiles); blocks of a 1-d
+# bf16 grid
 _MAX_GRID = 65535
-TWO_PASS_BQ = 64
+QUERY_TILE = 128
+_MAX_BLOCKS = 2**31 - 1
+# dynamic shared memory a block may use on the H100
+MAX_SMEM = 232448
 
 
 def packed_qkv_attention_reference(
@@ -94,15 +97,41 @@ def packed_qkv_causal_attention_reference(
 def packed_body(qkv: torch.Tensor, causal: bool) -> str:
     """Which body a CUDA call of K1 (``causal=False``) or K2 takes, the rule
     of ``csrc/packed_attention.cu``'s entry point and of the wrappers: "f32"
-    (``csrc/attention_f32.cu``) for fp32 qkv; in bf16, K2 always and K1 past
-    ``K1_MAX_SEQ`` "streamed" (K2's body: scores in shared memory), K1 up to
-    it "whole_rows" (scores in registers); both past ``K2_MAX_SEQ``
-    "two_pass" (no score kept). Reads the dtype and S only."""
+    (``csrc/attention_f32.cu``) for fp32 qkv; in bf16 "sm90_rows" (whole rows
+    in registers) for K1 up to ``K1_MAX_SEQ``, else "sm90" (the two-pass body
+    with recomputed scores). Reads the dtype and S only."""
     if qkv.dtype == torch.float32:
         return "f32"
-    if qkv.shape[1] > K2_MAX_SEQ:
-        return "two_pass"
-    return "streamed" if causal or qkv.shape[1] > K1_MAX_SEQ else "whole_rows"
+    return "sm90" if causal or qkv.shape[1] > K1_MAX_SEQ else "sm90_rows"
+
+
+def part_widths(head_dim: int) -> tuple[int, int]:
+    """The columns of the (one or two) parts the bf16 bodies cut a head into
+    (csrc/packed_attention.cu ``Parts``): rows of 32, 64 or 128 bytes under
+    the swizzle of that width, the second part 0 up to head_dim 64. D = 80
+    is (64, 16), D = 88 (64, 32), D = 48 (64, 0)."""
+    d16 = -(-head_dim // 16)
+    w0 = 64 if d16 >= 3 else 16 * d16
+    w1 = 0 if d16 <= 4 else {5: 16, 6: 32}.get(d16, 64)
+    return w0, w1
+
+
+def packed_smem_bytes(body: str, s: int, head_dim: int) -> int:
+    """Dynamic shared memory of one block of a bf16 body, as
+    ``csrc/packed_attention.cu`` lays it out (StreamLayout, RowsLayout):
+    each part of a tile in whole 1 KB blocks, then the barriers and 1 KB to
+    align the base. "sm90": a 128-row Q tile, 3 K and 2 V stages of 128 keys;
+    "sm90_rows": K and V at 128, 272 or 384 keys (the least that holds S)
+    and a 64-row Q buffer for each of its three warpgroups (two at 384)."""
+    widths = part_widths(head_dim)
+
+    def room(rows: int) -> int:
+        return sum(-(-rows * 2 * w // 1024) * 1024 for w in widths)
+
+    if body == "sm90":
+        return 6 * room(128) + 128 + 1024
+    keys = 128 if s <= 128 else 272 if s <= 272 else 384
+    return 2 * room(keys) + (3 if keys <= 272 else 2) * room(64) + 64 + 1024
 
 
 def _check(qkv: torch.Tensor, num_heads: int, head_dim: int) -> None:
@@ -115,8 +144,11 @@ def _check(qkv: torch.Tensor, num_heads: int, head_dim: int) -> None:
         raise TypeError(f"the CUDA kernels take bf16 or fp32 qkv, got {qkv.dtype}")
     if qkv.shape[0] > _MAX_GRID or num_heads > _MAX_GRID:
         raise ValueError(f"the CUDA kernel takes at most {_MAX_GRID} batch rows and heads")
-    if -(-qkv.shape[1] // TWO_PASS_BQ) > _MAX_GRID:
-        raise ValueError(f"the CUDA kernel takes at most {_MAX_GRID * TWO_PASS_BQ} positions")
+    tiles = -(-qkv.shape[1] // QUERY_TILE)
+    if tiles > _MAX_GRID:
+        raise ValueError(f"the CUDA kernel takes at most {_MAX_GRID * QUERY_TILE} positions")
+    if tiles * num_heads * qkv.shape[0] > _MAX_BLOCKS:
+        raise ValueError(f"the CUDA kernel takes at most {_MAX_BLOCKS} (query tile, head, batch row) blocks")
     if not qkv.is_contiguous():
         raise ValueError("the CUDA kernel takes a contiguous qkv")
     if head_dim % 8 or head_dim > 128:
@@ -217,13 +249,13 @@ def packed_qkv_attention(
     body = packed_body(qkv, causal=False)
     packed_qkv_attention.launches += 1
     packed_qkv_attention.launches_f32 += body == "f32"
-    packed_qkv_attention.launches_two_pass += body == "two_pass"
+    packed_qkv_attention.launches_sm90 += body in ("sm90", "sm90_rows")
     return out
 
 
 packed_qkv_attention.launches = 0
 packed_qkv_attention.launches_f32 = 0
-packed_qkv_attention.launches_two_pass = 0
+packed_qkv_attention.launches_sm90 = 0
 
 
 def packed_qkv_causal_attention(
@@ -257,10 +289,10 @@ def packed_qkv_causal_attention(
     body = packed_body(qkv, causal=True)
     packed_qkv_causal_attention.launches += 1
     packed_qkv_causal_attention.launches_f32 += body == "f32"
-    packed_qkv_causal_attention.launches_two_pass += body == "two_pass"
+    packed_qkv_causal_attention.launches_sm90 += body in ("sm90", "sm90_rows")
     return out
 
 
 packed_qkv_causal_attention.launches = 0
 packed_qkv_causal_attention.launches_f32 = 0
-packed_qkv_causal_attention.launches_two_pass = 0
+packed_qkv_causal_attention.launches_sm90 = 0

@@ -62,28 +62,30 @@ def test_k1_kernel_matches_plain(cuda, b, s, nh, hd, dtype):
     torch.testing.assert_close(out, ref, **TOL[dtype])
 
 
-@pytest.mark.parametrize("s", [1, 17, 257, tfa.K1_MAX_SEQ, 385, 577, 1025, tfa.K2_MAX_SEQ])
+@pytest.mark.parametrize("s", [1, 17, 257, tfa.K1_MAX_SEQ, 385, 577, 1025, 2048])
 @pytest.mark.parametrize("hd", [88, 128])
 def test_k1_takes_whole_rows_up_to_its_limit(cuda, s, hd):
-    """bf16, odd batch. Whole score rows on chip up to K1_MAX_SEQ (S = 1, 17,
-    the ViT's 257 and the largest S the resident design takes: K and V of a
-    head in shared memory); past it, up to K2_MAX_SEQ, K2's body with no
-    causal frontier (577: a 336^2 ViT), with K1's rounding points."""
+    """bf16, odd batch. Whole score rows in registers up to K1_MAX_SEQ (S = 1,
+    17, the ViT's 257 and the largest S the resident design takes: K and V of
+    a head in shared memory); past it the two-pass body with no causal
+    frontier (577: a 336^2 ViT), with K1's rounding points. Both are counted
+    in launches_sm90."""
     qkv = _qkv(3, s, 2, hd, cuda, seed=s)
-    assert tfa.packed_body(qkv, causal=False) == ("whole_rows" if s <= tfa.K1_MAX_SEQ else "streamed")
-    before = tfa.packed_qkv_attention.launches
+    assert tfa.packed_body(qkv, causal=False) == ("sm90_rows" if s <= tfa.K1_MAX_SEQ else "sm90")
+    before = (tfa.packed_qkv_attention.launches, tfa.packed_qkv_attention.launches_sm90)
     out = tfa.packed_qkv_attention(qkv, 2, hd)
     torch.cuda.synchronize()
-    assert tfa.packed_qkv_attention.launches == before + 1
+    assert (tfa.packed_qkv_attention.launches, tfa.packed_qkv_attention.launches_sm90) == (
+        before[0] + 1, before[1] + 1)
     assert torch.isfinite(out).all()
     torch.testing.assert_close(out, tfa.packed_qkv_attention_reference(qkv, 2, hd, hd**-0.5),
                                atol=2e-2, rtol=2e-2)
 
 
 def test_packed_kernels_refuse_sequences_past_their_limit(cuda):
-    """The limit is the grid's: 65,535 query tiles of 64 (bf16 S past
-    K2_MAX_SEQ runs the two-pass body)."""
-    s = 65535 * 64 + 1
+    """The limit is the fp32 body's grid, kept for both dtypes: 65,535 query
+    tiles of 128."""
+    s = 65535 * 128 + 1
     with pytest.raises(ValueError, match="positions"):
         tfa.packed_qkv_attention(torch.zeros(1, s, 3 * 8, dtype=torch.bfloat16, device=cuda), 1, 8)
     with pytest.raises(ValueError, match="positions"):
@@ -92,21 +94,22 @@ def test_packed_kernels_refuse_sequences_past_their_limit(cuda):
             torch.ones(1, s, dtype=torch.int32, device=cuda))
 
 
-# (causal, B, S, heads, hd, left padding of row 0): bf16 past K2_MAX_SEQ, the
-# two-pass body; the chip_smoke shapes (K2 at 4,096 x 32 x 80 with 100
-# padded keys, K1 at 3,072 x 16 x 88) and small ones with ragged tiles
+# (causal, B, S, heads, hd, left padding of row 0): bf16 past OPT's 2,048
+# positions, on the two-pass body; the chip_smoke shapes (K2 at 4,096 x 32 x
+# 80 with 100 padded keys, K1 at 3,072 x 16 x 88) and small ones with ragged
+# tiles
 TWO_PASS_CASES = [(True, 1, 2100, 2, 8, 420), (True, 2, 2049, 3, 128, 0), (True, 1, 4096, 32, 80, 100),
                   (True, 2, 2200, 4, 80, 517), (False, 1, 3072, 16, 88, 0), (False, 2, 2081, 2, 64, 0)]
 
 
 @pytest.mark.parametrize("causal,b,s,nh,hd,pad", TWO_PASS_CASES)
 def test_two_pass_body_matches_plain(cuda, causal, b, s, nh, hd, pad):
-    """bf16 past K2_MAX_SEQ: within 2e-2 of the twin, and the left-padded
-    query rows (no kept key) NaN in both, as in JAX."""
+    """bf16 at long S: within 2e-2 of the twin, and the left-padded query
+    rows (no kept key) NaN in both, as in JAX."""
     qkv = _qkv(b, s, nh, hd, cuda, seed=s)
-    assert tfa.packed_body(qkv, causal) == "two_pass"
+    assert tfa.packed_body(qkv, causal) == "sm90"
     fn = tfa.packed_qkv_causal_attention if causal else tfa.packed_qkv_attention
-    before = fn.launches_two_pass
+    before = fn.launches_sm90
     if causal:
         mask = torch.ones(b, s, dtype=torch.int32, device=cuda)
         mask[0, :pad] = 0
@@ -116,14 +119,71 @@ def test_two_pass_body_matches_plain(cuda, causal, b, s, nh, hd, pad):
         out = fn(qkv, nh, hd)
         ref = tfa.packed_qkv_attention_reference(qkv, nh, hd, hd**-0.5)
     torch.cuda.synchronize()
-    assert fn.launches_two_pass == before + 1
+    assert fn.launches_sm90 == before + 1
     nan_rows = torch.isnan(ref).any(-1)
     assert torch.equal(torch.isnan(out).any(-1), nan_rows) and int(nan_rows.sum()) == pad
     torch.testing.assert_close(out, ref, equal_nan=True, atol=2e-2, rtol=2e-2)
 
 
-# (dtype, B, S, heads, hd): every shape in bf16 and fp32, and S = 2,100 (bf16:
-# the two-pass body)
+# the port's head dims (64, OPT's 80, the ViT's 88, 128) and lengths at the
+# edges of the bodies' 64-row warpgroup tiles, 128-key tiles and capacities
+GRID_DIMS = [64, 80, 88, 128]
+GRID_LENGTHS = [1, 64, 65, 257, 384, 385, 2048, 2049, 4096]
+
+
+@pytest.mark.parametrize("s", GRID_LENGTHS)
+@pytest.mark.parametrize("hd", GRID_DIMS)
+def test_k1_sm90_bodies_at_every_head_dim_and_length(cuda, hd, s):
+    """bf16 K1, B = 3 (batch rows past S must read as zeros, not as the next
+    row), against the twin at 2e-2 on the body the rule names, counted once
+    in launches_sm90."""
+    qkv = _qkv(3, s, 2, hd, cuda, seed=hd + s)
+    fn = tfa.packed_qkv_attention
+    assert tfa.packed_body(qkv, causal=False) == ("sm90_rows" if s <= tfa.K1_MAX_SEQ else "sm90")
+    before = (fn.launches, fn.launches_sm90)
+    out = fn(qkv, 2, hd)
+    torch.cuda.synchronize()
+    assert (fn.launches, fn.launches_sm90) == (before[0] + 1, before[1] + 1)
+    assert torch.isfinite(out).all()
+    torch.testing.assert_close(out, tfa.packed_qkv_attention_reference(qkv, 2, hd, hd**-0.5),
+                               atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.parametrize("padding", ["none", "right", "left", "row_masked"])
+@pytest.mark.parametrize("s", GRID_LENGTHS)
+@pytest.mark.parametrize("hd", GRID_DIMS)
+def test_k2_sm90_body_at_every_head_dim_and_length(cuda, hd, s, padding):
+    """bf16 K2, B = 3: no padding, row 1 right-padded by S // 4, row 0
+    left-padded by max(1, S // 5) (its first query rows keep no key), or row 2
+    with no kept key at all; NaN in exactly the twin's positions, the rest
+    within 2e-2, counted once in launches_sm90."""
+    qkv = _qkv(3, s, 2, hd, cuda, seed=hd * s)
+    mask = torch.ones(3, s, dtype=torch.int32, device=cuda)
+    if padding == "right":
+        mask[1, s - s // 4:] = 0
+    elif padding == "left":
+        mask[0, : max(1, s // 5)] = 0
+    elif padding == "row_masked":
+        mask[2] = 0
+    fn = tfa.packed_qkv_causal_attention
+    assert tfa.packed_body(qkv, causal=True) == "sm90"
+    before = (fn.launches, fn.launches_sm90)
+    out = fn(qkv, 2, hd, mask)
+    ref = tfa.packed_qkv_causal_attention_reference(qkv, 2, hd, mask, hd**-0.5)
+    torch.cuda.synchronize()
+    assert (fn.launches, fn.launches_sm90) == (before[0] + 1, before[1] + 1)
+    nan = torch.isnan(ref)
+    assert torch.equal(torch.isnan(out), nan)
+    if padding == "left":
+        assert nan[0, : max(1, s // 5)].all()
+    elif padding == "row_masked":
+        assert nan[2].all()
+    else:
+        assert not nan.any()
+    torch.testing.assert_close(out, ref, equal_nan=True, atol=2e-2, rtol=2e-2)
+
+
+# (dtype, B, S, heads, hd): every shape in bf16 and fp32, and S = 2,100
 K2_SHAPES = [(2, 24, 2, 8), (2, 130, 2, 80), (2, 766, 32, 80), (2, 2048, 4, 80), (1, 2048, 2, 128)]
 K2_CASES = [(dt, *shape) for dt in DTYPES for shape in K2_SHAPES] + [
     (torch.float32, 1, 2100, 2, 128), (torch.bfloat16, 1, 2100, 2, 128)]
