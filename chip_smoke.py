@@ -62,7 +62,12 @@ final result line):
    right-padded masks (fully masked rows: the uniform average of every V
    row), and at (1, 766) and (4, 766) all-ones; K3 and K4 (an fp32 query
    over the int8 cache) at every decode shape (the narration's at batch 4
-   and 1, the text LM's), with a fully masked row (uniform); K5 at (a), B =
+   and 1, the text LM's), with a fully masked row (uniform), and the fp32
+   decode body at the edges of its lanes: D = 64 and 128 over 32 heads on 8
+   kv heads, q side and score side, S = 1,001 and 2,047 (a multiple of
+   neither the cluster nor 32), layers 2 and 1, every third slot masked and
+   a fully masked row, each call counted once in launches_f32 (K3) or
+   launches_int8_f32 (K4); K5 at (a), B =
    1 and B = 4 left-padded, and at (f) (left-padded rows exactly 0), and at
    the edges of the fp32 attention body's tiling: D = 100 at S = L = 257;
    8 heads over 2 kv heads with an (H, S, L) bias, q_offset 130 and 10
@@ -366,7 +371,7 @@ final result line):
    same model a captured speculative cache (4 slots x 2,048: sampled lookup
    passes leave holes; a 46-token request admitted behind a dead prefix
    longer than a split chunk), every layer through K3 and K4 against their
-   twins in fp32 (F32_TOL) and cast to bf16 (2e-2, K4_TOL), the bf16 calls
+   twins in fp32 (F32_TOL) and cast to bf16 (2e-2, K4_TOL), every call
    timed; (b) the bf16 model through cli/serve.py's run at its defaults (4
    slots, max_len 2,048, chunk 8, bucket 128): 12 requests at once, then at
    half the rate the first leg sustained, with p50/p95 latency, time to
@@ -532,7 +537,8 @@ come from phase 12; K6's rows also carry composite_ms), then the result line
 
 With ``--kernel-times DIR`` it imports eilev_tpu_torch from DIR instead (an
 unpacked parent commit, or this tree), builds K3-K6's sources and the fp32
-attention body there, and only times K3/K4 at the three decode shapes, K5
+attention body there, and only times K3/K4 at the three decode shapes (bf16,
+and with an fp32 model also over a cache masked as phase 11 (c)'s capture), K5
 at (a), batch 1 and 4, K5's bf16 forms of the T5 path, the T5 engine,
 VideoMAE and the Q-Former (each bias as that tree's T5 module builds it,
 and the encoder's also as a contiguous fp32 bias: the kernel alone), the fp32 attention body at K1 (2 and 136, 257,
@@ -1082,6 +1088,25 @@ def _decode_case(dev, g, da, shape, dtype=torch.bfloat16) -> SimpleNamespace:
     return SimpleNamespace(q=q, k5=k5, v5=v5, kb=flat(k5), vb=flat(v5), k8=flat(k8), v8=flat(v8), ks=ks, vs=vs,
                            mask=mask, kw=kw, i8=dict(k_scale=ks, v_scale=vs, **kw),
                            dims=(n_layers, b, s, filled, nh, hd))
+
+
+# phase 11 (c)'s captured engine cache as a keep-mask over a seeded fp32
+# cache of its geometry (32 layers, 4 rows x 2,048 slots, 32 x 80, q side):
+# index 859, row 0 live from slot 2 (773 live, 84 holes), row 1 from 786 (49
+# live, 24 holes), rows 2 and 3 empty (what phase 11 (c) captures); for
+# --kernel-times, where no engine runs
+SERVING_LIKE = (32, 4, 2048, 859, 32, 80, True)
+SERVING_LIKE_SEED = 24
+
+
+def _serving_like_case(dev, g, da) -> SimpleNamespace:
+    c = _decode_case(dev, g, da, SERVING_LIKE, dtype=torch.float32)
+    c.mask.zero_()
+    c.mask[0, 2:859] = 1
+    c.mask[0, 7 + 10 * torch.arange(84, device=dev)] = 0
+    c.mask[1, 786:859] = 1
+    c.mask[1, 787 + 3 * torch.arange(24, device=dev)] = 0
+    return c
 
 
 def _k3_step(da, c, plain: bool = False):
@@ -1769,8 +1794,11 @@ def check_f32_kernels(tag: str, dev: torch.device, g) -> tuple[list, list]:
     frames, K2 at the narration's batch 1 and 4, K5 (a) at batch 4
     left-padded) and at the edges of its tiling (D = 100; grouped-query heads
     with a bias and q_offset > 0; k and v only 4-byte aligned; fully masked
-    rows in both modes), each call counted in its wrapper's launches_f32.
-    Returns the rows of the kernels line (timed at K1's, K2's, the narration
+    rows in both modes), each call counted in its wrapper's launches_f32;
+    the fp32 decode body (K3, K4) at every decode shape and at the edges of
+    its lanes (D = 64 and 128 over grouped-query heads, both scale sides, a
+    layer > 0, holes and a fully masked row). Returns the rows of the
+    kernels line (timed at K1's, K2's, the narration
     decode at batch 1, which phase 8 runs, K5 (a) and K6's shapes) and extra
     timed rows (the other decode shapes, the full-path shapes)."""
     from eilev_tpu_torch.ops import decode_attention as da
@@ -1912,6 +1940,38 @@ def check_f32_kernels(tag: str, dev: torch.device, g) -> tuple[list, list]:
             extra += [dict(k3, name=f"{k3['name']} at the {shape} shape"),
                       dict(k4, name=f"{k4['name']} at the {shape} shape")]
         del c, out, lib, k3, k4
+
+    # the fp32 decode body at the edges of its lanes: D = 64 and 128 over
+    # grouped-query heads (32 over 8), q side and score side, S a multiple of
+    # neither the cluster nor 32, a layer > 0, every third slot masked and the
+    # last row fully masked (the uniform average of every V row); K3 and K4,
+    # each call counted once, from a generator of their own
+    k34, ge = da.decode_attention_stacked, torch.Generator(device=dev).manual_seed(SERVING_LIKE_SEED)
+    for n_layers, b, s, hd, sq, layer in ((3, 2, 1001, 64, True, 2), (2, 2, 2047, 128, False, 1)):
+        nh, kvh = 32, 8
+        k, v = (torch.randn(n_layers, b, s, kvh, hd, device=dev, generator=ge) for _ in range(2))
+        q = torch.randn(b, nh * hd, device=dev, generator=ge)
+        m = torch.ones(b, s, dtype=torch.int32, device=dev)
+        m[:, ::3] = 0
+        m[-1] = 0
+        kw = dict(num_heads=nh, head_dim=hd, kv_heads=kvh, scale_query=sq)
+        k8, ks = da.quantize_kv(k)
+        v8, vs = da.quantize_kv(v)
+        flat = lambda x: x.reshape(n_layers, b, s, kvh * hd)  # noqa: E731
+        for name, args, scales, v_rows, counter in (
+                ("K3", (flat(k), flat(v)), {}, v, "launches_f32"),
+                ("K4", (flat(k8), flat(v8)), dict(k_scale=ks, v_scale=vs), da.dequantize_kv(v8, vs, f32),
+                 "launches_int8_f32")):
+            before = getattr(k34, counter)
+            out = k34(q, *args, m, layer, **kw, **scales)
+            assert getattr(k34, counter) == before + 1, f"{counter} rose by {getattr(k34, counter) - before}, not 1"
+            check_close(tag, f"{name} fp32 GQA (32 over 8 x {hd}, {'q' if sq else 'score'} side) S={s} layer {layer}, "
+                        f"every third slot masked and a fully masked row", out,
+                        da.decode_attention_stacked_reference(q, *args, m, layer, **kw, **scales), F32_TOL)
+            want = v_rows[layer, -1].mean(0).repeat_interleave(nh // kvh, dim=0).reshape(-1)
+            torch.testing.assert_close(out[-1], want, atol=F32_TOL, rtol=F32_TOL)
+        del k, v, q, k8, v8, ks, vs, out
+    print(f"[{tag}] K3/K4 fp32 at D = 64 and 128 over grouped-query heads: fully masked rows the uniform average")
 
     # K5 with an fp32 model: (f) 300 queries into 320 slots with row 0
     # left-padded by 150, whose rows are exactly 0; (a) the LLaMA prefill at
@@ -2111,7 +2171,8 @@ def enqueue_us(fn, n: int = 50) -> float:
 def kernel_times(tag: str, dev: torch.device, tree: str) -> None:
     """The A/B timing of ``--kernel-times``: K1 and K2 in bf16 at every shape
     of their PERF.md rows (_packed_form_runs), with the host time of a call
-    at ENQUEUE_SHAPES; K3 and K4 at the decode shapes,
+    at ENQUEUE_SHAPES; K3 and K4 at the decode shapes, in bf16 and with an
+    fp32 model (and the fp32 ones over SERVING_LIKE),
     K5 at (a), batch 1 and 4, K5's bf16 forms of the T5 path, the T5
     serving engine, VideoMAE and the Q-Former (_k5_form_runs), the fp32
     attention body (K1, K2, K5 with fp32 q, k, v) at its check shapes and
@@ -2133,6 +2194,18 @@ def kernel_times(tag: str, dev: torch.device, tree: str) -> None:
             print(f"[{tag}] {tree} K3 {shape}: k3_split(B={b}, H={nh}, S={s}) = {da.k3_split(b, nh, s)}")
         runs[f"K3 {shape}"] = (_k3_step(da, c), c.dims[0])
         runs[f"K4 {shape}"] = (_k4_step(da, c), c.dims[0])
+    # K3 and K4 with an fp32 model at the decode shapes and over a cache masked
+    # as phase 11 (c)'s capture, from a generator of their own
+    g32 = torch.Generator(device=dev).manual_seed(SERVING_LIKE_SEED)
+    for shape in (*DECODE_SHAPES, "serving-like"):
+        c = _serving_like_case(dev, g32, da) if shape == "serving-like" else _decode_case(
+            dev, g32, da, shape, dtype=torch.float32)
+        _, b, s, _, nh, hd = c.dims
+        if hasattr(da, "f32_staged"):
+            print(f"[{tag}] {tree} fp32 {shape}: a cluster of {da.cluster_size(b, nh, s)}, f32_staged = "
+                  f"{da.f32_staged(b, nh, s, hd, False)} (fp32 cache), {da.f32_staged(b, nh, s, hd, True)} (int8)")
+        runs[f"K3 fp32 {shape}"] = (_k3_step(da, c), c.dims[0])
+        runs[f"K4 fp32 {shape}"] = (_k4_step(da, c), c.dims[0])
     for b_a, real in ((1, (LLAMA_PROMPT,)), (4, LLAMA_REAL)):
         q, k, v, mask = _k5_inputs(dev, g, b_a, LLAMA_PROMPT, LLAMA_CACHE, 32, 128, real, tail_empty=True)
         kw5 = dict(padding_mask=mask, causal=True, scale=128**-0.5)
@@ -5028,11 +5101,12 @@ def serving_capture(tag: str, dev, model, cfg, pixel, result: dict) -> None:
     request (one video, 46 tokens) is admitted at W = bucket(index), with a
     dead prefix longer than a split chunk of K3/K4 (683 slots at 4 rows:
     its first chunk holds no live slot); after 3 more passes, every layer
-    of the cache through K3 (the fp32 split body) and K4 (an fp32 query over
+    of the cache through K3 (the fp32 body) and K4 (an fp32 query over
     the cache quantized by quantize_kv) against their twins at F32_TOL (the
     empty rows: the uniform average, in both), and the same cache cast to
     bf16 through K3's one-block body (2e-2) and K4 (K4_TOL), its empty rows
-    NaN in both. The bf16 calls are then timed. (In bf16 a left-padded
+    NaN in both. Every call is then timed, the fp32 ones with the empty rows'
+    reads of every V row in their bound. (In bf16 a left-padded
     admission's live slots hold NaN k/v, the reference's behaviour, which
     would leave nothing to compare; fp32 admissions stay finite.)"""
     from eilev_tpu_torch.generation import GenerationConfig
@@ -5101,17 +5175,24 @@ def serving_capture(tag: str, dev, model, cfg, pixel, result: dict) -> None:
     print(f"[{tag}] serving (c) K3 and K4 over the captured cache, every layer: max_abs_err={errs}; "
           f"empty rows {empty}: the uniform average (fp32) and NaN (bf16) in kernel and twin alike")
     kept = sum(live)
-    io = 2 * b * nh * hd * 2 + b * s * 4
     rows = []
     for name, row_bytes, label in (("K3 bf16", 2 * hd, "decode_attention_stacked_bf16"),
-                                   ("K4 bf16", hd + 2, "decode_attention_stacked_int8")):
+                                   ("K4 bf16", hd + 2, "decode_attention_stacked_int8"),
+                                   ("K3 fp32", 4 * hd, "decode_attention_stacked_f32"),
+                                   ("K4 fp32", hd + 2, "decode_attention_stacked_int8_f32")):
         qd, args, extra = calls[name]
+        f32 = qd.dtype == torch.float32
         lib = None
-        if name == "K3 bf16":  # one SDPA call a layer, as the kernel's step
-            fold = torch.where(mask.bool(), 0.0, -torch.inf).to(torch.bfloat16)[:, None, None, :]
+        if name.startswith("K3"):  # one SDPA call a layer, as the kernel's step
+            masked = torch.finfo(torch.float32).min if f32 else -torch.inf
+            fold = torch.where(mask.bool(), 0.0, masked).to(qd.dtype)[:, None, None, :]
             qt = qd.view(b, nh, 1, hd) * hd**-0.5
             kv = [tuple(a[i].view(b, s, nh, hd).transpose(1, 2) for a in args) for i in range(n_layers)]
             lib = (lambda qt=qt, kv=kv, fold=fold: [_sdpa(qt, k, v, attn_mask=fold, scale=1.0) for k, v in kv])
+        # the live slots' K and V rows; with an fp32 model an empty row is the
+        # uniform average of all S slots' V rows, which it must read
+        uniform = len(empty) * s if f32 else 0
+        io = 2 * b * nh * hd * qd.element_size() + b * s * 4
         rows.append({
             "name": f"{label} at the serving engine's cache (4, 2,048) with holes", "per_call": n_layers,
             "source": "eilev_tpu_torch/csrc/decode_attention.cu", "replaces": "eilev_tpu/ops/decode_attention.py:117",
@@ -5121,7 +5202,8 @@ def serving_capture(tag: str, dev, model, cfg, pixel, result: dict) -> None:
             "plain": (lambda qd=qd, args=args, extra=extra: [da.decode_attention_stacked_reference(
                 qd, *args, mask, i, **kw, **extra) for i in range(n_layers)]),
             "library": lib,
-            "bound": bound(4 * nh * hd * kept, 2 * kept * nh * row_bytes + io),
+            "bound": bound(4 * nh * hd * kept + 2 * nh * hd * uniform, (2 * kept + uniform) * nh * row_bytes + io,
+                           H100_F32_FLOPS if f32 else H100_BF16_FLOPS),
         })
     for r in rows:
         time_row(tag, r)

@@ -1,5 +1,6 @@
 // Warp-level tensor-core and async-copy helpers shared by the port's kernels
-// (flash_attention.cu, packed_attention.cu, fused_mlp.cu), for sm_90a.
+// (flash_attention.cu, packed_attention.cu, fused_mlp.cu; decode_attention.cu's
+// fp32 body the async copies), for sm_90a.
 //
 // mma.sync m16n8k16 with bf16 operands and fp32 accumulation. Fragment
 // layout (PTX ISA, "Matrix Fragments for mma.m16n8k16"), with lane = 4g + t:

@@ -21,12 +21,20 @@ launches with an fp32 query also in ``.launches_int8_f32``. It has no
 backward: with grad mode on, an input that requires grad raises
 ``RuntimeError`` on both devices.
 
-On the card the split body runs K4, K3 with an fp32 model, and K3 in bf16
-where the written rule :func:`k3_split` says so: the S slots are split over
-a thread-block cluster of :func:`cluster_size` blocks per (head, row), which
+On the card a bf16 model runs the split body for K4, and for K3 where the
+written rule :func:`k3_split` says so: the S slots are split over a
+thread-block cluster of :func:`cluster_size` blocks per (head, row), which
 exchange the row's max and sum through distributed shared memory, all in
 one launch (see the source's notes). The other bf16 K3 calls run one
-256-thread block per (head, batch row).
+256-thread block per (head, batch row). An fp32 model runs the fp32 body
+for K3 and K4 alike (:func:`decode_body`): 8 values a lane (D / 8 lanes a
+row), a cluster of :func:`f32_cluster_size` blocks, each reduced to a
+flash-decoding state (its max, sum and unnormalised output; p's rounding to
+fp32 is the identity), which one exchange combines in rank order. Where
+:func:`f32_staged` says so a block first copies its kept K and V rows into
+shared memory; else it streams them through registers over a compacted list
+of its kept slots. A row with no kept slot takes a rare path after the
+exchange that reads every V row.
 
 Rounding points, as in the JAX kernel bodies: ``scale_query=True`` (HF OPT)
 rounds ``q * bf16(scale)`` to the model dtype before QK^T; QK^T accumulates in
@@ -60,6 +68,15 @@ WARPS = THREADS // 32
 #: streaming multiprocessors of an H100 SXM, and the largest portable cluster
 SMS = 132
 MAX_CLUSTER = 8
+#: shared memory of one SM (233,472 bytes), and what the card reserves of it for each block
+SM_SMEM = 228 * 1024
+BLOCK_RESERVED = 1024
+#: blocks of the fp32 body one SM holds at most (its registers: __launch_bounds__(256, 3))
+F32_BLOCKS = 3
+#: the clusters of C blocks of the fp32 body one wave of an H100 SXM holds
+#: (cudaOccupancyMaxActiveClusters at F32_BLOCKS blocks an SM; a cluster's
+#: blocks share a GPC), C = 1 .. 8
+F32_WAVE_CLUSTERS = (0, 396, 198, 124, 92, 69, 62, 47, 45)
 
 
 def quantize_kv(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -179,6 +196,65 @@ def split_smem_bytes(s_len: int, head_dim: int, cluster: int) -> int:
     return 4 * (n + -(-n // 32) + WARPS * head_dim + MAX_CLUSTER * head_dim + WARPS + 2 * MAX_CLUSTER)
 
 
+#: the fp32 body's blocks take the cache's slots in groups of this many
+#: (csrc F32_GROUP), block rank r every cluster-th group from the r-th
+F32_GROUP = 8
+
+
+def f32_slots(s_len: int, cluster: int) -> int:
+    """The most slots one block of the fp32 body takes (csrc ``f32_slots``):
+    ``F32_GROUP`` times ceil(ceil(S / F32_GROUP) / cluster)."""
+    return F32_GROUP * -(-(-(-s_len // F32_GROUP)) // cluster)
+
+
+def f32_k_stride(head_dim: int, elem: int) -> int:
+    """A staged K row's stride in elements in the fp32 body (csrc
+    ``f32_k_stride``): the row's 16-byte chunks rounded up to an odd number,
+    so threads reading consecutive rows 16 bytes at a time hit distinct
+    shared-memory banks."""
+    return (head_dim * elem // 16 | 1) * 16 // elem
+
+
+def f32_smem_bytes(s_len: int, head_dim: int, cluster: int, int8: bool, staged: bool) -> int:
+    """Shared memory of one block of the fp32 body (csrc ``f32_smem_bytes``):
+    the (max, sum) pairs of the 8 warps and of up to 8 ranks; when
+    ``staged``, its n = :func:`f32_slots` slots of K (at
+    :func:`f32_k_stride`) and of V (fp32, or int8 for an int8 cache), the
+    query and their scores, else the kept slots' indices and their counts
+    before each 32-slot word; reduction scratch, each warp's partial output,
+    the partial outputs rank 0 gathers, the keep bits, and for an int8 cache
+    the slots' two scales in fp32."""
+    n = f32_slots(s_len, cluster)
+    words = -(-n // 32)
+    elem = 1 if int8 else 4
+    rows = n * (f32_k_stride(head_dim, elem) + head_dim) * elem + 4 * (n + head_dim) if staged else 4 * (words + n)
+    return (8 * (WARPS + MAX_CLUSTER) + rows
+            + 4 * (WARPS + (WARPS + MAX_CLUSTER) * head_dim + words + (2 * n if int8 else 0)))
+
+
+def f32_cluster_size(batch: int, heads: int, s_len: int) -> int:
+    """Blocks the fp32 body gives one (head, batch row), the written rule of
+    ``csrc/decode_attention.cu:f32_cluster_size``: :func:`cluster_size`,
+    lowered while the batch * heads clusters would not fit one wave
+    (``F32_WAVE_CLUSTERS``)."""
+    c = cluster_size(batch, heads, s_len)
+    while c > 1 and batch * heads > F32_WAVE_CLUSTERS[c]:
+        c -= 1
+    return c
+
+
+def f32_staged(batch: int, heads: int, s_len: int, head_dim: int, int8: bool) -> bool:
+    """Whether the fp32 body first copies a block's kept K and V rows into
+    shared memory (one round of copies) instead of streaming them through
+    registers, the written rule of ``csrc/decode_attention.cu:f32_staged``:
+    where that costs no occupancy, i.e. the block's shared memory with them
+    stays within the SM's 228 KB over the ``F32_BLOCKS`` blocks its registers
+    allow, less the 1 KB reserved a block (76,800 bytes). It depends on the
+    shape only."""
+    cluster = f32_cluster_size(batch, heads, s_len)
+    return f32_smem_bytes(s_len, head_dim, cluster, int8, True) <= SM_SMEM // F32_BLOCKS - BLOCK_RESERVED
+
+
 def smem_bytes(s_len: int, head_dim: int) -> int:
     """Dynamic shared memory of one block of the one-block bf16 K3 body (csrc
     ``smem_bytes``): fp32 scores of all S slots, the scaled query, the PV
@@ -187,11 +263,30 @@ def smem_bytes(s_len: int, head_dim: int) -> int:
 
 
 def uses_split(q: torch.Tensor, k_buf: torch.Tensor, head_dim: int) -> bool:
-    """Which body a CUDA call takes: the split for an int8 or fp32 cache, and
-    for a bf16 cache where :func:`k3_split` says so. Reads dtypes and shapes
-    only."""
+    """Whether a CUDA call splits S over a cluster of :func:`cluster_size`
+    blocks: always with an fp32 model (its own body, :func:`decode_body`) and
+    over an int8 cache; over a bf16 cache where :func:`k3_split` says so.
+    Reads dtypes and shapes only."""
     b, s_len = q.shape[0], k_buf.shape[2]
     return k_buf.dtype != torch.bfloat16 or k3_split(b, q.shape[1] // head_dim, s_len)
+
+
+def decode_body(q: torch.Tensor, k_buf: torch.Tensor, head_dim: int) -> tuple[str, int, int]:
+    """The body a CUDA call takes, its cluster size and the shared memory one
+    block of it uses: ``"f32"`` with an fp32 model (over an fp32 or int8
+    cache: 8 values a lane, one online-softmax pass, :func:`f32_staged`), ``"split"``
+    for a bf16 model over an int8 cache or where :func:`k3_split` says so,
+    ``"one_block"`` otherwise. Reads dtypes and shapes only."""
+    b, nh, s_len = q.shape[0], q.shape[1] // head_dim, k_buf.shape[2]
+    if q.dtype == torch.float32:
+        int8 = k_buf.dtype == torch.int8
+        cluster = f32_cluster_size(b, nh, s_len)
+        staged = f32_staged(b, nh, s_len, head_dim, int8)
+        return "f32", cluster, f32_smem_bytes(s_len, head_dim, cluster, int8, staged)
+    if uses_split(q, k_buf, head_dim):
+        cluster = cluster_size(b, nh, s_len)
+        return "split", cluster, split_smem_bytes(s_len, head_dim, cluster)
+    return "one_block", 1, smem_bytes(s_len, head_dim)
 
 
 def _check_cuda(q, k_buf, v_buf, mask, k_scale, v_scale, head_dim, s_len) -> None:
@@ -217,11 +312,8 @@ def _check_cuda(q, k_buf, v_buf, mask, k_scale, v_scale, head_dim, s_len) -> Non
         )
     if any(t.data_ptr() % 16 for t in (q, k_buf, v_buf)):
         raise ValueError("the CUDA kernel takes 16-byte aligned q and cache")
-    if uses_split(q, k_buf, head_dim):
-        cluster = cluster_size(q.shape[0], q.shape[1] // head_dim, s_len)
-        need, per = split_smem_bytes(s_len, head_dim, cluster), f" (a cluster of {cluster})"
-    else:
-        need, per = smem_bytes(s_len, head_dim), ""
+    body, cluster, need = decode_body(q, k_buf, head_dim)
+    per = f" (a cluster of {cluster})" if body != "one_block" else ""
     if need > SMEM_LIMIT:
         raise ValueError(
             f"S={s_len} needs {need} bytes of shared memory per block{per}, above the "

@@ -344,6 +344,82 @@ def test_k4_kernel_matches_plain(cuda, n_layers, b, s, nh, kvh, hd, scale_query,
     torch.testing.assert_close(out, ref_bf16, atol=3e-2, rtol=3e-2, equal_nan=True)
 
 
+# The fp32 body (an fp32 model over an fp32 or int8 cache) at the edges of
+# its lanes, its staging and its rare path: (L, B, S, heads, kv_heads, hd,
+# scale_query, mask, layer). Head dims 8 (one lane a row), 24, 64, 80 and 128
+# (every lane mapping, 8 values a lane), grouped-query heads (4 and 2 a kv
+# head) at both scale sides, S a multiple of neither the cluster nor 32,
+# staged and streamed K and V (ops/decode_attention.f32_staged), holes, dead
+# prefixes longer than half the cache, and fully masked rows (the uniform
+# average of every V row)
+F32_EDGE_CASES = {
+    "d64_gqa_q_side": (3, 2, 1001, 32, 8, 64, True, "holes", 2),
+    "d128_gqa_score_side": (2, 1, 2047, 32, 8, 128, False, "mid-decode", 1),
+    "d128_long": (2, 1, 4001, 32, 8, 128, False, "holes", 1),
+    "d80_dead_prefix": (2, 4, 2048, 32, 32, 80, True, "dead-prefix", 1),
+    "d80_staged": (2, 1, 798, 32, 32, 80, True, "holes", 1),
+    "d24": (2, 2, 300, 6, 3, 24, True, "left-padded", 0),
+    "d8": (2, 3, 37, 4, 2, 8, False, "fully-masked-row", 1),
+}
+F32_DECODE_EDGES = [(name, cache) for name, case in F32_EDGE_CASES.items() for cache in ("fp32", "int8")
+                    if cache == "fp32" or case[5] % 16 == 0]
+
+
+def _f32_edge_mask(b, s, device, kind):
+    mask = torch.ones(b, s, dtype=torch.int32, device=device)
+    if kind == "holes":  # every third slot, and at B > 1 the last row fully masked
+        mask[:, ::3] = 0
+        if b > 1:
+            mask[-1] = 0
+    elif kind == "mid-decode":
+        mask[:, s - s // 8:] = 0
+    elif kind == "left-padded":
+        mask[0, : s // 5] = 0
+    elif kind == "fully-masked-row":
+        mask[-1] = 0
+    elif kind == "dead-prefix":  # live windows behind dead prefixes of 1,100 and 1,500 slots, an empty row
+        mask.zero_()
+        mask[0, 1100:] = 1
+        mask[0, 1100::7] = 0
+        mask[1, 1500:1600] = 1
+        mask[3, 2:] = 1
+        mask[3, 2::10] = 0
+    return mask
+
+
+@pytest.mark.parametrize("name,cache", F32_DECODE_EDGES)
+def test_f32_decode_body_at_its_edges(cuda, name, cache):
+    n_layers, b, s, nh, kvh, hd, scale_query, kind, layer = F32_EDGE_CASES[name]
+    k, v, g = _cache(n_layers, b, s, kvh, hd, cuda, seed=s + hd)
+    k, v = k.float(), v.float()
+    q = torch.randn(b, nh * hd, device=cuda, generator=g)
+    mask = _f32_edge_mask(b, s, cuda, kind)
+    kw = dict(num_heads=nh, head_dim=hd, kv_heads=kvh, scale_query=scale_query)
+    fn = tda.decode_attention_stacked
+    if cache == "int8":
+        k8, ks = tda.quantize_kv(k)
+        v8, vs = tda.quantize_kv(v)
+        args = (k8.view(n_layers, b, s, -1), v8.view(n_layers, b, s, -1))
+        kw.update(k_scale=ks, v_scale=vs)
+        v_rows = tda.dequantize_kv(v8, vs, torch.float32)
+        before = (fn.launches_int8, fn.launches_int8_f32, fn.launches_f32)
+        step = (1, 1, 0)
+    else:
+        args = (k.view(n_layers, b, s, -1), v.view(n_layers, b, s, -1))
+        v_rows = v
+        before = (fn.launches_int8, fn.launches_int8_f32, fn.launches_f32)
+        step = (0, 0, 1)
+    out = fn(q, *args, mask, layer, **kw)
+    torch.cuda.synchronize()
+    assert (fn.launches_int8, fn.launches_int8_f32, fn.launches_f32) == tuple(x + d for x, d in zip(before, step))
+    ref = tda.decode_attention_stacked_reference(q, *args, mask, layer, **kw)
+    torch.testing.assert_close(out, ref, **TOL[torch.float32])
+    for r in range(b):
+        if not mask[r].any():  # finite in fp32: the uniform average of every slot's V row
+            want = v_rows[layer, r].mean(0).repeat_interleave(nh // kvh, dim=0).reshape(-1)
+            torch.testing.assert_close(out[r], want, **TOL[torch.float32])
+
+
 def test_decode_kernel_refuses_what_it_does_not_take(cuda):
     k, v, g = _cache(2, 1, 40, 2, 16, cuda, seed=0)
     q = torch.randn(1, 32, device=cuda, generator=g).to(torch.bfloat16)

@@ -270,16 +270,19 @@ def _meta_call(b, nh, hd, s, q_dtype, cache_dtype):
 
 
 # (B, H, hd, S, query dtype, cache dtype) -> (body, cluster, shared memory a
-# block needs): int8 and fp32 always take the split; bf16 where k3_split says
+# block needs): an fp32 model takes the fp32 body (streamed here: 8 + 8
+# (max, sum) pairs, reduction scratch, 8 warps' and 8 ranks' partial outputs,
+# keep bits, int8 scales, the kept slots' indices and a count a word); a bf16
+# model over int8 the split; bf16 the split where k3_split says
 BODY_TABLE = [
     ((1, 32, 128, 2048, torch.bfloat16, torch.bfloat16), ("split", 8, 4 * (256 + 8 + 8 * 128 + 8 * 128 + 8 + 16))),
     ((4, 32, 80, 798, torch.bfloat16, torch.bfloat16), ("one_block", 1, 4 * (798 + 80 + 256 * 8 + 32))),
-    ((4, 32, 80, 798, torch.float32, torch.float32), ("split", 3, 4 * (266 + 9 + 8 * 80 + 8 * 80 + 8 + 16))),
+    ((4, 32, 80, 798, torch.float32, torch.float32), ("f32", 2, 8 * 16 + 4 * (8 + 16 * 80 + 13) + 4 * (13 + 400))),
     ((1, 32, 80, 798, torch.bfloat16, torch.bfloat16), ("split", 8, 4 * (100 + 4 + 8 * 80 + 8 * 80 + 8 + 16))),
     ((8, 32, 80, 798, torch.bfloat16, torch.bfloat16), ("one_block", 1, 4 * (798 + 80 + 256 * 8 + 32))),
-    ((8, 32, 80, 798, torch.float32, torch.float32), ("split", 2, 4 * (399 + 13 + 8 * 80 + 8 * 80 + 8 + 16))),
-    ((1, 32, 128, 2048, torch.float32, torch.float32), ("split", 8, 4 * (256 + 8 + 8 * 128 + 8 * 128 + 8 + 16))),
-    ((1, 32, 128, 2048, torch.float32, torch.int8), ("split", 8, 4 * (256 + 8 + 8 * 128 + 8 * 128 + 8 + 16))),
+    ((8, 32, 80, 798, torch.float32, torch.float32), ("f32", 1, 8 * 16 + 4 * (8 + 16 * 80 + 25) + 4 * (25 + 800))),
+    ((1, 32, 128, 2048, torch.float32, torch.float32), ("f32", 8, 8 * 16 + 4 * (8 + 16 * 128 + 8) + 4 * (8 + 256))),
+    ((1, 32, 128, 2048, torch.float32, torch.int8), ("f32", 8, 8 * 16 + 4 * (8 + 16 * 128 + 8 + 512) + 4 * (8 + 256))),
     ((8, 32, 80, 798, torch.bfloat16, torch.int8), ("split", 2, 4 * (399 + 13 + 8 * 80 + 8 * 80 + 8 + 16))),
 ]
 
@@ -291,10 +294,75 @@ def test_decode_body_cluster_and_shared_memory(case, want):
     tensors."""
     b, nh, hd, s, q_dtype, cache_dtype = case
     q, k = _meta_call(b, nh, hd, s, q_dtype, cache_dtype)
-    split = tda.uses_split(q, k, hd)
-    cluster = tda.cluster_size(b, nh, s) if split else 1
-    need = tda.split_smem_bytes(s, hd, cluster) if split else tda.smem_bytes(s, hd)
-    assert ("split" if split else "one_block", cluster, need) == want
+    assert tda.decode_body(q, k, hd) == want
+    assert tda.uses_split(q, k, hd) is (want[0] != "one_block")
+
+
+# (B, H, S, hd, int8 cache) -> (cluster, staged, shared memory a block) of
+# the fp32 body (its cluster: f32_cluster_size): K and V are staged where a block with them keeps within
+# 76,800 bytes (an SM's 228 KB over the 3 blocks its registers allow, less 1
+# KB each), else streamed. A block takes n = f32_slots(S, C) slots at most
+# (groups of 8, every C-th). Staged adds n rows of K at an odd number of
+# 16-byte chunks (fp32 at D = 80: 21 chunks, 84 floats) and of V, the query
+# and n scores; streamed the n kept slots' indices and a count a word; int8
+# 2n scales either way
+F32_RULE = [
+    ((1, 32, 798, 80, False), (8, True, 128 + 104 * (84 + 80) * 4 + 4 * (104 + 80) + 4 * (8 + 16 * 80 + 4))),
+    ((1, 32, 798, 80, True), (8, True, 128 + 104 * (80 + 80) + 4 * (104 + 80) + 4 * (8 + 16 * 80 + 4 + 208))),
+    ((4, 32, 798, 80, False), (2, False, 128 + 4 * (8 + 16 * 80 + 13) + 4 * (13 + 400))),  # narration b4
+    ((4, 32, 798, 80, True), (2, True, 128 + 400 * (80 + 80) + 4 * (400 + 80) + 4 * (8 + 16 * 80 + 13 + 800))),
+    ((1, 32, 2048, 128, False), (8, False, 128 + 4 * (8 + 16 * 128 + 8) + 4 * (8 + 256))),  # the text LM
+    ((1, 32, 2048, 128, True), (8, False, 128 + 4 * (8 + 16 * 128 + 8 + 512) + 4 * (8 + 256))),
+    ((4, 32, 2048, 80, False), (2, False, 128 + 4 * (8 + 16 * 80 + 32) + 4 * (32 + 1024))),  # the serving cache
+    ((4, 32, 2048, 80, True), (2, False, 128 + 4 * (8 + 16 * 80 + 32 + 2048) + 4 * (32 + 1024))),
+    # int8 at D = 128 (K rows of 144 bytes): 232 slots a block (29 groups of 8) are the most staged
+    ((1, 32, 1856, 128, True), (8, True, 128 + 232 * (144 + 128) + 4 * (232 + 128) + 4 * (8 + 16 * 128 + 8 + 464))),
+    ((1, 32, 1857, 128, True), (8, False, 128 + 4 * (8 + 16 * 128 + 8 + 480) + 4 * (8 + 240))),
+    ((2, 3, 37, 8, False), (2, True, 128 + 24 * (12 + 8) * 4 + 4 * (24 + 8) + 4 * (8 + 16 * 8 + 1))),  # D = 8
+]
+
+
+# (B, H, S) -> the fp32 body's cluster: cluster_size's, lowered while the B *
+# H clusters would not fit one wave (F32_WAVE_CLUSTERS: 124 of 3 blocks, 198
+# of 2, 45 of 8)
+F32_CLUSTER_RULE = [
+    ((1, 32, 2048), 8), ((1, 32, 798), 8), ((1, 16, 798), 8),  # the text LM, the narration at b1, TP = 2
+    ((4, 32, 798), 2), ((5, 32, 798), 2), ((4, 32, 2048), 2),  # narration b4, beam-5 b1, the serving cache
+    ((1, 124, 4096), 3), ((1, 125, 4096), 2),
+    ((20, 32, 798), 1), ((1, 32, 5), 1),
+]
+
+
+@pytest.mark.parametrize("shape,want", F32_CLUSTER_RULE)
+def test_f32_cluster_rule(shape, want):
+    assert tda.f32_cluster_size(*shape) == want
+
+
+@pytest.mark.parametrize("shape,want", F32_RULE)
+def test_f32_body_rule(shape, want):
+    b, nh, s, hd, int8 = shape
+    cluster = tda.f32_cluster_size(b, nh, s)
+    staged = tda.f32_staged(b, nh, s, hd, int8)
+    assert (cluster, staged, tda.f32_smem_bytes(s, hd, cluster, int8, staged)) == want
+
+
+def test_f32_body_refuses_exactly_what_its_shared_memory_cannot_hold():
+    """Streamed, the fp32 body keeps an index and a keep bit a slot, and over
+    an int8 cache two scales: at B = 1, H = 2, hd = 16 (a cluster of 8) S =
+    150,976 (18,872 slots a block) fits 227 KB over int8 and 150,977 (18,880)
+    does not; over fp32 435,264 (54,408) fits and 435,265 (54,416) does not.
+    _check_cuda refuses exactly there, on meta tensors."""
+    q = torch.empty(1, 32, device="meta")
+    for int8, s, fits in ((True, 150_976, True), (True, 150_977, False), (False, 435_264, True), (False, 435_265, False)):
+        assert (tda.f32_smem_bytes(s, 16, tda.f32_cluster_size(1, 2, s), int8, False) <= tda.SMEM_LIMIT) is fits
+        m = torch.empty(1, s, dtype=torch.int32, device="meta")
+        k = torch.empty(1, 1, s, 32, dtype=torch.int8 if int8 else torch.float32, device="meta")
+        sc = torch.empty(1, 1, s, 2, dtype=torch.bfloat16, device="meta") if int8 else None
+        if fits:
+            tda._check_cuda(q, k, k, m, sc, sc, 16, s)
+        else:
+            with pytest.raises(ValueError, match="shared memory"):
+                tda._check_cuda(q, k, k, m, sc, sc, 16, s)
 
 
 def test_cuda_check_takes_bf16_and_fp32_models():
