@@ -266,7 +266,20 @@ final result line):
    187-verb stage at batch 4 against the plain path (score_bar); (e) the
    fp32 model at F32_LAYERS a stack by its default construction, under
    "auto" and "flash": tokens and encoder states the plain twins' (K5's
-   fp32 body with the bias). Printed on a JSON line of its own (t5).
+   fp32 body with the bias); (f) contrastive search's T5 helpers, which
+   generate does not reach (JAX and the port refuse T5 contrastive search),
+   on (b)'s batch-4 request under "flash" and on (e)'s fp32 request (batch
+   1, TF32 off) under "auto" and "flash": T5_COMMITTED = 3 decoder steps
+   (the start token, then greedy) through t5_decode_step_hidden, each
+   counted (K5 twice a decoder layer under "flash", on its decode body in
+   bf16 and its fp32 body in fp32; nothing under "auto") with logits equal
+   to t5_decode_step's bit for bit; then t5_candidates over the top
+   T5_CANDIDATES = 4 tokens of the last step's logits: no launch (plain
+   einsums, as in JAX), the cache unchanged (torch.equal, index), each
+   candidate's hidden against t5_decode_step_hidden committing that token on
+   a clone of the cache (bf16 min cosine > 0.999, fp32 within F32_TOL); the
+   sub-phase's seconds and host times. Printed on a JSON line of its own
+   (t5).
 9. Training, after the earlier models are freed. (a) The v2 training step
    (training.make_train_step: forward with labels, backward into the fp32
    masters of the query tokens, Q-Former and language projection, AdamW)
@@ -670,6 +683,8 @@ NEAR_TIE = 2e-2
 T5_EOS = 1
 T5_NEWLINE = 3
 T5_SEED = 47
+T5_COMMITTED = 3  # 8b (f): decoder steps committed before the candidate expansion
+T5_CANDIDATES = 4  # 8b (f): contrastive search's top_k
 T5_K5_SHAPES = {
     "T5 encoder, batch 1": (1, 766, 766),
     "T5 encoder, batch 4": (4, 766, 766),
@@ -2474,6 +2489,43 @@ def greedy_with_logits(run):
     return tokens, rec
 
 
+@torch.inference_mode()
+def forced_logits(run, tokens: torch.Tensor, steps: int) -> list:
+    """Teacher forcing: the run's greedy prefill and one-token steps as
+    generate runs them (decoding._greedy_sample_decoder_only), fed the first
+    ``steps`` - 1 of ``tokens`` (another run's greedy tokens) instead of its
+    own choices: the last-position logits of its ``steps`` LM forwards, fp32,
+    in order, as greedy_with_logits records them (entry t is what token t
+    was chosen from there)."""
+    from eilev_tpu_torch.generation.decoding import _prefill
+
+    model, tokens = run.model, tokens.to(run.mask.device)
+    logits, cache = _prefill(model, run.embeds(), run.mask, run.new_tokens)
+    out = [logits.float()]
+    step_mask = torch.ones(run.batch, 1, dtype=torch.int32, device=run.mask.device)
+    for t in range(steps - 1):
+        nxt, cache = model.lm_forward(model.lm_embed(tokens[:, t : t + 1]), attention_mask=step_mask, cache=cache)
+        out.append(nxt[:, -1].float())
+    torch.cuda.synchronize()
+    return out
+
+
+def step_agreement(ours: list, ref: list) -> dict:
+    """Per-step logits of two runs fed the same tokens: the min cosine over
+    the steps and rows, the mean and least share of the reference's top 5
+    in ours at a step, and the share of steps with the same argmax."""
+    cos, top5, same = [], [], []
+    for a, b in zip(ours, ref, strict=True):
+        a, b = a.float().cpu(), b.float().cpu()
+        cos.append(torch.nn.functional.cosine_similarity(a, b, dim=-1).min().item())
+        for ra, rb in zip(a.reshape(-1, a.shape[-1]), b.reshape(-1, b.shape[-1])):
+            ta, tb = set(ra.topk(5).indices.tolist()), set(rb.topk(5).indices.tolist())
+            top5.append(len(ta & tb) / 5)
+            same.append(float(ra.argmax() == rb.argmax()))
+    return {"steps": len(cos), "min_cosine": min(cos), "top5_mean": statistics.mean(top5),
+            "top5_min": min(top5), "argmax_share": statistics.mean(same)}
+
+
 def compare_speculative(tag: str, label: str, tokens, greedy, rec) -> float:
     """Speculative greedy against plain greedy in bf16: the share of
     identical rows; each other row's first divergence must come at a
@@ -3544,6 +3596,96 @@ def attention_impl(impl: str):
         set_default_attention_impl("auto")
 
 
+def t5_step_counts(cfg, flash: bool, f32: bool) -> dict:
+    """Launches of one T5 decoder step: under "flash" K5 twice a decoder
+    layer (self and cross), on its decode body in bf16, its fp32 body in
+    fp32; nothing else (under "auto" the steps are plain)."""
+    want = dict.fromkeys(counters(), 0)
+    if flash:
+        n = 2 * cfg.text_config.num_decoder_layers
+        want.update(dict.fromkeys(["flash_attention", "flash_attention_f32" if f32 else "flash_attention_decode"], n))
+    return want
+
+
+def _clone_cache(cache: dict) -> dict:
+    return {k: v.clone() if torch.is_tensor(v) else v for k, v in cache.items()}
+
+
+@torch.inference_mode()
+def t5_candidates_check(tag: str, label: str, run, cfg, flash: bool, f32: bool) -> dict:
+    """8b (f): contrastive search's T5 helpers on the run's model (which
+    generate does not reach: JAX and the port refuse T5 contrastive search).
+    Encode the request, commit T5_COMMITTED decoder steps (the start token,
+    then greedy) through t5_decode_step_hidden, each counted (counters at 0
+    just before, read just after: t5_step_counts) and its logits equal to
+    t5_decode_step's on a clone of the cache, bit for bit; then expand the
+    top T5_CANDIDATES tokens of the last step's logits with t5_candidates:
+    no launch (plain einsums, as in JAX), every cache tensor and the index
+    unchanged (torch.equal), and each candidate's hidden against the hidden
+    t5_decode_step_hidden gives when that token is committed on a clone of
+    the cache: bf16 min cosine > 0.999, fp32 within F32_TOL. Returns the
+    numbers, the candidates' and a committed step's host times beside."""
+    from eilev_tpu_torch.generation.decoding import _t5_cache
+
+    t0 = time.perf_counter()
+    model = run.model
+    mask = run.mask
+    cache = _t5_cache(model, run.embeds(), mask, run.new_tokens)
+    tok = torch.full((run.batch, 1), cfg.text_config.decoder_start_token_id, dtype=torch.int64, device=mask.device)
+    want = t5_step_counts(cfg, flash, f32)
+    for step in range(T5_COMMITTED):
+        plain, _ = model.t5_decode_step(tok, None, mask, _clone_cache(cache))
+        reset_counters()
+        logits, hidden, cache = model.t5_decode_step_hidden(tok, None, mask, cache)
+        torch.cuda.synchronize()
+        counts = counters()
+        assert counts == want, (label, step, counts, want)
+        assert torch.equal(logits, plain), f"{label}: t5_decode_step_hidden's logits differ from t5_decode_step's"
+        assert bool(torch.isfinite(logits).all()) and bool(torch.isfinite(hidden).all()), (label, step)
+        tok = logits[:, -1].float().argmax(-1, keepdim=True)
+    top = logits[:, -1].float().topk(T5_CANDIDATES, dim=-1).indices  # (B, C)
+    before = _clone_cache(cache)
+    reset_counters()
+    cand = model.t5_candidates(top, mask, cache)
+    torch.cuda.synchronize()
+    assert not any(counters().values()), f"{label}: t5_candidates launched a kernel: {counters()}"
+    assert cand.shape == (run.batch, T5_CANDIDATES, cfg.text_config.d_model), cand.shape
+    assert cache.keys() == before.keys() and cache["index"] == before["index"] == T5_COMMITTED, cache["index"]
+    for key in ("k", "v", "cross_k", "cross_v"):
+        assert torch.equal(cache[key], before[key]), f"{label}: t5_candidates wrote the cache's {key}"
+    cosines, errs = [], []
+    for c in range(T5_CANDIDATES):
+        _, committed, _ = model.t5_decode_step_hidden(top[:, c : c + 1], None, mask, _clone_cache(cache))
+        a, b = cand[:, c].float(), committed[:, 0].float()
+        cosines.append(torch.nn.functional.cosine_similarity(a, b, dim=-1).min().item())
+        errs.append((a - b).abs().max().item())
+    out = {"batch": run.batch, "committed_steps": T5_COMMITTED, "candidates": T5_CANDIDATES,
+           "step_launches": {k: v for k, v in want.items() if v}, "candidates_launches": 0,
+           "min_cosine": min(cosines), "max_abs_err": max(errs)}
+
+    def host_ms(fn) -> float:
+        times = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+        return statistics.median(times)
+
+    out["candidates_host_ms"] = host_ms(lambda: model.t5_candidates(top, mask, cache))
+    # a shallow copy: the step writes slot `index` (which candidates never
+    # read) and advances only the copy's index
+    out["committed_step_host_ms"] = host_ms(lambda: model.t5_decode_step_hidden(top[:, :1], None, mask, dict(cache)))
+    out["seconds"] = time.perf_counter() - t0
+    print(f"[{tag}] T5 (f) {label}: {json.dumps(out)}")
+    if f32:
+        assert out["max_abs_err"] <= F32_TOL, out
+    else:
+        assert out["min_cosine"] > 0.999, out
+    return out
+
+
 def run_t5(tag: str, dev: torch.device, launches: dict) -> dict:
     """Phase 8b: the T5 path at the eilev-blip2-flan-t5-xl widths (1408,
     768, 2048, 32 heads x 64, gated-gelu FFN 5,120, vocab 32,128, untied
@@ -3558,7 +3700,11 @@ def run_t5(tag: str, dev: torch.device, launches: dict) -> dict:
     stage at batch 4 against the plain path (score_bar); (e) the fp32 model
     at F32_LAYERS a stack by its default construction, greedy tokens and
     encoder states equal to the plain twins' under "auto" and "flash" (K5's
-    fp32 body with the bias). Returns the numbers for the T5 JSON line."""
+    fp32 body with the bias); (f) contrastive search's helpers
+    (t5_candidates_check) on (b)'s batch-4 request under "flash" and on (e)'s
+    under both. Depth cuts: T5_LAYERS (6) a stack for (a)-(d) and (f) in
+    bf16, F32_LAYERS (2) for (e) and (f) in fp32 (flan-t5-xl has 24 + 24,
+    its ViT 39). Returns the numbers for the T5 JSON line."""
     from eilev_tpu_torch.models import VideoBlipForConditionalGeneration
 
     t_phase = time.perf_counter()
@@ -3636,6 +3782,10 @@ def run_t5(tag: str, dev: torch.device, launches: dict) -> dict:
     err = score_bar(tag, "T5 (d) seq2seq classify, verb stage bf16 batch 4, kernels vs plain path", scores, ref)
     print(f"[{tag}] T5 (d) classify verb stage batch 4: launches {counts} classify_s={times}")
     result["classify_verbs_b4"] = {"p50_s": statistics.median(times), "max_abs_err": err}
+
+    # (f) contrastive search's helpers, bf16 batch 4 under "flash"
+    with attention_impl("flash"):
+        result["candidates_bf16_flash_b4"] = t5_candidates_check(tag, "bf16 flash batch 4", runs[4], cfg, True, False)
     del model, runs, req, calls
     gc.collect()
     torch.cuda.empty_cache()
@@ -3653,6 +3803,8 @@ def run_t5(tag: str, dev: torch.device, launches: dict) -> dict:
             counts = drive(tag, f"T5 (e) fp32 {impl} (2+2+2+2 layers)", run, calls,
                            t5_counts(cfg, flash=impl == "flash", f32=True), reps=1)
             _same_tokens_as_plain(tag, f"T5 (e) fp32 {impl}", run)
+            result[f"candidates_f32_{impl}_b1"] = t5_candidates_check(tag, f"fp32 {impl} batch 1", run, cfg,
+                                                                     impl == "flash", True)
         if impl == "flash":
             launches["flash_attention_f32 at the T5 path"] = counts["flash_attention_f32"]
             launches["flash_attention_f32 at T5 encoder, batch 1"] = cfg.text_config.num_layers
@@ -5957,14 +6109,16 @@ def _tp_cut_runs(dev, tp=None) -> dict:
     return out
 
 
-def _tp_narration(tag: str, dev, path: str, mesh, after=None) -> dict:
+def _tp_narration(tag: str, dev, path: str, mesh, forced: dict, after=None) -> dict:
     """Phase 13 (a) on a rank: eilev-blip2-opt-2.7b loaded through
     load_model(mesh=) from the parent's bf16 checkpoint, greedy at batch 1
     (32 new tokens), then with the int8 KV cache: each counted (counters at 0
     just before, read just after), its tokens and every step's last logits,
     peak memory and the host time of the counted request and, in bf16,
-    TP_REPS more; ``after(label, model)`` after each leg (phase 15's work on
-    the same model, tps_legs)."""
+    TP_REPS more; then the same request teacher-forced with the unsharded
+    run's tokens (``forced``: label -> (tokens, LM forwards)), every step's
+    logits and the pass's time; ``after(label, model)`` after each leg
+    (phase 15's work on the same model, tps_legs)."""
     from eilev_tpu_torch.models.auto import load_model
     from eilev_tpu_torch.ops.quantization import quantize_model_
 
@@ -5992,6 +6146,9 @@ def _tp_narration(tag: str, dev, path: str, mesh, after=None) -> dict:
             times.append(time.perf_counter() - t0)
         out[label] = {"tokens": tokens.cpu(), "logits": [r.cpu() for r in rec], "counts": counts,
                       "peak_bytes": torch.cuda.max_memory_allocated(), "times_s": times}
+        t0 = time.perf_counter()
+        out[label]["forced_logits"] = [r.cpu() for r in forced_logits(run, *forced[label])]
+        out[label]["forced_s"] = time.perf_counter() - t0
         if mesh.model_rank == 0:
             print(f"[{tag}] tensor parallelism (a) rank 0 {label}: launches {counts} times_s={times} "
                   f"peak_bytes={out[label]['peak_bytes']}")
@@ -6024,7 +6181,8 @@ def tp_rank_main(rank: int, tag: str, port: int, root: str) -> None:
         assert mesh.tp is not None and mesh.device == torch.device("cuda", 0), mesh
         dev, serving = mesh.device, {}
         t0 = time.perf_counter()
-        out = {"a": _tp_narration(tag, dev, os.path.join(root, "opt-2.7b"), mesh,
+        forced = torch.load(os.path.join(root, "forced_tokens.pt"))
+        out = {"a": _tp_narration(tag, dev, os.path.join(root, "opt-2.7b"), mesh, forced,
                                   tps_legs(tag, root, dev, serving, mesh))}
         out["a_s"] = time.perf_counter() - t0 - serving["after_bf16_s"] - serving["after_int8_kv_s"]
         t0 = time.perf_counter()
@@ -6188,6 +6346,13 @@ def run_tensor_parallel(tag: str, dev: torch.device, root: str) -> tuple[list, d
         tokens, rec = greedy_with_logits(run)
         ref[label] = {"tokens": tokens.cpu(), "logits": [r.cpu() for r in rec],
                       "peak_bytes": torch.cuda.max_memory_allocated(), "s": time.perf_counter() - t0}
+        # the teacher-forced pass fed the run's own tokens gives its logits
+        # bit for bit: the ranks' forced pass replays this request's inputs
+        t0 = time.perf_counter()
+        own = forced_logits(run, tokens, len(rec))
+        ref[label]["forced_s"] = time.perf_counter() - t0
+        assert len(own) == len(rec) and all(torch.equal(a, b) for a, b in zip(own, rec)), \
+            f"(a) {label}: the teacher-forced pass does not replay greedy's logits"
         after(label, model)
     del model, run
     gc.collect()
@@ -6198,6 +6363,8 @@ def run_tensor_parallel(tag: str, dev: torch.device, root: str) -> tuple[list, d
     serving["seconds"] = time.perf_counter() - t0 + serving["after_bf16_s"] + serving["after_int8_kv_s"]
     gc.collect()
     torch.cuda.empty_cache()
+    torch.save({label: (ref[label]["tokens"], len(ref[label]["logits"])) for label in ("bf16", "int8_kv")},
+               os.path.join(root, "forced_tokens.pt"))
     t0 = time.perf_counter()
     ctx = mp.spawn(tp_rank_main, args=(tag, _free_port(), root), nprocs=TP_RANKS, join=False)
     while not ctx.join(timeout=5):
@@ -6223,8 +6390,14 @@ def run_tensor_parallel(tag: str, dev: torch.device, root: str) -> tuple[list, d
         want = {"packed_qkv_attention": 39, "packed_qkv_causal_attention": 32, decode: 32 * one_token}
         assert {k: counts[k] for k in want} == want, (label, counts, want)
         assert all(v == 0 for k, v in counts.items() if k not in want), (label, counts)
+        steps = step_agreement(mine["forced_logits"][1:], theirs["logits"][1:])
+        for other in ranks[1:]:
+            assert all(torch.equal(x, y) for x, y in zip(other["a"][label]["forced_logits"], mine["forced_logits"])), \
+                f"(a) {label}: the ranks' teacher-forced logits differ"
         times = sorted(mine["times_s"][1:])
-        a[label] = {"prefill_logits_min_cosine": cos, "identical_rows_share": share,
+        a[label] = {"prefill_logits_min_cosine": cos, "decode_steps_teacher_forced": steps,
+                    "forced_s_per_rank": [r["a"][label]["forced_s"] for r in ranks],
+                    "unsharded_forced_s": theirs["forced_s"], "identical_rows_share": share,
                     "tokens": mine["tokens"][0].tolist(), "launches": {k: counts[k] for k in want},
                     "peak_bytes_per_rank": [r["a"][label]["peak_bytes"] for r in ranks],
                     "unsharded_peak_bytes": theirs["peak_bytes"],
@@ -6233,6 +6406,7 @@ def run_tensor_parallel(tag: str, dev: torch.device, root: str) -> tuple[list, d
         print(f"[{tag}] tensor parallelism (a) eilev-blip2-opt-2.7b bf16 b1 {label} TP = 2 (two ranks on one card: "
               f"the time is no TP speed): {a[label]}")
         assert cos > 0.999, (label, cos)
+        assert steps["min_cosine"] > 0.999, (label, steps)
     a["load_s"] = [r["a"]["load_s"] for r in ranks]
     a["local_weights_bytes"] = [r["a"]["weights_bytes"] for r in ranks]
     a["rank_a_s"] = [r["a_s"] for r in ranks]
@@ -6606,6 +6780,46 @@ def engine_log():
 
 
 @contextlib.contextmanager
+def decode_step_log(model, log: dict, max_new: int):
+    """The logits each OPT serving row's tokens were chosen from in its decode
+    chunks (serving/engine.py's calls of decoding._decode_chunk, wrapped
+    here; the engine itself is not changed), by rid and token position:
+    position e + j of a row that had emitted e tokens before the chunk is
+    chosen from the chunk's input logits (j = 0) or from its j-th one-token
+    forward. Kept on the device while the block runs (no added host sync),
+    fp32, one (vocab,) row each, then moved to the host. ``log`` is
+    engine_log's (its engine the one stepping)."""
+    from eilev_tpu_torch.serving import engine as engine_mod
+
+    real = engine_mod._decode_chunk
+    rows: dict = {}
+    forwards: list = []
+    handle = model.language_model.register_forward_hook(
+        lambda mod, args, out: forwards.append(out[0][:, -1].float()) if args[0].shape[1] == 1 else None)
+
+    def logged(model_, cache, logits, finished, gen_cfg, noise, chunk):
+        eng = log["engine"]
+        slots = [(s_, req.rid, len(eng._emitted[s_])) for s_, req in enumerate(eng._active) if req is not None]
+        first = logits.float()
+        forwards.clear()
+        out = real(model_, cache, logits, finished, gen_cfg, noise, chunk)
+        for slot, rid, emitted in slots:
+            for j in range(chunk):
+                if emitted + j < max_new:
+                    rows.setdefault(rid, {})[emitted + j] = (first if j == 0 else forwards[j - 1])[slot]
+        return out
+
+    engine_mod._decode_chunk = logged
+    try:
+        yield rows
+    finally:
+        engine_mod._decode_chunk = real
+        handle.remove()
+        for rid in rows:
+            rows[rid] = {t: x.cpu() for t, x in rows[rid].items()}
+
+
+@contextlib.contextmanager
 def collective_log():
     """Counts of torch.distributed's all_reduce and broadcast_object_list
     calls while the block runs (parallel/tensor.py and cli/serve.py look them
@@ -6707,10 +6921,10 @@ def tps_serve(model, root: str, dev, model_parallel: int) -> dict:
         torch.cuda.reset_peak_memory_stats()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        with engine_log() as log:
+        with engine_log() as log, decode_step_log(model, log, TPS_NEW) as step_logits:
             rows, metrics = cli.run(args, model, WordTokenizer(), {"dataset": data, **extra})
-        torch.cuda.synchronize()
-        secs = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
         counts = counters()
         pre.remove()
     handle.remove()
@@ -6723,6 +6937,7 @@ def tps_serve(model, root: str, dev, model_parallel: int) -> dict:
     eng = log["engine"]
     return {"done": {rid: c.tokens for rid, c in log["done"].items()}, "requests": log["requests"],
             "cache": eng.feature_cache, "rows": rows, "metrics": metrics, "admission_logits": admitted,
+            "step_logits": step_logits,
             "counts": counts, "encodes": encodes, "admissions": len(prefills(calls)),
             "one_token_forwards": sum(1 for s, _, _, _ in calls if s == 1), "stats": dict(eng.stats),
             "all_reduce": colls["all_reduce"], "broadcasts": colls["broadcast_object_list"],
@@ -7049,12 +7264,26 @@ def tps_check(tag: str, cfg, ranks: list, ref: dict) -> tuple[list, dict]:
     assert len(mine["admission_logits"]) == len(ref_a["admission_logits"]) == TPS_REQUESTS
     adm_cos = min(torch.nn.functional.cosine_similarity(x, y, dim=0).item()
                   for x, y in zip(mine["admission_logits"], ref_a["admission_logits"]))
+    # each row's decode steps (positions 1 on; 0 is the admission's logits)
+    # up to and with the first position where its tokens part from the
+    # unsharded engine's: both sides chose those tokens after the same ones
+    ours_steps, ref_steps, compared = [], [], {}
+    for rid, theirs in ref_a["done"].items():
+        got = mine["done"][rid]
+        apart = np.nonzero(np.asarray(got) != np.asarray(theirs))[0]
+        last = int(apart[0]) if len(apart) else len(theirs) - 1
+        compared[rid] = last
+        for t in range(1, last + 1):
+            ours_steps.append(mine["step_logits"][rid][t])
+            ref_steps.append(ref_a["step_logits"][rid][t])
+    steps = step_agreement(ours_steps, ref_steps)
+    steps["through_position_by_request"] = compared
     full_kv = init_cache(cfg.text_config, *TPS_CAPTURE, dtype=torch.bfloat16, device="meta")
     per_request = {k: mine["counts"][k] / TPS_REQUESTS for k in
                    ("packed_qkv_attention", "packed_qkv_causal_attention", "decode_attention_stacked_bf16")}
     a = result["a"] = {
         "prompt_len": mine["prompt_len"], "identical_to_unsharded_engine": same,
-        "admission_logits_min_cosine": adm_cos,
+        "admission_logits_min_cosine": adm_cos, "decode_steps_vs_unsharded_engine": steps,
         "unsharded_engine_identical_to_isolated": unsharded_same,
         "tokens": {rid: t[:TPS_NEW].tolist() for rid, t in mine["done"].items()},
         "weights_bytes_per_rank": [r["a"]["weights_bytes"] for r in ranks],
@@ -7073,6 +7302,7 @@ def tps_check(tag: str, cfg, ranks: list, ref: dict) -> tuple[list, dict]:
           f"(two ranks on one card over gloo: the times are a schedule's, no TP speed): {json.dumps(a)}")
     assert a["all_reduce_per_token_step"] == [2 * cfg.text_config.num_hidden_layers + 2], a
     assert adm_cos > 0.999, adm_cos
+    assert steps["min_cosine"] > 0.999, steps
     assert all(r["a"]["broadcasts"] > 0 for r in ranks) and ref_a["broadcasts"] == 0
 
     # (b) the fp32 cuts, token for token

@@ -50,9 +50,15 @@ attendable ``mask`` (slots, max_len): the cached decoder step then attends
 the slots that mask keeps plus the ones it writes, and ``spec_append`` /
 ``decode_append`` run a multi-token verify block over it with intra-block
 causality and a relative bias over ATTENDED-token distances, so that
-rejection holes collapse out of the distances (as in JAX). Left for later
-(ROADMAP): ``candidates``, ``decode_step_hidden`` and ``shared_prefix``,
-which only T5 contrastive search reaches.
+rejection holes collapse out of the distances (as in JAX).
+
+Contrastive search's helpers, as in JAX: ``decode_step_hidden`` (a decode
+step that also returns the final norm's output) and ``candidates`` (C
+one-token candidates at the next position over the shared decode cache,
+through each layer's ``shared_prefix``: plain einsums, the prefix and self
+scores softmaxed together in fp32, the cache read and never written). JAX's
+``generate`` refuses T5 contrastive search, and so does the port's; nothing
+in either package calls these.
 
 The pipeline plumbing (``encoder_rel_bias`` ... ``decoder_post``) exposes
 what runs around the layer trunks under pipeline parallelism
@@ -262,6 +268,26 @@ class T5Attention(nn.Module):
         ctx = torch.einsum("bchls,bshd->bclhd", probs, v)
         return self.o(ctx.reshape(*hidden.shape[:3], self.inner))
 
+    def shared_prefix(self, hidden: torch.Tensor, prefix_k: torch.Tensor, prefix_v: torch.Tensor,
+                      prefix_bias: torch.Tensor, self_bias: torch.Tensor) -> torch.Tensor:
+        """(B, C, L) continuation tokens over a SHARED, read-only (B, P, H, hd)
+        decoder prefix (the cache's K/V: nothing is copied per continuation)
+        plus causal self-attention within each continuation: contrastive
+        search's candidate expansion is this with C = top_k, L = 1.
+        ``prefix_bias`` broadcasts to (B, C, H, L, P), ``self_bias`` to (B,
+        C, H, L, L). As in JAX: each bias cast to the query dtype and added,
+        the two score blocks concatenated and softmaxed in fp32, the
+        probabilities cast back to the hidden dtype, the context the sum of
+        the two products; no scaling."""
+        q, k, v = (self._heads(proj(hidden)) for proj in (self.q, self.k, self.v))
+        scores_p = torch.einsum("bclhd,bphd->bchlp", q, prefix_k) + prefix_bias.to(q.dtype)
+        scores_s = torch.einsum("bclhd,bcmhd->bchlm", q, k) + self_bias.to(q.dtype)
+        probs = torch.softmax(torch.cat([scores_p, scores_s], dim=-1).float(), dim=-1).to(hidden.dtype)
+        p = prefix_k.shape[1]
+        ctx = (torch.einsum("bchlp,bphd->bclhd", probs[..., :p], prefix_v)
+               + torch.einsum("bchlm,bcmhd->bclhd", probs[..., p:], v))
+        return self.o(ctx.reshape(*hidden.shape[:3], self.inner))
+
     def cross_attend(self, hidden_states: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      padding_mask: Optional[torch.Tensor]) -> torch.Tensor:
         b, s, _ = hidden_states.shape
@@ -321,6 +347,9 @@ class T5SelfAttentionLayer(nn.Module):
     def classes(self, x, bias):
         return x + self.attention.self_classes(self.layer_norm(x), bias)
 
+    def shared_prefix(self, x, prefix_k, prefix_v, prefix_bias, self_bias):
+        return x + self.attention.shared_prefix(self.layer_norm(x), prefix_k, prefix_v, prefix_bias, self_bias)
+
 
 class T5CrossAttentionLayer(nn.Module):
     def __init__(self, config: T5Config, *, tp=None, device=None, dtype=None):
@@ -370,6 +399,11 @@ class T5DecoderLayer(nn.Module):
 
     def classes(self, x, self_bias, cross_k, cross_v, enc_bias):
         x = self.self_attention.classes(x, self_bias)
+        x = self.cross_attention.classes(x, cross_k, cross_v, enc_bias)
+        return self.ff(x)
+
+    def shared_prefix(self, x, prefix_k, prefix_v, prefix_bias, self_bias, cross_k, cross_v, enc_bias):
+        x = self.self_attention.shared_prefix(x, prefix_k, prefix_v, prefix_bias, self_bias)
         x = self.cross_attention.classes(x, cross_k, cross_v, enc_bias)
         return self.ff(x)
 
@@ -565,6 +599,38 @@ class T5Decoder(nn.Module):
             x = layer.classes(x, self_bias, ck, cv, enc_bias)
         return self.final_layer_norm(x)
 
+    def candidates(self, cand_embeds: torch.Tensor, encoder_attention_mask: Optional[torch.Tensor],
+                   cache: Cache) -> torch.Tensor:
+        """Contrastive search's candidate expansion over the decode cache: the
+        (B, C, 1, D) ``cand_embeds`` are C one-token candidates, all at
+        decoder position ``cache['index']``, read against the shared self
+        cache and the cached cross K/V (nothing copied per candidate, nothing
+        committed: the cache is not written). As in JAX, the filled slots are
+        ``slot < index`` (a contiguous decode prefix; a serving cache's
+        per-row ``mask`` is not read). Returns the final norm's output (B, C,
+        1, D), HF's ``decoder_hidden_states[-1]`` of each candidate."""
+        b, c, l, _ = cand_embeds.shape
+        dtype, device = cand_embeds.dtype, cand_embeds.device
+        index = cache["index"]
+        max_len = cache["k"].shape[2]
+        rel = self.layers[0].self_attention.attention
+        filled = (torch.arange(max_len, device=device) < index).expand(b, max_len)
+        # (1, 1, H, 1, P) relative bias of a query at position index + (B, 1,
+        # 1, 1, P) unfilled-slot mask, both fp32 and ADDED, as in JAX
+        prefix_bias = (rel.compute_bias(1, max_len, q_offset=index, dtype=dtype, device=device)[None].float()
+                       + mask_to_bias(filled)[:, None, None, None, :])
+        # each candidate attends itself at distance 0
+        self_bias = rel.compute_bias(1, 1, dtype=dtype, device=device)[None].float()
+        if encoder_attention_mask is not None:
+            enc_bias = mask_to_bias(encoder_attention_mask.bool())[:, None, None, None, :]
+        else:
+            enc_bias = torch.zeros(b, 1, 1, 1, cache["cross_k"].shape[2], device=device)
+        x = cand_embeds
+        for i, layer in enumerate(self.layers):
+            x = layer.shared_prefix(x, cache["k"][i], cache["v"][i], prefix_bias, self_bias,
+                                    cache["cross_k"][i], cache["cross_v"][i], enc_bias)
+        return self.final_layer_norm(x)
+
 
 class T5ForConditionalGeneration(nn.Module):
     """T5 with an explicit decode cache. It computes in ``compute_dtype``: the
@@ -689,9 +755,30 @@ class T5ForConditionalGeneration(nn.Module):
     ) -> tuple[torch.Tensor, Cache]:
         """(logits, cache) of the decoder tokens written at ``cache['index']``
         (``encoder_hidden`` is not read: the cross K/V are in the cache)."""
+        logits, _, cache = self.decode_step_hidden(decoder_input_ids, encoder_hidden, encoder_attention_mask, cache)
+        return logits, cache
+
+    def decode_step_hidden(
+        self,
+        decoder_input_ids: torch.Tensor,
+        encoder_hidden: Optional[torch.Tensor],
+        encoder_attention_mask: Optional[torch.Tensor],
+        cache: Cache,
+    ) -> tuple[torch.Tensor, torch.Tensor, Cache]:
+        """:meth:`decode_step` that also returns the final norm's output (HF's
+        ``decoder_hidden_states[-1]``): (logits, hidden, cache), contrastive
+        search's context."""
         hidden, cache = self.decoder(self.embed(decoder_input_ids), encoder_hidden, encoder_attention_mask,
                                      cache=cache)
-        return self._head(hidden), cache
+        return self._head(hidden), hidden, cache
+
+    def candidates(self, cand_ids: torch.Tensor, encoder_attention_mask: Optional[torch.Tensor],
+                   cache: Cache) -> torch.Tensor:
+        """(B, C, D) final-norm hidden of the (B, C) candidate tokens, all at
+        the next decoder position, over the shared decode cache
+        (:meth:`T5Decoder.candidates`; the cache is not written)."""
+        hidden = self.decoder.candidates(self.embed(cand_ids)[:, :, None], encoder_attention_mask, cache)
+        return hidden[:, :, 0]
 
     def decode_append(
         self,

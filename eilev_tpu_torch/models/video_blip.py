@@ -286,6 +286,13 @@ class VideoBlipForConditionalGeneration(nn.Module):
     def t5_decode_step(self, decoder_input_ids, encoder_hidden, encoder_attention_mask, cache):
         return self.language_model.decode_step(decoder_input_ids, encoder_hidden, encoder_attention_mask, cache)
 
+    def t5_decode_step_hidden(self, decoder_input_ids, encoder_hidden, encoder_attention_mask, cache):
+        return self.language_model.decode_step_hidden(decoder_input_ids, encoder_hidden, encoder_attention_mask,
+                                                      cache)
+
+    def t5_candidates(self, cand_ids, encoder_attention_mask, cache):
+        return self.language_model.candidates(cand_ids, encoder_attention_mask, cache)
+
     def t5_decode_append(self, decoder_input_ids, encoder_attention_mask, cache, active):
         return self.language_model.decode_append(decoder_input_ids, encoder_attention_mask, cache, active)
 

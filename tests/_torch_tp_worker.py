@@ -94,6 +94,14 @@ def _t5(model, inp) -> dict:
         logits, cache = model.decode_step(dec[:, j:j + 1], None, mask, cache)
         steps.append(logits)
     out["cached"] = steps
+    # contrastive search's helpers: three steps with their hidden states on
+    # a fresh cache, then the candidates over it
+    cache = model.init_decode_cache(enc, dec.shape[1])
+    out["step_hidden"] = []
+    for j in range(3):
+        logits, hidden, cache = model.decode_step_hidden(dec[:, j:j + 1], None, mask, cache)
+        out["step_hidden"] += [logits, hidden]
+    out["candidates"] = model.candidates(_t(inp["cands"]), mask, cache)
     return out
 
 

@@ -12,8 +12,10 @@ One ``torch.multiprocessing.spawn`` of 2 gloo ranks (tests/_torch_tp_worker.py)
 runs the tiny LLaMA (4 heads over 2 kv heads, one kv head a rank), OPT and
 T5 at tp 2 with odd vocabularies (uneven vocab blocks, the tail masked):
 the embeddings, the no-cache forward, a prefill and decode steps on the
-local-head cache, and for T5 the encoder, cached decode steps and class
-scores equal the JAX modules' within fp32 1e-5, on both ranks.
+local-head cache, and for T5 the encoder, cached decode steps, class
+scores, and contrastive search's helpers (three decode_step_hidden steps'
+logits and hidden states, then candidates over that cache) equal the JAX
+modules' within fp32 1e-5, on both ranks.
 """
 
 import jax
@@ -85,7 +87,8 @@ def _t5_inputs(seed):
     return {"emb": rng.normal(size=(B, S, 32)).astype(np.float32), "mask": mask,
             "dec": rng.integers(0, VOCAB, size=(B, 5)).astype(np.int32),
             "dec_mask": np.ones((B, 5), np.int32),
-            "classes": rng.integers(0, VOCAB, size=(3, 4)).astype(np.int32), "class_mask": class_mask}
+            "classes": rng.integers(0, VOCAB, size=(3, 4)).astype(np.int32), "class_mask": class_mask,
+            "cands": rng.integers(0, VOCAB, size=(B, 4)).astype(np.int32)}
 
 
 def _t5_refs(jmodel, params, inp):
@@ -102,6 +105,13 @@ def _t5_refs(jmodel, params, inp):
     for j in range(dec.shape[1]):
         logits, cache = step(dec[:, j:j + 1], cache)
         ref["cached"].append(logits)
+    cache = jmodel.apply(v, enc, dec.shape[1], method=jmodel.init_decode_cache)
+    step_hidden = jax.jit(lambda tok, cache: jmodel.apply(v, tok, enc, mask, cache, method=jmodel.decode_step_hidden))
+    ref["step_hidden"] = []
+    for j in range(3):
+        logits, hidden, cache = step_hidden(dec[:, j:j + 1], cache)
+        ref["step_hidden"] += [logits, hidden]
+    ref["candidates"] = jmodel.apply(v, jnp.asarray(inp["cands"]), mask, cache, method=jmodel.candidates)
     return ref
 
 
@@ -141,14 +151,16 @@ def _close(ours, ref):
 def test_tp_forward_matches_jax(ranks, name):
     results, refs, cfgs = ranks
     heads = cfgs[name].num_key_value_heads if name == "llama" else 4
-    keys = ("encoder", "logits", "classes") if name == "t5" else ("embed", "logits")
+    keys = ("encoder", "logits", "classes", "candidates") if name == "t5" else ("embed", "logits")
+    lists = ("cached", "step_hidden") if name == "t5" else ("cached",)
     for out in results:  # every rank holds the full outputs
         assert out[name]["heads"] == heads // worker.RANKS  # the cache holds the local heads
         for key in keys:
             _close(out[name][key], refs[name][key])
-        assert len(out[name]["cached"]) == len(refs[name]["cached"])
-        for ours, ref in zip(out[name]["cached"], refs[name]["cached"]):
-            _close(ours, ref)
+        for key in lists:
+            assert len(out[name][key]) == len(refs[name][key])
+            for ours, ref in zip(out[name][key], refs[name][key]):
+                _close(ours, ref)
 
 
 # ---------------------------------------------------------------------------
